@@ -1,0 +1,153 @@
+"""On-card tests of the PyTorch port: each CUDA kernel against its plain
+version, and the served forward through the kernels.
+
+They need an NVIDIA GPU and nvcc and skip elsewhere.  This file imports no
+JAX, so it runs on a machine that has none:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+Tolerances: flash attention bf16 atol 2e-2 + rtol 1e-2 compared as f32
+(the kernel feeds bf16 probabilities to the tensor cores, the plain version
+keeps them in f32, and outputs reach ~4 where one bf16 ulp is 2**-5), f32
+atol 1e-4; the int8 matmul bit for bit.
+"""
+
+import importlib
+
+import numpy as np
+import pytest
+import torch
+
+from triton_client_tpu_torch import ops
+from triton_client_tpu_torch.models import language
+from triton_client_tpu_torch.models import transformer as tr
+from triton_client_tpu_torch.server import core
+
+fa = importlib.import_module("triton_client_tpu_torch.ops.flash_attention")
+im = importlib.import_module("triton_client_tpu_torch.ops.int8_matmul")
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    return torch.device("cuda")
+
+
+def _rand(shape, seed):
+    return torch.from_numpy(
+        np.random.default_rng(seed).standard_normal(shape).astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.bfloat16, 2e-2, 1e-2),
+                                             (torch.float32, 1e-4, 0.0)])
+@pytest.mark.parametrize("shape,causal", [
+    ((1, 2, 128, 64), True), ((1, 2, 100, 32), False), ((1, 1, 8, 16), True),
+    ((2, 4, 1000, 64), True), ((2, 4, 1000, 64), False)])
+def test_flash_kernel_matches_plain(cuda, shape, causal, dtype, atol, rtol):
+    q, k, v = (_rand(shape, s).to(cuda, dtype) for s in (1, 2, 3))
+    before = fa.launches
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1 and got.dtype == dtype
+    want = ops.flash_attention_reference(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+def test_flash_kernel_head_dim_128_and_custom_scale(cuda):
+    q, k, v = (_rand((1, 2, 300, 128), s).to(cuda, torch.bfloat16)
+               for s in (4, 5, 6))
+    got = ops.flash_attention(q, k, v, causal=True, sm_scale=0.05)
+    want = ops.flash_attention_reference(q, k, v, causal=True, sm_scale=0.05)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=2e-2)
+
+
+def test_flash_rejects_what_the_kernel_does_not_take(cuda):
+    q = _rand((1, 2, 64, 24), 7).to(cuda, torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(q, q, q)
+    q = _rand((1, 2, 64, 64), 8).to(cuda, torch.float16)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        ops.flash_attention(q, q, q)
+
+
+def _int8_inputs(m, k, n, seed, dtype, device):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+    w = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8))
+    ws = torch.from_numpy(
+        ((np.abs(rng.standard_normal(n)) + 0.01) * 0.02).astype(np.float32))
+    return x.to(device, dtype), w.to(device), ws.to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", [(64, 256, 128), (50, 1024, 4096),
+                                   (300, 4096, 1024), (1, 128, 128)])
+def test_int8_kernel_bit_exact(cuda, m, k, n, dtype):
+    x, w, ws = _int8_inputs(m, k, n, 9, dtype, cuda)
+    before = im.launches
+    got = ops.int8_matmul(x, w, ws)
+    torch.cuda.synchronize()
+    assert im.launches == before + 1
+    assert torch.equal(got, ops.int8_matmul_reference(x, w, ws))
+
+
+def test_int8_kernel_batched_leading_dims_and_row_scale_shape(cuda):
+    x, w, ws = _int8_inputs(48, 128, 256, 10, torch.bfloat16, cuda)
+    x3 = x.reshape(4, 12, 128)
+    got = ops.int8_matmul(x3, w, ws.reshape(1, -1))
+    assert got.shape == (4, 12, 256)
+    assert torch.equal(got, ops.int8_matmul_reference(x3, w, ws))
+
+
+def test_int8_unaligned_k_raises_on_card(cuda):
+    x, w, ws = _int8_inputs(16, 96, 128, 11, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        ops.int8_matmul(x, w, ws)
+
+
+def test_int_dot_matches_exact_product(cuda):
+    rng = np.random.default_rng(12)
+    for m in (5, 17, 300):
+        a = torch.from_numpy(rng.integers(-127, 128, (m, 64)).astype(np.int8))
+        b = torch.from_numpy(rng.integers(-127, 128, (64, 128)).astype(np.int8))
+        got = tr._int_dot(a.to(cuda), b.to(cuda)).cpu()
+        assert torch.equal(got, im.exact_int_dot(a, b))
+
+
+def test_readback_of_cuda_tensors(cuda):
+    t = torch.arange(1000, dtype=torch.float32, device=cuda) * 3
+    out = core.readback({"y": t, "z": torch.ones(3, device=cuda)})
+    np.testing.assert_array_equal(out["y"], np.arange(1000) * 3.0)
+    assert out["z"].tolist() == [1.0, 1.0, 1.0]
+
+
+@pytest.mark.parametrize("quant,atol", [("", 5e-2), ("int8", 1.5e-1)])
+def test_served_forward_runs_the_kernels(cuda, monkeypatch, quant, atol):
+    """``longctx_tpu`` base (S = 4096) through the model adapter: one flash
+    launch per layer, one int8 launch per layer under the default ``w2``,
+    LOGPROBS within chip_smoke.py's bounds of the plain-kernel forward."""
+    for var in ("TRITON_TPU_LONGCTX_PRESET", "TRITON_TPU_FLASH_MIN_S",
+                "TRITON_TPU_INT8_FUSED", "TRITON_TPU_FLASH"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setenv("TRITON_TPU_QUANT_LONGCTX_TPU", quant)
+    model = language.make_longctx_tpu("cuda")
+    tokens = np.random.default_rng(13).integers(0, 256, (2, 4096)).astype(
+        np.int32)
+    f0, i0 = fa.launches, im.launches
+    out = core.readback(model.execute({"TOKENS": tokens}, {}))["LOGPROBS"]
+    layers = model.transformer.cfg.n_layers
+    assert fa.launches - f0 == layers
+    assert im.launches - i0 == (layers if quant else 0)
+    fwd = tr.make_forward(model.transformer.cfg, quantized=bool(quant),
+                          plain=True)
+    t = torch.from_numpy(tokens).to(cuda)
+    with torch.inference_mode():
+        want = language.longctx_scores(
+            fwd(model.transformer.params, t), t).cpu().numpy()
+    assert out.shape == (2, 4096) and np.isfinite(out).all()
+    np.testing.assert_allclose(out, want, rtol=0, atol=atol)

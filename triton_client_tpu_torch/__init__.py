@@ -1,0 +1,11 @@
+"""PyTorch/CUDA port of ``triton_client_tpu`` for NVIDIA Hopper (H100).
+
+A second package beside the JAX reference.  It imports ``torch`` and numpy,
+never ``jax`` and nothing of ``triton_client_tpu``; where it needs a piece of
+the reference's device-agnostic code it keeps its own copy.  Module names
+mirror the reference's so each port module's counterpart is easy to find.
+
+This slice serves ``longctx_tpu`` over the v2 HTTP protocol with
+hand-written CUDA kernels for flash attention and the fused int8 matmul
+(``ops/``, sources in ``csrc/``).
+"""

@@ -1,0 +1,120 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled on first
+use into ``build/torch_kernels/<name>-<hash>.so`` at the repository root, for
+``sm_90a`` (the ``a`` keeps Hopper's ``wgmma``/``setmaxnreg`` available).  The
+hash covers the source and the flags, so an edited source is rebuilt and a
+stale library is never loaded.  A plain C interface keeps each build to
+seconds; nothing here includes PyTorch's headers.
+
+Failures raise: a missing ``nvcc``, a compile error or a library that does
+not load is a ``RuntimeError`` carrying the compiler's output.  Nothing falls
+back to another implementation.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+
+#: kernel name -> source file under csrc/
+SOURCES = {
+    "flash_attention": "flash_attention.cu",
+    "int8_matmul": "int8_matmul.cu",
+}
+
+# No --use_fast_math: int8_matmul needs the IEEE divide and rintf's
+# round-half-even to stay bit-identical to the plain version.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+#: kernel name -> compiler output of its last build in this process
+#: (ptxas -v: registers, shared memory and spills per kernel)
+build_log: Dict[str, str] = {}
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on the
+    PATH, else ``/usr/local/cuda/bin/nvcc``."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(found)
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, PATH and "
+        "/usr/local/cuda/bin): the CUDA kernels cannot be built")
+
+
+def library_path(name: str) -> Path:
+    """Where the build of ``name`` for the current source and flags lives."""
+    src = CSRC_DIR / SOURCES[name]
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
+    """Compile every kernel in ``names`` (default: all) that has no current
+    library, one ``nvcc`` process per source, all started together.
+
+    Returns ``{name: seconds}`` for the kernels compiled by this call."""
+    names = list(SOURCES if names is None else names)
+    todo = [n for n in names if not library_path(n).exists()]
+    if not todo:
+        return {}
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for name in todo:
+        out = library_path(name)
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / SOURCES[name])]
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp, out)
+    seconds: Dict[str, float] = {}
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        build_log[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return seconds
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, building it first if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            _libs[name] = lib
+        return lib

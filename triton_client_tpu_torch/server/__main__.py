@@ -1,0 +1,54 @@
+"""``python -m triton_client_tpu_torch.server``: serve the port's model zoo
+over the v2 HTTP protocol.
+
+    python -m triton_client_tpu_torch.server --http-port 8000 [--device cuda|cpu]
+
+``--device cuda`` (the default) serves ``longctx_tpu`` at its ``base``
+preset through the CUDA kernels and fails if CUDA is missing;
+``--device cpu`` serves the ``tiny`` preset with the kernels' plain versions.
+"""
+
+from __future__ import annotations
+
+import argparse
+import signal
+import sys
+import threading
+
+from ..models import zoo
+from .core import InferenceCore
+from .http_server import HttpServer
+from .registry import ModelRegistry
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m triton_client_tpu_torch.server")
+    ap.add_argument("--http-port", type=int, default=8000)
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    args = ap.parse_args(argv)
+
+    registry = ModelRegistry()
+    zoo.register_all(registry, device=args.device)
+    core = InferenceCore(registry)
+    server = HttpServer(core, args.host, args.http_port)
+
+    def _stop(signum, frame):
+        # shutdown() waits for serve_forever to return: call it off the
+        # main thread, which is the one serving
+        threading.Thread(target=server.shutdown, daemon=True).start()
+
+    signal.signal(signal.SIGTERM, _stop)
+    signal.signal(signal.SIGINT, _stop)
+    print(f"serving v2 HTTP on {args.host}:{args.http_port} "
+          f"(device {args.device})", flush=True)
+    try:
+        server.serve_forever()
+    finally:
+        server.server_close()
+        core.shutdown()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

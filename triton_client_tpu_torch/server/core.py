@@ -1,0 +1,333 @@
+"""Inference core of the port: validation, dynamic batching, readback.
+
+Counterpart of the request path of ``triton_client_tpu/server/core.py``:
+``InferenceCore.infer``, the ``_DynamicBatcher`` contract, input resolution
+and shape checks, and response building.  The reference is asyncio-native
+behind aiohttp; the port's frontend is ``http.server``'s thread-per-request
+server, so the core is threaded: a request thread blocks on a future while
+the model's batcher thread forms batches and a small pool executes them.
+
+Device outputs are read back on the executing worker, never on the request
+thread: each CUDA output is copied without blocking into pinned host memory,
+one CUDA event is recorded behind the copies, and the worker waits on that
+event (the counterpart of the reference's ``copy_to_host_async`` then
+``np.asarray`` on the executor, core.py:2111-2116).
+
+QoS tiers, tracing, cost and device statistics, chaos, the fleet controller,
+shared memory and the response cache are not ported yet.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import queue
+import threading
+import time
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from ..utils import np_to_triton_dtype
+from .model import Model
+from .registry import ModelRegistry
+from .types import (InferError, InferRequest, InferResponse, InputTensor,
+                    OutputTensor)
+
+
+def _batch_count(inputs: Dict[str, Any]) -> int:
+    for v in inputs.values():
+        return int(v.shape[0]) if getattr(v, "ndim", 0) > 0 else 1
+    return 1
+
+
+def readback(outputs: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """Every output as a host numpy array.
+
+    CUDA tensors are copied without blocking into pinned memory and the
+    caller waits on one event recorded behind all the copies; CPU tensors
+    convert without a copy."""
+    staged: Dict[str, Any] = {}
+    event = None
+    for name, v in outputs.items():
+        if isinstance(v, torch.Tensor) and v.is_cuda:
+            host = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+            host.copy_(v, non_blocking=True)
+            staged[name] = host
+            if event is None:
+                event = torch.cuda.Event()
+        else:
+            staged[name] = v
+    if event is not None:
+        event.record()
+        event.synchronize()
+    out = {}
+    for name, v in staged.items():
+        if isinstance(v, torch.Tensor):
+            if v.dtype == torch.bfloat16:
+                raise InferError(
+                    f"output '{name}' is bf16, which this server cannot "
+                    "return yet", http_status=500)
+            v = v.numpy()
+        out[name] = np.asarray(v)
+    return out
+
+
+_STOP = object()
+
+
+class _DynamicBatcher:
+    """Queue + pad-to-bucket batcher for one model.
+
+    Groups concurrent requests for up to ``max_queue_delay_microseconds``
+    (or until the largest preferred batch size is reached), concatenates
+    them along the batch axis, pads the batch to the smallest preferred
+    size that holds it, executes once and splits the results.  A request
+    that would overflow ``max_batch_size`` seeds the next batch.  Up to
+    ``MAX_INFLIGHT`` batches execute at once."""
+
+    MAX_INFLIGHT = 4
+
+    def __init__(self, core: "InferenceCore", model: Model):
+        self._core = core
+        self._model = model
+        cfg = model.config
+        self._max_delay_s = cfg.max_queue_delay_microseconds / 1e6
+        self._buckets = sorted(cfg.preferred_batch_size)
+        self._max_bs = cfg.max_batch_size
+        self._queue: "queue.Queue" = queue.Queue()
+        self._inflight = threading.BoundedSemaphore(self.MAX_INFLIGHT)
+        self._pool = concurrent.futures.ThreadPoolExecutor(
+            self.MAX_INFLIGHT, thread_name_prefix=f"batch-{model.name}")
+        self._thread = threading.Thread(
+            target=self._run, daemon=True, name=f"batcher-{model.name}")
+        self._thread.start()
+
+    def submit(self, inputs: Dict[str, np.ndarray],
+               parameters: Dict[str, Any]) -> Dict[str, np.ndarray]:
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+        self._queue.put((inputs, parameters, fut))
+        return fut.result()
+
+    def stop(self) -> None:
+        self._queue.put(_STOP)
+        self._thread.join(timeout=30)
+        self._pool.shutdown(wait=True)
+
+    def _run(self) -> None:
+        carry = None
+        while True:
+            first = carry if carry is not None else self._queue.get()
+            carry = None
+            if first is _STOP:
+                return
+            pending = [first]
+            total = _batch_count(first[0])
+            deadline = time.monotonic() + self._max_delay_s
+            stop = False
+            while total < self._max_bs:
+                if self._buckets and total >= self._buckets[-1]:
+                    break
+                timeout = deadline - time.monotonic()
+                if timeout <= 0:
+                    break
+                try:
+                    item = self._queue.get(timeout=timeout)
+                except queue.Empty:
+                    break
+                if item is _STOP:
+                    stop = True
+                    break
+                count = _batch_count(item[0])
+                if total + count > self._max_bs:
+                    carry = item
+                    break
+                pending.append(item)
+                total += count
+            self._inflight.acquire()
+            task = self._pool.submit(self._execute_batch, pending)
+            task.add_done_callback(lambda _t: self._inflight.release())
+            if stop:
+                return
+
+    def _execute_batch(self, pending) -> None:
+        # requests with different parameters must not share an execution
+        groups: Dict[tuple, list] = {}
+        for item in pending:
+            key = tuple(sorted((k, repr(v)) for k, v in item[1].items()))
+            groups.setdefault(key, []).append(item)
+        for group in groups.values():
+            self._execute_group(group)
+
+    def _execute_group(self, pending) -> None:
+        counts = [_batch_count(p[0]) for p in pending]
+        total = sum(counts)
+        padded = total
+        for b in self._buckets:
+            if total <= b:
+                padded = b
+                break
+        try:
+            merged = {}
+            for n in pending[0][0]:
+                parts = [p[0][n] for p in pending]
+                arr = np.concatenate(parts, axis=0) if len(parts) > 1 \
+                    else parts[0]
+                if padded > total:
+                    arr = np.pad(arr, [(0, padded - total)]
+                                 + [(0, 0)] * (arr.ndim - 1))
+                merged[n] = arr
+            outputs = self._core.run_model(self._model, merged, pending[0][1])
+            self._model.stats.record_batch(total)
+            offset = 0
+            for item, count in zip(pending, counts):
+                item[2].set_result({n: v[offset:offset + count]
+                                    for n, v in outputs.items()})
+                offset += count
+        except Exception as e:  # every member of the batch gets the error
+            for item in pending:
+                if not item[2].done():
+                    item[2].set_exception(e)
+
+
+class InferenceCore:
+    SERVER_NAME = "triton_client_tpu_torch_harness"
+    SERVER_VERSION = "2.0.0-cuda"
+    EXTENSIONS = ["binary_tensor_data", "model_configuration"]
+
+    def __init__(self, registry: ModelRegistry):
+        self.registry = registry
+        self._batchers: Dict[str, _DynamicBatcher] = {}
+        self._lock = threading.Lock()
+        self.live = True
+
+    # -- health / metadata -------------------------------------------------
+    def ready(self) -> bool:
+        return self.live
+
+    def model_ready(self, name: str, version: str = "") -> bool:
+        return self.registry.is_ready(name, version)
+
+    def server_metadata(self) -> dict:
+        return {"name": self.SERVER_NAME, "version": self.SERVER_VERSION,
+                "extensions": list(self.EXTENSIONS)}
+
+    # -- inference ---------------------------------------------------------
+    def infer(self, request: InferRequest) -> InferResponse:
+        """Single request/response inference (HTTP infer)."""
+        model = self.registry.get(request.model_name, request.model_version)
+        inputs = self._resolve_inputs(model, request)
+        params = dict(request.parameters)
+        try:
+            if self._use_batcher(model):
+                outputs = self._batcher(model).submit(inputs, params)
+            else:
+                outputs = self.run_model(model, inputs, params)
+        except InferError:
+            raise
+        except Exception as e:
+            raise InferError(f"inference failed: {e}", http_status=500)
+        return self._build_response(model, request, outputs)
+
+    def run_model(self, model: Model, inputs: Dict[str, Any],
+                  params: Dict[str, Any]) -> Dict[str, np.ndarray]:
+        """Execute and read every output back to the host (on the calling
+        thread: a batch worker, or the request thread when unbatched)."""
+        return readback(model.execute(inputs, params))
+
+    @staticmethod
+    def _use_batcher(model: Model) -> bool:
+        return model.max_batch_size > 0 and model.config.dynamic_batching
+
+    def _batcher(self, model: Model) -> _DynamicBatcher:
+        with self._lock:
+            b = self._batchers.get(model.name)
+            if b is None:
+                b = _DynamicBatcher(self, model)
+                self._batchers[model.name] = b
+            return b
+
+    def shutdown(self) -> None:
+        with self._lock:
+            batchers = list(self._batchers.values())
+            self._batchers.clear()
+        for b in batchers:
+            b.stop()
+
+    # -- validation / response ---------------------------------------------
+    def _resolve_inputs(self, model: Model,
+                        request: InferRequest) -> Dict[str, Any]:
+        cfg_inputs = {i.name: i for i in model.config.input}
+        batched = model.max_batch_size > 0
+        resolved: Dict[str, Any] = {}
+        for t in request.inputs:
+            cfg = cfg_inputs.get(t.name)
+            if cfg is None:
+                raise InferError(
+                    f"unexpected inference input '{t.name}' for model "
+                    f"'{model.name}'")
+            if t.datatype != cfg.data_type:
+                raise InferError(
+                    f"inference input '{t.name}' data-type is "
+                    f"'{t.datatype}', but model '{model.name}' expects "
+                    f"'{cfg.data_type}'")
+            self._check_shape(model, t, cfg, batched)
+            if t.shm is not None:
+                raise InferError(
+                    "shared-memory inputs are not supported by this server")
+            resolved[t.name] = t.data
+        missing = [n for n, cfg in cfg_inputs.items()
+                   if n not in resolved and not cfg.optional]
+        if missing:
+            raise InferError(
+                f"expected {len(cfg_inputs)} inputs but got {len(resolved)} "
+                f"inputs for model '{model.name}' (missing: "
+                f"{', '.join(missing)})")
+        cfg_outputs = {o.name for o in model.config.output}
+        for o in request.outputs:
+            if o.name not in cfg_outputs:
+                raise InferError(
+                    f"unexpected inference output '{o.name}' for model "
+                    f"'{model.name}'")
+            if o.shm is not None or o.class_count:
+                raise InferError(
+                    "shared-memory and classification outputs are not "
+                    "supported by this server")
+        return resolved
+
+    def _check_shape(self, model: Model, t: InputTensor, cfg,
+                     batched: bool) -> None:
+        dims = list(cfg.dims)
+        shape = list(t.shape)
+        check = shape[1:] if batched else shape
+        if len(check) != len(dims):
+            raise InferError(
+                f"unexpected shape for input '{t.name}' for model "
+                f"'{model.name}': expected rank "
+                f"{len(dims) + (1 if batched else 0)}, got {len(shape)}")
+        for got, want in zip(check, dims):
+            if want != -1 and got != want:
+                raise InferError(
+                    f"unexpected shape for input '{t.name}' for model "
+                    f"'{model.name}': expected {dims}, got {check}")
+        if batched and shape and shape[0] > model.max_batch_size:
+            raise InferError(
+                f"inference request batch-size must be <= "
+                f"{model.max_batch_size} for '{model.name}'")
+
+    def _build_response(self, model: Model, request: InferRequest,
+                        outputs: Dict[str, np.ndarray]) -> InferResponse:
+        resp = InferResponse(model_name=model.name,
+                             model_version=model.served_version,
+                             id=request.id)
+        requested = [o.name for o in request.outputs]
+        names = requested or [o.name for o in model.config.output]
+        for name in names:
+            if name not in outputs:
+                raise InferError(
+                    f"model '{model.name}' did not produce output '{name}'")
+            host = np.asarray(outputs[name])
+            resp.outputs.append(OutputTensor(
+                name=name, datatype=np_to_triton_dtype(host.dtype),
+                shape=tuple(host.shape), data=host))
+        return resp

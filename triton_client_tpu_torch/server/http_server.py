@@ -1,0 +1,287 @@
+"""HTTP/REST v2 frontend of the port, on the standard library.
+
+Counterpart of ``triton_client_tpu/server/http_server.py`` (aiohttp there;
+``http.server.ThreadingHTTPServer`` here, one thread per connection).  It
+serves health and readiness, server and model metadata, model config, and
+infer -- with JSON tensors and the binary-tensor-data extension: a body of
+``<json header><raw buffers>`` with the JSON length in the
+``Inference-Header-Content-Length`` header, in both directions.
+
+Not ported yet: statistics, the repository, trace and logging APIs,
+shared-memory registration, generate/SSE, gzip and the wire templates.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import re
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..utils import triton_to_np_dtype
+from .core import InferenceCore
+from .types import (InferError, InferRequest, InputTensor, RequestedOutput,
+                    reshape_input)
+
+_HEADER_LEN = "Inference-Header-Content-Length"
+_REQUEST_ID_HDR = "triton-request-id"
+_MODEL = r"/v2/models/(?P<model>[^/]+)(?:/versions/(?P<version>[^/]+))?"
+
+_GET_ROUTES = [
+    (re.compile(r"/v2/health/live"), "_health_live"),
+    (re.compile(r"/v2/health/ready"), "_health_ready"),
+    (re.compile(_MODEL + r"/ready"), "_model_ready"),
+    (re.compile(r"/v2"), "_server_metadata"),
+    (re.compile(_MODEL + r"/config"), "_model_config"),
+    (re.compile(_MODEL), "_model_metadata"),
+]
+_POST_ROUTES = [
+    (re.compile(_MODEL + r"/infer"), "_infer"),
+]
+
+
+def _json_body(obj) -> bytes:
+    return json.dumps(obj).encode("utf-8")
+
+
+class _Handler(BaseHTTPRequestHandler):
+    protocol_version = "HTTP/1.1"
+    server: "HttpServer"
+
+    def log_message(self, format, *args):  # noqa: A002 - stdlib signature
+        pass  # no per-request stderr lines
+
+    # -- dispatch ----------------------------------------------------------
+    def do_GET(self):
+        self._dispatch(_GET_ROUTES)
+
+    def do_POST(self):
+        self._dispatch(_POST_ROUTES)
+
+    def _dispatch(self, routes) -> None:
+        path = self.path.split("?", 1)[0]
+        body = self._read_body()
+        for pattern, handler in routes:
+            match = pattern.fullmatch(path)
+            if match is None:
+                continue
+            try:
+                getattr(self, handler)(match.groupdict(), body)
+            except InferError as e:
+                self._send(e.http_status, _json_body({"error": str(e)}))
+            except Exception as e:  # noqa: BLE001 - a handler bug is a 500
+                self._send(500, _json_body({"error": str(e)}))
+            return
+        self._send(404, _json_body({"error": f"no route for {path}"}))
+
+    def _read_body(self) -> bytes:
+        n = int(self.headers.get("Content-Length") or 0)
+        return self.rfile.read(n) if n else b""
+
+    def _send(self, status: int, payload: bytes = b"",
+              headers: Optional[Dict[str, str]] = None,
+              content_type: str = "application/json",
+              segments: Sequence[memoryview] = ()) -> None:
+        """One response: ``payload`` then each raw ``segment``, written in
+        turn (binary tensors are never joined into one buffer)."""
+        self.send_response(status)
+        self.send_header("Content-Type", content_type)
+        self.send_header("Content-Length",
+                         str(len(payload) + sum(s.nbytes for s in segments)))
+        for k, v in (headers or {}).items():
+            self.send_header(k, v)
+        self.end_headers()
+        if payload:
+            self.wfile.write(payload)
+        for seg in segments:
+            self.wfile.write(seg)
+
+    @property
+    def core(self) -> InferenceCore:
+        return self.server.core
+
+    # -- health / metadata -------------------------------------------------
+    def _health_live(self, groups, body):
+        self._send(200 if self.core.live else 400)
+
+    def _health_ready(self, groups, body):
+        self._send(200 if self.core.ready() else 400)
+
+    def _model_ready(self, groups, body):
+        ok = self.core.model_ready(groups["model"], groups["version"] or "")
+        self._send(200 if ok else 400)
+
+    def _server_metadata(self, groups, body):
+        self._send(200, _json_body(self.core.server_metadata()))
+
+    def _model_metadata(self, groups, body):
+        model = self.core.registry.get(groups["model"],
+                                       groups["version"] or "")
+        self._send(200, _json_body(model.metadata()))
+
+    def _model_config(self, groups, body):
+        model = self.core.registry.get(groups["model"],
+                                       groups["version"] or "")
+        self._send(200, _json_body(model.config.to_json()))
+
+    # -- infer -------------------------------------------------------------
+    def _infer(self, groups, raw: bytes):
+        header_len = self.headers.get(_HEADER_LEN)
+        if header_len is not None:
+            try:
+                hlen = int(header_len)
+            except ValueError:
+                raise InferError(
+                    f"invalid {_HEADER_LEN} header: {header_len!r}")
+            json_bytes, binary = raw[:hlen], raw[hlen:]
+        else:
+            json_bytes, binary = raw, b""
+        try:
+            body = json.loads(json_bytes)
+        except ValueError:
+            raise InferError("failed to parse inference request JSON")
+        req = decode_request(groups["model"], groups["version"] or "",
+                             body, binary)
+        req.client_request_id = self.headers.get(_REQUEST_ID_HDR, "")
+        req.protocol = "http"
+        req.wire_bytes = len(raw)
+        resp = self.core.infer(req)
+        default_binary = bool(req.parameters.get("binary_data_output",
+                                                 header_len is not None))
+        header, segments = encode_response(
+            resp, {o.name: o for o in req.outputs}, default_binary)
+        headers = {_HEADER_LEN: str(len(header))}
+        if req.client_request_id:
+            headers[_REQUEST_ID_HDR] = req.client_request_id
+        self._send(200, header, headers,
+                   content_type="application/octet-stream",
+                   segments=segments)
+
+
+def decode_request(model_name: str, version: str, body: dict,
+                   binary: bytes) -> InferRequest:
+    """A v2 infer request body (plus its binary section) as an
+    :class:`InferRequest`; malformed input is a 400."""
+    if not isinstance(body, dict):
+        raise InferError("inference request body must be a JSON object")
+    if not isinstance(body.get("inputs", []), list) \
+            or not isinstance(body.get("outputs", []), list):
+        raise InferError("'inputs'/'outputs' must be arrays")
+    if not isinstance(body.get("parameters", {}) or {}, dict):
+        raise InferError("'parameters' must be an object")
+    req = InferRequest(model_name=model_name, model_version=version,
+                       id=body.get("id", ""),
+                       parameters=body.get("parameters", {}) or {})
+    offset = 0
+    for t in body.get("inputs", []):
+        try:
+            name, datatype = t["name"], t["datatype"]
+            shape = tuple(int(s) for s in t["shape"])
+        except (TypeError, KeyError, ValueError, AttributeError) as e:
+            raise InferError(f"malformed input specification: {e}")
+        params = t.get("parameters", {}) or {}
+        if not isinstance(params, dict):
+            raise InferError(f"input '{name}' parameters must be an object")
+        if params.get("shared_memory_region"):
+            raise InferError(
+                "shared-memory inputs are not supported by this server")
+        tensor = InputTensor(name=name, datatype=datatype, shape=shape,
+                             parameters=params)
+        bin_size = params.get("binary_data_size")
+        try:
+            if bin_size is not None:
+                chunk = binary[offset:offset + int(bin_size)]
+                if len(chunk) != int(bin_size):
+                    raise InferError(
+                        f"unexpected end of binary data for input '{name}'")
+                offset += int(bin_size)
+                tensor.data = _bytes_to_array(chunk, datatype, shape, name)
+            elif "data" in t:
+                tensor.data = _json_to_array(t["data"], datatype, shape, name)
+            else:
+                raise InferError(f"input '{name}' has no data")
+        except (TypeError, KeyError, ValueError, AttributeError) as e:
+            raise InferError(f"malformed input '{name}': {e}")
+        req.inputs.append(tensor)
+    for o in body.get("outputs", []) or []:
+        try:
+            params = o.get("parameters", {}) or {}
+            if not isinstance(params, dict):
+                raise InferError("output parameters must be an object")
+            req.outputs.append(RequestedOutput(
+                name=o["name"],
+                binary_data=bool(params.get("binary_data", False)),
+                class_count=int(params.get("classification", 0)),
+                parameters=params))
+        except (TypeError, KeyError, ValueError, AttributeError) as e:
+            raise InferError(f"malformed output specification: {e}")
+    return req
+
+
+def _numeric_dtype(datatype: str, name: str) -> np.dtype:
+    dt = triton_to_np_dtype(datatype)
+    if dt is None or dt == np.object_:
+        raise InferError(
+            f"unsupported datatype '{datatype}' for input '{name}'")
+    return dt
+
+
+def _bytes_to_array(chunk: bytes, datatype: str, shape, name: str):
+    dt = _numeric_dtype(datatype, name)
+    expected = math.prod(shape) * dt.itemsize
+    if len(chunk) != expected:
+        raise InferError(
+            f"unexpected total byte size {len(chunk)} for input '{name}', "
+            f"expecting {expected}")
+    return reshape_input(np.frombuffer(chunk, dtype=dt), shape, name)
+
+
+def _json_to_array(data, datatype: str, shape, name: str):
+    dt = _numeric_dtype(datatype, name)
+    try:
+        arr = np.array(data, dtype=dt)
+    except (ValueError, TypeError) as e:
+        raise InferError(f"invalid data for input '{name}': {e}")
+    return reshape_input(arr, shape, name)
+
+
+def encode_response(resp, requested: Dict[str, RequestedOutput],
+                    default_binary: bool) -> Tuple[bytes, List[memoryview]]:
+    """The v2 response: its JSON header, and the raw bytes of each binary
+    output in output order (views of the output arrays, not copies)."""
+    outputs: List[Dict[str, Any]] = []
+    segments: List[memoryview] = []
+    for out in resp.outputs:
+        entry: Dict[str, Any] = {"name": out.name, "datatype": out.datatype,
+                                 "shape": list(out.shape)}
+        spec = requested.get(out.name)
+        binary = spec.binary_data if spec is not None else default_binary
+        data = np.ascontiguousarray(out.data)
+        if binary:
+            segments.append(memoryview(data.reshape(-1)).cast("B"))
+            entry["parameters"] = {"binary_data_size": data.nbytes}
+        else:
+            entry["data"] = data.reshape(-1).tolist()
+        outputs.append(entry)
+    header: Dict[str, Any] = {"model_name": resp.model_name,
+                              "model_version": resp.model_version or "1",
+                              "outputs": outputs}
+    if resp.id:
+        header["id"] = resp.id
+    if resp.parameters:
+        header["parameters"] = resp.parameters
+    return _json_body(header), segments
+
+
+class HttpServer(ThreadingHTTPServer):
+    """The v2 HTTP frontend bound to one :class:`InferenceCore`."""
+
+    daemon_threads = True
+
+    def __init__(self, core: InferenceCore, host: str = "127.0.0.1",
+                 port: int = 8000):
+        self.core = core
+        super().__init__((host, port), _Handler)

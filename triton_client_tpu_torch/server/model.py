@@ -1,0 +1,239 @@
+"""Model abstraction for the port's serving harness.
+
+Counterpart of ``triton_client_tpu/server/model.py``.  The reference builds
+its model configs as protobuf messages; the port's serving path runs on the
+standard library, torch and numpy alone, so :func:`make_config` returns a
+:class:`ModelConfig` dataclass with the fields this slice uses and renders
+the v2 ``/config`` JSON itself.
+
+* :class:`TorchModel` is the counterpart of ``JaxModel``: a function over
+  tensors, run under ``torch.inference_mode()`` on the device its config's
+  ``instance_group`` names.  Outputs may stay on the device; the core reads
+  them back off the request thread.
+* :class:`PyModel` runs arbitrary Python over numpy arrays.
+"""
+
+from __future__ import annotations
+
+import abc
+import threading
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+
+
+@dataclass
+class TensorConfig:
+    name: str
+    data_type: str            # Triton dtype string ("INT32", "FP32", ...)
+    dims: List[int]
+    optional: bool = False
+
+
+@dataclass
+class ModelConfig:
+    """The fields of Triton's ModelConfig that this slice uses."""
+
+    name: str
+    platform: str = "pytorch"
+    backend: str = "pytorch"
+    max_batch_size: int = 0
+    input: List[TensorConfig] = field(default_factory=list)
+    output: List[TensorConfig] = field(default_factory=list)
+    preferred_batch_size: List[int] = field(default_factory=list)
+    max_queue_delay_microseconds: int = 0
+    dynamic_batching: bool = False
+    instance_kind: Optional[str] = None
+    parameters: Dict[str, str] = field(default_factory=dict)
+
+    def to_json(self) -> dict:
+        """The v2 ``/v2/models/{m}/config`` body (proto JSON field names)."""
+        def io(t):
+            return {"name": t.name, "data_type": "TYPE_" + (
+                "STRING" if t.data_type == "BYTES" else t.data_type),
+                "dims": [str(d) for d in t.dims]}
+
+        out: Dict[str, Any] = {
+            "name": self.name,
+            "platform": self.platform,
+            "backend": self.backend,
+            "max_batch_size": self.max_batch_size,
+            "input": [io(t) for t in self.input],
+            "output": [io(t) for t in self.output],
+        }
+        if self.dynamic_batching:
+            out["dynamic_batching"] = {
+                "preferred_batch_size": list(self.preferred_batch_size),
+                "max_queue_delay_microseconds":
+                    str(self.max_queue_delay_microseconds),
+            }
+        if self.instance_kind:
+            out["instance_group"] = [
+                {"name": self.name, "kind": self.instance_kind, "count": 1}]
+        if self.parameters:
+            out["parameters"] = {k: {"string_value": v}
+                                 for k, v in self.parameters.items()}
+        return out
+
+
+_INSTANCE_KINDS = ("KIND_AUTO", "KIND_GPU", "KIND_CPU", "KIND_MODEL")
+
+
+def make_config(
+    name: str,
+    inputs: Sequence[Tuple[str, str, Sequence[int]]],
+    outputs: Sequence[Tuple[str, str, Sequence[int]]],
+    max_batch_size: int = 0,
+    preferred_batch_sizes: Optional[Sequence[int]] = None,
+    max_queue_delay_us: int = 0,
+    instance_kind: Optional[str] = None,
+    parameters: Optional[Dict[str, str]] = None,
+) -> ModelConfig:
+    """Config builder with the reference's signature, for the fields this
+    slice uses (no decoupled, sequence, warmup or response-cache configs
+    yet).  ``inputs``/``outputs``: (name, Triton dtype, dims), dims
+    excluding the batch dimension when ``max_batch_size > 0``."""
+    if instance_kind is not None and instance_kind not in _INSTANCE_KINDS:
+        raise ValueError(f"unknown instance kind {instance_kind!r}; "
+                         f"expected one of {_INSTANCE_KINDS}")
+    return ModelConfig(
+        name=name, max_batch_size=max_batch_size,
+        input=[TensorConfig(n, dt, list(d)) for n, dt, d in inputs],
+        output=[TensorConfig(n, dt, list(d)) for n, dt, d in outputs],
+        preferred_batch_size=sorted(preferred_batch_sizes or []),
+        max_queue_delay_microseconds=max_queue_delay_us,
+        dynamic_batching=bool(preferred_batch_sizes or max_queue_delay_us),
+        instance_kind=instance_kind,
+        parameters={k: str(v) for k, v in (parameters or {}).items()},
+    )
+
+
+def resolve_instance_device(config: ModelConfig) -> torch.device:
+    """Placement from ``instance_group``: ``KIND_CPU`` pins the host; any
+    other kind is ``cuda:0``, which raises where CUDA is missing."""
+    if config.instance_kind == "KIND_CPU":
+        return torch.device("cpu")
+    return resolve_device("cuda:0")
+
+
+@dataclass
+class ModelStats:
+    """Dynamic-batching counters: batched executions and the requests they
+    carried (average formed batch = batch_size_total /
+    batch_execution_count).  The statistics API is not ported yet."""
+
+    batch_size_total: int = 0
+    batch_execution_count: int = 0
+    lock: threading.Lock = field(default_factory=threading.Lock)
+
+    def record_batch(self, batch: int) -> None:
+        with self.lock:
+            self.batch_size_total += batch
+            self.batch_execution_count += 1
+
+
+class Model(abc.ABC):
+    """Base model: subclasses implement ``execute`` over a dict of input
+    arrays and return a dict of output arrays or tensors."""
+
+    #: version number this instance serves
+    served_version: str = "1"
+
+    def __init__(self, config: ModelConfig):
+        self.config = config
+        self.stats = ModelStats()
+
+    @property
+    def name(self) -> str:
+        return self.config.name
+
+    @property
+    def versions(self) -> List[str]:
+        return [self.served_version]
+
+    @property
+    def max_batch_size(self) -> int:
+        return self.config.max_batch_size
+
+    def metadata(self) -> dict:
+        """v2 model-metadata JSON."""
+        batched = self.config.max_batch_size > 0
+
+        def tensor_md(io):
+            dims = list(io.dims)
+            return {"name": io.name, "datatype": io.data_type,
+                    "shape": [-1] + dims if batched else dims}
+
+        return {
+            "name": self.name,
+            "versions": self.versions,
+            "platform": self.config.platform,
+            "inputs": [tensor_md(i) for i in self.config.input],
+            "outputs": [tensor_md(o) for o in self.config.output],
+        }
+
+    @abc.abstractmethod
+    def execute(self, inputs: Dict[str, Any],
+                parameters: Dict[str, Any]) -> Dict[str, Any]:
+        ...
+
+
+class PyModel(Model):
+    """Host-side model: arbitrary Python over numpy arrays."""
+
+    def __init__(self, config: ModelConfig, fn: Callable):
+        super().__init__(config)
+        self._fn = fn
+
+    def execute(self, inputs, parameters):
+        return self._fn(inputs, parameters)
+
+
+class TorchModel(Model):
+    """A model whose compute is a function over tensors on one device.
+
+    ``fn(**inputs) -> dict[str, Tensor]`` receives every numeric input as a
+    tensor on the model's device (object/BYTES arrays stay numpy) and runs
+    under ``torch.inference_mode()``.  ``host_pre(inputs, params)`` and
+    ``host_post(outputs, params)`` run on the host before and after it."""
+
+    def __init__(self, config: ModelConfig, fn: Callable[..., Dict[str, Any]],
+                 host_pre: Optional[Callable] = None,
+                 host_post: Optional[Callable] = None):
+        super().__init__(config)
+        self._fn = fn
+        self._host_pre = host_pre
+        self._host_post = host_post
+        # resolved here, not on first request: a model placed on a missing
+        # device fails at registration, loudly
+        self.device = resolve_instance_device(config)
+
+    def _to_device(self, v):
+        if isinstance(v, torch.Tensor):
+            return v.to(self.device, non_blocking=True)
+        if isinstance(v, np.ndarray) and v.dtype != np.object_:
+            if not v.flags.writeable or not v.flags.c_contiguous:
+                v = np.array(v)  # wire buffers are read-only views
+            return torch.from_numpy(v).to(
+                self.device, non_blocking=True)
+        return v
+
+    def execute(self, inputs: Dict[str, Any],
+                parameters: Dict[str, Any]) -> Dict[str, Any]:
+        if self._host_pre is not None:
+            inputs = self._host_pre(inputs, parameters)
+        with torch.inference_mode():
+            tensors = {n: self._to_device(v) for n, v in inputs.items()}
+            outputs = self._fn(**tensors)
+        if self._host_post is not None:
+            outputs = self._host_post(outputs, parameters)
+        return outputs
+
+
+__all__ = ["Model", "ModelConfig", "ModelStats", "PyModel",
+           "TensorConfig", "TorchModel", "make_config",
+           "resolve_instance_device"]
