@@ -8,12 +8,13 @@ Phases (any failure exits non-zero and prints no result line):
 1. print the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel from ``triton_client_tpu_torch/csrc`` with nvcc;
 3. hold each kernel against its plain PyTorch version on the card at the
-   serving shapes -- flash attention to atol 2e-2 + rtol 1e-2 in bf16
-   (compared as f32; the kernel feeds bf16 probabilities to the tensor
-   cores) and atol 1e-4 in f32,
-   the int8 matmul bit for bit -- and time kernel, plain version, one
+   serving shapes and at ragged lengths and other head dims -- flash
+   attention to atol 2e-2 + rtol 1e-2 in bf16 (compared as f32; the
+   kernel feeds bf16 probabilities to the tensor cores) and atol 1e-4 in
+   f32, the int8 matmul bit for bit -- and time kernel, plain version, one
    PyTorch library call (scaled_dot_product_attention; quantize +
-   torch._int_mm + epilogue) and the least time the card could take;
+   torch._int_mm + epilogue) and the least time the card could take
+   (beside flash's, the floor its exponentials set on the exp unit);
 4. serve ``longctx_tpu`` (``base`` preset: d_model 1024, 8 layers, S = 4096)
    through the port's HTTP server, bf16: 8 requests from 4 threads, each
    response held to the port's forward with plain kernels (LOGPROBS atol
@@ -42,6 +43,8 @@ import time
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_PER_S = 3.35e12
+# the exp unit (MUFU ex2) of one SM retires 16 results per clock
+EXP_PER_CLOCK_PER_SM = 16
 
 # |kernel - plain| <= atol + rtol * |plain|: bf16 outputs reach ~4, where
 # one bf16 ulp is 2**-5
@@ -84,14 +87,18 @@ def bound_ms(ops: float, peak_ops: float, nbytes: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def check_flash(fa, torch, gen):
-    """Kernel vs plain version at the serving shapes; timings at the main
-    one ([4, 16, 4096, 64] bf16 causal: B = 4 requests of base)."""
+def check_flash(fa, torch, gen, sm_clock_hz: float):
+    """Kernel vs plain version at the serving shapes, ragged lengths and
+    the other head dims; timings at the main one ([4, 16, 4096, 64] bf16
+    causal: B = 4 requests of base)."""
     import torch.nn.functional as F
 
     cases = [((4, 16, 4096, 64), True, torch.bfloat16),
              ((1, 16, 4096, 64), False, torch.bfloat16),
              ((1, 16, 1000, 64), True, torch.bfloat16),
+             ((1, 16, 4100, 64), True, torch.bfloat16),
+             ((2, 8, 1000, 128), True, torch.bfloat16),
+             ((1, 16, 4096, 32), False, torch.bfloat16),
              ((1, 4, 1000, 64), True, torch.float32)]
     worst = 0.0
     for shape, causal, dtype in cases:
@@ -122,9 +129,15 @@ def check_flash(fa, torch, gen):
         lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
     ops = 4.0 * B * H * D * S * (S + 1) / 2  # QK^T and PV, lower triangle
     bms, by = bound_ms(ops, PEAK_BF16_FLOPS, 4.0 * B * H * S * D * 2)
+    # one exponential per score of the lower triangle, 16 per clock per SM
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    exp_ms = B * H * S * (S + 1) / 2 / (EXP_PER_CLOCK_PER_SM * sms *
+                                        sm_clock_hz) * 1e3
     print(f"flash_attention [4,16,4096,64] bf16 causal: kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-          f"{bms:.4f} ms ({by})", flush=True)
+          f"{bms:.4f} ms ({by}), exp-unit floor {exp_ms:.4f} ms ({sms} SMs "
+          f"at {sm_clock_hz / 1e6:.0f} MHz); kernel at {bms / ms:.1%} of "
+          f"the bound, {ms / lib_ms:.2f}x sdpa", flush=True)
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
 
@@ -347,6 +360,15 @@ def main() -> int:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    try:
+        sm_clock_hz = float(clock.stdout.strip().splitlines()[0]) * 1e6
+    except (IndexError, ValueError):
+        fail(f"nvidia-smi gave no SM clock: {clock.stdout!r} "
+             f"{clock.stderr.strip()}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}",
           flush=True)
@@ -364,7 +386,7 @@ def main() -> int:
     fa = importlib.import_module("triton_client_tpu_torch.ops.flash_attention")
     im = importlib.import_module("triton_client_tpu_torch.ops.int8_matmul")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    flash = check_flash(fa, torch, gen)
+    flash = check_flash(fa, torch, gen, sm_clock_hz)
     int8 = check_int8(im, torch, gen)
     torch.cuda.empty_cache()
 

@@ -66,6 +66,27 @@ def test_flash_kernel_head_dim_128_and_custom_scale(cuda):
                                atol=2e-2)
 
 
+@pytest.mark.parametrize("S", [1, 127, 128, 129, 1000, 4100])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_flash_bf16_kernel_head_dims_and_ragged_lengths(cuda, D, causal, S):
+    """The wgmma kernel at every head dim, ragged and tile-sized S, with
+    B*H = 8 so a read or write across a head boundary shows; S = 129 also
+    takes custom scales, negative and zero among them (the wrapper folds
+    their sign into q)."""
+    q, k, v = (_rand((2, 4, S, D), s).to(cuda, torch.bfloat16)
+               for s in (14, 15, 16))
+    for scale in ((None, 0.3, -0.3, 0.0) if S == 129 else (None,)):
+        before = fa.launches
+        got = ops.flash_attention(q, k, v, causal=causal, sm_scale=scale)
+        torch.cuda.synchronize()
+        assert fa.launches == before + 1
+        want = ops.flash_attention_reference(q, k, v, causal=causal,
+                                             sm_scale=scale)
+        torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                                   atol=2e-2)
+
+
 def test_flash_rejects_what_the_kernel_does_not_take(cuda):
     q = _rand((1, 2, 64, 24), 7).to(cuda, torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):

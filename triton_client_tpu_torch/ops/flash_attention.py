@@ -1,9 +1,10 @@
 """Flash attention: the hand-written Hopper kernel and its plain version.
 
 Counterpart of ``triton_client_tpu/ops/flash_attention.py``.  The kernel is
-``csrc/flash_attention.cu`` (one block per (batch*head, query tile), online
-softmax in f32, causal early exit; see the source's header).  The backward
-is not ported yet: this slice serves, it does not train.
+``csrc/flash_attention.cu`` (bf16: persistent blocks of a TMA producer and
+two or three wgmma consumer warpgroups walking query tiles, online softmax
+in f32, causal early exit; see the source's header).  The backward is not
+ported yet: this slice serves, it does not train.
 
 :func:`flash_attention` launches the kernel for CUDA tensors and raises on
 anything the kernel does not take.  It uses :func:`flash_attention_reference`
@@ -101,6 +102,12 @@ def flash_attention(q, k, v, *, causal: bool = True, sm_scale=None):
         raise ValueError(
             f"flash_attention: B*H = {B * H} must be in 1..65535 and S > 0")
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    if q.dtype == torch.bfloat16 and scale <= 0:
+        # the bf16 kernel takes row maxima of the unscaled scores, so it
+        # wants scale > 0: a negative scale's sign moves into q (exact in
+        # bf16), and a zero scale, which makes every score 0, becomes zero
+        # queries at scale 1
+        q, scale = (-q, -scale) if scale < 0 else (torch.zeros_like(q), 1.0)
     o = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
