@@ -704,7 +704,9 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
   if (rc == cudaSuccess)
     rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (rc != cudaSuccess) return rc;
-  const int n_work = (S + T::kBlockM - 1) / T::kBlockM * bh;
+  const long long n_tiles = (S + T::kBlockM - 1) / T::kBlockM * (long long)bh;
+  if (n_tiles >= (1LL << 30)) return cudaErrorInvalidValue;  // int indices
+  const int n_work = (int)n_tiles;
   flash_fwd_bf16<T><<<n_work < sms ? n_work : sms, T::kThreads,
                       T::kSmemBytes, st>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(o), bh, S, scale * kLog2e,
@@ -834,7 +836,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, int bh, int S, int D, float scale,
                                    int causal, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bh <= 0 || bh > 65535 || S <= 0) return (int)cudaErrorInvalidValue;
+  if (bh <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
   if (dtype == 1) {
     switch (D) {
       case 16: return (int)launch_bf16<16>(q, k, v, o, bh, S, scale, causal, st);
@@ -845,6 +847,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
     }
   }
   if (dtype == 0) {
+    if (bh > 65535) return (int)cudaErrorInvalidValue;  // gridDim.y
     switch (D) {
       case 16: return (int)launch_f32<16>(q, k, v, o, bh, S, scale, causal, st);
       case 32: return (int)launch_f32<32>(q, k, v, o, bh, S, scale, causal, st);

@@ -98,9 +98,17 @@ def flash_attention(q, k, v, *, causal: bool = True, sm_scale=None):
             raise ValueError(
                 f"flash_attention: {name} must be contiguous and 16-byte "
                 "aligned")
-    if B * H > 65535 or S == 0:
+    if B * H == 0 or S == 0:
         raise ValueError(
-            f"flash_attention: B*H = {B * H} must be in 1..65535 and S > 0")
+            f"flash_attention: B*H = {B * H} and S = {S} must be > 0")
+    # the f32 grid takes B*H as its y dimension; the bf16 blocks walk
+    # (head, query tile) work items numbered in an int
+    if q.dtype == torch.float32 and B * H > 65535:
+        raise ValueError(
+            f"flash_attention: f32 takes B*H up to 65535, got {B * H}")
+    if q.dtype == torch.bfloat16 and B * H * -(-S // 64) >= 2**30:
+        raise ValueError(
+            f"flash_attention: B*H = {B * H} at S = {S} is too large")
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
     if q.dtype == torch.bfloat16 and scale <= 0:
         # the bf16 kernel takes row maxima of the unscaled scores, so it
