@@ -15,14 +15,20 @@ Phases (any failure exits non-zero and prints no result line):
    matmul bit for bit -- and time kernel, plain version, one
    PyTorch library call (scaled_dot_product_attention; quantize +
    torch._int_mm + epilogue) and the least time the card could take
-   (beside flash's, the floor its exponentials set on the exp unit);
+   (beside flash's, the floor its exponentials set on the exp unit; beside
+   int8's, the floor of its quantize-then-GEMM split).  The int8 quantize
+   pass and matmul are held bit for bit at M = 1 to 16384 rows of both FFN
+   shapes, with the weight row-major and K-major, an all-zero row, outlier
+   rows and a row of exact ties;
 4. serve ``longctx_tpu`` (``base`` preset: d_model 1024, 8 layers, S = 4096)
    through the port's HTTP server, bf16: 8 requests from 4 threads, each
    response held to the port's forward with plain kernels (LOGPROBS atol
    5e-2, the bound of the CPU parity tests), kernel launch counts checked,
    then one full batch timed and traced;
 5. the same served int8 (``TRITON_TPU_QUANT_LONGCTX_TPU=int8``; LOGPROBS
-   atol 1.5e-1, see ``LOGPROBS_ATOL``);
+   atol 1.5e-1, see ``LOGPROBS_ATOL``), under the default
+   ``TRITON_TPU_INT8_FUSED=w2`` (one int8 launch per layer) and then under
+   ``all`` (two: FFN-up too), for its forward time beside the default's;
 6. print one JSON line describing every kernel, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -158,37 +164,84 @@ def check_flash(fa, torch, gen, sm_clock_hz: float):
             "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
 
 
+# int8 cases: M rows at FFN-down (K, N) = (4096, 1024) and FFN-up
+# (1024, 4096) of base; M = 16384 is B = 4 requests of S = 4096
+INT8_SHAPES = ((4096, 1024), (1024, 4096))
+INT8_ROWS = (1, 50, 300, 4096, 16384)
+
+
 def _int8_inputs(torch, gen, m, k, n, dtype):
-    x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+    """x, w [K, N] row-major, ws.  From 50 rows on, x holds an all-zero row
+    (scale 1e-12 / 127), two rows with one large outlier each, and a row of
+    exact ties (amax 127, so the scale is 1 and all its other quotients are
+    j + 0.5, rounded half to even)."""
+    x = torch.randn((m, k), generator=gen, device="cuda")
+    if m >= 50:
+        x[1] = 0.0
+        x[2, 5] = 1000.0
+        x[m // 2, k - 1] = -3000.0
+        x[3] = torch.arange(k, device="cuda") % 254 - 126.5
+        x[3, 0] = 127.0
     w = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
                       dtype=torch.int8)
     ws = (torch.rand((n,), generator=gen, device="cuda") + 0.01) * 0.02
-    return x, w, ws
+    return x.to(dtype), w, ws
 
 
-def check_int8(im, torch, gen):
-    """Bit-exact kernel vs plain version at FFN-down (K=4096, N=1024) and
-    FFN-up (K=1024, N=4096) of B = 4 requests, plus a ragged M."""
-    cases = [(16384, 4096, 1024, torch.bfloat16),
-             (16384, 1024, 4096, torch.bfloat16),
-             (50, 1024, 4096, torch.bfloat16),
-             (300, 4096, 1024, torch.float32)]
+def _device_ms(torch, fn, names, iters: int = 10):
+    """Mean device time per call of each kernel whose name contains one of
+    ``names``, from torch.profiler over ``iters`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ms = dict.fromkeys(names, 0.0)
+    for e in prof.key_averages():
+        for name in names:
+            if name in e.key:
+                ms[name] += e.self_device_time_total / iters / 1e3
+    return ms
+
+
+def check_int8(im, torch, gen, ptxas: str):
+    """The quantize pass and the GEMM, each bit for bit against its plain
+    version, at M in INT8_ROWS for both shapes (bf16; f32 at M = 300) with
+    the weight row-major and K-major; timings at FFN-down of B = 4 with the
+    weight K-major, as the served path stores it."""
+    cases = [(m, k, n, torch.bfloat16) for k, n in INT8_SHAPES
+             for m in INT8_ROWS]
+    cases += [(300, k, n, torch.float32) for k, n in INT8_SHAPES]
     for m, k, n, dtype in cases:
         x, w, ws = _int8_inputs(torch, gen, m, k, n, dtype)
-        got = im.int8_matmul(x, w, ws)
+        q, xs = im.int8_quantize_rows(x)
         torch.cuda.synchronize()
+        want_q, want_xs = im.int8_quantize_rows_reference(x)
+        bad_q = (q != want_q).sum().item()
+        bad_xs = (xs != want_xs).sum().item()
         want = im.int8_matmul_reference(x, w, ws)
-        mismatched = (got != want).sum().item()
-        err = (got.float() - want.float()).abs().max().item()
-        print(f"int8_matmul M={m} K={k} N={n} {dtype}: {mismatched} "
-              f"elements differ, max_abs_err {err:.3e} (exact required)",
-              flush=True)
-        if mismatched:
-            fail(f"int8_matmul is not bit-exact at M={m} K={k} N={n} {dtype}")
+        w_kmajor = w.t().contiguous().t()
+        for layout, wl in (("row-major", w), ("K-major", w_kmajor)):
+            got = im.int8_matmul(x, wl, ws)
+            torch.cuda.synchronize()
+            mismatched = (got != want).sum().item()
+            err = (got.float() - want.float()).abs().max().item()
+            print(f"int8 M={m} K={k} N={n} {dtype} {layout} weight: "
+                  f"quantize pass {bad_q} codes and {bad_xs} scales differ; "
+                  f"matmul {mismatched} elements differ, max_abs_err "
+                  f"{err:.3e} (exact required)", flush=True)
+            if bad_q or bad_xs or mismatched:
+                fail(f"int8 kernels are not bit-exact at M={m} K={k} N={n} "
+                     f"{dtype}, {layout} weight")
+        del x, w, ws, w_kmajor, q, xs, want_q, want_xs, want, got
+    torch.cuda.empty_cache()
     m, k, n = 16384, 4096, 1024
     x, w, ws = _int8_inputs(torch, gen, m, k, n, torch.bfloat16)
-    # cuBLASLt's int8 GEMM is several times faster with the weight
-    # contiguous along K; the yardstick gets that layout, made once here
+    # the K-major weight, made once: the served layout, and the one
+    # cuBLASLt's int8 GEMM is several times faster with
     w_kmajor = w.t().contiguous().t()
 
     def library():
@@ -199,14 +252,26 @@ def check_int8(im, torch, gen):
 
     if not torch.equal(library(), im.int8_matmul_reference(x, w, ws)):
         fail("the library yardstick does not compute the same function")
-    ms = timed_ms(lambda: im.int8_matmul(x, w, ws))
+    ms = timed_ms(lambda: im.int8_matmul(x, w_kmajor, ws))
+    ms_row = timed_ms(lambda: im.int8_matmul(x, w, ws))
     plain_ms = timed_ms(lambda: im.int8_matmul_reference(x, w, ws), iters=3)
     lib_ms = timed_ms(library)
+    phases = _device_ms(torch, lambda: im.int8_matmul(x, w_kmajor, ws),
+                        ("quantize_rows", "int8_gemm"))
     nbytes = m * k * 2 + k * n + n * 4 + m * n * 2
     bms, by = bound_ms(2.0 * m * k * n, PEAK_INT8_OPS, nbytes)
-    print(f"int8_matmul M={m} K={k} N={n} bf16: kernel {ms:.4f} ms, plain "
+    # the split's own floor: the quantize pass moves x once and the codes
+    # once, then the GEMM's operations
+    floor_ms = (m * k * 2 + m * k + m * 4) / PEAK_BYTES_PER_S * 1e3 + \
+        2.0 * m * k * n / PEAK_INT8_OPS * 1e3
+    print(f"int8_matmul M={m} K={k} N={n} bf16: kernel {ms:.4f} ms with the "
+          f"weight K-major ({ms_row:.4f} ms row-major, copy included); "
+          f"device time: quantize pass {phases['quantize_rows']:.4f} ms, "
+          f"GEMM {phases['int8_gemm']:.4f} ms (torch.profiler); plain "
           f"{plain_ms:.4f} ms, quantize+_int_mm+epilogue {lib_ms:.4f} ms, "
-          f"bound {bms:.4f} ms ({by})", flush=True)
+          f"bound {bms:.4f} ms ({by}), design floor {floor_ms:.4f} ms; "
+          f"kernel at {bms / ms:.1%} of the bound, {lib_ms / ms:.2f}x "
+          f"faster than the library path; ptxas: {ptxas}", flush=True)
     return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
 
@@ -267,11 +332,19 @@ def profile_forward(label: str, run, torch, seq_len: int) -> None:
           f"device time {busy_ms:.3f} ms in {len(events)} ops: " + "; ".join(
               f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms"
               for e in top), flush=True)
+    ours = [e for e in events if any(
+        k in e.key for k in ("flash_fwd", "quantize_rows", "int8_gemm"))]
+    print(f"{label}: the port's kernels in that forward: " + "; ".join(
+        f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms in "
+        f"{e.count} launches" for e in ours), flush=True)
 
 
-def serve_phase(label: str, torch, counters, expect_int8: bool):
+def serve_phase(label: str, torch, counters, int8_per_layer: int):
     """Serve longctx_tpu base on cuda through the HTTP server; check every
-    response against the plain-kernel forward.  Returns launch counts."""
+    response against the plain-kernel forward and the launch counts (flash
+    once per layer, the int8 kernel ``int8_per_layer`` times per layer, 0 on
+    the bf16 path).  Returns launch counts."""
+    expect_int8 = int8_per_layer > 0
     import numpy as np
 
     from triton_client_tpu_torch.models import language
@@ -292,6 +365,7 @@ def serve_phase(label: str, torch, counters, expect_int8: bool):
     with ServerHarness(registry) as harness:
         for mod in counters.values():
             mod.launches = 0
+        counters["int8_matmul"].quantize_launches = 0
         _post_infer(harness.http_port, requests[0])  # warm-up: init weights
         start = threading.Barrier(N_THREADS)
 
@@ -313,6 +387,7 @@ def serve_phase(label: str, torch, counters, expect_int8: bool):
             t.join(timeout=600)
         wall = time.perf_counter() - t0
         launches = {name: mod.launches for name, mod in counters.items()}
+        quantize_launches = counters["int8_matmul"].quantize_launches
         stats = model.stats
     if errors or any(t.is_alive() for t in threads):
         fail(f"{label}: client threads failed: {errors}")
@@ -328,10 +403,12 @@ def serve_phase(label: str, torch, counters, expect_int8: bool):
         fail(f"{label}: flash_attention launched "
              f"{launches['flash_attention']} times, expected "
              f"{per_forward} per forward x {executions} forwards")
-    if expect_int8 and launches["int8_matmul"] == 0:
-        fail(f"{label}: the int8 kernel never launched")
-    if not expect_int8 and launches["int8_matmul"]:
-        fail(f"{label}: the int8 kernel launched on the bf16 path")
+    want_int8 = int8_per_layer * per_forward * executions
+    if launches["int8_matmul"] != want_int8 or quantize_launches != want_int8:
+        fail(f"{label}: the int8 kernels launched {launches['int8_matmul']} "
+             f"(quantize pass {quantize_launches}) times, expected "
+             f"{int8_per_layer * per_forward} per forward x {executions} "
+             "forwards")
     # the reference: the same forward with the kernels' plain versions
     run = model.transformer
     fwd = tr.make_forward(run.cfg, quantized=expect_int8, plain=True)
@@ -395,25 +472,34 @@ def main() -> int:
     built = _build.build()
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    for name, log in sorted(_build.build_log.items()):
-        regs = [ln.strip() for ln in log.splitlines()
-                if "registers" in ln or "spill" in ln]
-        print(f"{name}: " + " | ".join(regs), flush=True)
+    ptxas = {name: " | ".join(ln.strip() for ln in log.splitlines()
+                              if "registers" in ln or "spill" in ln)
+             for name, log in _build.build_log.items()}
+    for name in sorted(ptxas):
+        print(f"{name}: {ptxas[name]}", flush=True)
 
     fa = importlib.import_module("triton_client_tpu_torch.ops.flash_attention")
     im = importlib.import_module("triton_client_tpu_torch.ops.int8_matmul")
     gen = torch.Generator(device="cuda").manual_seed(0)
     flash = check_flash(fa, torch, gen, sm_clock_hz)
-    int8 = check_int8(im, torch, gen)
+    int8 = check_int8(im, torch, gen, ptxas.get("int8_matmul", ""))
     torch.cuda.empty_cache()
 
     counters = {"flash_attention": fa, "int8_matmul": im}
-    os.environ.pop("TRITON_TPU_QUANT_LONGCTX_TPU", None)
-    os.environ.pop("TRITON_TPU_QUANT", None)
-    bf16 = serve_phase("serve bf16", torch, counters, expect_int8=False)
+    for var in ("TRITON_TPU_QUANT_LONGCTX_TPU", "TRITON_TPU_QUANT",
+                "TRITON_TPU_INT8_FUSED"):
+        os.environ.pop(var, None)
+    bf16 = serve_phase("serve bf16", torch, counters, int8_per_layer=0)
     torch.cuda.empty_cache()
     os.environ["TRITON_TPU_QUANT_LONGCTX_TPU"] = "int8"
-    q8 = serve_phase("serve int8", torch, counters, expect_int8=True)
+    q8 = serve_phase("serve int8", torch, counters, int8_per_layer=1)
+    torch.cuda.empty_cache()
+    # beside the default (FFN-down fused), FFN-up fused too: its forward
+    # time and LOGPROBS error; not the main path, so its launches are not
+    # in the kernels line
+    os.environ["TRITON_TPU_INT8_FUSED"] = "all"
+    serve_phase("serve int8 fused=all", torch, counters, int8_per_layer=2)
+    os.environ.pop("TRITON_TPU_INT8_FUSED")
     os.environ.pop("TRITON_TPU_QUANT_LONGCTX_TPU")
 
     kernels = [

@@ -12,7 +12,8 @@ keeps them in f32, and outputs reach ~4 where one bf16 ulp is 2**-5), f32
 atol 1e-4, and beside either each query row's largest error within 5% of
 the row's RMS in the plain output (chip_smoke.py's ``FLASH_ROW_TOL``: late
 causal rows are ~0.03, below the atol, and a key tile skipped or read stale
-moves them by ~18% of their RMS at 4096 keys); the int8 matmul bit for bit.
+moves them by ~18% of their RMS at 4096 keys); the int8 quantize pass and
+matmul bit for bit.
 """
 
 import importlib
@@ -145,6 +146,82 @@ def test_int8_kernel_bit_exact(cuda, m, k, n, dtype):
     assert torch.equal(got, ops.int8_matmul_reference(x, w, ws))
 
 
+def _int8_special_rows(x):
+    """An all-zero row, two rows with one large outlier, and a row of exact
+    ties (amax 127: scale 1, all its other quotients j + 0.5)."""
+    m, k = x.shape
+    if m >= 50:
+        x[1] = 0.0
+        x[2, 5] = 1000.0
+        x[m // 2, k - 1] = -3000.0
+        x[3] = torch.arange(k, dtype=x.dtype) % 254 - 126.5
+        x[3, 0] = 127.0
+    return x
+
+
+_INT8_CASES = ([(m, k, n, torch.bfloat16) for k, n in ((4096, 1024),
+                                                       (1024, 4096))
+                for m in (1, 50, 300, 4096, 16384)]
+               + [(300, 4096, 1024, torch.float32),
+                  (300, 1024, 4096, torch.float32),
+                  (200, 256, 384, torch.bfloat16)])
+
+
+@pytest.mark.parametrize("m,k,n,dtype", _INT8_CASES)
+def test_int8_quantize_rows_and_weight_layouts_bit_exact(cuda, m, k, n,
+                                                         dtype):
+    """The quantize pass (codes and scales) and the matmul with the weight
+    row-major and K-major, each bit for bit against its plain version."""
+    rng = np.random.default_rng(14)
+    x = _int8_special_rows(torch.from_numpy(
+        rng.standard_normal((m, k)).astype(np.float32)))
+    w = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8))
+    ws = torch.from_numpy(
+        ((np.abs(rng.standard_normal(n)) + 0.01) * 0.02).astype(np.float32))
+    x, w, ws = x.to(cuda, dtype), w.to(cuda), ws.to(cuda)
+    before = im.quantize_launches
+    q, xs = ops.int8_quantize_rows(x)
+    torch.cuda.synchronize()
+    assert im.quantize_launches == before + 1
+    want_q, want_xs = ops.int8_quantize_rows_reference(x)
+    assert torch.equal(q, want_q) and torch.equal(xs, want_xs)
+    want = ops.int8_matmul_reference(x, w, ws)
+    w_kmajor = w.t().contiguous().t()
+    for wl in (w, w_kmajor):
+        before = im.launches
+        got = ops.int8_matmul(x, wl, ws)
+        torch.cuda.synchronize()
+        assert im.launches == before + 1
+        assert torch.equal(got, want)
+
+
+def test_int8_kernel_leading_dims_kmajor_weight(cuda):
+    x, w, ws = _int8_inputs(4 * 75, 1024, 4096, 15, torch.bfloat16, cuda)
+    x3 = x.reshape(4, 75, 1024)
+    got = ops.int8_matmul(x3, w.t().contiguous().t(), ws)
+    assert got.shape == (4, 75, 4096)
+    assert torch.equal(got, ops.int8_matmul_reference(x3, w, ws))
+    q, xs = ops.int8_quantize_rows(x3)
+    assert q.shape == (4, 75, 1024) and xs.shape == (4, 75, 1)
+    want_q, want_xs = ops.int8_quantize_rows_reference(x3)
+    assert torch.equal(q, want_q) and torch.equal(xs, want_xs)
+
+
+def test_int8_kernel_takes_more_than_65535_row_tiles(cuda):
+    """The persistent GEMM and the one-block-per-row quantize pass have no
+    grid limit on M: 65535 * 128 + 200 rows, the first and last rows held
+    to the plain version (rows are independent)."""
+    m = 65535 * 128 + 200
+    x, w, ws = _int8_inputs(1000, 128, 128, 16, torch.bfloat16, cuda)
+    xl = x.repeat(m // 1000 + 1, 1)[:m]
+    xl[-1000:] = x.flip(0)
+    got = ops.int8_matmul(xl, w, ws)
+    torch.cuda.synchronize()
+    want = ops.int8_matmul_reference(x, w, ws)
+    assert torch.equal(got[:1000], want)
+    assert torch.equal(got[-1000:], want.flip(0))
+
+
 def test_int8_kernel_batched_leading_dims_and_row_scale_shape(cuda):
     x, w, ws = _int8_inputs(48, 128, 256, 10, torch.bfloat16, cuda)
     x3 = x.reshape(4, 12, 128)
@@ -157,6 +234,8 @@ def test_int8_unaligned_k_raises_on_card(cuda):
     x, w, ws = _int8_inputs(16, 96, 128, 11, torch.bfloat16, cuda)
     with pytest.raises(ValueError, match="multiples of 128"):
         ops.int8_matmul(x, w, ws)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        ops.int8_quantize_rows(x)
 
 
 def test_int_dot_matches_exact_product(cuda):

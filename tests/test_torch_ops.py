@@ -209,6 +209,45 @@ class TestInt8Matmul:
         _assert_bits_equal(got, jops.int8_matmul(jx, jw, jws,
                                                  interpret=True))
 
+    @pytest.mark.parametrize("m,k,n,seed", [(64, 256, 128, 21),
+                                            (50, 128, 384, 22)])
+    def test_kmajor_weight_bit_exact_vs_jax(self, m, k, n, seed):
+        """A ``[K, N]`` weight stored K-major (the ``.t()`` of a contiguous
+        ``[N, K]``, the layout the kernel reads) gives the row-major
+        result and the JAX reference's, bit for bit."""
+        x, w, ws = _mk(m, k, n, seed)
+        (jx, jw, jws), (tx, tw, tws) = _int8_pair(x, w, ws)
+        tw_k = tw.t().contiguous().t()
+        assert tw_k.stride() == (1, k) and torch.equal(tw_k, tw)
+        got = tops.int8_matmul(tx, tw_k, tws)
+        assert torch.equal(got, tops.int8_matmul(tx, tw, tws))
+        _assert_bits_equal(got, jops.int8_matmul_reference(jx, jw, jws))
+
+    @pytest.mark.parametrize("dtype", ["f32", "bf16"])
+    @pytest.mark.parametrize("shape", [(37, 256), (2, 9, 128)])
+    def test_quantize_rows_matches_jax_int8_quant(self, dtype, shape):
+        """The plain quantize-rows pass equals the reference's
+        ``_int8_quant(h, (-1,))`` run op by op, codes and scales bit for
+        bit, on rows that are all zero, hold one outlier, or are exact
+        ties (amax 127: scale 1, quotients j + 0.5)."""
+        h = _rand(shape, 23).reshape(-1, shape[-1])
+        h[1] = 0.0
+        h[2, 7] = 1000.0
+        h[3] = np.arange(shape[-1]) % 254 - 126.5
+        h[3, 0] = 127.0
+        h = h.reshape(shape)
+        jdt, tdt = ((jnp.float32, torch.float32) if dtype == "f32"
+                    else (jnp.bfloat16, torch.bfloat16))
+        jh, th = _both(h, jdt, tdt)
+        jq, js = jtr._int8_quant(jh, (-1,))
+        q, xs = tops.int8_quantize_rows_reference(th)
+        assert q.dtype == torch.int8 and xs.shape == (*shape[:-1], 1)
+        np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+        np.testing.assert_array_equal(xs.numpy(), np.asarray(js))
+        assert np.all(q.numpy().reshape(-1, shape[-1])[1] == 0)
+        cq, cxs = tops.int8_quantize_rows(th)  # CPU: the plain version
+        assert torch.equal(cq, q) and torch.equal(cxs, xs)
+
     def test_plain_exact_dot_matches_int_mm(self):
         rng = np.random.default_rng(19)
         a = torch.from_numpy(rng.integers(-127, 128, (40, 64)).astype(np.int8))

@@ -113,6 +113,45 @@ def test_int8_forward_matches_jax(jax_params, tokens, attention_branch,
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-2)
 
 
+@pytest.mark.parametrize("fused", ["w2", "all", "0"])
+def test_int8_forward_kmajor_weights_matches_jax(jax_params, tokens,
+                                                 attention_branch,
+                                                 monkeypatch, fused):
+    """The port's own ``quantize_layer_weights`` stores every int8 weight
+    K-major; its forward still matches the JAX int8 forward within the
+    int8 bound (atol 1e-2)."""
+    monkeypatch.setenv("TRITON_TPU_INT8_FUSED", fused)
+    params, qparams = jax_params
+    want = _run_jax(qparams, tokens, jnp.float32, quantized=True)
+    cfg = _torch_cfg(torch.float32)
+    tq = ttr.quantize_layer_weights(
+        ttr.params_from_jax(_np_params(params), cfg), cfg)
+    assert tq["w2"][0].stride() == (1, cfg.d_ff)
+    fwd = ttr.make_forward(cfg, quantized=True)
+    with torch.inference_mode():
+        got = fwd(tq, torch.from_numpy(tokens)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-2)
+
+
+def test_quantized_weights_stored_kmajor(jax_params):
+    """Each layer's int8 ``[K, N]`` matrix, as the forward reshapes it, is a
+    view of K-major storage: no call copies a weight."""
+    params, _ = jax_params
+    cfg = _torch_cfg(torch.float32)
+    tq = ttr.quantize_layer_weights(
+        ttr.params_from_jax(_np_params(params), cfg), cfg)
+    D, H, K, Fd = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff
+    mats = {"wq": (D, H * K), "wk": (D, H * K), "wv": (D, H * K),
+            "wo": (H * K, D), "w1": (D, Fd), "w2": (Fd, D)}
+    for name, (k, n) in mats.items():
+        for layer in range(cfg.n_layers):
+            w = tq[name][layer]
+            m = w.reshape(k, n)
+            assert m.data_ptr() == w.data_ptr(), name
+            assert m.stride() == (1, k), (name, m.stride())
+            assert m.t().is_contiguous(), name
+
+
 def test_quantize_layer_weights_bit_exact(jax_params):
     params, qparams = jax_params
     cfg = _torch_cfg(torch.float32)

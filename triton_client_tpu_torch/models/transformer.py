@@ -101,10 +101,21 @@ def params_from_jax(np_params: Dict[str, np.ndarray], cfg: TransformerConfig,
     return out
 
 
+def _contraction_innermost(w, axes):
+    """``w`` with the same shape and values, stored with its contraction
+    ``axes`` innermost: each layer's ``[K, N]`` matrix is K-major, the
+    layout the int8 kernel and cuBLASLt's int8 GEMMs read without a copy."""
+    perm = [d for d in range(w.dim()) if d not in axes] + list(axes)
+    return w.permute(perm).contiguous().permute(np.argsort(perm).tolist())
+
+
 def quantize_layer_weights(params: Dict[str, torch.Tensor],
                            cfg: TransformerConfig) -> Dict[str, torch.Tensor]:
     """Weight-only int8, symmetric, one scale per output channel (reduced
-    over each weight's contraction axes), stored as ``<name>_scale``."""
+    over each weight's contraction axes), stored as ``<name>_scale``.
+
+    The int8 weights keep the reference's shapes and values but are stored
+    K-major (contraction axes innermost), once, so no call copies them."""
     contract_axes = {"wq": (1,), "wk": (1,), "wv": (1,),
                      "wo": (1, 2), "w1": (1,), "w2": (1,)}
     out = dict(params)
@@ -113,7 +124,8 @@ def quantize_layer_weights(params: Dict[str, torch.Tensor],
             continue
         w = params[k].float()
         scale = int8_scale(w.abs().amax(dim=axes, keepdim=True))
-        out[k] = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
+        q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
+        out[k] = _contraction_innermost(q, axes)
         out[k + "_scale"] = scale
     return out
 
@@ -162,7 +174,9 @@ def _int_dot(a, b):
     On CUDA ``torch._int_mm`` wants more than 16 rows, and cuBLASLt's int8
     GEMMs want both operands contiguous along K (``b`` column-major): with a
     row-major ``b`` the H100 refused some shapes at K = 64 and ran others on
-    a slow fallback.  Short inputs are padded with zero rows to 32."""
+    a slow fallback.  The served weights are stored K-major, so ``b`` is
+    copied only when a caller passes a row-major one.  Short inputs are
+    padded with zero rows to 32."""
     M = a.shape[0]
     if M < 32:
         a = torch.cat([a, a.new_zeros(32 - M, a.shape[1])])

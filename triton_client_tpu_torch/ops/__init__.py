@@ -7,7 +7,9 @@ for CPU tensors.
 """
 
 from .flash_attention import flash_attention, flash_attention_reference
-from .int8_matmul import int8_matmul, int8_matmul_reference
+from .int8_matmul import (int8_matmul, int8_matmul_reference,
+                          int8_quantize_rows, int8_quantize_rows_reference)
 
 __all__ = ["flash_attention", "flash_attention_reference",
-           "int8_matmul", "int8_matmul_reference"]
+           "int8_matmul", "int8_matmul_reference",
+           "int8_quantize_rows", "int8_quantize_rows_reference"]
