@@ -19,24 +19,51 @@ Phases (any failure exits non-zero and prints no result line):
    int8's, the floor of its quantize-then-GEMM split).  The int8 quantize
    pass and matmul are held bit for bit at M = 1 to 16384 rows of both FFN
    shapes, with the weight row-major and K-major, an all-zero row, outlier
-   rows and a row of exact ties;
+   rows and a row of exact ties; then at the int8 shapes of ``bert_large``
+   (M = 384, 4608, 12288 at K = 4096, N = 1024) and of ``llama_tpu`` 1b
+   (M = 128, 1024 at K = 8192, N = 2048 and K = 2048, N = 8192), each timed
+   beside its bound and the library path; and flash at ``bert_large``'s
+   attention shape ([32, 16, 384, 64] bf16, not causal), timed beside
+   SDPA, ``ring_attention`` (what the flash gate picks at S = 384) and its
+   bound;
 4. serve ``longctx_tpu`` (``base`` preset: d_model 1024, 8 layers, S = 4096)
    through the port's HTTP server, bf16: 8 requests from 4 threads, each
-   response held to the port's forward with plain kernels (LOGPROBS atol
-   5e-2, the bound of the CPU parity tests), kernel launch counts checked,
-   then one full batch timed and traced;
-5. the same served int8 (``TRITON_TPU_QUANT_LONGCTX_TPU=int8``; LOGPROBS
-   atol 1.5e-1, see ``LOGPROBS_ATOL``), under the default
-   ``TRITON_TPU_INT8_FUSED=w2`` (one int8 launch per layer) and then under
-   ``all`` (two: FFN-up too), for its forward time beside the default's;
-6. print one JSON line describing every kernel, then the result line
+   response held to the port's forward with plain kernels (``SERVED_ATOL``),
+   kernel launch counts checked, then one full batch timed and traced;
+5. the same served int8 (``TRITON_TPU_QUANT_LONGCTX_TPU=int8``), under the
+   default ``TRITON_TPU_INT8_FUSED=w2`` (one int8 launch per layer) and
+   then under ``all`` (two: FFN-up too), for its forward time beside the
+   default's;
+6. serve ``bert_large`` at full width (24 layers, S = 384): 40 requests of
+   4 sequences from 8 threads, so the batcher forms batches up to 32, in
+   bf16, int8 under ``w2`` and int8 under ``all``; each LOGITS held to the plain-kernel
+   forward of the same tokens, int8 launches exactly 0 / 24 / 48 per
+   forward, flash never (S = 384 is under the gate); one B = 32 forward
+   timed, traced and its peak memory read;
+7. serve ``moe_tpu`` (``base``: 8 experts, top 2, S = 256) bf16 and int8
+   (weight-only in the FFN: no int8 kernel launch), one B = 8 forward
+   timed and traced;
+8. serve ``ensemble_llama`` over ``llama_tpu`` 1b (bf16): 8 binary BYTES
+   requests from 4 threads, OUT_TEXT equal to ``bytes([NEXT_TOKEN %
+   256])``, llama_tpu's NEXT_TOKEN and NEXT_LOGIT (``_logit``) held to the
+   plain forward; one B = 8 forward timed and traced beside its f32 head;
+   then ``llama_tpu`` served directly in int8 under ``w2`` (16 int8 launches
+   per forward), one B = 8 forward timed and traced;
+9. print each kernel's launches on every served path, one JSON line
+   describing every kernel, then the result line
    ``{"ok": true, "device": {...}}``.
+
+NEXT_LOGIT is held to ``SERVED_ATOL``; a NEXT_TOKEN that differs from the
+plain forward's argmax passes only where the plain forward's logit at the
+served token is within that atol of its maximum (a batch formed otherwise
+picks other GEMM algorithms, which can flip a near tie).
 
 Imports nothing of JAX and nothing of ``triton_client_tpu``.
 """
 
 from __future__ import annotations
 
+import gc
 import http.client
 import importlib
 import json
@@ -66,14 +93,18 @@ FLASH_TOL = {"bf16": (2e-2, 1e-2), "f32": (1e-4, 0.0)}
 # largest element, which random inputs put at ~3x the RMS (at most
 # sqrt(D) x).
 FLASH_ROW_TOL = 0.05
-# served LOGPROBS vs the plain-kernel forward.  bf16: the bound of the CPU
-# parity tests.  int8: a run whose bf16 activations differ from another's in
-# the last bit (the flash kernel's bf16 probabilities; batch-size-dependent
-# GEMM sums) flips the int8 codes that sit at a rounding boundary, each flip
-# moves a product by one quantization step and 8 layers compound it: the
-# first run on the H100 measured 6.1e-2 over 8 requests.
-LOGPROBS_ATOL = {False: 5e-2, True: 1.5e-1}
+# served LOGPROBS, LOGITS and NEXT_LOGIT vs the plain-kernel forward of the
+# same tokens.  bf16: the bound of the CPU parity tests.  int8: a run whose
+# bf16 activations differ from another's in the last bit (the flash
+# kernel's bf16 probabilities; batch-size-dependent GEMM sums) flips the
+# int8 codes that sit at a rounding boundary, each flip moves a product by
+# one quantization step and the layers compound it: the first run on the
+# H100 measured 6.1e-2 over 8 longctx_tpu requests.
+SERVED_ATOL = {False: 5e-2, True: 1.5e-1}
 N_REQUESTS, N_THREADS = 8, 4
+# bert_large: 40 requests of 4 sequences from 8 threads, so up to 32
+# sequences wait at once and the batcher can fill its largest batch (32)
+BERT_REQUESTS, BERT_ROWS, BERT_THREADS = 40, 4, 8
 
 
 def fail(msg: str) -> None:
@@ -207,14 +238,10 @@ def _device_ms(torch, fn, names, iters: int = 10):
     return ms
 
 
-def check_int8(im, torch, gen, ptxas: str):
-    """The quantize pass and the GEMM, each bit for bit against its plain
-    version, at M in INT8_ROWS for both shapes (bf16; f32 at M = 300) with
-    the weight row-major and K-major; timings at FFN-down of B = 4 with the
-    weight K-major, as the served path stores it."""
-    cases = [(m, k, n, torch.bfloat16) for k, n in INT8_SHAPES
-             for m in INT8_ROWS]
-    cases += [(300, k, n, torch.float32) for k, n in INT8_SHAPES]
+def _int8_bit_exact(im, torch, gen, cases) -> None:
+    """The quantize pass (codes, scales) and the matmul with the weight
+    row-major and K-major, each bit for bit against its plain version, at
+    every (M, K, N, dtype) of ``cases``."""
     for m, k, n, dtype in cases:
         x, w, ws = _int8_inputs(torch, gen, m, k, n, dtype)
         q, xs = im.int8_quantize_rows(x)
@@ -238,7 +265,12 @@ def check_int8(im, torch, gen, ptxas: str):
                      f"{dtype}, {layout} weight")
         del x, w, ws, w_kmajor, q, xs, want_q, want_xs, want, got
     torch.cuda.empty_cache()
-    m, k, n = 16384, 4096, 1024
+
+
+def _int8_timed(im, torch, gen, m, k, n):
+    """Kernel (K-major weight, as served), plain version and the library
+    path (quantize + torch._int_mm + epilogue) at one bf16 shape, and its
+    bound.  Returns the inputs and the times."""
     x, w, ws = _int8_inputs(torch, gen, m, k, n, torch.bfloat16)
     # the K-major weight, made once: the served layout, and the one
     # cuBLASLt's int8 GEMM is several times faster with
@@ -253,45 +285,160 @@ def check_int8(im, torch, gen, ptxas: str):
     if not torch.equal(library(), im.int8_matmul_reference(x, w, ws)):
         fail("the library yardstick does not compute the same function")
     ms = timed_ms(lambda: im.int8_matmul(x, w_kmajor, ws))
-    ms_row = timed_ms(lambda: im.int8_matmul(x, w, ws))
     plain_ms = timed_ms(lambda: im.int8_matmul_reference(x, w, ws), iters=3)
     lib_ms = timed_ms(library)
-    phases = _device_ms(torch, lambda: im.int8_matmul(x, w_kmajor, ws),
-                        ("quantize_rows", "int8_gemm"))
     nbytes = m * k * 2 + k * n + n * 4 + m * n * 2
     bms, by = bound_ms(2.0 * m * k * n, PEAK_INT8_OPS, nbytes)
+    return (x, w, w_kmajor, ws), {"ms": ms, "plain_ms": plain_ms,
+                                  "bound_ms": bms, "bound_by": by,
+                                  "library_ms": lib_ms}
+
+
+def check_int8(im, torch, gen, ptxas: str):
+    """The quantize pass and the GEMM, each bit for bit against its plain
+    version, at M in INT8_ROWS for both shapes (bf16; f32 at M = 300) with
+    the weight row-major and K-major; timings at FFN-down of B = 4 with the
+    weight K-major, as the served path stores it."""
+    cases = [(m, k, n, torch.bfloat16) for k, n in INT8_SHAPES
+             for m in INT8_ROWS]
+    cases += [(300, k, n, torch.float32) for k, n in INT8_SHAPES]
+    _int8_bit_exact(im, torch, gen, cases)
+    m, k, n = 16384, 4096, 1024
+    (x, w, w_kmajor, ws), t = _int8_timed(im, torch, gen, m, k, n)
+    ms_row = timed_ms(lambda: im.int8_matmul(x, w, ws))
+    phases = _device_ms(torch, lambda: im.int8_matmul(x, w_kmajor, ws),
+                        ("quantize_rows", "int8_gemm"))
     # the split's own floor: the quantize pass moves x once and the codes
     # once, then the GEMM's operations
     floor_ms = (m * k * 2 + m * k + m * 4) / PEAK_BYTES_PER_S * 1e3 + \
         2.0 * m * k * n / PEAK_INT8_OPS * 1e3
+    ms, bms = t["ms"], t["bound_ms"]
     print(f"int8_matmul M={m} K={k} N={n} bf16: kernel {ms:.4f} ms with the "
           f"weight K-major ({ms_row:.4f} ms row-major, copy included); "
           f"device time: quantize pass {phases['quantize_rows']:.4f} ms, "
           f"GEMM {phases['int8_gemm']:.4f} ms (torch.profiler); plain "
-          f"{plain_ms:.4f} ms, quantize+_int_mm+epilogue {lib_ms:.4f} ms, "
-          f"bound {bms:.4f} ms ({by}), design floor {floor_ms:.4f} ms; "
-          f"kernel at {bms / ms:.1%} of the bound, {lib_ms / ms:.2f}x "
-          f"faster than the library path; ptxas: {ptxas}", flush=True)
-    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+          f"{t['plain_ms']:.4f} ms, quantize+_int_mm+epilogue "
+          f"{t['library_ms']:.4f} ms, bound {bms:.4f} ms ({t['bound_by']}), "
+          f"design floor {floor_ms:.4f} ms; kernel at {bms / ms:.1%} of the "
+          f"bound, {t['library_ms'] / ms:.2f}x faster than the library "
+          f"path; ptxas: {ptxas}", flush=True)
+    return {"max_abs_err": 0.0, **t}
 
 
-def _post_infer(port: int, tokens):
-    """One binary-extension v2 infer request; returns (LOGPROBS, seconds)."""
+# the int8 products of this slice's models, (M, K, N): bert_large FFN-down
+# at B = 1, 12 and 32 (S = 384), llama_tpu 1b FFN-down and FFN-up (under
+# ``all``) at B = 1 and 8 (S = 128)
+INT8_MODEL_SHAPES = (
+    ("bert_large FFN-down", ((384, 4096, 1024), (4608, 4096, 1024),
+                             (12288, 4096, 1024))),
+    ("llama_tpu 1b FFN-down", ((128, 8192, 2048), (1024, 8192, 2048))),
+    ("llama_tpu 1b FFN-up", ((128, 2048, 8192), (1024, 2048, 8192))),
+)
+
+
+def check_int8_model_shapes(im, torch, gen) -> None:
+    """Bit-exact, then timed, at the int8 shapes of bert_large and llama
+    1b."""
+    cases = [(m, k, n, torch.bfloat16)
+             for _, shapes in INT8_MODEL_SHAPES for m, k, n in shapes]
+    _int8_bit_exact(im, torch, gen, cases)
+    for label, shapes in INT8_MODEL_SHAPES:
+        for m, k, n in shapes:
+            inputs, t = _int8_timed(im, torch, gen, m, k, n)
+            del inputs
+            print(f"int8_matmul {label} M={m} K={k} N={n} bf16: kernel "
+                  f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+                  f"quantize+_int_mm+epilogue {t['library_ms']:.4f} ms, "
+                  f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}); kernel "
+                  f"at {t['bound_ms'] / t['ms']:.1%} of the bound, "
+                  f"{t['library_ms'] / t['ms']:.2f}x faster than the library "
+                  "path", flush=True)
+    torch.cuda.empty_cache()
+
+
+def check_flash_bert(fa, torch, gen) -> None:
+    """Flash at bert_large's attention shape, [32, 16, 384, 64] bf16 not
+    causal: held to the plain version under FLASH_TOL / FLASH_ROW_TOL and
+    timed beside SDPA, ring_attention (the flash gate's pick at S = 384)
+    and the bound."""
+    import torch.nn.functional as F
+
+    from triton_client_tpu_torch.parallel.collectives import ring_attention
+
+    B, H, S, D = 32, 16, 384, 64
+    q, k, v = (torch.randn((B, H, S, D), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    got = fa.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_reference(q, k, v, causal=False)
+    diff = (got.float() - want.float()).abs()
+    atol, rtol = FLASH_TOL["bf16"]
+    over = (diff > atol + rtol * want.float().abs()).sum().item()
+    row_err = diff.amax(-1)
+    row_rms = want.float().pow(2).mean(-1).sqrt()
+    rows_over = (row_err > FLASH_ROW_TOL * row_rms).sum().item()
+    ring = ring_attention(q, k, v, causal=False)
+    ring_err = (ring.float() - want.float()).abs().max().item()
+    print(f"flash_attention [{B},{H},{S},{D}] causal=False bf16 "
+          f"(bert_large): max_abs_err {diff.max().item():.3e}, {over} "
+          f"elements beyond atol {atol} + rtol {rtol}, {rows_over} rows "
+          f"beyond {FLASH_ROW_TOL:.0%} of their RMS; ring_attention vs plain "
+          f"max_abs_err {ring_err:.3e}", flush=True)
+    if over or rows_over:
+        fail("flash_attention disagrees with its plain version at "
+             "bert_large's shape")
+    del got, want, ring
+    ms = timed_ms(lambda: fa.flash_attention(q, k, v, causal=False))
+    plain_ms = timed_ms(
+        lambda: fa.flash_attention_reference(q, k, v, causal=False), iters=3)
+    ring_ms = timed_ms(lambda: ring_attention(q, k, v, causal=False),
+                       iters=3)
+    lib_ms = timed_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    bms, by = bound_ms(4.0 * B * H * S * S * D, PEAK_BF16_FLOPS,
+                       4.0 * B * H * S * D * 2)
+    print(f"flash_attention [{B},{H},{S},{D}] bf16 not causal: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, ring_attention "
+          f"{ring_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms "
+          f"({by}); kernel at {bms / ms:.1%} of the bound, "
+          f"{ring_ms / ms:.2f}x faster than ring_attention, "
+          f"{ms / lib_ms:.2f}x sdpa", flush=True)
+    del q, k, v
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+def _post_infer(port: int, model: str, inputs, outputs):
+    """One binary-extension v2 infer request.  ``inputs``: (name, datatype,
+    array); BYTES arrays go as the length-prefixed serialization.  Returns
+    ({output name: array}, seconds)."""
     import numpy as np
 
-    raw = tokens.astype(np.int32).tobytes()
+    from triton_client_tpu_torch.utils import (deserialize_bytes_tensor,
+                                               serialize_byte_tensor_raw,
+                                               triton_to_np_dtype)
+
+    specs, raws = [], []
+    for name, datatype, arr in inputs:
+        raw = bytes(serialize_byte_tensor_raw(arr)) if datatype == "BYTES" \
+            else np.ascontiguousarray(arr).tobytes()
+        specs.append({"name": name, "datatype": datatype,
+                      "shape": list(arr.shape),
+                      "parameters": {"binary_data_size": len(raw)}})
+        raws.append(raw)
     header = json.dumps({
-        "inputs": [{"name": "TOKENS", "datatype": "INT32",
-                    "shape": list(tokens.shape),
-                    "parameters": {"binary_data_size": len(raw)}}],
-        "outputs": [{"name": "LOGPROBS",
-                     "parameters": {"binary_data": True}}],
+        "inputs": specs,
+        "outputs": [{"name": o, "parameters": {"binary_data": True}}
+                    for o in outputs],
     }).encode()
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
     t0 = time.perf_counter()
     try:
-        conn.request("POST", "/v2/models/longctx_tpu/infer", header + raw,
+        conn.request("POST", f"/v2/models/{model}/infer",
+                     header + b"".join(raws),
                      {"Inference-Header-Content-Length": str(len(header)),
                       "Content-Type": "application/octet-stream"})
         resp = conn.getresponse()
@@ -300,26 +447,131 @@ def _post_infer(port: int, tokens):
         conn.close()
     dt = time.perf_counter() - t0
     if resp.status != 200:
-        fail(f"infer returned HTTP {resp.status}: {body[:500]!r}")
+        fail(f"{model} infer returned HTTP {resp.status}: {body[:500]!r}")
     hlen = int(resp.getheader("Inference-Header-Content-Length"))
-    out = json.loads(body[:hlen])["outputs"][0]
-    arr = np.frombuffer(body[hlen:], dtype=np.float32).reshape(out["shape"])
-    return arr, dt
+    out, offset = {}, hlen
+    for o in json.loads(body[:hlen])["outputs"]:
+        size = o["parameters"]["binary_data_size"]
+        chunk = body[offset:offset + size]
+        offset += size
+        if o["datatype"] == "BYTES":
+            arr = deserialize_bytes_tensor(chunk)
+        else:
+            arr = np.frombuffer(chunk, dtype=triton_to_np_dtype(o["datatype"]))
+        out[o["name"]] = arr.reshape(o["shape"])
+    return out, dt
 
 
-def profile_forward(label: str, run, torch, seq_len: int) -> None:
-    """Time one forward of a full batch (B = 4) with CUDA events, then trace
-    one with torch.profiler and print where the device time goes."""
+def _reset(counters) -> None:
+    for mod in counters.values():
+        mod.launches = 0
+    counters["int8_matmul"].quantize_launches = 0
+
+
+def serve_requests(label: str, models, target: str, requests, n_threads,
+                   counters, outputs, warm_up=True):
+    """Register ``models``, serve them over HTTP and send each of
+    ``requests`` (a list of input lists for ``_post_infer``) to ``target``
+    from ``n_threads`` threads at once, after one warm-up request that
+    builds the weights.  The launch counts are zeroed just before the
+    requests and read just after.  Returns (results, launches,
+    executions of ``target``'s model, requests executed)."""
+    import numpy as np
+
+    from triton_client_tpu_torch.server.registry import ModelRegistry
+    from triton_client_tpu_torch.server.testing import ServerHarness
+
+    registry = ModelRegistry()
+    for m in models:
+        registry.register_model(m)
+    stats = {m.name: m.stats for m in models}
+    n = len(requests)
+    results = [None] * n
+    latencies = [0.0] * n
+    errors = []
+    with ServerHarness(registry) as harness:
+        _reset(counters)
+        if warm_up:
+            _post_infer(harness.http_port, target, requests[0], outputs)
+        start = threading.Barrier(n_threads)
+
+        def client(tid):
+            try:
+                start.wait(timeout=60)
+                for i in range(tid, n, n_threads):
+                    results[i], latencies[i] = _post_infer(
+                        harness.http_port, target, requests[i], outputs)
+            except BaseException as e:  # reported below, then fail
+                errors.append(repr(e))
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t0
+        launches = {name: mod.launches for name, mod in counters.items()}
+        launches["int8_quantize_rows"] = \
+            counters["int8_matmul"].quantize_launches
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"{label}: client threads failed: {errors}")
+    return results, latencies, wall, launches, stats
+
+
+def report_serving(label, latencies, wall, stats, launches,
+                   batched: str) -> int:
+    """Print the batching and latency line; returns the executions of the
+    ``batched`` model."""
+    import numpy as np
+
+    st = stats[batched]
+    executions = st.batch_execution_count
+    print(f"{label}: {len(latencies)} requests + 1 warm-up in {executions} "
+          f"batched {batched} executions (avg batch "
+          f"{st.batch_size_total / max(executions, 1):.2f}); p50 latency "
+          f"{1e3 * float(np.median(latencies)):.2f} ms, max "
+          f"{1e3 * max(latencies):.2f} ms; {len(latencies) / wall:.2f} "
+          f"infer/s; launches {launches}", flush=True)
+    return executions
+
+
+def check_launches(label, launches, executions, flash_per_forward,
+                   int8_per_forward) -> None:
+    if launches["flash_attention"] != flash_per_forward * executions:
+        fail(f"{label}: flash_attention launched "
+             f"{launches['flash_attention']} times, expected "
+             f"{flash_per_forward} per forward x {executions} forwards")
+    want = int8_per_forward * executions
+    if launches["int8_matmul"] != want or \
+            launches["int8_quantize_rows"] != want:
+        fail(f"{label}: the int8 kernels launched {launches['int8_matmul']} "
+             f"(quantize pass {launches['int8_quantize_rows']}) times, "
+             f"expected {int8_per_forward} per forward x {executions} "
+             "forwards")
+
+
+def profile_forward(label: str, run, torch, batch: int, seq_len: int,
+                    vocab: int) -> float:
+    """Time one forward of ``batch`` requests with CUDA events, then trace
+    one with torch.profiler and print where the device time goes, the idle
+    share and the peak memory.  Returns the forward's ms."""
     from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator(device="cuda").manual_seed(7)
-    tokens = torch.randint(0, 256, (4, seq_len), generator=gen, device="cuda")
+    tokens = torch.randint(0, vocab, (batch, seq_len), generator=gen,
+                           device="cuda")
     with torch.inference_mode():
         fwd_ms = timed_ms(lambda: run(tokens), iters=5)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             run(tokens)
             torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
     # device-side entries only (kernels and copies, our ctypes launches
     # included); CPU ops carry their kernels' time too and would count twice
     events = [e for e in prof.key_averages()
@@ -328,8 +580,11 @@ def profile_forward(label: str, run, torch, seq_len: int) -> None:
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: e.self_device_time_total,
                  reverse=True)[:8]
-    print(f"{label}: forward B=4 {fwd_ms:.3f} ms (CUDA events); traced "
-          f"device time {busy_ms:.3f} ms in {len(events)} ops: " + "; ".join(
+    print(f"{label}: forward B={batch} {fwd_ms:.3f} ms (CUDA events); "
+          f"traced device time {busy_ms:.3f} ms in {len(events)} ops, idle "
+          f"{max(0.0, 1 - busy_ms / fwd_ms):.1%} of the forward; peak "
+          f"memory {peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} GiB "
+          "above the weights): " + "; ".join(
               f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms"
               for e in top), flush=True)
     ours = [e for e in events if any(
@@ -337,96 +592,237 @@ def profile_forward(label: str, run, torch, seq_len: int) -> None:
     print(f"{label}: the port's kernels in that forward: " + "; ".join(
         f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms in "
         f"{e.count} launches" for e in ours), flush=True)
+    return fwd_ms
 
 
-def serve_phase(label: str, torch, counters, int8_per_layer: int):
+def serve_longctx(label: str, torch, counters, int8_per_layer: int):
     """Serve longctx_tpu base on cuda through the HTTP server; check every
     response against the plain-kernel forward and the launch counts (flash
     once per layer, the int8 kernel ``int8_per_layer`` times per layer, 0 on
     the bf16 path).  Returns launch counts."""
-    expect_int8 = int8_per_layer > 0
     import numpy as np
 
     from triton_client_tpu_torch.models import language
     from triton_client_tpu_torch.models import transformer as tr
-    from triton_client_tpu_torch.server.registry import ModelRegistry
-    from triton_client_tpu_torch.server.testing import ServerHarness
 
+    expect_int8 = int8_per_layer > 0
     model = language.make_longctx_tpu("cuda")
     S = model.config.input[0].dims[0]
     rng = np.random.default_rng(1234)
-    requests = [rng.integers(0, 256, (1, S)).astype(np.int32)
-                for _ in range(N_REQUESTS)]
-    registry = ModelRegistry()
-    registry.register_model(model)
-    results = [None] * N_REQUESTS
-    latencies = [0.0] * N_REQUESTS
-    errors = []
-    with ServerHarness(registry) as harness:
-        for mod in counters.values():
-            mod.launches = 0
-        counters["int8_matmul"].quantize_launches = 0
-        _post_infer(harness.http_port, requests[0])  # warm-up: init weights
-        start = threading.Barrier(N_THREADS)
-
-        def client(tid):
-            try:
-                start.wait(timeout=60)
-                for i in range(tid, N_REQUESTS, N_THREADS):
-                    results[i], latencies[i] = _post_infer(
-                        harness.http_port, requests[i])
-            except BaseException as e:  # reported below, then fail
-                errors.append(repr(e))
-
-        t0 = time.perf_counter()
-        threads = [threading.Thread(target=client, args=(t,))
-                   for t in range(N_THREADS)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=600)
-        wall = time.perf_counter() - t0
-        launches = {name: mod.launches for name, mod in counters.items()}
-        quantize_launches = counters["int8_matmul"].quantize_launches
-        stats = model.stats
-    if errors or any(t.is_alive() for t in threads):
-        fail(f"{label}: client threads failed: {errors}")
-    executions = stats.batch_execution_count
-    print(f"{label}: {N_REQUESTS} requests + 1 warm-up in {executions} "
-          f"batched executions (avg batch "
-          f"{stats.batch_size_total / max(executions, 1):.2f}); p50 latency "
-          f"{1e3 * float(np.median(latencies)):.2f} ms, max "
-          f"{1e3 * max(latencies):.2f} ms; {N_REQUESTS / wall:.2f} infer/s; "
-          f"launches {launches}", flush=True)
-    per_forward = model.transformer.cfg.n_layers
-    if launches["flash_attention"] != per_forward * executions:
-        fail(f"{label}: flash_attention launched "
-             f"{launches['flash_attention']} times, expected "
-             f"{per_forward} per forward x {executions} forwards")
-    want_int8 = int8_per_layer * per_forward * executions
-    if launches["int8_matmul"] != want_int8 or quantize_launches != want_int8:
-        fail(f"{label}: the int8 kernels launched {launches['int8_matmul']} "
-             f"(quantize pass {quantize_launches}) times, expected "
-             f"{int8_per_layer * per_forward} per forward x {executions} "
-             "forwards")
+    tokens = [rng.integers(0, 256, (1, S)).astype(np.int32)
+              for _ in range(N_REQUESTS)]
+    results, latencies, wall, launches, stats = serve_requests(
+        label, [model], "longctx_tpu",
+        [[("TOKENS", "INT32", t)] for t in tokens], N_THREADS, counters,
+        ["LOGPROBS"])
+    executions = report_serving(label, latencies, wall, stats, launches,
+                                "longctx_tpu")
+    layers = model.transformer.cfg.n_layers
+    check_launches(label, launches, executions, layers,
+                   int8_per_layer * layers)
     # the reference: the same forward with the kernels' plain versions
     run = model.transformer
     fwd = tr.make_forward(run.cfg, quantized=expect_int8, plain=True)
     worst, mean = 0.0, 0.0
     with torch.inference_mode():
-        for tokens, got in zip(requests, results):
-            t = torch.from_numpy(tokens).to("cuda")
+        for toks, res in zip(tokens, results):
+            got = res["LOGPROBS"]
+            t = torch.from_numpy(toks).to("cuda")
             want = language.longctx_scores(fwd(run.params, t), t).cpu().numpy()
             if got.shape != (1, S) or not np.isfinite(got).all():
                 fail(f"{label}: bad LOGPROBS shape {got.shape} or non-finite")
             worst = max(worst, float(np.abs(got - want).max()))
             mean += float(np.abs(got - want).mean()) / N_REQUESTS
-    atol = LOGPROBS_ATOL[expect_int8]
+    atol = SERVED_ATOL[expect_int8]
     print(f"{label}: LOGPROBS vs plain-kernel forward: max_abs_err "
           f"{worst:.3e} (atol {atol}), mean_abs_err {mean:.3e}", flush=True)
     if not worst <= atol:
         fail(f"{label}: served LOGPROBS disagree with the plain forward")
-    profile_forward(label, run, torch, S)
+    profile_forward(label, run, torch, 4, S, 256)
+    return launches
+
+
+def serve_bert(label: str, torch, counters, int8_per_layer: int):
+    """Serve bert_large at full width: BERT_REQUESTS requests of BERT_ROWS
+    sequences from BERT_THREADS threads, each LOGITS held to the
+    plain-kernel forward of its tokens; int8 launches ``int8_per_layer`` per
+    layer, flash none.  Then one B = 32 forward timed and traced.  Returns
+    launch counts."""
+    import numpy as np
+
+    from triton_client_tpu_torch.models import language
+    from triton_client_tpu_torch.models import transformer as tr
+
+    expect_int8 = int8_per_layer > 0
+    model = language.make_bert_large("cuda")
+    S, V = language.BERT_SEQ_LEN, language.BERT_LARGE.vocab_size
+    rng = np.random.default_rng(4321)
+    tokens = [rng.integers(0, V, (BERT_ROWS, S)).astype(np.int32)
+              for _ in range(BERT_REQUESTS)]
+    results, latencies, wall, launches, stats = serve_requests(
+        label, [model], "bert_large",
+        [[("INPUT_IDS", "INT32", t)] for t in tokens], BERT_THREADS,
+        counters, ["LOGITS"])
+    executions = report_serving(label, latencies, wall, stats, launches,
+                                "bert_large")
+    layers = language.BERT_LARGE.n_layers
+    check_launches(label, launches, executions, 0, int8_per_layer * layers)
+    run = model.transformer
+    fwd = tr.make_forward(run.cfg, quantized=expect_int8,
+                          head_cols=language.BERT_HEAD_COLS, plain=True)
+    worst, mean = 0.0, 0.0
+    with torch.inference_mode():
+        for toks, res in zip(tokens, results):
+            got = res["LOGITS"]
+            want = fwd(run.params, torch.from_numpy(toks).to("cuda"))
+            want = want.cpu().numpy()
+            if got.shape != (BERT_ROWS, S, 2) or not np.isfinite(got).all():
+                fail(f"{label}: bad LOGITS shape {got.shape} or non-finite")
+            worst = max(worst, float(np.abs(got - want).max()))
+            mean += float(np.abs(got - want).mean()) / BERT_REQUESTS
+    atol = SERVED_ATOL[expect_int8]
+    print(f"{label}: LOGITS vs plain-kernel forward: max_abs_err "
+          f"{worst:.3e} (atol {atol}), mean_abs_err {mean:.3e}", flush=True)
+    if not worst <= atol:
+        fail(f"{label}: served LOGITS disagree with the plain forward")
+    profile_forward(label, run, torch, 32, S, V)
+    return launches
+
+
+def check_next_tokens(label, toks, logits, plain_last, atol) -> None:
+    """Each request's NEXT_LOGIT within ``atol`` of the plain forward's
+    max, and its NEXT_TOKEN the plain argmax or a near tie (the plain
+    logit at the served token within ``atol`` of the max)."""
+    import numpy as np
+
+    worst, ties = 0.0, 0
+    for tok, logit, last in zip(toks, logits, plain_last):
+        tok, logit = int(np.asarray(tok).reshape(-1)[0]), \
+            float(np.asarray(logit).reshape(-1)[0])
+        best = float(last.max())
+        worst = max(worst, abs(logit - best))
+        if tok != int(last.argmax()):
+            ties += 1
+            if not last[tok] >= best - atol:
+                fail(f"{label}: NEXT_TOKEN {tok} is not the plain forward's "
+                     f"argmax {int(last.argmax())} nor within {atol} of it")
+    print(f"{label}: NEXT_LOGIT vs plain-kernel forward: max_abs_err "
+          f"{worst:.3e} (atol {atol}); NEXT_TOKEN equal in "
+          f"{len(toks) - ties} of {len(toks)}, near ties {ties}", flush=True)
+    if not worst <= atol:
+        fail(f"{label}: served NEXT_LOGIT disagrees with the plain forward")
+
+
+def _plain_last_logits(torch, run, expect_int8, tokens):
+    from triton_client_tpu_torch.models import transformer as tr
+
+    fwd = tr.make_forward(run.cfg, quantized=expect_int8, plain=True)
+    out = []
+    with torch.inference_mode():
+        for toks in tokens:
+            t = torch.clamp(torch.from_numpy(toks).to("cuda"), 0,
+                            run.cfg.vocab_size - 1)
+            out.append(fwd(run.params, t)[0, -1].float().cpu().numpy())
+    return out
+
+
+def serve_next_token(label: str, torch, counters, make, name: str,
+                     int8_per_layer: int):
+    """Serve a next-token model (moe_tpu or llama_tpu) directly: N_REQUESTS
+    from N_THREADS threads, held as ``check_next_tokens`` says; the int8
+    kernel launches ``int8_per_layer`` times per layer.  Returns launch
+    counts."""
+    import numpy as np
+
+    model = make("cuda")
+    run = model.transformer
+    S = model.config.input[0].dims[0]
+    rng = np.random.default_rng(99)
+    tokens = [rng.integers(0, 256, (1, S)).astype(np.int32)
+              for _ in range(N_REQUESTS)]
+    results, latencies, wall, launches, stats = serve_requests(
+        label, [model], name, [[("TOKENS", "INT32", t)] for t in tokens],
+        N_THREADS, counters, ["NEXT_TOKEN", "NEXT_LOGIT"])
+    executions = report_serving(label, latencies, wall, stats, launches,
+                                name)
+    check_launches(label, launches, executions, 0,
+                   int8_per_layer * run.cfg.n_layers)
+    quantized = "wq_scale" in run.params
+    check_next_tokens(label, [r["NEXT_TOKEN"] for r in results],
+                      [r["NEXT_LOGIT"] for r in results],
+                      _plain_last_logits(torch, run, quantized, tokens),
+                      SERVED_ATOL[quantized])
+    profile_forward(label, run, torch, model.max_batch_size, S,
+                    run.cfg.vocab_size)
+    return launches
+
+
+def serve_ensemble(torch, counters):
+    """ensemble_llama over llama_tpu 1b (bf16): N_REQUESTS binary BYTES
+    TEXT requests from N_THREADS threads.  llama_tpu's outputs (NEXT_TOKEN
+    and ``_logit``) are recorded as it computes them and held to the plain
+    forward; OUT_TEXT must be ``bytes([NEXT_TOKEN % 256])``."""
+    import numpy as np
+
+    from triton_client_tpu_torch.models import language
+
+    label = "serve ensemble_llama (llama_tpu 1b bf16)"
+    llama = language.make_llama_tpu("cuda")
+    run = llama.transformer
+    seen = []  # (TOKENS, NEXT_TOKEN, NEXT_LOGIT) of each llama_tpu batch
+    inner = llama._fn
+
+    def recording(TOKENS):
+        out = inner(TOKENS)
+        seen.append((TOKENS.cpu().numpy(), out["NEXT_TOKEN"].cpu().numpy(),
+                     out["NEXT_LOGIT"].cpu().numpy()))
+        return out
+
+    llama._fn = recording
+    pre = language.make_llama_preprocess()
+    texts = [f"request {i}: the quick brown fox jumps over {i * 7} lazy "
+             "dogs".encode() + bytes([0x80 + i, 0xff]) for i in range(N_REQUESTS)]
+    results, latencies, wall, launches, stats = serve_requests(
+        label, [pre, llama, language.make_llama_postprocess(),
+                language.make_ensemble_llama()], "ensemble_llama",
+        [[("TEXT", "BYTES", np.array([[t]], dtype=object))] for t in texts],
+        N_THREADS, counters, ["OUT_TEXT", "NEXT_TOKEN"])
+    executions = report_serving(label, latencies, wall, stats, launches,
+                                "llama_tpu")
+    check_launches(label, launches, executions, 0, 0)
+    tokens, toks, logits = [], [], []
+    for text, res in zip(texts, results):
+        out_text, tok = res["OUT_TEXT"], res["NEXT_TOKEN"]
+        if out_text.shape != (1, 1) or tok.shape != (1, 1) or \
+                bytes(out_text[0, 0]) != bytes([int(tok[0, 0]) % 256]):
+            fail(f"{label}: OUT_TEXT {out_text!r} does not match NEXT_TOKEN "
+                 f"{tok!r}")
+        row = pre.execute({"TEXT": np.array([[text]], dtype=object)},
+                          {})["TOKENS"]
+        # llama_tpu's own answer for this row, from the batch it ran in
+        hits = [(t[i], lg[i]) for batch, t, lg in seen
+                for i in range(len(batch)) if (batch[i] == row[0]).all()]
+        if not hits or int(hits[-1][0][0]) != int(tok[0, 0]):
+            fail(f"{label}: llama_tpu's recorded NEXT_TOKEN for request "
+                 f"{text!r} is not the ensemble's {int(tok[0, 0])}")
+        tokens.append(row)
+        toks.append(tok)
+        logits.append(hits[-1][1])
+    check_next_tokens(label, toks, logits,
+                      _plain_last_logits(torch, run, False, tokens),
+                      SERVED_ATOL[False])
+    fwd_ms = profile_forward(label, run, torch, 8, language.LLAMA_SEQ_LEN,
+                             run.cfg.vocab_size)
+    # the f32 head over the 128,256-column vocab at every position
+    D, V = run.cfg.d_model, run.cfg.vocab_size
+    h = torch.randn((8, language.LLAMA_SEQ_LEN, D), device="cuda")
+    head = run.params["head"]
+    head_ms = timed_ms(lambda: h.float() @ head.float(), iters=5)
+    flops = 2.0 * 8 * language.LLAMA_SEQ_LEN * D * V
+    print(f"{label}: f32 head [8,{language.LLAMA_SEQ_LEN},{D}] x [{D},{V}] "
+          f"{head_ms:.3f} ms ({flops / head_ms / 1e9:.1f} TFLOP/s in f32), "
+          f"{head_ms / fwd_ms:.1%} of the B=8 forward", flush=True)
+    del h
     return launches
 
 
@@ -485,33 +881,78 @@ def main() -> int:
     int8 = check_int8(im, torch, gen, ptxas.get("int8_matmul", ""))
     torch.cuda.empty_cache()
 
+    check_int8_model_shapes(im, torch, gen)
+    check_flash_bert(fa, torch, gen)
+
+    from triton_client_tpu_torch.models import language
+
     counters = {"flash_attention": fa, "int8_matmul": im}
-    for var in ("TRITON_TPU_QUANT_LONGCTX_TPU", "TRITON_TPU_QUANT",
-                "TRITON_TPU_INT8_FUSED"):
+    for var in ("TRITON_TPU_QUANT", "TRITON_TPU_INT8_FUSED",
+                "TRITON_TPU_FLASH", "TRITON_TPU_FLASH_MIN_S",
+                "TRITON_TPU_LONGCTX_PRESET", "TRITON_TPU_MOE_PRESET",
+                "TRITON_TPU_LLAMA_PRESET"):
         os.environ.pop(var, None)
-    bf16 = serve_phase("serve bf16", torch, counters, int8_per_layer=0)
-    torch.cuda.empty_cache()
-    os.environ["TRITON_TPU_QUANT_LONGCTX_TPU"] = "int8"
-    q8 = serve_phase("serve int8", torch, counters, int8_per_layer=1)
-    torch.cuda.empty_cache()
-    # beside the default (FFN-down fused), FFN-up fused too: its forward
-    # time and LOGPROBS error; not the main path, so its launches are not
-    # in the kernels line
-    os.environ["TRITON_TPU_INT8_FUSED"] = "all"
-    serve_phase("serve int8 fused=all", torch, counters, int8_per_layer=2)
-    os.environ.pop("TRITON_TPU_INT8_FUSED")
-    os.environ.pop("TRITON_TPU_QUANT_LONGCTX_TPU")
+
+    def phase(label, fn, *args, quant=None, fused=None, **kw):
+        """One served path, under TRITON_TPU_QUANT=``quant`` and
+        TRITON_TPU_INT8_FUSED=``fused`` (unset when None)."""
+        for var, val in (("TRITON_TPU_QUANT", quant),
+                         ("TRITON_TPU_INT8_FUSED", fused)):
+            if val is None:
+                os.environ.pop(var, None)
+            else:
+                os.environ[var] = val
+        launches = fn(label, torch, counters, *args, **kw)
+        gc.collect()
+        torch.cuda.empty_cache()
+        return launches
+
+    # the main path: every served model, bf16 and int8 under the default
+    # w2; beside it, FFN-up fused too (``all``) for its forward time and
+    # error, not in the kernels line
+    paths = {
+        "longctx_tpu bf16": phase("serve bf16", serve_longctx,
+                                  int8_per_layer=0),
+        "longctx_tpu int8": phase("serve int8", serve_longctx,
+                                  int8_per_layer=1, quant="int8"),
+    }
+    phase("serve int8 fused=all", serve_longctx, int8_per_layer=2,
+          quant="int8", fused="all")
+    paths["bert_large bf16"] = phase("serve bert_large bf16", serve_bert,
+                                     int8_per_layer=0)
+    paths["bert_large int8"] = phase("serve bert_large int8", serve_bert,
+                                     int8_per_layer=1, quant="int8")
+    phase("serve bert_large int8 fused=all", serve_bert, int8_per_layer=2,
+          quant="int8", fused="all")
+    paths["moe_tpu bf16"] = phase(
+        "serve moe_tpu bf16", serve_next_token, language.make_moe_tpu,
+        "moe_tpu", int8_per_layer=0)
+    paths["moe_tpu int8"] = phase(
+        "serve moe_tpu int8", serve_next_token, language.make_moe_tpu,
+        "moe_tpu", int8_per_layer=0, quant="int8")
+    paths["ensemble_llama bf16"] = phase(
+        "serve ensemble_llama", lambda label, torch, counters:
+        serve_ensemble(torch, counters))
+    paths["llama_tpu int8"] = phase(
+        "serve llama_tpu int8", serve_next_token, language.make_llama_tpu,
+        "llama_tpu", int8_per_layer=1, quant="int8")
+    for var in ("TRITON_TPU_QUANT", "TRITON_TPU_INT8_FUSED"):
+        os.environ.pop(var, None)
+    for path, launches in paths.items():
+        print(f"launches on {path}: flash_attention "
+              f"{launches['flash_attention']}, int8_matmul "
+              f"{launches['int8_matmul']}", flush=True)
 
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          "source": "triton_client_tpu_torch/csrc/flash_attention.cu",
          "replaces": "triton_client_tpu/ops/flash_attention.py:140",
-         "launches": bf16["flash_attention"] + q8["flash_attention"],
+         "launches": sum(p["flash_attention"] for p in paths.values()),
          **flash},
         {"name": "int8_matmul", "route": "cuda",
          "source": "triton_client_tpu_torch/csrc/int8_matmul.cu",
          "replaces": "triton_client_tpu/ops/int8_matmul.py:102",
-         "launches": bf16["int8_matmul"] + q8["int8_matmul"],
+         "launches": sum(p["int8_matmul"] for p in paths.values()),
          **int8},
     ]
     for k in kernels:

@@ -1,5 +1,7 @@
 """On-card tests of the PyTorch port: each CUDA kernel against its plain
-version, and the served forward through the kernels.
+version (at the serving shapes of longctx_tpu, bert_large and llama_tpu
+1b), the served forward through the kernels, and one ensemble_llama request
+over llama_tpu 1b.
 
 They need an NVIDIA GPU and nvcc and skip elsewhere.  This file imports no
 JAX, so it runs on a machine that has none:
@@ -99,6 +101,17 @@ def test_flash_bf16_kernel_head_dims_and_ragged_lengths(cuda, D, causal, S):
         _assert_flash_close(got, want, 2e-2, 1e-2)
 
 
+@pytest.mark.parametrize("B", [1, 32])
+def test_flash_bf16_kernel_bert_large_shape_not_causal(cuda, B):
+    """bert_large's attention shape (S = 384 sits under the flash gate, so
+    the served forward takes the ring; the kernel still takes it)."""
+    q, k, v = (_rand((B, 16, 384, 64), s).to(cuda, torch.bfloat16)
+               for s in (21, 22, 23))
+    got = ops.flash_attention(q, k, v, causal=False)
+    want = ops.flash_attention_reference(q, k, v, causal=False)
+    _assert_flash_close(got, want, 2e-2, 1e-2)
+
+
 def test_flash_bf16_kernel_takes_more_than_65535_heads(cuda):
     """B*H = 70,000 with two query tiles per head (S = 200): the persistent
     grid numbers work items past the 65,535 of a grid's y dimension; f32,
@@ -164,7 +177,11 @@ _INT8_CASES = ([(m, k, n, torch.bfloat16) for k, n in ((4096, 1024),
                 for m in (1, 50, 300, 4096, 16384)]
                + [(300, 4096, 1024, torch.float32),
                   (300, 1024, 4096, torch.float32),
-                  (200, 256, 384, torch.bfloat16)])
+                  (200, 256, 384, torch.bfloat16)]
+               # llama_tpu 1b: FFN-down and FFN-up (under ``all``)
+               + [(m, k, n, torch.bfloat16) for k, n in ((8192, 2048),
+                                                        (2048, 8192))
+                  for m in (1, 128, 1000, 1024)])
 
 
 @pytest.mark.parametrize("m,k,n,dtype", _INT8_CASES)
@@ -279,3 +296,56 @@ def test_served_forward_runs_the_kernels(cuda, monkeypatch, quant, atol):
             fwd(model.transformer.params, t), t).cpu().numpy()
     assert out.shape == (2, 4096) and np.isfinite(out).all()
     np.testing.assert_allclose(out, want, rtol=0, atol=atol)
+
+
+def test_ensemble_llama_served_on_card(cuda, monkeypatch):
+    """One ensemble_llama request over HTTP, binary BYTES in and out,
+    through llama_tpu 1b on the card: OUT_TEXT is NEXT_TOKEN's byte, and
+    NEXT_TOKEN is the plain forward's argmax or a near tie (its logit within
+    the bf16 bound 5e-2 of the max)."""
+    import http.client
+    import json
+
+    from triton_client_tpu_torch import utils
+    from triton_client_tpu_torch.server.registry import ModelRegistry
+    from triton_client_tpu_torch.server.testing import ServerHarness
+
+    for var in ("TRITON_TPU_LLAMA_PRESET", "TRITON_TPU_QUANT",
+                "TRITON_TPU_QUANT_LLAMA_TPU"):
+        monkeypatch.delenv(var, raising=False)
+    llama = language.make_llama_tpu("cuda")
+    assert llama.transformer.cfg.d_model == 2048
+    reg = ModelRegistry()
+    for m in (language.make_llama_preprocess(), llama,
+              language.make_llama_postprocess(),
+              language.make_ensemble_llama()):
+        reg.register_model(m)
+    text = np.array([[b"the quick brown fox \xff"]], dtype=object)
+    raw = bytes(utils.serialize_byte_tensor_raw(text))
+    header = json.dumps({
+        "inputs": [{"name": "TEXT", "datatype": "BYTES", "shape": [1, 1],
+                    "parameters": {"binary_data_size": len(raw)}}],
+        "outputs": [{"name": n, "parameters": {"binary_data": True}}
+                    for n in ("OUT_TEXT", "NEXT_TOKEN")]}).encode()
+    with ServerHarness(reg) as h:
+        conn = http.client.HTTPConnection("127.0.0.1", h.http_port,
+                                          timeout=600)
+        conn.request("POST", "/v2/models/ensemble_llama/infer", header + raw,
+                     {"Inference-Header-Content-Length": str(len(header))})
+        resp = conn.getresponse()
+        body = resp.read()
+        conn.close()
+    assert resp.status == 200, body[:500]
+    hlen = int(resp.getheader("Inference-Header-Content-Length"))
+    outs = json.loads(body[:hlen])["outputs"]
+    n_text = outs[0]["parameters"]["binary_data_size"]
+    out_text = utils.deserialize_bytes_tensor(body[hlen:hlen + n_text])
+    tok = int(np.frombuffer(body[hlen + n_text:], np.int32)[0])
+    assert out_text.tolist() == [bytes([tok % 256])]
+    tokens = language.make_llama_preprocess().execute(
+        {"TEXT": text}, {})["TOKENS"]
+    fwd = tr.make_forward(llama.transformer.cfg, plain=True)
+    with torch.inference_mode():
+        last = fwd(llama.transformer.params,
+                   torch.from_numpy(tokens).to(cuda))[0, -1].float()
+    assert last[tok] >= last.max() - 5e-2

@@ -10,8 +10,13 @@ every ``psum`` of the reference is the identity, the layer ``scan`` is a
 Python loop, and attention at ``sp = 1`` is the flash kernel at or above the
 gate and the single-shard ring below it.
 
-Not ported yet: the MoE FFN, multi-device meshes, pipeline parallelism and
-the training step.
+The MoE FFN is the reference's too: an f32 router keeps the top-k experts by
+threshold, every expert runs densely and the outputs are weighted by the
+routing probabilities; under int8 the expert weights are weight-only
+(dequantized at use), so no int8 kernel runs in it.
+
+Not ported yet: multi-device meshes, pipeline parallelism and the training
+step.
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ class TransformerConfig:
     n_heads: int = 4
     head_dim: int = 16
     d_ff: int = 128
-    n_experts: int = 2        # 0 => dense FFN, >0 => MoE FFN (not ported)
+    n_experts: int = 2        # 0 => dense FFN, >0 => MoE FFN
     moe_top_k: int = 2
     rope_theta: float = 10000.0
     norm_eps: float = 1e-6
@@ -50,26 +55,35 @@ class TransformerConfig:
         return self.n_experts > 0
 
 
+# Llama-3-8B-shaped config (the same code path at the real model's widths)
+LLAMA3_8B = TransformerConfig(
+    vocab_size=128256, d_model=4096, n_layers=32, n_heads=32,
+    head_dim=128, d_ff=14336, n_experts=0,
+)
+
 _LAYER_KEYS_DENSE = ("wq", "wk", "wv", "wo", "ln1", "ln2", "w1", "w2")
+_LAYER_KEYS_MOE = ("wq", "wk", "wv", "wo", "ln1", "ln2", "router", "we1",
+                   "we2")
 
 
-def init_params(generator: torch.Generator, cfg: TransformerConfig,
-                device="cpu") -> Dict[str, torch.Tensor]:
-    """Float32 init with the reference's shapes and scales (dense FFN).
+def init_params(generator: torch.Generator, cfg: TransformerConfig
+                ) -> Dict[str, torch.Tensor]:
+    """Float32 init with the reference's shapes and scales, drawn on the
+    generator's device (with a CUDA generator, Llama 1b's 1.3 B weights are
+    drawn on the card, not on the host).
 
     ``torch.Generator`` draws differ from ``jax.random`` for the same seed;
     tests that compare the two packages carry the reference's weights across
     with :func:`params_from_jax` instead."""
-    if cfg.moe:
-        raise NotImplementedError("the MoE FFN is not ported yet")
     D, H, K, Fd, L, V = (cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff,
                          cfg.n_layers, cfg.vocab_size)
+    device = generator.device
 
     def normal(*shape, std):
-        t = torch.randn(shape, generator=generator, dtype=torch.float32)
-        return (t * std).to(device)
+        return torch.randn(shape, generator=generator, dtype=torch.float32,
+                           device=device) * std
 
-    return {
+    p = {
         "embed": normal(V, D, std=0.02),
         "wq": normal(L, D, H, K, std=1.0 / math.sqrt(D)),
         "wk": normal(L, D, H, K, std=1.0 / math.sqrt(D)),
@@ -79,19 +93,25 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig,
         "ln2": torch.ones(L, D, device=device),
         "final_ln": torch.ones(D, device=device),
         "head": normal(D, V, std=0.02),
-        "w1": normal(L, D, Fd, std=1.0 / math.sqrt(D)),
-        "w2": normal(L, Fd, D, std=1.0 / math.sqrt(Fd)),
     }
+    if cfg.moe:
+        E = cfg.n_experts
+        p["router"] = normal(L, D, E, std=0.02)
+        p["we1"] = normal(L, E, D, Fd, std=1.0 / math.sqrt(D))
+        p["we2"] = normal(L, E, Fd, D, std=1.0 / math.sqrt(Fd))
+    else:
+        p["w1"] = normal(L, D, Fd, std=1.0 / math.sqrt(D))
+        p["w2"] = normal(L, Fd, D, std=1.0 / math.sqrt(Fd))
+    return p
 
 
 def params_from_jax(np_params: Dict[str, np.ndarray], cfg: TransformerConfig,
                     device="cpu") -> Dict[str, torch.Tensor]:
     """The reference's parameter dict, carried across as numpy arrays.
 
-    Layouts are kept as they are; float arrays become f32 tensors, int8
-    weights stay int8, ``*_scale`` siblings stay f32."""
-    if cfg.moe:
-        raise NotImplementedError("the MoE FFN is not ported yet")
+    Layouts are kept as they are (the MoE keys ``router``, ``we1``, ``we2``
+    too); float arrays become f32 tensors, int8 weights stay int8,
+    ``*_scale`` siblings stay f32."""
     out = {}
     for name, arr in np_params.items():
         a = np.asarray(arr)
@@ -115,9 +135,13 @@ def quantize_layer_weights(params: Dict[str, torch.Tensor],
     over each weight's contraction axes), stored as ``<name>_scale``.
 
     The int8 weights keep the reference's shapes and values but are stored
-    K-major (contraction axes innermost), once, so no call copies them."""
+    K-major (contraction axes innermost), once, so no call copies them.
+    The MoE experts (``we1 [L, E, D, F]``, ``we2 [L, E, F, D]``) reduce
+    over their middle dim per expert; the router stays fp (it picks the
+    experts)."""
     contract_axes = {"wq": (1,), "wk": (1,), "wv": (1,),
-                     "wo": (1, 2), "w1": (1,), "w2": (1,)}
+                     "wo": (1, 2), "w1": (1,), "w2": (1,),
+                     "we1": (2,), "we2": (2,)}
     out = dict(params)
     for k, axes in contract_axes.items():
         if k not in params:
@@ -290,12 +314,32 @@ def _attn_apply(blk, x, cfg: TransformerConfig, ops: _Ops = _KERNEL_OPS):
     return x + out
 
 
+def _moe_ffn(blk, h, cfg: TransformerConfig):
+    """Top-k routed experts, computed densely over all experts (``ep = 1``:
+    the reference's psums are the identity).  Routing runs in f32 and keeps
+    every expert whose score reaches the k-th largest, so ties keep more
+    than k; int8 expert weights are dequantized at use (weight-only)."""
+    gate = torch.einsum("bsd,de->bse", h.float(), blk["router"].float())
+    thresh = torch.topk(gate, cfg.moe_top_k, dim=-1).values[..., -1:]
+    probs = torch.softmax(
+        torch.where(gate >= thresh, gate, torch.full_like(gate, -1e30)), -1)
+
+    def weight(name):
+        w = blk[name].to(h.dtype)
+        s = blk.get(name + "_scale")
+        return w * s.to(h.dtype) if s is not None else w
+
+    he = F.silu(torch.einsum("bsd,edf->ebsf", h, weight("we1")))
+    oe = torch.einsum("ebsf,efd->ebsd", he, weight("we2"))
+    return torch.einsum("ebsd,bse->bsd", oe, probs.to(oe.dtype))
+
+
 def _ffn_apply(blk, x, cfg: TransformerConfig, ops: _Ops = _KERNEL_OPS):
-    if cfg.moe:
-        raise NotImplementedError("the MoE FFN is not ported yet")
     h = _rmsnorm(x, blk["ln2"], cfg.norm_eps)
     B, S, D = h.shape
-    if "w1_scale" in blk:
+    if cfg.moe:
+        out = _moe_ffn(blk, h, cfg)
+    elif "w1_scale" in blk:
         fused = _int8_fused_mode()
         if "w1" in fused:
             he = ops.int8_mm(h, blk["w1"], blk["w1_scale"])
@@ -318,9 +362,10 @@ def _ffn_apply(blk, x, cfg: TransformerConfig, ops: _Ops = _KERNEL_OPS):
 
 def _stage_apply(params, x, cfg: TransformerConfig, ops: _Ops = _KERNEL_OPS):
     """Run the stack of layers (the reference's ``lax.scan``)."""
+    keys = _LAYER_KEYS_MOE if cfg.moe else _LAYER_KEYS_DENSE
     for layer in range(cfg.n_layers):
         blk = {}
-        for k in _LAYER_KEYS_DENSE:
+        for k in keys:
             blk[k] = params[k][layer]
             if k + "_scale" in params:
                 blk[k + "_scale"] = params[k + "_scale"][layer]
@@ -338,8 +383,6 @@ def make_forward(cfg: TransformerConfig, quantized: bool = False,
     the first N head columns.  ``plain=True`` runs the kernels' plain
     versions in their place: the reference forward a kernel run is checked
     against."""
-    if cfg.moe:
-        raise NotImplementedError("the MoE FFN is not ported yet")
     ops = _PLAIN_OPS if plain else _KERNEL_OPS
 
     def forward(params, tokens):
@@ -347,7 +390,7 @@ def make_forward(cfg: TransformerConfig, quantized: bool = False,
             raise ValueError(
                 f"make_forward(quantized={quantized}) got "
                 f"{'int8' if 'wq_scale' in params else 'float'} params")
-        x = params["embed"].to(cfg.dtype)[tokens.long()]
+        x = params["embed"][tokens.long()].to(cfg.dtype)
         x = _stage_apply(params, x, cfg, ops)
         h = _rmsnorm(x, params["final_ln"], cfg.norm_eps)
         head = params["head"]

@@ -1,9 +1,10 @@
 """The port's model zoo.
 
-Counterpart of ``triton_client_tpu/models/zoo.py`` for this slice:
+Counterpart of ``triton_client_tpu/models/zoo.py`` for the ported models:
 ``simple`` (the protocol fixture: two INT32 [1, 16] inputs, their sum and
-difference, host placed) and ``longctx_tpu`` (``models/language.py``).  The
-other fixtures wait for later slices.
+difference, host placed) and the language models of ``models/language.py``
+(``bert_large``, ``longctx_tpu``, ``moe_tpu``, ``llama_tpu`` and the
+``ensemble_llama`` chain).  The other fixtures wait for later slices.
 """
 
 from __future__ import annotations
@@ -29,9 +30,16 @@ def make_simple() -> TorchModel:
 
 
 def register_all(registry: ModelRegistry, device=None) -> None:
-    """Register every ported model; ``longctx_tpu`` on ``device`` (default
-    CUDA)."""
+    """Register every ported model; the transformer models on ``device``
+    (default CUDA).  Registration is cheap: each transformer draws its
+    weights at its first request."""
     from . import language
 
     registry.register_model(make_simple())
+    registry.register_model(language.make_bert_large(device))
     registry.register_model(language.make_longctx_tpu(device))
+    registry.register_model(language.make_moe_tpu(device))
+    registry.register_model(language.make_llama_preprocess())
+    registry.register_model(language.make_llama_tpu(device))
+    registry.register_model(language.make_llama_postprocess())
+    registry.register_model(language.make_ensemble_llama())

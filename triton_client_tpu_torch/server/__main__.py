@@ -3,9 +3,17 @@ over the v2 HTTP protocol.
 
     python -m triton_client_tpu_torch.server --http-port 8000 [--device cuda|cpu]
 
-``--device cuda`` (the default) serves ``longctx_tpu`` at its ``base``
-preset through the CUDA kernels and fails if CUDA is missing;
-``--device cpu`` serves the ``tiny`` preset with the kernels' plain versions.
+Serves ``simple``, ``bert_large``, ``longctx_tpu``, ``moe_tpu``,
+``llama_tpu`` and ``ensemble_llama`` (with its ``llama_preprocess`` and
+``llama_postprocess`` steps).  ``--device cuda`` (the default) serves the
+full-size presets (``longctx_tpu`` base, ``moe_tpu`` base, ``llama_tpu``
+1b) through the CUDA kernels and fails if CUDA is missing; ``--device cpu``
+serves the ``tiny`` presets with the kernels' plain versions.
+``bert_large`` has no preset: full width on either device.  Each
+transformer draws its weights at its first request.
+``TRITON_TPU_LONGCTX_PRESET``, ``TRITON_TPU_MOE_PRESET`` and
+``TRITON_TPU_LLAMA_PRESET`` are read at start-up,
+``TRITON_TPU_QUANT[_<MODEL>]=int8`` at a model's first request.
 """
 
 from __future__ import annotations

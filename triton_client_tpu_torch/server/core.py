@@ -13,6 +13,15 @@ one CUDA event is recorded behind the copies, and the worker waits on that
 event (the counterpart of the reference's ``copy_to_host_async`` then
 ``np.asarray`` on the executor, core.py:2111-2116).
 
+Ensembles run here too (the reference's ``_run_ensemble``,
+core.py:2170-2262): a step runs once every tensor it reads is in the pool,
+a member with dynamic batching runs through its own batcher so concurrent
+ensemble requests coalesce on it, and the ensemble's outputs go through
+:func:`readback`.  Ready steps run one after another on the request thread
+(the reference gathers them on its event loop), and every step's outputs
+come back to the host (the reference keeps an unbatched member's outputs on
+the device).
+
 QoS tiers, tracing, cost and device statistics, chaos, the fleet controller,
 shared memory and the response cache are not ported yet.
 """
@@ -29,7 +38,7 @@ import numpy as np
 import torch
 
 from ..utils import np_to_triton_dtype
-from .model import Model
+from .model import EnsembleModel, Model
 from .registry import ModelRegistry
 from .types import (InferError, InferRequest, InferResponse, InputTensor,
                     OutputTensor)
@@ -219,7 +228,9 @@ class InferenceCore:
         inputs = self._resolve_inputs(model, request)
         params = dict(request.parameters)
         try:
-            if self._use_batcher(model):
+            if isinstance(model, EnsembleModel):
+                outputs = self._run_ensemble(model, inputs, params)
+            elif self._use_batcher(model):
                 outputs = self._batcher(model).submit(inputs, params)
             else:
                 outputs = self.run_model(model, inputs, params)
@@ -234,6 +245,47 @@ class InferenceCore:
         """Execute and read every output back to the host (on the calling
         thread: a batch worker, or the request thread when unbatched)."""
         return readback(model.execute(inputs, params))
+
+    def _run_ensemble(self, model: EnsembleModel, inputs: Dict[str, Any],
+                      params: Dict[str, Any]) -> Dict[str, np.ndarray]:
+        """Run the ensemble's steps in data-dependency order; tensors flow
+        between them through ``input_map``/``output_map``."""
+        pool: Dict[str, Any] = dict(inputs)
+        remaining = list(model.config.ensemble_scheduling)
+        while remaining:
+            ready = [s for s in remaining
+                     if all(p in pool for p in s.input_map.values())]
+            if not ready:
+                missing = sorted(
+                    {p for s in remaining for p in s.input_map.values()}
+                    - set(pool))
+                raise InferError(
+                    f"ensemble '{model.name}': tensor(s) "
+                    f"{', '.join(missing)} are never produced")
+            for step in ready:
+                outs = self._run_ensemble_step(step, pool, params)
+                for member_output, pool_name in step.output_map.items():
+                    if member_output not in outs:
+                        raise InferError(
+                            f"ensemble '{model.name}': step "
+                            f"'{step.model_name}' did not produce "
+                            f"'{member_output}'")
+                    pool[pool_name] = outs[member_output]
+            done = {id(s) for s in ready}
+            remaining = [s for s in remaining if id(s) not in done]
+        return readback({o.name: pool[o.name] for o in model.config.output
+                         if o.name in pool})
+
+    def _run_ensemble_step(self, step, pool: Dict[str, Any],
+                           params: Dict[str, Any]) -> Dict[str, Any]:
+        member = self.registry.get(step.model_name)
+        step_inputs = {member_input: pool[pool_name]
+                       for member_input, pool_name in step.input_map.items()}
+        # every pool tensor is a host array (the request's, or a step's
+        # output read back), so a batched member always coalesces
+        if self._use_batcher(member):
+            return self._batcher(member).submit(step_inputs, params)
+        return self.run_model(member, step_inputs, params)
 
     @staticmethod
     def _use_batcher(model: Model) -> bool:

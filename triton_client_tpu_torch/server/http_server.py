@@ -5,7 +5,9 @@ Counterpart of ``triton_client_tpu/server/http_server.py`` (aiohttp there;
 serves health and readiness, server and model metadata, model config, and
 infer -- with JSON tensors and the binary-tensor-data extension: a body of
 ``<json header><raw buffers>`` with the JSON length in the
-``Inference-Header-Content-Length`` header, in both directions.
+``Inference-Header-Content-Length`` header, in both directions.  BYTES
+tensors are JSON strings, or in binary the length-prefixed serialization
+with ``binary_data_size`` its length.
 
 Not ported yet: statistics, the repository, trace and logging APIs,
 shared-memory registration, generate/SSE, gzip and the wire templates.
@@ -21,7 +23,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..utils import triton_to_np_dtype
+from ..utils import (deserialize_bytes_tensor, serialize_byte_tensor_raw,
+                     triton_to_np_dtype)
 from .core import InferenceCore
 from .types import (InferError, InferRequest, InputTensor, RequestedOutput,
                     reshape_input)
@@ -223,13 +226,20 @@ def decode_request(model_name: str, version: str, body: dict,
 
 def _numeric_dtype(datatype: str, name: str) -> np.dtype:
     dt = triton_to_np_dtype(datatype)
-    if dt is None or dt == np.object_:
+    if dt is None:
         raise InferError(
             f"unsupported datatype '{datatype}' for input '{name}'")
     return dt
 
 
 def _bytes_to_array(chunk: bytes, datatype: str, shape, name: str):
+    if datatype == "BYTES":
+        try:
+            flat = deserialize_bytes_tensor(chunk)
+        except ValueError as e:
+            raise InferError(
+                f"malformed BYTES payload for input '{name}': {e}")
+        return reshape_input(flat, shape, name)
     dt = _numeric_dtype(datatype, name)
     expected = math.prod(shape) * dt.itemsize
     if len(chunk) != expected:
@@ -239,7 +249,27 @@ def _bytes_to_array(chunk: bytes, datatype: str, shape, name: str):
     return reshape_input(np.frombuffer(chunk, dtype=dt), shape, name)
 
 
+def _flatten(x):
+    if isinstance(x, list):
+        for item in x:
+            yield from _flatten(item)
+    else:
+        yield x
+
+
 def _json_to_array(data, datatype: str, shape, name: str):
+    if datatype == "BYTES":
+        def coerce(x):
+            if isinstance(x, str):
+                return x.encode("utf-8")
+            if isinstance(x, (bytes, bytearray, list)):
+                return bytes(x)
+            # bytes(int) would allocate that many zero bytes
+            raise InferError(
+                f"BYTES input '{name}' elements must be strings or byte "
+                f"arrays, got {type(x).__name__}")
+        flat = np.array([coerce(x) for x in _flatten(data)], dtype=np.object_)
+        return reshape_input(flat, shape, name)
     dt = _numeric_dtype(datatype, name)
     try:
         arr = np.array(data, dtype=dt)
@@ -251,7 +281,10 @@ def _json_to_array(data, datatype: str, shape, name: str):
 def encode_response(resp, requested: Dict[str, RequestedOutput],
                     default_binary: bool) -> Tuple[bytes, List[memoryview]]:
     """The v2 response: its JSON header, and the raw bytes of each binary
-    output in output order (views of the output arrays, not copies)."""
+    output in output order (views of numeric output arrays, not copies; a
+    BYTES output's one serialization buffer).  A BYTES output in JSON is a
+    list of UTF-8 strings, and one that is not UTF-8 fails, as in the
+    reference."""
     outputs: List[Dict[str, Any]] = []
     segments: List[memoryview] = []
     for out in resp.outputs:
@@ -259,12 +292,23 @@ def encode_response(resp, requested: Dict[str, RequestedOutput],
                                  "shape": list(out.shape)}
         spec = requested.get(out.name)
         binary = spec.binary_data if spec is not None else default_binary
-        data = np.ascontiguousarray(out.data)
-        if binary:
-            segments.append(memoryview(data.reshape(-1)).cast("B"))
-            entry["parameters"] = {"binary_data_size": data.nbytes}
+        if out.datatype == "BYTES":
+            arr = np.asarray(out.data)
+            if binary:
+                seg = memoryview(serialize_byte_tensor_raw(arr))
+            else:
+                entry["data"] = [
+                    x.decode("utf-8") if isinstance(x, (bytes, bytearray))
+                    else str(x) for x in arr.flatten(order="C")]
         else:
-            entry["data"] = data.reshape(-1).tolist()
+            data = np.ascontiguousarray(out.data)
+            if binary:
+                seg = memoryview(data.reshape(-1)).cast("B")
+            else:
+                entry["data"] = data.reshape(-1).tolist()
+        if binary:
+            segments.append(seg)
+            entry["parameters"] = {"binary_data_size": seg.nbytes}
         outputs.append(entry)
     header: Dict[str, Any] = {"model_name": resp.model_name,
                               "model_version": resp.model_version or "1",

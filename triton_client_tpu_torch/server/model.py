@@ -11,6 +11,8 @@ the v2 ``/config`` JSON itself.
   ``instance_group`` names.  Outputs may stay on the device; the core reads
   them back off the request thread.
 * :class:`PyModel` runs arbitrary Python over numpy arrays.
+* :class:`EnsembleModel` names a DAG of member models (its config's
+  ``ensemble_scheduling``); the core runs it.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from .types import InferError
 
 
 @dataclass
@@ -35,8 +38,19 @@ class TensorConfig:
 
 
 @dataclass
+class EnsembleStep:
+    """One step of ``ensemble_scheduling``: member ``model_name`` reads
+    ``input_map`` (member input -> ensemble tensor) and writes
+    ``output_map`` (member output -> ensemble tensor)."""
+
+    model_name: str
+    input_map: Dict[str, str]
+    output_map: Dict[str, str]
+
+
+@dataclass
 class ModelConfig:
-    """The fields of Triton's ModelConfig that this slice uses."""
+    """The fields of Triton's ModelConfig that the port uses."""
 
     name: str
     platform: str = "pytorch"
@@ -49,22 +63,24 @@ class ModelConfig:
     dynamic_batching: bool = False
     instance_kind: Optional[str] = None
     parameters: Dict[str, str] = field(default_factory=dict)
+    ensemble_scheduling: List[EnsembleStep] = field(default_factory=list)
 
     def to_json(self) -> dict:
-        """The v2 ``/v2/models/{m}/config`` body (proto JSON field names)."""
+        """The v2 ``/v2/models/{m}/config`` body (proto JSON field names;
+        like proto JSON, an empty ``backend`` is left out)."""
         def io(t):
             return {"name": t.name, "data_type": "TYPE_" + (
                 "STRING" if t.data_type == "BYTES" else t.data_type),
                 "dims": [str(d) for d in t.dims]}
 
-        out: Dict[str, Any] = {
-            "name": self.name,
-            "platform": self.platform,
-            "backend": self.backend,
+        out: Dict[str, Any] = {"name": self.name, "platform": self.platform}
+        if self.backend:
+            out["backend"] = self.backend
+        out.update({
             "max_batch_size": self.max_batch_size,
             "input": [io(t) for t in self.input],
             "output": [io(t) for t in self.output],
-        }
+        })
         if self.dynamic_batching:
             out["dynamic_batching"] = {
                 "preferred_batch_size": list(self.preferred_batch_size),
@@ -77,6 +93,11 @@ class ModelConfig:
         if self.parameters:
             out["parameters"] = {k: {"string_value": v}
                                  for k, v in self.parameters.items()}
+        if self.ensemble_scheduling:
+            out["ensemble_scheduling"] = {"step": [
+                {"model_name": s.model_name, "input_map": dict(s.input_map),
+                 "output_map": dict(s.output_map)}
+                for s in self.ensemble_scheduling]}
         return out
 
 
@@ -88,20 +109,26 @@ def make_config(
     inputs: Sequence[Tuple[str, str, Sequence[int]]],
     outputs: Sequence[Tuple[str, str, Sequence[int]]],
     max_batch_size: int = 0,
+    platform: str = "pytorch",
+    backend: str = "pytorch",
     preferred_batch_sizes: Optional[Sequence[int]] = None,
     max_queue_delay_us: int = 0,
     instance_kind: Optional[str] = None,
     parameters: Optional[Dict[str, str]] = None,
+    ensemble_scheduling: Optional[Sequence[EnsembleStep]] = None,
 ) -> ModelConfig:
-    """Config builder with the reference's signature, for the fields this
-    slice uses (no decoupled, sequence, warmup or response-cache configs
+    """Config builder with the reference's signature, for the fields the
+    port uses (no decoupled, sequence, warmup or response-cache configs
     yet).  ``inputs``/``outputs``: (name, Triton dtype, dims), dims
-    excluding the batch dimension when ``max_batch_size > 0``."""
+    excluding the batch dimension when ``max_batch_size > 0``.  The
+    reference adds ensemble steps to the config message after building
+    it; here they are ``ensemble_scheduling``."""
     if instance_kind is not None and instance_kind not in _INSTANCE_KINDS:
         raise ValueError(f"unknown instance kind {instance_kind!r}; "
                          f"expected one of {_INSTANCE_KINDS}")
     return ModelConfig(
-        name=name, max_batch_size=max_batch_size,
+        name=name, platform=platform, backend=backend,
+        max_batch_size=max_batch_size,
         input=[TensorConfig(n, dt, list(d)) for n, dt, d in inputs],
         output=[TensorConfig(n, dt, list(d)) for n, dt, d in outputs],
         preferred_batch_size=sorted(preferred_batch_sizes or []),
@@ -109,6 +136,7 @@ def make_config(
         dynamic_batching=bool(preferred_batch_sizes or max_queue_delay_us),
         instance_kind=instance_kind,
         parameters={k: str(v) for k, v in (parameters or {}).items()},
+        ensemble_scheduling=list(ensemble_scheduling or []),
     )
 
 
@@ -193,6 +221,21 @@ class PyModel(Model):
         return self._fn(inputs, parameters)
 
 
+class EnsembleModel(Model):
+    """A DAG of steps mapping tensors between member models (the config's
+    ``ensemble_scheduling``).  The core runs it and resolves the members
+    at infer time."""
+
+    def __init__(self, config: ModelConfig):
+        super().__init__(config)
+        if not config.ensemble_scheduling:
+            raise InferError(
+                f"ensemble model '{config.name}' has no ensemble_scheduling")
+
+    def execute(self, inputs, parameters):
+        raise InferError("ensemble models are executed by the core")
+
+
 class TorchModel(Model):
     """A model whose compute is a function over tensors on one device.
 
@@ -234,6 +277,7 @@ class TorchModel(Model):
         return outputs
 
 
-__all__ = ["Model", "ModelConfig", "ModelStats", "PyModel",
-           "TensorConfig", "TorchModel", "make_config",
+__all__ = ["EnsembleModel", "EnsembleStep", "Model", "ModelConfig",
+           "ModelStats", "PyModel", "TensorConfig", "TorchModel",
+           "make_config",
            "resolve_instance_device"]

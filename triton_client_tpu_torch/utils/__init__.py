@@ -1,12 +1,15 @@
-"""Triton v2 dtype maps (the port's own copy of the reference's
-``triton_client_tpu/utils/__init__.py`` dtype helpers).
+"""Triton v2 dtype maps and the BYTES codec (the port's own copy of the
+reference's ``triton_client_tpu/utils/__init__.py`` helpers).
 
 ``BF16`` maps to ``ml_dtypes.bfloat16`` where that package is installed,
-else to no numpy dtype.  BYTES maps to ``object``.
+else to no numpy dtype.  BYTES maps to ``object``; on the wire a BYTES
+tensor is the row-major concatenation of ``<uint32 little-endian
+length><element bytes>``.
 """
 
 from __future__ import annotations
 
+import struct
 from typing import Optional
 
 import numpy as np
@@ -52,3 +55,63 @@ def np_to_triton_dtype(np_dtype) -> Optional[str]:
 def triton_to_np_dtype(dtype: str):
     """Map a Triton v2 dtype string to a numpy dtype (None if unknown)."""
     return _TRITON_TO_NP.get(dtype, None)
+
+
+def _encode_bytes_element(obj) -> bytes:
+    if isinstance(obj, bytes):
+        return obj
+    if isinstance(obj, (bytearray, memoryview)):
+        return bytes(obj)
+    if isinstance(obj, str):
+        return obj.encode("utf-8")
+    return str(obj).encode("utf-8")
+
+
+def serialize_byte_tensor_raw(input_tensor: np.ndarray) -> bytearray:
+    """A BYTES tensor (object array of bytes/str, or an ``S``/``U`` array)
+    as one length-prefixed wire buffer, each element copied once."""
+    if input_tensor.dtype != np.dtype(np.object_) \
+            and input_tensor.dtype.kind not in ("S", "U"):
+        raise ValueError("cannot serialize bytes tensor: invalid datatype")
+    if input_tensor.size == 0:
+        return bytearray()
+    encoded = [_encode_bytes_element(obj)
+               for obj in input_tensor.flatten(order="C")]
+    buf = bytearray(4 * len(encoded) + sum(len(b) for b in encoded))
+    offset = 0
+    for b in encoded:
+        struct.pack_into("<I", buf, offset, len(b))
+        offset += 4
+        buf[offset:offset + len(b)] = b
+        offset += len(b)
+    return buf
+
+
+def serialize_byte_tensor(input_tensor: np.ndarray) -> np.ndarray:
+    """:func:`serialize_byte_tensor_raw` as a 1-D uint8 array (an empty
+    object array for an empty tensor, as the reference returns)."""
+    if input_tensor.size == 0:
+        return np.empty([0], dtype=np.object_)
+    return np.frombuffer(serialize_byte_tensor_raw(input_tensor),
+                         dtype=np.uint8)
+
+
+def deserialize_bytes_tensor(encoded_tensor,
+                             count: Optional[int] = None) -> np.ndarray:
+    """A BYTES wire buffer as a 1-D object array of ``bytes`` (the caller
+    reshapes).  With ``count``, exactly that many elements are decoded and
+    trailing bytes are ignored.  A truncated buffer raises ValueError."""
+    strs = []
+    mv = memoryview(encoded_tensor)
+    offset, n = 0, len(mv)
+    while offset < n if count is None else len(strs) < count:
+        if offset + 4 > n:
+            raise ValueError("unexpected end of serialized BYTES tensor")
+        (length,) = struct.unpack_from("<I", mv, offset)
+        offset += 4
+        if offset + length > n:
+            raise ValueError(
+                "unexpected end of serialized BYTES tensor element")
+        strs.append(bytes(mv[offset:offset + length]))
+        offset += length
+    return np.array(strs, dtype=np.object_)
