@@ -30,39 +30,48 @@ Phases (any failure exits non-zero and prints no result line):
    through the port's HTTP server, bf16: 8 requests from 4 threads, each
    response held to the port's forward with plain kernels (``SERVED_ATOL``),
    kernel launch counts checked, then one full batch timed and traced;
-5. the same served int8 (``TRITON_TPU_QUANT_LONGCTX_TPU=int8``), under the
+5. the same served int8 (``TRITON_TPU_QUANT=int8``), under the
    default ``TRITON_TPU_INT8_FUSED=w2`` (one int8 launch per layer) and
    then under ``all`` (two: FFN-up too), for its forward time beside the
    default's;
 6. serve ``bert_large`` at full width (24 layers, S = 384): 40 requests of
    4 sequences from 8 threads, so the batcher forms batches up to 32, in
-   bf16, int8 under ``w2`` and int8 under ``all``; each LOGITS held to the plain-kernel
-   forward of the same tokens, int8 launches exactly 0 / 24 / 48 per
-   forward, flash never (S = 384 is under the gate); one B = 32 forward
-   timed, traced and its peak memory read;
+   bf16, int8 under ``w2`` and int8 under ``all``; each LOGITS held to the
+   plain-kernel forward of the same tokens, and the control (that forward
+   with a planted fault) beyond the bound; int8 launches exactly 0 / 24 /
+   48 per forward, flash never (S = 384 is under the gate); one B = 32
+   forward timed, traced and its peak memory read;
 7. serve ``moe_tpu`` (``base``: 8 experts, top 2, S = 256) bf16 and int8
    (weight-only in the FFN: no int8 kernel launch), one B = 8 forward
    timed and traced;
 8. serve ``ensemble_llama`` over ``llama_tpu`` 1b (bf16): 8 binary BYTES
    requests from 4 threads, OUT_TEXT equal to ``bytes([NEXT_TOKEN %
-   256])``, llama_tpu's NEXT_TOKEN and NEXT_LOGIT (``_logit``) held to the
-   plain forward; one B = 8 forward timed and traced beside its f32 head;
+   256])`` and NEXT_TOKEN held to the plain forward of the preprocessed
+   tokens; then those token rows sent to ``llama_tpu`` directly on the same
+   server, its NEXT_TOKEN and NEXT_LOGIT (inside the ensemble, ``_logit``)
+   held to the plain forward; one B = 8 forward timed and traced beside its
+   f32 head;
    then ``llama_tpu`` served directly in int8 under ``w2`` (16 int8 launches
    per forward), one B = 8 forward timed and traced;
 9. print each kernel's launches on every served path, one JSON line
    describing every kernel, then the result line
    ``{"ok": true, "device": {...}}``.
 
-NEXT_LOGIT is held to ``SERVED_ATOL``; a NEXT_TOKEN that differs from the
-plain forward's argmax passes only where the plain forward's logit at the
-served token is within that atol of its maximum (a batch formed otherwise
-picks other GEMM algorithms, which can flip a near tie).
+Each model and precision has its own bound (``SERVED_ATOL``).  NEXT_LOGIT
+is held to it; a NEXT_TOKEN that differs from the plain forward's argmax
+passes only where the plain forward's logit at the served token is within
+that bound of its maximum (a batch formed otherwise picks other GEMM
+algorithms, which can flip a near tie).  Beside each check of
+``bert_large``, ``moe_tpu`` and ``llama_tpu``, controls: the same plain
+forward with the last layer's FFN-down weights off by each of
+``CONTROL_SCALES``; the reading at the largest must exceed the bound.
 
 Imports nothing of JAX and nothing of ``triton_client_tpu``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import http.client
 import importlib
@@ -94,13 +103,33 @@ FLASH_TOL = {"bf16": (2e-2, 1e-2), "f32": (1e-4, 0.0)}
 # sqrt(D) x).
 FLASH_ROW_TOL = 0.05
 # served LOGPROBS, LOGITS and NEXT_LOGIT vs the plain-kernel forward of the
-# same tokens.  bf16: the bound of the CPU parity tests.  int8: a run whose
-# bf16 activations differ from another's in the last bit (the flash
-# kernel's bf16 probabilities; batch-size-dependent GEMM sums) flips the
-# int8 codes that sit at a rounding boundary, each flip moves a product by
-# one quantization step and the layers compound it: the first run on the
-# H100 measured 6.1e-2 over 8 longctx_tpu requests.
-SERVED_ATOL = {False: 5e-2, True: 1.5e-1}
+# same tokens, by (model, int8).  longctx_tpu bf16: the bound of the CPU
+# parity tests.  longctx_tpu int8: a run whose bf16 activations differ from
+# another's in the last bit (the flash kernel's bf16 probabilities;
+# batch-size-dependent GEMM sums) flips the int8 codes that sit at a
+# rounding boundary, each flip moves a product by one quantization step and
+# the layers compound it: the first run on the H100 measured 6.1e-2 over 8
+# longctx_tpu requests.  The other models run no flash (S is under the
+# gate) and the int8 kernel is bit-exact, so only GEMM sums that depend on
+# the batch differ.  Over three runs on an H100 80GB HBM3 at 700 W they
+# read at most 1.1e-6 (bert_large, either precision), 3.6e-7 (moe_tpu),
+# 1.32e-2 (llama_tpu 1b bf16, in batches of 1-2 rows: its bf16 GEMMs at
+# M = 128-256 change algorithm with the batch) and 0 (llama_tpu int8,
+# whose layer matmuls are all integer).  Each bound sits above those
+# readings (~100x; ~2.3x for llama_tpu bf16) and below the control's.
+SERVED_ATOL = {
+    ("longctx_tpu", False): 5e-2, ("longctx_tpu", True): 1.5e-1,
+    ("bert_large", False): 1e-4, ("bert_large", True): 1e-4,
+    ("moe_tpu", False): 1e-4, ("moe_tpu", True): 1e-4,
+    ("llama_tpu", False): 3e-2, ("llama_tpu", True): 1e-4,
+}
+# the controls of those checks: the served answers are also held to the
+# plain forward with one planted fault, the last layer's FFN-down weights
+# off by each of these factors (under int8 their scale, which the kernel's
+# epilogue applies).  The reading at the last (that output doubled) must
+# exceed the bound; the smallest factor whose reading does is printed, the
+# least such fault the bound catches.
+CONTROL_SCALES = (1.01, 1.1, 2.0)
 N_REQUESTS, N_THREADS = 8, 4
 # bert_large: 40 requests of 4 sequences from 8 threads, so up to 32
 # sequences wait at once and the batcher can fill its largest batch (32)
@@ -468,73 +497,69 @@ def _reset(counters) -> None:
     counters["int8_matmul"].quantize_launches = 0
 
 
-def serve_requests(label: str, models, target: str, requests, n_threads,
-                   counters, outputs, warm_up=True):
-    """Register ``models``, serve them over HTTP and send each of
-    ``requests`` (a list of input lists for ``_post_infer``) to ``target``
-    from ``n_threads`` threads at once, after one warm-up request that
-    builds the weights.  The launch counts are zeroed just before the
-    requests and read just after.  Returns (results, launches,
-    executions of ``target``'s model, requests executed)."""
-    import numpy as np
-
+@contextlib.contextmanager
+def serving(models):
+    """Register ``models`` and serve them over HTTP; yields the port."""
     from triton_client_tpu_torch.server.registry import ModelRegistry
     from triton_client_tpu_torch.server.testing import ServerHarness
 
     registry = ModelRegistry()
     for m in models:
         registry.register_model(m)
-    stats = {m.name: m.stats for m in models}
+    with ServerHarness(registry) as harness:
+        yield harness.http_port
+
+
+def send_requests(label: str, port: int, target: str, requests, n_threads,
+                  counters, outputs, batched):
+    """Send each of ``requests`` (a list of input lists for
+    ``_post_infer``) to ``target`` from ``n_threads`` threads at once,
+    after one warm-up request (it builds the weights).  The launch counts
+    are zeroed just before the warm-up and read just after the last
+    request.  Prints the batching and latency line of the model
+    ``batched``.  Returns (results, launches, executions of ``batched``
+    in this window)."""
+    import numpy as np
+
     n = len(requests)
     results = [None] * n
     latencies = [0.0] * n
     errors = []
-    with ServerHarness(registry) as harness:
-        _reset(counters)
-        if warm_up:
-            _post_infer(harness.http_port, target, requests[0], outputs)
-        start = threading.Barrier(n_threads)
+    st = batched.stats
+    runs0, rows0 = st.batch_execution_count, st.batch_size_total
+    _reset(counters)
+    _post_infer(port, target, requests[0], outputs)
+    start = threading.Barrier(n_threads)
 
-        def client(tid):
-            try:
-                start.wait(timeout=60)
-                for i in range(tid, n, n_threads):
-                    results[i], latencies[i] = _post_infer(
-                        harness.http_port, target, requests[i], outputs)
-            except BaseException as e:  # reported below, then fail
-                errors.append(repr(e))
+    def client(tid):
+        try:
+            start.wait(timeout=60)
+            for i in range(tid, n, n_threads):
+                results[i], latencies[i] = _post_infer(
+                    port, target, requests[i], outputs)
+        except BaseException as e:  # reported below, then fail
+            errors.append(repr(e))
 
-        t0 = time.perf_counter()
-        threads = [threading.Thread(target=client, args=(t,))
-                   for t in range(n_threads)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=900)
-        wall = time.perf_counter() - t0
-        launches = {name: mod.launches for name, mod in counters.items()}
-        launches["int8_quantize_rows"] = \
-            counters["int8_matmul"].quantize_launches
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(n_threads)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    launches = {name: mod.launches for name, mod in counters.items()}
+    launches["int8_quantize_rows"] = counters["int8_matmul"].quantize_launches
     if errors or any(t.is_alive() for t in threads):
         fail(f"{label}: client threads failed: {errors}")
-    return results, latencies, wall, launches, stats
-
-
-def report_serving(label, latencies, wall, stats, launches,
-                   batched: str) -> int:
-    """Print the batching and latency line; returns the executions of the
-    ``batched`` model."""
-    import numpy as np
-
-    st = stats[batched]
-    executions = st.batch_execution_count
-    print(f"{label}: {len(latencies)} requests + 1 warm-up in {executions} "
-          f"batched {batched} executions (avg batch "
-          f"{st.batch_size_total / max(executions, 1):.2f}); p50 latency "
-          f"{1e3 * float(np.median(latencies)):.2f} ms, max "
-          f"{1e3 * max(latencies):.2f} ms; {len(latencies) / wall:.2f} "
-          f"infer/s; launches {launches}", flush=True)
-    return executions
+    executions = st.batch_execution_count - runs0
+    print(f"{label}: {n} requests + 1 warm-up in {executions} batched "
+          f"{batched.name} executions (avg batch "
+          f"{(st.batch_size_total - rows0) / max(executions, 1):.2f}); p50 "
+          f"latency {1e3 * float(np.median(latencies)):.2f} ms, max "
+          f"{1e3 * max(latencies):.2f} ms; {n / wall:.2f} infer/s; "
+          f"launches {launches}", flush=True)
+    return results, launches, executions
 
 
 def check_launches(label, launches, executions, flash_per_forward,
@@ -550,6 +575,43 @@ def check_launches(label, launches, executions, flash_per_forward,
              f"(quantize pass {launches['int8_quantize_rows']}) times, "
              f"expected {int8_per_forward} per forward x {executions} "
              "forwards")
+
+
+def check_precision(label: str, run, int8: bool) -> None:
+    """The served weights are the precision the phase asked for."""
+    if ("wq_scale" in run.params) != int8:
+        fail(f"{label}: served {'float' if int8 else 'int8'} weights, "
+             f"expected {'int8' if int8 else 'float'}")
+
+
+def control_params(torch, params, scale: float):
+    """``params`` with a control's planted fault: the last layer's
+    FFN-down weights (under int8, their scale, which the int8 kernel's
+    epilogue applies) off by ``scale``."""
+    key = next(k for k in ("w2_scale", "we2_scale", "w2", "we2")
+               if k in params)
+    w = params[key]
+    return {**params, key: torch.cat([w[:-1], w[-1:] * scale])}
+
+
+def check_served(label: str, what: str, atol: float, worst: float,
+                 mean: float, controls, typical: float) -> None:
+    """The served answers within ``atol`` of the plain-kernel forward, and
+    the control at the largest of CONTROL_SCALES beyond it.  ``controls``:
+    each scale's reading, in the order of CONTROL_SCALES."""
+    caught = [s for s, c in zip(CONTROL_SCALES, controls) if c > atol]
+    print(f"{label}: {what} vs plain-kernel forward: max_abs_err "
+          f"{worst:.3e} (atol {atol}), mean_abs_err {mean:.3e}; controls "
+          "(last layer's FFN-down x" + ", x".join(
+              f"{s}: {c:.3e}" for s, c in zip(CONTROL_SCALES, controls))
+          + f"), caught from x{caught[0] if caught else None}; mean "
+          f"|{what}| {typical:.3e}", flush=True)
+    if not worst <= atol:
+        fail(f"{label}: served {what} disagree with the plain forward")
+    if not controls[-1] > atol:
+        fail(f"{label}: the control x{CONTROL_SCALES[-1]} reads "
+             f"{controls[-1]:.3e}, within the bound {atol}: the bound would "
+             "not catch that fault")
 
 
 def profile_forward(label: str, run, torch, batch: int, seq_len: int,
@@ -595,7 +657,8 @@ def profile_forward(label: str, run, torch, batch: int, seq_len: int,
     return fwd_ms
 
 
-def serve_longctx(label: str, torch, counters, int8_per_layer: int):
+def serve_longctx(label: str, torch, counters, int8: bool,
+                  int8_per_layer: int):
     """Serve longctx_tpu base on cuda through the HTTP server; check every
     response against the plain-kernel forward and the launch counts (flash
     once per layer, the int8 kernel ``int8_per_layer`` times per layer, 0 on
@@ -605,24 +668,23 @@ def serve_longctx(label: str, torch, counters, int8_per_layer: int):
     from triton_client_tpu_torch.models import language
     from triton_client_tpu_torch.models import transformer as tr
 
-    expect_int8 = int8_per_layer > 0
     model = language.make_longctx_tpu("cuda")
     S = model.config.input[0].dims[0]
     rng = np.random.default_rng(1234)
     tokens = [rng.integers(0, 256, (1, S)).astype(np.int32)
               for _ in range(N_REQUESTS)]
-    results, latencies, wall, launches, stats = serve_requests(
-        label, [model], "longctx_tpu",
-        [[("TOKENS", "INT32", t)] for t in tokens], N_THREADS, counters,
-        ["LOGPROBS"])
-    executions = report_serving(label, latencies, wall, stats, launches,
-                                "longctx_tpu")
+    with serving([model]) as port:
+        results, launches, executions = send_requests(
+            label, port, "longctx_tpu",
+            [[("TOKENS", "INT32", t)] for t in tokens], N_THREADS, counters,
+            ["LOGPROBS"], model)
     layers = model.transformer.cfg.n_layers
     check_launches(label, launches, executions, layers,
                    int8_per_layer * layers)
     # the reference: the same forward with the kernels' plain versions
     run = model.transformer
-    fwd = tr.make_forward(run.cfg, quantized=expect_int8, plain=True)
+    check_precision(label, run, int8)
+    fwd = tr.make_forward(run.cfg, quantized=int8, plain=True)
     worst, mean = 0.0, 0.0
     with torch.inference_mode():
         for toks, res in zip(tokens, results):
@@ -633,7 +695,7 @@ def serve_longctx(label: str, torch, counters, int8_per_layer: int):
                 fail(f"{label}: bad LOGPROBS shape {got.shape} or non-finite")
             worst = max(worst, float(np.abs(got - want).max()))
             mean += float(np.abs(got - want).mean()) / N_REQUESTS
-    atol = SERVED_ATOL[expect_int8]
+    atol = SERVED_ATOL["longctx_tpu", int8]
     print(f"{label}: LOGPROBS vs plain-kernel forward: max_abs_err "
           f"{worst:.3e} (atol {atol}), mean_abs_err {mean:.3e}", flush=True)
     if not worst <= atol:
@@ -642,35 +704,35 @@ def serve_longctx(label: str, torch, counters, int8_per_layer: int):
     return launches
 
 
-def serve_bert(label: str, torch, counters, int8_per_layer: int):
+def serve_bert(label: str, torch, counters, int8: bool, int8_per_layer: int):
     """Serve bert_large at full width: BERT_REQUESTS requests of BERT_ROWS
     sequences from BERT_THREADS threads, each LOGITS held to the
-    plain-kernel forward of its tokens; int8 launches ``int8_per_layer`` per
-    layer, flash none.  Then one B = 32 forward timed and traced.  Returns
-    launch counts."""
+    plain-kernel forward of its tokens, and the control beyond the bound;
+    int8 launches ``int8_per_layer`` per layer, flash none.  Then one
+    B = 32 forward timed and traced.  Returns launch counts."""
     import numpy as np
 
     from triton_client_tpu_torch.models import language
     from triton_client_tpu_torch.models import transformer as tr
 
-    expect_int8 = int8_per_layer > 0
     model = language.make_bert_large("cuda")
     S, V = language.BERT_SEQ_LEN, language.BERT_LARGE.vocab_size
     rng = np.random.default_rng(4321)
     tokens = [rng.integers(0, V, (BERT_ROWS, S)).astype(np.int32)
               for _ in range(BERT_REQUESTS)]
-    results, latencies, wall, launches, stats = serve_requests(
-        label, [model], "bert_large",
-        [[("INPUT_IDS", "INT32", t)] for t in tokens], BERT_THREADS,
-        counters, ["LOGITS"])
-    executions = report_serving(label, latencies, wall, stats, launches,
-                                "bert_large")
+    with serving([model]) as port:
+        results, launches, executions = send_requests(
+            label, port, "bert_large",
+            [[("INPUT_IDS", "INT32", t)] for t in tokens], BERT_THREADS,
+            counters, ["LOGITS"], model)
     layers = language.BERT_LARGE.n_layers
     check_launches(label, launches, executions, 0, int8_per_layer * layers)
     run = model.transformer
-    fwd = tr.make_forward(run.cfg, quantized=expect_int8,
+    check_precision(label, run, int8)
+    fwd = tr.make_forward(run.cfg, quantized=int8,
                           head_cols=language.BERT_HEAD_COLS, plain=True)
-    worst, mean = 0.0, 0.0
+    worst, mean, typical = 0.0, 0.0, 0.0
+    controls = [0.0] * len(CONTROL_SCALES)
     with torch.inference_mode():
         for toks, res in zip(tokens, results):
             got = res["LOGITS"]
@@ -680,54 +742,79 @@ def serve_bert(label: str, torch, counters, int8_per_layer: int):
                 fail(f"{label}: bad LOGITS shape {got.shape} or non-finite")
             worst = max(worst, float(np.abs(got - want).max()))
             mean += float(np.abs(got - want).mean()) / BERT_REQUESTS
-    atol = SERVED_ATOL[expect_int8]
-    print(f"{label}: LOGITS vs plain-kernel forward: max_abs_err "
-          f"{worst:.3e} (atol {atol}), mean_abs_err {mean:.3e}", flush=True)
-    if not worst <= atol:
-        fail(f"{label}: served LOGITS disagree with the plain forward")
+            typical += float(np.abs(want).mean()) / BERT_REQUESTS
+        for i, scale in enumerate(CONTROL_SCALES):
+            faulty = control_params(torch, run.params, scale)
+            for toks, res in zip(tokens, results):
+                ctl = fwd(faulty, torch.from_numpy(toks).to("cuda"))
+                controls[i] = max(controls[i], float(
+                    np.abs(res["LOGITS"] - ctl.cpu().numpy()).max()))
+            del faulty
+    check_served(label, "LOGITS", SERVED_ATOL["bert_large", int8], worst,
+                 mean, controls, typical)
     profile_forward(label, run, torch, 32, S, V)
     return launches
 
 
-def check_next_tokens(label, toks, logits, plain_last, atol) -> None:
-    """Each request's NEXT_LOGIT within ``atol`` of the plain forward's
-    max, and its NEXT_TOKEN the plain argmax or a near tie (the plain
+def check_tokens(label, toks, plain_last, atol) -> None:
+    """Each NEXT_TOKEN the plain forward's argmax or a near tie (the plain
     logit at the served token within ``atol`` of the max)."""
     import numpy as np
 
-    worst, ties = 0.0, 0
-    for tok, logit, last in zip(toks, logits, plain_last):
-        tok, logit = int(np.asarray(tok).reshape(-1)[0]), \
-            float(np.asarray(logit).reshape(-1)[0])
-        best = float(last.max())
-        worst = max(worst, abs(logit - best))
+    ties = 0
+    for tok, last in zip(toks, plain_last):
+        tok = int(np.asarray(tok).reshape(-1)[0])
         if tok != int(last.argmax()):
             ties += 1
-            if not last[tok] >= best - atol:
+            if not last[tok] >= float(last.max()) - atol:
                 fail(f"{label}: NEXT_TOKEN {tok} is not the plain forward's "
                      f"argmax {int(last.argmax())} nor within {atol} of it")
-    print(f"{label}: NEXT_LOGIT vs plain-kernel forward: max_abs_err "
-          f"{worst:.3e} (atol {atol}); NEXT_TOKEN equal in "
-          f"{len(toks) - ties} of {len(toks)}, near ties {ties}", flush=True)
-    if not worst <= atol:
-        fail(f"{label}: served NEXT_LOGIT disagrees with the plain forward")
+    print(f"{label}: NEXT_TOKEN equal to the plain forward's argmax in "
+          f"{len(toks) - ties} of {len(toks)}, near ties {ties} (atol "
+          f"{atol})", flush=True)
 
 
-def _plain_last_logits(torch, run, expect_int8, tokens):
+def check_next_tokens(label, torch, run, int8, tokens, results,
+                      atol) -> None:
+    """Each request's NEXT_TOKEN as ``check_tokens`` says, and its
+    NEXT_LOGIT within ``atol`` of the plain forward's max; the controls'
+    maxima read as ``check_served`` says."""
+    import numpy as np
+
+    plain = _plain_last_logits(torch, run, int8, tokens)
+    check_tokens(label, [r["NEXT_TOKEN"] for r in results], plain, atol)
+
+    def errs(last_logits):
+        return [abs(float(r["NEXT_LOGIT"].reshape(-1)[0]) - float(last.max()))
+                for r, last in zip(results, last_logits)]
+
+    err = errs(plain)
+    controls = [max(errs(_plain_last_logits(
+        torch, run, int8, tokens, control_params(torch, run.params, scale))))
+        for scale in CONTROL_SCALES]
+    check_served(label, "NEXT_LOGIT", atol, max(err), float(np.mean(err)),
+                 controls, float(np.mean([abs(float(last.max()))
+                                          for last in plain])))
+
+
+def _plain_last_logits(torch, run, int8, tokens, params=None):
+    """The plain-kernel forward's last-position logits of each token row
+    (with ``params`` in place of the served weights where given)."""
     from triton_client_tpu_torch.models import transformer as tr
 
-    fwd = tr.make_forward(run.cfg, quantized=expect_int8, plain=True)
+    fwd = tr.make_forward(run.cfg, quantized=int8, plain=True)
+    params = run.params if params is None else params
     out = []
     with torch.inference_mode():
         for toks in tokens:
             t = torch.clamp(torch.from_numpy(toks).to("cuda"), 0,
                             run.cfg.vocab_size - 1)
-            out.append(fwd(run.params, t)[0, -1].float().cpu().numpy())
+            out.append(fwd(params, t)[0, -1].float().cpu().numpy())
     return out
 
 
 def serve_next_token(label: str, torch, counters, make, name: str,
-                     int8_per_layer: int):
+                     int8: bool, int8_per_layer: int):
     """Serve a next-token model (moe_tpu or llama_tpu) directly: N_REQUESTS
     from N_THREADS threads, held as ``check_next_tokens`` says; the int8
     kernel launches ``int8_per_layer`` times per layer.  Returns launch
@@ -740,77 +827,65 @@ def serve_next_token(label: str, torch, counters, make, name: str,
     rng = np.random.default_rng(99)
     tokens = [rng.integers(0, 256, (1, S)).astype(np.int32)
               for _ in range(N_REQUESTS)]
-    results, latencies, wall, launches, stats = serve_requests(
-        label, [model], name, [[("TOKENS", "INT32", t)] for t in tokens],
-        N_THREADS, counters, ["NEXT_TOKEN", "NEXT_LOGIT"])
-    executions = report_serving(label, latencies, wall, stats, launches,
-                                name)
+    with serving([model]) as port:
+        results, launches, executions = send_requests(
+            label, port, name, [[("TOKENS", "INT32", t)] for t in tokens],
+            N_THREADS, counters, ["NEXT_TOKEN", "NEXT_LOGIT"], model)
     check_launches(label, launches, executions, 0,
                    int8_per_layer * run.cfg.n_layers)
-    quantized = "wq_scale" in run.params
-    check_next_tokens(label, [r["NEXT_TOKEN"] for r in results],
-                      [r["NEXT_LOGIT"] for r in results],
-                      _plain_last_logits(torch, run, quantized, tokens),
-                      SERVED_ATOL[quantized])
+    check_precision(label, run, int8)
+    check_next_tokens(label, torch, run, int8, tokens, results,
+                      SERVED_ATOL[name, int8])
     profile_forward(label, run, torch, model.max_batch_size, S,
                     run.cfg.vocab_size)
     return launches
 
 
-def serve_ensemble(torch, counters):
-    """ensemble_llama over llama_tpu 1b (bf16): N_REQUESTS binary BYTES
-    TEXT requests from N_THREADS threads.  llama_tpu's outputs (NEXT_TOKEN
-    and ``_logit``) are recorded as it computes them and held to the plain
-    forward; OUT_TEXT must be ``bytes([NEXT_TOKEN % 256])``."""
+def serve_ensemble(label: str, torch, counters, int8: bool):
+    """ensemble_llama over llama_tpu 1b: N_REQUESTS binary BYTES TEXT
+    requests from N_THREADS threads; OUT_TEXT must be ``bytes([NEXT_TOKEN %
+    256])`` and NEXT_TOKEN the plain forward's argmax of the preprocessed
+    tokens, or a near tie.  Then, on the same server, those token rows go
+    to llama_tpu directly, held as ``check_next_tokens`` says (its
+    NEXT_LOGIT is the ensemble's internal ``_logit``, not on the wire).
+    Returns the ensemble window's launch counts."""
     import numpy as np
 
     from triton_client_tpu_torch.models import language
 
-    label = "serve ensemble_llama (llama_tpu 1b bf16)"
     llama = language.make_llama_tpu("cuda")
     run = llama.transformer
-    seen = []  # (TOKENS, NEXT_TOKEN, NEXT_LOGIT) of each llama_tpu batch
-    inner = llama._fn
-
-    def recording(TOKENS):
-        out = inner(TOKENS)
-        seen.append((TOKENS.cpu().numpy(), out["NEXT_TOKEN"].cpu().numpy(),
-                     out["NEXT_LOGIT"].cpu().numpy()))
-        return out
-
-    llama._fn = recording
     pre = language.make_llama_preprocess()
     texts = [f"request {i}: the quick brown fox jumps over {i * 7} lazy "
-             "dogs".encode() + bytes([0x80 + i, 0xff]) for i in range(N_REQUESTS)]
-    results, latencies, wall, launches, stats = serve_requests(
-        label, [pre, llama, language.make_llama_postprocess(),
-                language.make_ensemble_llama()], "ensemble_llama",
-        [[("TEXT", "BYTES", np.array([[t]], dtype=object))] for t in texts],
-        N_THREADS, counters, ["OUT_TEXT", "NEXT_TOKEN"])
-    executions = report_serving(label, latencies, wall, stats, launches,
-                                "llama_tpu")
+             "dogs".encode() + bytes([0x80 + i, 0xff])
+             for i in range(N_REQUESTS)]
+    tokens = [pre.execute({"TEXT": np.array([[t]], dtype=object)},
+                          {})["TOKENS"] for t in texts]
+    with serving([pre, llama, language.make_llama_postprocess(),
+                  language.make_ensemble_llama()]) as port:
+        results, launches, executions = send_requests(
+            label, port, "ensemble_llama",
+            [[("TEXT", "BYTES", np.array([[t]], dtype=object))]
+             for t in texts],
+            N_THREADS, counters, ["OUT_TEXT", "NEXT_TOKEN"], llama)
+        direct = "serve llama_tpu bf16 (the ensemble's token rows)"
+        direct_results, direct_launches, direct_executions = send_requests(
+            direct, port, "llama_tpu",
+            [[("TOKENS", "INT32", t)] for t in tokens], N_THREADS, counters,
+            ["NEXT_TOKEN", "NEXT_LOGIT"], llama)
     check_launches(label, launches, executions, 0, 0)
-    tokens, toks, logits = [], [], []
+    check_launches(direct, direct_launches, direct_executions, 0, 0)
+    check_precision(label, run, int8)
     for text, res in zip(texts, results):
         out_text, tok = res["OUT_TEXT"], res["NEXT_TOKEN"]
         if out_text.shape != (1, 1) or tok.shape != (1, 1) or \
                 bytes(out_text[0, 0]) != bytes([int(tok[0, 0]) % 256]):
             fail(f"{label}: OUT_TEXT {out_text!r} does not match NEXT_TOKEN "
-                 f"{tok!r}")
-        row = pre.execute({"TEXT": np.array([[text]], dtype=object)},
-                          {})["TOKENS"]
-        # llama_tpu's own answer for this row, from the batch it ran in
-        hits = [(t[i], lg[i]) for batch, t, lg in seen
-                for i in range(len(batch)) if (batch[i] == row[0]).all()]
-        if not hits or int(hits[-1][0][0]) != int(tok[0, 0]):
-            fail(f"{label}: llama_tpu's recorded NEXT_TOKEN for request "
-                 f"{text!r} is not the ensemble's {int(tok[0, 0])}")
-        tokens.append(row)
-        toks.append(tok)
-        logits.append(hits[-1][1])
-    check_next_tokens(label, toks, logits,
-                      _plain_last_logits(torch, run, False, tokens),
-                      SERVED_ATOL[False])
+                 f"{tok!r} for {text!r}")
+    atol = SERVED_ATOL["llama_tpu", int8]
+    check_tokens(label, [r["NEXT_TOKEN"] for r in results],
+                 _plain_last_logits(torch, run, int8, tokens), atol)
+    check_next_tokens(direct, torch, run, int8, tokens, direct_results, atol)
     fwd_ms = profile_forward(label, run, torch, 8, language.LLAMA_SEQ_LEN,
                              run.cfg.vocab_size)
     # the f32 head over the 128,256-column vocab at every position
@@ -887,22 +962,24 @@ def main() -> int:
     from triton_client_tpu_torch.models import language
 
     counters = {"flash_attention": fa, "int8_matmul": im}
-    for var in ("TRITON_TPU_QUANT", "TRITON_TPU_INT8_FUSED",
-                "TRITON_TPU_FLASH", "TRITON_TPU_FLASH_MIN_S",
-                "TRITON_TPU_LONGCTX_PRESET", "TRITON_TPU_MOE_PRESET",
-                "TRITON_TPU_LLAMA_PRESET"):
+    for var in [v for v in os.environ if v.startswith("TRITON_TPU_QUANT")]:
+        os.environ.pop(var)
+    for var in ("TRITON_TPU_INT8_FUSED", "TRITON_TPU_FLASH",
+                "TRITON_TPU_FLASH_MIN_S", "TRITON_TPU_LONGCTX_PRESET",
+                "TRITON_TPU_MOE_PRESET", "TRITON_TPU_LLAMA_PRESET"):
         os.environ.pop(var, None)
 
-    def phase(label, fn, *args, quant=None, fused=None, **kw):
-        """One served path, under TRITON_TPU_QUANT=``quant`` and
-        TRITON_TPU_INT8_FUSED=``fused`` (unset when None)."""
-        for var, val in (("TRITON_TPU_QUANT", quant),
+    def phase(label, fn, *args, int8=False, fused=None, **kw):
+        """One served path, under TRITON_TPU_QUANT=int8 where ``int8``
+        (else unset) and TRITON_TPU_INT8_FUSED=``fused`` (unset when
+        None)."""
+        for var, val in (("TRITON_TPU_QUANT", "int8" if int8 else None),
                          ("TRITON_TPU_INT8_FUSED", fused)):
             if val is None:
                 os.environ.pop(var, None)
             else:
                 os.environ[var] = val
-        launches = fn(label, torch, counters, *args, **kw)
+        launches = fn(label, torch, counters, *args, int8=int8, **kw)
         gc.collect()
         torch.cuda.empty_cache()
         return launches
@@ -914,28 +991,27 @@ def main() -> int:
         "longctx_tpu bf16": phase("serve bf16", serve_longctx,
                                   int8_per_layer=0),
         "longctx_tpu int8": phase("serve int8", serve_longctx,
-                                  int8_per_layer=1, quant="int8"),
+                                  int8_per_layer=1, int8=True),
     }
     phase("serve int8 fused=all", serve_longctx, int8_per_layer=2,
-          quant="int8", fused="all")
+          int8=True, fused="all")
     paths["bert_large bf16"] = phase("serve bert_large bf16", serve_bert,
                                      int8_per_layer=0)
     paths["bert_large int8"] = phase("serve bert_large int8", serve_bert,
-                                     int8_per_layer=1, quant="int8")
+                                     int8_per_layer=1, int8=True)
     phase("serve bert_large int8 fused=all", serve_bert, int8_per_layer=2,
-          quant="int8", fused="all")
+          int8=True, fused="all")
     paths["moe_tpu bf16"] = phase(
         "serve moe_tpu bf16", serve_next_token, language.make_moe_tpu,
         "moe_tpu", int8_per_layer=0)
     paths["moe_tpu int8"] = phase(
         "serve moe_tpu int8", serve_next_token, language.make_moe_tpu,
-        "moe_tpu", int8_per_layer=0, quant="int8")
+        "moe_tpu", int8_per_layer=0, int8=True)
     paths["ensemble_llama bf16"] = phase(
-        "serve ensemble_llama", lambda label, torch, counters:
-        serve_ensemble(torch, counters))
+        "serve ensemble_llama (llama_tpu 1b bf16)", serve_ensemble)
     paths["llama_tpu int8"] = phase(
         "serve llama_tpu int8", serve_next_token, language.make_llama_tpu,
-        "llama_tpu", int8_per_layer=1, quant="int8")
+        "llama_tpu", int8_per_layer=1, int8=True)
     for var in ("TRITON_TPU_QUANT", "TRITON_TPU_INT8_FUSED"):
         os.environ.pop(var, None)
     for path, launches in paths.items():

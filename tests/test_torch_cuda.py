@@ -302,7 +302,7 @@ def test_ensemble_llama_served_on_card(cuda, monkeypatch):
     """One ensemble_llama request over HTTP, binary BYTES in and out,
     through llama_tpu 1b on the card: OUT_TEXT is NEXT_TOKEN's byte, and
     NEXT_TOKEN is the plain forward's argmax or a near tie (its logit within
-    the bf16 bound 5e-2 of the max)."""
+    3e-2 of the max, chip_smoke.py's bound for llama_tpu bf16)."""
     import http.client
     import json
 
@@ -348,4 +348,4 @@ def test_ensemble_llama_served_on_card(cuda, monkeypatch):
     with torch.inference_mode():
         last = fwd(llama.transformer.params,
                    torch.from_numpy(tokens).to(cuda))[0, -1].float()
-    assert last[tok] >= last.max() - 5e-2
+    assert last[tok] >= last.max() - 3e-2

@@ -96,15 +96,14 @@ def serialize_byte_tensor(input_tensor: np.ndarray) -> np.ndarray:
                          dtype=np.uint8)
 
 
-def deserialize_bytes_tensor(encoded_tensor,
-                             count: Optional[int] = None) -> np.ndarray:
+def deserialize_bytes_tensor(encoded_tensor) -> np.ndarray:
     """A BYTES wire buffer as a 1-D object array of ``bytes`` (the caller
-    reshapes).  With ``count``, exactly that many elements are decoded and
-    trailing bytes are ignored.  A truncated buffer raises ValueError."""
+    reshapes), decoded to the buffer's end.  A truncated buffer raises
+    ValueError."""
     strs = []
     mv = memoryview(encoded_tensor)
     offset, n = 0, len(mv)
-    while offset < n if count is None else len(strs) < count:
+    while offset < n:
         if offset + 4 > n:
             raise ValueError("unexpected end of serialized BYTES tensor")
         (length,) = struct.unpack_from("<I", mv, offset)
