@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py
 
+(``chip_smoke.py --shm-client SPEC`` is the cross-process shared-memory
+client that the run starts itself.)
+
 Phases (any failure exits non-zero and prints no result line):
 
 1. print the card's name and power limit (``nvidia-smi``);
@@ -29,7 +32,12 @@ Phases (any failure exits non-zero and prints no result line):
 4. serve ``longctx_tpu`` (``base`` preset: d_model 1024, 8 layers, S = 4096)
    through the port's HTTP server, bf16: 8 requests from 4 threads, each
    response held to the port's forward with plain kernels (``SERVED_ATOL``),
-   kernel launch counts checked, then one full batch timed and traced;
+   kernel launch counts checked; then on the same server one batch of 4 by
+   three transports -- (a) the HTTP body, (b) system shm, (c) CUDA shm in
+   this process -- each LOGPROBS held to the plain forward and to (a),
+   flash once per layer, and per transport p50 / p99 of 30 requests one
+   after another, infer/s from 4 clients at once and the server's split of
+   a request; then one full batch timed and traced;
 5. the same served int8 (``TRITON_TPU_QUANT=int8``), under the
    default ``TRITON_TPU_INT8_FUSED=w2`` (one int8 launch per layer) and
    then under ``all`` (two: FFN-up too), for its forward time beside the
@@ -39,8 +47,14 @@ Phases (any failure exits non-zero and prints no result line):
    bf16, int8 under ``w2`` and int8 under ``all``; each LOGITS held to the
    plain-kernel forward of the same tokens, and the control (that forward
    with a planted fault) beyond the bound; int8 launches exactly 0 / 24 /
-   48 per forward, flash never (S = 384 is under the gate); one B = 32
-   forward timed, traced and its peak memory read;
+   48 per forward, flash never (S = 384 is under the gate); in bf16 and
+   ``w2``, then on the same server one request of 32 sequences by four
+   transports -- (a), (b), (c) and (d) CUDA shm of another process (this
+   script's ``--shm-client``, whose regions the server maps with
+   cudaIpcOpenMemHandle) -- held, counted and timed as in phase 4, beside
+   the controls; then no region may be left (in either process, in
+   /dev/shm, or in the server's status); one B = 32 forward timed, traced
+   and its peak memory read;
 7. serve ``moe_tpu`` (``base``: 8 experts, top 2, S = 256) bf16 and int8
    (weight-only in the FFN: no int8 kernel launch), one B = 8 forward
    timed and traced;
@@ -498,8 +512,8 @@ def _reset(counters) -> None:
 
 
 @contextlib.contextmanager
-def serving(models):
-    """Register ``models`` and serve them over HTTP; yields the port."""
+def serving_harness(models):
+    """Register ``models`` and serve them over HTTP; yields the harness."""
     from triton_client_tpu_torch.server.registry import ModelRegistry
     from triton_client_tpu_torch.server.testing import ServerHarness
 
@@ -507,6 +521,13 @@ def serving(models):
     for m in models:
         registry.register_model(m)
     with ServerHarness(registry) as harness:
+        yield harness
+
+
+@contextlib.contextmanager
+def serving(models):
+    """Register ``models`` and serve them over HTTP; yields the port."""
+    with serving_harness(models) as harness:
         yield harness.http_port
 
 
@@ -658,11 +679,12 @@ def profile_forward(label: str, run, torch, batch: int, seq_len: int,
 
 
 def serve_longctx(label: str, torch, counters, int8: bool,
-                  int8_per_layer: int):
+                  int8_per_layer: int, transports: bool = False):
     """Serve longctx_tpu base on cuda through the HTTP server; check every
     response against the plain-kernel forward and the launch counts (flash
     once per layer, the int8 kernel ``int8_per_layer`` times per layer, 0 on
-    the bf16 path).  Returns launch counts."""
+    the bf16 path).  Where ``transports``, then on the same server
+    ``longctx_transports``.  Returns launch counts."""
     import numpy as np
 
     from triton_client_tpu_torch.models import language
@@ -673,11 +695,13 @@ def serve_longctx(label: str, torch, counters, int8: bool,
     rng = np.random.default_rng(1234)
     tokens = [rng.integers(0, 256, (1, S)).astype(np.int32)
               for _ in range(N_REQUESTS)]
-    with serving([model]) as port:
+    with serving_harness([model]) as harness:
         results, launches, executions = send_requests(
-            label, port, "longctx_tpu",
+            label, harness.http_port, "longctx_tpu",
             [[("TOKENS", "INT32", t)] for t in tokens], N_THREADS, counters,
             ["LOGPROBS"], model)
+        if transports:
+            longctx_transports(label, torch, counters, harness, model)
     layers = model.transformer.cfg.n_layers
     check_launches(label, launches, executions, layers,
                    int8_per_layer * layers)
@@ -704,11 +728,13 @@ def serve_longctx(label: str, torch, counters, int8: bool,
     return launches
 
 
-def serve_bert(label: str, torch, counters, int8: bool, int8_per_layer: int):
+def serve_bert(label: str, torch, counters, int8: bool, int8_per_layer: int,
+               transports: bool = False):
     """Serve bert_large at full width: BERT_REQUESTS requests of BERT_ROWS
     sequences from BERT_THREADS threads, each LOGITS held to the
     plain-kernel forward of its tokens, and the control beyond the bound;
-    int8 launches ``int8_per_layer`` per layer, flash none.  Then one
+    int8 launches ``int8_per_layer`` per layer, flash none.  Where
+    ``transports``, then on the same server ``bert_transports``.  Then one
     B = 32 forward timed and traced.  Returns launch counts."""
     import numpy as np
 
@@ -720,11 +746,14 @@ def serve_bert(label: str, torch, counters, int8: bool, int8_per_layer: int):
     rng = np.random.default_rng(4321)
     tokens = [rng.integers(0, V, (BERT_ROWS, S)).astype(np.int32)
               for _ in range(BERT_REQUESTS)]
-    with serving([model]) as port:
+    with serving_harness([model]) as harness:
         results, launches, executions = send_requests(
-            label, port, "bert_large",
+            label, harness.http_port, "bert_large",
             [[("INPUT_IDS", "INT32", t)] for t in tokens], BERT_THREADS,
             counters, ["LOGITS"], model)
+        if transports:
+            bert_transports(label, torch, counters, harness, model, int8,
+                            int8_per_layer)
     layers = language.BERT_LARGE.n_layers
     check_launches(label, launches, executions, 0, int8_per_layer * layers)
     run = model.transformer
@@ -754,6 +783,78 @@ def serve_bert(label: str, torch, counters, int8: bool, int8_per_layer: int):
                  mean, controls, typical)
     profile_forward(label, run, torch, 32, S, V)
     return launches
+
+
+def longctx_transports(label: str, torch, counters, harness, model) -> None:
+    """longctx_tpu base bf16 at batch 4 by wire, system shm and CUDA shm in
+    this process (``serve_transports``): LOGPROBS within SERVED_ATOL of the
+    plain-kernel forward, flash once per layer."""
+    import numpy as np
+
+    from triton_client_tpu_torch.models import language
+    from triton_client_tpu_torch.models import transformer as tr
+
+    run = model.transformer
+    S, seed, vocab = model.config.input[0].dims[0], 1357, 256
+    x = model_tokens(seed, model.max_batch_size, S, vocab)
+    fwd = tr.make_forward(run.cfg, plain=True)
+    t = torch.from_numpy(x).to("cuda")
+    with torch.inference_mode():
+        want = language.longctx_scores(fwd(run.params, t), t).cpu().numpy()
+    atol = SERVED_ATOL["longctx_tpu", False]
+
+    def check(name, got):
+        err = float(np.abs(got - want).max()) if got.shape == want.shape \
+            else float("inf")
+        print(f"{label} {name}: LOGPROBS vs plain-kernel forward: "
+              f"max_abs_err {err:.3e} (atol {atol})", flush=True)
+        if not (np.isfinite(got).all() and err <= atol):
+            fail(f"{label} {name}: served LOGPROBS disagree with the plain "
+                 "forward")
+
+    serve_transports(label, harness, model, counters, x, seed, vocab, check,
+                     atol, run.cfg.n_layers, 0, cross_process=False)
+
+
+def bert_transports(label: str, torch, counters, harness, model, int8: bool,
+                    int8_per_layer: int) -> None:
+    """bert_large at request batch 32 (INPUT_IDS [32, 384] -> LOGITS
+    [32, 384, 2]) by all four transports (``serve_transports``): each
+    LOGITS within SERVED_ATOL of the plain-kernel forward of the same
+    tokens, beside the controls; int8 ``int8_per_layer`` per layer."""
+    import numpy as np
+
+    from triton_client_tpu_torch.models import language
+    from triton_client_tpu_torch.models import transformer as tr
+
+    run = model.transformer
+    S, V, seed = language.BERT_SEQ_LEN, language.BERT_LARGE.vocab_size, 2468
+    x = model_tokens(seed, BERT_SHM_ROWS, S, V)
+    fwd = tr.make_forward(run.cfg, quantized=int8,
+                          head_cols=language.BERT_HEAD_COLS, plain=True)
+    t = torch.from_numpy(x).to("cuda")
+    with torch.inference_mode():
+        want = fwd(run.params, t).cpu().numpy()
+        controls = []
+        for scale in CONTROL_SCALES:
+            faulty = control_params(torch, run.params, scale)
+            controls.append(fwd(faulty, t).cpu().numpy())
+            del faulty
+    atol = SERVED_ATOL["bert_large", int8]
+
+    def check(name, got):
+        if got.shape != want.shape or not np.isfinite(got).all():
+            fail(f"{label} {name}: bad LOGITS shape {got.shape} or "
+                 "non-finite")
+        diff = np.abs(got - want)
+        check_served(f"{label} {name}", "LOGITS", atol, float(diff.max()),
+                     float(diff.mean()),
+                     [float(np.abs(got - c).max()) for c in controls],
+                     float(np.abs(want).mean()))
+
+    serve_transports(label, harness, model, counters, x, seed, V, check,
+                     atol, 0, int8_per_layer * run.cfg.n_layers,
+                     cross_process=True)
 
 
 def check_tokens(label, toks, plain_last, atol) -> None:
@@ -901,6 +1002,340 @@ def serve_ensemble(label: str, torch, counters, int8: bool):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Shared-memory transports
+# ---------------------------------------------------------------------------
+
+# per transport: requests one after another (p50, p99), then clients sending
+# at once (infer/s)
+SHM_SEQUENTIAL, SHM_CLIENTS, SHM_PER_CLIENT = 30, 4, 8
+# bert_large's transport requests: one batch of 32 sequences
+BERT_SHM_ROWS = 32
+# system shm keys of this run start with this and the pid
+SHM_PREFIX = "chip_smoke_"
+# the card's name and power limit, printed beside every transport number
+CARD = ""
+#: "<phase> <transport>" -> that window's kernel launches
+SHM_PATHS = {}
+
+
+def _http_json(port: int, method: str, path: str, body=None):
+    """One JSON request to the server; fails the run on any status but
+    200."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request(method, path,
+                     None if body is None else json.dumps(body).encode())
+        resp = conn.getresponse()
+        data = resp.read()
+    finally:
+        conn.close()
+    if resp.status != 200:
+        fail(f"{method} {path} returned HTTP {resp.status}: {data[:500]!r}")
+    return json.loads(data) if data else None
+
+
+def _nbytes(datatype: str, shape) -> int:
+    import numpy as np
+
+    from triton_client_tpu_torch.utils import triton_to_np_dtype
+
+    return int(np.prod(shape)) * triton_to_np_dtype(datatype).itemsize
+
+
+class WireClient:
+    """Tensors in the HTTP body, binary (transport (a))."""
+
+    def __init__(self, port: int, inp, out):
+        self.port, self.inp, self.out = port, inp, out
+
+    def infer(self, model: str, x):
+        """(output, seconds from the request's making to the output's
+        arrival)."""
+        t0 = time.perf_counter()
+        got, _ = _post_infer(self.port, model, [(self.inp[0], self.inp[1], x)],
+                             [self.out[0]])
+        return got[self.out[0]], time.perf_counter() - t0
+
+    def close(self) -> None:
+        pass
+
+
+class ShmClient:
+    """One client's two regions, for a model's input ``inp`` and output
+    ``out`` ((name, datatype, shape) each), registered with the server on
+    ``port``: ``kind`` "system" (POSIX shm) or "cuda" (CUDA regions of this
+    process: read in place by a server in this process, mapped with
+    cudaIpcOpenMemHandle by one in another)."""
+
+    def __init__(self, port: int, kind: str, tag: str, inp, out):
+        import base64
+
+        from triton_client_tpu_torch.utils import cuda_shared_memory
+        from triton_client_tpu_torch.utils import shared_memory
+
+        self.port, self.kind, self.inp, self.out = port, kind, inp, out
+        self.mod = shared_memory if kind == "system" else cuda_shared_memory
+        self.path = ("systemsharedmemory" if kind == "system"
+                     else "cudasharedmemory")
+        self.regions = {}
+        for role, (_, datatype, shape) in (("in", inp), ("out", out)):
+            name, nbytes = f"{tag}_{role}", _nbytes(datatype, shape)
+            if kind == "system":
+                key = f"/{SHM_PREFIX}{os.getpid()}_{name}"
+                h = shared_memory.create_shared_memory_region(
+                    name, key, nbytes, create_only=True)
+                body = {"key": key, "offset": 0, "byte_size": nbytes}
+            else:
+                h = cuda_shared_memory.create_shared_memory_region(
+                    name, nbytes, 0)
+                body = {"raw_handle": {"b64": base64.b64encode(
+                    cuda_shared_memory.get_raw_handle(h)).decode()},
+                    "device_id": 0, "byte_size": nbytes}
+            self.regions[role] = (name, h, nbytes)
+            _http_json(port, "POST",
+                       f"/v2/{self.path}/region/{name}/register", body)
+
+    def infer(self, model: str, x):
+        """Write ``x``, infer with both tensors in regions, read the output
+        back: (output, seconds)."""
+        import numpy as np
+
+        from triton_client_tpu_torch.utils import triton_to_np_dtype
+
+        t0 = time.perf_counter()
+        (rin, hin, nin), (rout, hout, nout) = (self.regions["in"],
+                                               self.regions["out"])
+        self.mod.set_shared_memory_region(hin, [x])
+        resp = _http_json(self.port, "POST", f"/v2/models/{model}/infer", {
+            "inputs": [{"name": self.inp[0], "datatype": self.inp[1],
+                        "shape": list(x.shape), "parameters": {
+                            "shared_memory_region": rin,
+                            "shared_memory_byte_size": nin}}],
+            "outputs": [{"name": self.out[0], "parameters": {
+                "shared_memory_region": rout,
+                "shared_memory_byte_size": nout}}]})
+        entry = resp["outputs"][0]
+        if "data" in entry or entry["parameters"].get(
+                "shared_memory_region") != rout:
+            fail(f"{self.kind} shm: the response carried {entry}, not the "
+                 "output's region")
+        got = np.array(self.mod.get_contents_as_numpy(
+            hout, triton_to_np_dtype(self.out[1]), self.out[2]))
+        return got, time.perf_counter() - t0
+
+    def close(self) -> None:
+        for name, h, _ in self.regions.values():
+            _http_json(self.port, "POST",
+                       f"/v2/{self.path}/region/{name}/unregister")
+            self.mod.destroy_shared_memory_region(h)
+
+
+def run_transport(make_client, model: str, x):
+    """Through clients from ``make_client(tag)``: the answer to ``x`` (the
+    first request, the warm-up too), SHM_SEQUENTIAL requests one after
+    another, then SHM_CLIENTS clients sending SHM_PER_CLIENT each at once.
+    Returns (answer, sequential latencies in s, infer/s of the concurrent
+    window, requests sent)."""
+    first = make_client("seq")
+    try:
+        answer, _ = first.infer(model, x)
+        latencies = [first.infer(model, x)[1]
+                     for _ in range(SHM_SEQUENTIAL)]
+    finally:
+        first.close()
+    clients = [make_client(f"c{i}") for i in range(SHM_CLIENTS)]
+    errors = []
+    start = threading.Barrier(SHM_CLIENTS)
+
+    def send(client):
+        try:
+            start.wait(timeout=60)
+            for _ in range(SHM_PER_CLIENT):
+                client.infer(model, x)
+        except BaseException as e:  # reported below, then fail
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=send, args=(c,)) for c in clients]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    for c in clients:
+        c.close()
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"{model}: concurrent clients failed: {errors}")
+    n = SHM_CLIENTS * SHM_PER_CLIENT
+    return answer, latencies, n / wall, 1 + SHM_SEQUENTIAL + n
+
+
+def shm_client_main(spec_json: str) -> int:
+    """The cross-process client (transport (d)), started by the smoke run as
+    ``chip_smoke.py --shm-client SPEC``: it makes CUDA regions in its own
+    process, so the server maps them with cudaIpcOpenMemHandle; it runs
+    ``run_transport`` and prints one ``RESULT`` line."""
+    import base64
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("CUDA is not available")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from triton_client_tpu_torch._cuda_broker import broker
+    from triton_client_tpu_torch.utils import cuda_shared_memory
+
+    spec = json.loads(spec_json)
+    x = model_tokens(spec["seed"], spec["rows"], spec["seq_len"],
+                     spec["vocab"])
+    inp, out = tuple(spec["input"]), tuple(spec["output"])
+    answer, lat, rate, n = run_transport(
+        lambda tag: ShmClient(spec["port"], "cuda", f"ipc_{tag}", inp, out),
+        spec["model"], x)
+    print("RESULT " + json.dumps({
+        "answer": base64.b64encode(np.ascontiguousarray(answer).tobytes())
+        .decode(), "latencies": lat, "infer_per_s": rate, "requests": n,
+        "left": cuda_shared_memory.allocated_shared_memory_regions(),
+        "server_present": broker().server_present}), flush=True)
+    return 0
+
+
+def model_tokens(seed: int, rows: int, seq_len: int, vocab: int):
+    import numpy as np
+
+    return np.random.default_rng(seed).integers(
+        0, vocab, (rows, seq_len)).astype(np.int32)
+
+
+def _cross_process(port: int, model: str, inp, out, seed, rows, seq_len,
+                   vocab):
+    """Run the cross-process client; returns its RESULT."""
+    import base64
+
+    import numpy as np
+
+    spec = json.dumps({"port": port, "model": model, "input": inp,
+                       "output": out, "seed": seed, "rows": rows,
+                       "seq_len": seq_len, "vocab": vocab})
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--shm-client", spec],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    lines = [ln for ln in stdout.splitlines() if ln.startswith("RESULT ")]
+    if proc.returncode != 0 or not lines:
+        fail(f"the cross-process client exited {proc.returncode}: "
+             f"{stdout[-1500:]} {stderr[-3000:]}")
+    res = json.loads(lines[-1][len("RESULT "):])
+    if res["left"] or res["server_present"]:
+        fail(f"the cross-process client left regions {res['left']} or saw "
+             "an in-process server")
+    from triton_client_tpu_torch.utils import triton_to_np_dtype
+
+    res["answer"] = np.frombuffer(base64.b64decode(res["answer"]),
+                                  triton_to_np_dtype(out[1])).reshape(out[2])
+    return res
+
+
+def serve_transports(label: str, harness, model, counters, x, seed: int,
+                     vocab: int, check, atol: float, flash_per_forward: int,
+                     int8_per_forward: int, cross_process: bool):
+    """The same request ``x`` by each transport -- (a) the HTTP body,
+    (b) system shm, (c) CUDA shm in this process, and where
+    ``cross_process`` (d) CUDA shm of another process -- on the running
+    server ``harness``: each answer held by ``check(transport, answer)`` and
+    to the wire answer within ``atol``, kernel launches counted per forward, p50 / p99 of
+    SHM_SEQUENTIAL requests, infer/s of SHM_CLIENTS at once and the server's
+    median split of a request.  Then no region may be left: none in this
+    process, no key of the run in /dev/shm, both status lists empty."""
+    import numpy as np
+
+    from triton_client_tpu_torch._cuda_broker import broker
+    from triton_client_tpu_torch.utils import cuda_shared_memory
+
+    port, core = harness.http_port, harness.core
+    cfg = model.config
+    inp = (cfg.input[0].name, cfg.input[0].data_type, list(x.shape))
+    out = (cfg.output[0].name, cfg.output[0].data_type,
+           [x.shape[0]] + list(cfg.output[0].dims))
+    if not broker().server_present:
+        fail(f"{label}: the in-process server did not mark the broker")
+    transports = {
+        "wire": lambda tag: WireClient(port, inp, out),
+        "system shm": lambda tag: ShmClient(port, "system", f"sys_{tag}",
+                                            inp, out),
+        "cuda shm": lambda tag: ShmClient(port, "cuda", f"cuda_{tag}", inp,
+                                          out),
+    }
+    if cross_process:
+        transports["cuda shm, other process"] = None
+    answers = {}
+    for name, make in transports.items():
+        st = model.stats
+        runs0 = st.batch_execution_count
+        _reset(counters)
+        core.splits = []
+        if make is None:
+            res = _cross_process(port, model.name, inp, out, seed,
+                                 x.shape[0], x.shape[1], vocab)
+            answer, lat, rate, n = (res["answer"], res["latencies"],
+                                    res["infer_per_s"], res["requests"])
+        else:
+            answer, lat, rate, n = run_transport(make, model.name, x)
+        splits, core.splits = core.splits, None
+        # a wire request goes through the batcher, a shm one past it
+        forwards = (st.batch_execution_count - runs0) if name == "wire" \
+            else n
+        launches = {k: mod.launches for k, mod in counters.items()}
+        launches["int8_quantize_rows"] = \
+            counters["int8_matmul"].quantize_launches
+        check_launches(f"{label} {name}", launches, forwards,
+                       flash_per_forward, int8_per_forward)
+        SHM_PATHS[f"{label} {name}"] = launches
+        seq = splits[1:1 + SHM_SEQUENTIAL]
+        if len(splits) != n or len(seq) != SHM_SEQUENTIAL:
+            fail(f"{label} {name}: the server recorded {len(splits)} "
+                 f"requests, {n} were sent")
+        med = {k: float(np.median([getattr(sp, k) for sp in seq]))
+               for k in ("decode", "resolve", "forward", "output", "total")}
+        lat_ms = 1e3 * np.asarray(lat)
+        print(f"{label} {name}: {out[0]} {list(answer.shape)}; p50 "
+              f"{np.percentile(lat_ms, 50):.3f} ms, p99 "
+              f"{np.percentile(lat_ms, 99):.3f} ms over {len(lat)} requests "
+              f"one after another; {rate:.2f} infer/s from {SHM_CLIENTS} "
+              f"clients at once; server split (median of {len(seq)}): "
+              f"decode {med['decode']:.3f} ms, input resolution "
+              f"{med['resolve']:.3f} ms, forward {med['forward']:.3f} ms "
+              "(CUDA events), output write or readback "
+              f"{med['output']:.3f} ms, total {med['total']:.3f} ms; "
+              f"{forwards} forwards, launches {launches}; {CARD}",
+              flush=True)
+        check(name, answer)
+        answers[name] = answer
+    for name, answer in answers.items():
+        err = float(np.abs(answer - answers["wire"]).max())
+        print(f"{label} {name} vs wire: max_abs_err {err:.3e}", flush=True)
+        if not err <= atol:
+            fail(f"{label} {name}: the answer differs from the wire answer "
+                 f"by {err:.3e} (atol {atol})")
+    left = cuda_shared_memory.allocated_shared_memory_regions()
+    keys = [k for k in os.listdir("/dev/shm")
+            if k.startswith(f"{SHM_PREFIX}{os.getpid()}")]
+    status = {k: _http_json(port, "GET", f"/v2/{k}/status")
+              for k in ("systemsharedmemory", "cudasharedmemory")}
+    print(f"{label}: regions left: {left} in this process, {keys} in "
+          f"/dev/shm, status {status}", flush=True)
+    if left or keys or any(status.values()):
+        fail(f"{label}: shared-memory regions were left behind")
+
+
+
 def main() -> int:
     try:
         import torch
@@ -924,6 +1359,8 @@ def main() -> int:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
+    global CARD
+    CARD = card
     clock = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
@@ -989,16 +1426,17 @@ def main() -> int:
     # error, not in the kernels line
     paths = {
         "longctx_tpu bf16": phase("serve bf16", serve_longctx,
-                                  int8_per_layer=0),
+                                  int8_per_layer=0, transports=True),
         "longctx_tpu int8": phase("serve int8", serve_longctx,
                                   int8_per_layer=1, int8=True),
     }
     phase("serve int8 fused=all", serve_longctx, int8_per_layer=2,
           int8=True, fused="all")
     paths["bert_large bf16"] = phase("serve bert_large bf16", serve_bert,
-                                     int8_per_layer=0)
+                                     int8_per_layer=0, transports=True)
     paths["bert_large int8"] = phase("serve bert_large int8", serve_bert,
-                                     int8_per_layer=1, int8=True)
+                                     int8_per_layer=1, int8=True,
+                                     transports=True)
     phase("serve bert_large int8 fused=all", serve_bert, int8_per_layer=2,
           int8=True, fused="all")
     paths["moe_tpu bf16"] = phase(
@@ -1014,6 +1452,8 @@ def main() -> int:
         "llama_tpu", int8_per_layer=1, int8=True)
     for var in ("TRITON_TPU_QUANT", "TRITON_TPU_INT8_FUSED"):
         os.environ.pop(var, None)
+    # and every transport's window of the shared-memory phases
+    paths.update(SHM_PATHS)
     for path, launches in paths.items():
         print(f"launches on {path}: flash_attention "
               f"{launches['flash_attention']}, int8_matmul "
@@ -1042,4 +1482,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--shm-client"]:
+        sys.exit(shm_client_main(sys.argv[2]))
     sys.exit(main())

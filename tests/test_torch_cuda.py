@@ -1,7 +1,9 @@
 """On-card tests of the PyTorch port: each CUDA kernel against its plain
 version (at the serving shapes of longctx_tpu, bert_large and llama_tpu
 1b), the served forward through the kernels, and one ensemble_llama request
-over llama_tpu 1b.
+over llama_tpu 1b; and CUDA shared-memory regions: their API, a region
+mapped by another process through cudaIPC, serving over them, and the card's
+memory given back after unregister.
 
 They need an NVIDIA GPU and nvcc and skip elsewhere.  This file imports no
 JAX, so it runs on a machine that has none:
@@ -18,7 +20,9 @@ moves them by ~18% of their RMS at 4096 keys); the int8 quantize pass and
 matmul bit for bit.
 """
 
+import base64
 import importlib
+import json
 
 import numpy as np
 import pytest
@@ -349,3 +353,250 @@ def test_ensemble_llama_served_on_card(cuda, monkeypatch):
         last = fwd(llama.transformer.params,
                    torch.from_numpy(tokens).to(cuda))[0, -1].float()
     assert last[tok] >= last.max() - 3e-2
+
+
+# ---------------------------------------------------------------------------
+# CUDA shared memory: regions, cudaIPC across processes, serving over them
+# ---------------------------------------------------------------------------
+
+_GRANULE = 2 << 20  # the card's allocation granule
+
+
+def _cudashm():
+    from triton_client_tpu_torch.utils import cuda_shared_memory
+    return cuda_shared_memory
+
+
+def test_cuda_region_set_get_dlpack_and_views(cuda):
+    cudashm = _cudashm()
+    h = cudashm.create_shared_memory_region("r", 256, 0)
+    try:
+        assert h.tensor.is_cuda and h.tensor.numel() == 256
+        x = np.arange(16, dtype=np.int32)
+        cudashm.set_shared_memory_region(h, [x])
+        cudashm.set_shared_memory_region(
+            h, [np.arange(4, dtype=np.float32)], offset=64)
+        # the offset write kept the earlier bytes
+        np.testing.assert_array_equal(
+            cudashm.get_contents_as_numpy(h, np.int32, [16]), x)
+        np.testing.assert_array_equal(cudashm.get_contents_as_numpy(
+            h, np.float32, [4], offset=64), np.arange(4))
+        words = np.array([b"gpu", b"", b"\xff shm"], dtype=object)
+        cudashm.set_shared_memory_region(h, [words], offset=128)
+        assert cudashm.get_contents_as_numpy(
+            h, np.object_, [3], offset=128).tolist() == words.tolist()
+        src = torch.arange(32, device=cuda, dtype=torch.bfloat16)
+        cudashm.set_shared_memory_region_from_dlpack(h, [src])
+        view = cudashm.as_shared_memory_tensor(h, "BF16", [4, 8])
+        assert view.data_ptr() == h.tensor.data_ptr()  # zero-copy
+        assert torch.equal(view.flatten(), src)
+        at = cudashm.as_shared_memory_tensor(h, "INT32", [2], offset=192)
+        assert at.data_ptr() == h.tensor.data_ptr() + 192
+        assert torch.from_dlpack(view).data_ptr() == view.data_ptr()
+        with pytest.raises(cudashm.CudaSharedMemoryException):
+            cudashm.set_shared_memory_region(h, [np.zeros(65, np.int32)])
+    finally:
+        cudashm.destroy_shared_memory_region(h)
+    assert cudashm.allocated_shared_memory_regions() == []
+
+
+_IMPORTER = """
+import base64, json, sys
+import torch
+from triton_client_tpu_torch.server.shm import CudaShmRegistry
+from triton_client_tpu_torch.server.types import ShmRef
+raw, n = base64.b64decode(sys.argv[1]), int(sys.argv[2])
+reg = CudaShmRegistry()
+reg.register("r", raw, 0, n)
+x = reg.read(ShmRef("r", n // 2, 0), "INT32", [n // 8])
+print(json.dumps(x.cpu().tolist()))
+reg.write(ShmRef("r", n // 2, n // 2), x * 3)
+torch.cuda.synchronize()
+reg.unregister(None)
+"""
+
+
+def _child_env():
+    import os
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))
+    return env
+
+
+def test_cuda_region_mapped_by_another_process(cuda):
+    """A spawned process maps the region with cudaIpcOpenMemHandle, reads
+    this process's bytes and writes its own back."""
+    import base64
+    import subprocess
+    import sys
+
+    cudashm = _cudashm()
+    n = 4096
+    h = cudashm.create_shared_memory_region("ipc", n, 0)
+    try:
+        x = np.arange(n // 8, dtype=np.int32) * 7
+        cudashm.set_shared_memory_region(h, [x])
+        raw = base64.b64encode(cudashm.get_raw_handle(h)).decode()
+        out = subprocess.run([sys.executable, "-c", _IMPORTER, raw, str(n)],
+                             capture_output=True, text=True, timeout=600,
+                             env=_child_env())
+        assert out.returncode == 0, out.stderr[-2000:]
+        assert json.loads(out.stdout.splitlines()[-1]) == x.tolist()
+        np.testing.assert_array_equal(cudashm.get_contents_as_numpy(
+            h, np.int32, [n // 8], offset=n // 2), x * 3)
+    finally:
+        cudashm.destroy_shared_memory_region(h)
+
+
+_EXPORTER = """
+import base64, sys
+from triton_client_tpu_torch.utils import cuda_shared_memory as cudashm
+import numpy as np
+h = cudashm.create_shared_memory_region("big", int(sys.argv[1]), 0)
+cudashm.set_shared_memory_region(h, [np.arange(64, dtype=np.int32)])
+print(base64.b64encode(cudashm.get_raw_handle(h)).decode(), flush=True)
+sys.stdin.readline()
+cudashm.destroy_shared_memory_region(h)
+"""
+
+
+@pytest.mark.parametrize("order", ["unregister_first", "client_exits_first"])
+def test_unregister_gives_the_memory_back(cuda, order):
+    """A region of another process, mapped by the server's registry: after
+    unregister and the client's exit the card's free memory is back within
+    one allocation granule, whichever goes first, and status still answers
+    after the client is gone."""
+    import base64
+    import subprocess
+    import sys
+
+    from triton_client_tpu_torch.server.shm import CudaShmRegistry
+    from triton_client_tpu_torch.server.types import ShmRef
+
+    n = 64 << 20
+
+    def free():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.mem_get_info()[0]
+
+    free0 = free()
+    child = subprocess.Popen([sys.executable, "-c", _EXPORTER, str(n)],
+                             stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                             text=True, env=_child_env())
+    try:
+        raw = base64.b64decode(child.stdout.readline())
+        reg = CudaShmRegistry()
+        reg.register("big", raw, 0, n)
+        assert free() <= free0 - n  # the child's region (and context)
+        got = reg.read(ShmRef("big", 256, 0), "INT32", [64])
+        assert got.cpu().tolist() == list(range(64))
+        if order == "unregister_first":
+            reg.unregister("big")
+        child.stdin.write("\n")
+        child.stdin.flush()
+        assert child.wait(timeout=300) == 0
+        assert list(reg.status(None)) == (
+            [] if order == "unregister_first" else ["big"])
+        reg.unregister(None)
+        assert reg.status(None) == {}
+    finally:
+        if child.poll() is None:
+            child.kill()
+    assert abs(free() - free0) <= _GRANULE
+
+
+def _http(port, method, path, body=None):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request(method, path,
+                     None if body is None else json.dumps(body).encode())
+        resp = conn.getresponse()
+        data = resp.read()
+    finally:
+        conn.close()
+    assert resp.status == 200, data[:500]
+    return json.loads(data) if data else None
+
+
+def _shm_infer(port, model, inputs, outputs):
+    """Register a CUDA region per tensor, write ``inputs`` ({name: array}),
+    infer with every tensor in a region, read ``outputs`` ({name: (dtype,
+    shape)}), unregister and free.  Returns the outputs."""
+    cudashm = _cudashm()
+    regions, specs, outs = {}, [], []
+    try:
+        for name, arr in inputs.items():
+            h = regions[name] = cudashm.create_shared_memory_region(
+                name, arr.nbytes, 0)
+            cudashm.set_shared_memory_region(h, [arr])
+            specs.append({"name": name, "datatype": "INT32",
+                          "shape": list(arr.shape), "parameters": {
+                              "shared_memory_region": name,
+                              "shared_memory_byte_size": arr.nbytes}})
+        for name, (dtype, shape) in outputs.items():
+            nbytes = int(np.prod(shape)) * np.dtype(dtype).itemsize
+            regions[name] = cudashm.create_shared_memory_region(
+                name, nbytes, 0)
+            outs.append({"name": name, "parameters": {
+                "shared_memory_region": name,
+                "shared_memory_byte_size": nbytes}})
+        for name, h in regions.items():
+            _http(port, "POST",
+                  f"/v2/cudasharedmemory/region/{name}/register",
+                  {"raw_handle": {"b64": base64.b64encode(
+                      cudashm.get_raw_handle(h)).decode()},
+                   "device_id": 0, "byte_size": h.byte_size})
+        resp = _http(port, "POST", f"/v2/models/{model}/infer",
+                     {"inputs": specs, "outputs": outs})
+        assert all("data" not in o and o["parameters"][
+            "shared_memory_region"] == o["name"] for o in resp["outputs"])
+        got = {name: cudashm.get_contents_as_numpy(regions[name], dtype,
+                                                   shape)
+               for name, (dtype, shape) in outputs.items()}
+        _http(port, "POST", "/v2/cudasharedmemory/unregister")
+        assert _http(port, "GET", "/v2/cudasharedmemory/status") == []
+        return got
+    finally:
+        for h in regions.values():
+            cudashm.destroy_shared_memory_region(h)
+
+
+def test_served_over_cuda_shm(cuda, monkeypatch):
+    """``simple`` (a host model: its region inputs pay one device-to-host
+    copy) and the tiny ``longctx_tpu`` on the card (its region input read in
+    place) served with every tensor in a CUDA region; LOGPROBS equal to the
+    model's own forward on the same tokens within 1e-6."""
+    from triton_client_tpu_torch.models import zoo
+    from triton_client_tpu_torch.server.registry import ModelRegistry
+    from triton_client_tpu_torch.server.testing import ServerHarness
+
+    monkeypatch.setenv("TRITON_TPU_LONGCTX_PRESET", "tiny")
+    for var in ("TRITON_TPU_QUANT", "TRITON_TPU_QUANT_LONGCTX_TPU"):
+        monkeypatch.delenv(var, raising=False)
+    longctx = language.make_longctx_tpu("cuda")
+    S = longctx.config.input[0].dims[0]
+    reg = ModelRegistry()
+    reg.register_model(zoo.make_simple())
+    reg.register_model(longctx)
+    rng = np.random.default_rng(21)
+    a = rng.integers(-100, 100, (1, 16)).astype(np.int32)
+    b = rng.integers(-100, 100, (1, 16)).astype(np.int32)
+    tokens = rng.integers(0, 256, (2, S)).astype(np.int32)
+    with ServerHarness(reg) as hs:
+        got = _shm_infer(hs.http_port, "simple",
+                         {"INPUT0": a, "INPUT1": b},
+                         {"OUTPUT0": (np.int32, [1, 16]),
+                          "OUTPUT1": (np.int32, [1, 16])})
+        np.testing.assert_array_equal(got["OUTPUT0"], a + b)
+        np.testing.assert_array_equal(got["OUTPUT1"], a - b)
+        lp = _shm_infer(hs.http_port, "longctx_tpu", {"TOKENS": tokens},
+                        {"LOGPROBS": (np.float32, [2, S])})["LOGPROBS"]
+    t = torch.from_numpy(tokens).to(cuda)
+    with torch.inference_mode():
+        want = language.longctx_scores(longctx.transformer(t), t)
+    assert np.isfinite(lp).all()
+    np.testing.assert_allclose(lp, want.cpu().numpy(), rtol=0, atol=1e-6)

@@ -31,6 +31,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = {
     "flash_attention": "flash_attention.cu",
     "int8_matmul": "int8_matmul.cu",
+    # host calls only (cudaMalloc, cudaIpc*) for utils.cuda_shared_memory
+    "cuda_ipc": "cuda_ipc.cu",
 }
 
 # No --use_fast_math: int8_matmul needs the IEEE divide and rintf's

@@ -22,8 +22,23 @@ ensemble requests coalesce on it, and the ensemble's outputs go through
 come back to the host (the reference keeps an unbatched member's outputs on
 the device).
 
-QoS tiers, tracing, cost and device statistics, chaos, the fleet controller,
-shared memory and the response cache are not ported yet.
+Shared memory (the reference's ``system_shm`` / ``xla_shm`` registries,
+core.py:2290-2294 and 2356-2380): an input that names a region is resolved
+through the CUDA registry, else the system one, to a view of the region's
+memory.  A request with any shared-memory input or output bypasses the
+dynamic batcher and runs on its request thread, as in the reference
+(``_use_batcher``, core.py:1715-1721).  An output bound to a CUDA region is
+not read back: it is copied device-to-device into the region, and one CUDA
+event recorded behind the last such copy is waited on before the response
+goes out, so a client that reads the region after the response sees the
+output.  An output bound to a system region is read back, then copied into
+the mapping.
+
+Where ``InferenceCore.splits`` is a list, each request appends its
+:class:`RequestSplit` to it: the server's time by phase.
+
+QoS tiers, tracing, cost and device statistics, chaos, the fleet controller
+and the response cache are not ported yet.
 """
 
 from __future__ import annotations
@@ -32,14 +47,16 @@ import concurrent.futures
 import queue
 import threading
 import time
-from typing import Any, Dict
+from dataclasses import dataclass
+from typing import Any, Collection, Dict, List, Optional
 
 import numpy as np
 import torch
 
-from ..utils import np_to_triton_dtype
+from ..utils import np_to_triton_dtype, torch_to_triton_dtype
 from .model import EnsembleModel, Model
 from .registry import ModelRegistry
+from .shm import CudaShmRegistry, SystemShmRegistry
 from .types import (InferError, InferRequest, InferResponse, InputTensor,
                     OutputTensor)
 
@@ -48,6 +65,49 @@ def _batch_count(inputs: Dict[str, Any]) -> int:
     for v in inputs.values():
         return int(v.shape[0]) if getattr(v, "ndim", 0) > 0 else 1
     return 1
+
+
+@dataclass
+class RequestSplit:
+    """One request's time in the server, in ms, by phase: ``decode`` of the
+    wire request (host clock), ``resolve`` of its inputs, shared-memory
+    regions included (host clock), ``forward`` (CUDA events around the
+    model's execution where it runs on the card, else host clock; the copy
+    of host inputs to the card is part of it), ``output``: from the forward's
+    end to every output read back or written into its region (host clock),
+    and ``total`` from the start of decode to the response built.  On a
+    batched request, ``forward`` and ``output`` are its batch's."""
+
+    decode: float = 0.0
+    resolve: float = 0.0
+    forward: float = 0.0
+    output: float = 0.0
+    total: float = 0.0
+    # host clock when the forward was done (perf_counter_ns)
+    forward_done_ns: int = 0
+
+
+def _timed_execute(model: Model, inputs: Dict[str, Any],
+                   params: Dict[str, Any], split: Optional[RequestSplit]):
+    """``model.execute``; with a ``split``, the forward timed into it (on
+    the card: waited on, so that ``output`` starts at its end)."""
+    if split is None:
+        return model.execute(inputs, params)
+    device = getattr(model, "device", None)
+    t0 = time.perf_counter_ns()
+    if device is not None and device.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        outputs = model.execute(inputs, params)
+        end.record()
+        end.synchronize()
+        split.forward = start.elapsed_time(end)
+    else:
+        outputs = model.execute(inputs, params)
+        split.forward = (time.perf_counter_ns() - t0) / 1e6
+    split.forward_done_ns = time.perf_counter_ns()
+    return outputs
 
 
 def readback(outputs: Dict[str, Any]) -> Dict[str, np.ndarray]:
@@ -113,9 +173,11 @@ class _DynamicBatcher:
         self._thread.start()
 
     def submit(self, inputs: Dict[str, np.ndarray],
-               parameters: Dict[str, Any]) -> Dict[str, np.ndarray]:
+               parameters: Dict[str, Any],
+               split: Optional[RequestSplit] = None
+               ) -> Dict[str, np.ndarray]:
         fut: concurrent.futures.Future = concurrent.futures.Future()
-        self._queue.put((inputs, parameters, fut))
+        self._queue.put((inputs, parameters, fut, split))
         return fut.result()
 
     def stop(self) -> None:
@@ -186,10 +248,16 @@ class _DynamicBatcher:
                     arr = np.pad(arr, [(0, padded - total)]
                                  + [(0, 0)] * (arr.ndim - 1))
                 merged[n] = arr
-            outputs = self._core.run_model(self._model, merged, pending[0][1])
+            split = RequestSplit() if any(p[3] is not None
+                                          for p in pending) else None
+            outputs = self._core.run_model(self._model, merged,
+                                           pending[0][1], split)
             self._model.stats.record_batch(total)
             offset = 0
             for item, count in zip(pending, counts):
+                if item[3] is not None:
+                    item[3].forward = split.forward
+                    item[3].forward_done_ns = split.forward_done_ns
                 item[2].set_result({n: v[offset:offset + count]
                                     for n, v in outputs.items()})
                 offset += count
@@ -202,13 +270,18 @@ class _DynamicBatcher:
 class InferenceCore:
     SERVER_NAME = "triton_client_tpu_torch_harness"
     SERVER_VERSION = "2.0.0-cuda"
-    EXTENSIONS = ["binary_tensor_data", "model_configuration"]
+    EXTENSIONS = ["binary_tensor_data", "model_configuration",
+                  "system_shared_memory", "cuda_shared_memory"]
 
     def __init__(self, registry: ModelRegistry):
         self.registry = registry
+        self.system_shm = SystemShmRegistry()
+        self.cuda_shm = CudaShmRegistry()
         self._batchers: Dict[str, _DynamicBatcher] = {}
         self._lock = threading.Lock()
         self.live = True
+        #: a list to collect each request's RequestSplit in, or None
+        self.splits: Optional[List[RequestSplit]] = None
 
     # -- health / metadata -------------------------------------------------
     def ready(self) -> bool:
@@ -224,27 +297,56 @@ class InferenceCore:
     # -- inference ---------------------------------------------------------
     def infer(self, request: InferRequest) -> InferResponse:
         """Single request/response inference (HTTP infer)."""
+        split = RequestSplit() if self.splits is not None else None
+        t0 = time.perf_counter_ns()
         model = self.registry.get(request.model_name, request.model_version)
         inputs = self._resolve_inputs(model, request)
+        if split is not None:
+            split.resolve = (time.perf_counter_ns() - t0) / 1e6
         params = dict(request.parameters)
+        shm = any(t.shm is not None for t in request.inputs) \
+            or any(o.shm is not None for o in request.outputs)
         try:
             if isinstance(model, EnsembleModel):
                 outputs = self._run_ensemble(model, inputs, params)
+            elif shm:
+                # on the request thread, outputs bound to CUDA regions kept
+                # where the model left them
+                keep = {o.name for o in request.outputs if o.shm is not None
+                        and self.cuda_shm.has(o.shm.region_name)}
+                outputs = self.run_model(model, inputs, params, split, keep)
             elif self._use_batcher(model):
-                outputs = self._batcher(model).submit(inputs, params)
+                outputs = self._batcher(model).submit(inputs, params, split)
             else:
-                outputs = self.run_model(model, inputs, params)
+                outputs = self.run_model(model, inputs, params, split)
         except InferError:
             raise
         except Exception as e:
             raise InferError(f"inference failed: {e}", http_status=500)
-        return self._build_response(model, request, outputs)
+        resp = self._build_response(model, request, outputs)
+        if split is not None:
+            now = time.perf_counter_ns()
+            start = request.decode_start_ns or t0
+            split.decode = (request.decode_end_ns - request.decode_start_ns
+                            ) / 1e6
+            if split.forward_done_ns:
+                split.output = (now - split.forward_done_ns) / 1e6
+            split.total = (now - start) / 1e6
+            self.splits.append(split)
+        return resp
 
     def run_model(self, model: Model, inputs: Dict[str, Any],
-                  params: Dict[str, Any]) -> Dict[str, np.ndarray]:
-        """Execute and read every output back to the host (on the calling
-        thread: a batch worker, or the request thread when unbatched)."""
-        return readback(model.execute(inputs, params))
+                  params: Dict[str, Any],
+                  split: Optional[RequestSplit] = None,
+                  keep: Collection[str] = ()) -> Dict[str, Any]:
+        """Execute and read every output back to the host, except those
+        named in ``keep``, which stay as the model returned them (on the
+        calling thread: a batch worker, or the request thread when
+        unbatched)."""
+        outputs = _timed_execute(model, inputs, params, split)
+        host = readback({n: v for n, v in outputs.items() if n not in keep})
+        host.update({n: v for n, v in outputs.items() if n in keep})
+        return host
 
     def _run_ensemble(self, model: EnsembleModel, inputs: Dict[str, Any],
                       params: Dict[str, Any]) -> Dict[str, np.ndarray]:
@@ -324,10 +426,14 @@ class InferenceCore:
                     f"'{t.datatype}', but model '{model.name}' expects "
                     f"'{cfg.data_type}'")
             self._check_shape(model, t, cfg, batched)
-            if t.shm is not None:
-                raise InferError(
-                    "shared-memory inputs are not supported by this server")
-            resolved[t.name] = t.data
+            if t.shm is None:
+                resolved[t.name] = t.data
+            elif self.cuda_shm.has(t.shm.region_name):
+                resolved[t.name] = self.cuda_shm.read(t.shm, t.datatype,
+                                                      t.shape)
+            else:
+                resolved[t.name] = self.system_shm.read(t.shm, t.datatype,
+                                                        t.shape)
         missing = [n for n, cfg in cfg_inputs.items()
                    if n not in resolved and not cfg.optional]
         if missing:
@@ -341,10 +447,15 @@ class InferenceCore:
                 raise InferError(
                     f"unexpected inference output '{o.name}' for model "
                     f"'{model.name}'")
-            if o.shm is not None or o.class_count:
+            if o.class_count:
                 raise InferError(
-                    "shared-memory and classification outputs are not "
-                    "supported by this server")
+                    "classification outputs are not supported by this "
+                    "server")
+            if o.shm is not None and not (
+                    self.cuda_shm.has(o.shm.region_name)
+                    or self.system_shm.has(o.shm.region_name)):
+                raise InferError("Unable to find shared memory region: "
+                                 f"'{o.shm.region_name}'")
         return resolved
 
     def _check_shape(self, model: Model, t: InputTensor, cfg,
@@ -368,18 +479,41 @@ class InferenceCore:
                 f"{model.max_batch_size} for '{model.name}'")
 
     def _build_response(self, model: Model, request: InferRequest,
-                        outputs: Dict[str, np.ndarray]) -> InferResponse:
+                        outputs: Dict[str, Any]) -> InferResponse:
+        """The response; outputs bound to regions are written there (a
+        CUDA region's copy queued on the card, then waited on)."""
         resp = InferResponse(model_name=model.name,
                              model_version=model.served_version,
                              id=request.id)
-        requested = [o.name for o in request.outputs]
-        names = requested or [o.name for o in model.config.output]
+        requested = {o.name: o for o in request.outputs}
+        names = list(requested) or [o.name for o in model.config.output]
+        card = None
         for name in names:
             if name not in outputs:
                 raise InferError(
                     f"model '{model.name}' did not produce output '{name}'")
-            host = np.asarray(outputs[name])
+            value = outputs[name]
+            ref = requested[name].shm if name in requested else None
+            if ref is not None and self.cuda_shm.has(ref.region_name):
+                card = self.cuda_shm.write(ref, value) or card
+                datatype = (torch_to_triton_dtype(value.dtype)
+                            if isinstance(value, torch.Tensor)
+                            else np_to_triton_dtype(value.dtype))
+                resp.outputs.append(OutputTensor(
+                    name=name, datatype=datatype, shape=tuple(value.shape),
+                    data=None, shm=ref))
+                continue
+            host = np.asarray(value)
+            if ref is not None:
+                self.system_shm.write(ref, host)
             resp.outputs.append(OutputTensor(
                 name=name, datatype=np_to_triton_dtype(host.dtype),
-                shape=tuple(host.shape), data=host))
+                shape=tuple(host.shape), data=None if ref else host,
+                shm=ref))
+        if card is not None:
+            # one event behind the last region write: the client may read
+            # the region as soon as it has the response
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(card))
+            done.synchronize()
         return resp

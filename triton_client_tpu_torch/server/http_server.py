@@ -9,15 +9,26 @@ infer -- with JSON tensors and the binary-tensor-data extension: a body of
 tensors are JSON strings, or in binary the length-prefixed serialization
 with ``binary_data_size`` its length.
 
+Shared memory (both v2 extensions, ``systemsharedmemory`` and
+``cudasharedmemory``): status, register and unregister routes, and infer
+inputs and outputs that name a region (``shared_memory_region``,
+``shared_memory_byte_size``, ``shared_memory_offset``); an output written to
+a region comes back as its name, datatype, shape and those parameters, with
+no data.
+
 Not ported yet: statistics, the repository, trace and logging APIs,
-shared-memory registration, generate/SSE, gzip and the wire templates.
+generate/SSE, gzip and the wire templates.
 """
 
 from __future__ import annotations
 
+import base64
+import binascii
 import json
 import math
 import re
+import time
+import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -27,11 +38,14 @@ from ..utils import (deserialize_bytes_tensor, serialize_byte_tensor_raw,
                      triton_to_np_dtype)
 from .core import InferenceCore
 from .types import (InferError, InferRequest, InputTensor, RequestedOutput,
-                    reshape_input)
+                    ShmRef, reshape_input)
 
 _HEADER_LEN = "Inference-Header-Content-Length"
 _REQUEST_ID_HDR = "triton-request-id"
 _MODEL = r"/v2/models/(?P<model>[^/]+)(?:/versions/(?P<version>[^/]+))?"
+
+_SHM = r"/v2/(?P<kind>systemsharedmemory|cudasharedmemory)"
+_SHM_REGION = _SHM + r"/region/(?P<name>[^/]+)"
 
 _GET_ROUTES = [
     (re.compile(r"/v2/health/live"), "_health_live"),
@@ -40,9 +54,14 @@ _GET_ROUTES = [
     (re.compile(r"/v2"), "_server_metadata"),
     (re.compile(_MODEL + r"/config"), "_model_config"),
     (re.compile(_MODEL), "_model_metadata"),
+    (re.compile(_SHM + r"/status"), "_shm_status"),
+    (re.compile(_SHM_REGION + r"/status"), "_shm_status"),
 ]
 _POST_ROUTES = [
     (re.compile(_MODEL + r"/infer"), "_infer"),
+    (re.compile(_SHM_REGION + r"/register"), "_shm_register"),
+    (re.compile(_SHM + r"/unregister"), "_shm_unregister"),
+    (re.compile(_SHM_REGION + r"/unregister"), "_shm_unregister"),
 ]
 
 
@@ -65,7 +84,7 @@ class _Handler(BaseHTTPRequestHandler):
         self._dispatch(_POST_ROUTES)
 
     def _dispatch(self, routes) -> None:
-        path = self.path.split("?", 1)[0]
+        path = urllib.parse.unquote(self.path.split("?", 1)[0])
         body = self._read_body()
         for pattern, handler in routes:
             match = pattern.fullmatch(path)
@@ -130,8 +149,54 @@ class _Handler(BaseHTTPRequestHandler):
                                        groups["version"] or "")
         self._send(200, _json_body(model.config.to_json()))
 
+    # -- shared memory -----------------------------------------------------
+    def _shm_registry(self, groups):
+        return (self.core.system_shm if groups["kind"] == "systemsharedmemory"
+                else self.core.cuda_shm)
+
+    def _shm_status(self, groups, body):
+        status = self._shm_registry(groups).status(groups.get("name"))
+        self._send(200, _json_body(list(status.values())))
+
+    def _shm_register(self, groups, body):
+        reg = self._shm_registry(groups)
+        name = groups["name"]
+        try:
+            req = json.loads(body)
+        except ValueError:
+            raise InferError("failed to parse request JSON")
+        if not isinstance(req, dict):
+            raise InferError("request body must be a JSON object")
+        system = reg is self.core.system_shm
+        needed = ("key", "byte_size") if system else ("raw_handle",
+                                                      "byte_size")
+        missing = [k for k in needed if k not in req]
+        if missing:
+            raise InferError(
+                f"shared memory registration missing field(s): {missing}")
+        try:
+            if system:
+                reg.register(name, req["key"], int(req.get("offset", 0)),
+                             int(req["byte_size"]))
+            else:
+                handle = req["raw_handle"]
+                if not isinstance(handle, dict) or "b64" not in handle:
+                    raise InferError(
+                        "raw_handle must be an object with a 'b64' field")
+                raw = base64.b64decode(handle["b64"], validate=True)
+                reg.register(name, raw, int(req.get("device_id", 0)),
+                             int(req["byte_size"]))
+        except (TypeError, ValueError, binascii.Error) as e:
+            raise InferError(f"invalid shared memory registration: {e}")
+        self._send(200)
+
+    def _shm_unregister(self, groups, body):
+        self._shm_registry(groups).unregister(groups.get("name"))
+        self._send(200)
+
     # -- infer -------------------------------------------------------------
     def _infer(self, groups, raw: bytes):
+        decode_start = time.perf_counter_ns()
         header_len = self.headers.get(_HEADER_LEN)
         if header_len is not None:
             try:
@@ -148,6 +213,8 @@ class _Handler(BaseHTTPRequestHandler):
             raise InferError("failed to parse inference request JSON")
         req = decode_request(groups["model"], groups["version"] or "",
                              body, binary)
+        req.decode_start_ns, req.decode_end_ns = (decode_start,
+                                                  time.perf_counter_ns())
         req.client_request_id = self.headers.get(_REQUEST_ID_HDR, "")
         req.protocol = "http"
         req.wire_bytes = len(raw)
@@ -188,14 +255,13 @@ def decode_request(model_name: str, version: str, body: dict,
         params = t.get("parameters", {}) or {}
         if not isinstance(params, dict):
             raise InferError(f"input '{name}' parameters must be an object")
-        if params.get("shared_memory_region"):
-            raise InferError(
-                "shared-memory inputs are not supported by this server")
         tensor = InputTensor(name=name, datatype=datatype, shape=shape,
                              parameters=params)
         bin_size = params.get("binary_data_size")
         try:
-            if bin_size is not None:
+            if params.get("shared_memory_region"):
+                tensor.shm = _shm_ref(params)
+            elif bin_size is not None:
                 chunk = binary[offset:offset + int(bin_size)]
                 if len(chunk) != int(bin_size):
                     raise InferError(
@@ -214,14 +280,25 @@ def decode_request(model_name: str, version: str, body: dict,
             params = o.get("parameters", {}) or {}
             if not isinstance(params, dict):
                 raise InferError("output parameters must be an object")
-            req.outputs.append(RequestedOutput(
+            out = RequestedOutput(
                 name=o["name"],
                 binary_data=bool(params.get("binary_data", False)),
                 class_count=int(params.get("classification", 0)),
-                parameters=params))
+                parameters=params)
+            if params.get("shared_memory_region"):
+                out.shm = _shm_ref(params)
+            req.outputs.append(out)
         except (TypeError, KeyError, ValueError, AttributeError) as e:
             raise InferError(f"malformed output specification: {e}")
     return req
+
+
+def _shm_ref(params: dict) -> ShmRef:
+    """The region a tensor's parameters name (KeyError / ValueError on a
+    malformed one, which the caller reports)."""
+    return ShmRef(region_name=params["shared_memory_region"],
+                  byte_size=int(params["shared_memory_byte_size"]),
+                  offset=int(params.get("shared_memory_offset", 0)))
 
 
 def _numeric_dtype(datatype: str, name: str) -> np.dtype:
@@ -284,12 +361,21 @@ def encode_response(resp, requested: Dict[str, RequestedOutput],
     output in output order (views of numeric output arrays, not copies; a
     BYTES output's one serialization buffer).  A BYTES output in JSON is a
     list of UTF-8 strings, and one that is not UTF-8 fails, as in the
-    reference."""
+    reference.  An output written to a shared-memory region carries only
+    the region's parameters."""
     outputs: List[Dict[str, Any]] = []
     segments: List[memoryview] = []
     for out in resp.outputs:
         entry: Dict[str, Any] = {"name": out.name, "datatype": out.datatype,
                                  "shape": list(out.shape)}
+        if out.shm is not None:
+            entry["parameters"] = {
+                "shared_memory_region": out.shm.region_name,
+                "shared_memory_byte_size": out.shm.byte_size}
+            if out.shm.offset:
+                entry["parameters"]["shared_memory_offset"] = out.shm.offset
+            outputs.append(entry)
+            continue
         spec = requested.get(out.name)
         binary = spec.binary_data if spec is not None else default_binary
         if out.datatype == "BYTES":

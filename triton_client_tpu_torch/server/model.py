@@ -256,10 +256,14 @@ class TorchModel(Model):
         self.device = resolve_instance_device(config)
 
     def _to_device(self, v):
+        """A tensor on the model's device: the same tensor where it lies
+        there already (a view of a CUDA shared-memory region is consumed in
+        place).  A copy to the host blocks: a host model reads it at once."""
         if isinstance(v, torch.Tensor):
-            return v.to(self.device, non_blocking=True)
+            return v.to(self.device, non_blocking=self.device.type == "cuda")
         if isinstance(v, np.ndarray) and v.dtype != np.object_:
-            if not v.flags.writeable or not v.flags.c_contiguous:
+            if not (v.flags.writeable and v.flags.c_contiguous
+                    and v.flags.aligned):
                 v = np.array(v)  # wire buffers are read-only views
             return torch.from_numpy(v).to(
                 self.device, non_blocking=True)

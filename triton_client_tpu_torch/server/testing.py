@@ -2,7 +2,9 @@
 
 Counterpart of ``triton_client_tpu/server/testing.py``'s ``ServerHarness``:
 the port's HTTP frontend on a free local port, served from a background
-thread of the current process.
+thread of the current process.  While it serves, the CUDA shared-memory
+broker's ``server_present`` is set: a region made in this process is read
+in place, by uuid.
 """
 
 from __future__ import annotations
@@ -11,9 +13,23 @@ import socket
 import threading
 from typing import Optional
 
+from .._cuda_broker import broker
 from .core import InferenceCore
 from .http_server import HttpServer
 from .registry import ModelRegistry
+
+
+# broker().server_present is process-global and a process may run several
+# harnesses, so it counts them
+_PRESENT_LOCK = threading.Lock()
+_PRESENT_COUNT = 0
+
+
+def _server_present(delta: int) -> None:
+    global _PRESENT_COUNT
+    with _PRESENT_LOCK:
+        _PRESENT_COUNT = max(0, _PRESENT_COUNT + delta)
+        broker().server_present = _PRESENT_COUNT > 0
 
 
 def free_port() -> int:
@@ -42,10 +58,12 @@ class ServerHarness:
             target=self._server.serve_forever, daemon=True,
             name="tc-torch-http")
         self._thread.start()
+        _server_present(+1)
         return self
 
     def stop(self) -> None:
         if self._server is not None:
+            _server_present(-1)
             self._server.shutdown()
             self._server.server_close()
             self._server = None

@@ -5,14 +5,21 @@ reference's ``triton_client_tpu/utils/__init__.py`` helpers).
 else to no numpy dtype.  BYTES maps to ``object``; on the wire a BYTES
 tensor is the row-major concatenation of ``<uint32 little-endian
 length><element bytes>``.
+
+``triton_to_torch_dtype`` and :func:`typed_view` serve the shared-memory
+modules: a region is a ``torch.uint8`` tensor, and a tensor in it is a
+typed view of its bytes (a torch tensor, so any framework takes it through
+``__dlpack__``).
 """
 
 from __future__ import annotations
 
+import math
 import struct
 from typing import Optional
 
 import numpy as np
+import torch
 
 try:
     import ml_dtypes
@@ -40,6 +47,46 @@ if _BF16_NP is not None:
 
 _TRITON_TO_NP = {v: k for k, v in _NP_TO_TRITON.items()}
 _TRITON_TO_NP["BYTES"] = np.dtype(np.object_)
+
+
+_TRITON_TO_TORCH = {
+    "BOOL": torch.bool, "INT8": torch.int8, "INT16": torch.int16,
+    "INT32": torch.int32, "INT64": torch.int64, "UINT8": torch.uint8,
+    "UINT16": torch.uint16, "UINT32": torch.uint32, "UINT64": torch.uint64,
+    "FP16": torch.float16, "BF16": torch.bfloat16, "FP32": torch.float32,
+    "FP64": torch.float64,
+}
+_TORCH_TO_TRITON = {v: k for k, v in _TRITON_TO_TORCH.items()}
+
+
+def triton_to_torch_dtype(dtype: str) -> Optional[torch.dtype]:
+    """Map a Triton v2 dtype string to a torch dtype (None for BYTES and
+    unknown types)."""
+    return _TRITON_TO_TORCH.get(dtype)
+
+
+def torch_to_triton_dtype(dtype: torch.dtype) -> Optional[str]:
+    """Map a torch dtype to its Triton v2 dtype string (None if unknown)."""
+    return _TORCH_TO_TRITON.get(dtype)
+
+
+def typed_view(region: torch.Tensor, dtype: torch.dtype, shape,
+               offset: int = 0) -> torch.Tensor:
+    """``shape`` elements of ``dtype`` at byte ``offset`` of the contiguous
+    ``torch.uint8`` tensor ``region``: a view of the same memory, or a copy
+    where ``offset`` is not a multiple of the item size (a view must be
+    aligned).  Raises ValueError where the bytes run past the region."""
+    shape = tuple(int(d) for d in shape)
+    itemsize = dtype.itemsize
+    nbytes = itemsize * math.prod(shape)
+    if offset < 0 or offset + nbytes > region.numel():
+        raise ValueError(
+            f"{nbytes} bytes at offset {offset} run past the region's "
+            f"{region.numel()} bytes")
+    raw = region[offset:offset + nbytes]
+    if offset % itemsize:
+        raw = raw.clone()
+    return raw.view(dtype).view(shape)
 
 
 def np_to_triton_dtype(np_dtype) -> Optional[str]:
@@ -96,14 +143,16 @@ def serialize_byte_tensor(input_tensor: np.ndarray) -> np.ndarray:
                          dtype=np.uint8)
 
 
-def deserialize_bytes_tensor(encoded_tensor) -> np.ndarray:
+def deserialize_bytes_tensor(encoded_tensor,
+                             count: Optional[int] = None) -> np.ndarray:
     """A BYTES wire buffer as a 1-D object array of ``bytes`` (the caller
-    reshapes), decoded to the buffer's end.  A truncated buffer raises
-    ValueError."""
+    reshapes), decoded to the buffer's end, or ``count`` elements and the
+    rest ignored (a shared-memory region may be larger than its tensor).
+    A truncated buffer raises ValueError."""
     strs = []
     mv = memoryview(encoded_tensor)
     offset, n = 0, len(mv)
-    while offset < n:
+    while offset < n if count is None else len(strs) < count:
         if offset + 4 > n:
             raise ValueError("unexpected end of serialized BYTES tensor")
         (length,) = struct.unpack_from("<I", mv, offset)
