@@ -67,9 +67,30 @@ Phases (any failure exits non-zero and prints no result line):
    f32 head;
    then ``llama_tpu`` served directly in int8 under ``w2`` (16 int8 launches
    per forward), one B = 8 forward timed and traced;
-9. print each kernel's launches on every served path, one JSON line
-   describing every kernel, then the result line
-   ``{"ok": true, "device": {...}}``.
+9. perf_analyzer: check that the flash kernel refuses inputs that require
+   grad (it has no backward yet) and runs under no_grad; then serve
+   ``bert_large`` int8 (``TRITON_TPU_QUANT_BERT_LARGE=int8``,
+   ``TRITON_TPU_INT8_FUSED=w2``) and run ``python -m
+   triton_client_tpu_torch.perf_analyzer`` in a process of its own against
+   it: -b 32 at concurrency 1 and 4 by wire, system shm and CUDA shm (the
+   tool's regions, which the server maps with cudaIpcOpenMemHandle); -b 1
+   at concurrency 1, 8 and 15 through the dynamic batcher; open loop at
+   half of concurrency 1's infer/s and at half of concurrency 8's; one run
+   at concurrency 4 traced.  Then ``bert_large`` bf16 at -b 32,
+   concurrency 1, and ``longctx_tpu`` base bf16 at -b 4, concurrency 1 and
+   4, by wire and CUDA shm, and traced at each.  Each level prints
+   infer/s, p50 / p90 / p99, errors, the model's executions in its window
+   with their batch sizes and the server's split; a traced run, the card's
+   busy share.  Each run must have no error, exactly 24 int8 (bert int8)
+   or 8 flash (longctx) launches per execution, Little's law within
+   ``LITTLE_TOL`` at each closed-loop level, and leave no region (in
+   either process, in /dev/shm or in the server's status);
+10. print each kernel's launches on every served path, one JSON line
+    describing every kernel, then the result line
+    ``{"ok": true, "device": {...}}``.
+
+Every request goes through the port's own HTTP client
+(``triton_client_tpu_torch.http``) on kept-alive connections.
 
 Each model and precision has its own bound (``SERVED_ATOL``).  NEXT_LOGIT
 is held to it; a NEXT_TOKEN that differs from the plain forward's argmax
@@ -87,7 +108,6 @@ from __future__ import annotations
 
 import contextlib
 import gc
-import http.client
 import importlib
 import json
 import os
@@ -148,6 +168,9 @@ N_REQUESTS, N_THREADS = 8, 4
 # bert_large: 40 requests of 4 sequences from 8 threads, so up to 32
 # sequences wait at once and the batcher can fill its largest batch (32)
 BERT_REQUESTS, BERT_ROWS, BERT_THREADS = 40, 4, 8
+
+
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 
 def fail(msg: str) -> None:
@@ -454,55 +477,31 @@ def check_flash_bert(fa, torch, gen) -> None:
 # Serving
 # ---------------------------------------------------------------------------
 
-def _post_infer(port: int, model: str, inputs, outputs):
-    """One binary-extension v2 infer request.  ``inputs``: (name, datatype,
-    array); BYTES arrays go as the length-prefixed serialization.  Returns
-    ({output name: array}, seconds)."""
-    import numpy as np
+def _client(port: int, concurrency: int = 1):
+    """The port's v2 HTTP client of the server on ``port``, with up to
+    ``concurrency`` kept-alive connections."""
+    from triton_client_tpu_torch import http
 
-    from triton_client_tpu_torch.utils import (deserialize_bytes_tensor,
-                                               serialize_byte_tensor_raw,
-                                               triton_to_np_dtype)
+    return http.InferenceServerClient(f"127.0.0.1:{port}",
+                                      concurrency=concurrency,
+                                      network_timeout=300)
 
-    specs, raws = [], []
+
+def _post_infer(client, model: str, inputs, outputs):
+    """One binary v2 infer request through the port's client.  ``inputs``:
+    (name, datatype, array).  Returns ({output name: array}, seconds)."""
+    from triton_client_tpu_torch import http
+
+    ins = []
     for name, datatype, arr in inputs:
-        raw = bytes(serialize_byte_tensor_raw(arr)) if datatype == "BYTES" \
-            else np.ascontiguousarray(arr).tobytes()
-        specs.append({"name": name, "datatype": datatype,
-                      "shape": list(arr.shape),
-                      "parameters": {"binary_data_size": len(raw)}})
-        raws.append(raw)
-    header = json.dumps({
-        "inputs": specs,
-        "outputs": [{"name": o, "parameters": {"binary_data": True}}
-                    for o in outputs],
-    }).encode()
-    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        x = http.InferInput(name, list(arr.shape), datatype)
+        x.set_data_from_numpy(arr)
+        ins.append(x)
+    outs = [http.InferRequestedOutput(o) for o in outputs]
     t0 = time.perf_counter()
-    try:
-        conn.request("POST", f"/v2/models/{model}/infer",
-                     header + b"".join(raws),
-                     {"Inference-Header-Content-Length": str(len(header)),
-                      "Content-Type": "application/octet-stream"})
-        resp = conn.getresponse()
-        body = resp.read()
-    finally:
-        conn.close()
+    res = client.infer(model, ins, outputs=outs)
     dt = time.perf_counter() - t0
-    if resp.status != 200:
-        fail(f"{model} infer returned HTTP {resp.status}: {body[:500]!r}")
-    hlen = int(resp.getheader("Inference-Header-Content-Length"))
-    out, offset = {}, hlen
-    for o in json.loads(body[:hlen])["outputs"]:
-        size = o["parameters"]["binary_data_size"]
-        chunk = body[offset:offset + size]
-        offset += size
-        if o["datatype"] == "BYTES":
-            arr = deserialize_bytes_tensor(chunk)
-        else:
-            arr = np.frombuffer(chunk, dtype=triton_to_np_dtype(o["datatype"]))
-        out[o["name"]] = arr.reshape(o["shape"])
-    return out, dt
+    return {o: res.as_numpy(o) for o in outputs}, dt
 
 
 def _reset(counters) -> None:
@@ -534,8 +533,9 @@ def serving(models):
 def send_requests(label: str, port: int, target: str, requests, n_threads,
                   counters, outputs, batched):
     """Send each of ``requests`` (a list of input lists for
-    ``_post_infer``) to ``target`` from ``n_threads`` threads at once,
-    after one warm-up request (it builds the weights).  The launch counts
+    ``_post_infer``) to ``target`` from ``n_threads`` threads at once, on
+    one client with a kept-alive connection per thread, after one warm-up
+    request (it builds the weights).  The launch counts
     are zeroed just before the warm-up and read just after the last
     request.  Prints the batching and latency line of the model
     ``batched``.  Returns (results, launches, executions of ``batched``
@@ -549,7 +549,8 @@ def send_requests(label: str, port: int, target: str, requests, n_threads,
     st = batched.stats
     runs0, rows0 = st.batch_execution_count, st.batch_size_total
     _reset(counters)
-    _post_infer(port, target, requests[0], outputs)
+    conn = _client(port, n_threads)
+    _post_infer(conn, target, requests[0], outputs)
     start = threading.Barrier(n_threads)
 
     def client(tid):
@@ -557,7 +558,7 @@ def send_requests(label: str, port: int, target: str, requests, n_threads,
             start.wait(timeout=60)
             for i in range(tid, n, n_threads):
                 results[i], latencies[i] = _post_infer(
-                    port, target, requests[i], outputs)
+                    conn, target, requests[i], outputs)
         except BaseException as e:  # reported below, then fail
             errors.append(repr(e))
 
@@ -569,6 +570,7 @@ def send_requests(label: str, port: int, target: str, requests, n_threads,
     for t in threads:
         t.join(timeout=900)
     wall = time.perf_counter() - t0
+    conn.close()
     launches = {name: mod.launches for name, mod in counters.items()}
     launches["int8_quantize_rows"] = counters["int8_matmul"].quantize_launches
     if errors or any(t.is_alive() for t in threads):
@@ -1019,22 +1021,6 @@ CARD = ""
 SHM_PATHS = {}
 
 
-def _http_json(port: int, method: str, path: str, body=None):
-    """One JSON request to the server; fails the run on any status but
-    200."""
-    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
-    try:
-        conn.request(method, path,
-                     None if body is None else json.dumps(body).encode())
-        resp = conn.getresponse()
-        data = resp.read()
-    finally:
-        conn.close()
-    if resp.status != 200:
-        fail(f"{method} {path} returned HTTP {resp.status}: {data[:500]!r}")
-    return json.loads(data) if data else None
-
-
 def _nbytes(datatype: str, shape) -> int:
     import numpy as np
 
@@ -1044,40 +1030,48 @@ def _nbytes(datatype: str, shape) -> int:
 
 
 class WireClient:
-    """Tensors in the HTTP body, binary (transport (a))."""
+    """Tensors in the HTTP body, binary (transport (a)), on one kept-alive
+    connection, through a prepared request."""
 
     def __init__(self, port: int, inp, out):
-        self.port, self.inp, self.out = port, inp, out
+        from triton_client_tpu_torch import http
+
+        self.client, self.out = _client(port), out
+        self._in = http.InferInput(inp[0], inp[2], inp[1])
+        self._out = http.InferRequestedOutput(out[0])
+        self._prep = None
 
     def infer(self, model: str, x):
         """(output, seconds from the request's making to the output's
         arrival)."""
         t0 = time.perf_counter()
-        got, _ = _post_infer(self.port, model, [(self.inp[0], self.inp[1], x)],
-                             [self.out[0]])
-        return got[self.out[0]], time.perf_counter() - t0
+        self._in.set_data_from_numpy(x)
+        if self._prep is None:
+            self._prep = self.client.prepare(model, [self._in],
+                                             outputs=[self._out])
+        got = self._prep.infer().as_numpy(self.out[0])
+        return got, time.perf_counter() - t0
 
     def close(self) -> None:
-        pass
+        self.client.close()
 
 
 class ShmClient:
     """One client's two regions, for a model's input ``inp`` and output
     ``out`` ((name, datatype, shape) each), registered with the server on
-    ``port``: ``kind`` "system" (POSIX shm) or "cuda" (CUDA regions of this
-    process: read in place by a server in this process, mapped with
+    ``port`` through the port's client (one kept-alive connection):
+    ``kind`` "system" (POSIX shm) or "cuda" (CUDA regions of this process:
+    read in place by a server in this process, mapped with
     cudaIpcOpenMemHandle by one in another)."""
 
     def __init__(self, port: int, kind: str, tag: str, inp, out):
-        import base64
-
+        from triton_client_tpu_torch import http
         from triton_client_tpu_torch.utils import cuda_shared_memory
         from triton_client_tpu_torch.utils import shared_memory
 
-        self.port, self.kind, self.inp, self.out = port, kind, inp, out
+        self.kind, self.out = kind, out
+        self.client = _client(port)
         self.mod = shared_memory if kind == "system" else cuda_shared_memory
-        self.path = ("systemsharedmemory" if kind == "system"
-                     else "cudasharedmemory")
         self.regions = {}
         for role, (_, datatype, shape) in (("in", inp), ("out", out)):
             name, nbytes = f"{tag}_{role}", _nbytes(datatype, shape)
@@ -1085,16 +1079,19 @@ class ShmClient:
                 key = f"/{SHM_PREFIX}{os.getpid()}_{name}"
                 h = shared_memory.create_shared_memory_region(
                     name, key, nbytes, create_only=True)
-                body = {"key": key, "offset": 0, "byte_size": nbytes}
+                self.regions[role] = (name, h, nbytes)
+                self.client.register_system_shared_memory(name, key, nbytes)
             else:
                 h = cuda_shared_memory.create_shared_memory_region(
                     name, nbytes, 0)
-                body = {"raw_handle": {"b64": base64.b64encode(
-                    cuda_shared_memory.get_raw_handle(h)).decode()},
-                    "device_id": 0, "byte_size": nbytes}
-            self.regions[role] = (name, h, nbytes)
-            _http_json(port, "POST",
-                       f"/v2/{self.path}/region/{name}/register", body)
+                self.regions[role] = (name, h, nbytes)
+                self.client.register_cuda_shared_memory(
+                    name, cuda_shared_memory.get_raw_handle(h), 0, nbytes)
+        self._in = http.InferInput(inp[0], inp[2], inp[1]).set_shared_memory(
+            self.regions["in"][0], self.regions["in"][2])
+        self._out = http.InferRequestedOutput(out[0]).set_shared_memory(
+            self.regions["out"][0], self.regions["out"][2])
+        self._prep = None
 
     def infer(self, model: str, x):
         """Write ``x``, infer with both tensors in regions, read the output
@@ -1104,18 +1101,13 @@ class ShmClient:
         from triton_client_tpu_torch.utils import triton_to_np_dtype
 
         t0 = time.perf_counter()
-        (rin, hin, nin), (rout, hout, nout) = (self.regions["in"],
-                                               self.regions["out"])
+        (_, hin, _), (rout, hout, _) = (self.regions["in"],
+                                        self.regions["out"])
         self.mod.set_shared_memory_region(hin, [x])
-        resp = _http_json(self.port, "POST", f"/v2/models/{model}/infer", {
-            "inputs": [{"name": self.inp[0], "datatype": self.inp[1],
-                        "shape": list(x.shape), "parameters": {
-                            "shared_memory_region": rin,
-                            "shared_memory_byte_size": nin}}],
-            "outputs": [{"name": self.out[0], "parameters": {
-                "shared_memory_region": rout,
-                "shared_memory_byte_size": nout}}]})
-        entry = resp["outputs"][0]
+        if self._prep is None:
+            self._prep = self.client.prepare(model, [self._in],
+                                             outputs=[self._out])
+        entry = self._prep.infer().get_output(self.out[0])
         if "data" in entry or entry["parameters"].get(
                 "shared_memory_region") != rout:
             fail(f"{self.kind} shm: the response carried {entry}, not the "
@@ -1125,10 +1117,24 @@ class ShmClient:
         return got, time.perf_counter() - t0
 
     def close(self) -> None:
+        unregister = (self.client.unregister_system_shared_memory
+                      if self.kind == "system"
+                      else self.client.unregister_cuda_shared_memory)
         for name, h, _ in self.regions.values():
-            _http_json(self.port, "POST",
-                       f"/v2/{self.path}/region/{name}/unregister")
+            unregister(name)
             self.mod.destroy_shared_memory_region(h)
+        self.client.close()
+
+
+def _shm_status(port: int):
+    """Both of the server's shared-memory status lists."""
+    client = _client(port)
+    try:
+        return {"systemsharedmemory":
+                client.get_system_shared_memory_status(),
+                "cudasharedmemory": client.get_cuda_shared_memory_status()}
+    finally:
+        client.close()
 
 
 def run_transport(make_client, model: str, x):
@@ -1314,8 +1320,10 @@ def serve_transports(label: str, harness, model, counters, x, seed: int,
               f"{med['resolve']:.3f} ms, forward {med['forward']:.3f} ms "
               "(CUDA events), output write or readback "
               f"{med['output']:.3f} ms, total {med['total']:.3f} ms; "
-              f"{forwards} forwards, launches {launches}; {CARD}",
-              flush=True)
+              "client p50 minus server total "
+              f"{np.percentile(lat_ms, 50) - med['total']:.3f} ms (kept-alive "
+              f"connections); {forwards} forwards, launches {launches}; "
+              f"{CARD}", flush=True)
         check(name, answer)
         answers[name] = answer
     for name, answer in answers.items():
@@ -1327,13 +1335,281 @@ def serve_transports(label: str, harness, model, counters, x, seed: int,
     left = cuda_shared_memory.allocated_shared_memory_regions()
     keys = [k for k in os.listdir("/dev/shm")
             if k.startswith(f"{SHM_PREFIX}{os.getpid()}")]
-    status = {k: _http_json(port, "GET", f"/v2/{k}/status")
-              for k in ("systemsharedmemory", "cudasharedmemory")}
+    status = _shm_status(port)
     print(f"{label}: regions left: {left} in this process, {keys} in "
           f"/dev/shm, status {status}", flush=True)
     if left or keys or any(status.values()):
         fail(f"{label}: shared-memory regions were left behind")
 
+
+
+# ---------------------------------------------------------------------------
+# perf_analyzer: the load generator against the served models
+# ---------------------------------------------------------------------------
+
+# each level: 1 s of warm-up, then a window of this many ms.  Little's
+# law over a window counts, per worker, the requests that end in it: their
+# latencies sum to the window give or take the request in flight at each
+# edge, so the reading is off by up to (longest latency) / (window).  2 s
+# where requests take up to ~0.2 s (longctx_tpu); 6 s where they take up
+# to ~1 s (bert_large at -b 32 and c = 4, at -b 1 and c = 15), at most 17%
+PERF_WINDOW_MS = 2000
+PERF_LONG_WINDOW_MS = 6000
+# Little's law at each closed-loop level: the concurrency within this share
+# of infer/s x mean latency (the tool counts what it sends)
+LITTLE_TOL = 0.25
+#: "<path>" -> the kernel launches of that perf_analyzer run
+PERF_PATHS = {}
+
+
+def check_flash_refuses_grad(fa, torch) -> None:
+    """The flash kernel has no backward yet (ROADMAP A1): with grad mode on
+    it refuses inputs that require grad and launches nothing; under
+    torch.no_grad() it runs and agrees with its plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn((1, 2, 128, 64), generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    q.requires_grad_()
+    before = fa.launches
+    try:
+        fa.flash_attention(q, k, v)
+    except RuntimeError as e:
+        refused = "ROADMAP A1" in str(e)
+    else:
+        refused = False
+    if not refused or fa.launches != before:
+        fail("flash_attention took a q that requires grad on the card")
+    with torch.no_grad():
+        got = fa.flash_attention(q, k, v)
+        want = fa.flash_attention_reference(q, k, v)
+    err = (got.float() - want.float()).abs().max().item()
+    print(f"flash_attention refuses a q that requires grad (no launch); "
+          f"under no_grad it runs, max_abs_err {err:.3e}", flush=True)
+    if fa.launches != before + 1 or got.grad_fn is not None or \
+            not err <= FLASH_TOL["bf16"][0]:
+        fail("flash_attention under no_grad did not run as it should")
+
+
+def _device_busy(prof):
+    """(busy ms, span ms, events) of a torch.profiler trace's device work:
+    the sum of the device events' durations, and the span from the first
+    one's start to the last one's end."""
+    events = [e for e in prof.events()
+              if str(e.device_type).endswith("CUDA")
+              and e.time_range.elapsed_us() > 0]
+    if not events:
+        return 0.0, 0.0, 0
+    busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    span = (max(e.time_range.end for e in events)
+            - min(e.time_range.start for e in events)) / 1e3
+    return busy, span, len(events)
+
+
+def perf_sweep(label: str, harness, model, args, counters,
+               flash_per_forward: int, int8_per_forward: int,
+               window_ms: int = PERF_WINDOW_MS, trace: bool = False):
+    """Run ``python -m triton_client_tpu_torch.perf_analyzer`` with
+    ``args`` in a process of its own against the server ``harness`` of this
+    process; print each level (infer/s, p50/p90/p99, errors, the model's
+    executions in the level's window and their batch sizes, and the
+    server's median split of the requests whose forward ended in the
+    window) and check: the tool exited 0, no errors, launches exactly per
+    execution, Little's law at each closed-loop level, no region left in
+    the tool's process.  Where ``trace``, the card is traced with
+    torch.profiler for the whole run and its busy share under that load
+    printed.  Returns the levels' results."""
+    from collections import Counter
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    st, core = model.stats, harness.core
+    st.executions, core.splits = [], []
+    _reset(counters)
+    cmd = [sys.executable, "-m", "triton_client_tpu_torch.perf_analyzer",
+           "-m", model.name, "-u", harness.http_url, "-v",
+           "--measurement-interval", str(window_ms), *args]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t0 = time.perf_counter()
+    with (profile(activities=[ProfilerActivity.CUDA]) if trace
+          else contextlib.nullcontext()) as prof:
+        proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
+                              text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    executions, st.executions = st.executions, None
+    splits, core.splits = core.splits, None
+    launches = {name: mod.launches for name, mod in counters.items()}
+    launches["int8_quantize_rows"] = counters["int8_matmul"].quantize_launches
+    if proc.returncode != 0:
+        fail(f"{label}: perf_analyzer exited {proc.returncode}: "
+             f"{proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    lines = proc.stdout.splitlines()
+    # a level with no completed request prints its latencies as null
+    results = [{k: float("nan") if v is None and k.endswith(("_us", "_ms"))
+                else v for k, v in json.loads(ln.split("result ", 1)[1])
+                .items()}
+               for ln in lines if ln.startswith("  result ")]
+    left = [json.loads(ln[len("regions left "):]) for ln in lines
+            if ln.startswith("regions left ")]
+    if not results or left != [{"system": [], "cuda": []}]:
+        fail(f"{label}: perf_analyzer printed {len(results)} levels and "
+             f"left regions {left}: {proc.stdout[-2000:]}")
+    check_launches(label, launches, len(executions), flash_per_forward,
+                   int8_per_forward)
+    PERF_PATHS[label] = launches
+    batch = int(args[args.index("-b") + 1])
+    print(f"{label}: perf_analyzer {' '.join(args)} in {wall:.1f} s, "
+          f"{len(executions)} executions, launches {launches}", flush=True)
+    if trace:
+        busy, span, n = _device_busy(prof)
+        print(f"{label}: traced {n} device events: busy {busy:.1f} ms of "
+              f"the {span:.1f} ms from the first to the last, idle "
+              f"{1 - busy / span if span else float('nan'):.1%}; "
+              f"{busy / max(len(executions), 1):.3f} ms of device time per "
+              "execution", flush=True)
+    for res in results:
+        lo, hi = res["window_start_s"], res["window_end_s"]
+        rows = Counter(r for t, r in executions if lo <= t <= hi)
+        seen = [sp for sp in splits
+                if lo <= sp.forward_done_ns / 1e9 <= hi]
+        med = {k: float(np.median([getattr(sp, k) for sp in seen]))
+               if seen else float("nan")
+               for k in ("decode", "resolve", "forward", "output", "total")}
+        closed = "concurrency" in res
+        level = (f"c={res['concurrency']}" if closed
+                 else f"open loop {res['request_rate']:g}/s "
+                      f"({res['distribution']}), {res['unsent']} unsent, "
+                      f"send lag p99 {res['send_lag_p99_ms']:.2f} ms")
+        thr = res["throughput"]
+        print(f"{label} {level}: {thr:.3f} infer/s ({thr * batch:.2f} "
+              f"sequences/s); latency p50 {res['p50_us'] / 1e3:.3f} ms, p90 "
+              f"{res['p90_us'] / 1e3:.3f} ms, p99 {res['p99_us'] / 1e3:.3f} "
+              f"ms, mean {res['avg_us'] / 1e3:.3f} ms; errors "
+              f"{res['errors']}; {sum(rows.values())} executions in the "
+              f"window, executed batch sizes (padded to the buckets) "
+              f"{dict(sorted(rows.items()))}; server split (median of "
+              f"{len(seen)} requests): decode {med['decode']:.3f} ms, input "
+              f"resolution {med['resolve']:.3f} ms, forward "
+              f"{med['forward']:.3f} ms (CUDA events, its batch's), output "
+              f"{med['output']:.3f} ms, total {med['total']:.3f} ms; {CARD}",
+              flush=True)
+        if res["errors"]:
+            fail(f"{label} {level}: {res['errors']} errors, first "
+                 f"{res['first_error']}")
+        if closed:
+            c = res["concurrency"]
+            little = thr * res["avg_us"] * 1e-6
+            print(f"{label} {level}: Little's law: infer/s x mean latency "
+                  f"= {little:.3f} against concurrency {c}", flush=True)
+            if not abs(little - c) <= LITTLE_TOL * c:
+                fail(f"{label} {level}: Little's law off by more than "
+                     f"{LITTLE_TOL:.0%}")
+    return results
+
+
+def _no_regions_left(label: str, harness) -> None:
+    """No region in this process, none of perf_analyzer's keys in
+    /dev/shm, both of the server's status lists empty."""
+    from triton_client_tpu_torch.utils import cuda_shared_memory
+
+    left = cuda_shared_memory.allocated_shared_memory_regions()
+    keys = [k for k in os.listdir("/dev/shm") if k.startswith("pa_")]
+    status = _shm_status(harness.http_port)
+    print(f"{label}: regions left: {left} in this process, {keys} in "
+          f"/dev/shm, status {status}", flush=True)
+    if left or keys or any(status.values()):
+        fail(f"{label}: shared-memory regions were left behind")
+
+
+def _warm(harness, model, rows: int) -> None:
+    """One request of ``rows`` zero rows: it builds the weights."""
+    import numpy as np
+
+    cfg = model.config.input[0]
+    client = _client(harness.http_port)
+    try:
+        _post_infer(client, model.name, [(cfg.name, cfg.data_type, np.zeros(
+            [rows] + list(cfg.dims), np.int32))], [model.config.output[0].name])
+    finally:
+        client.close()
+
+
+def perf_phase(torch, counters, fa) -> None:
+    """The load generator drives the served models at full width from a
+    process of its own: ``bert_large`` int8 (``w2``: 24 int8 launches per
+    forward) at -b 32, c = 1 and 4, by wire, system shm and CUDA shm (the
+    tool's regions, mapped with cudaIPC); at -b 1, c = 1, 8 and 15, through
+    the dynamic batcher; open loop at half of c = 1's and of c = 8's
+    infer/s; c = 4 traced; ``bert_large`` bf16 at -b 32, c = 1 (to compare
+    with the transport phase); ``longctx_tpu`` base bf16 (8 flash launches
+    per forward) at -b 4, c = 1 and 4, by wire and CUDA shm, and traced at
+    c = 1 and 4."""
+    from triton_client_tpu_torch.models import language
+
+    check_flash_refuses_grad(fa, torch)
+    layers = language.BERT_LARGE.n_layers
+    os.environ["TRITON_TPU_QUANT_BERT_LARGE"] = "int8"
+    os.environ["TRITON_TPU_INT8_FUSED"] = "w2"
+    try:
+        bert = language.make_bert_large("cuda")
+        with serving_harness([bert]) as harness:
+            _warm(harness, bert, 32)
+            check_precision("perf bert_large int8", bert.transformer, True)
+            for shm in ("none", "system", "cuda"):
+                perf_sweep(f"perf bert_large int8 -b 32 {shm}", harness,
+                           bert, ["-b", "32", "--concurrency-range", "1:4:3",
+                                  "--shared-memory", shm], counters, 0,
+                           layers, window_ms=PERF_LONG_WINDOW_MS)
+            levels = perf_sweep(
+                "perf bert_large int8 -b 1 dynamic batching", harness, bert,
+                ["-b", "1", "--concurrency-range", "1:15:7"], counters, 0,
+                layers, window_ms=PERF_LONG_WINDOW_MS)
+            # open loop at half of c = 1's infer/s and at half of c = 8's:
+            # c = 8's runs on batches of 8 that paced arrivals, one every
+            # few ms, may never form
+            low, high = (round(next(r["throughput"] for r in levels
+                                    if r["concurrency"] == c) / 2, 3)
+                         for c in (1, 8))
+            rates = (f"{low:.3f}:{high:.3f}:{high - low:.3f}" if high > low
+                     else f"{low:.3f}")
+            perf_sweep("perf bert_large int8 -b 1 open loop", harness, bert,
+                       ["-b", "1", "--request-rate-range", rates,
+                        "--max-threads", "16"], counters, 0, layers)
+            # where the device's time goes at c = 4
+            perf_sweep("perf bert_large int8 -b 32 none c=4 traced",
+                       harness, bert, ["-b", "32", "--concurrency-range",
+                                       "4"], counters, 0, layers,
+                       window_ms=PERF_LONG_WINDOW_MS, trace=True)
+            _no_regions_left("perf bert_large int8", harness)
+    finally:
+        for var in ("TRITON_TPU_QUANT_BERT_LARGE", "TRITON_TPU_INT8_FUSED"):
+            os.environ.pop(var, None)
+    del bert
+    gc.collect()
+    torch.cuda.empty_cache()
+    bert = language.make_bert_large("cuda")
+    longctx = language.make_longctx_tpu("cuda")
+    with serving_harness([bert, longctx]) as harness:
+        _warm(harness, bert, 32)
+        _warm(harness, longctx, 4)
+        check_precision("perf bert_large bf16", bert.transformer, False)
+        check_precision("perf longctx_tpu bf16", longctx.transformer, False)
+        perf_sweep("perf bert_large bf16 -b 32 none", harness, bert,
+                   ["-b", "32", "--concurrency-range", "1"], counters, 0, 0)
+        for shm in ("none", "cuda"):
+            perf_sweep(f"perf longctx_tpu bf16 -b 4 {shm}", harness, longctx,
+                       ["-b", "4", "--concurrency-range", "1:4:3",
+                        "--shared-memory", shm], counters,
+                       longctx.transformer.cfg.n_layers, 0)
+        for c in ("1", "4"):
+            perf_sweep(f"perf longctx_tpu bf16 -b 4 none c={c} traced",
+                       harness, longctx, ["-b", "4", "--concurrency-range",
+                                          c], counters,
+                       longctx.transformer.cfg.n_layers, 0, trace=True)
+        _no_regions_left("perf bert_large bf16, longctx_tpu bf16", harness)
+    del bert, longctx
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1343,10 +1619,9 @@ def main() -> int:
         fail("torch is not installed")
     if not torch.cuda.is_available():
         fail("CUDA is not available")
-    repo = os.path.dirname(os.path.abspath(__file__))
-    if not os.path.isdir(os.path.join(repo, "triton_client_tpu_torch")):
+    if not os.path.isdir(os.path.join(REPO, "triton_client_tpu_torch")):
         fail("triton_client_tpu_torch is not beside chip_smoke.py")
-    sys.path.insert(0, repo)
+    sys.path.insert(0, REPO)
     # plain versions in full f32 (no TF32 shortcuts)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1452,8 +1727,11 @@ def main() -> int:
         "llama_tpu", int8_per_layer=1, int8=True)
     for var in ("TRITON_TPU_QUANT", "TRITON_TPU_INT8_FUSED"):
         os.environ.pop(var, None)
-    # and every transport's window of the shared-memory phases
+    perf_phase(torch, counters, fa)
+    # and every transport's window of the shared-memory phases, and every
+    # perf_analyzer run
     paths.update(SHM_PATHS)
+    paths.update(PERF_PATHS)
     for path, launches in paths.items():
         print(f"launches on {path}: flash_attention "
               f"{launches['flash_attention']}, int8_matmul "

@@ -133,6 +133,30 @@ def test_flash_bf16_kernel_takes_more_than_65535_heads(cuda):
                               for t in (q, k, v)))
 
 
+def test_flash_kernel_refuses_inputs_that_require_grad(cuda):
+    # the kernel has no backward yet (ROADMAP A1): with grad mode on it
+    # refuses inputs that require grad, launching nothing; under no_grad
+    # or inference_mode it runs
+    q, k, v = (_rand((1, 2, 128, 64), s).to(cuda, torch.bfloat16)
+               for s in (1, 2, 3))
+    for which in range(3):
+        args = [q, k, v]
+        args[which] = args[which].clone().requires_grad_()
+        before = fa.launches
+        with pytest.raises(RuntimeError, match="ROADMAP A1"):
+            ops.flash_attention(*args)
+        assert fa.launches == before
+    q.requires_grad_()
+    with torch.no_grad():
+        got = ops.flash_attention(q, k, v)
+    with torch.inference_mode():
+        again = ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert got.grad_fn is None and torch.equal(got, again)
+    _assert_flash_close(got, ops.flash_attention_reference(
+        q.detach(), k, v), 2e-2, 1e-2)
+
+
 def test_flash_rejects_what_the_kernel_does_not_take(cuda):
     q = _rand((1, 2, 64, 24), 7).to(cuda, torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):

@@ -105,6 +105,27 @@ class TestFlashAttention:
         assert torch.equal(got, want)
         assert t_flash.launches == before  # no kernel launch counted
 
+    def test_cpu_path_gradients_match_jax(self):
+        # the CPU path is the plain version, differentiable as the
+        # reference's op is (its custom_vjp recomputes through the jnp
+        # reference); only the CUDA kernel refuses grad (ROADMAP A1)
+        shape = (1, 2, 40, 16)
+        (jq, tq), (jk, tk), (jv, tv) = (
+            _both(_rand(shape, s), jnp.float32, torch.float32)
+            for s in (13, 14, 15))
+        w = _rand(shape, 16)
+        for t in (tq, tk, tv):
+            t.requires_grad_()
+        (tops.flash_attention(tq, tk, tv, causal=True)
+         * torch.from_numpy(w)).sum().backward()
+        want = jax.grad(
+            lambda q, k, v: (jops.flash_attention(
+                q, k, v, causal=True, interpret=True) * w).sum(),
+            argnums=(0, 1, 2))(jq, jk, jv)
+        for got, ref in zip((tq.grad, tk.grad, tv.grad), want):
+            np.testing.assert_allclose(_np(got), _np(ref), rtol=0,
+                                       atol=1e-5)
+
     def test_matches_ring_attention_single_shard(self):
         """The substitution the transformer makes at the flash gate: the
         port's flash, the port's ring and the JAX ring at sp = 1 agree."""

@@ -10,5 +10,7 @@ It serves the transformer family (``bert_large``, ``longctx_tpu``,
 with hand-written CUDA kernels for flash attention and the fused int8 matmul
 (``ops/``, sources in ``csrc/``), tensors in the body or in shared-memory
 regions: system (``utils.shared_memory``) or CUDA, mapped across processes
-with cudaIPC (``utils.cuda_shared_memory``, ``server.shm``).
+with cudaIPC (``utils.cuda_shared_memory``, ``server.shm``).  Its own v2
+HTTP client (``http``, on kept-alive ``http.client`` connections) and load
+generator (``python -m triton_client_tpu_torch.perf_analyzer``) drive it.
 """

@@ -1,0 +1,98 @@
+"""The log-bucketed latency histogram of the client's telemetry (a copy of
+``LatencyHistogram`` from ``triton_client_tpu/_telemetry.py``).
+
+``perf_analyzer`` records every latency into one, so its percentiles come
+out of the same buckets as the reference tool's.  The rest of the
+reference's client telemetry (counters, tracing, OTLP) is not ported yet
+(ROADMAP A6).
+
+A package rather than a ``_telemetry.py`` file: the repository's lint
+(``triton-lint``'s METRICS-DECL) reads the one file of that name as the
+reference's client metrics registry.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+
+
+class LatencyHistogram:
+    """Log-bucketed latency histogram (seconds in, quantiles out).
+
+    Bucket ``i >= 1`` covers ``[MIN * G**(i-1), MIN * G**i)`` with
+    ``MIN = 1 µs`` and growth ``G = 1.05``; bucket 0 is the underflow
+    bucket and the last bucket takes the overflow.  A quantile is the
+    geometric midpoint of its bucket, so its relative error is at most
+    ``sqrt(G) - 1`` (~2.5%) inside the covered range.  The exact sum is
+    kept beside the buckets, so ``mean`` is not quantized.
+    """
+
+    MIN_S = 1e-6
+    GROWTH = 1.05
+    # covers MIN_S .. ~130 s: ceil(log(1.3e8)/log(1.05)) interior buckets
+    NUM_BUCKETS = 2 + int(math.ceil(math.log(1.3e8) / math.log(1.05)))
+
+    __slots__ = ("_counts", "_count", "_sum_s", "_lock", "_log_growth")
+
+    def __init__(self) -> None:
+        self._counts = [0] * self.NUM_BUCKETS
+        self._count = 0
+        self._sum_s = 0.0
+        self._lock = threading.Lock()
+        self._log_growth = math.log(self.GROWTH)
+
+    def _index(self, seconds: float) -> int:
+        if seconds < self.MIN_S:
+            return 0
+        i = 1 + int(math.log(seconds / self.MIN_S) / self._log_growth)
+        return i if i < self.NUM_BUCKETS else self.NUM_BUCKETS - 1
+
+    def observe(self, seconds: float) -> None:
+        i = self._index(seconds)
+        with self._lock:
+            self._counts[i] += 1
+            self._count += 1
+            self._sum_s += seconds
+
+    @property
+    def count(self) -> int:
+        return self._count
+
+    def mean(self) -> float:
+        with self._lock:
+            return self._sum_s / self._count if self._count else float("nan")
+
+    def _bucket_value(self, i: int) -> float:
+        if i == 0:
+            return self.MIN_S / 2.0
+        # geometric midpoint of [MIN*G**(i-1), MIN*G**i)
+        return self.MIN_S * self.GROWTH ** (i - 0.5)
+
+    def quantile(self, q: float) -> float:
+        """The ``q``-quantile (0..1) in seconds; NaN when empty."""
+        with self._lock:
+            total = self._count
+            if not total:
+                return float("nan")
+            # nearest rank on the cumulative counts
+            rank = max(1, math.ceil(q * total))
+            cum = 0
+            for i, c in enumerate(self._counts):
+                cum += c
+                if cum >= rank:
+                    return self._bucket_value(i)
+        return self._bucket_value(self.NUM_BUCKETS - 1)
+
+    def percentile(self, p: float) -> float:
+        return self.quantile(p / 100.0)
+
+    def merge(self, other: "LatencyHistogram") -> None:
+        with other._lock:
+            counts = list(other._counts)
+            count, sum_s = other._count, other._sum_s
+        with self._lock:
+            for i, c in enumerate(counts):
+                self._counts[i] += c
+            self._count += count
+            self._sum_s += sum_s

@@ -4,7 +4,10 @@ Counterpart of ``triton_client_tpu/ops/flash_attention.py``.  The kernel is
 ``csrc/flash_attention.cu`` (bf16: persistent blocks of a TMA producer and
 two or three wgmma consumer warpgroups walking query tiles, online softmax
 in f32, causal early exit; see the source's header).  The backward is not
-ported yet: this slice serves, it does not train.
+ported yet (ROADMAP A1): the kernel's output has no ``grad_fn``, so the
+CUDA path refuses inputs that require grad while grad mode is on, rather
+than return an answer through which no gradient flows.  The CPU path is the
+plain version and differentiable.
 
 :func:`flash_attention` launches the kernel for CUDA tensors and raises on
 anything the kernel does not take.  It uses :func:`flash_attention_reference`
@@ -69,8 +72,9 @@ def flash_attention(q, k, v, *, causal: bool = True, sm_scale=None):
 
     CUDA tensors run the Hopper kernel: bf16 with D in {16, 32, 64, 128} or
     f32 with D in {16, 32, 64}, all three contiguous and of one type.  Any
-    other CUDA input raises ``ValueError``.  CPU tensors run the plain
-    version."""
+    other CUDA input raises ``ValueError``, and a CUDA input that requires
+    grad while grad mode is on raises ``RuntimeError`` (no backward yet,
+    ROADMAP A1).  CPU tensors run the plain version."""
     global launches
     if q.device.type == "cpu" and k.device.type == "cpu" \
             and v.device.type == "cpu":
@@ -80,6 +84,12 @@ def flash_attention(q, k, v, *, causal: bool = True, sm_scale=None):
         raise ValueError(
             "flash_attention: q, k, v must all be CUDA tensors or all CPU "
             f"tensors, got {q.device}, {k.device}, {v.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention: the CUDA kernel has no backward yet (ROADMAP "
+            "A1), so it refuses q, k or v that require grad while grad mode "
+            "is on; run it under torch.no_grad() or torch.inference_mode()")
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(
             "flash_attention: q, k, v must share one [B, H, S, D] shape, got "

@@ -1,0 +1,718 @@
+"""perf_analyzer-equivalent load generator of the port (counterpart of
+``triton_client_tpu/perf_analyzer.py``).
+
+Closed-loop concurrency sweeps and open-loop request-rate sweeps
+(``--request-rate-range``, constant or Poisson arrivals), reporting infer/s
+and latency percentiles over the v2 HTTP protocol, with the tensors in the
+body or in shared memory (``--shared-memory none|system|cuda``).  Every
+worker sends through a compiled request template (``client.prepare``) on
+its own kept-alive connection.
+
+Open-loop latency is measured from each request's *scheduled* send time, so
+a queue that builds up in the server counts against the percentiles instead
+of slowing the generator down; closed-loop numbers only send as fast as the
+server answers (coordinated omission).
+
+Usage:
+    python -m triton_client_tpu_torch.perf_analyzer -m bert_large \\
+        -u localhost:8000 -b 32 --concurrency-range 1:4:3 \\
+        --shared-memory cuda
+    python -m triton_client_tpu_torch.perf_analyzer -m simple \\
+        -u localhost:8000 --request-rate-range 100:400:100 \\
+        --request-distribution poisson
+
+With ``-v`` each level also prints its whole result as one JSON line
+(``result {...}``; its measurement window in ``time.perf_counter`` seconds,
+which on Linux is the system's monotonic clock, shared by processes), and
+the run ends with the shared-memory regions it left (``regions left
+{...}``).
+
+Not ported yet (rejected with the ROADMAP item that brings them):
+``-i grpc`` and ``--streaming`` (A3b); several ``-u`` endpoints,
+``--balancing`` and ``--hedge-ms`` (the cluster client), ``--retries``,
+``--priority`` and ``--tenant`` (QoS classes), ``--export-metrics`` (client
+telemetry) and ``--trace-file`` (server tracing), all A6.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Union
+
+import numpy as np
+
+from ._telemetry import LatencyHistogram
+from .utils import (InferenceServerException, serialized_byte_size,
+                    triton_to_np_dtype)
+
+_SHM_MODES = ("none", "system", "cuda")
+
+
+@dataclass
+class _Stats:
+    latency: LatencyHistogram = field(default_factory=LatencyHistogram)
+    count: int = 0
+    errors: int = 0
+    # requests the server shed (HTTP 429), a subset of errors
+    rejected: int = 0
+    first_error: Optional[str] = None
+
+
+def _is_rejected(err: Exception) -> bool:
+    return isinstance(err, InferenceServerException) and \
+        err.status() == "429"
+
+
+def _make_client(url: str):
+    from . import http
+
+    return http.InferenceServerClient(url)
+
+
+def _parse_concurrency_range(spec: str):
+    parts = [int(p) for p in spec.split(":")]
+    start = parts[0]
+    end = parts[1] if len(parts) > 1 else start
+    step = parts[2] if len(parts) > 2 else 1
+    return list(range(start, end + 1, max(step, 1)))
+
+
+def _parse_shapes(shape_args: List[str]) -> Dict[str, List[int]]:
+    shapes = {}
+    for s in shape_args or []:
+        name, sep, dims = s.rpartition(":")
+        if not sep or not name or not dims:
+            raise ValueError(
+                f"invalid --shape '{s}': expected <input name>:<d1>[,<d2>...]")
+        shapes[name] = [int(d) for d in dims.split(",")]
+    return shapes
+
+
+def _resolve_model(client, model_name: str, model_version: str):
+    md = client.get_model_metadata(model_name, model_version)
+    cfg = client.get_model_config(model_name, model_version)
+    max_batch = int(cfg.get("max_batch_size", 0))
+    inputs = [{"name": i["name"], "datatype": i["datatype"],
+               "shape": [int(s) for s in i["shape"]]} for i in md["inputs"]]
+    outputs = [o["name"] for o in md["outputs"]]
+    return inputs, outputs, max_batch
+
+
+def _make_data(inputs, shapes, batch: int, max_batch: int, rng,
+               string_length=16):
+    """One array per input, from ``rng`` in input order: the reference
+    tool's arrays for the same seed."""
+    arrays = {}
+    for spec in inputs:
+        dims = list(shapes.get(spec["name"], []))
+        if not dims:
+            dims = list(spec["shape"])
+            if max_batch > 0:
+                dims = dims[1:]  # the batch dim, added back below
+            dims = [d if d > 0 else 1 for d in dims]
+        if max_batch > 0:
+            dims = [batch] + dims
+        dt = triton_to_np_dtype(spec["datatype"])
+        if spec["datatype"] == "BYTES":
+            arr = np.array([b"x" * string_length
+                            for _ in range(int(np.prod(dims)))],
+                           dtype=np.object_).reshape(dims)
+        elif np.issubdtype(dt, np.floating):
+            arr = rng.random(dims).astype(dt)
+        elif dt == np.bool_:
+            arr = rng.integers(0, 2, dims).astype(np.bool_)
+        else:
+            arr = rng.integers(0, 127, dims).astype(dt)
+        arrays[spec["name"]] = arr
+    return arrays
+
+
+class _ShmSetup:
+    """One worker's shared-memory regions, an input region per input and
+    an output region per output, registered with the server under names of
+    this process (``pa_<pid>_in_<worker>_<tensor>``), and in system shm
+    under keys of the same name.  ``cuda_device``: where CUDA regions
+    live, ``"cuda"`` or ``"cpu"`` (host memory that only a server in this
+    process can map)."""
+
+    def __init__(self, mode, client, arrays, outputs, worker_id,
+                 output_byte_size, cuda_device="cuda"):
+        self.mode = mode
+        self.client = client
+        #: (in|out, tensor name) -> (region name, byte size)
+        self.handles = {}
+        self._made = []  # (region name, handle), to unregister and destroy
+        self.output_byte_size = output_byte_size
+        self._cuda_device = cuda_device
+        if mode == "none":
+            return
+        if mode == "system":
+            from .utils import shared_memory as shm
+        else:
+            from .utils import cuda_shared_memory as shm
+        self._shm = shm
+        try:
+            self._create_regions(arrays, outputs, worker_id)
+        except Exception:
+            self.cleanup()  # release what was made before the failure
+            raise
+
+    def _create(self, region: str, nbytes: int, value=None):
+        if self.mode == "system":
+            h = self._shm.create_shared_memory_region(
+                region, f"/{region}", nbytes)
+        else:
+            h = self._shm.create_shared_memory_region(
+                region, nbytes, 0, device=self._cuda_device)
+        self._made.append((region, h))
+        if value is not None:
+            self._shm.set_shared_memory_region(h, [value])
+        if self.mode == "system":
+            self.client.register_system_shared_memory(
+                region, f"/{region}", nbytes)
+        else:
+            self.client.register_cuda_shared_memory(
+                region, self._shm.get_raw_handle(h), 0, nbytes)
+        return region, nbytes
+
+    def _create_regions(self, arrays, outputs, worker_id):
+        prefix = f"pa_{os.getpid()}"
+        for name, arr in arrays.items():
+            # both region kinds serialize a BYTES array themselves
+            self.handles[("in", name)] = self._create(
+                f"{prefix}_in_{worker_id}_{name}", serialized_byte_size(arr),
+                arr)
+        for name in outputs:
+            self.handles[("out", name)] = self._create(
+                f"{prefix}_out_{worker_id}_{name}", self.output_byte_size)
+
+    def attach(self, infer_inputs, requested_outputs):
+        if self.mode == "none":
+            return
+        for inp in infer_inputs:
+            inp.set_shared_memory(*self.handles[("in", inp.name())])
+        for out in requested_outputs:
+            out.set_shared_memory(*self.handles[("out", out.name())])
+
+    def cleanup(self):
+        if self.mode == "none":
+            return
+        unregister = (self.client.unregister_system_shared_memory
+                      if self.mode == "system"
+                      else self.client.unregister_cuda_shared_memory)
+        for region, h in self._made:
+            try:
+                unregister(region)
+            except Exception:  # noqa: BLE001 - destroy it all the same
+                pass
+            try:
+                self._shm.destroy_shared_memory_region(h)
+            except Exception:  # noqa: BLE001 - best effort at teardown
+                pass
+        self._made = []
+
+
+def _build_inputs(arrays, shm_mode):
+    from . import http
+    from .utils import np_to_triton_dtype
+
+    infer_inputs = []
+    for name, arr in arrays.items():
+        dt = ("BYTES" if arr.dtype == np.object_
+              else np_to_triton_dtype(arr.dtype))
+        inp = http.InferInput(name, list(arr.shape), dt)
+        if shm_mode == "none":
+            inp.set_data_from_numpy(arr)
+        infer_inputs.append(inp)
+    return infer_inputs
+
+
+class _InferSession:
+    """One worker's client, inputs, shared-memory regions and infer
+    callable, shared by the closed-loop and open-loop sweeps.  Each call
+    goes through a request template compiled once per session."""
+
+    def __init__(self, url, model_name, model_version, arrays, outputs,
+                 shm_mode, output_byte_size, worker_id, cuda_device="cuda"):
+        from . import http
+
+        self._client = _make_client(url)
+        self._shm_setup = None
+        try:
+            infer_inputs = _build_inputs(arrays, shm_mode)
+            requested = [http.InferRequestedOutput(o) for o in outputs]
+            self._shm_setup = _ShmSetup(shm_mode, self._client, arrays,
+                                        outputs, worker_id, output_byte_size,
+                                        cuda_device)
+            self._shm_setup.attach(infer_inputs, requested)
+            self.infer = self._client.prepare(
+                model_name, infer_inputs, model_version=model_version,
+                outputs=requested).infer
+        except Exception:
+            self.close()
+            raise
+
+    def close(self):
+        if self._shm_setup is not None:
+            self._shm_setup.cleanup()
+        self._client.close()
+
+
+def _worker(url, model_name, model_version, arrays, outputs, shm_mode,
+            output_byte_size, worker_id, stop, measuring, stats: _Stats, lock,
+            cuda_device="cuda"):
+    try:
+        session = _InferSession(url, model_name, model_version,
+                                arrays, outputs, shm_mode, output_byte_size,
+                                worker_id, cuda_device)
+    except Exception as e:  # noqa: BLE001 - reported, not a dead thread
+        with lock:
+            stats.errors += 1
+            if stats.first_error is None:
+                stats.first_error = f"worker setup: {type(e).__name__}: {e}"
+        return
+    try:
+        n = errs = rejected = 0
+        first_error = None
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            err = None
+            try:
+                session.infer()
+            except Exception as e:  # noqa: BLE001 - counted per request
+                err = e
+            dt_s = time.perf_counter() - t0
+            # completions after the window closed are not counted
+            if measuring.is_set():
+                if err is None:
+                    stats.latency.observe(dt_s)
+                    n += 1
+                else:
+                    errs += 1
+                    rejected += _is_rejected(err)
+                    if first_error is None:
+                        first_error = f"{type(err).__name__}: {err}"
+        with lock:
+            stats.count += n
+            stats.errors += errs
+            stats.rejected += rejected
+            if stats.first_error is None:
+                stats.first_error = first_error
+    finally:
+        session.close()
+
+
+def run_level(url, model_name, model_version, concurrency, arrays, outputs,
+              shm_mode, output_byte_size, measure_s, warmup_s=1.0,
+              extra_percentile=None, cuda_device="cuda"):
+    """One closed-loop level: ``concurrency`` workers, each sending its
+    next request as soon as the last one is answered."""
+    stats = _Stats()
+    lock = threading.Lock()
+    stop = threading.Event()
+    measuring = threading.Event()
+    threads = [
+        threading.Thread(
+            target=_worker,
+            args=(url, model_name, model_version, arrays, outputs,
+                  shm_mode, output_byte_size, w, stop, measuring, stats,
+                  lock, cuda_device),
+            daemon=True)
+        for w in range(concurrency)]
+    for t in threads:
+        t.start()
+    time.sleep(warmup_s)
+    measuring.set()
+    t0 = time.perf_counter()
+    time.sleep(measure_s)
+    measuring.clear()
+    t1 = time.perf_counter()
+    stop.set()
+    for t in threads:
+        t.join(timeout=60)
+    res = {
+        "concurrency": concurrency,
+        "throughput": stats.count / (t1 - t0),
+        "errors": stats.errors,
+        "rejected": stats.rejected,
+        "rejected_per_sec": stats.rejected / (t1 - t0),
+        "first_error": stats.first_error,
+        "window_start_s": t0,
+        "window_end_s": t1,
+    }
+    res.update(_latency_stats(stats.latency, extra_percentile))
+    return res
+
+
+def _latency_stats(latencies: Union[LatencyHistogram, list],
+                   extra_percentile=None) -> dict:
+    """avg/p50/p90/p95/p99 (and an optional extra percentile) in usec, NaN
+    without samples; from a ``LatencyHistogram`` or a list of seconds."""
+    if not isinstance(latencies, LatencyHistogram):
+        h = LatencyHistogram()
+        for v in latencies:
+            h.observe(float(v))
+        latencies = h
+    out = {"avg_us": latencies.mean() * 1e6 if latencies.count
+           else float("nan")}
+    pcts = [50, 90, 95, 99]
+    if extra_percentile is not None and extra_percentile not in pcts:
+        pcts.append(extra_percentile)
+    for p in pcts:
+        out[f"p{p}_us"] = (latencies.percentile(p) * 1e6
+                           if latencies.count else float("nan"))
+    return out
+
+
+def _parse_rate_range(spec: str) -> List[float]:
+    parts = [float(p) for p in spec.split(":")]
+    start = parts[0]
+    end = parts[1] if len(parts) > 1 else start
+    step = parts[2] if len(parts) > 2 else 1.0
+    if start <= 0 or step <= 0:
+        raise ValueError(
+            f"invalid --request-rate-range '{spec}': rates and step must "
+            "be positive")
+    out, r = [], start
+    while r <= end + 1e-9:
+        out.append(r)
+        r += step
+    return out
+
+
+def run_rate_level(url, model_name, model_version, rate, arrays, outputs,
+                   shm_mode, output_byte_size, measure_s, warmup_s=1.0,
+                   distribution="constant", max_threads=64,
+                   extra_percentile=None, cuda_device="cuda"):
+    """One open-loop level at ``rate`` requests/s: the send times are
+    scheduled up front (constant or Poisson gaps, from a fixed seed) and
+    latency counts from the scheduled time.  A server that cannot keep up
+    shows as ``send_lag_*`` (how late sends left) and ``unsent`` (slots of
+    the window never sent)."""
+    if rate <= 0:
+        raise ValueError(f"request rate must be positive, got {rate}")
+    # the schedule covers warm-up, window and 1 s more
+    horizon = warmup_s + measure_s + 1.0
+    n_slots = int(rate * horizon) + 1
+    srng = np.random.default_rng(1234)
+    if distribution == "poisson":
+        gaps = srng.exponential(1.0 / rate, n_slots)
+    else:
+        gaps = np.full(n_slots, 1.0 / rate)
+    sched = np.cumsum(gaps)
+
+    lock = threading.Lock()
+    stop = threading.Event()
+    next_slot = [0]
+    sent = []   # (scheduled, send lag)
+    done = []   # (scheduled, latency from scheduled, error, rejected)
+    setup_errors = []
+    t0_box = [0.0]
+    ready = [0]
+    go = threading.Event()
+
+    def worker(worker_id):
+        try:
+            session = _InferSession(url, model_name, model_version, arrays,
+                                    outputs, shm_mode, output_byte_size,
+                                    worker_id, cuda_device)
+        except Exception as e:  # noqa: BLE001 - reported below
+            with lock:
+                ready[0] += 1
+                setup_errors.append(f"worker setup: {type(e).__name__}: {e}")
+            return
+        # the schedule starts once every sender is set up
+        with lock:
+            ready[0] += 1
+        go.wait(timeout=120)
+        try:
+            while not stop.is_set():
+                with lock:
+                    k = next_slot[0]
+                    if k >= n_slots:
+                        return
+                    next_slot[0] += 1
+                target = t0_box[0] + sched[k]
+                # sleep in slices, so that stop ends a long gap
+                while True:
+                    now = time.perf_counter()
+                    if now >= target or stop.is_set():
+                        break
+                    time.sleep(min(target - now, 0.05))
+                if stop.is_set():
+                    return  # a claimed slot never sent: counted unsent
+                lag = time.perf_counter() - target
+                err, rejected = None, False
+                try:
+                    session.infer()
+                except Exception as e:  # noqa: BLE001 - recorded per slot
+                    err = f"{type(e).__name__}: {e}"
+                    rejected = _is_rejected(e)
+                lat = time.perf_counter() - target
+                with lock:
+                    sent.append((sched[k], lag))
+                    done.append((sched[k], lat, err, rejected))
+        finally:
+            session.close()
+
+    threads = [threading.Thread(target=worker, args=(w,), daemon=True)
+               for w in range(max_threads)]
+    for t in threads:
+        t.start()
+    deadline = time.monotonic() + 30.0
+    while ready[0] < max_threads and time.monotonic() < deadline:
+        time.sleep(0.005)
+    t0_box[0] = time.perf_counter()
+    go.set()
+    # the window owns every slot scheduled in it, sent or not
+    time.sleep(warmup_s + measure_s)
+    stop.set()
+    for t in threads:
+        t.join(timeout=60)
+    win_lo, win_hi = warmup_s, warmup_s + measure_s
+    owed = int(np.sum((sched >= win_lo) & (sched < win_hi)))
+    in_win = [row for row in done if win_lo <= row[0] < win_hi]
+    ok = [lat for _s, lat, err, _rej in in_win if err is None]
+    errs = [err for _s, _lat, err, _rej in in_win if err is not None]
+    n_rejected = sum(1 for row in in_win if row[3])
+    lags = np.asarray([lag for s, lag in sent if win_lo <= s < win_hi])
+    res = {
+        "request_rate": rate,
+        "distribution": distribution,
+        "throughput": len(ok) / measure_s,
+        "owed": owed,
+        "unsent": max(owed - len(in_win), 0),
+        # set-up failures come before any slot: always reported
+        "errors": len(errs) + len(setup_errors),
+        "rejected": n_rejected,
+        "rejected_per_sec": n_rejected / measure_s,
+        "first_error": (setup_errors[0] if setup_errors
+                        else errs[0] if errs else None),
+        "send_lag_p50_ms": (float(np.percentile(lags, 50) * 1e3)
+                            if lags.size else float("nan")),
+        "send_lag_p99_ms": (float(np.percentile(lags, 99) * 1e3)
+                            if lags.size else float("nan")),
+        "window_start_s": t0_box[0] + win_lo,
+        "window_end_s": t0_box[0] + win_hi,
+    }
+    res.update(_latency_stats(ok, extra_percentile))
+    return res
+
+
+def _json_sanitize(v):
+    """NaN and inf as None, so a result line stays strict JSON."""
+    if isinstance(v, float) and not np.isfinite(v):
+        return None
+    if isinstance(v, dict):
+        return {k: _json_sanitize(x) for k, x in v.items()}
+    return v
+
+
+# flags of the reference tool whose machinery is not ported yet, and the
+# ROADMAP item that brings each
+_NOT_PORTED = (
+    ("streaming", "--streaming", "A3b (gRPC-Web streams)"),
+    ("balancing", "--balancing", "A6 (the cluster client)"),
+    ("hedge_ms", "--hedge-ms", "A6 (the cluster client)"),
+    ("retries", "--retries", "A6 (the client retry layer)"),
+    ("priority", "--priority", "A6 (QoS classes)"),
+    ("tenant", "--tenant", "A6 (QoS classes)"),
+    ("export_metrics", "--export-metrics", "A6 (client telemetry)"),
+    ("trace_file", "--trace-file", "A6 (server tracing)"),
+    ("trace_rate", "--trace-rate", "A6 (server tracing)"),
+)
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="perf_analyzer",
+        description="Concurrency-sweep load generator (perf_analyzer CLI "
+                    "contract) of the PyTorch port")
+    parser.add_argument("-m", "--model-name", required=True)
+    parser.add_argument("-x", "--model-version", default="")
+    parser.add_argument("-u", "--url", action="append", default=None,
+                        help="server endpoint (one; several endpoints need "
+                             "the cluster client, ROADMAP A6)")
+    parser.add_argument("-i", "--protocol", default="http", type=str.lower,
+                        choices=["http", "grpc"],
+                        help="http (grpc: not ported yet, ROADMAP A3b)")
+    parser.add_argument("-b", "--batch-size", type=int, default=1)
+    parser.add_argument("--concurrency-range", default=None,
+                        help="start:end:step closed-loop concurrency sweep")
+    parser.add_argument("--request-rate-range", default=None,
+                        help="start:end:step OPEN-loop request rates "
+                             "(req/s); latency measured from the scheduled "
+                             "send time (coordinated-omission-free)")
+    parser.add_argument("--request-distribution", default="constant",
+                        type=str.lower, choices=["constant", "poisson"],
+                        help="inter-arrival schedule for --request-rate-range")
+    parser.add_argument("--max-threads", type=int, default=64,
+                        help="sender pool bound for the open-loop mode")
+    parser.add_argument("--measurement-interval", type=int, default=5000,
+                        help="measurement window per level (ms)")
+    parser.add_argument("--shared-memory", default="none", choices=_SHM_MODES,
+                        help="where the tensors travel: none (the HTTP "
+                             "body), system (POSIX shm) or cuda (CUDA "
+                             "regions, mapped by the server with cudaIPC); "
+                             "the reference's xla mode has no meaning on a "
+                             "GPU and is dropped")
+    parser.add_argument("--cuda-shared-memory-device", default="cuda",
+                        choices=["cuda", "cpu"],
+                        help="where --shared-memory cuda makes its regions: "
+                             "on the card (default), or in host memory, "
+                             "which only a server in this process can map")
+    parser.add_argument("--output-shared-memory-size", type=int,
+                        default=102400)
+    parser.add_argument("--shape", action="append", default=[],
+                        help="name:d1,d2,... override for dynamic dims")
+    parser.add_argument("--string-length", type=int, default=16)
+    parser.add_argument("--percentile", type=int, default=None,
+                        help="report this percentile as the headline latency")
+    parser.add_argument("-f", "--latency-report-file", default=None)
+    parser.add_argument("-v", "--verbose", action="store_true")
+    for dest, flag, item in _NOT_PORTED:
+        parser.add_argument(
+            flag, dest=dest, default=None,
+            action="store_true" if dest == "streaming" else "append"
+            if dest in ("priority", "tenant") else "store",
+            help=f"not ported yet (ROADMAP {item})")
+    args = parser.parse_args(argv)
+    for dest, flag, item in _NOT_PORTED:
+        if getattr(args, dest) not in (None, False):
+            parser.error(f"{flag} is not ported to triton_client_tpu_torch "
+                         f"yet (ROADMAP {item})")
+    if args.protocol != "http":
+        parser.error("-i grpc is not ported to triton_client_tpu_torch yet "
+                     "(ROADMAP A3b)")
+    if args.concurrency_range and args.request_rate_range:
+        parser.error("--concurrency-range and --request-rate-range are "
+                     "mutually exclusive (closed- vs open-loop)")
+    if args.concurrency_range is None and args.request_rate_range is None:
+        args.concurrency_range = "1"
+    urls: List[str] = []
+    for u in (args.url or []):
+        urls.extend(p.strip() for p in u.split(",") if p.strip())
+    if len(urls) > 1:
+        parser.error("several -u endpoints need the cluster client, which "
+                     "is not ported to triton_client_tpu_torch yet (ROADMAP "
+                     "A6)")
+    url = urls[0] if urls else "localhost:8000"
+
+    meta_client = _make_client(url)
+    try:
+        inputs, outputs, max_batch = _resolve_model(
+            meta_client, args.model_name, args.model_version)
+    finally:
+        meta_client.close()
+    if args.batch_size > 1 and max_batch == 0:
+        print(f"error: model {args.model_name} does not support batching",
+              file=sys.stderr)
+        return 1
+
+    rng = np.random.default_rng(0)
+    try:
+        shapes = _parse_shapes(args.shape)
+    except ValueError as e:
+        parser.error(str(e))
+    arrays = _make_data(inputs, shapes, args.batch_size, max_batch, rng,
+                        args.string_length)
+
+    measure_s = args.measurement_interval / 1000.0
+    open_loop = args.request_rate_range is not None
+    results = []
+    print(f"*** Measurement Settings ***\n"
+          f"  Batch size: {args.batch_size}\n"
+          f"  Measurement window: {args.measurement_interval} msec\n"
+          f"  Shared memory: {args.shared_memory}\n"
+          f"  Load mode: "
+          + (f"open-loop ({args.request_distribution} arrivals)"
+             if open_loop else "closed-loop (concurrency)") + "\n"
+          f"  Protocol: {args.protocol} @ {url}\n")
+
+    def report(res, lead):
+        results.append(res)
+        headline = (res[f"p{args.percentile}_us"]
+                    if args.percentile is not None else res["avg_us"])
+        tail = ""
+        if res.get("unsent"):
+            tail += f", {res['unsent']} unsent"
+        if res.get("rejected"):
+            tail += f", rejected {res['rejected_per_sec']:.1f}/s"
+        if res["errors"]:
+            tail += f" ({res['errors']} errors)"
+        print(f"{lead}{res['throughput']:.2f} infer/sec, "
+              f"latency {headline:.0f} usec" + tail)
+        if res["errors"] and res.get("first_error"):
+            print(f"  first error: {res['first_error']}")
+        if args.verbose:
+            line = (f"  p50: {res['p50_us']:.0f} us, "
+                    f"p90: {res['p90_us']:.0f} us, "
+                    f"p95: {res['p95_us']:.0f} us, "
+                    f"p99: {res['p99_us']:.0f} us")
+            if "send_lag_p99_ms" in res:
+                line += f", send lag p99 {res['send_lag_p99_ms']:.1f} ms"
+            print(line)
+            print("  result " + json.dumps(_json_sanitize(res)))
+        sys.stdout.flush()
+
+    if open_loop:
+        try:
+            rates = _parse_rate_range(args.request_rate_range)
+        except ValueError as e:
+            parser.error(str(e))
+        for rate in rates:
+            res = run_rate_level(
+                url, args.model_name, args.model_version, rate, arrays,
+                outputs, args.shared_memory, args.output_shared_memory_size,
+                measure_s, distribution=args.request_distribution,
+                max_threads=args.max_threads,
+                extra_percentile=args.percentile,
+                cuda_device=args.cuda_shared_memory_device)
+            report(res, f"Request rate: {rate:g}/s, completed "
+                        "(latency from scheduled send): ")
+    else:
+        for level in _parse_concurrency_range(args.concurrency_range):
+            res = run_level(
+                url, args.model_name, args.model_version, level, arrays,
+                outputs, args.shared_memory, args.output_shared_memory_size,
+                measure_s, extra_percentile=args.percentile,
+                cuda_device=args.cuda_shared_memory_device)
+            report(res, f"Concurrency: {level}, throughput: ")
+
+    if args.verbose:
+        from .utils import cuda_shared_memory, shared_memory
+
+        print("regions left " + json.dumps({
+            "system": shared_memory.mapped_shared_memory_regions(),
+            "cuda": cuda_shared_memory.allocated_shared_memory_regions()}))
+
+    if args.latency_report_file:
+        with open(args.latency_report_file, "w") as f:
+            if open_loop:
+                f.write("Request Rate,Inferences/Second,Avg latency,"
+                        "p50 latency,p90 latency,p95 latency,p99 latency,"
+                        "Unsent\n")
+                for r in results:
+                    f.write(f"{r['request_rate']:g},{r['throughput']:.2f},"
+                            f"{r['avg_us']:.0f},{r['p50_us']:.0f},"
+                            f"{r['p90_us']:.0f},{r['p95_us']:.0f},"
+                            f"{r['p99_us']:.0f},{r['unsent']}\n")
+            else:
+                f.write("Concurrency,Inferences/Second,Avg latency,"
+                        "p50 latency,p90 latency,p95 latency,p99 latency\n")
+                for r in results:
+                    f.write(f"{r['concurrency']},{r['throughput']:.2f},"
+                            f"{r['avg_us']:.0f},{r['p50_us']:.0f},"
+                            f"{r['p90_us']:.0f},{r['p95_us']:.0f},"
+                            f"{r['p99_us']:.0f}\n")
+    return 1 if all(r["throughput"] == 0 for r in results) else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

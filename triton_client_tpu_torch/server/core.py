@@ -344,6 +344,7 @@ class InferenceCore:
         calling thread: a batch worker, or the request thread when
         unbatched)."""
         outputs = _timed_execute(model, inputs, params, split)
+        model.stats.record_execution(_batch_count(inputs))
         host = readback({n: v for n, v in outputs.items() if n not in keep})
         host.update({n: v for n, v in outputs.items() if n in keep})
         return host

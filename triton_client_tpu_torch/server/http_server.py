@@ -71,6 +71,11 @@ def _json_body(obj) -> bytes:
 
 class _Handler(BaseHTTPRequestHandler):
     protocol_version = "HTTP/1.1"
+    # TCP_NODELAY on each accepted socket: a response goes out in more than
+    # one write (headers and JSON, then each binary segment), and with
+    # Nagle's algorithm the second write of a kept-alive connection would
+    # wait for the client's delayed ACK (~40 ms)
+    disable_nagle_algorithm = True
     server: "HttpServer"
 
     def log_message(self, format, *args):  # noqa: A002 - stdlib signature
@@ -107,17 +112,20 @@ class _Handler(BaseHTTPRequestHandler):
               headers: Optional[Dict[str, str]] = None,
               content_type: str = "application/json",
               segments: Sequence[memoryview] = ()) -> None:
-        """One response: ``payload`` then each raw ``segment``, written in
-        turn (binary tensors are never joined into one buffer)."""
+        """One response: the status line, headers and ``payload`` in one
+        write, then each raw ``segment`` in turn (binary tensors are never
+        joined into one buffer)."""
         self.send_response(status)
         self.send_header("Content-Type", content_type)
         self.send_header("Content-Length",
                          str(len(payload) + sum(s.nbytes for s in segments)))
         for k, v in (headers or {}).items():
             self.send_header(k, v)
-        self.end_headers()
-        if payload:
-            self.wfile.write(payload)
+        # end_headers() without its own write: the blank line and the
+        # payload join the buffered status line and headers, which
+        # flush_headers() sends as one write
+        self._headers_buffer.append(b"\r\n" + payload)
+        self.flush_headers()
         for seg in segments:
             self.wfile.write(seg)
 

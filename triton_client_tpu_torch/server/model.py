@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import abc
 import threading
+import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -150,18 +151,27 @@ def resolve_instance_device(config: ModelConfig) -> torch.device:
 
 @dataclass
 class ModelStats:
-    """Dynamic-batching counters: batched executions and the requests they
-    carried (average formed batch = batch_size_total /
-    batch_execution_count).  The statistics API is not ported yet."""
+    """Execution counters.  Dynamic batching: batched executions and the
+    requests they carried (average formed batch = batch_size_total /
+    batch_execution_count).  Every execution, batched or not: where
+    ``executions`` is a list, each one's (``time.perf_counter()`` at its
+    end, rows executed: the batch padded to its bucket) is appended to it.
+    The statistics API is not ported yet."""
 
     batch_size_total: int = 0
     batch_execution_count: int = 0
+    executions: Optional[List[Tuple[float, int]]] = None
     lock: threading.Lock = field(default_factory=threading.Lock)
 
     def record_batch(self, batch: int) -> None:
         with self.lock:
             self.batch_size_total += batch
             self.batch_execution_count += 1
+
+    def record_execution(self, rows: int) -> None:
+        if self.executions is not None:
+            with self.lock:
+                self.executions.append((time.perf_counter(), rows))
 
 
 class Model(abc.ABC):

@@ -1,10 +1,12 @@
-"""Triton v2 dtype maps and the BYTES codec (the port's own copy of the
-reference's ``triton_client_tpu/utils/__init__.py`` helpers).
+"""Triton v2 dtype maps, the BYTES and BF16 codecs and the client's error
+type (the port's own copy of the reference's
+``triton_client_tpu/utils/__init__.py`` helpers).
 
 ``BF16`` maps to ``ml_dtypes.bfloat16`` where that package is installed,
-else to no numpy dtype.  BYTES maps to ``object``; on the wire a BYTES
-tensor is the row-major concatenation of ``<uint32 little-endian
-length><element bytes>``.
+else to no numpy dtype (and decodes to float32, as the original client
+does).  BYTES maps to ``object``; on the wire a BYTES tensor is the
+row-major concatenation of ``<uint32 little-endian length><element
+bytes>``.
 
 ``triton_to_torch_dtype`` and :func:`typed_view` serve the shared-memory
 modules: a region is a ``torch.uint8`` tensor, and a tensor in it is a
@@ -47,6 +49,44 @@ if _BF16_NP is not None:
 
 _TRITON_TO_NP = {v: k for k, v in _NP_TO_TRITON.items()}
 _TRITON_TO_NP["BYTES"] = np.dtype(np.object_)
+
+
+class InferenceServerException(Exception):
+    """An error reported by the server or raised by the client: a message,
+    an optional status (the HTTP status as a string) and optional debug
+    details."""
+
+    def __init__(self, msg, status: Optional[str] = None,
+                 debug_details=None):
+        self._msg = msg
+        self._status = status
+        self._debug_details = debug_details
+        super().__init__(msg)
+
+    def __str__(self):
+        msg = super().__str__() if self._msg is None else self._msg
+        if self._status is not None:
+            msg = "[" + self._status + "] " + msg
+        return msg
+
+    def message(self):
+        """The brief description of the error."""
+        return self._msg
+
+    def status(self):
+        """The error's status code, if any."""
+        return self._status
+
+    def debug_details(self):
+        """The detailed description of the error, if any."""
+        return self._debug_details
+
+
+def raise_error(msg):
+    """Raise an :class:`InferenceServerException` with ``msg`` (an error
+    found by the client)."""
+    raise InferenceServerException(msg=msg) from None
+
 
 
 _TRITON_TO_TORCH = {
@@ -163,3 +203,50 @@ def deserialize_bytes_tensor(encoded_tensor,
         strs.append(bytes(mv[offset:offset + length]))
         offset += length
     return np.array(strs, dtype=np.object_)
+
+
+def serialize_bf16_tensor(input_tensor: np.ndarray) -> np.ndarray:
+    """A tensor as raw little-endian bfloat16 bytes (a 1-D uint8 array).
+
+    A ``ml_dtypes.bfloat16`` array is viewed without a copy; a float32
+    array is truncated to its top two bytes, bit for bit as the original
+    client serializes it."""
+    if _BF16_NP is not None and input_tensor.dtype == _BF16_NP:
+        return np.ascontiguousarray(input_tensor).view(np.uint8).reshape(-1)
+    if input_tensor.dtype != np.dtype(np.float32):
+        raise_error("cannot serialize bf16 tensor: invalid datatype")
+    as_u16 = (np.ascontiguousarray(input_tensor).view(np.uint32)
+              >> 16).astype(np.uint16)
+    return as_u16.view(np.uint8).reshape(-1)
+
+
+def deserialize_bf16_tensor(encoded_tensor) -> np.ndarray:
+    """Raw bf16 bytes as a 1-D array: bfloat16 where ``ml_dtypes`` is
+    installed, else widened to float32.  The caller reshapes."""
+    if _BF16_NP is not None:
+        return np.frombuffer(encoded_tensor, dtype=_BF16_NP)
+    as_u16 = np.frombuffer(encoded_tensor, dtype=np.uint16)
+    return (as_u16.astype(np.uint32) << 16).view(np.float32)
+
+
+def as_wire_memoryview(arr: np.ndarray) -> memoryview:
+    """A flat ``B``-format memoryview of ``arr``'s bytes: a view where
+    ``arr`` is C-contiguous, else of one contiguous copy.  The caller must
+    not change the array until the request that carries it is sent."""
+    a = arr if arr.flags["C_CONTIGUOUS"] else np.ascontiguousarray(arr)
+    return memoryview(a).cast("B")
+
+
+def wire_length(raw) -> int:
+    """Byte length of a wire payload: ``bytes``, ``bytearray`` or a
+    ``B``-format memoryview."""
+    if isinstance(raw, memoryview):
+        return raw.nbytes
+    return len(raw)
+
+
+def serialized_byte_size(np_array: np.ndarray) -> int:
+    """Bytes of a tensor as it travels on the wire."""
+    if np_array.dtype == np.object_ or np_array.dtype.kind in ("S", "U"):
+        return serialize_byte_tensor(np_array).size
+    return np_array.nbytes
