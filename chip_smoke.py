@@ -85,12 +85,32 @@ Phases (any failure exits non-zero and prints no result line):
    or 8 flash (longctx) launches per execution, Little's law within
    ``LITTLE_TOL`` at each closed-loop level, and leave no region (in
    either process, in /dev/shm or in the server's status);
-10. print each kernel's launches on every served path, one JSON line
+10. gRPC (gRPC-Web on the server's HTTP port, the port's own proto3 codec
+    and client): ``bert_large`` int8 (``w2``) at request batch 32 and
+    ``longctx_tpu`` base bf16 at batch 4, each by HTTP wire, then gRPC
+    unary by wire, a gRPC stream by wire and a stream with system shm, and
+    ``bert_large`` also a stream with CUDA shm of another process (this
+    script's ``--shm-client``): each answer held to the plain forward
+    within ``SERVED_ATOL`` beside the controls and to the HTTP answer,
+    launches exactly 24 int8 / 8 flash per execution in every window;
+    then ``perf_analyzer -i grpc --streaming`` from a process of its own
+    (BASELINE row 4): ``bert_large`` int8 -b 32 at c = 1 and 4 with CUDA
+    shm and by wire (c = 4 by wire traced for the card's busy share),
+    unary -b 32 at c = 1, ``longctx_tpu`` -b 4 at c = 1,
+    each level printed beside this run's HTTP level and checked as the
+    perf phase checks it; then BASELINE row 5: ``ensemble_llama`` over
+    ``llama_tpu`` 1b bf16 generating 32 tokens on one stream (a 128-byte
+    window, OUT_TEXT appended, ``sequence_id`` 1, start on the first step
+    and end on the last; NEXT_TOKEN held to the plain forward of each
+    window) and 4 streams of 16 at once, tokens/s and per-token p50 / p99;
+    an in-band error, a non-OK status or a region left fails the run;
+11. print each kernel's launches on every served path, one JSON line
     describing every kernel, then the result line
     ``{"ok": true, "device": {...}}``.
 
 Every request goes through the port's own HTTP client
-(``triton_client_tpu_torch.http``) on kept-alive connections.
+(``triton_client_tpu_torch.http``) on kept-alive connections, or its gRPC
+client (``triton_client_tpu_torch.grpc``).
 
 Each model and precision has its own bound (``SERVED_ATOL``).  NEXT_LOGIT
 is held to it; a NEXT_TOKEN that differs from the plain forward's argmax
@@ -477,14 +497,72 @@ def check_flash_bert(fa, torch, gen) -> None:
 # Serving
 # ---------------------------------------------------------------------------
 
-def _client(port: int, concurrency: int = 1):
+def _client(port: int, concurrency: int = 1, protocol: str = "http"):
     """The port's v2 HTTP client of the server on ``port``, with up to
-    ``concurrency`` kept-alive connections."""
+    ``concurrency`` kept-alive connections; or with ``protocol`` "grpc" its
+    gRPC client (gRPC-Web on the same port)."""
+    if protocol == "grpc":
+        from triton_client_tpu_torch import grpc
+
+        return grpc.InferenceServerClient(f"127.0.0.1:{port}")
     from triton_client_tpu_torch import http
 
     return http.InferenceServerClient(f"127.0.0.1:{port}",
                                       concurrency=concurrency,
                                       network_timeout=300)
+
+
+class _Sender:
+    """A prepared request sent by ``protocol`` (``"http"`` or ``"grpc"``),
+    unary or, where ``stream``, on a gRPC stream of the client's own: its
+    answer waited for on the stream's callback, an in-band error or a
+    non-OK status of the stream a failure of the run."""
+
+    def __init__(self, port: int, protocol: str, stream: bool):
+        import queue
+
+        self.protocol, self.stream = protocol, stream
+        self.mod = importlib.import_module(
+            f"triton_client_tpu_torch.{protocol}")
+        self.client = _client(port, protocol=protocol)
+        self._prep = None
+        if stream:
+            self._done = queue.Queue()
+            self.client.start_stream(
+                callback=lambda result, error: self._done.put(
+                    (result, error)))
+
+    def send(self, model: str, inputs, outputs):
+        """The result of one request (inputs carry their data or region;
+        the request is compiled at the first call)."""
+        if self._prep is None:
+            self._prep = self.client.prepare(model, inputs, outputs=outputs)
+        if not self.stream:
+            return self._prep.infer()
+        self._prep.async_stream_infer()
+        return self.answer()
+
+    def answer(self, what: str = "gRPC stream"):
+        """The stream's next answer; an error fails the run."""
+        result, error = self._done.get(timeout=300)
+        if error is not None:
+            fail(f"{what}: {error}")
+        return result
+
+    def output_entry(self, result, name: str) -> dict:
+        """An output's entry, as the HTTP JSON has it."""
+        if self.protocol == "http":
+            return result.get_output(name)
+        entry = result.get_output(name, as_json=True)
+        entry["parameters"] = {k: next(iter(v.values()))
+                               for k, v in entry.get("parameters",
+                                                     {}).items()}
+        return entry
+
+    def close(self) -> None:
+        if self.stream:
+            self.client.stop_stream()
+        self.client.close()
 
 
 def _post_infer(client, model: str, inputs, outputs):
@@ -787,18 +865,18 @@ def serve_bert(label: str, torch, counters, int8: bool, int8_per_layer: int,
     return launches
 
 
-def longctx_transports(label: str, torch, counters, harness, model) -> None:
-    """longctx_tpu base bf16 at batch 4 by wire, system shm and CUDA shm in
-    this process (``serve_transports``): LOGPROBS within SERVED_ATOL of the
-    plain-kernel forward, flash once per layer."""
+LONGCTX_SEED, BERT_SEED = 1357, 2468
+
+
+def longctx_check(label: str, torch, model, x):
+    """The check of longctx_tpu bf16 answers to ``x``: LOGPROBS within
+    SERVED_ATOL of the plain-kernel forward."""
     import numpy as np
 
     from triton_client_tpu_torch.models import language
     from triton_client_tpu_torch.models import transformer as tr
 
     run = model.transformer
-    S, seed, vocab = model.config.input[0].dims[0], 1357, 256
-    x = model_tokens(seed, model.max_batch_size, S, vocab)
     fwd = tr.make_forward(run.cfg, plain=True)
     t = torch.from_numpy(x).to("cuda")
     with torch.inference_mode():
@@ -814,24 +892,31 @@ def longctx_transports(label: str, torch, counters, harness, model) -> None:
             fail(f"{label} {name}: served LOGPROBS disagree with the plain "
                  "forward")
 
-    serve_transports(label, harness, model, counters, x, seed, vocab, check,
-                     atol, run.cfg.n_layers, 0, cross_process=False)
+    return check
 
 
-def bert_transports(label: str, torch, counters, harness, model, int8: bool,
-                    int8_per_layer: int) -> None:
-    """bert_large at request batch 32 (INPUT_IDS [32, 384] -> LOGITS
-    [32, 384, 2]) by all four transports (``serve_transports``): each
-    LOGITS within SERVED_ATOL of the plain-kernel forward of the same
-    tokens, beside the controls; int8 ``int8_per_layer`` per layer."""
+def longctx_transports(label: str, torch, counters, harness, model) -> None:
+    """longctx_tpu base bf16 at batch 4 by wire, system shm and CUDA shm in
+    this process (``serve_transports``): LOGPROBS within SERVED_ATOL of the
+    plain-kernel forward, flash once per layer."""
+    S, vocab = model.config.input[0].dims[0], 256
+    x = model_tokens(LONGCTX_SEED, model.max_batch_size, S, vocab)
+    serve_transports(label, harness, model, counters, x, LONGCTX_SEED, vocab,
+                     longctx_check(label, torch, model, x),
+                     SERVED_ATOL["longctx_tpu", False],
+                     model.transformer.cfg.n_layers, 0, cross_process=False)
+
+
+def bert_check(label: str, torch, model, int8: bool, x):
+    """The check of bert_large answers to ``x``: each LOGITS within
+    SERVED_ATOL of the plain-kernel forward of the same tokens, beside the
+    controls."""
     import numpy as np
 
     from triton_client_tpu_torch.models import language
     from triton_client_tpu_torch.models import transformer as tr
 
     run = model.transformer
-    S, V, seed = language.BERT_SEQ_LEN, language.BERT_LARGE.vocab_size, 2468
-    x = model_tokens(seed, BERT_SHM_ROWS, S, V)
     fwd = tr.make_forward(run.cfg, quantized=int8,
                           head_cols=language.BERT_HEAD_COLS, plain=True)
     t = torch.from_numpy(x).to("cuda")
@@ -854,8 +939,23 @@ def bert_transports(label: str, torch, counters, harness, model, int8: bool,
                      [float(np.abs(got - c).max()) for c in controls],
                      float(np.abs(want).mean()))
 
-    serve_transports(label, harness, model, counters, x, seed, V, check,
-                     atol, 0, int8_per_layer * run.cfg.n_layers,
+    return check
+
+
+def bert_transports(label: str, torch, counters, harness, model, int8: bool,
+                    int8_per_layer: int) -> None:
+    """bert_large at request batch 32 (INPUT_IDS [32, 384] -> LOGITS
+    [32, 384, 2]) by all four transports (``serve_transports``): each
+    LOGITS within SERVED_ATOL of the plain-kernel forward of the same
+    tokens, beside the controls; int8 ``int8_per_layer`` per layer."""
+    from triton_client_tpu_torch.models import language
+
+    S, V = language.BERT_SEQ_LEN, language.BERT_LARGE.vocab_size
+    x = model_tokens(BERT_SEED, BERT_SHM_ROWS, S, V)
+    serve_transports(label, harness, model, counters, x, BERT_SEED, V,
+                     bert_check(label, torch, model, int8, x),
+                     SERVED_ATOL["bert_large", int8], 0,
+                     int8_per_layer * model.transformer.cfg.n_layers,
                      cross_process=True)
 
 
@@ -1030,30 +1130,27 @@ def _nbytes(datatype: str, shape) -> int:
 
 
 class WireClient:
-    """Tensors in the HTTP body, binary (transport (a)), on one kept-alive
-    connection, through a prepared request."""
+    """Tensors in the request body, binary (transport (a)), on one
+    kept-alive connection, through a prepared request: HTTP, or gRPC
+    unary or on a stream (``_Sender``)."""
 
-    def __init__(self, port: int, inp, out):
-        from triton_client_tpu_torch import http
-
-        self.client, self.out = _client(port), out
-        self._in = http.InferInput(inp[0], inp[2], inp[1])
-        self._out = http.InferRequestedOutput(out[0])
-        self._prep = None
+    def __init__(self, port: int, inp, out, protocol: str = "http",
+                 stream: bool = False):
+        self.sender, self.out = _Sender(port, protocol, stream), out
+        self._in = self.sender.mod.InferInput(inp[0], inp[2], inp[1])
+        self._out = self.sender.mod.InferRequestedOutput(out[0])
 
     def infer(self, model: str, x):
         """(output, seconds from the request's making to the output's
         arrival)."""
         t0 = time.perf_counter()
         self._in.set_data_from_numpy(x)
-        if self._prep is None:
-            self._prep = self.client.prepare(model, [self._in],
-                                             outputs=[self._out])
-        got = self._prep.infer().as_numpy(self.out[0])
+        got = self.sender.send(model, [self._in], [self._out]).as_numpy(
+            self.out[0])
         return got, time.perf_counter() - t0
 
     def close(self) -> None:
-        self.client.close()
+        self.sender.close()
 
 
 class ShmClient:
@@ -1064,13 +1161,14 @@ class ShmClient:
     read in place by a server in this process, mapped with
     cudaIpcOpenMemHandle by one in another)."""
 
-    def __init__(self, port: int, kind: str, tag: str, inp, out):
-        from triton_client_tpu_torch import http
+    def __init__(self, port: int, kind: str, tag: str, inp, out,
+                 protocol: str = "http", stream: bool = False):
         from triton_client_tpu_torch.utils import cuda_shared_memory
         from triton_client_tpu_torch.utils import shared_memory
 
         self.kind, self.out = kind, out
-        self.client = _client(port)
+        self.sender = _Sender(port, protocol, stream)
+        self.client = self.sender.client
         self.mod = shared_memory if kind == "system" else cuda_shared_memory
         self.regions = {}
         for role, (_, datatype, shape) in (("in", inp), ("out", out)):
@@ -1087,11 +1185,11 @@ class ShmClient:
                 self.regions[role] = (name, h, nbytes)
                 self.client.register_cuda_shared_memory(
                     name, cuda_shared_memory.get_raw_handle(h), 0, nbytes)
-        self._in = http.InferInput(inp[0], inp[2], inp[1]).set_shared_memory(
+        mod = self.sender.mod
+        self._in = mod.InferInput(inp[0], inp[2], inp[1]).set_shared_memory(
             self.regions["in"][0], self.regions["in"][2])
-        self._out = http.InferRequestedOutput(out[0]).set_shared_memory(
+        self._out = mod.InferRequestedOutput(out[0]).set_shared_memory(
             self.regions["out"][0], self.regions["out"][2])
-        self._prep = None
 
     def infer(self, model: str, x):
         """Write ``x``, infer with both tensors in regions, read the output
@@ -1104,10 +1202,8 @@ class ShmClient:
         (_, hin, _), (rout, hout, _) = (self.regions["in"],
                                         self.regions["out"])
         self.mod.set_shared_memory_region(hin, [x])
-        if self._prep is None:
-            self._prep = self.client.prepare(model, [self._in],
-                                             outputs=[self._out])
-        entry = self._prep.infer().get_output(self.out[0])
+        entry = self.sender.output_entry(
+            self.sender.send(model, [self._in], [self._out]), self.out[0])
         if "data" in entry or entry["parameters"].get(
                 "shared_memory_region") != rout:
             fail(f"{self.kind} shm: the response carried {entry}, not the "
@@ -1123,7 +1219,7 @@ class ShmClient:
         for name, h, _ in self.regions.values():
             unregister(name)
             self.mod.destroy_shared_memory_region(h)
-        self.client.close()
+        self.sender.close()
 
 
 def _shm_status(port: int):
@@ -1177,6 +1273,17 @@ def run_transport(make_client, model: str, x):
     return answer, latencies, n / wall, 1 + SHM_SEQUENTIAL + n
 
 
+def run_sequential(client, model: str, x, n: int):
+    """Through ``client``: the answer to ``x`` (the first request, the
+    warm-up too), then ``n`` requests one after another.  Returns (answer,
+    their latencies in s); the client is closed."""
+    try:
+        answer, _ = client.infer(model, x)
+        return answer, [client.infer(model, x)[1] for _ in range(n)]
+    finally:
+        client.close()
+
+
 def shm_client_main(spec_json: str) -> int:
     """The cross-process client (transport (d)), started by the smoke run as
     ``chip_smoke.py --shm-client SPEC``: it makes CUDA regions in its own
@@ -1197,9 +1304,18 @@ def shm_client_main(spec_json: str) -> int:
     x = model_tokens(spec["seed"], spec["rows"], spec["seq_len"],
                      spec["vocab"])
     inp, out = tuple(spec["input"]), tuple(spec["output"])
-    answer, lat, rate, n = run_transport(
-        lambda tag: ShmClient(spec["port"], "cuda", f"ipc_{tag}", inp, out),
-        spec["model"], x)
+
+    def make(tag):
+        return ShmClient(spec["port"], "cuda", f"ipc_{tag}", inp, out,
+                         spec.get("protocol", "http"),
+                         spec.get("stream", False))
+
+    if spec.get("sequential"):
+        answer, lat = run_sequential(make("seq"), spec["model"], x,
+                                     spec["sequential"])
+        rate, n = 0.0, 1 + spec["sequential"]
+    else:
+        answer, lat, rate, n = run_transport(make, spec["model"], x)
     print("RESULT " + json.dumps({
         "answer": base64.b64encode(np.ascontiguousarray(answer).tobytes())
         .decode(), "latencies": lat, "infer_per_s": rate, "requests": n,
@@ -1216,15 +1332,17 @@ def model_tokens(seed: int, rows: int, seq_len: int, vocab: int):
 
 
 def _cross_process(port: int, model: str, inp, out, seed, rows, seq_len,
-                   vocab):
-    """Run the cross-process client; returns its RESULT."""
+                   vocab, **options):
+    """Run the cross-process client; returns its RESULT.  ``options``:
+    ``protocol`` and ``stream`` of its client, and ``sequential``: send
+    that many requests after the first, one after another, and no more."""
     import base64
 
     import numpy as np
 
     spec = json.dumps({"port": port, "model": model, "input": inp,
                        "output": out, "seed": seed, "rows": rows,
-                       "seq_len": seq_len, "vocab": vocab})
+                       "seq_len": seq_len, "vocab": vocab, **options})
     proc = subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--shm-client", spec],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
@@ -1360,6 +1478,8 @@ PERF_LONG_WINDOW_MS = 6000
 LITTLE_TOL = 0.25
 #: "<path>" -> the kernel launches of that perf_analyzer run
 PERF_PATHS = {}
+#: "<path>" -> that perf_analyzer run's levels
+PERF_LEVELS = {}
 
 
 def check_flash_refuses_grad(fa, torch) -> None:
@@ -1407,7 +1527,8 @@ def _device_busy(prof):
 
 def perf_sweep(label: str, harness, model, args, counters,
                flash_per_forward: int, int8_per_forward: int,
-               window_ms: int = PERF_WINDOW_MS, trace: bool = False):
+               window_ms: int = PERF_WINDOW_MS, trace: bool = False,
+               paths=None):
     """Run ``python -m triton_client_tpu_torch.perf_analyzer`` with
     ``args`` in a process of its own against the server ``harness`` of this
     process; print each level (infer/s, p50/p90/p99, errors, the model's
@@ -1417,7 +1538,9 @@ def perf_sweep(label: str, harness, model, args, counters,
     execution, Little's law at each closed-loop level, no region left in
     the tool's process.  Where ``trace``, the card is traced with
     torch.profiler for the whole run and its busy share under that load
-    printed.  Returns the levels' results."""
+    printed.  The run's launches go into ``paths`` (PERF_PATHS where not
+    given) and its levels into PERF_LEVELS.  Returns the levels'
+    results."""
     from collections import Counter
 
     import numpy as np
@@ -1456,7 +1579,7 @@ def perf_sweep(label: str, harness, model, args, counters,
              f"left regions {left}: {proc.stdout[-2000:]}")
     check_launches(label, launches, len(executions), flash_per_forward,
                    int8_per_forward)
-    PERF_PATHS[label] = launches
+    (PERF_PATHS if paths is None else paths)[label] = launches
     batch = int(args[args.index("-b") + 1])
     print(f"{label}: perf_analyzer {' '.join(args)} in {wall:.1f} s, "
           f"{len(executions)} executions, launches {launches}", flush=True)
@@ -1504,6 +1627,7 @@ def perf_sweep(label: str, harness, model, args, counters,
             if not abs(little - c) <= LITTLE_TOL * c:
                 fail(f"{label} {level}: Little's law off by more than "
                      f"{LITTLE_TOL:.0%}")
+    PERF_LEVELS[label] = results
     return results
 
 
@@ -1608,6 +1732,332 @@ def perf_phase(torch, counters, fa) -> None:
                        longctx.transformer.cfg.n_layers, 0, trace=True)
         _no_regions_left("perf bert_large bf16, longctx_tpu bf16", harness)
     del bert, longctx
+    gc.collect()
+    torch.cuda.empty_cache()
+
+# ---------------------------------------------------------------------------
+# gRPC: gRPC-Web on the HTTP port, unary and on streams
+# ---------------------------------------------------------------------------
+
+# per gRPC transport: the first request (its answer), then this many one
+# after another (p50, p99)
+GRPC_SEQUENTIAL = 10
+# BASELINE row 5 on one stream, then this many streams at once
+ROW5_STEPS, ROW5_STREAMS, ROW5_STREAM_STEPS = 32, 4, 16
+ROW5_WINDOW = 128
+#: "<phase> <transport>" -> the kernel launches of that gRPC window
+GRPC_PATHS = {}
+
+
+def _counted(label: str, model, counters, run, flash_per_forward: int,
+             int8_per_forward: int):
+    """``run()`` with the launch counts zeroed just before and read just
+    after, and the model's executions recorded meanwhile: launches checked
+    exactly per execution and kept in GRPC_PATHS.  Returns (``run()``'s
+    result, executions, launches)."""
+    st = model.stats
+    st.executions = []
+    _reset(counters)
+    try:
+        out = run()
+    finally:
+        executions, st.executions = st.executions, None
+    launches = {name: mod.launches for name, mod in counters.items()}
+    launches["int8_quantize_rows"] = counters["int8_matmul"].quantize_launches
+    check_launches(label, launches, len(executions), flash_per_forward,
+                   int8_per_forward)
+    GRPC_PATHS[label] = launches
+    return out, len(executions), launches
+
+
+def grpc_transports(label: str, harness, model, counters, x, seed: int,
+                    vocab: int, check, atol: float, flash_per_forward: int,
+                    int8_per_forward: int, cross_process: bool) -> None:
+    """The same request ``x`` by HTTP wire (the answer to compare with) and
+    over gRPC: unary by wire, a stream by wire, a stream with system shm,
+    and where ``cross_process`` a stream with CUDA shm of another process
+    (its regions mapped with cudaIpcOpenMemHandle).  Each answer held by
+    ``check`` and within ``atol`` of the HTTP answer; launches exactly per
+    execution in each window; p50 / p99 of GRPC_SEQUENTIAL requests one
+    after another; then no region left."""
+    import numpy as np
+
+    from triton_client_tpu_torch.utils import cuda_shared_memory
+
+    port = harness.http_port
+    cfg = model.config
+    inp = (cfg.input[0].name, cfg.input[0].data_type, list(x.shape))
+    out = (cfg.output[0].name, cfg.output[0].data_type,
+           [x.shape[0]] + list(cfg.output[0].dims))
+    transports = {
+        "http wire": lambda: WireClient(port, inp, out),
+        "grpc unary wire": lambda: WireClient(port, inp, out, "grpc"),
+        "grpc stream wire": lambda: WireClient(port, inp, out, "grpc",
+                                               stream=True),
+        "grpc stream system shm": lambda: ShmClient(
+            port, "system", "gsys", inp, out, "grpc", stream=True),
+    }
+    if cross_process:
+        transports["grpc stream cuda shm, other process"] = None
+    answers = {}
+    for name, make in transports.items():
+        def run(make=make):
+            if make is None:
+                res = _cross_process(port, model.name, inp, out, seed,
+                                     x.shape[0], x.shape[1], vocab,
+                                     protocol="grpc", stream=True,
+                                     sequential=GRPC_SEQUENTIAL)
+                return res["answer"], res["latencies"]
+            return run_sequential(make(), model.name, x, GRPC_SEQUENTIAL)
+
+        (answer, lat), n_exec, launches = _counted(
+            f"{label} {name}", model, counters, run, flash_per_forward,
+            int8_per_forward)
+        if n_exec != 1 + GRPC_SEQUENTIAL:
+            fail(f"{label} {name}: {n_exec} executions for "
+                 f"{1 + GRPC_SEQUENTIAL} requests")
+        lat_ms = 1e3 * np.asarray(lat)
+        print(f"{label} {name}: {out[0]} {list(answer.shape)}; p50 "
+              f"{np.percentile(lat_ms, 50):.3f} ms, p99 "
+              f"{np.percentile(lat_ms, 99):.3f} ms, mean "
+              f"{lat_ms.mean():.3f} ms over {len(lat)} requests one after "
+              f"another; {n_exec} executions, launches {launches}; {CARD}",
+              flush=True)
+        check(name, answer)
+        answers[name] = answer
+    for name, answer in answers.items():
+        if name == "http wire":
+            continue
+        err = float(np.abs(answer - answers["http wire"]).max())
+        print(f"{label} {name} vs http wire: max_abs_err {err:.3e}",
+              flush=True)
+        if not err <= atol:
+            fail(f"{label} {name}: the answer differs from the HTTP answer "
+                 f"by {err:.3e} (atol {atol})")
+    left = cuda_shared_memory.allocated_shared_memory_regions()
+    keys = [k for k in os.listdir("/dev/shm")
+            if k.startswith(f"{SHM_PREFIX}{os.getpid()}")]
+    status = _shm_status(port)
+    if left or keys or any(status.values()):
+        fail(f"{label}: regions left: {left} in this process, {keys} in "
+             f"/dev/shm, status {status}")
+
+
+def _beside_http(label: str, http_label: str) -> None:
+    """Each level of the gRPC run ``label`` beside the same concurrency of
+    this run's HTTP run ``http_label``."""
+    http_levels = {r["concurrency"]: r for r in PERF_LEVELS[http_label]}
+    for res in PERF_LEVELS[label]:
+        h = http_levels.get(res["concurrency"])
+        if h is None:
+            continue
+        print(f"{label} c={res['concurrency']} vs {http_label}: infer/s "
+              f"{res['throughput']:.3f} / {h['throughput']:.3f}, p50 "
+              f"{res['p50_us'] / 1e3:.3f} / {h['p50_us'] / 1e3:.3f} ms, p99 "
+              f"{res['p99_us'] / 1e3:.3f} / {h['p99_us'] / 1e3:.3f} ms, mean "
+              f"{res['avg_us'] / 1e3:.3f} / {h['avg_us'] / 1e3:.3f} ms "
+              f"(gRPC / HTTP); {CARD}", flush=True)
+
+
+def _generate(port: int, seq_id: int, steps: int, prompt: bytes):
+    """BASELINE row 5's generation loop on one gRPC stream (the reference's
+    protocol, benchmarks/run_baseline.py:231-262): each step sends the last
+    ROW5_WINDOW bytes of the text as ensemble_llama's TEXT, with
+    ``sequence_id``, start on the first step and end on the last, and
+    appends OUT_TEXT; NEXT_TOKEN is requested too.  Each step's OUT_TEXT
+    must be ``bytes([NEXT_TOKEN % 256])``; an error fails the run (on a
+    thread: ends it, and the caller fails).  Returns (wall seconds from the
+    first request to the last answer, per-token latencies, the windows
+    sent, the tokens answered)."""
+    import numpy as np
+
+    from triton_client_tpu_torch import grpc
+
+    sender = _Sender(port, "grpc", stream=True)
+    client = sender.client
+    text, lats, windows, tokens = prompt, [], [], []
+    outputs = [grpc.InferRequestedOutput("OUT_TEXT"),
+               grpc.InferRequestedOutput("NEXT_TOKEN")]
+    try:
+        t_gen = time.perf_counter()
+        for step in range(steps):
+            window = text[-ROW5_WINDOW:]
+            inp = grpc.InferInput("TEXT", [1, 1], "BYTES")
+            inp.set_data_from_numpy(np.array([[window]], dtype=object))
+            t0 = time.perf_counter()
+            client.async_stream_infer(
+                "ensemble_llama", [inp], outputs=outputs,
+                sequence_id=seq_id, sequence_start=step == 0,
+                sequence_end=step == steps - 1)
+            result = sender.answer(f"row 5 stream {seq_id} step {step}")
+            lats.append(time.perf_counter() - t0)
+            out_text = result.as_numpy("OUT_TEXT")
+            tok = result.as_numpy("NEXT_TOKEN")
+            if out_text.shape != (1, 1) or tok.shape != (1, 1) or \
+                    bytes(out_text[0, 0]) != bytes([int(tok[0, 0]) % 256]):
+                fail(f"row 5 stream {seq_id} step {step}: OUT_TEXT "
+                     f"{out_text!r} does not match NEXT_TOKEN {tok!r}")
+            windows.append(window)
+            tokens.append(tok)
+            text += bytes(out_text[0, 0])
+        wall = time.perf_counter() - t_gen
+    finally:
+        sender.close()
+    return wall, lats, windows, tokens
+
+
+def grpc_generate(torch, counters) -> None:
+    """BASELINE row 5 over gRPC: ensemble_llama over llama_tpu 1b bf16,
+    ROW5_STEPS steps on one stream (sequence 1), each NEXT_TOKEN held to
+    the plain forward of the preprocessed window (``check_tokens``); then
+    ROW5_STREAMS streams of ROW5_STREAM_STEPS at once with no error; the
+    ensemble's llama_tpu steps batch across the streams.  Prints tokens/s
+    and the per-token p50 / p99."""
+    import numpy as np
+
+    from triton_client_tpu_torch.models import language
+
+    label = "grpc row 5 ensemble_llama (llama_tpu 1b bf16)"
+    llama = language.make_llama_tpu("cuda")
+    run = llama.transformer
+    pre = language.make_llama_preprocess()
+    with serving_harness([pre, llama, language.make_llama_postprocess(),
+                          language.make_ensemble_llama()]) as harness:
+        port = harness.http_port
+        _generate(port, 99, 1, b"warm-up")  # builds the weights
+        check_precision(label, run, False)
+        (wall, lats, windows, tokens), n_exec, launches = _counted(
+            f"{label} one stream", llama, counters,
+            lambda: _generate(port, 1, ROW5_STEPS,
+                              b"In a hole in the ground there lived"), 0, 0)
+        lat_ms = 1e3 * np.asarray(lats)
+        print(f"{label}: {ROW5_STEPS} tokens on one stream in {wall:.3f} s, "
+              f"{ROW5_STEPS / wall:.2f} tokens/s; per-token p50 "
+              f"{np.percentile(lat_ms, 50):.3f} ms, p99 "
+              f"{np.percentile(lat_ms, 99):.3f} ms, mean {lat_ms.mean():.3f} "
+              f"ms; {n_exec} llama_tpu executions; {CARD}", flush=True)
+        rows = [pre.execute({"TEXT": np.array([[w]], dtype=object)},
+                            {})["TOKENS"] for w in windows]
+        check_tokens(label, tokens, _plain_last_logits(torch, run, False,
+                                                       rows),
+                     SERVED_ATOL["llama_tpu", False])
+        errors, results = [], [None] * ROW5_STREAMS
+
+        def stream(i):
+            try:
+                results[i] = _generate(port, 2000 + i, ROW5_STREAM_STEPS,
+                                       f"stream {i}: in the "
+                                       "beginning".encode())
+            except BaseException as e:  # reported below, then fail
+                errors.append(repr(e))
+
+        def concurrent():
+            threads = [threading.Thread(target=stream, args=(i,))
+                       for i in range(ROW5_STREAMS)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            if any(t.is_alive() for t in threads):
+                errors.append("a stream did not end")
+            return time.perf_counter() - t0
+
+        st = llama.stats
+        batches0, rows0 = st.batch_execution_count, st.batch_size_total
+        wall, n_exec, _ = _counted(f"{label} {ROW5_STREAMS} streams", llama,
+                                   counters, concurrent, 0, 0)
+        if errors:
+            fail(f"{label}: concurrent streams failed: {errors}")
+        n_tok = ROW5_STREAMS * ROW5_STREAM_STEPS
+        lat_ms = 1e3 * np.concatenate([np.asarray(r[1]) for r in results])
+        batches = st.batch_execution_count - batches0
+        print(f"{label}: {ROW5_STREAMS} streams x {ROW5_STREAM_STEPS} tokens "
+              f"at once in {wall:.3f} s, {n_tok / wall:.2f} tokens/s "
+              f"together; per-token p50 {np.percentile(lat_ms, 50):.3f} ms, "
+              f"p99 {np.percentile(lat_ms, 99):.3f} ms; {n_exec} llama_tpu "
+              f"executions, avg batch "
+              f"{(st.batch_size_total - rows0) / max(batches, 1):.2f}; "
+              f"{CARD}", flush=True)
+    del llama, run
+
+
+def grpc_phase(torch, counters) -> None:
+    """gRPC on the card: ``bert_large`` int8 (``w2``: 24 int8 launches per
+    forward) at request batch 32 and ``longctx_tpu`` base bf16 (8 flash
+    launches per forward) at batch 4 by each gRPC transport beside HTTP
+    (``grpc_transports``); then ``perf_analyzer -i grpc --streaming`` from a
+    process of its own (BASELINE row 4): ``bert_large`` int8 -b 32 at c = 1
+    and 4 with CUDA shm and by wire (c = 4 traced once more), unary -b 32
+    at c = 1, ``longctx_tpu`` -b 4 on a stream at c = 1, each level beside
+    this run's HTTP level; then BASELINE row 5 (``grpc_generate``)."""
+    from triton_client_tpu_torch.models import language
+
+    os.environ["TRITON_TPU_QUANT_BERT_LARGE"] = "int8"
+    os.environ["TRITON_TPU_INT8_FUSED"] = "w2"
+    try:
+        bert = language.make_bert_large("cuda")
+        longctx = language.make_longctx_tpu("cuda")
+        with serving_harness([bert, longctx]) as harness:
+            _warm(harness, bert, BERT_SHM_ROWS)
+            _warm(harness, longctx, longctx.max_batch_size)
+            check_precision("grpc bert_large int8", bert.transformer, True)
+            check_precision("grpc longctx_tpu bf16", longctx.transformer,
+                            False)
+            layers = bert.transformer.cfg.n_layers
+            S, V = language.BERT_SEQ_LEN, language.BERT_LARGE.vocab_size
+            x = model_tokens(BERT_SEED, BERT_SHM_ROWS, S, V)
+            grpc_transports(
+                "grpc bert_large int8", harness, bert, counters, x,
+                BERT_SEED, V, bert_check("grpc bert_large int8", torch, bert,
+                                         True, x),
+                SERVED_ATOL["bert_large", True], 0, layers,
+                cross_process=True)
+            S = longctx.config.input[0].dims[0]
+            x = model_tokens(LONGCTX_SEED, longctx.max_batch_size, S, 256)
+            grpc_transports(
+                "grpc longctx_tpu bf16", harness, longctx, counters, x,
+                LONGCTX_SEED, 256, longctx_check("grpc longctx_tpu bf16",
+                                                 torch, longctx, x),
+                SERVED_ATOL["longctx_tpu", False],
+                longctx.transformer.cfg.n_layers, 0, cross_process=False)
+            for shm in ("cuda", "none"):
+                label = f"perf grpc stream bert_large int8 -b 32 {shm}"
+                perf_sweep(label, harness, bert,
+                           ["-i", "grpc", "--streaming", "-b", "32",
+                            "--concurrency-range", "1:4:3",
+                            "--shared-memory", shm], counters, 0, layers,
+                           window_ms=PERF_LONG_WINDOW_MS, paths=GRPC_PATHS)
+                _beside_http(label, f"perf bert_large int8 -b 32 {shm}")
+            # where the device's time goes under four streams, beside the
+            # perf phase's traced HTTP run at c = 4
+            perf_sweep("perf grpc stream bert_large int8 -b 32 none c=4 "
+                       "traced", harness, bert,
+                       ["-i", "grpc", "--streaming", "-b", "32",
+                        "--concurrency-range", "4"], counters, 0, layers,
+                       window_ms=PERF_LONG_WINDOW_MS, trace=True,
+                       paths=GRPC_PATHS)
+            label = "perf grpc unary bert_large int8 -b 32 none"
+            perf_sweep(label, harness, bert,
+                       ["-i", "grpc", "-b", "32", "--concurrency-range", "1"],
+                       counters, 0, layers, window_ms=PERF_LONG_WINDOW_MS,
+                       paths=GRPC_PATHS)
+            _beside_http(label, "perf bert_large int8 -b 32 none")
+            label = "perf grpc stream longctx_tpu bf16 -b 4 none"
+            perf_sweep(label, harness, longctx,
+                       ["-i", "grpc", "--streaming", "-b", "4",
+                        "--concurrency-range", "1"], counters,
+                       longctx.transformer.cfg.n_layers, 0, paths=GRPC_PATHS)
+            _beside_http(label, "perf longctx_tpu bf16 -b 4 none")
+            _no_regions_left("grpc bert_large int8, longctx_tpu bf16",
+                             harness)
+    finally:
+        for var in ("TRITON_TPU_QUANT_BERT_LARGE", "TRITON_TPU_INT8_FUSED"):
+            os.environ.pop(var, None)
+    del bert, longctx
+    gc.collect()
+    torch.cuda.empty_cache()
+    grpc_generate(torch, counters)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1728,10 +2178,12 @@ def main() -> int:
     for var in ("TRITON_TPU_QUANT", "TRITON_TPU_INT8_FUSED"):
         os.environ.pop(var, None)
     perf_phase(torch, counters, fa)
-    # and every transport's window of the shared-memory phases, and every
-    # perf_analyzer run
+    grpc_phase(torch, counters)
+    # and every transport's window of the shared-memory phases, every
+    # perf_analyzer run and every gRPC window
     paths.update(SHM_PATHS)
     paths.update(PERF_PATHS)
+    paths.update(GRPC_PATHS)
     for path, launches in paths.items():
         print(f"launches on {path}: flash_attention "
               f"{launches['flash_attention']}, int8_matmul "

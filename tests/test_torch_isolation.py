@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX package,
-and its CUDA entry points refuse to run without CUDA instead of quietly
-running on the CPU."""
+nor ``google.protobuf`` or ``grpc`` (the card's machine has neither: the
+port has its own proto3 codec and gRPC-Web transport), and its CUDA entry
+points refuse to run without CUDA instead of quietly running on the CPU."""
 
 import os
 import subprocess
@@ -23,7 +24,10 @@ _IMPORT_ALL = textwrap.dedent("""
                  if n == "jax" or n.startswith("jax.")
                  or n == "jaxlib" or n.startswith("jaxlib.")
                  or n == "triton_client_tpu"
-                 or n.startswith("triton_client_tpu."))
+                 or n.startswith("triton_client_tpu.")
+                 or n == "google.protobuf"
+                 or n.startswith("google.protobuf.")
+                 or n == "grpc" or n.startswith("grpc."))
     print(len(names))
     print(",".join(bad))
 """)

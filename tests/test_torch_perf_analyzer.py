@@ -12,8 +12,9 @@ CPU; mirrors ``tests/test_perf_analyzer.py``.
   under ``none`` and ``system``; zero errors, and afterwards no region in
   either status list, in this process or under a key of this process in
   /dev/shm.  One open-loop rate, the ``-f`` CSV headers equal to the
-  reference's, and the reference's flags the port does not take yet
-  refused with the ROADMAP item that brings them.
+  reference's, the reference's flags the port does not take yet refused
+  with the ROADMAP item that brings them, and ``--streaming`` without
+  ``-i grpc`` refused as the reference refuses it.
 """
 
 import json
@@ -225,21 +226,23 @@ def test_csv_headers_match_reference(harness, tmp_path):
         assert heads[0] == heads[1]
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["-i", "grpc"], "A3b"), (["--streaming"], "A3b"),
-    (["-u", "a:1", "-u", "b:2"], "A6"), (["--balancing", "round_robin"],
-                                         "A6"),
-    (["--hedge-ms", "5"], "A6"), (["--retries", "3"], "A6"),
-    (["--priority", "1"], "A6"), (["--tenant", "t"], "A6"),
-    (["--export-metrics", "m.json"], "A6"), (["--trace-file", "t.json"],
-                                             "A6"),
-    (["--trace-rate", "10"], "A6"),
+@pytest.mark.parametrize("flag,why", [
+    # the reference's rule: a stream is a gRPC stream
+    (["--streaming"], "--streaming requires -i grpc"),
+    (["-i", "grpc", "--retries", "3"], "ROADMAP A6"),
+    (["-u", "a:1", "-u", "b:2"], "ROADMAP A6"),
+    (["--balancing", "round_robin"], "ROADMAP A6"),
+    (["--hedge-ms", "5"], "ROADMAP A6"), (["--retries", "3"], "ROADMAP A6"),
+    (["--priority", "1"], "ROADMAP A6"), (["--tenant", "t"], "ROADMAP A6"),
+    (["--export-metrics", "m.json"], "ROADMAP A6"),
+    (["--trace-file", "t.json"], "ROADMAP A6"),
+    (["--trace-rate", "10"], "ROADMAP A6"),
 ])
-def test_flags_not_ported_are_refused(flag, item, capsys):
+def test_flags_not_ported_are_refused(flag, why, capsys):
     with pytest.raises(SystemExit) as err:
         tpa.main(["-m", "simple", *flag])
     assert err.value.code == 2
-    assert f"ROADMAP {item}" in capsys.readouterr().err
+    assert why in capsys.readouterr().err
 
 
 def test_xla_mode_is_dropped(capsys):

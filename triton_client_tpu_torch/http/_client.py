@@ -18,8 +18,8 @@ arrived (a peek at the socket tells).  Every other failure is raised.
 Not ported yet: the retry layer and deadlines (``retry_policy``,
 ``deadline_s``), QoS tenants (``tenant``), client telemetry and tracing
 headers (ROADMAP A6); TLS, and the calls whose routes the port's server
-lacks -- statistics, the repository, trace and log settings, the debug
-snapshots (ROADMAP A3b and A6).  ``infer_many`` and the ``xla`` aliases of
+lacks -- the repository, trace and log settings, the debug snapshots
+(ROADMAP A3b and A6).  ``infer_many`` and the ``xla`` aliases of
 the CUDA shared-memory calls are not ported.
 """
 
@@ -117,6 +117,43 @@ class _ConnectionPool:
             idle, self._idle = list(self._idle), deque()
         for conn in idle:
             conn.close()
+
+    def request(self, method: str, uri: str, body: Optional[bytes],
+                headers: dict, timeout: Optional[float] = None) -> _Response:
+        """One request on a pooled connection, its response read whole.
+        A request that failed on a reused connection before any response
+        byte arrived is sent again on the next one (a stale kept-alive
+        connection); each such attempt drops a connection, so the loop ends
+        at a new connection, whose failure is raised.  ``timeout``: the
+        socket timeout of this request in place of the pool's."""
+        while True:
+            conn, reused = self.acquire()
+            try:
+                if timeout is not None:
+                    conn.sock.settimeout(timeout)
+                try:
+                    conn.request(method, uri, body=body, headers=headers)
+                    # wait for the response's first byte without taking it
+                    arrived = conn.sock.recv(1, socket.MSG_PEEK)
+                except ConnectionError:
+                    if not reused:
+                        raise
+                    arrived = b""
+                if not arrived:
+                    if reused:
+                        conn.close()
+                        continue
+                    raise http.client.RemoteDisconnected(
+                        "Remote end closed connection without response")
+                resp = conn.getresponse()
+                data = resp.read()
+                if timeout is not None:
+                    conn.sock.settimeout(self._network_timeout)
+            except BaseException:
+                conn.close()
+                raise
+            self.release(conn)
+            return _Response(resp.status, resp.headers, data)
 
 
 class PreparedRequest:
@@ -251,44 +288,12 @@ class InferenceServerClient(InferenceServerClientBase):
             uri += "?" + urlencode(query_params, doseq=True)
         return uri
 
-    def _request(self, method: str, uri: str, body: Optional[bytes],
-                 headers: dict) -> _Response:
-        """One request on a pooled connection.  A request that failed on a
-        reused connection before any response byte arrived is sent again
-        on the next one (a stale kept-alive connection); each such attempt
-        drops a connection, so the loop ends at a new connection, whose
-        failure is raised."""
-        while True:
-            conn, reused = self._pool.acquire()
-            try:
-                try:
-                    conn.request(method, uri, body=body, headers=headers)
-                    # wait for the response's first byte without taking it
-                    arrived = conn.sock.recv(1, socket.MSG_PEEK)
-                except ConnectionError:
-                    if not reused:
-                        raise
-                    arrived = b""
-                if not arrived:
-                    if reused:
-                        conn.close()
-                        continue
-                    raise http.client.RemoteDisconnected(
-                        "Remote end closed connection without response")
-                resp = conn.getresponse()
-                data = resp.read()
-            except BaseException:
-                conn.close()
-                raise
-            self._pool.release(conn)
-            return _Response(resp.status, resp.headers, data)
-
     def _get(self, path: str, headers: Optional[dict],
              query_params: Optional[dict]) -> _Response:
         uri = self._uri(path, query_params)
         if self._verbose:
             print(f"GET {uri}, headers {headers}")
-        response = self._request("GET", uri, None,
+        response = self._pool.request("GET", uri, None,
                                  self._build_headers(headers))
         if self._verbose:
             print(response.status)
@@ -303,7 +308,7 @@ class InferenceServerClient(InferenceServerClientBase):
             hdrs.update(extra_headers)
         if self._verbose:
             print(f"POST {uri}, headers {hdrs}\n{body[:256]!r}")
-        response = self._request("POST", uri, body, hdrs)
+        response = self._pool.request("POST", uri, body, hdrs)
         if self._verbose:
             print(response.status)
         return response
@@ -352,6 +357,14 @@ class InferenceServerClient(InferenceServerClientBase):
         return self._get_json(
             _model_path(model_name, model_version) + "/config", headers,
             query_params)
+
+    def get_inference_statistics(self, model_name="", model_version="",
+                                 headers=None, query_params=None) -> dict:
+        """The v2 statistics of one model, or of every model."""
+        path = "v2/models"
+        if model_name:
+            path = _model_path(model_name, model_version)
+        return self._get_json(path + "/stats", headers, query_params)
 
     # -- shared memory -----------------------------------------------------
     def get_system_shared_memory_status(self, region_name="", headers=None,

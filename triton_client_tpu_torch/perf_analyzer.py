@@ -3,10 +3,14 @@
 
 Closed-loop concurrency sweeps and open-loop request-rate sweeps
 (``--request-rate-range``, constant or Poisson arrivals), reporting infer/s
-and latency percentiles over the v2 HTTP protocol, with the tensors in the
+and latency percentiles over the v2 HTTP protocol or gRPC (``-i grpc``,
+gRPC-Web on the server's HTTP port: the port has no HTTP/2 listener, so
+the default URL is ``localhost:8000`` for both), with the tensors in the
 body or in shared memory (``--shared-memory none|system|cuda``).  Every
 worker sends through a compiled request template (``client.prepare``) on
-its own kept-alive connection.
+its own kept-alive connection; with ``--streaming`` (gRPC only, as in the
+reference) each worker sends on a stream of its own and a request is
+complete when its answer reaches the stream's callback.
 
 Open-loop latency is measured from each request's *scheduled* send time, so
 a queue that builds up in the server counts against the percentiles instead
@@ -20,6 +24,8 @@ Usage:
     python -m triton_client_tpu_torch.perf_analyzer -m simple \\
         -u localhost:8000 --request-rate-range 100:400:100 \\
         --request-distribution poisson
+    python -m triton_client_tpu_torch.perf_analyzer -m bert_large \\
+        -i grpc --streaming -b 32 --concurrency-range 1:4:3
 
 With ``-v`` each level also prints its whole result as one JSON line
 (``result {...}``; its measurement window in ``time.perf_counter`` seconds,
@@ -28,7 +34,7 @@ the run ends with the shared-memory regions it left (``regions left
 {...}``).
 
 Not ported yet (rejected with the ROADMAP item that brings them):
-``-i grpc`` and ``--streaming`` (A3b); several ``-u`` endpoints,
+several ``-u`` endpoints,
 ``--balancing`` and ``--hedge-ms`` (the cluster client), ``--retries``,
 ``--priority`` and ``--tenant`` (QoS classes), ``--export-metrics`` (client
 telemetry) and ``--trace-file`` (server tracing), all A6.
@@ -39,6 +45,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import queue
 import sys
 import threading
 import time
@@ -66,13 +73,22 @@ class _Stats:
 
 def _is_rejected(err: Exception) -> bool:
     return isinstance(err, InferenceServerException) and \
-        err.status() == "429"
+        err.status() in ("429", "StatusCode.RESOURCE_EXHAUSTED")
 
 
-def _make_client(url: str):
+def _protocol_module(protocol: str):
+    """The client package of ``protocol``: ``http`` or ``grpc``."""
+    if protocol == "grpc":
+        from . import grpc
+
+        return grpc
     from . import http
 
-    return http.InferenceServerClient(url)
+    return http
+
+
+def _make_client(url: str, protocol: str = "http"):
+    return _protocol_module(protocol).InferenceServerClient(url)
 
 
 def _parse_concurrency_range(spec: str):
@@ -94,9 +110,16 @@ def _parse_shapes(shape_args: List[str]) -> Dict[str, List[int]]:
     return shapes
 
 
-def _resolve_model(client, model_name: str, model_version: str):
-    md = client.get_model_metadata(model_name, model_version)
-    cfg = client.get_model_config(model_name, model_version)
+def _resolve_model(client, model_name: str, model_version: str,
+                   protocol: str = "http"):
+    if protocol == "grpc":
+        md = client.get_model_metadata(model_name, model_version,
+                                       as_json=True)
+        cfg = client.get_model_config(model_name, model_version,
+                                      as_json=True)["config"]
+    else:
+        md = client.get_model_metadata(model_name, model_version)
+        cfg = client.get_model_config(model_name, model_version)
     max_batch = int(cfg.get("max_batch_size", 0))
     inputs = [{"name": i["name"], "datatype": i["datatype"],
                "shape": [int(s) for s in i["shape"]]} for i in md["inputs"]]
@@ -218,15 +241,14 @@ class _ShmSetup:
         self._made = []
 
 
-def _build_inputs(arrays, shm_mode):
-    from . import http
+def _build_inputs(mod, arrays, shm_mode):
     from .utils import np_to_triton_dtype
 
     infer_inputs = []
     for name, arr in arrays.items():
         dt = ("BYTES" if arr.dtype == np.object_
               else np_to_triton_dtype(arr.dtype))
-        inp = http.InferInput(name, list(arr.shape), dt)
+        inp = mod.InferInput(name, list(arr.shape), dt)
         if shm_mode == "none":
             inp.set_data_from_numpy(arr)
         infer_inputs.append(inp)
@@ -236,29 +258,63 @@ def _build_inputs(arrays, shm_mode):
 class _InferSession:
     """One worker's client, inputs, shared-memory regions and infer
     callable, shared by the closed-loop and open-loop sweeps.  Each call
-    goes through a request template compiled once per session."""
+    goes through a request template compiled once per session; with
+    ``streaming`` (gRPC), on the session's stream, complete when its answer
+    reaches the stream's callback (reference perf_analyzer.py:326-420)."""
 
     def __init__(self, url, model_name, model_version, arrays, outputs,
-                 shm_mode, output_byte_size, worker_id, cuda_device="cuda"):
-        from . import http
-
-        self._client = _make_client(url)
+                 shm_mode, output_byte_size, worker_id, cuda_device="cuda",
+                 protocol="http", streaming=False):
+        mod = _protocol_module(protocol)
+        self._client = _make_client(url, protocol)
         self._shm_setup = None
+        self._stream_open = False
         try:
-            infer_inputs = _build_inputs(arrays, shm_mode)
-            requested = [http.InferRequestedOutput(o) for o in outputs]
+            infer_inputs = _build_inputs(mod, arrays, shm_mode)
+            requested = [mod.InferRequestedOutput(o) for o in outputs]
             self._shm_setup = _ShmSetup(shm_mode, self._client, arrays,
                                         outputs, worker_id, output_byte_size,
                                         cuda_device)
             self._shm_setup.attach(infer_inputs, requested)
-            self.infer = self._client.prepare(
+            prep = self._client.prepare(
                 model_name, infer_inputs, model_version=model_version,
-                outputs=requested).infer
+                outputs=requested)
+            self.infer = (self._stream_infer(prep) if streaming
+                          else prep.infer)
         except Exception:
             self.close()
             raise
 
+    def _stream_infer(self, prep):
+        """The infer callable of a stream: send, then wait for this
+        request's completion on the callback."""
+        done: "queue.Queue" = queue.Queue()
+        self._client.start_stream(
+            callback=lambda result, error: done.put(error))
+        self._stream_open = True
+        # completions owed to requests that timed out: dropped when they
+        # land, or each later request would take its predecessor's
+        stale = [0]
+
+        def one_infer():
+            prep.async_stream_infer()
+            try:
+                while True:
+                    err = done.get(timeout=120)
+                    if stale[0] > 0:
+                        stale[0] -= 1
+                        continue
+                    if err is not None:
+                        raise err
+                    return
+            except queue.Empty:
+                stale[0] += 1
+                raise TimeoutError("stream completion timed out")
+        return one_infer
+
     def close(self):
+        if self._stream_open:
+            self._client.stop_stream()
         if self._shm_setup is not None:
             self._shm_setup.cleanup()
         self._client.close()
@@ -266,11 +322,11 @@ class _InferSession:
 
 def _worker(url, model_name, model_version, arrays, outputs, shm_mode,
             output_byte_size, worker_id, stop, measuring, stats: _Stats, lock,
-            cuda_device="cuda"):
+            cuda_device="cuda", protocol="http", streaming=False):
     try:
         session = _InferSession(url, model_name, model_version,
                                 arrays, outputs, shm_mode, output_byte_size,
-                                worker_id, cuda_device)
+                                worker_id, cuda_device, protocol, streaming)
     except Exception as e:  # noqa: BLE001 - reported, not a dead thread
         with lock:
             stats.errors += 1
@@ -310,7 +366,8 @@ def _worker(url, model_name, model_version, arrays, outputs, shm_mode,
 
 def run_level(url, model_name, model_version, concurrency, arrays, outputs,
               shm_mode, output_byte_size, measure_s, warmup_s=1.0,
-              extra_percentile=None, cuda_device="cuda"):
+              extra_percentile=None, cuda_device="cuda", protocol="http",
+              streaming=False):
     """One closed-loop level: ``concurrency`` workers, each sending its
     next request as soon as the last one is answered."""
     stats = _Stats()
@@ -322,7 +379,7 @@ def run_level(url, model_name, model_version, concurrency, arrays, outputs,
             target=_worker,
             args=(url, model_name, model_version, arrays, outputs,
                   shm_mode, output_byte_size, w, stop, measuring, stats,
-                  lock, cuda_device),
+                  lock, cuda_device, protocol, streaming),
             daemon=True)
         for w in range(concurrency)]
     for t in threads:
@@ -389,7 +446,8 @@ def _parse_rate_range(spec: str) -> List[float]:
 def run_rate_level(url, model_name, model_version, rate, arrays, outputs,
                    shm_mode, output_byte_size, measure_s, warmup_s=1.0,
                    distribution="constant", max_threads=64,
-                   extra_percentile=None, cuda_device="cuda"):
+                   extra_percentile=None, cuda_device="cuda",
+                   protocol="http", streaming=False):
     """One open-loop level at ``rate`` requests/s: the send times are
     scheduled up front (constant or Poisson gaps, from a fixed seed) and
     latency counts from the scheduled time.  A server that cannot keep up
@@ -421,7 +479,8 @@ def run_rate_level(url, model_name, model_version, rate, arrays, outputs,
         try:
             session = _InferSession(url, model_name, model_version, arrays,
                                     outputs, shm_mode, output_byte_size,
-                                    worker_id, cuda_device)
+                                    worker_id, cuda_device, protocol,
+                                    streaming)
         except Exception as e:  # noqa: BLE001 - reported below
             with lock:
                 ready[0] += 1
@@ -517,7 +576,6 @@ def _json_sanitize(v):
 # flags of the reference tool whose machinery is not ported yet, and the
 # ROADMAP item that brings each
 _NOT_PORTED = (
-    ("streaming", "--streaming", "A3b (gRPC-Web streams)"),
     ("balancing", "--balancing", "A6 (the cluster client)"),
     ("hedge_ms", "--hedge-ms", "A6 (the cluster client)"),
     ("retries", "--retries", "A6 (the client retry layer)"),
@@ -541,7 +599,11 @@ def main(argv: Optional[List[str]] = None) -> int:
                              "the cluster client, ROADMAP A6)")
     parser.add_argument("-i", "--protocol", default="http", type=str.lower,
                         choices=["http", "grpc"],
-                        help="http (grpc: not ported yet, ROADMAP A3b)")
+                        help="http, or grpc (gRPC-Web on the server's "
+                             "HTTP port)")
+    parser.add_argument("--streaming", action="store_true",
+                        help="send on one gRPC stream per worker (needs "
+                             "-i grpc)")
     parser.add_argument("-b", "--batch-size", type=int, default=1)
     parser.add_argument("--concurrency-range", default=None,
                         help="start:end:step closed-loop concurrency sweep")
@@ -579,17 +641,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     for dest, flag, item in _NOT_PORTED:
         parser.add_argument(
             flag, dest=dest, default=None,
-            action="store_true" if dest == "streaming" else "append"
-            if dest in ("priority", "tenant") else "store",
+            action="append" if dest in ("priority", "tenant") else "store",
             help=f"not ported yet (ROADMAP {item})")
     args = parser.parse_args(argv)
     for dest, flag, item in _NOT_PORTED:
         if getattr(args, dest) not in (None, False):
             parser.error(f"{flag} is not ported to triton_client_tpu_torch "
                          f"yet (ROADMAP {item})")
-    if args.protocol != "http":
-        parser.error("-i grpc is not ported to triton_client_tpu_torch yet "
-                     "(ROADMAP A3b)")
+    if args.streaming and args.protocol != "grpc":
+        parser.error("--streaming requires -i grpc")
     if args.concurrency_range and args.request_rate_range:
         parser.error("--concurrency-range and --request-rate-range are "
                      "mutually exclusive (closed- vs open-loop)")
@@ -604,10 +664,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                      "A6)")
     url = urls[0] if urls else "localhost:8000"
 
-    meta_client = _make_client(url)
+    meta_client = _make_client(url, args.protocol)
     try:
         inputs, outputs, max_batch = _resolve_model(
-            meta_client, args.model_name, args.model_version)
+            meta_client, args.model_name, args.model_version, args.protocol)
     finally:
         meta_client.close()
     if args.batch_size > 1 and max_batch == 0:
@@ -633,7 +693,8 @@ def main(argv: Optional[List[str]] = None) -> int:
           f"  Load mode: "
           + (f"open-loop ({args.request_distribution} arrivals)"
              if open_loop else "closed-loop (concurrency)") + "\n"
-          f"  Protocol: {args.protocol} @ {url}\n")
+          f"  Protocol: {args.protocol}"
+          + (" (streaming)" if args.streaming else "") + f" @ {url}\n")
 
     def report(res, lead):
         results.append(res)
@@ -673,7 +734,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                 measure_s, distribution=args.request_distribution,
                 max_threads=args.max_threads,
                 extra_percentile=args.percentile,
-                cuda_device=args.cuda_shared_memory_device)
+                cuda_device=args.cuda_shared_memory_device,
+                protocol=args.protocol, streaming=args.streaming)
             report(res, f"Request rate: {rate:g}/s, completed "
                         "(latency from scheduled send): ")
     else:
@@ -682,7 +744,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                 url, args.model_name, args.model_version, level, arrays,
                 outputs, args.shared_memory, args.output_shared_memory_size,
                 measure_s, extra_percentile=args.percentile,
-                cuda_device=args.cuda_shared_memory_device)
+                cuda_device=args.cuda_shared_memory_device,
+                protocol=args.protocol, streaming=args.streaming)
             report(res, f"Concurrency: {level}, throughput: ")
 
     if args.verbose:

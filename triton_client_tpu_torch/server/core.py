@@ -25,14 +25,26 @@ the device).
 Shared memory (the reference's ``system_shm`` / ``xla_shm`` registries,
 core.py:2290-2294 and 2356-2380): an input that names a region is resolved
 through the CUDA registry, else the system one, to a view of the region's
-memory.  A request with any shared-memory input or output bypasses the
-dynamic batcher and runs on its request thread, as in the reference
-(``_use_batcher``, core.py:1715-1721).  An output bound to a CUDA region is
-not read back: it is copied device-to-device into the region, and one CUDA
-event recorded behind the last such copy is waited on before the response
-goes out, so a client that reads the region after the response sees the
-output.  An output bound to a system region is read back, then copied into
-the mapping.
+memory.  A request with any shared-memory input or output, or with a
+``sequence_id``, bypasses the dynamic batcher and runs on its request
+thread, as in the reference (``_use_batcher``, core.py:1715-1721).  An
+output bound to a CUDA region is not read back: it is copied
+device-to-device into the region, and one CUDA event recorded behind the
+last such copy is waited on before the response goes out, so a client that
+reads the region after the response sees the output.  An output bound to
+a system region is read back, then copied into the mapping.
+
+Sequence requests (``sequence_id``, ``sequence_start``, ``sequence_end``
+request parameters, on either protocol) are routed as the reference routes
+them: past the batcher; inside an ensemble the three keys are stripped
+from a batched member's parameters, so concurrent streams coalesce on it
+(core.py:2245-2251).  No served model keeps sequence state yet.
+:meth:`InferenceCore.infer_stream` is the stream entry: one response per
+request (no served model is decoupled yet).
+
+Statistics (the reference's ``ModelStats.record`` calls and
+``InferenceCore.statistics``): each execution's rows, queue and compute
+ns, per model, in the same places as the reference records them.
 
 Where ``InferenceCore.splits`` is a list, each request appends its
 :class:`RequestSplit` to it: the server's time by phase.
@@ -48,7 +60,7 @@ import queue
 import threading
 import time
 from dataclasses import dataclass
-from typing import Any, Collection, Dict, List, Optional
+from typing import Any, Collection, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -65,6 +77,10 @@ def _batch_count(inputs: Dict[str, Any]) -> int:
     for v in inputs.values():
         return int(v.shape[0]) if getattr(v, "ndim", 0) > 0 else 1
     return 1
+
+
+#: the sequence-control request parameters
+SEQUENCE_KEYS = ("sequence_id", "sequence_start", "sequence_end")
 
 
 @dataclass
@@ -177,7 +193,8 @@ class _DynamicBatcher:
                split: Optional[RequestSplit] = None
                ) -> Dict[str, np.ndarray]:
         fut: concurrent.futures.Future = concurrent.futures.Future()
-        self._queue.put((inputs, parameters, fut, split))
+        self._queue.put((inputs, parameters, fut, split,
+                         time.monotonic_ns()))
         return fut.result()
 
     def stop(self) -> None:
@@ -250,8 +267,12 @@ class _DynamicBatcher:
                 merged[n] = arr
             split = RequestSplit() if any(p[3] is not None
                                           for p in pending) else None
+            t0 = time.monotonic_ns()
+            queue_ns = t0 - pending[0][4]
             outputs = self._core.run_model(self._model, merged,
                                            pending[0][1], split)
+            self._model.stats.record(total, queue_ns,
+                                     time.monotonic_ns() - t0, ok=True)
             self._model.stats.record_batch(total)
             offset = 0
             for item, count in zip(pending, counts):
@@ -262,6 +283,7 @@ class _DynamicBatcher:
                                     for n, v in outputs.items()})
                 offset += count
         except Exception as e:  # every member of the batch gets the error
+            self._model.stats.record(total, 0, 0, ok=False)
             for item in pending:
                 if not item[2].done():
                     item[2].set_exception(e)
@@ -304,21 +326,13 @@ class InferenceCore:
         if split is not None:
             split.resolve = (time.perf_counter_ns() - t0) / 1e6
         params = dict(request.parameters)
-        shm = any(t.shm is not None for t in request.inputs) \
-            or any(o.shm is not None for o in request.outputs)
         try:
-            if isinstance(model, EnsembleModel):
-                outputs = self._run_ensemble(model, inputs, params)
-            elif shm:
-                # on the request thread, outputs bound to CUDA regions kept
-                # where the model left them
-                keep = {o.name for o in request.outputs if o.shm is not None
-                        and self.cuda_shm.has(o.shm.region_name)}
-                outputs = self.run_model(model, inputs, params, split, keep)
-            elif self._use_batcher(model):
+            if self._use_batcher(model, request):
+                # the batcher records the batch's statistics
                 outputs = self._batcher(model).submit(inputs, params, split)
             else:
-                outputs = self.run_model(model, inputs, params, split)
+                outputs = self._run_unbatched(model, request, inputs, params,
+                                              split)
         except InferError:
             raise
         except Exception as e:
@@ -334,6 +348,45 @@ class InferenceCore:
             split.total = (now - start) / 1e6
             self.splits.append(split)
         return resp
+
+    def _run_unbatched(self, model: Model, request: InferRequest,
+                       inputs: Dict[str, Any], params: Dict[str, Any],
+                       split: Optional[RequestSplit]) -> Dict[str, Any]:
+        """An ensemble, or one execution on the request thread, recorded in
+        the model's statistics.  Outputs bound to CUDA regions stay where
+        the model left them."""
+        rows = _batch_count(inputs) or 1
+        t0 = time.monotonic_ns()
+        queue_ns = t0 - request.arrival_ns
+        try:
+            if isinstance(model, EnsembleModel):
+                outputs = self._run_ensemble(model, inputs, params)
+            else:
+                keep = {o.name for o in request.outputs if o.shm is not None
+                        and self.cuda_shm.has(o.shm.region_name)}
+                outputs = self.run_model(model, inputs, params, split, keep)
+        except Exception:
+            model.stats.record(rows, queue_ns, 0, ok=False)
+            raise
+        model.stats.record(rows, queue_ns, time.monotonic_ns() - t0,
+                           ok=True)
+        return outputs
+
+    def infer_stream(self, request: InferRequest) -> Iterator[InferResponse]:
+        """The stream entry: a request's responses, one by one.  No served
+        model is decoupled yet, so each request yields exactly one."""
+        yield self.infer(request)
+
+    def statistics(self, name: Optional[str],
+                   version: str = "") -> List[dict]:
+        """The v2 statistics of one model, or of every model (the
+        reference's ``InferenceCore.statistics``); an unknown model is a
+        400."""
+        if name:
+            models = [self.registry.get(name, version)]
+        else:
+            models = self.registry.models()
+        return [m.stats.snapshot(m.name, m.served_version) for m in models]
 
     def run_model(self, model: Model, inputs: Dict[str, Any],
                   params: Dict[str, Any],
@@ -386,13 +439,36 @@ class InferenceCore:
                        for member_input, pool_name in step.input_map.items()}
         # every pool tensor is a host array (the request's, or a step's
         # output read back), so a batched member always coalesces
-        if self._use_batcher(member):
-            return self._batcher(member).submit(step_inputs, params)
-        return self.run_model(member, step_inputs, params)
+        if self._model_batchable(member):
+            # the sequence keys correlate the ensemble request on its
+            # stream; left in, each sequence would be a parameter group of
+            # its own and concurrent streams would not coalesce
+            member_params = {k: v for k, v in params.items()
+                             if k not in SEQUENCE_KEYS}
+            return self._batcher(member).submit(step_inputs, member_params)
+        rows = _batch_count(step_inputs) or 1
+        t0 = time.monotonic_ns()
+        try:
+            outs = self.run_model(member, step_inputs, params)
+        except Exception:
+            member.stats.record(rows, 0, time.monotonic_ns() - t0, ok=False)
+            raise
+        member.stats.record(rows, 0, time.monotonic_ns() - t0, ok=True)
+        return outs
 
     @staticmethod
-    def _use_batcher(model: Model) -> bool:
+    def _model_batchable(model: Model) -> bool:
         return model.max_batch_size > 0 and model.config.dynamic_batching
+
+    def _use_batcher(self, model: Model, request: InferRequest) -> bool:
+        """Through the dynamic batcher: a batchable model that is not an
+        ensemble (the core runs those), and a request with no sequence id
+        and no tensor in a shared-memory region."""
+        return (not isinstance(model, EnsembleModel)
+                and self._model_batchable(model)
+                and not request.sequence_id
+                and not any(t.shm is not None for t in request.inputs)
+                and not any(o.shm is not None for o in request.outputs))
 
     def _batcher(self, model: Model) -> _DynamicBatcher:
         with self._lock:

@@ -16,8 +16,18 @@ inputs and outputs that name a region (``shared_memory_region``,
 a region comes back as its name, datatype, shape and those parameters, with
 no data.
 
-Not ported yet: statistics, the repository, trace and logging APIs,
-generate/SSE, gzip and the wire templates.
+Statistics: ``GET /v2/models/stats``, ``/v2/models/{m}/stats`` and
+``/v2/models/{m}/versions/{v}/stats`` (``InferenceCore.statistics``, the
+counters gRPC ``ModelStatistics`` reads too).
+
+gRPC: ``POST /inference.GRPCInferenceService/<Method>`` is the v2 gRPC
+service as gRPC-Web (``grpc_web.py``, ``grpc_server.py``), where the
+reference mounts its bridge; the port has no HTTP/2 listener.  A request
+body may come with ``Content-Length`` or in chunked transfer coding; a
+stream's chunks reach the bridge as they arrive.
+
+Not ported yet: the repository, trace and logging APIs, generate/SSE, gzip
+and the wire templates.
 """
 
 from __future__ import annotations
@@ -25,20 +35,21 @@ from __future__ import annotations
 import base64
 import binascii
 import json
-import math
 import re
 import time
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..utils import (deserialize_bytes_tensor, serialize_byte_tensor_raw,
-                     triton_to_np_dtype)
+from ..protocol.grpc_web import CONTENT_TYPE, read_chunked
+from ..utils import serialize_byte_tensor_raw
+from . import grpc_web
 from .core import InferenceCore
+from .grpc_server import InferenceServicer
 from .types import (InferError, InferRequest, InputTensor, RequestedOutput,
-                    ShmRef, reshape_input)
+                    ShmRef, bytes_to_array, numeric_dtype, reshape_input)
 
 _HEADER_LEN = "Inference-Header-Content-Length"
 _REQUEST_ID_HDR = "triton-request-id"
@@ -47,11 +58,16 @@ _MODEL = r"/v2/models/(?P<model>[^/]+)(?:/versions/(?P<version>[^/]+))?"
 _SHM = r"/v2/(?P<kind>systemsharedmemory|cudasharedmemory)"
 _SHM_REGION = _SHM + r"/region/(?P<name>[^/]+)"
 
+_GRPC_PREFIX = "/inference.GRPCInferenceService/"
+
 _GET_ROUTES = [
     (re.compile(r"/v2/health/live"), "_health_live"),
     (re.compile(r"/v2/health/ready"), "_health_ready"),
     (re.compile(_MODEL + r"/ready"), "_model_ready"),
     (re.compile(r"/v2"), "_server_metadata"),
+    # before the metadata route, which would take "stats" for a model name
+    (re.compile(r"/v2/models/stats"), "_model_stats"),
+    (re.compile(_MODEL + r"/stats"), "_model_stats"),
     (re.compile(_MODEL + r"/config"), "_model_config"),
     (re.compile(_MODEL), "_model_metadata"),
     (re.compile(_SHM + r"/status"), "_shm_status"),
@@ -90,7 +106,16 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _dispatch(self, routes) -> None:
         path = urllib.parse.unquote(self.path.split("?", 1)[0])
-        body = self._read_body()
+        if routes is _POST_ROUTES and path.startswith(_GRPC_PREFIX) \
+                and path[len(_GRPC_PREFIX):] in self.server.grpc_methods:
+            self._grpc(path[len(_GRPC_PREFIX):])
+            return
+        try:
+            body = self._read_body()
+        except (ConnectionError, ValueError):
+            self.close_connection = True
+            self._send(400, _json_body({"error": "malformed request body"}))
+            return
         for pattern, handler in routes:
             match = pattern.fullmatch(path)
             if match is None:
@@ -105,8 +130,46 @@ class _Handler(BaseHTTPRequestHandler):
         self._send(404, _json_body({"error": f"no route for {path}"}))
 
     def _read_body(self) -> bytes:
+        return b"".join(self._body_chunks())
+
+    def _body_chunks(self) -> Iterator[bytes]:
+        """The request body as it arrives: one piece for a
+        ``Content-Length`` body, each chunk of a chunked one."""
+        if "chunked" in self.headers.get("Transfer-Encoding", "").lower():
+            yield from read_chunked(self.rfile)
+            return
         n = int(self.headers.get("Content-Length") or 0)
-        return self.rfile.read(n) if n else b""
+        if n:
+            yield self.rfile.read(n)
+
+    def _grpc(self, method: str) -> None:
+        """One gRPC-Web call (``grpc_web.serve``)."""
+        def start_stream():
+            self.send_response(200)
+            self.send_header("Content-Type", CONTENT_TYPE)
+            self.send_header("Transfer-Encoding", "chunked")
+            self.end_headers()
+
+            def write(data: bytes) -> None:
+                # tpu-lint: disable=WIRE-COPY a chunk's size line and its frame in one write
+                self.wfile.write(b"%X\r\n%s\r\n" % (len(data), data)
+                                 if data else b"0\r\n\r\n")
+            return write
+
+        def send(status, payload, headers, content_type):
+            self._send(status, payload, headers, content_type=content_type)
+
+        try:
+            grpc_web.serve(self.server.servicer, method,
+                           self.headers.get("Content-Type", ""),
+                           self._body_chunks(), send, start_stream)
+        except (ConnectionError, ValueError):
+            # the client went away, or its chunked body was malformed: the
+            # exchange cannot go on on this connection
+            self.close_connection = True
+        if grpc_web.METHODS.get(method, ("uu",))[0] != "uu":
+            # a stream that ended early leaves its body unread
+            self.close_connection = True
 
     def _send(self, status: int, payload: bytes = b"",
               headers: Optional[Dict[str, str]] = None,
@@ -156,6 +219,11 @@ class _Handler(BaseHTTPRequestHandler):
         model = self.core.registry.get(groups["model"],
                                        groups["version"] or "")
         self._send(200, _json_body(model.config.to_json()))
+
+    def _model_stats(self, groups, body):
+        stats = self.core.statistics(groups.get("model"),
+                                     groups.get("version") or "")
+        self._send(200, _json_body({"model_stats": stats}))
 
     # -- shared memory -----------------------------------------------------
     def _shm_registry(self, groups):
@@ -275,7 +343,7 @@ def decode_request(model_name: str, version: str, body: dict,
                     raise InferError(
                         f"unexpected end of binary data for input '{name}'")
                 offset += int(bin_size)
-                tensor.data = _bytes_to_array(chunk, datatype, shape, name)
+                tensor.data = bytes_to_array(chunk, datatype, shape, name)
             elif "data" in t:
                 tensor.data = _json_to_array(t["data"], datatype, shape, name)
             else:
@@ -309,31 +377,6 @@ def _shm_ref(params: dict) -> ShmRef:
                   offset=int(params.get("shared_memory_offset", 0)))
 
 
-def _numeric_dtype(datatype: str, name: str) -> np.dtype:
-    dt = triton_to_np_dtype(datatype)
-    if dt is None:
-        raise InferError(
-            f"unsupported datatype '{datatype}' for input '{name}'")
-    return dt
-
-
-def _bytes_to_array(chunk: bytes, datatype: str, shape, name: str):
-    if datatype == "BYTES":
-        try:
-            flat = deserialize_bytes_tensor(chunk)
-        except ValueError as e:
-            raise InferError(
-                f"malformed BYTES payload for input '{name}': {e}")
-        return reshape_input(flat, shape, name)
-    dt = _numeric_dtype(datatype, name)
-    expected = math.prod(shape) * dt.itemsize
-    if len(chunk) != expected:
-        raise InferError(
-            f"unexpected total byte size {len(chunk)} for input '{name}', "
-            f"expecting {expected}")
-    return reshape_input(np.frombuffer(chunk, dtype=dt), shape, name)
-
-
 def _flatten(x):
     if isinstance(x, list):
         for item in x:
@@ -355,7 +398,7 @@ def _json_to_array(data, datatype: str, shape, name: str):
                 f"arrays, got {type(x).__name__}")
         flat = np.array([coerce(x) for x in _flatten(data)], dtype=np.object_)
         return reshape_input(flat, shape, name)
-    dt = _numeric_dtype(datatype, name)
+    dt = numeric_dtype(datatype, name)
     try:
         arr = np.array(data, dtype=dt)
     except (ValueError, TypeError) as e:
@@ -422,4 +465,6 @@ class HttpServer(ThreadingHTTPServer):
     def __init__(self, core: InferenceCore, host: str = "127.0.0.1",
                  port: int = 8000):
         self.core = core
+        self.servicer = InferenceServicer(core)
+        self.grpc_methods = set(grpc_web.METHODS) | set(grpc_web.NOT_PORTED)
         super().__init__((host, port), _Handler)

@@ -3,8 +3,9 @@
 Counterpart of ``triton_client_tpu/server/model.py``.  The reference builds
 its model configs as protobuf messages; the port's serving path runs on the
 standard library, torch and numpy alone, so :func:`make_config` returns a
-:class:`ModelConfig` dataclass with the fields this slice uses and renders
-the v2 ``/config`` JSON itself.
+:class:`ModelConfig` dataclass with the fields the port uses; it renders
+itself as the port's own proto ``ModelConfig`` message (gRPC) and that
+message's proto3 JSON (the HTTP ``/config`` body), as the reference's does.
 
 * :class:`TorchModel` is the counterpart of ``JaxModel``: a function over
   tensors, run under ``torch.inference_mode()`` on the device its config's
@@ -66,40 +67,49 @@ class ModelConfig:
     parameters: Dict[str, str] = field(default_factory=dict)
     ensemble_scheduling: List[EnsembleStep] = field(default_factory=list)
 
-    def to_json(self) -> dict:
-        """The v2 ``/v2/models/{m}/config`` body (proto JSON field names;
-        like proto JSON, an empty ``backend`` is left out)."""
-        def io(t):
-            return {"name": t.name, "data_type": "TYPE_" + (
-                "STRING" if t.data_type == "BYTES" else t.data_type),
-                "dims": [str(d) for d in t.dims]}
+    def to_pb(self):
+        """The config as the v2 protocol's ``ModelConfig`` message (what
+        gRPC ``ModelConfig`` returns)."""
+        from ..protocol import inference as pb
 
-        out: Dict[str, Any] = {"name": self.name, "platform": self.platform}
-        if self.backend:
-            out["backend"] = self.backend
-        out.update({
-            "max_batch_size": self.max_batch_size,
-            "input": [io(t) for t in self.input],
-            "output": [io(t) for t in self.output],
-        })
+        def dtype(t):
+            return pb.enum_value("DataType", "TYPE_" + (
+                "STRING" if t.data_type == "BYTES" else t.data_type))
+
+        out = pb.ModelConfig(
+            name=self.name, platform=self.platform, backend=self.backend,
+            max_batch_size=self.max_batch_size,
+            input=[pb.ModelInput(name=t.name, data_type=dtype(t),
+                                 dims=list(t.dims), optional=t.optional)
+                   for t in self.input],
+            output=[pb.ModelOutput(name=t.name, data_type=dtype(t),
+                                   dims=list(t.dims))
+                    for t in self.output])
         if self.dynamic_batching:
-            out["dynamic_batching"] = {
-                "preferred_batch_size": list(self.preferred_batch_size),
-                "max_queue_delay_microseconds":
-                    str(self.max_queue_delay_microseconds),
-            }
+            out.dynamic_batching = pb.ModelDynamicBatching(
+                preferred_batch_size=list(self.preferred_batch_size),
+                max_queue_delay_microseconds=self
+                .max_queue_delay_microseconds)
         if self.instance_kind:
-            out["instance_group"] = [
-                {"name": self.name, "kind": self.instance_kind, "count": 1}]
-        if self.parameters:
-            out["parameters"] = {k: {"string_value": v}
-                                 for k, v in self.parameters.items()}
+            out.instance_group.append(pb.ModelInstanceGroup(
+                name=self.name, count=1, kind=pb.enum_value(
+                    "ModelInstanceGroup.Kind", self.instance_kind)))
+        for k, v in self.parameters.items():
+            out.parameters[k] = pb.ModelParameter(string_value=v)
         if self.ensemble_scheduling:
-            out["ensemble_scheduling"] = {"step": [
-                {"model_name": s.model_name, "input_map": dict(s.input_map),
-                 "output_map": dict(s.output_map)}
-                for s in self.ensemble_scheduling]}
+            out.ensemble_scheduling = pb.ModelEnsembling(step=[
+                pb.ModelEnsembling.Step(model_name=s.model_name,
+                                        input_map=dict(s.input_map),
+                                        output_map=dict(s.output_map))
+                for s in self.ensemble_scheduling])
         return out
+
+    def to_json(self) -> dict:
+        """The v2 ``/v2/models/{m}/config`` body: the proto3 JSON of
+        :meth:`to_pb`, as the reference renders its config message."""
+        from ..protocol._proto3 import to_dict
+
+        return to_dict(self.to_pb())
 
 
 _INSTANCE_KINDS = ("KIND_AUTO", "KIND_GPU", "KIND_CPU", "KIND_MODEL")
@@ -151,17 +161,51 @@ def resolve_instance_device(config: ModelConfig) -> torch.device:
 
 @dataclass
 class ModelStats:
-    """Execution counters.  Dynamic batching: batched executions and the
-    requests they carried (average formed batch = batch_size_total /
-    batch_execution_count).  Every execution, batched or not: where
-    ``executions`` is a list, each one's (``time.perf_counter()`` at its
-    end, rows executed: the batch padded to its bucket) is appended to it.
-    The statistics API is not ported yet."""
+    """Per-model counters (the reference's ``ModelStats``), backing the
+    statistics API (HTTP ``/v2/models/{m}/stats``, gRPC
+    ``ModelStatistics``): inferences (requests' rows) and executions, the
+    success / fail / queue / compute durations in ns, and the last
+    inference's wall-clock ms.  Dynamic batching besides: batched
+    executions and the requests they carried (average formed batch =
+    batch_size_total / batch_execution_count).  Every execution, batched or
+    not: where ``executions`` is a list, each one's
+    (``time.perf_counter()`` at its end, rows executed: the batch padded to
+    its bucket) is appended to it."""
 
+    inference_count: int = 0
+    execution_count: int = 0
+    last_inference_ms: int = 0
+    success_count: int = 0
+    success_ns: int = 0
+    fail_count: int = 0
+    fail_ns: int = 0
+    queue_count: int = 0
+    queue_ns: int = 0
+    infer_count: int = 0
+    infer_ns: int = 0
     batch_size_total: int = 0
     batch_execution_count: int = 0
     executions: Optional[List[Tuple[float, int]]] = None
     lock: threading.Lock = field(default_factory=threading.Lock)
+
+    def record(self, batch: int, queue_ns: int, compute_ns: int,
+               ok: bool) -> None:
+        """One execution of ``batch`` rows (the reference's
+        ``ModelStats.record``)."""
+        with self.lock:
+            if ok:
+                self.inference_count += batch
+                self.execution_count += 1
+                self.last_inference_ms = int(time.time() * 1000)
+                self.success_count += batch
+                self.success_ns += (queue_ns + compute_ns) * batch
+                self.queue_count += batch
+                self.queue_ns += queue_ns * batch
+                self.infer_count += batch
+                self.infer_ns += compute_ns * batch
+            else:
+                self.fail_count += batch
+                self.fail_ns += (queue_ns + compute_ns) * batch
 
     def record_batch(self, batch: int) -> None:
         with self.lock:
@@ -172,6 +216,29 @@ class ModelStats:
         if self.executions is not None:
             with self.lock:
                 self.executions.append((time.perf_counter(), rows))
+
+    def snapshot(self, name: str, version: str) -> dict:
+        """The v2 statistics entry of this model (the reference's
+        ``InferenceCore.statistics`` row)."""
+        with self.lock:
+            return {
+                "name": name, "version": version,
+                "last_inference": self.last_inference_ms,
+                "inference_count": self.inference_count,
+                "execution_count": self.execution_count,
+                "inference_stats": {
+                    "success": {"count": self.success_count,
+                                "ns": self.success_ns},
+                    "fail": {"count": self.fail_count, "ns": self.fail_ns},
+                    "queue": {"count": self.queue_count,
+                              "ns": self.queue_ns},
+                    "compute_input": {"count": self.infer_count, "ns": 0},
+                    "compute_infer": {"count": self.infer_count,
+                                      "ns": self.infer_ns},
+                    "compute_output": {"count": self.infer_count, "ns": 0},
+                },
+                "batch_stats": [],
+            }
 
 
 class Model(abc.ABC):

@@ -9,11 +9,14 @@ layers not ported yet (tracing, QoS) stay, unused.
 
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+
+from ..utils import deserialize_bytes_tensor, triton_to_np_dtype
 
 
 @dataclass
@@ -216,3 +219,31 @@ def reshape_input(arr: np.ndarray, shape, name: str) -> np.ndarray:
     except (ValueError, TypeError) as e:
         raise InferError(
             f"invalid shape {list(shape)} for input '{name}': {e}")
+
+
+def numeric_dtype(datatype: str, name: str) -> np.dtype:
+    dt = triton_to_np_dtype(datatype)
+    if dt is None:
+        raise InferError(
+            f"unsupported datatype '{datatype}' for input '{name}'")
+    return dt
+
+
+def bytes_to_array(chunk, datatype: str, shape, name: str):
+    """A tensor's raw wire bytes (HTTP binary data, gRPC
+    ``raw_input_contents``) as an array of its shape: a view for a numeric
+    datatype, BYTES elements decoded; a malformed payload is a 400."""
+    if datatype == "BYTES":
+        try:
+            flat = deserialize_bytes_tensor(chunk)
+        except ValueError as e:
+            raise InferError(
+                f"malformed BYTES payload for input '{name}': {e}")
+        return reshape_input(flat, shape, name)
+    dt = numeric_dtype(datatype, name)
+    expected = math.prod(shape) * dt.itemsize
+    if len(chunk) != expected:
+        raise InferError(
+            f"unexpected total byte size {len(chunk)} for input '{name}', "
+            f"expecting {expected}")
+    return reshape_input(np.frombuffer(chunk, dtype=dt), shape, name)
