@@ -104,7 +104,17 @@ Phases (any failure exits non-zero and prints no result line):
     and end on the last; NEXT_TOKEN held to the plain forward of each
     window) and 4 streams of 16 at once, tokens/s and per-token p50 / p99;
     an in-band error, a non-OK status or a region left fails the run;
-11. print each kernel's launches on every served path, one JSON line
+11. vision (BASELINE row 2): ``resnet50`` at full width (224 x 224, bf16,
+    ``channels_last``) driven as image_client.py drives it -- metadata
+    and config parsed, 32 seeded INCEPTION-scaled images, gRPC
+    ``async_infer`` raw and with ``class_count`` 3, and a stream; OUTPUT
+    held to an f32 forward of the same weights on the card
+    (``VISION_OF_RMS`` of its RMS, beside controls), each classification
+    string equal to ``_classify`` of the served logits; the B = 32
+    forward timed, traced and counted in FLOPs; then ``perf_analyzer -m
+    resnet50 -i grpc``: -b 32 at c = 1 by wire, stream and CUDA shm, -b 1
+    at c = 1 and 8 through the batcher; no kernel of the port launches;
+12. print each kernel's launches on every served path, one JSON line
     describing every kernel, then the result line
     ``{"ok": true, "device": {...}}``.
 
@@ -717,22 +727,29 @@ def check_served(label: str, what: str, atol: float, worst: float,
 
 def profile_forward(label: str, run, torch, batch: int, seq_len: int,
                     vocab: int) -> float:
-    """Time one forward of ``batch`` requests with CUDA events, then trace
-    one with torch.profiler and print where the device time goes, the idle
-    share and the peak memory.  Returns the forward's ms."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """Time one forward of ``batch`` requests of ``seq_len`` tokens
+    (``profile_run``).  Returns the forward's ms."""
     gen = torch.Generator(device="cuda").manual_seed(7)
     tokens = torch.randint(0, vocab, (batch, seq_len), generator=gen,
                            device="cuda")
+    return profile_run(label, lambda: run(tokens), torch,
+                       f"forward B={batch}")
+
+
+def profile_run(label: str, fn, torch, what: str) -> float:
+    """Time ``fn()`` (one forward) with CUDA events, then trace one call
+    with torch.profiler and print where the device time goes, the idle
+    share and the peak memory.  Returns the call's ms."""
+    from torch.profiler import ProfilerActivity, profile
+
     with torch.inference_mode():
-        fwd_ms = timed_ms(lambda: run(tokens), iters=5)
+        fwd_ms = timed_ms(fn, iters=5)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            run(tokens)
+            fn()
             torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
     # device-side entries only (kernels and copies, our ctypes launches
@@ -743,13 +760,13 @@ def profile_forward(label: str, run, torch, batch: int, seq_len: int,
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: e.self_device_time_total,
                  reverse=True)[:8]
-    print(f"{label}: forward B={batch} {fwd_ms:.3f} ms (CUDA events); "
+    print(f"{label}: {what} {fwd_ms:.3f} ms (CUDA events); "
           f"traced device time {busy_ms:.3f} ms in {len(events)} ops, idle "
           f"{max(0.0, 1 - busy_ms / fwd_ms):.1%} of the forward; peak "
           f"memory {peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} GiB "
           "above the weights): " + "; ".join(
               f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms"
-              for e in top), flush=True)
+              for e in top) + f"; {CARD}", flush=True)
     ours = [e for e in events if any(
         k in e.key for k in ("flash_fwd", "quantize_rows", "int8_gemm"))]
     print(f"{label}: the port's kernels in that forward: " + "; ".join(
@@ -1750,11 +1767,11 @@ GRPC_PATHS = {}
 
 
 def _counted(label: str, model, counters, run, flash_per_forward: int,
-             int8_per_forward: int):
+             int8_per_forward: int, paths=None):
     """``run()`` with the launch counts zeroed just before and read just
     after, and the model's executions recorded meanwhile: launches checked
-    exactly per execution and kept in GRPC_PATHS.  Returns (``run()``'s
-    result, executions, launches)."""
+    exactly per execution and kept in ``paths`` (GRPC_PATHS where not
+    given).  Returns (``run()``'s result, executions, launches)."""
     st = model.stats
     st.executions = []
     _reset(counters)
@@ -1766,7 +1783,7 @@ def _counted(label: str, model, counters, run, flash_per_forward: int,
     launches["int8_quantize_rows"] = counters["int8_matmul"].quantize_launches
     check_launches(label, launches, len(executions), flash_per_forward,
                    int8_per_forward)
-    GRPC_PATHS[label] = launches
+    (GRPC_PATHS if paths is None else paths)[label] = launches
     return out, len(executions), launches
 
 
@@ -2062,6 +2079,202 @@ def grpc_phase(torch, counters) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Vision: resnet50 (BASELINE row 2) as image_client.py drives it, over gRPC
+# ---------------------------------------------------------------------------
+
+VISION_ROWS, VISION_CLASSES, VISION_SEED = 32, 3, 2
+# resnet50 served in bf16 (channels_last) against an f32 forward of the
+# same weights on the card: max |OUTPUT - f32| at most this share of the
+# f32 logits' RMS.  The CPU parity test holds bf16 against the reference's
+# f32 to the same share (tests/test_torch_vision.py, where it read 2.3e-2);
+# the logits reach ~1e3 (random He weights, no normalisation), so the
+# bound is relative.  Its controls: the f32 forward with the last block's
+# c3 scale (``s3b2_s3``) off by each of CONTROL_SCALES.
+VISION_OF_RMS = 6e-2
+#: "<path>" -> the kernel launches of each vision window (none expected:
+#: resnet50 runs cuDNN convolutions, no kernel of the port)
+VISION_PATHS = {}
+
+
+def parse_image_model(metadata: dict, config: dict):
+    """image_client.py's ``parse_model`` on the gRPC JSON forms: (input,
+    output, c, h, w, layout, datatype, max batch) of a one-input,
+    one-output image model."""
+    if len(metadata["inputs"]) != 1 or len(metadata["outputs"]) != 1:
+        fail(f"resnet50 metadata: expected 1 input and 1 output: {metadata}")
+    inp, out = metadata["inputs"][0], metadata["outputs"][0]
+    config = config.get("config", config)
+    max_batch = int(config.get("max_batch_size", 0))
+    shape = [int(d) for d in inp["shape"]]
+    if max_batch > 0:
+        shape = shape[1:]
+    if len(shape) != 3 or shape[0] not in (1, 3):
+        fail(f"resnet50 metadata: not a CHW image input: {shape}")
+    c, h, w = shape
+    return inp["name"], out["name"], c, h, w, "CHW", inp["datatype"], \
+        max_batch
+
+
+def synthetic_images(seed: int, n: int, c: int, h: int, w: int):
+    """``n`` seeded uint8 RGB images (the card's machine has no PIL),
+    INCEPTION-scaled to [-1, 1] and laid out CHW, as image_client.py's
+    ``preprocess`` does."""
+    import numpy as np
+
+    img = np.random.default_rng(seed).integers(0, 256, (n, h, w, c),
+                                               dtype=np.uint8)
+    arr = img.astype(np.float32) / 127.5 - 1.0
+    return np.ascontiguousarray(arr.transpose(0, 3, 1, 2))
+
+
+def _classify_requests(client, name, out_name, datatype, x):
+    """image_client.py's three ways of asking for OUTPUT: raw
+    (``async_infer``, a future), the top VISION_CLASSES (``async_infer``
+    with a callback) and the same on a stream.  Returns (raw logits,
+    async strings, stream strings)."""
+    import queue
+
+    from triton_client_tpu_torch import grpc
+
+    inp = grpc.InferInput(name, list(x.shape), datatype)
+    inp.set_data_from_numpy(x)
+    raw = client.async_infer(
+        "resnet50", [inp], outputs=[grpc.InferRequestedOutput(out_name)]
+    ).get_result(timeout=300).as_numpy(out_name)
+    classes = [grpc.InferRequestedOutput(out_name,
+                                         class_count=VISION_CLASSES)]
+    done = queue.Queue()
+
+    def callback(result, error):
+        done.put((result, error))
+
+    client.async_infer("resnet50", [inp], callback=callback,
+                       outputs=classes)
+    answers = [done.get(timeout=300)]
+    client.start_stream(callback=callback)
+    try:
+        client.async_stream_infer("resnet50", [inp], outputs=classes)
+        answers.append(done.get(timeout=300))
+    finally:
+        client.stop_stream()
+    strings = []
+    for result, error in answers:
+        if error is not None:
+            fail(f"vision resnet50: {error}")
+        strings.append(result.as_numpy(out_name))
+    return raw, strings[0], strings[1]
+
+
+def vision_phase(torch, counters) -> None:
+    """BASELINE row 2: ``resnet50`` at full width (224 x 224, 25.6 M
+    parameters, bf16 and channels_last on the card) through the port's
+    server, driven as image_client.py drives it: metadata and config
+    parsed, VISION_ROWS seeded INCEPTION-scaled images in one request,
+    ``async_infer`` raw and with ``class_count`` VISION_CLASSES, and a
+    stream.  The raw OUTPUT held to an f32 forward of the same weights on
+    the card (VISION_OF_RMS, beside the controls), each classification
+    string equal to ``_classify`` of the served logits; the B = 32 forward
+    timed, traced and counted in FLOPs; then ``perf_analyzer -m resnet50 -i
+    grpc`` from a process of its own: -b 32 at c = 1 by wire, stream and
+    CUDA shm, -b 1 at c = 1 and 8 through the dynamic batcher."""
+    import numpy as np
+
+    from triton_client_tpu_torch import grpc
+    from triton_client_tpu_torch.models import vision
+    from triton_client_tpu_torch.server.core import InferenceCore
+
+    label = "vision resnet50 bf16"
+    model = vision.make_resnet50("cuda")
+    with serving_harness([model]) as harness:
+        client = grpc.InferenceServerClient(f"127.0.0.1:{harness.http_port}")
+        try:
+            md = client.get_model_metadata("resnet50", as_json=True)
+            cfg = client.get_model_config("resnet50", as_json=True)
+            name, out_name, c, h, w, layout, datatype, max_batch = \
+                parse_image_model(md, cfg)
+            print(f"{label}: parsed {name} {datatype} {layout} "
+                  f"[{c}, {h}, {w}] -> {out_name}, max batch {max_batch}",
+                  flush=True)
+            if (c, h, w, datatype) != (3, vision.IMAGE_SIZE,
+                                       vision.IMAGE_SIZE, "FP32") \
+                    or max_batch < VISION_ROWS:
+                fail(f"{label}: unexpected model metadata {md} / {cfg}")
+            x = synthetic_images(VISION_SEED, VISION_ROWS, c, h, w)
+            # the first request draws the weights
+            _classify_requests(client, name, out_name, datatype, x[:1])
+            if model.resnet.params["stem"].dtype != torch.bfloat16:
+                fail(f"{label}: served weights are not bf16")
+            (raw, cls_async, cls_stream), n_exec, launches = _counted(
+                f"{label} grpc async + stream", model, counters,
+                lambda: _classify_requests(client, name, out_name, datatype,
+                                           x), 0, 0, paths=VISION_PATHS)
+        finally:
+            client.close()
+        if n_exec != 3 or raw.shape != (VISION_ROWS, vision.NUM_CLASSES) \
+                or not np.isfinite(raw).all():
+            fail(f"{label}: {n_exec} executions for 3 requests, OUTPUT "
+                 f"{raw.shape}, finite {np.isfinite(raw).all()}")
+        params = {k: v.float() for k, v in model.resnet.params.items()}
+        xt = torch.from_numpy(x).cuda()
+        with torch.inference_mode():
+            ref = vision.forward(params, xt).cpu().numpy()
+            controls = [float(np.abs(vision.forward(
+                {**params, "s3b2_s3": params["s3b2_s3"] * scale}, xt)
+                .cpu().numpy() - ref).max()) for scale in CONTROL_SCALES]
+        rms = float(np.sqrt((ref ** 2).mean()))
+        bound = VISION_OF_RMS * rms
+        worst = float(np.abs(raw - ref).max())
+        caught = [s for s, e in zip(CONTROL_SCALES, controls) if e > bound]
+        print(f"{label}: OUTPUT [{VISION_ROWS}, {vision.NUM_CLASSES}] vs "
+              f"the f32 forward of the same weights: max_abs_err "
+              f"{worst:.3e} ({worst / rms:.3e} of the f32 logits' RMS "
+              f"{rms:.3e}; bound {VISION_OF_RMS} of it), mean_abs_err "
+              f"{float(np.abs(raw - ref).mean()):.3e}; controls (last "
+              "block's c3 scale x" + ", x".join(
+                  f"{s}: {e:.3e}" for s, e in zip(CONTROL_SCALES, controls))
+              + f"), caught from x{caught[0] if caught else None}; top-1 "
+              f"equal on {int((raw.argmax(1) == ref.argmax(1)).sum())} of "
+              f"{VISION_ROWS} images", flush=True)
+        if not worst <= bound:
+            fail(f"{label}: served OUTPUT disagrees with the f32 forward")
+        if not controls[-1] > bound:
+            fail(f"{label}: the control x{CONTROL_SCALES[-1]} reads "
+                 f"{controls[-1]:.3e}, within the bound {bound:.3e}")
+        want = InferenceCore._classify(model, out_name, raw, VISION_CLASSES)
+        for how, got in (("async_infer", cls_async), ("stream", cls_stream)):
+            if got.shape != want.shape or got.tolist() != want.tolist():
+                fail(f"{label}: {how} classification {got[:2]} is not "
+                     f"_classify of the served logits {want[:2]}")
+        print(f"{label}: classification (class_count {VISION_CLASSES}) by "
+              f"async_infer and on a stream equal _classify of the served "
+              f"logits, {want.shape}; image 0: "
+              f"{[s.decode() for s in want[0]]}", flush=True)
+        fwd_ms = profile_run(label, lambda: model.resnet(xt), torch,
+                             f"forward B={VISION_ROWS}")
+        flops = vision.forward_flops() * VISION_ROWS
+        print(f"{label}: forward B={VISION_ROWS}: {flops / 1e9:.1f} GFLOP "
+              f"({vision.forward_flops() / 1e9:.2f} per image), "
+              f"{flops / fwd_ms / 1e9:.1f} TFLOP/s, "
+              f"{flops / fwd_ms / 1e9 / (PEAK_BF16_FLOPS / 1e12):.1%} of the "
+              f"bf16 peak (bound {flops / PEAK_BF16_FLOPS * 1e3:.3f} ms, "
+              f"operations); {CARD}", flush=True)
+        del xt, params
+        for args in (["--shared-memory", "none"], ["--streaming"],
+                     ["--shared-memory", "cuda"]):
+            perf_sweep(f"perf resnet50 -b 32 grpc {' '.join(args)}", harness,
+                       model, ["-i", "grpc", "-b", "32",
+                               "--concurrency-range", "1", *args],
+                       counters, 0, 0, paths=VISION_PATHS)
+        perf_sweep("perf resnet50 -b 1 grpc dynamic batching", harness,
+                   model, ["-i", "grpc", "-b", "1", "--concurrency-range",
+                           "1:8:7"], counters, 0, 0, paths=VISION_PATHS)
+        _no_regions_left("perf resnet50", harness)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     try:
         import torch
@@ -2179,11 +2392,13 @@ def main() -> int:
         os.environ.pop(var, None)
     perf_phase(torch, counters, fa)
     grpc_phase(torch, counters)
+    vision_phase(torch, counters)
     # and every transport's window of the shared-memory phases, every
-    # perf_analyzer run and every gRPC window
+    # perf_analyzer run, every gRPC window and every vision window
     paths.update(SHM_PATHS)
     paths.update(PERF_PATHS)
     paths.update(GRPC_PATHS)
+    paths.update(VISION_PATHS)
     for path, launches in paths.items():
         print(f"launches on {path}: flash_attention "
               f"{launches['flash_attention']}, int8_matmul "

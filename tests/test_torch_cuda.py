@@ -1,7 +1,8 @@
 """On-card tests of the PyTorch port: each CUDA kernel against its plain
 version (at the serving shapes of longctx_tpu, bert_large and llama_tpu
-1b), the served forward through the kernels, and one ensemble_llama request
-over llama_tpu 1b; and CUDA shared-memory regions: their API, a region
+1b), the served forward through the kernels, one ensemble_llama request
+over llama_tpu 1b, resnet50 and dense_tpu on the card, bf16 readback bits;
+and CUDA shared-memory regions: their API, a region
 mapped by another process through cudaIPC, serving over them, and the card's
 memory given back after unregister.
 
@@ -297,6 +298,56 @@ def test_readback_of_cuda_tensors(cuda):
     out = core.readback({"y": t, "z": torch.ones(3, device=cuda)})
     np.testing.assert_array_equal(out["y"], np.arange(1000) * 3.0)
     assert out["z"].tolist() == [1.0, 1.0, 1.0]
+
+
+def test_readback_keeps_bf16_bits(cuda):
+    """A bf16 output comes back as a bfloat16 host tensor with its bits,
+    and goes to the wire as those bits (no float32 detour)."""
+    from triton_client_tpu_torch.utils import bf16_from_bytes, bf16_to_bytes
+
+    bits = torch.from_numpy(np.array(
+        [0x7FC1, 0xFF80, 0x8000, 0x0001, 0x3F80, 0x1234],
+        dtype=np.uint16).view(np.int16))
+    t = bits.view(torch.bfloat16).to(cuda)
+    out = core.readback({"y": t})["y"]
+    assert out.dtype == torch.bfloat16 and out.device.type == "cpu"
+    assert torch.equal(out.view(torch.int16), bits)
+    wire = bf16_to_bytes(out)
+    assert wire.tobytes() == bits.numpy().tobytes()
+    assert torch.equal(bf16_from_bytes(wire, [6]).view(torch.int16), bits)
+
+
+def test_resnet50_and_dense_tpu_served_on_card(cuda):
+    """``resnet50`` in bf16, ``channels_last``, and ``dense_tpu`` on the
+    card through the model adapter: OUTPUT finite, resnet50 within
+    chip_smoke.py's bound (6e-2 of the RMS) of an f32 forward of the same
+    weights, its classification strings ``_classify`` of the logits."""
+    from triton_client_tpu_torch.models import vision, zoo
+
+    model = vision.make_resnet50("cuda")
+    assert model.config.instance_kind == "KIND_GPU"
+    x = np.random.default_rng(14).uniform(-1, 1, (4, 3, 224, 224)).astype(
+        np.float32)
+    out = core.readback(model.execute({"INPUT": x}, {}))["OUTPUT"]
+    params = model.resnet.params
+    assert params["stem"].dtype == torch.bfloat16
+    assert params["stem"].is_contiguous(memory_format=torch.channels_last)
+    with torch.inference_mode():
+        want = vision.forward({k: v.float() for k, v in params.items()},
+                              torch.from_numpy(x).to(cuda)).cpu().numpy()
+    rms = float(np.sqrt((want ** 2).mean()))
+    assert out.shape == (4, 1000) and np.isfinite(out).all()
+    assert float(np.abs(out - want).max()) <= 6e-2 * rms
+    strings = core.InferenceCore._classify(model, "OUTPUT", out, 3)
+    assert strings.shape == (4, 3)
+    assert [int(s.split(b":")[1]) for s in strings[:, 0]] == \
+        out.argmax(1).tolist()
+    dense = zoo.make_dense_tpu("cuda")
+    rows = np.random.default_rng(15).normal(
+        0, 1, (4, zoo.DENSE_D)).astype(np.float32)
+    y = core.readback(dense.execute({"INPUT": rows}, {}))["OUTPUT"]
+    assert y.shape == (4, zoo.DENSE_D) and np.isfinite(y).all()
+    assert dense.weights.params["w1"].is_cuda
 
 
 @pytest.mark.parametrize("quant,atol", [("", 5e-2), ("int8", 1.5e-1)])

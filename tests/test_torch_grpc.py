@@ -24,6 +24,13 @@ client (``triton_client_tpu_torch.grpc``):
 * gets ``get_response(as_json=True)`` equal to the reference's gRPC
   client's (``MessageToDict``) for the same request.
 
+Decoupled models (``repeat_int32``, ``square_int32``) on a stream: both
+servers give the same N responses per request, each flagged
+``triton_final_response`` false, and the empty final response (flagged
+true) only where the request sets ``triton_enable_empty_final_response``;
+a unary request to one, over HTTP or gRPC, is refused with the reference's
+status and text.
+
 Beside: the stream keeps the order of its requests and ``stop_stream``
 waits for every answer (``cancel_requests`` gives one CANCELLED); requests
 with a ``sequence_id`` bypass the dynamic batcher while an ensemble's
@@ -84,7 +91,8 @@ def _seq_model():
 @pytest.fixture(scope="module")
 def servers():
     jreg = JaxRegistry()
-    for m in (jzoo.make_simple(), jlang.make_longctx_tpu(),
+    for m in (jzoo.make_simple(), jzoo.make_repeat_int32(),
+              jzoo.make_square_int32(), jlang.make_longctx_tpu(),
               jlang.make_moe_tpu(),
               jlang.make_llama_preprocess(), jlang.make_llama_tpu(),
               jlang.make_llama_postprocess(), jlang.make_ensemble_llama()):
@@ -96,8 +104,9 @@ def servers():
     llama = {k: np.asarray(v) for k, v in jtr.init_params(
         jax.random.PRNGKey(3), jlang._llama_cfg()).items()}
     treg = ModelRegistry()
-    for m in (tzoo.make_simple(), tlang.make_longctx_tpu("cpu",
-                                                         params=longctx),
+    for m in (tzoo.make_simple(), tzoo.make_repeat_int32(),
+              tzoo.make_square_int32(),
+              tlang.make_longctx_tpu("cpu", params=longctx),
               tlang.make_moe_tpu("cpu", params=moe),
               tlang.make_llama_preprocess(),
               tlang.make_llama_tpu("cpu", params=llama),
@@ -356,6 +365,94 @@ def test_stream_errors_travel_in_band_as_in_reference(servers):
     assert results[0][1][0] == "StatusCode.INVALID_ARGUMENT"
     assert results[0][1][1].startswith("[400] ")
     assert results[0][3][2] == "last"
+
+
+def _decoupled_stream(url, requests, empty_final=False):
+    """Each of ``requests`` (model, arrays) sent on one stream; every
+    response as (its outputs as lists, triton_final_response or None where
+    it has none), in order, after stop_stream has waited for them all."""
+    got = []
+    with tgrpc.InferenceServerClient(url) as c:
+        c.start_stream(lambda result, error: got.append((result, error)))
+        for model, arrays in requests:
+            c.async_stream_infer(model, _inputs(tgrpc, arrays),
+                                 enable_empty_final_response=empty_final)
+        c.stop_stream()
+    out = []
+    for result, error in got:
+        assert error is None, error
+        resp = result.get_response()
+        final = resp.parameters.get("triton_final_response")
+        out.append(({o.name: result.as_numpy(o.name).tolist()
+                     for o in resp.outputs},
+                    None if final is None else final.bool_param))
+    return out
+
+
+def _repeat(values, delays_us=None):
+    values = np.asarray(values, np.int32)
+    delays = np.asarray(delays_us if delays_us is not None
+                        else [0] * len(values), np.uint32)
+    return ("repeat_int32", [("IN", "INT32", values),
+                             ("DELAY", "UINT32", delays),
+                             ("WAIT", "UINT32", np.array([0], np.uint32))])
+
+
+def _square(n):
+    return ("square_int32", [("IN", "INT32", np.array([n], np.int32))])
+
+
+@pytest.mark.parametrize("case", ["repeat", "square", "square 0", "mixed"])
+def test_decoupled_stream_gives_n_responses_as_in_reference(servers, case):
+    requests = {
+        "repeat": [_repeat([4, -2, 9, 0, 2**31 - 1], [0, 2000, 0, 0, 1000])],
+        "square": [_square(3)],
+        "square 0": [_square(0)],
+        "mixed": [_square(2), _repeat([7]), _square(0), _square(1)],
+    }[case]
+    t, j = (_decoupled_stream(u, requests) for u in _both(servers))
+    assert t == j
+    assert all(final is False for _, final in t)
+    if case == "repeat":
+        assert [r["OUT"] for r, _ in t] == [[4], [-2], [9], [0],
+                                            [2**31 - 1]]
+        assert [r["IDX"] for r, _ in t] == [[0], [1], [2], [3], [4]]
+    want = {"repeat": 5, "square": 3, "square 0": 0, "mixed": 4}[case]
+    assert len(t) == want
+    if case == "square":
+        assert [r["OUT"] for r, _ in t] == [[3]] * 3
+
+
+@pytest.mark.parametrize("empty_final", [False, True])
+def test_empty_final_response_only_when_asked(servers, empty_final):
+    requests = [_repeat([1, 2]), _square(0), ("simple", _simple(*_ab(12)))]
+    t, j = (_decoupled_stream(u, requests, empty_final)
+            for u in _both(servers))
+    assert t == j
+    flags = [final for _, final in t]
+    if empty_final:
+        # repeat: 2 + the final; square 0: the final alone; simple: one
+        # response, which a model that is not decoupled does not flag
+        assert flags == [False, False, True, True, None]
+        assert t[2][0] == {} and t[3][0] == {}
+    else:
+        assert flags == [False, False, None]
+
+
+def test_unary_infer_on_a_decoupled_model_is_refused_as_in_reference(
+        servers):
+    model, arrays = _square(2)
+    got = []
+    for url in _both(servers):
+        with thttp.InferenceServerClient(url) as hc, \
+                tgrpc.InferenceServerClient(url) as gc:
+            got.append((
+                _err(lambda: hc.infer(model, _inputs(thttp, arrays))),
+                _err(lambda: gc.infer(model, _inputs(tgrpc, arrays)))))
+    assert got[0] == got[1]
+    (hs, hm), (gs, gm) = got[0]
+    assert hs == "400" and "decoupled transaction policy" in hm
+    assert gs == "StatusCode.INVALID_ARGUMENT" and gm == hm
 
 
 def test_unported_rpcs_answer_unimplemented_naming_the_roadmap(servers):

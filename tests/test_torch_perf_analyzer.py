@@ -249,3 +249,23 @@ def test_xla_mode_is_dropped(capsys):
     with pytest.raises(SystemExit):
         tpa.main(["-m", "simple", "--shared-memory", "xla"])
     assert "invalid choice" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("outputs,batch,max_batch,want", [
+    # resnet50 at -b 32: 32 x 1000 x 4 bytes, over the 100 KiB default
+    ([{"name": "OUTPUT", "datatype": "FP32", "shape": [-1, 1000]}], 32, 32,
+     128000),
+    # small fixed outputs keep the default
+    ([{"name": "OUTPUT0", "datatype": "INT32", "shape": [1, 16]}], 1, 0,
+     102400),
+    # the largest of several, BF16 at 2 bytes
+    ([{"name": "A", "datatype": "BF16", "shape": [-1, 300, 300]},
+      {"name": "B", "datatype": "FP32", "shape": [-1, 10]}], 2, 8, 360000),
+    # a dynamic dim or BYTES: the flag sizes it
+    ([{"name": "O", "datatype": "FP32", "shape": [-1, -1]},
+      {"name": "S", "datatype": "BYTES", "shape": [-1, 4000]}], 64, 64,
+     102400),
+], ids=["resnet50 -b 32", "simple", "bf16 largest", "dynamic and bytes"])
+def test_output_regions_hold_fixed_shape_outputs(outputs, batch, max_batch,
+                                                 want):
+    assert tpa._output_region_size(outputs, batch, max_batch, 102400) == want

@@ -644,9 +644,13 @@ def test_bf16_output_goes_into_a_cuda_region_not_onto_the_wire():
         assert resp.outputs[0].datatype == "BF16"
         got = tcuda.as_shared_memory_tensor(h, "BF16", [2, 4], offset=32)
         assert torch.equal(got, torch.from_numpy(x * 2).to(torch.bfloat16))
-        with pytest.raises(tcore.InferError, match="bf16"):
-            core.infer(InferRequest(model_name="rec", inputs=[
-                InputTensor("X", "INT32", (2, 4), data=x)]))
+        # on the wire the same output is the tensor's own bf16 bits
+        wire = core.infer(InferRequest(model_name="rec", inputs=[
+            InputTensor("X", "INT32", (2, 4), data=x)])).outputs[0]
+        assert wire.datatype == "BF16" and wire.shm is None
+        assert torch.equal(wire.data.view(torch.int16),
+                           torch.from_numpy(x * 2).to(torch.bfloat16)
+                           .view(torch.int16))
         core.cuda_shm.unregister(None)
     finally:
         tcuda.destroy_shared_memory_region(h)

@@ -22,3 +22,9 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}: expected cuda or cpu")
     return dev
+
+
+def instance_kind(device: torch.device) -> str:
+    """A model config's ``instance_group`` kind for ``device``: the
+    reference says ``KIND_TPU`` for its accelerator, the port ``KIND_GPU``."""
+    return "KIND_CPU" if device.type == "cpu" else "KIND_GPU"

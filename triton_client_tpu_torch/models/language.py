@@ -31,7 +31,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import instance_kind, resolve_device
 from ..server.model import (EnsembleModel, EnsembleStep, PyModel,
                             TorchModel, make_config)
 from . import transformer as tr
@@ -205,10 +205,6 @@ def longctx_scores(logits, tokens):
     return torch.nn.functional.pad(scores, (0, 1))
 
 
-def _instance_kind(dev: torch.device) -> str:
-    return "KIND_CPU" if dev.type == "cpu" else "KIND_GPU"
-
-
 def make_bert_large(device=None,
                     params: Optional[Dict[str, np.ndarray]] = None
                     ) -> TorchModel:
@@ -224,7 +220,7 @@ def make_bert_large(device=None,
         max_batch_size=32,
         preferred_batch_sizes=[1, 2, 4, 8, 16, 32],
         max_queue_delay_us=3000,
-        instance_kind=_instance_kind(dev),
+        instance_kind=instance_kind(dev),
         parameters={"flops_per_inference": str(
             BERT_SEQ_LEN * forward_flops_per_token(
                 BERT_LARGE, BERT_SEQ_LEN, head_cols=BERT_HEAD_COLS))},
@@ -262,7 +258,7 @@ def _next_token_model(name: str, cfg_t: tr.TransformerConfig, seq_len: int,
         max_batch_size=8,
         preferred_batch_sizes=[1, 2, 4, 8],
         max_queue_delay_us=2000,
-        instance_kind=_instance_kind(dev),
+        instance_kind=instance_kind(dev),
         parameters=parameters,
     )
     run = LazyTransformer(cfg_t, seed=seed, device=dev, model_name=name,
@@ -385,7 +381,7 @@ def make_longctx_tpu(device=None,
         max_batch_size=4,
         preferred_batch_sizes=[1, 2, 4],
         max_queue_delay_us=2000,
-        instance_kind=_instance_kind(dev),
+        instance_kind=instance_kind(dev),
         parameters={"flops_per_inference": str(
             S * forward_flops_per_token(cfg_t, S))},
     )

@@ -121,10 +121,28 @@ def _resolve_model(client, model_name: str, model_version: str,
         md = client.get_model_metadata(model_name, model_version)
         cfg = client.get_model_config(model_name, model_version)
     max_batch = int(cfg.get("max_batch_size", 0))
-    inputs = [{"name": i["name"], "datatype": i["datatype"],
-               "shape": [int(s) for s in i["shape"]]} for i in md["inputs"]]
-    outputs = [o["name"] for o in md["outputs"]]
+    inputs, outputs = ([{"name": t["name"], "datatype": t["datatype"],
+                         "shape": [int(s) for s in t["shape"]]} for t in io]
+                       for io in (md["inputs"], md["outputs"]))
     return inputs, outputs, max_batch
+
+
+def _output_region_size(outputs, batch: int, max_batch: int,
+                        floor: int) -> int:
+    """Bytes of each output's region: the largest output of fixed shape at
+    ``batch`` rows, and at least ``floor`` (``--output-shared-memory-size``,
+    which sizes outputs of dynamic shape and BYTES ones).  perf_analyzer
+    sizes a fixed-shape output's region from the model's metadata."""
+    size = floor
+    for o in outputs:
+        dims = o["shape"][1:] if max_batch > 0 else o["shape"]
+        dt = triton_to_np_dtype(o["datatype"])
+        itemsize = 2 if o["datatype"] == "BF16" else (
+            dt.itemsize if dt is not None and dt != np.object_ else 0)
+        if itemsize and all(d >= 0 for d in dims):
+            rows = batch if max_batch > 0 else 1
+            size = max(size, rows * int(np.prod(dims)) * itemsize)
+    return size
 
 
 def _make_data(inputs, shapes, batch: int, max_batch: int, rng,
@@ -630,7 +648,11 @@ def main(argv: Optional[List[str]] = None) -> int:
                              "on the card (default), or in host memory, "
                              "which only a server in this process can map")
     parser.add_argument("--output-shared-memory-size", type=int,
-                        default=102400)
+                        default=102400,
+                        help="bytes of each output's region where the "
+                             "output's shape is not fixed, or it is BYTES; "
+                             "a fixed-shape output's region holds it at "
+                             "the batch size")
     parser.add_argument("--shape", action="append", default=[],
                         help="name:d1,d2,... override for dynamic dims")
     parser.add_argument("--string-length", type=int, default=16)
@@ -666,10 +688,11 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     meta_client = _make_client(url, args.protocol)
     try:
-        inputs, outputs, max_batch = _resolve_model(
+        inputs, output_specs, max_batch = _resolve_model(
             meta_client, args.model_name, args.model_version, args.protocol)
     finally:
         meta_client.close()
+    outputs = [o["name"] for o in output_specs]
     if args.batch_size > 1 and max_batch == 0:
         print(f"error: model {args.model_name} does not support batching",
               file=sys.stderr)
@@ -682,6 +705,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         parser.error(str(e))
     arrays = _make_data(inputs, shapes, args.batch_size, max_batch, rng,
                         args.string_length)
+    output_size = _output_region_size(output_specs, args.batch_size,
+                                      max_batch,
+                                      args.output_shared_memory_size)
 
     measure_s = args.measurement_interval / 1000.0
     open_loop = args.request_rate_range is not None
@@ -730,7 +756,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         for rate in rates:
             res = run_rate_level(
                 url, args.model_name, args.model_version, rate, arrays,
-                outputs, args.shared_memory, args.output_shared_memory_size,
+                outputs, args.shared_memory, output_size,
                 measure_s, distribution=args.request_distribution,
                 max_threads=args.max_threads,
                 extra_percentile=args.percentile,
@@ -742,7 +768,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         for level in _parse_concurrency_range(args.concurrency_range):
             res = run_level(
                 url, args.model_name, args.model_version, level, arrays,
-                outputs, args.shared_memory, args.output_shared_memory_size,
+                outputs, args.shared_memory, output_size,
                 measure_s, extra_percentile=args.percentile,
                 cuda_device=args.cuda_shared_memory_device,
                 protocol=args.protocol, streaming=args.streaming)

@@ -1,16 +1,27 @@
 """``python -m triton_client_tpu_torch.server``: serve the port's model zoo
-over the v2 HTTP protocol.
+over the v2 HTTP protocol, and v2 gRPC as gRPC-Web on the same port.
 
     python -m triton_client_tpu_torch.server --http-port 8000 [--device cuda|cpu]
 
-Serves ``simple``, ``bert_large``, ``longctx_tpu``, ``moe_tpu``,
-``llama_tpu`` and ``ensemble_llama`` (with its ``llama_preprocess`` and
-``llama_postprocess`` steps).  ``--device cuda`` (the default) serves the
-full-size presets (``longctx_tpu`` base, ``moe_tpu`` base, ``llama_tpu``
-1b) through the CUDA kernels and fails if CUDA is missing; ``--device cpu``
-serves the ``tiny`` presets with the kernels' plain versions.
-``bert_large`` has no preset: full width on either device.  Each
-transformer draws its weights at its first request.
+Registers 23 models, by the reference's names and in its order: ``simple``,
+``resnet50``, ``bert_large``, ``ensemble_llama`` (with its
+``llama_preprocess``, ``llama_tpu`` and ``llama_postprocess`` steps),
+``longctx_tpu``, ``moe_tpu``, and the fixtures ``simple_string``,
+``simple_int8``, ``simple_identity``, ``custom_identity_int32``,
+``identity_fp32``, ``identity_bf16``, ``simple_sequence``,
+``simple_dyna_sequence``, ``repeat_int32`` and ``square_int32`` (decoupled:
+gRPC streams only), ``dense_tpu``, ``simple_cnn``, ``scale_by_two`` and
+``ensemble_scale_sum``.  The decode model and ``llama_generate`` are not
+ported yet (ROADMAP A7).
+
+``--device cuda`` (the default) serves ``resnet50`` in bf16, the
+full-size transformer presets (``longctx_tpu`` base, ``moe_tpu`` base,
+``llama_tpu`` 1b) through the CUDA kernels and ``dense_tpu`` on the card,
+and fails if CUDA is missing; ``--device cpu`` serves ``resnet50`` in f32,
+the ``tiny`` presets with the kernels' plain versions and ``dense_tpu`` on
+the host.  ``bert_large`` and ``resnet50`` have no preset: full width on
+either device.  The other fixtures run on the host either way.  Each
+device model draws its weights at its first request.
 ``TRITON_TPU_LONGCTX_PRESET``, ``TRITON_TPU_MOE_PRESET`` and
 ``TRITON_TPU_LLAMA_PRESET`` are read at start-up,
 ``TRITON_TPU_QUANT[_<MODEL>]=int8`` at a model's first request.

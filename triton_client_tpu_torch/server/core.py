@@ -36,11 +36,21 @@ a system region is read back, then copied into the mapping.
 
 Sequence requests (``sequence_id``, ``sequence_start``, ``sequence_end``
 request parameters, on either protocol) are routed as the reference routes
-them: past the batcher; inside an ensemble the three keys are stripped
-from a batched member's parameters, so concurrent streams coalesce on it
-(core.py:2245-2251).  No served model keeps sequence state yet.
-:meth:`InferenceCore.infer_stream` is the stream entry: one response per
-request (no served model is decoupled yet).
+them: past the batcher, as is every request to a sequence model (its
+state lives in the model, between requests); inside an ensemble the three
+keys are stripped from a batched member's parameters, so concurrent
+streams coalesce on it (core.py:2245-2251).
+
+:meth:`InferenceCore.infer_stream` is the stream entry (the reference's,
+core.py:1484-1695): one response per request, or for a decoupled model
+0..N responses flagged ``triton_final_response`` false, then one empty
+response flagged true.  A unary :meth:`InferenceCore.infer` refuses a
+decoupled model, as the reference does.
+
+Outputs requested with a ``classification`` count come back as the
+reference's top-k ``"score:index[:label]"`` strings (``_classify``).  A
+bf16 output is read back as a ``torch.bfloat16`` host tensor, not through
+numpy: the frontends and the system-shm registry send its own bits.
 
 Statistics (the reference's ``ModelStats.record`` calls and
 ``InferenceCore.statistics``): each execution's rows, queue and compute
@@ -126,8 +136,9 @@ def _timed_execute(model: Model, inputs: Dict[str, Any],
     return outputs
 
 
-def readback(outputs: Dict[str, Any]) -> Dict[str, np.ndarray]:
-    """Every output as a host numpy array.
+def readback(outputs: Dict[str, Any]) -> Dict[str, Any]:
+    """Every output as a host numpy array, a bf16 one as a CPU
+    ``torch.bfloat16`` tensor (numpy has no bf16).
 
     CUDA tensors are copied without blocking into pinned memory and the
     caller waits on one event recorded behind all the copies; CPU tensors
@@ -150,12 +161,20 @@ def readback(outputs: Dict[str, Any]) -> Dict[str, np.ndarray]:
     for name, v in staged.items():
         if isinstance(v, torch.Tensor):
             if v.dtype == torch.bfloat16:
-                raise InferError(
-                    f"output '{name}' is bf16, which this server cannot "
-                    "return yet", http_status=500)
+                out[name] = v
+                continue
             v = v.numpy()
         out[name] = np.asarray(v)
     return out
+
+
+def _host_array(value) -> np.ndarray:
+    """An output as a numpy array on the host (bf16 widened to f32, exact)."""
+    if isinstance(value, torch.Tensor):
+        value = value.detach().cpu()
+        return (value.float() if value.dtype == torch.bfloat16
+                else value).numpy()
+    return np.asarray(value)
 
 
 _STOP = object()
@@ -318,10 +337,18 @@ class InferenceCore:
 
     # -- inference ---------------------------------------------------------
     def infer(self, request: InferRequest) -> InferResponse:
-        """Single request/response inference (HTTP infer)."""
+        """Single request/response inference (HTTP infer, gRPC
+        ModelInfer)."""
+        model = self.registry.get(request.model_name, request.model_version)
+        if model.decoupled:
+            raise InferError(
+                "doesn't support models with decoupled transaction policy")
+        return self._infer_on(model, request)
+
+    def _infer_on(self, model: Model, request: InferRequest
+                  ) -> InferResponse:
         split = RequestSplit() if self.splits is not None else None
         t0 = time.perf_counter_ns()
-        model = self.registry.get(request.model_name, request.model_version)
         inputs = self._resolve_inputs(model, request)
         if split is not None:
             split.resolve = (time.perf_counter_ns() - t0) / 1e6
@@ -373,9 +400,41 @@ class InferenceCore:
         return outputs
 
     def infer_stream(self, request: InferRequest) -> Iterator[InferResponse]:
-        """The stream entry: a request's responses, one by one.  No served
-        model is decoupled yet, so each request yields exactly one."""
-        yield self.infer(request)
+        """The stream entry: a request's responses, one by one.  A model
+        that is not decoupled yields exactly one; a decoupled one yields
+        each of its responses flagged ``triton_final_response`` false, then
+        an empty one flagged true.  The model's generator runs on the
+        calling thread and is closed when the caller stops early."""
+        model = self.registry.get(request.model_name, request.model_version)
+        if not model.decoupled:
+            yield self._infer_on(model, request)
+            return
+        inputs = self._resolve_inputs(model, request)
+        t0 = time.monotonic_ns()
+        gen = model.execute_decoupled(inputs, dict(request.parameters))
+        try:
+            for out in gen:
+                resp = self._build_response(model, request, readback(out))
+                resp.parameters["triton_final_response"] = False
+                yield resp
+        except GeneratorExit:
+            # the consumer went away: the request was served
+            model.stats.record(1, 0, time.monotonic_ns() - t0, ok=True)
+            raise
+        except InferError:
+            model.stats.record(1, 0, time.monotonic_ns() - t0, ok=False)
+            raise
+        except Exception as e:
+            model.stats.record(1, 0, time.monotonic_ns() - t0, ok=False)
+            raise InferError(str(e), 500)
+        finally:
+            gen.close()
+        model.stats.record(1, 0, time.monotonic_ns() - t0, ok=True)
+        final = InferResponse(model_name=model.name,
+                              model_version=model.served_version,
+                              id=request.id)
+        final.parameters["triton_final_response"] = True
+        yield final
 
     def statistics(self, name: Optional[str],
                    version: str = "") -> List[dict]:
@@ -458,7 +517,8 @@ class InferenceCore:
 
     @staticmethod
     def _model_batchable(model: Model) -> bool:
-        return model.max_batch_size > 0 and model.config.dynamic_batching
+        return (model.max_batch_size > 0 and model.config.dynamic_batching
+                and not model.is_sequence)
 
     def _use_batcher(self, model: Model, request: InferRequest) -> bool:
         """Through the dynamic batcher: a batchable model that is not an
@@ -524,10 +584,6 @@ class InferenceCore:
                 raise InferError(
                     f"unexpected inference output '{o.name}' for model "
                     f"'{model.name}'")
-            if o.class_count:
-                raise InferError(
-                    "classification outputs are not supported by this "
-                    "server")
             if o.shm is not None and not (
                     self.cuda_shm.has(o.shm.region_name)
                     or self.system_shm.has(o.shm.region_name)):
@@ -570,7 +626,11 @@ class InferenceCore:
                 raise InferError(
                     f"model '{model.name}' did not produce output '{name}'")
             value = outputs[name]
-            ref = requested[name].shm if name in requested else None
+            spec = requested.get(name)
+            if spec is not None and spec.class_count > 0:
+                value = self._classify(model, name, _host_array(value),
+                                       spec.class_count)
+            ref = spec.shm if spec is not None else None
             if ref is not None and self.cuda_shm.has(ref.region_name):
                 card = self.cuda_shm.write(ref, value) or card
                 datatype = (torch_to_triton_dtype(value.dtype)
@@ -580,11 +640,16 @@ class InferenceCore:
                     name=name, datatype=datatype, shape=tuple(value.shape),
                     data=None, shm=ref))
                 continue
-            host = np.asarray(value)
+            if isinstance(value, torch.Tensor) \
+                    and value.dtype == torch.bfloat16:
+                host, datatype = value.cpu(), "BF16"
+            else:
+                host = np.asarray(value)
+                datatype = np_to_triton_dtype(host.dtype)
             if ref is not None:
                 self.system_shm.write(ref, host)
             resp.outputs.append(OutputTensor(
-                name=name, datatype=np_to_triton_dtype(host.dtype),
+                name=name, datatype=datatype,
                 shape=tuple(host.shape), data=None if ref else host,
                 shm=ref))
         if card is not None:
@@ -594,3 +659,25 @@ class InferenceCore:
             done.record(torch.cuda.current_stream(card))
             done.synchronize()
         return resp
+
+    @staticmethod
+    def _classify(model: Model, name: str, arr: np.ndarray,
+                  k: int) -> np.ndarray:
+        """Top-k classification strings ``"score:index[:label]"`` of each
+        row (the reference's ``_classify``, core.py:2391-2407: the same
+        unstable ``argsort`` of the f32 row, so ties order alike, and the
+        same formatting); shape ``[rows, k]``, or ``[k]`` unbatched."""
+        labels = model.labels(name)
+        batched = arr.ndim > 1
+        rows = arr if batched else arr[None, :]
+        k = min(k, rows.shape[-1])
+        out = []
+        for row in rows.astype(np.float32):
+            idx = np.argsort(-row)[:k]
+            for i in idx:
+                s = f"{row[i]:f}:{i}"
+                if labels and i < len(labels):
+                    s += f":{labels[i]}"
+                out.append(s.encode("utf-8"))
+        shape = (rows.shape[0], k) if batched else (k,)
+        return np.array(out, dtype=np.object_).reshape(shape)

@@ -14,8 +14,10 @@ stream RPC takes an iterator of requests and yields responses.
   become :class:`ShmRef`\\ s.  The response carries each output's bytes in
   ``raw_output_contents`` (views of the output arrays, not copies), an
   empty entry for an output written to a region.
-* ``ModelStreamInfer`` answers each request in turn, errors in-band as
-  ``"[NNN] message"`` (the HTTP status of the core's error).
+* ``ModelStreamInfer`` answers each request in turn (a decoupled model:
+  0..N responses, and the empty final one where the request asks for it),
+  errors in-band as ``"[NNN] message"`` (the HTTP status of the core's
+  error).
 * Health, metadata, ``ModelConfig`` (the config as a proto ``ModelConfig``),
   ``ModelStatistics`` (``InferenceCore.statistics``) and the six shared
   memory RPCs, on the registries of ``shm.py``, with the HTTP routes'
@@ -35,11 +37,11 @@ import numpy as np
 
 from ..protocol import inference as pb
 from ..protocol.service import NOT_PORTED, StatusCode
-from ..utils import serialize_bf16_tensor, serialize_byte_tensor_raw, \
-    triton_to_np_dtype
+from ..utils import triton_to_np_dtype
 from .core import InferenceCore
 from .types import (InferError, InferRequest, InferResponse, InputTensor,
-                    RequestedOutput, ShmRef, bytes_to_array, reshape_input)
+                    RequestedOutput, ShmRef, bytes_to_array, output_payload,
+                    reshape_input)
 
 
 class GrpcError(Exception):
@@ -157,15 +159,6 @@ def decode_request(request: "pb.ModelInferRequest") -> InferRequest:
     return req
 
 
-def _payload(data: np.ndarray, datatype: str):
-    """An output's wire bytes: a view of the array where it is numeric."""
-    if datatype == "BYTES":
-        return serialize_byte_tensor_raw(data)
-    if datatype == "BF16":
-        return memoryview(serialize_bf16_tensor(data).reshape(-1)).cast("B")
-    return memoryview(np.ascontiguousarray(data).reshape(-1)).cast("B")
-
-
 def encode_response(resp: InferResponse) -> "pb.ModelInferResponse":
     """The core's response as a ``ModelInferResponse``."""
     out = pb.ModelInferResponse(model_name=resp.model_name,
@@ -187,7 +180,8 @@ def encode_response(resp: InferResponse) -> "pb.ModelInferResponse":
                     pb.InferParameter(int64_param=t.shm.offset)
             out.raw_output_contents.append(b"")
         else:
-            out.raw_output_contents.append(_payload(t.data, t.datatype))
+            out.raw_output_contents.append(output_payload(t.data,
+                                                          t.datatype))
         out.outputs.append(tensor)
     return out
 
@@ -340,11 +334,20 @@ class InferenceServicer:
     def ModelStreamInfer(self, requests: Iterable
                          ) -> Iterator["pb.ModelStreamInferResponse"]:
         """Each request's responses in turn; a request's error travels
-        in-band, prefixed with its HTTP status, and the stream goes on."""
+        in-band, prefixed with its HTTP status, and the stream goes on.  A
+        decoupled model's empty final response is sent only where the
+        request sets ``triton_enable_empty_final_response`` (the
+        reference's rule, grpc_server.py:584-594)."""
         for request in requests:
             try:
                 req = self._decode(request, 0)
+                empty_final = bool(req.parameters.get(
+                    "triton_enable_empty_final_response", False))
                 for resp in self._core.infer_stream(req):
+                    if not (resp.outputs or empty_final) and \
+                            resp.parameters.get("triton_final_response") \
+                            is True:
+                        continue
                     yield pb.ModelStreamInferResponse(
                         infer_response=encode_response(resp))
             except InferError as e:

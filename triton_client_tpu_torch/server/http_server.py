@@ -42,14 +42,15 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..protocol.grpc_web import CONTENT_TYPE, read_chunked
-from ..utils import serialize_byte_tensor_raw
 from . import grpc_web
 from .core import InferenceCore
 from .grpc_server import InferenceServicer
 from .types import (InferError, InferRequest, InputTensor, RequestedOutput,
-                    ShmRef, bytes_to_array, numeric_dtype, reshape_input)
+                    ShmRef, bytes_to_array, numeric_dtype, output_payload,
+                    reshape_input)
 
 _HEADER_LEN = "Inference-Header-Content-Length"
 _REQUEST_ID_HDR = "triton-request-id"
@@ -398,6 +399,12 @@ def _json_to_array(data, datatype: str, shape, name: str):
                 f"arrays, got {type(x).__name__}")
         flat = np.array([coerce(x) for x in _flatten(data)], dtype=np.object_)
         return reshape_input(flat, shape, name)
+    if datatype == "BF16":
+        try:
+            flat = torch.tensor(list(_flatten(data)), dtype=torch.float32)
+            return flat.to(torch.bfloat16).reshape(tuple(shape))
+        except (ValueError, TypeError, RuntimeError) as e:
+            raise InferError(f"invalid data for input '{name}': {e}")
     dt = numeric_dtype(datatype, name)
     try:
         arr = np.array(data, dtype=dt)
@@ -429,23 +436,18 @@ def encode_response(resp, requested: Dict[str, RequestedOutput],
             continue
         spec = requested.get(out.name)
         binary = spec.binary_data if spec is not None else default_binary
-        if out.datatype == "BYTES":
-            arr = np.asarray(out.data)
-            if binary:
-                seg = memoryview(serialize_byte_tensor_raw(arr))
-            else:
-                entry["data"] = [
-                    x.decode("utf-8") if isinstance(x, (bytes, bytearray))
-                    else str(x) for x in arr.flatten(order="C")]
-        else:
-            data = np.ascontiguousarray(out.data)
-            if binary:
-                seg = memoryview(data.reshape(-1)).cast("B")
-            else:
-                entry["data"] = data.reshape(-1).tolist()
         if binary:
+            seg = output_payload(out.data, out.datatype)
             segments.append(seg)
             entry["parameters"] = {"binary_data_size": seg.nbytes}
+        elif out.datatype == "BYTES":
+            entry["data"] = [
+                x.decode("utf-8") if isinstance(x, (bytes, bytearray))
+                else str(x) for x in np.asarray(out.data).flatten(order="C")]
+        elif out.datatype == "BF16":
+            entry["data"] = out.data.float().reshape(-1).tolist()
+        else:
+            entry["data"] = np.asarray(out.data).reshape(-1).tolist()
         outputs.append(entry)
     header: Dict[str, Any] = {"model_name": resp.model_name,
                               "model_version": resp.model_version or "1",

@@ -11,7 +11,8 @@ message's proto3 JSON (the HTTP ``/config`` body), as the reference's does.
   tensors, run under ``torch.inference_mode()`` on the device its config's
   ``instance_group`` names.  Outputs may stay on the device; the core reads
   them back off the request thread.
-* :class:`PyModel` runs arbitrary Python over numpy arrays.
+* :class:`PyModel` runs arbitrary Python over numpy arrays; a decoupled
+  one yields 0..N response dicts from ``execute_decoupled``.
 * :class:`EnsembleModel` names a DAG of member models (its config's
   ``ensemble_scheduling``); the core runs it.
 """
@@ -22,7 +23,8 @@ import abc
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -37,6 +39,7 @@ class TensorConfig:
     data_type: str            # Triton dtype string ("INT32", "FP32", ...)
     dims: List[int]
     optional: bool = False
+    label_filename: str = ""  # outputs with classification labels
 
 
 @dataclass
@@ -66,6 +69,11 @@ class ModelConfig:
     instance_kind: Optional[str] = None
     parameters: Dict[str, str] = field(default_factory=dict)
     ensemble_scheduling: List[EnsembleStep] = field(default_factory=list)
+    # model_transaction_policy.decoupled
+    decoupled: bool = False
+    # sequence_batching.max_sequence_idle_microseconds; None: no sequence
+    # batching
+    max_sequence_idle_microseconds: Optional[int] = None
 
     def to_pb(self):
         """The config as the v2 protocol's ``ModelConfig`` message (what
@@ -83,13 +91,21 @@ class ModelConfig:
                                  dims=list(t.dims), optional=t.optional)
                    for t in self.input],
             output=[pb.ModelOutput(name=t.name, data_type=dtype(t),
-                                   dims=list(t.dims))
+                                   dims=list(t.dims),
+                                   label_filename=t.label_filename)
                     for t in self.output])
+        if self.decoupled:
+            out.model_transaction_policy = pb.ModelTransactionPolicy(
+                decoupled=True)
         if self.dynamic_batching:
             out.dynamic_batching = pb.ModelDynamicBatching(
                 preferred_batch_size=list(self.preferred_batch_size),
                 max_queue_delay_microseconds=self
                 .max_queue_delay_microseconds)
+        if self.max_sequence_idle_microseconds is not None:
+            out.sequence_batching = pb.ModelSequenceBatching(
+                max_sequence_idle_microseconds=self
+                .max_sequence_idle_microseconds)
         if self.instance_kind:
             out.instance_group.append(pb.ModelInstanceGroup(
                 name=self.name, count=1, kind=pb.enum_value(
@@ -127,27 +143,40 @@ def make_config(
     instance_kind: Optional[str] = None,
     parameters: Optional[Dict[str, str]] = None,
     ensemble_scheduling: Optional[Sequence[EnsembleStep]] = None,
+    decoupled: bool = False,
+    sequence_batching: bool = False,
+    labels: Optional[Dict[str, List[str]]] = None,
 ) -> ModelConfig:
     """Config builder with the reference's signature, for the fields the
-    port uses (no decoupled, sequence, warmup or response-cache configs
-    yet).  ``inputs``/``outputs``: (name, Triton dtype, dims), dims
-    excluding the batch dimension when ``max_batch_size > 0``.  The
-    reference adds ensemble steps to the config message after building
-    it; here they are ``ensemble_scheduling``."""
+    port uses (no warmup or response-cache configs yet).
+    ``inputs``/``outputs``: (name, Triton dtype, dims), dims excluding the
+    batch dimension when ``max_batch_size > 0``.  An output named in
+    ``labels`` gets the reference's ``label_filename``
+    (``<output>_labels.txt``); ``sequence_batching`` sets the reference's
+    60 s ``max_sequence_idle_microseconds``.  The reference adds ensemble
+    steps to the config message after building it; here they are
+    ``ensemble_scheduling``."""
     if instance_kind is not None and instance_kind not in _INSTANCE_KINDS:
         raise ValueError(f"unknown instance kind {instance_kind!r}; "
                          f"expected one of {_INSTANCE_KINDS}")
+    labels = labels or {}
     return ModelConfig(
         name=name, platform=platform, backend=backend,
         max_batch_size=max_batch_size,
         input=[TensorConfig(n, dt, list(d)) for n, dt, d in inputs],
-        output=[TensorConfig(n, dt, list(d)) for n, dt, d in outputs],
+        output=[TensorConfig(n, dt, list(d),
+                             label_filename=f"{n}_labels.txt"
+                             if n in labels else "")
+                for n, dt, d in outputs],
         preferred_batch_size=sorted(preferred_batch_sizes or []),
         max_queue_delay_microseconds=max_queue_delay_us,
         dynamic_batching=bool(preferred_batch_sizes or max_queue_delay_us),
         instance_kind=instance_kind,
         parameters={k: str(v) for k, v in (parameters or {}).items()},
         ensemble_scheduling=list(ensemble_scheduling or []),
+        decoupled=decoupled,
+        max_sequence_idle_microseconds=60_000_000 if sequence_batching
+        else None,
     )
 
 
@@ -264,6 +293,14 @@ class Model(abc.ABC):
     def max_batch_size(self) -> int:
         return self.config.max_batch_size
 
+    @property
+    def decoupled(self) -> bool:
+        return self.config.decoupled
+
+    @property
+    def is_sequence(self) -> bool:
+        return self.config.max_sequence_idle_microseconds is not None
+
     def metadata(self) -> dict:
         """v2 model-metadata JSON."""
         batched = self.config.max_batch_size > 0
@@ -286,16 +323,35 @@ class Model(abc.ABC):
                 parameters: Dict[str, Any]) -> Dict[str, Any]:
         ...
 
+    def execute_decoupled(self, inputs: Dict[str, Any],
+                          parameters: Dict[str, Any]
+                          ) -> Iterator[Dict[str, Any]]:
+        """A decoupled model's 0..N response dicts."""
+        raise InferError(f"model '{self.name}' is not decoupled")
+
+    def labels(self, output_name: str) -> Optional[List[str]]:
+        """Classification labels of an output, where it has them."""
+        return None
+
 
 class PyModel(Model):
-    """Host-side model: arbitrary Python over numpy arrays."""
+    """Host-side model: arbitrary Python over numpy arrays.  A decoupled
+    one takes ``decoupled_fn(inputs, parameters)``, a generator of
+    response dicts."""
 
-    def __init__(self, config: ModelConfig, fn: Callable):
+    def __init__(self, config: ModelConfig, fn: Optional[Callable],
+                 decoupled_fn: Optional[Callable] = None):
         super().__init__(config)
         self._fn = fn
+        self._decoupled_fn = decoupled_fn
 
     def execute(self, inputs, parameters):
         return self._fn(inputs, parameters)
+
+    def execute_decoupled(self, inputs, parameters):
+        if self._decoupled_fn is None:
+            return super().execute_decoupled(inputs, parameters)
+        return self._decoupled_fn(inputs, parameters)
 
 
 class EnsembleModel(Model):
@@ -319,15 +375,18 @@ class TorchModel(Model):
     ``fn(**inputs) -> dict[str, Tensor]`` receives every numeric input as a
     tensor on the model's device (object/BYTES arrays stay numpy) and runs
     under ``torch.inference_mode()``.  ``host_pre(inputs, params)`` and
-    ``host_post(outputs, params)`` run on the host before and after it."""
+    ``host_post(outputs, params)`` run on the host before and after it.
+    ``output_labels``: classification labels by output name."""
 
     def __init__(self, config: ModelConfig, fn: Callable[..., Dict[str, Any]],
                  host_pre: Optional[Callable] = None,
-                 host_post: Optional[Callable] = None):
+                 host_post: Optional[Callable] = None,
+                 output_labels: Optional[Dict[str, List[str]]] = None):
         super().__init__(config)
         self._fn = fn
         self._host_pre = host_pre
         self._host_post = host_post
+        self._output_labels = output_labels or {}
         # resolved here, not on first request: a model placed on a missing
         # device fails at registration, loudly
         self.device = resolve_instance_device(config)
@@ -356,6 +415,9 @@ class TorchModel(Model):
         if self._host_post is not None:
             outputs = self._host_post(outputs, parameters)
         return outputs
+
+    def labels(self, output_name: str) -> Optional[List[str]]:
+        return self._output_labels.get(output_name)
 
 
 __all__ = ["EnsembleModel", "EnsembleStep", "Model", "ModelConfig",

@@ -33,8 +33,9 @@ import torch
 
 from .. import _cuda_ipc
 from .._cuda_broker import broker
-from ..utils import (deserialize_bytes_tensor, serialize_byte_tensor,
-                     triton_to_np_dtype, triton_to_torch_dtype, typed_view)
+from ..utils import (bf16_to_bytes, deserialize_bytes_tensor,
+                     serialize_byte_tensor, triton_to_np_dtype,
+                     triton_to_torch_dtype, typed_view)
 from ..utils import shared_memory as sysshm
 from .types import InferError, ShmRef
 
@@ -122,22 +123,30 @@ class SystemShmRegistry:
         the elements decoded)."""
         region = self._get(ref)
         _check_extent(ref, region.byte_size)
-        dt = triton_to_np_dtype(datatype)
+        # BF16: the bits as int16, viewed as a torch.bfloat16 tensor
+        dt = (np.dtype(np.int16) if datatype == "BF16"
+              else triton_to_np_dtype(datatype))
         if dt is None:
             raise InferError(f"unsupported datatype {datatype}")
         if dt != np.object_:
             _check_fits(ref, math.prod(shape) * dt.itemsize, datatype, shape)
         try:
-            return sysshm.get_contents_as_numpy(
+            arr = sysshm.get_contents_as_numpy(
                 region.handle, dt, list(shape), offset=ref.offset)
         except sysshm.SharedMemoryException as e:
             raise InferError(
                 f"shared memory region '{ref.region_name}': {e}")
+        if datatype == "BF16":
+            return torch.from_numpy(arr).view(torch.bfloat16)
+        return arr
 
-    def write(self, ref: ShmRef, data: np.ndarray) -> int:
-        """Copy an output into the region; returns the bytes written."""
+    def write(self, ref: ShmRef, data) -> int:
+        """Copy an output (a host array, or a ``torch.bfloat16`` tensor)
+        into the region; returns the bytes written."""
         region = self._get(ref)
-        if data.dtype == np.object_ or data.dtype.kind in ("S", "U"):
+        if isinstance(data, torch.Tensor):
+            payload = bf16_to_bytes(data)
+        elif data.dtype == np.object_ or data.dtype.kind in ("S", "U"):
             payload = serialize_byte_tensor(data)
         else:
             payload = np.ascontiguousarray(data)

@@ -16,7 +16,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from ..utils import deserialize_bytes_tensor, triton_to_np_dtype
+from ..utils import (bf16_from_bytes, bf16_to_bytes, deserialize_bytes_tensor,
+                     serialize_byte_tensor_raw, triton_to_np_dtype)
 
 
 @dataclass
@@ -124,10 +125,11 @@ class OutputTensor:
     name: str
     datatype: str
     shape: Tuple[int, ...]
-    # Host ndarray at the frontend boundary; None when the output was
-    # delivered through a shared-memory region (the core wrote it there and
-    # the frontend must emit only shm params, no data):
-    data: Optional[np.ndarray]
+    # Host ndarray at the frontend boundary (BF16: a torch.bfloat16 CPU
+    # tensor); None when the output was delivered through a shared-memory
+    # region (the core wrote it there and the frontend must emit only shm
+    # params, no data):
+    data: Optional[Any]
     shm: Optional[ShmRef] = None
     parameters: Dict[str, Any] = field(default_factory=dict)
 
@@ -232,7 +234,15 @@ def numeric_dtype(datatype: str, name: str) -> np.dtype:
 def bytes_to_array(chunk, datatype: str, shape, name: str):
     """A tensor's raw wire bytes (HTTP binary data, gRPC
     ``raw_input_contents``) as an array of its shape: a view for a numeric
-    datatype, BYTES elements decoded; a malformed payload is a 400."""
+    datatype, BYTES elements decoded, BF16 a ``torch.bfloat16`` tensor; a
+    malformed payload is a 400."""
+    if datatype == "BF16":
+        expected = math.prod(shape) * 2
+        if len(chunk) != expected:
+            raise InferError(
+                f"unexpected total byte size {len(chunk)} for input "
+                f"'{name}', expecting {expected}")
+        return bf16_from_bytes(chunk, shape)
     if datatype == "BYTES":
         try:
             flat = deserialize_bytes_tensor(chunk)
@@ -247,3 +257,14 @@ def bytes_to_array(chunk, datatype: str, shape, name: str):
             f"unexpected total byte size {len(chunk)} for input '{name}', "
             f"expecting {expected}")
     return reshape_input(np.frombuffer(chunk, dtype=dt), shape, name)
+
+
+def output_payload(data, datatype: str) -> memoryview:
+    """An output's wire bytes (HTTP binary data, gRPC
+    ``raw_output_contents``): a view of the array where it is numeric and
+    contiguous, BYTES serialized once, BF16 the tensor's own bits."""
+    if datatype == "BYTES":
+        return memoryview(serialize_byte_tensor_raw(np.asarray(data)))
+    if datatype == "BF16":
+        return memoryview(bf16_to_bytes(data))
+    return memoryview(np.ascontiguousarray(data).reshape(-1)).cast("B")

@@ -4,7 +4,9 @@ type (the port's own copy of the reference's
 
 ``BF16`` maps to ``ml_dtypes.bfloat16`` where that package is installed,
 else to no numpy dtype (and decodes to float32, as the original client
-does).  BYTES maps to ``object``; on the wire a BYTES tensor is the
+does).  The server holds a BF16 tensor on the host as a
+``torch.bfloat16`` tensor, whatever is installed: :func:`bf16_from_bytes`
+and :func:`bf16_to_bytes` move it to and from the wire by its own bits.  BYTES maps to ``object``; on the wire a BYTES tensor is the
 row-major concatenation of ``<uint32 little-endian length><element
 bytes>``.
 
@@ -227,6 +229,22 @@ def deserialize_bf16_tensor(encoded_tensor) -> np.ndarray:
         return np.frombuffer(encoded_tensor, dtype=_BF16_NP)
     as_u16 = np.frombuffer(encoded_tensor, dtype=np.uint16)
     return (as_u16.astype(np.uint32) << 16).view(np.float32)
+
+
+def bf16_from_bytes(encoded_tensor, shape) -> torch.Tensor:
+    """Raw little-endian bf16 bytes as a ``torch.bfloat16`` CPU tensor of
+    ``shape`` (one copy: the wire buffer may be read-only)."""
+    bits = np.frombuffer(encoded_tensor, dtype=np.int16).copy()
+    return torch.from_numpy(bits).view(torch.bfloat16).reshape(
+        tuple(shape))
+
+
+def bf16_to_bytes(tensor: torch.Tensor) -> np.ndarray:
+    """A ``torch.bfloat16`` tensor's raw little-endian bytes, from its own
+    bits (``view(torch.int16)``, no float32 detour), as a 1-D uint8 array:
+    a view where the tensor is a contiguous CPU tensor."""
+    bits = tensor.detach().contiguous().view(torch.int16).cpu()
+    return bits.numpy().view(np.uint8).reshape(-1)
 
 
 def as_wire_memoryview(arr: np.ndarray) -> memoryview:
