@@ -114,7 +114,23 @@ Phases (any failure exits non-zero and prints no result line):
     forward timed, traced and counted in FLOPs; then ``perf_analyzer -m
     resnet50 -i grpc``: -b 32 at c = 1 by wire, stream and CUDA shm, -b 1
     at c = 1 and 8 through the batcher; no kernel of the port launches;
-12. print each kernel's launches on every served path, one JSON line
+12. observability: ``longctx_tpu`` base at B = 4 under int8 ``all``
+    (flash and int8 in every layer) and ``bert_large`` int8 ``w2`` at -b
+    32, each served with tracing (TIMESTAMPS at rate 1), device statistics
+    and the flight recorder on and driven by ``perf_analyzer
+    --trace-file`` at c = 1 from a process of its own: every traced
+    request a REQUEST root with QUEUE, BATCH_ASSEMBLY, COMPUTE and
+    D2H_TRANSFER children, each COMPUTE within ``OBS_TOL`` of the
+    CUDA-event forward; launches exactly per forward; the served answers
+    equal with observability on and off (bit for bit for ``bert_large``);
+    the signature's counted FLOPs equal to the plain path's within
+    ``OBS_FLOPS_TOL``; live MFU in (0, 1.05] and within ``OBS_TOL`` of
+    counted FLOPs / forward / the bf16 peak; ``nv_tpu_memory_used_bytes``
+    at least the served parameters' bytes; ``/metrics`` parsed; a
+    ``PROFILE`` window whose Chrome trace names the flash and int8
+    kernels; no region left; ``bert_large`` runs off, then on, and on may
+    be at most ``OBS_TOL`` slower;
+13. print each kernel's launches on every served path, one JSON line
     describing every kernel, then the result line
     ``{"ok": true, "device": {...}}``.
 
@@ -146,10 +162,14 @@ import sys
 import threading
 import time
 
-# H100 SXM data-sheet peaks (dense), at the full 700 W power limit
-PEAK_BF16_FLOPS = 989e12
+# H100 SXM data-sheet peaks (dense), at the full 700 W power limit.  The
+# bf16 peak and the memory rate are the port's own constants
+# (device_stats.peak_flops(), costs.peak_bytes_per_s()), read in main(),
+# so a bound here and a live MFU on the server's /metrics share one
+# denominator
+PEAK_BF16_FLOPS = None
 PEAK_INT8_OPS = 1979e12
-PEAK_BYTES_PER_S = 3.35e12
+PEAK_BYTES_PER_S = None
 # the exp unit (MUFU ex2) of one SM retires 16 results per clock
 EXP_PER_CLOCK_PER_SM = 16
 
@@ -2275,7 +2295,408 @@ def vision_phase(torch, counters) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Observability: tracing, device statistics, costs, the flight recorder and
+# /metrics on the served models
+# ---------------------------------------------------------------------------
+
+#: "<path>" -> the kernel launches of that observability run
+OBS_PATHS = {}
+#: where the observed server writes its trace files (inside the checkout)
+OBS_DIR = os.path.join(REPO, "build", "chip_smoke_obs")
+# each traced COMPUTE span within this share of the CUDA-event forward;
+# live MFU within it of counted FLOPs / forward time / peak; the served
+# requests with observability on at most this much slower than off
+OBS_TOL = 0.10
+# counted FLOPs of a signature, kernel path against plain path
+OBS_FLOPS_TOL = 1e-3
+# the requests one PROFILE window is held open for
+OBS_PROFILE_REQUESTS = 2
+
+_PROM_SAMPLE = None
+
+
+def parse_prometheus(text: str) -> dict:
+    """{family: {"type", "samples": [(labels, value)]}} of a /metrics
+    body; fails the run on a line that is not the text exposition
+    format."""
+    import re
+
+    global _PROM_SAMPLE
+    if _PROM_SAMPLE is None:
+        _PROM_SAMPLE = (re.compile(
+            r'([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{((?:[a-zA-Z_][a-zA-Z0-9_]*='
+            r'"(?:[^"\\]|\\.)*",?)*)\})? (\S+)'),
+            re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"'))
+    sample, label = _PROM_SAMPLE
+    families, current = {}, None
+    for line in text.splitlines():
+        if line.startswith("# HELP "):
+            current = line[7:].partition(" ")[0]
+            families[current] = {"type": None, "samples": []}
+        elif line.startswith("# TYPE "):
+            name, _, kind = line[7:].partition(" ")
+            if name != current or kind not in ("counter", "gauge"):
+                fail(f"/metrics: bad TYPE line {line!r}")
+            families[name]["type"] = kind
+        elif line:
+            m = sample.fullmatch(line)
+            if m is None or m.group(1) != current:
+                fail(f"/metrics: not a sample of its family: {line!r}")
+            try:
+                value = float(m.group(3))
+            except ValueError:
+                fail(f"/metrics: not a number: {line!r}")
+            families[current]["samples"].append(
+                (dict(label.findall(m.group(2) or "")), value))
+    return families
+
+
+def _obs_set(core, on: bool) -> None:
+    """Device statistics and the flight recorder on or off (tracing is
+    set by perf_analyzer's --trace-file)."""
+    core.device_stats.enabled = on
+    core.flight_recorder.configure(enabled=on)
+
+
+def _obs_request(port: int, model, rows: int, seed: int):
+    """One request of ``rows`` seeded rows to ``model``: its output."""
+    import numpy as np
+
+    cfg = model.config.input[0]
+    vocab = model.transformer.cfg.vocab_size
+    x = np.random.default_rng(seed).integers(
+        0, vocab, [rows] + list(cfg.dims)).astype(np.int32)
+    client = _client(port)
+    try:
+        out, _ = _post_infer(client, model.name, [(cfg.name, cfg.data_type,
+                                                   x)],
+                             [model.config.output[0].name])
+    finally:
+        client.close()
+    return x, out[model.config.output[0].name]
+
+
+def _obs_forward_ms(torch, model, x, runs: int = 7) -> float:
+    """The CUDA-event time of one served execution (``model.execute``:
+    the tokens' copy to the card, the forward and the outputs) at
+    ``x``'s batch, each started on an idle card as the server starts one
+    at c = 1: the median of ``runs``."""
+    import statistics
+
+    inputs = {model.config.input[0].name: x}
+    model.execute(inputs, {})
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        model.execute(inputs, {})
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _obs_plain_flops(torch, model, x, head_cols=None):
+    """Counted FLOPs and bytes of the same function as the served one,
+    with the kernels' plain versions in their place."""
+    from triton_client_tpu_torch.models import language, transformer
+    from triton_client_tpu_torch.server.costs import analyze_torch_callable
+
+    run = model.transformer
+    fwd = transformer.make_forward(run.cfg, quantized="wq_scale" in run.params,
+                                   head_cols=head_cols, plain=True)
+
+    def plain(tokens):
+        tokens = torch.clamp(tokens, 0, run.cfg.vocab_size - 1)
+        logits = fwd(run.params, tokens)
+        if model.name == "longctx_tpu":
+            return language.longctx_scores(logits, tokens)
+        return logits
+
+    with torch.inference_mode():
+        tokens = torch.from_numpy(x).cuda()
+        _, cost = analyze_torch_callable(plain, tokens, device="cuda")
+    return cost
+
+
+def _obs_check_traces(label: str, path: str, fwd_ms: float,
+                      batched: bool) -> list:
+    """Every traced request has a REQUEST root with QUEUE, COMPUTE and
+    D2H_TRANSFER children (and BATCH_ASSEMBLY where batched); each COMPUTE
+    within OBS_TOL of the CUDA-event forward.  Returns the COMPUTE ms."""
+    records = []
+    with open(path) as f:
+        for line in f:
+            if line.strip():
+                records.append(json.loads(line))
+    if not records:
+        fail(f"{label}: no traced request in {path}")
+    computes = []
+    for rec in records:
+        names = [(s["name"], s["parent"]) for s in rec["spans"]]
+        want = [("REQUEST", None)] + [(n, "REQUEST") for n in (
+            "DECODE", "QUEUE", *(("BATCH_ASSEMBLY",) if batched else ()),
+            "COMPUTE", "D2H_TRANSFER", "SERIALIZE", "NETWORK_WRITE")]
+        if names != want:
+            fail(f"{label}: a traced request's spans are {names}, "
+                 f"expected {want}")
+        span = next(s for s in rec["spans"] if s["name"] == "COMPUTE")
+        computes.append((span["end_ns"] - span["start_ns"]) / 1e6)
+    offs = [abs(c - fwd_ms) / fwd_ms for c in computes]
+    worst = max(offs)
+    ranked = sorted(computes)
+    print(f"{label}: {len(records)} traced requests, each a REQUEST root "
+          f"with {' '.join(n for n, _ in want[1:])}; COMPUTE "
+          f"{ranked[0]:.3f}-{ranked[-1]:.3f} ms (median "
+          f"{ranked[len(ranked) // 2]:.3f}, p90 "
+          f"{ranked[int(0.9 * (len(ranked) - 1))]:.3f}) against the "
+          f"CUDA-event forward {fwd_ms:.3f} ms (worst {worst:.1%}, the "
+          f"{offs.index(worst) + 1}th traced request; bound {OBS_TOL:.0%});"
+          f" {CARD}", flush=True)
+    if not worst <= OBS_TOL:
+        fail(f"{label}: a traced COMPUTE is {worst:.1%} off the forward")
+    return computes
+
+
+def _obs_device_numbers(label: str, harness, model, counted,
+                        plain, fwd_ms: float) -> None:
+    """The server's own numbers for ``model``: live MFU (in (0, 1.05] and
+    within OBS_TOL of counted FLOPs / forward / peak), duty cycle, device
+    memory in use (at least the served parameters' bytes), the roofline
+    verdict of each signature, /metrics parsed; the kernel path's counted
+    FLOPs equal to the plain path's within OBS_FLOPS_TOL."""
+    import urllib.request
+
+    from triton_client_tpu_torch.server.costs import classify_roofline
+
+    client = _client(harness.http_port)
+    try:
+        snap = client.get_device_stats(model.name)
+        costs = client.get_costs(model.name)
+    finally:
+        client.close()
+    text = urllib.request.urlopen(
+        f"http://{harness.http_url}/metrics", timeout=60).read().decode()
+    families = parse_prometheus(text)
+    entry = snap["models"][model.name]
+    mfu = next((v for lab, v in families["nv_tpu_live_mfu"]["samples"]
+                if lab.get("model") == model.name), None)
+    used = [v for _, v in families.get(
+        "nv_tpu_memory_used_bytes", {"samples": []})["samples"]]
+    params_bytes = sum(t.numel() * t.element_size()
+                       for t in model.transformer.params.values())
+    rel = abs(counted.flops - plain.flops) / plain.flops
+    print(f"{label}: counted FLOPs of the served signature "
+          f"{counted.flops:.6e} (bytes accessed {counted.bytes_accessed:.4e},"
+          f" temp {counted.temp_bytes / 1e9:.3f} GB), plain path "
+          f"{plain.flops:.6e}: off by {rel:.2e} (bound {OBS_FLOPS_TOL})",
+          flush=True)
+    if not rel <= OBS_FLOPS_TOL:
+        fail(f"{label}: the kernel path counts other FLOPs than the plain "
+             "path")
+    want_mfu = counted.flops / (fwd_ms / 1e3) / PEAK_BF16_FLOPS
+    print(f"{label}: live MFU {mfu} (counted FLOPs / CUDA-event forward / "
+          f"bf16 peak: {want_mfu:.4f}), duty cycle {entry['duty_cycle']}, "
+          f"device memory in use {used} bytes (served parameters "
+          f"{params_bytes} bytes), limit "
+          f"{snap['hbm'].get('cuda:0', {}).get('bytes_limit')}; {CARD}",
+          flush=True)
+    if mfu is None or not 0 < mfu <= 1.05 or \
+            not abs(mfu - want_mfu) <= OBS_TOL * want_mfu:
+        fail(f"{label}: live MFU {mfu} is not in (0, 1.05] within "
+             f"{OBS_TOL:.0%} of {want_mfu:.4f}")
+    if not used or min(used) < params_bytes:
+        fail(f"{label}: nv_tpu_memory_used_bytes {used} under the served "
+             f"parameters' {params_bytes} bytes")
+    for event in entry["compile"]["recent"]:
+        roof = classify_roofline(event.get("flops", 0.0),
+                                 event.get("bytes_accessed", 0.0))
+        print(f"{label}: signature {event['signature']}: counted in "
+              f"{event['wall_ms']} ms, {event.get('flops', 0.0):.4e} FLOPs, "
+              f"{event.get('bytes_accessed', 0.0):.4e} bytes, roofline "
+              f"{roof}; {CARD}", flush=True)
+    for bucket, tick in snap["ticks"].get(model.name, {}).items():
+        print(f"{label}: bucket {bucket}: {tick['ticks']} ticks, pad waste "
+              f"{tick['pad_waste']}, roofline {tick['roofline']}; {CARD}",
+              flush=True)
+    print(f"{label}: cost ledger {costs['models'].get(model.name)}; "
+          f"/metrics: {len(families)} families parsed", flush=True)
+
+
+def _obs_profile(label: str, harness, torch, model, rows: int) -> None:
+    """A PROFILE window over OBS_PROFILE_REQUESTS requests: its exported
+    Chrome trace must name the flash and int8 kernels' __global__
+    functions."""
+    import glob
+
+    base = os.path.join(OBS_DIR, "profile.json")
+    client = _client(harness.http_port)
+    try:
+        client.update_trace_settings(settings={
+            "trace_file": [base], "trace_level": ["PROFILE"]})
+        try:
+            for i in range(OBS_PROFILE_REQUESTS):
+                _obs_request(harness.http_port, model, rows, 40 + i)
+        finally:
+            client.update_trace_settings(settings={"trace_level": ["OFF"]})
+    finally:
+        client.close()
+    names = set()
+    for path in glob.glob(os.path.join(base + ".profile", "*.json")):
+        with open(path) as f:
+            for ev in json.load(f).get("traceEvents", []):
+                if ev.get("cat") == "kernel":
+                    names.add(ev.get("name", ""))
+    found = {k: sorted(n for n in names if k in n)
+             for k in ("flash_fwd", "quantize_rows", "int8_gemm")}
+    print(f"{label}: PROFILE window: {len(names)} kernel names; "
+          + "; ".join(f"{k}: {v}" for k, v in found.items()), flush=True)
+    if not all(found.values()):
+        fail(f"{label}: the PROFILE trace does not name every kernel: "
+             f"{found}")
+
+
+def _obs_served_equal(label: str, harness, model, rows: int, atol):
+    """The same tokens served with observability off, then on: equal (bit
+    for bit where ``atol`` is 0).  Leaves observability on."""
+    import numpy as np
+
+    core = harness.core
+    _obs_set(core, False)
+    x, off = _obs_request(harness.http_port, model, rows, 31)
+    _obs_set(core, True)
+    _, on = _obs_request(harness.http_port, model, rows, 31)
+    err = float(np.abs(on.astype(np.float64) - off).max())
+    print(f"{label}: served answer with observability on against off: "
+          f"max_abs_err {err:.3e} (bound {atol})", flush=True)
+    if not err <= atol:
+        fail(f"{label}: observability changed the served answer")
+    return x
+
+
+def _obs_sweep(label: str, harness, model, counters, rows: int, flash: int,
+               int8: int, on: bool, window_ms: int):
+    """One perf_analyzer run at c = 1 with observability ``on`` (device
+    statistics, the flight recorder, and --trace-file at rate 1) or off."""
+    core = harness.core
+    _obs_set(core, on)
+    args = ["-b", str(rows), "--concurrency-range", "1"]
+    path = None
+    if on:
+        path = os.path.join(OBS_DIR, f"{model.name}-{len(OBS_PATHS)}.json")
+        args += ["--trace-file", path, "--trace-rate", "1"]
+    (res,) = perf_sweep(f"{label} observability {'on' if on else 'off'} "
+                        f"(run {len(OBS_PATHS) + 1})", harness, model, args,
+                        counters, flash, int8, window_ms=window_ms,
+                        paths=OBS_PATHS)
+    return res, path
+
+
+def observability_phase(torch, counters) -> None:
+    """Tracing, device statistics, costs, the flight recorder and /metrics
+    on the card: ``longctx_tpu`` base at B = 4 under int8 ``all`` (8 flash
+    and 16 int8 launches per forward) and ``bert_large`` int8 ``w2`` at
+    -b 32 (24 int8 launches), each served with observability on and
+    driven by ``perf_analyzer --trace-file`` at c = 1 from a process of
+    its own.  Every traced request's span tree and COMPUTE length, the
+    kernels' launches per forward (as with observability off), the served
+    answers (equal with it on and off), the counted FLOPs (kernel path
+    against plain path), live MFU, device memory in use and /metrics are
+    checked; a PROFILE window must name the kernels; no region is left.
+    ``bert_large`` -b 32 runs off, then on: on may be at most OBS_TOL
+    slower."""
+    from triton_client_tpu_torch.models import language
+
+    os.makedirs(OBS_DIR, exist_ok=True)
+    layers = language.longctx_cfg("cuda").n_layers
+    # the earlier phases' long-lived objects out of the collector's scans:
+    # a full collection in the middle of a served forward stalls the
+    # launches and shows as a longer COMPUTE
+    gc.collect()
+    gc.freeze()
+    for var, val in (("TRITON_TPU_QUANT_LONGCTX_TPU", "int8"),
+                     ("TRITON_TPU_QUANT_BERT_LARGE", "int8"),
+                     ("TRITON_TPU_INT8_FUSED", "all")):
+        os.environ[var] = val
+    try:
+        label = "obs longctx_tpu int8 all"
+        model = language.make_longctx_tpu("cuda")
+        with serving_harness([model]) as harness:
+            _warm(harness, model, 4)  # the signature's counted execution
+            check_precision(label, model.transformer, True)
+            x = _obs_served_equal(label, harness, model, 4,
+                                  SERVED_ATOL[("longctx_tpu", True)])
+            fwd_ms = _obs_forward_ms(torch, model, x)
+            _, path = _obs_sweep(label, harness, model, counters, 4, layers,
+                                 2 * layers, True, PERF_WINDOW_MS)
+            _obs_check_traces(label, path, fwd_ms, batched=True)
+            counted = harness.core.device_stats.signature_cost(
+                model.name, _signature_of(harness, model, x))
+            _obs_device_numbers(label, harness, model, counted,
+                                _obs_plain_flops(torch, model, x), fwd_ms)
+            _obs_profile(label, harness, torch, model, 4)
+            _no_regions_left(label, harness)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        os.environ["TRITON_TPU_INT8_FUSED"] = "w2"
+        label = "obs bert_large int8 w2 -b 32"
+        layers = language.BERT_LARGE.n_layers
+        model = language.make_bert_large("cuda")
+        with serving_harness([model]) as harness:
+            _warm(harness, model, 32)
+            check_precision(label, model.transformer, True)
+            x = _obs_served_equal(label, harness, model, 32, 0.0)
+            fwd_ms = _obs_forward_ms(torch, model, x)
+            runs = {}
+            for on in (False, True):
+                res, path = _obs_sweep(label, harness, model, counters, 32,
+                                       0, layers, on, PERF_WINDOW_MS)
+                runs.setdefault(on, []).append(res)
+                if on:
+                    _obs_check_traces(label, path, fwd_ms, batched=True)
+            mean = {on: sum(r["avg_us"] for r in rs) / len(rs) / 1e3
+                    for on, rs in runs.items()}
+            thr = {on: sum(r["throughput"] for r in rs) / len(rs)
+                   for on, rs in runs.items()}
+            slower = mean[True] / mean[False] - 1
+            print(f"{label}: observability off: {thr[False]:.3f} infer/s, "
+                  f"mean {mean[False]:.3f} ms; on: {thr[True]:.3f} infer/s, "
+                  f"mean {mean[True]:.3f} ms ({slower:+.1%}, bound "
+                  f"+{OBS_TOL:.0%}); {CARD}", flush=True)
+            if not slower <= OBS_TOL:
+                fail(f"{label}: observability on is {slower:.1%} slower")
+            counted = harness.core.device_stats.signature_cost(
+                model.name, _signature_of(harness, model, x))
+            _obs_device_numbers(
+                label, harness, model, counted,
+                _obs_plain_flops(torch, model, x,
+                                 head_cols=language.BERT_HEAD_COLS), fwd_ms)
+            _no_regions_left(label, harness)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        gc.unfreeze()
+        for var in ("TRITON_TPU_QUANT_LONGCTX_TPU",
+                    "TRITON_TPU_QUANT_BERT_LARGE", "TRITON_TPU_INT8_FUSED"):
+            os.environ.pop(var, None)
+
+
+def _signature_of(harness, model, x):
+    """The input signature the server records for a batch like ``x``."""
+    from triton_client_tpu_torch.server.core import _signature
+
+    return _signature({model.config.input[0].name: x})
+
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -2285,6 +2706,10 @@ def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "triton_client_tpu_torch")):
         fail("triton_client_tpu_torch is not beside chip_smoke.py")
     sys.path.insert(0, REPO)
+    global PEAK_BF16_FLOPS, PEAK_BYTES_PER_S
+    from triton_client_tpu_torch.server.costs import peak_bytes_per_s
+    from triton_client_tpu_torch.server.device_stats import peak_flops
+    PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = peak_flops(), peak_bytes_per_s()
     # plain versions in full f32 (no TF32 shortcuts)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2354,9 +2779,12 @@ def main() -> int:
                 os.environ.pop(var, None)
             else:
                 os.environ[var] = val
+        t0 = time.perf_counter()
         launches = fn(label, torch, counters, *args, int8=int8, **kw)
         gc.collect()
         torch.cuda.empty_cache()
+        print(f"{label}: phase took {time.perf_counter() - t0:.1f} s",
+              flush=True)
         return launches
 
     # the main path: every served model, bf16 and int8 under the default
@@ -2390,15 +2818,23 @@ def main() -> int:
         "llama_tpu", int8_per_layer=1, int8=True)
     for var in ("TRITON_TPU_QUANT", "TRITON_TPU_INT8_FUSED"):
         os.environ.pop(var, None)
-    perf_phase(torch, counters, fa)
-    grpc_phase(torch, counters)
-    vision_phase(torch, counters)
+    for name, fn, args in (("perf", perf_phase, (torch, counters, fa)),
+                           ("grpc", grpc_phase, (torch, counters)),
+                           ("vision", vision_phase, (torch, counters)),
+                           ("observability", observability_phase,
+                            (torch, counters))):
+        t0 = time.perf_counter()
+        fn(*args)
+        print(f"{name} phase took {time.perf_counter() - t0:.1f} s",
+              flush=True)
     # and every transport's window of the shared-memory phases, every
-    # perf_analyzer run, every gRPC window and every vision window
+    # perf_analyzer run, every gRPC window, every vision window and every
+    # observability run
     paths.update(SHM_PATHS)
     paths.update(PERF_PATHS)
     paths.update(GRPC_PATHS)
     paths.update(VISION_PATHS)
+    paths.update(OBS_PATHS)
     for path, launches in paths.items():
         print(f"launches on {path}: flash_attention "
               f"{launches['flash_attention']}, int8_matmul "
@@ -2419,6 +2855,8 @@ def main() -> int:
     for k in kernels:
         if k["launches"] == 0:
             fail(f"{k['name']} never launched on the main path")
+    print(f"the script took {time.perf_counter() - t_start:.1f} s; {CARD}",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -134,6 +134,46 @@ def test_flash_bf16_kernel_takes_more_than_65535_heads(cuda):
                               for t in (q, k, v)))
 
 
+@pytest.mark.parametrize("kernel", ["flash_attention", "int8_matmul"])
+def test_kernel_is_a_fresh_threads_first_cuda_work(cuda, kernel):
+    """A thread whose first CUDA work is the kernel launch (a new server
+    worker) gets the plain version's answer: the launch makes the device's
+    context current for the tensor maps (without it the launch failed
+    with cudaError 1)."""
+    import threading
+
+    if kernel == "flash_attention":
+        q = _rand((1, 2, 256, 64), 1).to(cuda, torch.bfloat16)
+        args, plain = (q, q, q), fa.flash_attention_reference
+        run = fa.flash_attention
+    else:
+        x = _rand((64, 256), 2).to(cuda, torch.bfloat16)
+        w = torch.randint(-127, 128, (128, 256), dtype=torch.int8,
+                          device=cuda).t()
+        ws = _rand((128,), 3).abs().to(cuda)
+        args, plain, run = (x, w, ws), im.int8_matmul_reference, \
+            im.int8_matmul
+    got = {}
+
+    def first():
+        try:
+            with torch.no_grad():
+                got["out"] = run(*args)
+            torch.cuda.current_stream(cuda).synchronize()
+        except Exception as e:  # noqa: BLE001 - reported below
+            got["error"] = e
+
+    t = threading.Thread(target=first)
+    t.start()
+    t.join(timeout=120)
+    assert not t.is_alive() and "error" not in got, got
+    want = plain(*args)
+    if kernel == "flash_attention":
+        _assert_flash_close(got["out"], want, 2e-2, 1e-2)
+    else:
+        assert torch.equal(got["out"], want)
+
+
 def test_flash_kernel_refuses_inputs_that_require_grad(cuda):
     # the kernel has no backward yet (ROADMAP A1): with grad mode on it
     # refuses inputs that require grad, launching nothing; under no_grad

@@ -462,10 +462,10 @@ def test_unported_rpcs_answer_unimplemented_naming_the_roadmap(servers):
         for method, req, resp, item in (
                 ("RepositoryIndex", tp.RepositoryIndexRequest(),
                  tp.RepositoryIndexResponse, "A3b"),
-                ("LogSettings", tp.LogSettingsRequest(),
-                 tp.LogSettingsResponse, "A3b"),
-                ("DeviceStats", tp.ServerLiveRequest(),
-                 tp.ServerLiveResponse, "A6")):
+                ("RepositoryModelLoad", tp.RepositoryModelLoadRequest(),
+                 tp.RepositoryModelLoadResponse, "A3b"),
+                ("RepositoryModelUnload", tp.RepositoryModelUnloadRequest(),
+                 tp.RepositoryModelUnloadResponse, "A3b")):
             with pytest.raises(_transport.RpcError) as e:
                 _transport.unary(pool, method, encode_frame(req),
                                  resp, {})
@@ -475,8 +475,8 @@ def test_unported_rpcs_answer_unimplemented_naming_the_roadmap(servers):
         pool.clear()
     with tgrpc.InferenceServerClient(th.http_url) as c:
         for call, item in ((c.get_model_repository_index, "A3b"),
-                           (c.get_trace_settings, "A3b"),
-                           (c.infer_many, "A6"), (c.get_costs, "A6")):
+                           (c.load_model, "A3b"), (c.unload_model, "A3b"),
+                           (c.infer_many, "A6b")):
             with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
                 call()
         with pytest.raises(NotImplementedError, match="ROADMAP A3b"):

@@ -235,8 +235,6 @@ def test_csv_headers_match_reference(harness, tmp_path):
     (["--hedge-ms", "5"], "ROADMAP A6"), (["--retries", "3"], "ROADMAP A6"),
     (["--priority", "1"], "ROADMAP A6"), (["--tenant", "t"], "ROADMAP A6"),
     (["--export-metrics", "m.json"], "ROADMAP A6"),
-    (["--trace-file", "t.json"], "ROADMAP A6"),
-    (["--trace-rate", "10"], "ROADMAP A6"),
 ])
 def test_flags_not_ported_are_refused(flag, why, capsys):
     with pytest.raises(SystemExit) as err:

@@ -1,10 +1,13 @@
-"""The log-bucketed latency histogram of the client's telemetry (a copy of
-``LatencyHistogram`` from ``triton_client_tpu/_telemetry.py``).
+"""The pieces of ``triton_client_tpu/_telemetry.py`` the port uses (copies):
+the log-bucketed ``LatencyHistogram``, ``AppendFile`` and ``escape_label``.
 
-``perf_analyzer`` records every latency into one, so its percentiles come
-out of the same buckets as the reference tool's.  The rest of the
-reference's client telemetry (counters, tracing, OTLP) is not ported yet
-(ROADMAP A6).
+``perf_analyzer`` records every latency into one histogram, so its
+percentiles come out of the same buckets as the reference tool's; the
+server's flight recorder keeps one per model.  ``AppendFile`` is the cached
+append handle of the request tracer and the server log, ``escape_label``
+the Prometheus label escape of ``/metrics``.  The rest of the reference's
+client telemetry (counters, client tracing, OTLP) is not ported yet
+(ROADMAP A6b).
 
 A package rather than a ``_telemetry.py`` file: the repository's lint
 (``triton-lint``'s METRICS-DECL) reads the one file of that name as the
@@ -15,6 +18,49 @@ from __future__ import annotations
 
 import math
 import threading
+
+
+class AppendFile:
+    """Cached append handle, reopened when the configured path changes.  A
+    failing write never raises (the request that happened to log or trace
+    must not fail) and closes the handle before dropping it."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._file = None
+        self._path = None
+
+    def append(self, path: str, data: str) -> None:
+        with self._lock:
+            try:
+                if self._file is None or self._path != path:
+                    self._close_locked()
+                    self._file = open(path, "a")
+                    self._path = path
+                self._file.write(data)
+                self._file.flush()
+            except OSError:
+                self._close_locked()
+
+    def _close_locked(self) -> None:
+        if self._file is not None:
+            try:
+                self._file.close()
+            except OSError:
+                pass
+            self._file = None
+            self._path = None
+
+    def close(self) -> None:
+        with self._lock:
+            self._close_locked()
+
+
+def escape_label(value: str) -> str:
+    """A label value escaped per the Prometheus text exposition format
+    (backslash, double quote, newline)."""
+    return (value.replace("\\", "\\\\").replace('"', '\\"')
+            .replace("\n", "\\n"))
 
 
 class LatencyHistogram:

@@ -837,6 +837,13 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    int causal, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bh <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
+  // a thread that ran no CUDA work yet has no current context, and the
+  // tensor maps' driver-API encoding refuses the pointers without one:
+  // make the device's primary context current (cudaSetDevice does)
+  int dev = 0;
+  cudaError_t ctx = cudaGetDevice(&dev);
+  if (ctx == cudaSuccess) ctx = cudaSetDevice(dev);
+  if (ctx != cudaSuccess) return (int)ctx;
   if (dtype == 1) {
     switch (D) {
       case 16: return (int)launch_bf16<16>(q, k, v, o, bh, S, scale, causal, st);

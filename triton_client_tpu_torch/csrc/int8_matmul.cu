@@ -554,6 +554,13 @@ extern "C" int int8_matmul_fwd(const void* x, const void* wt, const void* ws,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!valid(M, K, dtype) || N <= 0 || N % 128)
     return (int)cudaErrorInvalidValue;
+  // a thread that ran no CUDA work yet has no current context, and the
+  // tensor maps' driver-API encoding refuses the pointers without one:
+  // make the device's primary context current (cudaSetDevice does)
+  int dev = 0;
+  cudaError_t ctx = cudaGetDevice(&dev);
+  if (ctx == cudaSuccess) ctx = cudaSetDevice(dev);
+  if (ctx != cudaSuccess) return (int)ctx;
   const int rc = int8_quantize_rows_fwd(x, q, xs, M, K, dtype, stream);
   if (rc != 0) return rc;
   return dtype == 1

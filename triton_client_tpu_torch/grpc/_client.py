@@ -16,16 +16,21 @@ Beside the HTTP client's surface: ``get_inference_statistics``,
 ``InferenceServerException`` with ``status()`` spelled
 ``"StatusCode.NOT_FOUND"``.
 
+The trace and log settings and the debug snapshots (the flight recorder,
+device statistics, costs) are the reference's calls, on the RPCs of the
+same names.
+
 ``keepalive_options`` and ``channel_args`` are taken and mean nothing:
 they set HTTP/2 channel options, and these calls run on HTTP/1.1.  Not
 ported yet, and raising with their ROADMAP item: TLS and compression
-(A3b); the repository, trace and log calls (A3b); ``infer_many``, the
-retry layer (``retry_policy``, ``deadline_s``), QoS ``tenant`` and the
-debug snapshots -- the flight recorder, device statistics and costs (A6).
+(A3b); the repository calls (A3b); ``infer_many``, the retry layer
+(``retry_policy``, ``deadline_s``, ``stream_timeout``) and QoS ``tenant``
+(A6b).
 """
 
 from __future__ import annotations
 
+import json
 import threading
 from concurrent.futures import Future, ThreadPoolExecutor
 from concurrent.futures import TimeoutError as FuturesTimeoutError
@@ -34,6 +39,7 @@ from typing import Callable, List, Optional
 from .._client import InferenceServerClientBase
 from .._request import Request
 from ..http._client import _ConnectionPool, _not_ported
+from ..protocol import debug as pb_debug
 from ..protocol import inference as pb
 from ..protocol._proto3 import to_dict
 from ..protocol.grpc_web import encode_frame
@@ -55,11 +61,11 @@ def _maybe_json(message, as_json: bool):
 def _check_unported(retry_policy=None, deadline_s=None, tenant=None,
                     compression_algorithm=None) -> None:
     if retry_policy is not None:
-        _not_ported("retry_policy (the client retry layer)", "A6")
+        _not_ported("retry_policy (the client retry layer)", "A6b")
     if deadline_s is not None:
-        _not_ported("deadline_s (the client retry layer's deadlines)", "A6")
+        _not_ported("deadline_s (the client retry layer's deadlines)", "A6b")
     if tenant is not None:
-        _not_ported("tenant (QoS tenants)", "A6")
+        _not_ported("tenant (QoS tenants)", "A6b")
     if compression_algorithm not in (None, "none"):
         _not_ported("gRPC compression", "A3b")
 
@@ -152,7 +158,7 @@ class InferenceServerClient(InferenceServerClientBase):
         if ssl or creds is not None:
             _not_ported("TLS (ssl=True, creds)", "A3b")
         if retry_policy is not None:
-            _not_ported("retry_policy (the client retry layer)", "A6")
+            _not_ported("retry_policy (the client retry layer)", "A6b")
         if "://" in url:
             raise_error("url should not include the scheme")
         self._url = url
@@ -261,6 +267,74 @@ class InferenceServerClient(InferenceServerClientBase):
                 name=model_name, version=model_version),
             pb.ModelStatisticsResponse, headers, client_timeout), as_json)
 
+    # -- trace and log settings, debug snapshots ---------------------------
+    def update_trace_settings(self, model_name=None, settings=None,
+                              headers=None, as_json=False,
+                              client_timeout=None):
+        """Set the server's trace settings (a model's where
+        ``model_name``); a ``None`` value clears a key.  Returns the
+        settings now in force."""
+        request = pb.TraceSettingRequest(model_name=model_name or "")
+        for key, value in (settings or {}).items():
+            vals = ([] if value is None else value if isinstance(value, list)
+                    else [str(value)])
+            request.settings[key] = pb.TraceSettingRequest.SettingValue(
+                value=vals)
+        return _maybe_json(self._call(
+            "TraceSetting", request, pb.TraceSettingResponse, headers,
+            client_timeout), as_json)
+
+    def get_trace_settings(self, model_name=None, headers=None,
+                           as_json=False, client_timeout=None):
+        return self.update_trace_settings(model_name, None, headers, as_json,
+                                          client_timeout)
+
+    def update_log_settings(self, settings, headers=None, as_json=False,
+                            client_timeout=None):
+        request = pb.LogSettingsRequest()
+        for key, value in settings.items():
+            if isinstance(value, bool):
+                entry = pb.LogSettingsRequest.SettingValue(bool_param=value)
+            elif isinstance(value, int):
+                entry = pb.LogSettingsRequest.SettingValue(
+                    uint32_param=value)
+            else:
+                entry = pb.LogSettingsRequest.SettingValue(
+                    string_param=str(value))
+            request.settings[key] = entry
+        return _maybe_json(self._call(
+            "LogSettings", request, pb.LogSettingsResponse, headers,
+            client_timeout), as_json)
+
+    def get_log_settings(self, headers=None, as_json=False,
+                         client_timeout=None):
+        return self.update_log_settings({}, headers, as_json, client_timeout)
+
+    def get_flight_recorder(self, model_name=None, limit=0, headers=None,
+                            client_timeout=None) -> dict:
+        """The flight recorder's snapshot (the HTTP route's JSON)."""
+        return json.loads(self._call(
+            "FlightRecorder", pb_debug.FlightRecorderRequest(
+                model_name=model_name or "", limit=int(limit or 0)),
+            pb_debug.FlightRecorderResponse, headers,
+            client_timeout).payload_json)
+
+    def get_device_stats(self, model_name=None, headers=None,
+                         client_timeout=None) -> dict:
+        """The device statistics (the HTTP route's JSON)."""
+        return json.loads(self._call(
+            "DeviceStats", pb_debug.DeviceStatsRequest(
+                model_name=model_name or ""),
+            pb_debug.DeviceStatsResponse, headers,
+            client_timeout).payload_json)
+
+    def get_costs(self, model_name=None, headers=None,
+                  client_timeout=None) -> dict:
+        """The cost ledger (the HTTP route's JSON)."""
+        return json.loads(self._call(
+            "Costs", pb_debug.CostsRequest(model_name=model_name or ""),
+            pb_debug.CostsResponse, headers, client_timeout).payload_json)
+
     # -- not ported --------------------------------------------------------
     def get_model_repository_index(self, *args, **kwargs):
         _not_ported("get_model_repository_index (the repository API)", "A3b")
@@ -271,29 +345,8 @@ class InferenceServerClient(InferenceServerClientBase):
     def unload_model(self, *args, **kwargs):
         _not_ported("unload_model (the repository API)", "A3b")
 
-    def update_trace_settings(self, *args, **kwargs):
-        _not_ported("update_trace_settings (trace settings)", "A3b")
-
-    def get_trace_settings(self, *args, **kwargs):
-        _not_ported("get_trace_settings (trace settings)", "A3b")
-
-    def update_log_settings(self, *args, **kwargs):
-        _not_ported("update_log_settings (log settings)", "A3b")
-
-    def get_log_settings(self, *args, **kwargs):
-        _not_ported("get_log_settings (log settings)", "A3b")
-
-    def get_flight_recorder(self, *args, **kwargs):
-        _not_ported("get_flight_recorder (the flight recorder)", "A6")
-
-    def get_device_stats(self, *args, **kwargs):
-        _not_ported("get_device_stats (device statistics)", "A6")
-
-    def get_costs(self, *args, **kwargs):
-        _not_ported("get_costs (the cost ledger)", "A6")
-
     def infer_many(self, *args, **kwargs):
-        _not_ported("infer_many", "A6")
+        _not_ported("infer_many", "A6b")
 
     # -- shared memory -----------------------------------------------------
     def get_system_shared_memory_status(self, region_name="", headers=None,
@@ -435,7 +488,7 @@ class InferenceServerClient(InferenceServerClientBase):
         thread for every answer, in order."""
         _check_unported(compression_algorithm=compression_algorithm)
         if stream_timeout is not None:
-            _not_ported("stream_timeout", "A6")
+            _not_ported("stream_timeout", "A6b")
         if self._stream is not None:
             raise_error(
                 "cannot start another stream with one already running. "

@@ -15,12 +15,16 @@ found on its next use: a request is sent again on another connection only
 where it failed on a reused connection before any byte of a response
 arrived (a peek at the socket tells).  Every other failure is raised.
 
+The trace and log settings (``update_trace_settings``,
+``get_trace_settings``, ``update_log_settings``, ``get_log_settings``) and
+the debug snapshots (``get_flight_recorder``, ``get_device_stats``,
+``get_costs``) are the reference's calls on the same routes.
+
 Not ported yet: the retry layer and deadlines (``retry_policy``,
 ``deadline_s``), QoS tenants (``tenant``), client telemetry and tracing
-headers (ROADMAP A6); TLS, and the calls whose routes the port's server
-lacks -- the repository, trace and log settings, the debug snapshots
-(ROADMAP A3b and A6).  ``infer_many`` and the ``xla`` aliases of
-the CUDA shared-memory calls are not ported.
+headers (ROADMAP A6b); TLS and the repository API (ROADMAP A3b).
+``infer_many`` and the ``xla`` aliases of the CUDA shared-memory calls are
+not ported.
 """
 
 from __future__ import annotations
@@ -53,11 +57,12 @@ def _not_ported(name: str, item: str):
 
 def _check_unported(retry_policy, deadline_s, tenant) -> None:
     if retry_policy is not None:
-        _not_ported("retry_policy (the client retry layer)", "A6")
+        _not_ported("retry_policy (the client retry layer)", "A6b")
     if deadline_s is not None:
-        _not_ported("deadline_s (the client retry layer's deadlines)", "A6")
+        _not_ported("deadline_s (the client retry layer's deadlines)",
+                    "A6b")
     if tenant is not None:
-        _not_ported("tenant (QoS tenants)", "A6")
+        _not_ported("tenant (QoS tenants)", "A6b")
 
 
 class _Response:
@@ -229,7 +234,7 @@ class InferenceServerClient(InferenceServerClientBase):
                  insecure: bool = False, retry_policy=None):
         super().__init__()
         if retry_policy is not None:
-            _not_ported("retry_policy (the client retry layer)", "A6")
+            _not_ported("retry_policy (the client retry layer)", "A6b")
         if ssl:
             _not_ported("TLS (ssl=True)", "A3b")
         if url.startswith("http://") or url.startswith("https://"):
@@ -365,6 +370,67 @@ class InferenceServerClient(InferenceServerClientBase):
         if model_name:
             path = _model_path(model_name, model_version)
         return self._get_json(path + "/stats", headers, query_params)
+
+    # -- trace and log settings, debug snapshots ---------------------------
+    def update_trace_settings(self, model_name=None,
+                              settings: Optional[dict] = None, headers=None,
+                              query_params=None) -> dict:
+        """Set the server's trace settings (a model's where
+        ``model_name``); a ``None`` value clears a key.  Returns the
+        settings now in force."""
+        path = (f"v2/models/{quote(model_name)}/trace/setting" if model_name
+                else "v2/trace/setting")
+        response = self._post(path, json.dumps(settings or {}).encode(),
+                              headers, query_params)
+        raise_if_error(response.status, response.data)
+        return json.loads(response.data)
+
+    def get_trace_settings(self, model_name=None, headers=None,
+                           query_params=None) -> dict:
+        path = (f"v2/models/{quote(model_name)}/trace/setting" if model_name
+                else "v2/trace/setting")
+        return self._get_json(path, headers, query_params)
+
+    def update_log_settings(self, settings: dict, headers=None,
+                            query_params=None) -> dict:
+        response = self._post("v2/logging", json.dumps(settings).encode(),
+                              headers, query_params)
+        raise_if_error(response.status, response.data)
+        return json.loads(response.data)
+
+    def get_log_settings(self, headers=None, query_params=None) -> dict:
+        return self._get_json("v2/logging", headers, query_params)
+
+    def get_flight_recorder(self, model_name=None, limit=0, headers=None,
+                            query_params=None) -> dict:
+        """The flight recorder's snapshot: the recent ring and the pinned
+        outliers with their span trees."""
+        params = dict(query_params or {})
+        if model_name:
+            params["model"] = model_name
+        if limit:
+            params["limit"] = limit
+        return self._get_json("v2/debug/flight_recorder", headers,
+                              params or None)
+
+    def get_device_stats(self, model_name=None, headers=None,
+                         query_params=None) -> dict:
+        """The device statistics: per-model duty cycle, live MFU and
+        signature events, batcher ticks, transfers, device memory, and the
+        SLO state under ``"slo"``."""
+        params = dict(query_params or {})
+        if model_name:
+            params["model"] = model_name
+        return self._get_json("v2/debug/device_stats", headers,
+                              params or None)
+
+    def get_costs(self, model_name=None, headers=None,
+                  query_params=None) -> dict:
+        """The cost ledger: device time and FLOPs per (model, tenant)."""
+        params = dict(query_params or {})
+        if model_name:
+            params["model"] = model_name
+        return self._get_json("v2/debug/costs", headers, params or None)
 
     # -- shared memory -----------------------------------------------------
     def get_system_shared_memory_status(self, region_name="", headers=None,

@@ -12,6 +12,11 @@ plain version and differentiable.
 :func:`flash_attention` launches the kernel for CUDA tensors and raises on
 anything the kernel does not take.  It uses :func:`flash_attention_reference`
 only for tensors that lie on the CPU, where no kernel exists.
+
+While a cost analysis counts on this thread (``_count``), the kernel and
+the plain version each report :func:`flash_work` -- the FLOPs of the lower
+triangle where causal, of the full S x S otherwise -- and their own PyTorch
+ops stay out of the count, so a forward counts the same either way.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, _count
 
 _NEG_INF = -1e30
 
@@ -33,11 +38,29 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = {torch.float32: (16, 32, 64), torch.bfloat16: (16, 32, 64, 128)}
 
 
+def flash_work(q, k, causal: bool):
+    """(FLOPs, bytes) of one attention over ``q [B, H, Sq, D]`` and ``k [B,
+    H, Sk, D]``: q kᵀ and P v, 4·B·H·D·S·(S+1)/2 where causal (the lower
+    triangle the kernel computes), 4·B·H·Sq·Sk·D otherwise; q, k and v read
+    once and the output written once."""
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    flops = (4.0 * B * H * D * Sq * (Sq + 1) / 2 if causal
+             else 4.0 * B * H * Sq * Sk * D)
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    return flops, float(nbytes)
+
+
 def flash_attention_reference(q, k, v, *, causal: bool = True, sm_scale=None):
     """Plain PyTorch attention with the kernel's semantics.
 
     q, k, v: ``[B, H, S, D]``; returns ``[B, H, S, D]`` in ``q.dtype``.
     Scores in f32, masked keys at -1e30, softmax in f32."""
+    with _count.kernel(*flash_work(q, k, causal)):
+        return _reference(q, k, v, causal, sm_scale)
+
+
+def _reference(q, k, v, causal, sm_scale):
     D = q.shape[-1]
     S = q.shape[2]
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
@@ -75,7 +98,6 @@ def flash_attention(q, k, v, *, causal: bool = True, sm_scale=None):
     other CUDA input raises ``ValueError``, and a CUDA input that requires
     grad while grad mode is on raises ``RuntimeError`` (no backward yet,
     ROADMAP A1).  CPU tensors run the plain version."""
-    global launches
     if q.device.type == "cpu" and k.device.type == "cpu" \
             and v.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal=causal,
@@ -119,6 +141,14 @@ def flash_attention(q, k, v, *, causal: bool = True, sm_scale=None):
     if q.dtype == torch.bfloat16 and B * H * -(-S // 64) >= 2**30:
         raise ValueError(
             f"flash_attention: B*H = {B * H} at S = {S} is too large")
+    with _count.kernel(*flash_work(q, k, causal)):
+        return _launch(q, k, v, causal, sm_scale)
+
+
+def _launch(q, k, v, causal, sm_scale):
+    """The kernel on checked CUDA inputs."""
+    global launches
+    B, H, S, D = q.shape
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
     if q.dtype == torch.bfloat16 and scale <= 0:
         # the bf16 kernel takes row maxima of the unscaled scores, so it

@@ -30,6 +30,11 @@ N multiples of 128), which the TPU version answered with a silent
 fallback.  It uses :func:`int8_matmul_reference` only for CPU tensors.
 The TPU schedule knobs (``TRITON_TPU_INT8_BLOCKS`` / ``_SCHED``) and the
 VMEM budget are TPU-only and not ported.
+
+While a cost analysis counts on this thread (``_count``), the kernels and
+the plain version each report :func:`int8_work` (2·M·K·N operations, and
+the quantize pass's bytes with the GEMM's), and their own PyTorch ops stay
+out of the count.
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, _count
 
 #: launches of the CUDA kernels by :func:`int8_matmul` in this process (read
 #: by chip_smoke.py); each call runs the quantize pass and the GEMM
@@ -80,12 +85,30 @@ def int8_quantize_rows_reference(x):
     return q, xs
 
 
+def int8_work(x, w_q):
+    """(operations, bytes) of one ``int8_matmul`` of ``x [..., K]`` by
+    ``w_q [K, N]``: 2·M·K·N; x, the weight and its scales read, the output
+    written, and the quantize pass's codes and row scales written and read
+    back."""
+    K, N = w_q.shape[-2], w_q.shape[-1]
+    M = x.numel() // K if K else 0
+    elt = x.element_size()
+    nbytes = (M * K * elt + K * N + N * 4 + M * N * elt
+              + 2 * (M * K + M * 4))
+    return 2.0 * M * K * N, float(nbytes)
+
+
 def int8_matmul_reference(x, w_q, w_scale):
     """Plain PyTorch dynamic-quantized matmul.
 
     x: ``[..., K]`` float; w_q: ``[K, N]`` int8 (any strides); w_scale:
     ``[N]`` or ``[1, N]`` f32 (per output channel).  Returns ``[..., N]``
     in ``x.dtype``."""
+    with _count.kernel(*int8_work(x, w_q)):
+        return _reference(x, w_q, w_scale)
+
+
+def _reference(x, w_q, w_scale):
     q, xs = int8_quantize_rows_reference(x)
     K = x.shape[-1]
     acc = exact_int_dot(q.reshape(-1, K), w_q).reshape(*x.shape[:-1], -1)
@@ -167,7 +190,6 @@ def int8_matmul(x, w_q, w_scale):
     (K-major storage is used as it is, anything else is copied to it), K
     and N multiples of 128.  Anything else on CUDA raises ``ValueError``.
     CPU tensors run the plain version."""
-    global launches, quantize_launches
     if x.device.type == "cpu" and w_q.device.type == "cpu" \
             and w_scale.device.type == "cpu":
         return int8_matmul_reference(x, w_q, w_scale)
@@ -193,6 +215,14 @@ def int8_matmul(x, w_q, w_scale):
     if w_scale.numel() != N:
         raise ValueError(
             f"int8_matmul: w_scale has {w_scale.numel()} entries, need N={N}")
+    with _count.kernel(*int8_work(x, w_q)):
+        return _launch(x, w_q, w_scale)
+
+
+def _launch(x, w_q, w_scale):
+    """The quantize pass and the GEMM on checked CUDA inputs."""
+    global launches, quantize_launches
+    K, N = w_q.shape
     lead = x.shape[:-1]
     x2d = _rows(x)
     M = x2d.shape[0]

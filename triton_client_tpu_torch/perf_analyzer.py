@@ -33,11 +33,17 @@ which on Linux is the system's monotonic clock, shared by processes), and
 the run ends with the shared-memory regions it left (``regions left
 {...}``).
 
+``--trace-file PATH`` turns the server's tracing on for the sweep
+(``trace_level`` TIMESTAMPS into PATH, every ``--trace-rate``-th request,
+default 100), off again after it whatever happened, and prints the
+per-stage breakdown of the file (``_trace_summary``); PATH is a path the
+server writes.
+
 Not ported yet (rejected with the ROADMAP item that brings them):
 several ``-u`` endpoints,
 ``--balancing`` and ``--hedge-ms`` (the cluster client), ``--retries``,
-``--priority`` and ``--tenant`` (QoS classes), ``--export-metrics`` (client
-telemetry) and ``--trace-file`` (server tracing), all A6.
+``--priority`` and ``--tenant`` (QoS classes) and ``--export-metrics``
+(client telemetry), all A6b.
 """
 
 from __future__ import annotations
@@ -89,6 +95,14 @@ def _protocol_module(protocol: str):
 
 def _make_client(url: str, protocol: str = "http"):
     return _protocol_module(protocol).InferenceServerClient(url)
+
+
+def _set_server_tracing(url: str, protocol: str, settings: dict) -> None:
+    client = _make_client(url, protocol)
+    try:
+        client.update_trace_settings(settings=settings)
+    finally:
+        client.close()
 
 
 def _parse_concurrency_range(spec: str):
@@ -594,14 +608,12 @@ def _json_sanitize(v):
 # flags of the reference tool whose machinery is not ported yet, and the
 # ROADMAP item that brings each
 _NOT_PORTED = (
-    ("balancing", "--balancing", "A6 (the cluster client)"),
-    ("hedge_ms", "--hedge-ms", "A6 (the cluster client)"),
-    ("retries", "--retries", "A6 (the client retry layer)"),
-    ("priority", "--priority", "A6 (QoS classes)"),
-    ("tenant", "--tenant", "A6 (QoS classes)"),
-    ("export_metrics", "--export-metrics", "A6 (client telemetry)"),
-    ("trace_file", "--trace-file", "A6 (server tracing)"),
-    ("trace_rate", "--trace-rate", "A6 (server tracing)"),
+    ("balancing", "--balancing", "A6b (the cluster client)"),
+    ("hedge_ms", "--hedge-ms", "A6b (the cluster client)"),
+    ("retries", "--retries", "A6b (the client retry layer)"),
+    ("priority", "--priority", "A6b (QoS classes)"),
+    ("tenant", "--tenant", "A6b (QoS classes)"),
+    ("export_metrics", "--export-metrics", "A6b (client telemetry)"),
 )
 
 
@@ -614,7 +626,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument("-x", "--model-version", default="")
     parser.add_argument("-u", "--url", action="append", default=None,
                         help="server endpoint (one; several endpoints need "
-                             "the cluster client, ROADMAP A6)")
+                             "the cluster client, ROADMAP A6b)")
     parser.add_argument("-i", "--protocol", default="http", type=str.lower,
                         choices=["http", "grpc"],
                         help="http, or grpc (gRPC-Web on the server's "
@@ -658,6 +670,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument("--string-length", type=int, default=16)
     parser.add_argument("--percentile", type=int, default=None,
                         help="report this percentile as the headline latency")
+    parser.add_argument("--trace-file", default=None, metavar="PATH",
+                        help="turn server-side tracing on for the sweep "
+                             "(trace_level=TIMESTAMPS into PATH, sampled at "
+                             "--trace-rate) and report the per-stage "
+                             "breakdown after; PATH must be a path the "
+                             "SERVER can write")
+    parser.add_argument("--trace-rate", type=int, default=100,
+                        help="server sampling rate while --trace-file is on "
+                             "(trace every Nth request; default 100)")
     parser.add_argument("-f", "--latency-report-file", default=None)
     parser.add_argument("-v", "--verbose", action="store_true")
     for dest, flag, item in _NOT_PORTED:
@@ -683,7 +704,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     if len(urls) > 1:
         parser.error("several -u endpoints need the cluster client, which "
                      "is not ported to triton_client_tpu_torch yet (ROADMAP "
-                     "A6)")
+                     "A6b)")
     url = urls[0] if urls else "localhost:8000"
 
     meta_client = _make_client(url, args.protocol)
@@ -748,31 +769,63 @@ def main(argv: Optional[List[str]] = None) -> int:
             print("  result " + json.dumps(_json_sanitize(res)))
         sys.stdout.flush()
 
-    if open_loop:
+    if args.trace_file:
+        # server-wide tracing for the sweep, turned on after every argument
+        # check above, so the finally below always turns it off again
+        _set_server_tracing(url, args.protocol, {
+            "trace_file": [args.trace_file],
+            "trace_level": ["TIMESTAMPS"],
+            "trace_rate": [str(max(1, args.trace_rate))],
+        })
+    try:
+        if open_loop:
+            try:
+                rates = _parse_rate_range(args.request_rate_range)
+            except ValueError as e:
+                parser.error(str(e))
+            for rate in rates:
+                res = run_rate_level(
+                    url, args.model_name, args.model_version, rate, arrays,
+                    outputs, args.shared_memory, output_size,
+                    measure_s, distribution=args.request_distribution,
+                    max_threads=args.max_threads,
+                    extra_percentile=args.percentile,
+                    cuda_device=args.cuda_shared_memory_device,
+                    protocol=args.protocol, streaming=args.streaming)
+                report(res, f"Request rate: {rate:g}/s, completed "
+                            "(latency from scheduled send): ")
+        else:
+            for level in _parse_concurrency_range(args.concurrency_range):
+                res = run_level(
+                    url, args.model_name, args.model_version, level, arrays,
+                    outputs, args.shared_memory, output_size,
+                    measure_s, extra_percentile=args.percentile,
+                    cuda_device=args.cuda_shared_memory_device,
+                    protocol=args.protocol, streaming=args.streaming)
+                report(res, f"Concurrency: {level}, throughput: ")
+    finally:
+        if args.trace_file:
+            try:
+                _set_server_tracing(url, args.protocol,
+                                    {"trace_level": ["OFF"]})
+            except Exception as e:  # noqa: BLE001 - best effort on teardown
+                print(f"warning: could not disable server tracing: {e}",
+                      file=sys.stderr)
+
+    if args.trace_file:
+        from ._trace_summary import format_text, load_trace_file, summarize
+
         try:
-            rates = _parse_rate_range(args.request_rate_range)
-        except ValueError as e:
-            parser.error(str(e))
-        for rate in rates:
-            res = run_rate_level(
-                url, args.model_name, args.model_version, rate, arrays,
-                outputs, args.shared_memory, output_size,
-                measure_s, distribution=args.request_distribution,
-                max_threads=args.max_threads,
-                extra_percentile=args.percentile,
-                cuda_device=args.cuda_shared_memory_device,
-                protocol=args.protocol, streaming=args.streaming)
-            report(res, f"Request rate: {rate:g}/s, completed "
-                        "(latency from scheduled send): ")
-    else:
-        for level in _parse_concurrency_range(args.concurrency_range):
-            res = run_level(
-                url, args.model_name, args.model_version, level, arrays,
-                outputs, args.shared_memory, output_size,
-                measure_s, extra_percentile=args.percentile,
-                cuda_device=args.cuda_shared_memory_device,
-                protocol=args.protocol, streaming=args.streaming)
-            report(res, f"Concurrency: {level}, throughput: ")
+            summary = summarize(load_trace_file(args.trace_file))
+            print("\n*** Server trace breakdown "
+                  f"({args.trace_file}, every {max(1, args.trace_rate)}th "
+                  "request) ***")
+            print(format_text(summary), end="")
+        except (OSError, ValueError) as e:
+            # a file the server could not write (or this process cannot
+            # read) does not fail a sweep that printed its numbers
+            print(f"warning: could not summarize {args.trace_file}: {e}",
+                  file=sys.stderr)
 
     if args.verbose:
         from .utils import cuda_shared_memory, shared_memory

@@ -6,8 +6,7 @@ message there -- the service messages and the ``ModelConfig`` family --
 built from the one field table below (number, name, type, label, message
 or enum type, oneof).  Nested messages are attributes of their parent, as
 in generated code (``ModelInferRequest.InferInputTensor``).  The debug
-messages of the reference's ``debug_pb2.py`` are not here: their RPCs are
-not ported (ROADMAP A6).
+messages of the reference's ``debug_pb2.py`` are in ``debug.py``.
 """
 
 from __future__ import annotations

@@ -5,15 +5,16 @@ method names are ``/inference.GRPCInferenceService/<Method>``, each with
 its arity (``"uu"`` unary, ``"ss"`` a bidirectional stream) and its request
 and response message classes (``inference.py``).  The port serves them as
 gRPC-Web on its HTTP/1.1 port (``server/grpc_web.py``).  The reference's
-debug RPCs (``FlightRecorder``, ``DeviceStats``, ``Costs``) are in
-:data:`NOT_PORTED` with the repository, trace and log RPCs, each with the
-ROADMAP item that brings it.
+debug RPCs (``FlightRecorder``, ``DeviceStats``, ``Costs``) take their
+messages from ``debug.py``.  The repository RPCs are in :data:`NOT_PORTED`
+with the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
 
 import enum
 
+from . import debug as pb_debug
 from . import inference as pb
 
 SERVICE_NAME = "inference.GRPCInferenceService"
@@ -38,6 +39,10 @@ METHODS = {
         ("CudaSharedMemoryUnregister", "uu"), ("TraceSetting", "uu"),
         ("LogSettings", "uu"))
 }
+METHODS.update({
+    name: ("uu", getattr(pb_debug, name + "Request"),
+           getattr(pb_debug, name + "Response"))
+    for name in ("FlightRecorder", "DeviceStats", "Costs")})
 
 #: RPCs the port answers with UNIMPLEMENTED -> what they are and the
 #: ROADMAP item that brings them
@@ -45,11 +50,6 @@ NOT_PORTED = {
     "RepositoryIndex": ("the model repository API", "A3b"),
     "RepositoryModelLoad": ("the model repository API", "A3b"),
     "RepositoryModelUnload": ("the model repository API", "A3b"),
-    "TraceSetting": ("trace settings", "A3b"),
-    "LogSettings": ("log settings", "A3b"),
-    "FlightRecorder": ("the flight recorder (a debug RPC)", "A6"),
-    "DeviceStats": ("device statistics (a debug RPC)", "A6"),
-    "Costs": ("the cost ledger (a debug RPC)", "A6"),
 }
 
 

@@ -59,8 +59,25 @@ ns, per model, in the same places as the reference records them.
 Where ``InferenceCore.splits`` is a list, each request appends its
 :class:`RequestSplit` to it: the server's time by phase.
 
-QoS tiers, tracing, cost and device statistics, chaos, the fleet controller
-and the response cache are not ported yet.
+Observability (the reference's ``InferenceCore.__init__``, core.py:851-884,
+and its execute path, :2040-2130): the request tracer and the server log,
+the flight recorder with its SLO engine, the device statistics and the
+cost ledger.  A traced request (or one armed for the flight recorder) gets
+a REQUEST root with DECODE (from the frontend), QUEUE, BATCH_ASSEMBLY
+(batched), COMPUTE and D2H_TRANSFER children, each added to every traced
+member of a batch; its context travels in the batcher's queue item and is
+the executing thread's :func:`trace.current_trace`.  Each execution's
+COMPUTE window is timed with two CUDA events on the card (host clock on
+the CPU), read after the readback has waited on its own event; the span's
+timestamps stay on ``time.monotonic_ns`` and its length is the events'
+time.  The first execution of each input signature of a
+:class:`TorchModel` runs counted (``costs.py``); the device statistics get
+each execution window, the batcher's ticks (bucket, padded rows, queue
+depth) and the readback transfers; the ledger charges each request its
+slot share of the window, to the reference's default tenant.
+
+QoS tiers, the memory governor, chaos, the fleet controller and the
+response cache are not ported yet (ROADMAP A6b).
 """
 
 from __future__ import annotations
@@ -76,11 +93,22 @@ import numpy as np
 import torch
 
 from ..utils import np_to_triton_dtype, torch_to_triton_dtype
-from .model import EnsembleModel, Model
+from . import costs
+from .costs import CostLedger, classify_roofline
+from .device_stats import DeviceStatsCollector, SloEngine, SloObjective
+from .flight_recorder import FlightRecorder
+from .log import LOG_DEFAULTS, ServerLog
+from .model import EnsembleModel, Model, TorchModel
 from .registry import ModelRegistry
 from .shm import CudaShmRegistry, SystemShmRegistry
+from .trace import (TRACE_DEFAULTS, RequestTracer, reset_current_trace,
+                    set_current_trace)
 from .types import (InferError, InferRequest, InferResponse, InputTensor,
                     OutputTensor)
+
+#: the tenant every request is charged to until QoS tenants are ported
+#: (the reference's ``qos.DEFAULT_TENANT``)
+DEFAULT_TENANT = "anonymous"
 
 
 def _batch_count(inputs: Dict[str, Any]) -> int:
@@ -113,27 +141,47 @@ class RequestSplit:
     forward_done_ns: int = 0
 
 
-def _timed_execute(model: Model, inputs: Dict[str, Any],
-                   params: Dict[str, Any], split: Optional[RequestSplit]):
-    """``model.execute``; with a ``split``, the forward timed into it (on
-    the card: waited on, so that ``output`` starts at its end)."""
-    if split is None:
-        return model.execute(inputs, params)
-    device = getattr(model, "device", None)
-    t0 = time.perf_counter_ns()
-    if device is not None and device.type == "cuda":
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        outputs = model.execute(inputs, params)
-        end.record()
+class _ComputeWindow:
+    """One execution's COMPUTE window: two CUDA events around it on the
+    card, the host clock on the CPU.  ``t0`` is the host's
+    ``time.monotonic_ns`` at its start (the span's start); its length is
+    read once the outputs' readback has waited on its own event, so on the
+    card :meth:`elapsed_ns` waits for nothing more (an execution whose
+    outputs all stay on the card waits for its end here)."""
+
+    __slots__ = ("t0", "t1", "_events")
+
+    def __init__(self, device) -> None:
+        self._events = None
+        if device is not None and device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            self._events = (start, end)
+        self.t0 = time.monotonic_ns()
+        self.t1 = self.t0
+        if self._events is not None:
+            self._events[0].record()
+
+    def close(self) -> None:
+        """The execution was issued."""
+        if self._events is not None:
+            self._events[1].record()
+        self.t1 = time.monotonic_ns()
+
+    def elapsed_ns(self) -> int:
+        if self._events is None:
+            return self.t1 - self.t0
+        start, end = self._events
         end.synchronize()
-        split.forward = start.elapsed_time(end)
-    else:
-        outputs = model.execute(inputs, params)
-        split.forward = (time.perf_counter_ns() - t0) / 1e6
-    split.forward_done_ns = time.perf_counter_ns()
-    return outputs
+        return int(start.elapsed_time(end) * 1e6)
+
+
+def _signature(inputs: Dict[str, Any]) -> tuple:
+    """An execution's input signature: each input's name, shape and
+    dtype."""
+    return tuple(sorted(
+        (n, tuple(getattr(v, "shape", ())), str(getattr(v, "dtype", None)))
+        for n, v in inputs.items()))
 
 
 def readback(outputs: Dict[str, Any]) -> Dict[str, Any]:
@@ -209,11 +257,15 @@ class _DynamicBatcher:
 
     def submit(self, inputs: Dict[str, np.ndarray],
                parameters: Dict[str, Any],
-               split: Optional[RequestSplit] = None
-               ) -> Dict[str, np.ndarray]:
+               split: Optional[RequestSplit] = None, trace=None,
+               tenant: str = "") -> Dict[str, np.ndarray]:
+        """Queue one request and wait for its rows of the batch's outputs.
+        A queue item is ``(inputs, parameters, future, split, enqueue_ns,
+        trace, tenant)``: the trace context travels with it to the thread
+        that executes the batch."""
         fut: concurrent.futures.Future = concurrent.futures.Future()
         self._queue.put((inputs, parameters, fut, split,
-                         time.monotonic_ns()))
+                         time.monotonic_ns(), trace, tenant))
         return fut.result()
 
     def stop(self) -> None:
@@ -274,6 +326,14 @@ class _DynamicBatcher:
             if total <= b:
                 padded = b
                 break
+        traces = [p[5] for p in pending if p[5] is not None]
+        t_asm0 = time.monotonic_ns()
+        # requests left waiting while this batch forms
+        queue_depth = self._queue.qsize()
+        for item in pending:
+            if item[5] is not None:
+                item[5].add_span("QUEUE", item[4], t_asm0)
+        core = self._core
         try:
             merged = {}
             for n in pending[0][0]:
@@ -287,12 +347,21 @@ class _DynamicBatcher:
             split = RequestSplit() if any(p[3] is not None
                                           for p in pending) else None
             t0 = time.monotonic_ns()
+            for trace in traces:
+                trace.add_span("BATCH_ASSEMBLY", t_asm0, t0)
             queue_ns = t0 - pending[0][4]
-            outputs = self._core.run_model(self._model, merged,
-                                           pending[0][1], split)
-            self._model.stats.record(total, queue_ns,
-                                     time.monotonic_ns() - t0, ok=True)
+            exec_stats: Dict[str, Any] = {}
+            outputs = core.run_model(self._model, merged, pending[0][1],
+                                     split, traces=traces,
+                                     exec_stats=exec_stats, real_batch=total)
+            compute_ns = time.monotonic_ns() - t0
+            self._model.stats.record(total, queue_ns, compute_ns, ok=True)
             self._model.stats.record_batch(total)
+            exec_stats.setdefault("compute_ns", compute_ns)
+            if core.device_stats.enabled:
+                self._record_tick(pending, total, padded, queue_depth,
+                                  t0 - t_asm0, exec_stats)
+            self._charge(pending, counts, total, exec_stats)
             offset = 0
             for item, count in zip(pending, counts):
                 if item[3] is not None:
@@ -307,12 +376,71 @@ class _DynamicBatcher:
                 if not item[2].done():
                     item[2].set_exception(e)
 
+    def _record_tick(self, pending, total: int, padded: int,
+                     queue_depth: int, assembly_ns: int,
+                     exec_stats: Dict[str, Any]) -> None:
+        """One tick record per batched execution; its shape rides each
+        traced member's trace and flight record."""
+        self._core.device_stats.record_tick(
+            self._model.name, bucket=padded, batch=total, padded=padded,
+            queue_depth=queue_depth, assembly_ns=assembly_ns,
+            compute_ns=exec_stats["compute_ns"],
+            requests=len(pending), syncs=exec_stats.get("d2h_syncs", 0),
+            flops=exec_stats.get("flops", 0.0),
+            bytes_accessed=exec_stats.get("bytes_accessed", 0.0))
+        tick = {
+            "bucket": padded, "batch": total,
+            "pad_fraction": (round((padded - total) / padded, 4)
+                             if padded else 0.0),
+            "queue_depth": queue_depth,
+            "assembly_us": round(assembly_ns / 1e3, 1),
+            "requests": len(pending),
+        }
+        for item in pending:
+            tr = item[5]
+            if tr is not None:
+                tr.tick = tick
+                if tr.flight is not None:
+                    tr.flight.tick = tick
+
+    def _charge(self, pending, counts, total: int,
+                exec_stats: Dict[str, Any]) -> None:
+        """Each member's slot share (its rows over the batch's) of the
+        compute window and of the signature's FLOPs: the shares sum to the
+        window the tick recorded."""
+        ledger = self._core.cost_ledger
+        if not (ledger.enabled and total > 0):
+            return
+        exec_ns = exec_stats["compute_ns"]
+        exec_flops = exec_stats.get("flops", 0.0)
+        roofline = classify_roofline(exec_flops,
+                                     exec_stats.get("bytes_accessed", 0.0))
+        verdict = roofline["verdict"] if roofline is not None else None
+        for item, count in zip(pending, counts):
+            tenant = item[6]
+            share = count / total
+            dev_us = exec_ns * share / 1e3
+            flops_share = exec_flops * share
+            ledger.charge(self._model.name, tenant, device_us=dev_us,
+                          flops=flops_share)
+            tr = item[5]
+            if tr is not None:
+                cost = {"tenant": tenant, "device_us": round(dev_us, 1)}
+                if flops_share:
+                    cost["flops"] = flops_share
+                if verdict is not None:
+                    cost["roofline"] = verdict
+                tr.cost = cost
+                if tr.flight is not None:
+                    tr.flight.cost = cost
+
 
 class InferenceCore:
     SERVER_NAME = "triton_client_tpu_torch_harness"
     SERVER_VERSION = "2.0.0-cuda"
     EXTENSIONS = ["binary_tensor_data", "model_configuration",
-                  "system_shared_memory", "cuda_shared_memory"]
+                  "system_shared_memory", "cuda_shared_memory",
+                  "statistics", "trace", "logging"]
 
     def __init__(self, registry: ModelRegistry):
         self.registry = registry
@@ -323,6 +451,49 @@ class InferenceCore:
         self.live = True
         #: a list to collect each request's RequestSplit in, or None
         self.splits: Optional[List[RequestSplit]] = None
+        self.trace_settings: Dict[str, List[str]] = {
+            k: list(v) for k, v in TRACE_DEFAULTS.items()}
+        self.log_settings: Dict[str, Any] = dict(LOG_DEFAULTS)
+        self.tracer = RequestTracer(self.trace_settings)
+        self.log = ServerLog(self.log_settings)
+        # every request's summary, and the tail-latency watchdog; the
+        # tracer hands it each armed context at the end
+        self.flight_recorder = FlightRecorder()
+        self.tracer.flight_recorder = self.flight_recorder
+        # compute windows (duty cycle, live MFU), signature events,
+        # transfers and batcher ticks: the nv_tpu_* family
+        self.device_stats = DeviceStatsCollector()
+        # SLO burn rates: objectives from --slo or the model config's
+        # slo.p99_ms / slo.availability parameters
+        self.slo = SloEngine()
+        self.slo.resolver = self._slo_from_config
+        self.flight_recorder.slo_engine = self.slo
+        # per-(model, tenant) device time and FLOPs: nv_cost_*
+        self.cost_ledger = CostLedger()
+        costs.warm_up()
+
+    def _slo_from_config(self, name: str) -> Optional[SloObjective]:
+        """A model's SLO from its config parameters (``slo.p99_ms``, and
+        ``slo.availability``, default 0.999); None on absence or junk."""
+        try:
+            model = self.registry.get(name)
+        except InferError:
+            return None
+        params = model.config.parameters
+        try:
+            p99_ms = float(params["slo.p99_ms"])
+        except (KeyError, ValueError):
+            return None
+        if p99_ms <= 0:
+            return None
+        availability = 0.999
+        try:
+            a = float(params.get("slo.availability", ""))
+            if 0.0 < a < 1.0:
+                availability = a
+        except ValueError:
+            pass
+        return SloObjective(p99_ms=p99_ms, availability=availability)
 
     # -- health / metadata -------------------------------------------------
     def ready(self) -> bool:
@@ -347,75 +518,210 @@ class InferenceCore:
 
     def _infer_on(self, model: Model, request: InferRequest
                   ) -> InferResponse:
+        model.stats.inc_pending()
+        try:
+            return self._infer_traced_entry(model, request)
+        finally:
+            model.stats.dec_pending()
+
+    def _infer_traced_entry(self, model: Model, request: InferRequest
+                            ) -> InferResponse:
+        """The request's trace envelope: the REQUEST root from the
+        frontend's first byte, its DECODE child, and the context as this
+        thread's current trace; emitted here, or by a frontend that takes
+        it over (``trace_handoff``) after its SERIALIZE and NETWORK_WRITE
+        spans."""
+        trace = self._arm_trace(model, request, request.client_request_id,
+                                self.tracer.maybe_start,
+                                self.tracer.start_shadow,
+                                batched=model.max_batch_size > 0)
+        if trace is None:
+            return self._infer_traced(model, request, None)
+        trace.ts("REQUEST_START", request.arrival_ns)
+        trace.ts("QUEUE_START", request.arrival_ns)
+        root_start = request.arrival_ns
+        if request.decode_start_ns:
+            root_start = min(root_start, request.decode_start_ns)
+        trace.begin_root(root_start)
+        # a stream's requests are stamped for their split, but get no
+        # DECODE span, as the reference's stream records have none
+        if request.decode_end_ns and request.trace_handoff:
+            trace.add_span("DECODE", request.decode_start_ns,
+                           request.decode_end_ns)
+        token = set_current_trace(trace)
+        try:
+            resp = self._infer_traced(model, request, trace)
+        except BaseException as e:
+            trace.mark_failed(e)
+            trace.emit()
+            raise
+        finally:
+            reset_current_trace(token)
+        if trace.flight is not None:
+            trace.flight.bytes_out = sum(
+                int(getattr(o.data, "nbytes", 0)) for o in resp.outputs
+                if o.data is not None)
+        if request.trace_handoff:
+            resp.trace = trace
+        else:
+            trace.emit()
+        return resp
+
+    def _arm_trace(self, model: Model, request: InferRequest, rid: str,
+                   start, shadow, batched: bool):
+        """A sampled context from ``start``; else a shadow one from
+        ``shadow`` where the flight recorder or an SLO objective wants the
+        span tree; else None."""
+        trace = start(model.name, request.model_version or "1",
+                      client_request_id=rid, traceparent=request.traceparent)
+        recorder = self.flight_recorder
+        slo_watch = (recorder.slo_engine is not None
+                     and recorder.slo_engine.objective_for(model.name)
+                     is not None)
+        if trace is None:
+            if not (recorder.enabled or slo_watch):
+                return None
+            trace = shadow(model.name, request.model_version or "1",
+                           client_request_id=rid,
+                           traceparent=request.traceparent)
+        if recorder.enabled or slo_watch:
+            trace.flight = recorder.start(
+                model.name, model.served_version, request, batched=batched)
+        return trace
+
+    def _infer_traced(self, model: Model, request: InferRequest, trace
+                      ) -> InferResponse:
         split = RequestSplit() if self.splits is not None else None
-        t0 = time.perf_counter_ns()
+        t0 = time.monotonic_ns()
         inputs = self._resolve_inputs(model, request)
         if split is not None:
-            split.resolve = (time.perf_counter_ns() - t0) / 1e6
+            split.resolve = (time.monotonic_ns() - t0) / 1e6
         params = dict(request.parameters)
         try:
             if self._use_batcher(model, request):
-                # the batcher records the batch's statistics
-                outputs = self._batcher(model).submit(inputs, params, split)
+                # the batcher records the batch's statistics, and this
+                # request's QUEUE, BATCH_ASSEMBLY and COMPUTE spans
+                outputs = self._batcher(model).submit(
+                    inputs, params, split, trace=trace,
+                    tenant=request.tenant)
             else:
                 outputs = self._run_unbatched(model, request, inputs, params,
-                                              split)
+                                              split, trace)
         except InferError:
             raise
         except Exception as e:
             raise InferError(f"inference failed: {e}", http_status=500)
         resp = self._build_response(model, request, outputs)
         if split is not None:
-            now = time.perf_counter_ns()
+            now = time.monotonic_ns()
             start = request.decode_start_ns or t0
             split.decode = (request.decode_end_ns - request.decode_start_ns
                             ) / 1e6
             if split.forward_done_ns:
-                split.output = (now - split.forward_done_ns) / 1e6
+                split.output = (time.perf_counter_ns()
+                                - split.forward_done_ns) / 1e6
             split.total = (now - start) / 1e6
             self.splits.append(split)
         return resp
 
     def _run_unbatched(self, model: Model, request: InferRequest,
                        inputs: Dict[str, Any], params: Dict[str, Any],
-                       split: Optional[RequestSplit]) -> Dict[str, Any]:
+                       split: Optional[RequestSplit], trace=None
+                       ) -> Dict[str, Any]:
         """An ensemble, or one execution on the request thread, recorded in
         the model's statistics.  Outputs bound to CUDA regions stay where
         the model left them."""
         rows = _batch_count(inputs) or 1
         t0 = time.monotonic_ns()
         queue_ns = t0 - request.arrival_ns
+        if trace is not None:
+            trace.ts("COMPUTE_START", t0)
+            trace.add_span("QUEUE", request.arrival_ns, t0)
+        exec_stats: Dict[str, Any] = {}
         try:
             if isinstance(model, EnsembleModel):
-                outputs = self._run_ensemble(model, inputs, params)
+                outputs = self._run_ensemble(model, inputs, params,
+                                             request.tenant)
             else:
                 keep = {o.name for o in request.outputs if o.shm is not None
                         and self.cuda_shm.has(o.shm.region_name)}
-                outputs = self.run_model(model, inputs, params, split, keep)
+                outputs = self.run_model(
+                    model, inputs, params, split, keep,
+                    traces=(trace,) if trace is not None else (),
+                    exec_stats=exec_stats, cost_tenant=request.tenant)
         except Exception:
             model.stats.record(rows, queue_ns, 0, ok=False)
             raise
-        model.stats.record(rows, queue_ns, time.monotonic_ns() - t0,
-                           ok=True)
+        compute_ns = time.monotonic_ns() - t0
+        if trace is not None:
+            trace.ts("COMPUTE_END", t0 + compute_ns)
+            if isinstance(model, EnsembleModel):
+                trace.add_span("COMPUTE", t0, t0 + compute_ns)
+            elif self.cost_ledger.enabled and self.device_stats.enabled:
+                # the ledger's charge in run_model, as a stamp on the
+                # request's records (its slot share is the whole window)
+                cost = {"tenant": request.tenant, "device_us": round(
+                    exec_stats.get("compute_ns", compute_ns) / 1e3, 1)}
+                if exec_stats.get("flops"):
+                    cost["flops"] = exec_stats["flops"]
+                trace.cost = cost
+                if trace.flight is not None:
+                    trace.flight.cost = cost
+        model.stats.record(rows, queue_ns, compute_ns, ok=True)
         return outputs
 
     def infer_stream(self, request: InferRequest) -> Iterator[InferResponse]:
         """The stream entry: a request's responses, one by one.  A model
-        that is not decoupled yields exactly one; a decoupled one yields
-        each of its responses flagged ``triton_final_response`` false, then
-        an empty one flagged true.  The model's generator runs on the
-        calling thread and is closed when the caller stops early."""
+        that is not decoupled yields exactly one (traced as a unary
+        request); a decoupled one yields each of its responses flagged
+        ``triton_final_response`` false, then an empty one flagged true,
+        under one stream trace emitted when the stream closes.  The model's
+        generator runs on the calling thread and is closed when the caller
+        stops early."""
         model = self.registry.get(request.model_name, request.model_version)
         if not model.decoupled:
             yield self._infer_on(model, request)
             return
+        trace = self._arm_trace(
+            model, request, request.client_request_id or request.id,
+            self.tracer.maybe_start_stream, self.tracer.start_stream_shadow,
+            batched=False)
+        if trace is not None:
+            trace.ts("REQUEST_START", request.arrival_ns)
+            trace.ts("QUEUE_START", request.arrival_ns)
+            trace.begin_root(request.arrival_ns)
+        model.stats.inc_pending()
+        token = set_current_trace(trace) if trace is not None else None
+        try:
+            yield from self._stream_decoupled(model, request, trace)
+        except BaseException as e:
+            if trace is not None:
+                if isinstance(e, GeneratorExit):
+                    trace.mark_cancelled()
+                else:
+                    trace.mark_failed(e)
+            raise
+        finally:
+            if token is not None:
+                reset_current_trace(token)
+            model.stats.dec_pending()
+            if trace is not None:
+                trace.emit()
+
+    def _stream_decoupled(self, model: Model, request: InferRequest,
+                          trace) -> Iterator[InferResponse]:
         inputs = self._resolve_inputs(model, request)
         t0 = time.monotonic_ns()
+        if trace is not None:
+            trace.add_span("QUEUE", request.arrival_ns, t0)
         gen = model.execute_decoupled(inputs, dict(request.parameters))
         try:
             for out in gen:
                 resp = self._build_response(model, request, readback(out))
                 resp.parameters["triton_final_response"] = False
+                if trace is not None:
+                    trace.record_chunk()
+                    resp.trace = trace
                 yield resp
         except GeneratorExit:
             # the consumer went away: the request was served
@@ -436,6 +742,15 @@ class InferenceCore:
         final.parameters["triton_final_response"] = True
         yield final
 
+    def device_stats_snapshot(self, model: Optional[str] = None) -> dict:
+        """The ``/v2/debug/device_stats`` JSON: the collector's snapshot
+        with the SLO engine's under ``"slo"`` (the reference's ``"memory"``
+        and ``"kv_cache"`` sections come with their sources, ROADMAP A6b
+        and A7)."""
+        out = self.device_stats.snapshot(model=model)
+        out["slo"] = self.slo.snapshot(model=model)
+        return out
+
     def statistics(self, name: Optional[str],
                    version: str = "") -> List[dict]:
         """The v2 statistics of one model, or of every model (the
@@ -450,19 +765,89 @@ class InferenceCore:
     def run_model(self, model: Model, inputs: Dict[str, Any],
                   params: Dict[str, Any],
                   split: Optional[RequestSplit] = None,
-                  keep: Collection[str] = ()) -> Dict[str, Any]:
+                  keep: Collection[str] = (), traces=(),
+                  exec_stats: Optional[Dict[str, Any]] = None,
+                  real_batch: Optional[int] = None,
+                  cost_tenant: Optional[str] = None) -> Dict[str, Any]:
         """Execute and read every output back to the host, except those
         named in ``keep``, which stay as the model returned them (on the
         calling thread: a batch worker, or the request thread when
-        unbatched)."""
-        outputs = _timed_execute(model, inputs, params, split)
+        unbatched).
+
+        ``traces`` (every traced member of a batch, or the one request)
+        each get the COMPUTE and D2H_TRANSFER spans.  With device
+        statistics on: the window goes to ``record_execute`` (a
+        :class:`TorchModel`'s input signature with it; the first execution
+        of a signature runs counted, ``costs.py``), the readback to
+        ``record_transfer``, and ``exec_stats`` gets ``compute_ns``,
+        ``d2h_syncs``, ``flops`` and ``bytes_accessed``.  ``real_batch``:
+        the rows before padding to a bucket.  ``cost_tenant``: the ledger
+        charges it the whole window (the batcher splits a batch's window
+        itself)."""
+        ds = self.device_stats
+        want_ds = ds.enabled
+        device = getattr(model, "device", None)
+        sig = None
+        if want_ds:
+            ds.declare_model(model.name, model.flops_per_element())
+            if isinstance(model, TorchModel):
+                sig = _signature(inputs)
+        counted = sig is not None and not ds.signature_known(model.name, sig)
+        token = set_current_trace(traces[0]) if traces else None
+        try:
+            window = _ComputeWindow(device)
+            cost = None
+            if counted:
+                outputs, cost = model.analyze_cost(inputs, params,
+                                                   peak_sink=ds.note_peak)
+            else:
+                outputs = model.execute(inputs, params)
+            window.close()
+        finally:
+            if token is not None:
+                reset_current_trace(token)
+        if split is not None:
+            # the request's split: the forward waited on, so that its
+            # output phase starts at the forward's end
+            split.forward = window.elapsed_ns() / 1e6
+            split.forward_done_ns = time.perf_counter_ns()
         model.stats.record_execution(_batch_count(inputs))
+        drained = [v for n, v in outputs.items() if n not in keep
+                   and isinstance(v, torch.Tensor) and v.is_cuda]
         host = readback({n: v for n, v in outputs.items() if n not in keep})
         host.update({n: v for n, v in outputs.items() if n in keep})
+        t_d1 = time.monotonic_ns()
+        compute_ns = window.elapsed_ns()
+        t_c1 = window.t0 + compute_ns
+        for t in traces:
+            t.add_span("COMPUTE", window.t0, t_c1)
+            t.add_span("D2H_TRANSFER", t_c1, max(t_c1, t_d1))
+        if want_ds:
+            padded_n = _batch_count(inputs) or 1
+            ds.record_execute(model.name, real_batch or padded_n, compute_ns,
+                              signature=sig, cost=cost,
+                              padded_batch=padded_n)
+            if cost is None and sig is not None:
+                cost = ds.signature_cost(model.name, sig)
+            if drained:
+                ds.record_transfer(
+                    "d2h", sum(v.numel() * v.element_size() for v in drained),
+                    count=len(drained))
+            if exec_stats is not None:
+                exec_stats["compute_ns"] = compute_ns
+                exec_stats["d2h_syncs"] = len(drained)
+                if cost is not None:
+                    exec_stats["flops"] = cost.flops
+                    exec_stats["bytes_accessed"] = cost.bytes_accessed
+            if cost_tenant is not None and self.cost_ledger.enabled:
+                self.cost_ledger.charge(
+                    model.name, cost_tenant, device_us=compute_ns / 1e3,
+                    flops=cost.flops if cost is not None else 0.0)
         return host
 
     def _run_ensemble(self, model: EnsembleModel, inputs: Dict[str, Any],
-                      params: Dict[str, Any]) -> Dict[str, np.ndarray]:
+                      params: Dict[str, Any], tenant: str = ""
+                      ) -> Dict[str, np.ndarray]:
         """Run the ensemble's steps in data-dependency order; tensors flow
         between them through ``input_map``/``output_map``."""
         pool: Dict[str, Any] = dict(inputs)
@@ -478,7 +863,7 @@ class InferenceCore:
                     f"ensemble '{model.name}': tensor(s) "
                     f"{', '.join(missing)} are never produced")
             for step in ready:
-                outs = self._run_ensemble_step(step, pool, params)
+                outs = self._run_ensemble_step(step, pool, params, tenant)
                 for member_output, pool_name in step.output_map.items():
                     if member_output not in outs:
                         raise InferError(
@@ -492,7 +877,8 @@ class InferenceCore:
                          if o.name in pool})
 
     def _run_ensemble_step(self, step, pool: Dict[str, Any],
-                           params: Dict[str, Any]) -> Dict[str, Any]:
+                           params: Dict[str, Any], tenant: str = ""
+                           ) -> Dict[str, Any]:
         member = self.registry.get(step.model_name)
         step_inputs = {member_input: pool[pool_name]
                        for member_input, pool_name in step.input_map.items()}
@@ -504,11 +890,13 @@ class InferenceCore:
             # its own and concurrent streams would not coalesce
             member_params = {k: v for k, v in params.items()
                              if k not in SEQUENCE_KEYS}
-            return self._batcher(member).submit(step_inputs, member_params)
+            return self._batcher(member).submit(step_inputs, member_params,
+                                                tenant=tenant)
         rows = _batch_count(step_inputs) or 1
         t0 = time.monotonic_ns()
         try:
-            outs = self.run_model(member, step_inputs, params)
+            outs = self.run_model(member, step_inputs, params,
+                                  cost_tenant=tenant)
         except Exception:
             member.stats.record(rows, 0, time.monotonic_ns() - t0, ok=False)
             raise
@@ -544,6 +932,8 @@ class InferenceCore:
             self._batchers.clear()
         for b in batchers:
             b.stop()
+        self.tracer.shutdown()
+        self.log.shutdown()
 
     # -- validation / response ---------------------------------------------
     def _resolve_inputs(self, model: Model,

@@ -22,23 +22,34 @@ stream RPC takes an iterator of requests and yields responses.
   ``ModelStatistics`` (``InferenceCore.statistics``) and the six shared
   memory RPCs, on the registries of ``shm.py``, with the HTTP routes'
   texts.
-* The repository, trace, log and debug RPCs answer UNIMPLEMENTED, naming
-  the ROADMAP item that brings them (``protocol.service.NOT_PORTED``).
+* ``TraceSetting`` and ``LogSettings`` (the reference's contracts: an
+  empty value clears a trace key to its default, or in a model's scope to
+  the global value), and the debug RPCs ``FlightRecorder``,
+  ``DeviceStats`` and ``Costs``, whose responses carry the HTTP routes'
+  JSON.  A traced ``ModelInfer`` is finished here: SERIALIZE (the response
+  message built) and NETWORK_WRITE (until it is handed to the bridge); a
+  traced decoupled stream gets a NETWORK_WRITE span every few chunks.
+* The repository RPCs answer UNIMPLEMENTED, naming the ROADMAP item that
+  brings them (``protocol.service.NOT_PORTED``).
 
 Status codes from the core's errors as in the reference's ``_grpc_code``.
 """
 
 from __future__ import annotations
 
+import json
 import time
 from typing import Any, Dict, Iterable, Iterator
 
 import numpy as np
 
+from ..protocol import debug as pb_debug
 from ..protocol import inference as pb
 from ..protocol.service import NOT_PORTED, StatusCode
 from ..utils import triton_to_np_dtype
-from .core import InferenceCore
+from .core import DEFAULT_TENANT, InferenceCore
+from .flight_recorder import parse_snapshot_limit
+from .trace import TRACE_DEFAULTS, validate_trace_update
 from .types import (InferError, InferRequest, InferResponse, InputTensor,
                     RequestedOutput, ShmRef, bytes_to_array, output_payload,
                     reshape_input)
@@ -309,27 +320,129 @@ class InferenceServicer:
         self._core.cuda_shm.unregister(request.name or None)
         return pb.CudaSharedMemoryUnregisterResponse()
 
+    # -- trace / logging ---------------------------------------------------
+    @staticmethod
+    def _settings_error(e: InferError) -> GrpcError:
+        return GrpcError(StatusCode.UNIMPLEMENTED if e.http_status == 501
+                         else StatusCode.INVALID_ARGUMENT, str(e))
+
+    def TraceSetting(self, request):
+        core = self._core
+        model = request.model_name or ""
+        if model:
+            try:
+                core.registry.get(model)
+                update = {k: list(v.value)
+                          for k, v in request.settings.items() if v.value}
+                cleared = []
+                for k, v in request.settings.items():
+                    if v.value:
+                        continue
+                    if k not in TRACE_DEFAULTS:
+                        raise InferError(f"unknown trace setting '{k}'", 400)
+                    cleared.append(k)
+                validate_trace_update(update, model_scope=True)
+            except InferError as e:
+                raise self._settings_error(e)
+            if update or cleared:
+                core.tracer.update_model(model, update, cleared)
+            settings = core.tracer.effective_settings(model)
+        else:
+            # an empty value clears the key to its default
+            update = {k: list(v.value) if v.value
+                      else list(TRACE_DEFAULTS.get(k, []))
+                      for k, v in request.settings.items()}
+            try:
+                validate_trace_update(update)
+            except InferError as e:
+                raise self._settings_error(e)
+            if update:  # an empty map is a read
+                core.trace_settings.update(update)
+                core.tracer.settings_updated()
+            settings = core.trace_settings
+        resp = pb.TraceSettingResponse()
+        for k, vals in settings.items():
+            resp.settings[k] = pb.TraceSettingResponse.SettingValue(
+                value=list(vals))
+        return resp
+
+    def LogSettings(self, request):
+        settings = self._core.log_settings
+        for k, v in request.settings.items():
+            which = v.WhichOneof("parameter_choice")
+            if which:
+                settings[k] = getattr(v, which)
+        resp = pb.LogSettingsResponse()
+        for k, val in settings.items():
+            if isinstance(val, bool):
+                value = pb.LogSettingsResponse.SettingValue(bool_param=val)
+            elif isinstance(val, int):
+                value = pb.LogSettingsResponse.SettingValue(uint32_param=val)
+            else:
+                value = pb.LogSettingsResponse.SettingValue(
+                    string_param=str(val))
+            resp.settings[k] = value
+        return resp
+
+    # -- debug snapshots ---------------------------------------------------
+    def FlightRecorder(self, request):
+        try:
+            limit = parse_snapshot_limit(request.limit or 0)
+        except InferError as e:
+            raise GrpcError(StatusCode.INVALID_ARGUMENT, str(e))
+        return pb_debug.FlightRecorderResponse(payload_json=json.dumps(
+            self._core.flight_recorder.snapshot(
+                model=request.model_name or None, limit=limit)))
+
+    def DeviceStats(self, request):
+        return pb_debug.DeviceStatsResponse(payload_json=json.dumps(
+            self._core.device_stats_snapshot(request.model_name or None)))
+
+    def Costs(self, request):
+        return pb_debug.CostsResponse(payload_json=json.dumps(
+            self._core.cost_ledger.snapshot(
+                model=request.model_name or None)))
+
     # -- inference ---------------------------------------------------------
     def _decode(self, request, wire_bytes: int,
                 decode_start_ns: int = 0) -> InferRequest:
         """The core's request; its decode window (for the request's split)
         from ``decode_start_ns`` (the message's parse) where given."""
-        start = decode_start_ns or time.perf_counter_ns()
+        start = decode_start_ns or time.monotonic_ns()
         req = decode_request(request)
         req.decode_start_ns, req.decode_end_ns = (start,
-                                                  time.perf_counter_ns())
+                                                  time.monotonic_ns())
         req.protocol = "grpc"
         req.wire_bytes = wire_bytes
+        req.tenant = DEFAULT_TENANT
         return req
 
     def ModelInfer(self, request, wire_bytes: int = 0,
                    decode_start_ns: int = 0):
         try:
-            resp = self._core.infer(self._decode(request, wire_bytes,
-                                                 decode_start_ns))
+            req = self._decode(request, wire_bytes, decode_start_ns)
+            # this servicer finishes the trace: SERIALIZE, NETWORK_WRITE
+            req.trace_handoff = True
+            resp = self._core.infer(req)
         except InferError as e:
             raise GrpcError(grpc_code(e), str(e))
-        return encode_response(resp)
+        trace = resp.trace
+        if trace is None:
+            return encode_response(resp)
+        try:
+            t_ser0 = time.monotonic_ns()
+            out = encode_response(resp)
+            t_ser1 = time.monotonic_ns()
+            trace.add_span("SERIALIZE", t_ser0, t_ser1)
+            # the bridge writes the message after this returns: the span
+            # covers the handoff work still visible from here
+            trace.add_span("NETWORK_WRITE", t_ser1, time.monotonic_ns())
+        except BaseException as e:
+            trace.mark_failed(e)
+            raise
+        finally:
+            trace.emit()
+        return out
 
     def ModelStreamInfer(self, requests: Iterable
                          ) -> Iterator["pb.ModelStreamInferResponse"]:
@@ -348,8 +461,11 @@ class InferenceServicer:
                             resp.parameters.get("triton_final_response") \
                             is True:
                         continue
+                    t0 = time.monotonic_ns()
                     yield pb.ModelStreamInferResponse(
                         infer_response=encode_response(resp))
+                    if resp.trace is not None:
+                        resp.trace.record_write(t0, time.monotonic_ns())
             except InferError as e:
                 yield pb.ModelStreamInferResponse(
                     error_message=f"[{e.http_status}] {e}")

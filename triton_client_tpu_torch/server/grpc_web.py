@@ -84,7 +84,7 @@ def _unary(servicer, method, req_type, chunks, send) -> None:
             pass
         if payload is None:
             raise ValueError("missing request message")
-        t0 = time.perf_counter_ns()
+        t0 = time.monotonic_ns()
         request = req_type.FromString(payload)
         if method == "ModelInfer":
             resp = servicer.ModelInfer(request, len(payload), t0)

@@ -26,8 +26,20 @@ reference mounts its bridge; the port has no HTTP/2 listener.  A request
 body may come with ``Content-Length`` or in chunked transfer coding; a
 stream's chunks reach the bridge as they arrive.
 
-Not ported yet: the repository, trace and logging APIs, generate/SSE, gzip
-and the wire templates.
+Observability (the reference's routes, http_server.py:135-147):
+``GET``/``POST /v2/trace/setting`` and ``/v2/models/{m}/trace/setting``,
+``GET``/``POST /v2/logging``, ``GET /metrics`` (Prometheus text) and the
+debug snapshots ``GET /v2/debug/flight_recorder`` (``?model=``,
+``?limit=``), ``/v2/debug/device_stats`` and ``/v2/debug/costs``
+(``?model=``).  An infer request's trace gets its DECODE span here, and
+this frontend finishes it: SERIALIZE (the response's encoding) and
+NETWORK_WRITE (its write to the socket), then the record is emitted.  A
+5xx is written to the server log, and each request at
+``log_verbose_level`` 1.  :class:`MetricsServer` is the second listener of
+``--metrics-port``: ``/metrics`` and the debug snapshots only.
+
+Not ported yet: the repository API, generate/SSE, gzip and the wire
+templates.
 """
 
 from __future__ import annotations
@@ -46,20 +58,33 @@ import torch
 
 from ..protocol.grpc_web import CONTENT_TYPE, read_chunked
 from . import grpc_web
-from .core import InferenceCore
+from .core import DEFAULT_TENANT, InferenceCore
+from .flight_recorder import parse_snapshot_limit
 from .grpc_server import InferenceServicer
+from .trace import TRACE_DEFAULTS, validate_trace_update
 from .types import (InferError, InferRequest, InputTensor, RequestedOutput,
                     ShmRef, bytes_to_array, numeric_dtype, output_payload,
                     reshape_input)
 
 _HEADER_LEN = "Inference-Header-Content-Length"
 _REQUEST_ID_HDR = "triton-request-id"
+_TRACEPARENT_HDR = "traceparent"
 _MODEL = r"/v2/models/(?P<model>[^/]+)(?:/versions/(?P<version>[^/]+))?"
 
 _SHM = r"/v2/(?P<kind>systemsharedmemory|cudasharedmemory)"
 _SHM_REGION = _SHM + r"/region/(?P<name>[^/]+)"
 
 _GRPC_PREFIX = "/inference.GRPCInferenceService/"
+
+_MODEL_TRACE = r"/v2/models/(?P<model>[^/]+)/trace/setting"
+
+#: the observability routes, served on the HTTP port and by MetricsServer
+_DEBUG_ROUTES = [
+    (re.compile(r"/metrics"), "_metrics"),
+    (re.compile(r"/v2/debug/flight_recorder"), "_flight_recorder"),
+    (re.compile(r"/v2/debug/device_stats"), "_device_stats"),
+    (re.compile(r"/v2/debug/costs"), "_costs"),
+]
 
 _GET_ROUTES = [
     (re.compile(r"/v2/health/live"), "_health_live"),
@@ -73,9 +98,16 @@ _GET_ROUTES = [
     (re.compile(_MODEL), "_model_metadata"),
     (re.compile(_SHM + r"/status"), "_shm_status"),
     (re.compile(_SHM_REGION + r"/status"), "_shm_status"),
+    (re.compile(r"/v2/trace/setting"), "_get_trace"),
+    (re.compile(_MODEL_TRACE), "_get_trace"),
+    (re.compile(r"/v2/logging"), "_get_logging"),
+    *_DEBUG_ROUTES,
 ]
 _POST_ROUTES = [
     (re.compile(_MODEL + r"/infer"), "_infer"),
+    (re.compile(r"/v2/trace/setting"), "_set_trace"),
+    (re.compile(_MODEL_TRACE), "_set_trace"),
+    (re.compile(r"/v2/logging"), "_set_logging"),
     (re.compile(_SHM_REGION + r"/register"), "_shm_register"),
     (re.compile(_SHM + r"/unregister"), "_shm_unregister"),
     (re.compile(_SHM_REGION + r"/unregister"), "_shm_unregister"),
@@ -107,6 +139,8 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _dispatch(self, routes) -> None:
         path = urllib.parse.unquote(self.path.split("?", 1)[0])
+        self._query = urllib.parse.parse_qs(
+            urllib.parse.urlsplit(self.path).query)
         if routes is _POST_ROUTES and path.startswith(_GRPC_PREFIX) \
                 and path[len(_GRPC_PREFIX):] in self.server.grpc_methods:
             self._grpc(path[len(_GRPC_PREFIX):])
@@ -121,11 +155,20 @@ class _Handler(BaseHTTPRequestHandler):
             match = pattern.fullmatch(path)
             if match is None:
                 continue
+            rid = self.headers.get(_REQUEST_ID_HDR, "")
+            log = self.core.log
             try:
                 getattr(self, handler)(match.groupdict(), body)
+                log.verbose(1, f"{self.command} {path} -> 200", rid)
             except InferError as e:
+                if e.http_status >= 500:
+                    log.error(f"{self.command} {path} failed: {e}", rid)
+                else:
+                    log.verbose(1, f"{self.command} {path} -> "
+                                   f"{e.http_status}: {e}", rid)
                 self._send(e.http_status, _json_body({"error": str(e)}))
             except Exception as e:  # noqa: BLE001 - a handler bug is a 500
+                log.error(f"{self.command} {path} crashed: {e}", rid)
                 self._send(500, _json_body({"error": str(e)}))
             return
         self._send(404, _json_body({"error": f"no route for {path}"}))
@@ -271,9 +314,81 @@ class _Handler(BaseHTTPRequestHandler):
         self._shm_registry(groups).unregister(groups.get("name"))
         self._send(200)
 
+    # -- trace and log settings ----------------------------------------------
+    def _get_trace(self, groups, body):
+        model = groups.get("model")
+        if model:
+            self.core.registry.get(model)  # an unknown model is a 400
+            self._send(200, _json_body(
+                self.core.tracer.effective_settings(model)))
+            return
+        self._send(200, _json_body(self.core.trace_settings))
+
+    def _set_trace(self, groups, body):
+        core = self.core
+        model = groups.get("model")
+        req = _json_object(body)
+        if model:
+            core.registry.get(model)
+            update, cleared = {}, []
+            for k, v in req.items():
+                if v is None:
+                    # null in a model's scope: inherit the global value
+                    if k not in TRACE_DEFAULTS:
+                        raise InferError(f"unknown trace setting '{k}'", 400)
+                    cleared.append(k)
+                else:
+                    update[k] = v if isinstance(v, list) else [str(v)]
+            validate_trace_update(update, model_scope=True)
+            if update or cleared:
+                core.tracer.update_model(model, update, cleared)
+            self._send(200, _json_body(core.tracer.effective_settings(model)))
+            return
+        update = {}
+        for k, v in req.items():
+            # null clears to the default
+            update[k] = (list(TRACE_DEFAULTS.get(k, [])) if v is None
+                         else v if isinstance(v, list) else [str(v)])
+        validate_trace_update(update)
+        if update:  # an empty body is a read
+            core.trace_settings.update(update)
+            core.tracer.settings_updated()
+        self._send(200, _json_body(core.trace_settings))
+
+    def _get_logging(self, groups, body):
+        self._send(200, _json_body(self.core.log_settings))
+
+    def _set_logging(self, groups, body):
+        self.core.log_settings.update(_json_object(body))
+        self._send(200, _json_body(self.core.log_settings))
+
+    # -- /metrics and the debug snapshots --------------------------------------
+    def _query_one(self, key: str, default: str = "") -> str:
+        vals = self._query.get(key)
+        return vals[0] if vals else default
+
+    def _metrics(self, groups, body):
+        from .metrics import render_prometheus
+
+        self._send(200, render_prometheus(self.core).encode("utf-8"),
+                   content_type="text/plain; charset=utf-8")
+
+    def _flight_recorder(self, groups, body):
+        limit = parse_snapshot_limit(self._query_one("limit", "0"))
+        self._send(200, _json_body(self.core.flight_recorder.snapshot(
+            model=self._query_one("model") or None, limit=limit)))
+
+    def _device_stats(self, groups, body):
+        self._send(200, _json_body(self.core.device_stats_snapshot(
+            self._query_one("model") or None)))
+
+    def _costs(self, groups, body):
+        self._send(200, _json_body(self.core.cost_ledger.snapshot(
+            model=self._query_one("model") or None)))
+
     # -- infer -------------------------------------------------------------
     def _infer(self, groups, raw: bytes):
-        decode_start = time.perf_counter_ns()
+        decode_start = time.monotonic_ns()
         header_len = self.headers.get(_HEADER_LEN)
         if header_len is not None:
             try:
@@ -291,21 +406,55 @@ class _Handler(BaseHTTPRequestHandler):
         req = decode_request(groups["model"], groups["version"] or "",
                              body, binary)
         req.decode_start_ns, req.decode_end_ns = (decode_start,
-                                                  time.perf_counter_ns())
+                                                  time.monotonic_ns())
         req.client_request_id = self.headers.get(_REQUEST_ID_HDR, "")
+        req.traceparent = self.headers.get(_TRACEPARENT_HDR, "")
         req.protocol = "http"
         req.wire_bytes = len(raw)
+        req.tenant = DEFAULT_TENANT
+        # this frontend finishes the trace: SERIALIZE and NETWORK_WRITE
+        req.trace_handoff = True
         resp = self.core.infer(req)
-        default_binary = bool(req.parameters.get("binary_data_output",
-                                                 header_len is not None))
-        header, segments = encode_response(
-            resp, {o.name: o for o in req.outputs}, default_binary)
-        headers = {_HEADER_LEN: str(len(header))}
-        if req.client_request_id:
-            headers[_REQUEST_ID_HDR] = req.client_request_id
-        self._send(200, header, headers,
-                   content_type="application/octet-stream",
-                   segments=segments)
+        trace = resp.trace
+        try:
+            t_ser0 = time.monotonic_ns()
+            default_binary = bool(req.parameters.get(
+                "binary_data_output", header_len is not None))
+            header, segments = encode_response(
+                resp, {o.name: o for o in req.outputs}, default_binary)
+            headers = {_HEADER_LEN: str(len(header))}
+            if req.client_request_id:
+                headers[_REQUEST_ID_HDR] = req.client_request_id
+            t_ser1 = time.monotonic_ns()
+            if trace is not None:
+                trace.add_span("SERIALIZE", t_ser0, t_ser1)
+            self._send(200, header, headers,
+                       content_type="application/octet-stream",
+                       segments=segments)
+            if trace is not None:
+                trace.add_span("NETWORK_WRITE", t_ser1, time.monotonic_ns())
+        except BaseException as e:
+            # a failure after the core's success is still a failure
+            if trace is not None:
+                trace.mark_failed(e)
+            raise
+        finally:
+            if trace is not None:
+                trace.emit()
+
+
+def _json_object(body: bytes) -> dict:
+    """A settings body as a JSON object ({} when empty); anything else is
+    a 400."""
+    if not body:
+        return {}
+    try:
+        obj = json.loads(body)
+    except ValueError:
+        raise InferError("failed to parse request JSON")
+    if not isinstance(obj, dict):
+        raise InferError("request body must be a JSON object")
+    return obj
 
 
 def decode_request(model_name: str, version: str, body: dict,
@@ -470,3 +619,27 @@ class HttpServer(ThreadingHTTPServer):
         self.servicer = InferenceServicer(core)
         self.grpc_methods = set(grpc_web.METHODS) | set(grpc_web.NOT_PORTED)
         super().__init__((host, port), _Handler)
+
+
+class _MetricsHandler(_Handler):
+    """``/metrics`` and the debug snapshots, nothing else."""
+
+    def do_GET(self):
+        self._dispatch(_DEBUG_ROUTES)
+
+    def do_POST(self):
+        self._dispatch([])
+
+
+class MetricsServer(ThreadingHTTPServer):
+    """The ``--metrics-port`` listener (the reference's
+    ``build_metrics_app``): ``/metrics`` and the debug snapshots of one
+    :class:`InferenceCore`."""
+
+    daemon_threads = True
+
+    def __init__(self, core: InferenceCore, host: str = "127.0.0.1",
+                 port: int = 8002):
+        self.core = core
+        self.grpc_methods = set()
+        super().__init__((host, port), _MetricsHandler)

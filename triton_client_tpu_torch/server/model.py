@@ -10,7 +10,9 @@ message's proto3 JSON (the HTTP ``/config`` body), as the reference's does.
 * :class:`TorchModel` is the counterpart of ``JaxModel``: a function over
   tensors, run under ``torch.inference_mode()`` on the device its config's
   ``instance_group`` names.  Outputs may stay on the device; the core reads
-  them back off the request thread.
+  them back off the request thread.  Its executions earn input signatures
+  in the device statistics, and :meth:`TorchModel.analyze_cost` counts one
+  (``costs.py``).
 * :class:`PyModel` runs arbitrary Python over numpy arrays; a decoupled
   one yields 0..N response dicts from ``execute_decoupled``.
 * :class:`EnsembleModel` names a DAG of member models (its config's
@@ -214,6 +216,8 @@ class ModelStats:
     infer_ns: int = 0
     batch_size_total: int = 0
     batch_execution_count: int = 0
+    # requests executing or waiting (nv_inference_pending_request_count)
+    pending_count: int = 0
     executions: Optional[List[Tuple[float, int]]] = None
     lock: threading.Lock = field(default_factory=threading.Lock)
 
@@ -235,6 +239,14 @@ class ModelStats:
             else:
                 self.fail_count += batch
                 self.fail_ns += (queue_ns + compute_ns) * batch
+
+    def inc_pending(self) -> None:
+        with self.lock:
+            self.pending_count += 1
+
+    def dec_pending(self) -> None:
+        with self.lock:
+            self.pending_count -= 1
 
     def record_batch(self, batch: int) -> None:
         with self.lock:
@@ -333,6 +345,25 @@ class Model(abc.ABC):
         """Classification labels of an output, where it has them."""
         return None
 
+    def flops_per_element(self) -> Optional[float]:
+        """Analytic forward FLOPs per batch element, the live-MFU numerator
+        until a counted execution gives the measured one: the config's
+        ``flops_per_inference`` parameter, else None (no MFU series)."""
+        cached = getattr(self, "_flops_pe_cache", False)
+        if cached is not False:
+            return cached
+        value: Optional[float] = None
+        raw = self.config.parameters.get("flops_per_inference")
+        if raw is not None:
+            try:
+                parsed = float(raw)
+                if parsed > 0:
+                    value = parsed
+            except ValueError:
+                pass
+        self._flops_pe_cache = value
+        return value
+
 
 class PyModel(Model):
     """Host-side model: arbitrary Python over numpy arrays.  A decoupled
@@ -418,6 +449,21 @@ class TorchModel(Model):
 
     def labels(self, output_name: str) -> Optional[List[str]]:
         return self._output_labels.get(output_name)
+
+    def analyze_cost(self, inputs: Dict[str, Any],
+                     parameters: Optional[Dict[str, Any]] = None,
+                     peak_sink: Optional[Callable[[str, int], None]] = None):
+        """Execute once, counted (``costs.analyze_torch_callable``):
+        ``(outputs, SignatureCost or None)``.  The reference lowers its
+        function ahead of time and runs nothing; the port can count only by
+        running, so the core calls this in place of ``execute`` for the
+        first execution of each input signature, and no extra forward
+        runs."""
+        from .costs import analyze_torch_callable
+
+        return analyze_torch_callable(
+            self.execute, inputs, parameters if parameters is not None
+            else {}, device=self.device, peak_sink=peak_sink)
 
 
 __all__ = ["EnsembleModel", "EnsembleStep", "Model", "ModelConfig",

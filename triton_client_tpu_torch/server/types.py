@@ -4,7 +4,7 @@ The port's own copy of ``triton_client_tpu/server/types.py`` (pure Python;
 kept field for field so the two packages' requests and responses mean the
 same thing).  This slice's HTTP frontend (``http_server.py``) decodes into
 these structures and the core (``core.py``) only ever sees them.  Fields for
-layers not ported yet (tracing, QoS) stay, unused.
+layers not ported yet (QoS, deadlines) stay, unused.
 """
 
 from __future__ import annotations
