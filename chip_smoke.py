@@ -42,12 +42,13 @@ Phases (any failure exits non-zero and prints no result line):
    default ``TRITON_TPU_INT8_FUSED=w2`` (one int8 launch per layer) and
    then under ``all`` (two: FFN-up too), for its forward time beside the
    default's;
-6. serve ``bert_large`` at full width (24 layers, S = 384): 40 requests of
+6. serve ``bert_large`` at full width (S = 384) and ``BERT_SERVE_LAYERS``
+   (12) of its 24 layers: 40 requests of
    4 sequences from 8 threads, so the batcher forms batches up to 32, in
    bf16, int8 under ``w2`` and int8 under ``all``; each LOGITS held to the
    plain-kernel forward of the same tokens, and the control (that forward
-   with a planted fault) beyond the bound; int8 launches exactly 0 / 24 /
-   48 per forward, flash never (S = 384 is under the gate); in bf16 and
+   with a planted fault) beyond the bound; int8 launches exactly 0 / 1 /
+   2 per layer, flash never (S = 384 is under the gate); in bf16 and
    ``w2``, then on the same server one request of 32 sequences by four
    transports -- (a), (b), (c) and (d) CUDA shm of another process (this
    script's ``--shm-client``, whose regions the server maps with
@@ -130,7 +131,35 @@ Phases (any failure exits non-zero and prints no result line):
     ``PROFILE`` window whose Chrome trace names the flash and int8
     kernels; no region left; ``bert_large`` runs off, then on, and on may
     be at most ``OBS_TOL`` slower;
-13. print each kernel's launches on every served path, one JSON line
+13. overload: ``bert_large`` int8 ``w2`` at -b 1 under a queue bound of
+    16 and the reference's 4 tiers (3 ms batching delay): two classes
+    (``--priority 0 --tenant gold``, ``--priority 3 --tenant bulk``) at
+    c = 16 over HTTP (traced) and gRPC, both honouring the server's
+    pushback (``--retries 3``), then a best-effort flood that ignores it
+    (a process of its own) beside tier-0 requests from this process, then
+    one class at c = 8: tier 0 never shed, every shed with its pushback
+    and counted alike by the server (``nv_inference_rejected_total``) and
+    the client, each class's infer/s, p50 / p99 and sheds printed beside
+    c = 8's p99; then chaos (``error,latency,abort`` at 0.2, seed 7, a
+    0.2 s healthy window after each fault) under ``perf_analyzer
+    --retries 3`` at c = 4: no caller error, the retries equal the
+    injected errors and aborts, answers served under chaos within
+    ``SERVED_ATOL`` of the plain forward; then a ``mem_pressure`` drill
+    (a byte budget of two requests, windows that halve it): sheds,
+    retried, no caller error, the budget back afterwards.
+    ``longctx_tpu`` base int8 ``all`` with a byte budget of 1.5 requests:
+    sheds at c = 4 with pushback (``nv_mem_shed_total`` equal to them), a
+    request over its tier's share a 413 sent once, requests past their
+    deadline 504 (on arrival, and behind a c = 4 load), the ledger empty
+    when idle, ``nv_mem_hbm_headroom_bytes`` beside
+    ``torch.cuda.mem_get_info()``.  A server process of its own
+    (``longctx_tpu`` base, each request held 400 ms by a latency fault)
+    sent SIGTERM: the requests in flight answer, new ones get 503 with
+    Retry-After, it exits 0 within ``--drain-timeout``.  Launches exactly
+    24 int8 (``bert_large``), 8 flash + 16 int8 (``longctx_tpu``) per
+    execution in every window: a shed, expired or injected request
+    launches nothing;
+14. print each kernel's launches on every served path, one JSON line
     describing every kernel, then the result line
     ``{"ok": true, "device": {...}}``.
 
@@ -215,6 +244,10 @@ SERVED_ATOL = {
 # least such fault the bound catches.
 CONTROL_SCALES = (1.01, 1.1, 2.0)
 N_REQUESTS, N_THREADS = 8, 4
+#: ``bert_large``'s depth in the serving phases (6): 12 of its 24 layers,
+#: at full width, so that the script stays within its time; the perf, gRPC,
+#: observability and overload phases serve all 24
+BERT_SERVE_LAYERS = 12
 # bert_large: 40 requests of 4 sequences from 8 threads, so up to 32
 # sequences wait at once and the batcher can fill its largest batch (32)
 BERT_REQUESTS, BERT_ROWS, BERT_THREADS = 40, 4, 8
@@ -616,6 +649,21 @@ def _reset(counters) -> None:
     for mod in counters.values():
         mod.launches = 0
     counters["int8_matmul"].quantize_launches = 0
+
+
+@contextlib.contextmanager
+def bert_depth(n_layers: int):
+    """``bert_large`` built with ``n_layers`` layers inside the block."""
+    import dataclasses
+
+    from triton_client_tpu_torch.models import language
+
+    full = language.BERT_LARGE
+    language.BERT_LARGE = dataclasses.replace(full, n_layers=n_layers)
+    try:
+        yield
+    finally:
+        language.BERT_LARGE = full
 
 
 @contextlib.contextmanager
@@ -1562,25 +1610,16 @@ def _device_busy(prof):
     return busy, span, len(events)
 
 
-def perf_sweep(label: str, harness, model, args, counters,
-               flash_per_forward: int, int8_per_forward: int,
-               window_ms: int = PERF_WINDOW_MS, trace: bool = False,
-               paths=None):
-    """Run ``python -m triton_client_tpu_torch.perf_analyzer`` with
+def _perf_analyzer(label: str, harness, model, args, counters,
+                   window_ms: int, trace: bool = False):
+    """Run ``python -m triton_client_tpu_torch.perf_analyzer -v`` with
     ``args`` in a process of its own against the server ``harness`` of this
-    process; print each level (infer/s, p50/p90/p99, errors, the model's
-    executions in the level's window and their batch sizes, and the
-    server's median split of the requests whose forward ended in the
-    window) and check: the tool exited 0, no errors, launches exactly per
-    execution, Little's law at each closed-loop level, no region left in
-    the tool's process.  Where ``trace``, the card is traced with
-    torch.profiler for the whole run and its busy share under that load
-    printed.  The run's launches go into ``paths`` (PERF_PATHS where not
-    given) and its levels into PERF_LEVELS.  Returns the levels'
-    results."""
-    from collections import Counter
-
-    import numpy as np
+    process, the launch counts zeroed just before it and read just after;
+    fail unless it exits 0, prints its levels and leaves no region.  Where
+    ``trace``, the card is traced with torch.profiler for the whole run
+    and its busy share printed.  Returns (the levels' results, launches,
+    the model's executions as ``(perf_counter s, rows)``, the server's
+    splits)."""
     from torch.profiler import ProfilerActivity, profile
 
     st, core = model.stats, harness.core
@@ -1614,10 +1653,6 @@ def perf_sweep(label: str, harness, model, args, counters,
     if not results or left != [{"system": [], "cuda": []}]:
         fail(f"{label}: perf_analyzer printed {len(results)} levels and "
              f"left regions {left}: {proc.stdout[-2000:]}")
-    check_launches(label, launches, len(executions), flash_per_forward,
-                   int8_per_forward)
-    (PERF_PATHS if paths is None else paths)[label] = launches
-    batch = int(args[args.index("-b") + 1])
     print(f"{label}: perf_analyzer {' '.join(args)} in {wall:.1f} s, "
           f"{len(executions)} executions, launches {launches}", flush=True)
     if trace:
@@ -1626,7 +1661,36 @@ def perf_sweep(label: str, harness, model, args, counters,
               f"the {span:.1f} ms from the first to the last, idle "
               f"{1 - busy / span if span else float('nan'):.1%}; "
               f"{busy / max(len(executions), 1):.3f} ms of device time per "
-              "execution", flush=True)
+              f"execution; {CARD}", flush=True)
+    return results, launches, executions, splits
+
+
+def perf_sweep(label: str, harness, model, args, counters,
+               flash_per_forward: int, int8_per_forward: int,
+               window_ms: int = PERF_WINDOW_MS, trace: bool = False,
+               paths=None):
+    """Run ``python -m triton_client_tpu_torch.perf_analyzer`` with
+    ``args`` in a process of its own against the server ``harness`` of this
+    process; print each level (infer/s, p50/p90/p99, errors, the model's
+    executions in the level's window and their batch sizes, and the
+    server's median split of the requests whose forward ended in the
+    window) and check: the tool exited 0, no errors, launches exactly per
+    execution, Little's law at each closed-loop level, no region left in
+    the tool's process.  Where ``trace``, the card is traced with
+    torch.profiler for the whole run and its busy share under that load
+    printed.  The run's launches go into ``paths`` (PERF_PATHS where not
+    given) and its levels into PERF_LEVELS.  Returns the levels'
+    results."""
+    from collections import Counter
+
+    import numpy as np
+
+    results, launches, executions, splits = _perf_analyzer(
+        label, harness, model, args, counters, window_ms, trace)
+    check_launches(label, launches, len(executions), flash_per_forward,
+                   int8_per_forward)
+    (PERF_PATHS if paths is None else paths)[label] = launches
+    batch = int(args[args.index("-b") + 1])
     for res in results:
         lo, hi = res["window_start_s"], res["window_end_s"]
         rows = Counter(r for t, r in executions if lo <= t <= hi)
@@ -2687,6 +2751,617 @@ def observability_phase(torch, counters) -> None:
             os.environ.pop(var, None)
 
 
+# ---------------------------------------------------------------------------
+# Overload: QoS tiers, the memory governor, deadlines, chaos and drain
+# ---------------------------------------------------------------------------
+
+#: "<path>" -> the kernel launches of that overload run
+OVERLOAD_PATHS = {}
+OVERLOAD_WINDOW_MS = 6000
+OVERLOAD_SHORT_MS = 2000
+# the tiers' run: a model's bound on pending requests, and its classes
+OVERLOAD_QUEUE = 16
+OVERLOAD_CLASSES = ["--priority", "0", "--tenant", "gold",
+                    "--priority", "3", "--tenant", "bulk"]
+# the memory budget, in one -b 4 longctx_tpu request's wire and response
+# bytes, and the mem_pressure drill's, in one -b 1 bert_large request's
+OVERLOAD_BUDGET_X = 1.5
+PRESSURE_BUDGET_X = 2.0
+# chaos of the retries run: every retry lands inside the injector's
+# healthy window (the first backoff is at most 50 ms), so with 3 attempts
+# no caller sees an injected fault
+CHAOS_ARGS = dict(rate=0.2, kinds_csv="error,latency,abort", seed=7,
+                  transient_s=0.2)
+# the mem_pressure drill: windows of 0.3 s that halve the budget, at most
+# one every 1.5 s, so a shed request's third attempt (two pushbacks of at
+# least 0.25 s later) lands after its window
+PRESSURE_ARGS = dict(rate=0.3, kinds_csv="mem_pressure", seed=7,
+                     transient_s=1.5, pressure_s=0.3, pressure_factor=0.5)
+DRAIN_TIMEOUT_S = 20.0
+DRAIN_LATENCY_MS = 400
+
+
+def _metrics(port: int) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=60) as r:
+        return parse_prometheus(r.read().decode())
+
+
+def _metric_sum(families: dict, name: str, **labels) -> float:
+    """The sum of a family's samples whose labels include ``labels``."""
+    return sum(v for lab, v in families.get(name, {}).get("samples", [])
+               if all(lab.get(k) == str(x) for k, x in labels.items()))
+
+
+def _overload_run(label, harness, model, args, counters, flash, int8,
+                  window_ms, trace=False, sheds=True, retried_sheds=False):
+    """One perf_analyzer run of the overload phase: its one level's result
+    and the server's counters around it.  Holds: the tool exited 0; every
+    error is a shed (none where not ``sheds``); every shed carried its
+    pushback; the server's nv_inference_rejected_total moved by the sheds
+    the tool counted (where ``retried_sheds``, every retry was a shed's:
+    by those plus its retries); launches exactly per execution."""
+    port = harness.http_port
+    before = _metrics(port)
+    results, launches, executions, _ = _perf_analyzer(
+        label, harness, model, args, counters, window_ms, trace)
+    after = _metrics(port)
+    res = results[0]
+    check_launches(label, launches, len(executions), flash, int8)
+    OVERLOAD_PATHS[label] = launches
+    server = (_metric_sum(after, "nv_inference_rejected_total",
+                          model=model.name)
+              - _metric_sum(before, "nv_inference_rejected_total",
+                            model=model.name))
+    print(f"{label}: {res['throughput']:.3f} infer/s, p50 "
+          f"{res['p50_us'] / 1e3:.3f} ms, p99 {res['p99_us'] / 1e3:.3f} ms; "
+          f"{len(executions)} executions; sheds {res['rejected_run']} "
+          f"({res['pushback_run']} with pushback), server "
+          f"nv_inference_rejected_total +{server:g}; retries "
+          f"{res['retries_run']}; errors in the window {res['errors']}; "
+          f"{CARD}", flush=True)
+    for cls in res.get("classes", []):
+        print(f"{label} priority {cls['priority']} tenant {cls['tenant']} "
+              f"({cls['workers']} workers): {cls['throughput']:.3f} infer/s, "
+              f"p50 {cls['p50_us'] / 1e3:.3f} ms, p99 "
+              f"{cls['p99_us'] / 1e3:.3f} ms, sheds {cls['rejected_run']} "
+              f"({cls['pushback_run']} with pushback); {CARD}", flush=True)
+    if res["errors"] != res["rejected"] or (res["errors"] and not sheds):
+        fail(f"{label}: {res['errors']} errors, {res['rejected']} of them "
+             f"sheds; first {res['first_error']}")
+    if res["pushback_run"] != res["rejected_run"]:
+        fail(f"{label}: {res['rejected_run'] - res['pushback_run']} sheds "
+             "came without pushback")
+    client_sheds = res["rejected_run"] + (res["retries_run"]
+                                          if retried_sheds else 0)
+    if server != client_sheds:
+        fail(f"{label}: the server counted {server:g} sheds, the client "
+             f"{client_sheds}")
+    return res
+
+
+# a best-effort flood that ignores the server's pushback: this many
+# threads of a process of their own, each sending its next request as soon
+# as the last was refused, for this long (8 of them fill the best-effort
+# tier's bound of 8; the others are shed, again and again)
+FLOOD_THREADS, FLOOD_S = 24, 3.0
+_FLOOD = """
+import json, sys, threading, time
+import numpy as np
+from triton_client_tpu_torch import http
+from triton_client_tpu_torch.utils import InferenceServerException
+url, n, secs = sys.argv[1], int(sys.argv[2]), float(sys.argv[3])
+counts = {"ok": 0, "shed": 0, "pushback": 0, "other": []}
+lock = threading.Lock()
+end = time.monotonic() + secs
+def run():
+    c = http.InferenceServerClient(url)
+    x = http.InferInput("INPUT_IDS", [1, 384], "INT32")
+    x.set_data_from_numpy(np.zeros((1, 384), np.int32))
+    while time.monotonic() < end:
+        try:
+            c.infer("bert_large", [x], priority=3, tenant="flood")
+            key, pb = "ok", False
+        except InferenceServerException as e:
+            key = "shed" if e.status() == "429" else None
+            pb = e.retry_after_s is not None
+            if key is None:
+                with lock:
+                    counts["other"].append(str(e))
+                continue
+        with lock:
+            counts[key] += 1
+            counts["pushback"] += pb
+    c.close()
+threads = [threading.Thread(target=run) for _ in range(n)]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+print(json.dumps(counts))
+"""
+
+
+def _impolite_flood(label, harness, model) -> None:
+    """Tier 0 from this process, one request after another, while a
+    process of its own floods the best-effort lane and ignores the
+    pushback: what the sheds' host work leaves the forwards."""
+    import numpy as np
+
+    from triton_client_tpu_torch import http
+
+    env = dict(os.environ, PYTHONPATH=REPO)
+    qos = harness.core.qos
+    shed0 = sum(qos.rejected_counts().values())
+    flood = subprocess.Popen(
+        [sys.executable, "-c", _FLOOD, harness.http_url,
+         str(FLOOD_THREADS), str(FLOOD_S)], cwd=REPO, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    # tier 0 is timed once the flood is shedding, for half its length
+    end = time.monotonic() + 120
+    while sum(qos.rejected_counts().values()) == shed0:
+        if flood.poll() is not None or time.monotonic() > end:
+            fail(f"{label}: the flood never reached the server")
+        time.sleep(0.01)
+    client = _client(harness.http_port)
+    x = http.InferInput("INPUT_IDS", [1, model.config.input[0].dims[0]],
+                        "INT32")
+    x.set_data_from_numpy(np.zeros(x.shape(), np.int32))
+    latencies = []
+    t_end = time.monotonic() + FLOOD_S / 2
+    try:
+        while time.monotonic() < t_end or not latencies:
+            t0 = time.perf_counter()
+            client.infer("bert_large", [x], priority=0, tenant="gold")
+            latencies.append(time.perf_counter() - t0)
+    finally:
+        client.close()
+    out, err = flood.communicate(timeout=300)
+    if flood.returncode != 0:
+        fail(f"{label}: the flood failed: {err[-2000:]}")
+    counts = json.loads(out.strip().splitlines()[-1])
+    print(f"{label}: a best-effort flood that ignores the pushback "
+          f"({FLOOD_THREADS} threads, {FLOOD_S:g} s): {counts['shed']} sheds "
+          f"({counts['shed'] / FLOOD_S:.0f}/s, {counts['pushback']} with "
+          f"pushback), {counts['ok']} admitted; tier 0 meanwhile, one "
+          f"after another: {len(latencies)} requests, latencies "
+          f"{[round(v * 1e3, 1) for v in latencies]} ms; {CARD}",
+          flush=True)
+    if counts["other"] or counts["pushback"] != counts["shed"]:
+        fail(f"{label}: the flood saw {counts['other'][:3]} or sheds "
+             "without pushback")
+
+
+def _overload_tiers(label, harness, model, counters) -> None:
+    """Two classes at c = 16 against a queue bound of 16, over HTTP
+    (traced) and gRPC, each client honouring the server's pushback
+    (``--retries 3``); then a flood that ignores it; then one class at
+    c = 8.  Tier 0 is never shed (its 8 workers always find a free slot
+    or queued best-effort work to take), every shed has its pushback and
+    is counted alike on both sides."""
+    layers = model.transformer.cfg.n_layers
+    core = harness.core
+    core.default_max_queue_size = OVERLOAD_QUEUE
+    gold_p99 = {}
+    for proto in ("http", "grpc"):
+        before = _metrics(harness.http_port)
+        res = _overload_run(
+            f"{label} c=16 two classes {proto}", harness, model,
+            ["-b", "1", "--concurrency-range", "16", "-i", proto,
+             "--retries", "3", *OVERLOAD_CLASSES], counters, 0, layers,
+            OVERLOAD_WINDOW_MS, trace=proto == "http", retried_sheds=True)
+        after = _metrics(harness.http_port)
+        gold, bulk = res["classes"]
+        tier0 = (_metric_sum(after, "nv_inference_rejected_total", tier=0)
+                 - _metric_sum(before, "nv_inference_rejected_total",
+                               tier=0))
+        best_effort = (
+            _metric_sum(after, "nv_inference_rejected_total", tier=3)
+            - _metric_sum(before, "nv_inference_rejected_total", tier=3))
+        print(f"{label} {proto}: the server shed tier 0 {tier0:g} times, "
+              f"the best-effort tier {best_effort:g} times", flush=True)
+        if tier0 or gold["rejected_run"]:
+            fail(f"{label} {proto}: tier 0 was shed")
+        if not best_effort:
+            fail(f"{label} {proto}: the best-effort class was never shed")
+        gold_p99[proto] = gold["p99_us"] / 1e3
+    _impolite_flood(f"{label} flood", harness, model)
+    res = _overload_run(
+        f"{label} c=8 one class", harness, model,
+        ["-b", "1", "--concurrency-range", "8", "--priority", "0",
+         "--tenant", "gold"], counters, 0, layers, OVERLOAD_SHORT_MS,
+        sheds=False)
+    print(f"{label}: tier 0's p99 beside the best-effort class "
+          f"{gold_p99['http']:.3f} ms (HTTP), {gold_p99['grpc']:.3f} ms "
+          f"(gRPC), against {res['p99_us'] / 1e3:.3f} ms alone at c = 8; "
+          f"{CARD}", flush=True)
+    core.default_max_queue_size = 0
+
+
+def _overload_chaos(label, torch, harness, model, counters) -> None:
+    """perf_analyzer --retries 3 at c = 4 under injected errors, latency
+    and aborts: no caller error, the retries equal the injected errors and
+    aborts; then answers served under chaos held to the plain forward;
+    then the mem_pressure drill."""
+    import numpy as np
+
+    from triton_client_tpu_torch._resilience import RetryPolicy
+    from triton_client_tpu_torch.models import language
+    from triton_client_tpu_torch.server.chaos import build_injector
+    from triton_client_tpu_torch.server.memory import MemoryGovernor
+
+    layers = model.transformer.cfg.n_layers
+    core = harness.core
+    core.chaos = build_injector(**CHAOS_ARGS)
+    res = _overload_run(f"{label} chaos --retries 3", harness, model,
+                        ["-b", "1", "--concurrency-range", "4",
+                         "--retries", "3"], counters, 0, layers,
+                        OVERLOAD_SHORT_MS, sheds=False)
+    kinds = core.chaos.kind_counters()
+    injected = {k: kinds.get((model.name, k), 0)
+                for k in ("error", "latency", "abort")}
+    total = _metric_sum(_metrics(harness.http_port),
+                        "nv_chaos_injected_total", model=model.name)
+    print(f"{label}: injected {injected} (nv_chaos_injected_total "
+          f"{total:g}); the client retried {res['retries_run']} times, "
+          f"errors {res['errors']}; {CARD}", flush=True)
+    if total != sum(injected.values()) or \
+            res["retries_run"] != injected["error"] + injected["abort"]:
+        fail(f"{label}: {res['retries_run']} retries against "
+             f"{injected['error'] + injected['abort']} retryable injections")
+    # the answers under chaos, through the retry layer
+    S, V = language.BERT_SEQ_LEN, language.BERT_LARGE.vocab_size
+    x = model_tokens(BERT_SEED, 8, S, V)
+    check = bert_check(f"{label} chaos", torch, model, True, x)
+    client = _client(harness.http_port)
+    from triton_client_tpu_torch import http
+
+    got = []
+    try:
+        for row in x:
+            inp = http.InferInput("INPUT_IDS", [1, S], "INT32")
+            inp.set_data_from_numpy(row[None])
+            got.append(client.infer(
+                "bert_large", [inp], retry_policy=RetryPolicy(
+                    max_attempts=3, retry_infer=True)).as_numpy("LOGITS"))
+    finally:
+        client.close()
+    check("8 requests under chaos", np.concatenate(got))
+    # the mem_pressure drill: the budget fits c = 4 with room; a window
+    # halves it and arrivals shed until it lifts
+    core.chaos = None
+    core.memory = MemoryGovernor()
+    _warm(harness, model, 1)
+    one = core.memory.peak_inflight_bytes
+    budget = int(PRESSURE_BUDGET_X * one)
+    core.memory.budget_bytes = budget
+    core.chaos = build_injector(**PRESSURE_ARGS)
+    res = _overload_run(f"{label} mem_pressure --retries 3", harness, model,
+                        ["-b", "1", "--concurrency-range", "4",
+                         "--retries", "3"], counters, 0, layers,
+                        OVERLOAD_SHORT_MS, sheds=False, retried_sheds=True)
+    mem = core.memory
+    time.sleep(PRESSURE_ARGS["pressure_s"])
+    snap = mem.snapshot()
+    print(f"{label} mem_pressure: one request holds {one} bytes, budget "
+          f"{budget}; {snap['pressure_events']} pressure windows, "
+          f"{snap['shed_total']} memory sheds, {res['retries_run']} "
+          f"retries, errors {res['errors']}; afterwards budget "
+          f"{snap['effective_budget_bytes']}, pressure active "
+          f"{snap['pressure_active']}, in flight {snap['inflight_bytes']} "
+          f"bytes; {CARD}", flush=True)
+    if not snap["pressure_events"] or not snap["shed_total"]:
+        fail(f"{label} mem_pressure: no pressure window shed anything")
+    if snap["effective_budget_bytes"] != budget or snap["pressure_active"] \
+            or snap["inflight_bytes"]:
+        fail(f"{label} mem_pressure: the governor did not recover")
+    core.chaos = None
+    core.memory = MemoryGovernor()
+
+
+def _overload_bytes(label, torch, counters) -> None:
+    """longctx_tpu base int8 ``all`` (8 flash and 16 int8 launches per
+    forward) with a byte budget of OVERLOAD_BUDGET_X requests: arrivals
+    beyond it at c = 4 shed with pushback; a request larger than its
+    tier's share gets 413 once, not retried; expired requests get 504 and
+    launch nothing, alone and under load; the ledger empties."""
+    import numpy as np
+
+    from triton_client_tpu_torch import http
+    from triton_client_tpu_torch._resilience import RetryPolicy
+    from triton_client_tpu_torch._telemetry import telemetry
+    from triton_client_tpu_torch.models import language
+    from triton_client_tpu_torch.utils import InferenceServerException
+
+    model = language.make_longctx_tpu("cuda")
+    layers = model.transformer.cfg.n_layers
+    S = model.config.input[0].dims[0]
+    with serving_harness([model]) as harness:
+        core, port = harness.core, harness.http_port
+        _warm(harness, model, 4)
+        check_precision(label, model.transformer, True)
+        one = core.memory.peak_inflight_bytes
+        budget = int(OVERLOAD_BUDGET_X * one)
+        core.memory.budget_bytes = budget
+        print(f"{label}: one -b 4 request holds {one} bytes (wire and "
+              f"response), budget {budget}", flush=True)
+        mem0 = _metric_sum(_metrics(port), "nv_mem_shed_total")
+        res = _overload_run(f"{label} c=4 budget", harness, model,
+                            ["-b", "4", "--concurrency-range", "4"],
+                            counters, layers, 2 * layers, OVERLOAD_SHORT_MS)
+        mem = _metric_sum(_metrics(port), "nv_mem_shed_total") - mem0
+        if not res["rejected_run"] or mem != res["rejected_run"]:
+            fail(f"{label}: {res['rejected_run']} sheds at c = 4, "
+                 f"nv_mem_shed_total +{mem:g}")
+        # larger than tier 0's whole share: 413, never retried
+        client = _client(port)
+        big = np.zeros((4 * 4, S), np.int32)
+        inp = http.InferInput("TOKENS", list(big.shape), "INT32")
+        inp.set_data_from_numpy(big)
+        retries0 = sum(r["retries"]
+                       for r in telemetry().snapshot()["requests"])
+        _reset(counters)
+        try:
+            client.infer(model.name, [inp], retry_policy=RetryPolicy(
+                max_attempts=3, retry_infer=True))
+        except InferenceServerException as e:
+            status, msg = e.status(), e.message()
+        else:
+            status, msg = "200", ""
+        retries = sum(r["retries"]
+                      for r in telemetry().snapshot()["requests"]) - retries0
+        print(f"{label}: a request of {big.nbytes} tensor bytes: {status} "
+              f"{msg!r}, {retries} retries", flush=True)
+        if status != "413" or retries or counters["flash_attention"] \
+                .launches:
+            fail(f"{label}: the oversize request was not a 413 once")
+        # deadlines: expired on arrival, then behind a queue at c = 4
+        core.memory.budget_bytes = 0
+        x = model_tokens(LONGCTX_SEED, 4, S, 256)
+        inp.set_shape(list(x.shape))
+        inp.set_data_from_numpy(x)
+        d0 = _metric_sum(_metrics(port),
+                         "nv_inference_deadline_exceeded_total")
+        st = model.stats
+        st.executions = []
+        _reset(counters)
+        expired = 0
+        for _ in range(4):
+            try:
+                client.infer(model.name, [inp], timeout=1)
+            except InferenceServerException as e:
+                expired += e.status() == "504"
+        env = dict(os.environ, PYTHONPATH=REPO)
+        load = subprocess.Popen(
+            [sys.executable, "-m", "triton_client_tpu_torch.perf_analyzer",
+             "-m", model.name, "-u", harness.http_url, "-b", "4",
+             "--concurrency-range", "4", "--measurement-interval",
+             str(OVERLOAD_SHORT_MS)], cwd=REPO, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        # the probes wait behind the load's four requests
+        end = time.monotonic() + 120
+        while st.pending_count < 4:
+            if load.poll() is not None or time.monotonic() > end:
+                fail(f"{label}: the load beside the deadlines never ran")
+            time.sleep(0.005)
+        statuses = []
+        for _ in range(8):
+            try:
+                client.infer(model.name, [inp], timeout=5000)
+                statuses.append("200")
+            except InferenceServerException as e:
+                statuses.append(e.status())
+        out, _ = load.communicate(timeout=300)
+        executions, st.executions = st.executions, None
+        launches = {name: m.launches for name, m in counters.items()}
+        launches["int8_quantize_rows"] = \
+            counters["int8_matmul"].quantize_launches
+        client.close()
+        deadline = _metric_sum(_metrics(port),
+                               "nv_inference_deadline_exceeded_total") - d0
+        n504 = expired + statuses.count("504")
+        print(f"{label}: 4 requests with timeout 1 us: {expired} got 504; "
+              f"8 with timeout 5 ms behind c = 4: {statuses}; server "
+              f"nv_inference_deadline_exceeded_total +{deadline:g}; "
+              f"{len(executions)} executions, launches {launches}",
+              flush=True)
+        if load.returncode != 0 or " errors)" in out:
+            fail(f"{label}: the load beside the deadlines failed: "
+                 f"{out[-2000:]}")
+        if expired != 4 or "504" not in statuses or \
+                set(statuses) - {"200", "504"} or deadline != n504:
+            fail(f"{label}: deadlines were not refused with 504")
+        check_launches(f"{label} deadlines", launches, len(executions),
+                       layers, 2 * layers)
+        OVERLOAD_PATHS[f"{label} deadlines"] = launches
+        # the ledger empties; the device headroom beside mem_get_info's
+        fams = _metrics(port)
+        inflight = _metric_sum(fams, "nv_mem_inflight_bytes")
+        headroom = _metric_sum(fams, "nv_mem_hbm_headroom_bytes",
+                               device="cuda:0")
+        free, total = torch.cuda.mem_get_info()
+        spare = torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
+        print(f"{label}: idle: nv_mem_inflight_bytes {inflight:g} (ledger "
+              f"{core.memory.inflight_bytes}); nv_mem_hbm_headroom_bytes "
+              f"{headroom:g} against torch.cuda.mem_get_info() free {free} "
+              f"of {total} and {spare} reserved-but-unallocated; {CARD}",
+              flush=True)
+        if inflight or core.memory.inflight_bytes:
+            fail(f"{label}: {core.memory.inflight_bytes} bytes left in the "
+                 "memory ledger")
+        if not 0 < headroom <= total:
+            fail(f"{label}: nv_mem_hbm_headroom_bytes {headroom:g} out of "
+                 f"(0, {total}]")
+        _no_regions_left(label, harness)
+    del model
+
+
+def _overload_drain() -> None:
+    """A server process of its own (``python -m
+    triton_client_tpu_torch.server``, ``longctx_tpu`` base, every request
+    held DRAIN_LATENCY_MS in flight by a chaos latency fault) under four
+    clients, sent SIGTERM: the requests in flight answer, new ones get 503
+    with Retry-After, and it exits 0 within --drain-timeout."""
+    import signal
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+
+    from triton_client_tpu_torch.server.testing import free_port
+
+    label = "overload drain"
+    port = free_port()
+    log_path = os.path.join(REPO, "build", "chip_smoke_drain.log")
+    os.makedirs(os.path.dirname(log_path), exist_ok=True)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("TRITON_TPU_")}
+    env["PYTHONPATH"] = REPO
+    log = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "triton_client_tpu_torch.server",
+         "--http-port", str(port), "--metrics-port", "0",
+         "--drain-timeout", str(DRAIN_TIMEOUT_S), "--chaos", "1.0",
+         "--chaos-kinds", "latency", "--chaos-latency-ms",
+         str(DRAIN_LATENCY_MS), "--chaos-model", "longctx_tpu"],
+        cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT)
+    url = f"http://127.0.0.1:{port}"
+    body = b""
+
+    def post():
+        req = urllib.request.Request(
+            f"{url}/v2/models/longctx_tpu/infer", data=body,
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return r.status, None
+        except urllib.error.HTTPError as e:
+            return e.code, e.headers.get("Retry-After")
+
+    try:
+        end = time.monotonic() + 180
+        while True:
+            try:
+                with urllib.request.urlopen(f"{url}/v2/health/ready",
+                                            timeout=5):
+                    break
+            except OSError:
+                if proc.poll() is not None or time.monotonic() > end:
+                    fail(f"{label}: the server did not start")
+                time.sleep(0.2)
+        with urllib.request.urlopen(f"{url}/v2/models/longctx_tpu/config",
+                                    timeout=60) as r:
+            S = int(json.load(r)["input"][0]["dims"][0])
+        body = json.dumps({"inputs": [{
+            "name": "TOKENS", "datatype": "INT32", "shape": [1, S],
+            "data": np.zeros(S, np.int32).tolist()}]}).encode()
+        if post()[0] != 200:  # builds the weights
+            fail(f"{label}: the first request failed")
+        records, stop = [], threading.Event()
+
+        def client():
+            while not stop.is_set():
+                t0 = time.perf_counter()
+                try:
+                    status, retry_after = post()
+                except OSError:
+                    return  # the listener closed
+                records.append((t0, time.perf_counter(), status,
+                                retry_after))
+                if status != 200:
+                    time.sleep(0.02)
+
+        threads = [threading.Thread(target=client, daemon=True)
+                   for _ in range(4)]
+        for t in threads:
+            t.start()
+        time.sleep(1.0)
+        t_sig = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        try:
+            code = proc.wait(timeout=DRAIN_TIMEOUT_S + 30)
+        except subprocess.TimeoutExpired:
+            fail(f"{label}: the server did not exit after SIGTERM")
+        took = time.perf_counter() - t_sig
+        stop.set()
+        for t in threads:
+            t.join(timeout=30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    in_flight = [r for r in records if r[0] < t_sig < r[1]]
+    refused = [r for r in records if r[2] == 503]
+    late = [r for r in records if r[0] > t_sig + 0.1]
+    print(f"{label}: SIGTERM with {len(in_flight)} requests in flight "
+          f"(statuses {sorted({r[2] for r in in_flight})}); {len(refused)} "
+          f"refused with 503 (Retry-After "
+          f"{sorted({r[3] for r in refused}, key=str)}); the process exited "
+          f"{code} {took:.2f} s after the signal (--drain-timeout "
+          f"{DRAIN_TIMEOUT_S:g})", flush=True)
+    with open(log_path) as f:
+        tail = f.read()[-2000:]
+    if not in_flight or any(r[2] != 200 for r in in_flight):
+        fail(f"{label}: the requests in flight did not all answer: {tail}")
+    if not refused or any(not r[3] for r in refused) or \
+            any(r[2] != 503 for r in late):
+        fail(f"{label}: new requests were not refused with 503 and "
+             f"Retry-After: {tail}")
+    if code != 0 or took > DRAIN_TIMEOUT_S:
+        fail(f"{label}: the server exited {code} after {took:.1f} s: {tail}")
+
+
+def overload_phase(torch, counters) -> None:
+    """Admission and overload on the card: QoS tiers and the retry layer
+    under chaos on ``bert_large`` int8 ``w2`` (24 int8 launches per
+    forward) at -b 1; the memory governor and deadlines on
+    ``longctx_tpu`` base int8 ``all`` (8 flash and 16 int8 launches); a
+    graceful drain of a server process of its own.  Every load from
+    perf_analyzer in a process of its own; sheds, expired and injected
+    requests launch nothing (launches exactly per execution)."""
+    from triton_client_tpu_torch.models import language
+
+    for var, val in (("TRITON_TPU_QUANT_LONGCTX_TPU", "int8"),
+                     ("TRITON_TPU_QUANT_BERT_LARGE", "int8"),
+                     ("TRITON_TPU_INT8_FUSED", "w2")):
+        os.environ[var] = val
+    try:
+        label = "overload bert_large int8 w2"
+        model = language.make_bert_large("cuda")
+        with serving_harness([model]) as harness:
+            # the buckets' first (counted) executions before any window
+            for rows in (1, 2, 4, 8, 16):
+                _warm(harness, model, rows)
+            check_precision(label, model.transformer, True)
+            t0 = time.perf_counter()
+            _overload_tiers(label, harness, model, counters)
+            t1 = time.perf_counter()
+            _overload_chaos(label, torch, harness, model, counters)
+            print(f"{label}: tiers {t1 - t0:.1f} s, chaos "
+                  f"{time.perf_counter() - t1:.1f} s", flush=True)
+            _no_regions_left(label, harness)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        os.environ["TRITON_TPU_INT8_FUSED"] = "all"
+        t0 = time.perf_counter()
+        _overload_bytes("overload longctx_tpu int8 all", torch, counters)
+        print(f"overload longctx_tpu: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        for var in ("TRITON_TPU_QUANT_LONGCTX_TPU",
+                    "TRITON_TPU_QUANT_BERT_LARGE", "TRITON_TPU_INT8_FUSED"):
+            os.environ.pop(var, None)
+    t0 = time.perf_counter()
+    _overload_drain()
+    print(f"overload drain: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def _signature_of(harness, model, x):
     """The input signature the server records for a batch like ``x``."""
     from triton_client_tpu_torch.server.core import _signature
@@ -2798,13 +3473,15 @@ def main() -> int:
     }
     phase("serve int8 fused=all", serve_longctx, int8_per_layer=2,
           int8=True, fused="all")
-    paths["bert_large bf16"] = phase("serve bert_large bf16", serve_bert,
-                                     int8_per_layer=0, transports=True)
-    paths["bert_large int8"] = phase("serve bert_large int8", serve_bert,
-                                     int8_per_layer=1, int8=True,
-                                     transports=True)
-    phase("serve bert_large int8 fused=all", serve_bert, int8_per_layer=2,
-          int8=True, fused="all")
+    with bert_depth(BERT_SERVE_LAYERS):
+        paths["bert_large bf16"] = phase(
+            "serve bert_large bf16", serve_bert, int8_per_layer=0,
+            transports=True)
+        paths["bert_large int8"] = phase(
+            "serve bert_large int8", serve_bert, int8_per_layer=1, int8=True,
+            transports=True)
+        phase("serve bert_large int8 fused=all", serve_bert,
+              int8_per_layer=2, int8=True, fused="all")
     paths["moe_tpu bf16"] = phase(
         "serve moe_tpu bf16", serve_next_token, language.make_moe_tpu,
         "moe_tpu", int8_per_layer=0)
@@ -2822,19 +3499,21 @@ def main() -> int:
                            ("grpc", grpc_phase, (torch, counters)),
                            ("vision", vision_phase, (torch, counters)),
                            ("observability", observability_phase,
-                            (torch, counters))):
+                            (torch, counters)),
+                           ("overload", overload_phase, (torch, counters))):
         t0 = time.perf_counter()
         fn(*args)
         print(f"{name} phase took {time.perf_counter() - t0:.1f} s",
               flush=True)
     # and every transport's window of the shared-memory phases, every
-    # perf_analyzer run, every gRPC window, every vision window and every
-    # observability run
+    # perf_analyzer run, every gRPC window, every vision window, every
+    # observability run and every overload run
     paths.update(SHM_PATHS)
     paths.update(PERF_PATHS)
     paths.update(GRPC_PATHS)
     paths.update(VISION_PATHS)
     paths.update(OBS_PATHS)
+    paths.update(OVERLOAD_PATHS)
     for path, launches in paths.items():
         print(f"launches on {path}: flash_attention "
               f"{launches['flash_attention']}, int8_matmul "

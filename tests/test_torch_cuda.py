@@ -715,3 +715,79 @@ def test_served_over_cuda_shm(cuda, monkeypatch):
         want = language.longctx_scores(longctx.transformer(t), t)
     assert np.isfinite(lp).all()
     np.testing.assert_allclose(lp, want.cpu().numpy(), rtol=0, atol=1e-6)
+
+
+def test_hbm_headroom_is_free_plus_allocator_spare(cuda):
+    """The memory governor's device headroom (``memory.hbm_stats``): the
+    card's free bytes plus the caching allocator's reserved-but-
+    unallocated bytes, never more than the card holds; a tensor freed into
+    the allocator's cache stays headroom."""
+    from triton_client_tpu_torch.server.memory import MemoryGovernor
+
+    gov = MemoryGovernor()
+    x = torch.empty(256 << 20, dtype=torch.uint8, device=cuda)
+    del x  # its block stays reserved, now unallocated
+    free, total = torch.cuda.mem_get_info()
+    spare = torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
+    assert spare >= 256 << 20
+    headroom = gov.hbm_headroom()
+    # the free count moves between the two reads only by other work
+    assert abs(headroom - (free + spare)) <= 64 << 20
+    assert 0 < headroom <= total
+    rows = gov.metric_rows()["hbm_headroom"]
+    assert rows and rows[0][0] == {"device": "cuda:0"}
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("protocol", ["http", "grpc"])
+def test_admission_changes_no_launch_of_an_admitted_request(cuda,
+                                                            monkeypatch,
+                                                            protocol):
+    """``longctx_tpu`` base int8 ``all`` served under a queue bound, a
+    tenant, a priority and a deadline: an admitted request launches what it
+    launches without them (8 flash, 16 int8 per forward); a request shed by
+    the memory budget and one past its deadline launch nothing."""
+    from triton_client_tpu_torch import grpc as tgrpc
+    from triton_client_tpu_torch import http as thttp
+    from triton_client_tpu_torch.server.registry import ModelRegistry
+    from triton_client_tpu_torch.server.testing import ServerHarness
+    from triton_client_tpu_torch.utils import InferenceServerException
+
+    for var in ("TRITON_TPU_LONGCTX_PRESET", "TRITON_TPU_FLASH_MIN_S",
+                "TRITON_TPU_FLASH"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setenv("TRITON_TPU_QUANT_LONGCTX_TPU", "int8")
+    monkeypatch.setenv("TRITON_TPU_INT8_FUSED", "all")
+    model = language.make_longctx_tpu("cuda")
+    layers = model.transformer.cfg.n_layers
+    reg = ModelRegistry()
+    reg.register_model(model)
+    mod = tgrpc if protocol == "grpc" else thttp
+    tokens = np.random.default_rng(3).integers(0, 256, (4, 4096)).astype(
+        np.int32)
+    with ServerHarness(reg) as hs:
+        hs.core.default_max_queue_size = 8
+        c = mod.InferenceServerClient(hs.http_url)
+        inp = mod.InferInput("TOKENS", [4, 4096], "INT32")
+        inp.set_data_from_numpy(tokens)
+
+        def launches(**kw):
+            f0, i0 = fa.launches, im.launches
+            try:
+                out = c.infer("longctx_tpu", [inp], **kw).as_numpy(
+                    "LOGPROBS")
+            except InferenceServerException as e:
+                out = e
+            return out, fa.launches - f0, im.launches - i0
+
+        plain, f, i = launches()
+        assert (f, i) == (layers, 2 * layers)
+        got, f, i = launches(tenant="gold", priority=1, deadline_s=60.0)
+        assert (f, i) == (layers, 2 * layers)
+        np.testing.assert_array_equal(got, plain)
+        err, f, i = launches(timeout=1)
+        assert "deadline" in str(err) and (f, i) == (0, 0)
+        hs.core.memory.budget_bytes = 1000
+        err, f, i = launches()
+        assert "memory budget" in str(err) and (f, i) == (0, 0)
+        c.close()

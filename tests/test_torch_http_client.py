@@ -469,17 +469,21 @@ def test_no_server_raises():
 
 
 def test_parameters_without_their_machinery_raise():
+    """TLS still raises with its ROADMAP item; the retry layer's and QoS's
+    parameters are taken (the retry layer is ported) and the call goes on
+    to the network, here to a port nothing listens on."""
+    from triton_client_tpu_torch._resilience import RetryPolicy
+
     ins = _simple_inputs(thttp, *_ab(11))
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        thttp.InferenceServerClient("localhost:1", retry_policy=object())
     with pytest.raises(NotImplementedError, match="ROADMAP A3b"):
         thttp.InferenceServerClient("localhost:1", ssl=True)
-    client = thttp.InferenceServerClient("localhost:1")
-    for kw in ({"retry_policy": object()}, {"deadline_s": 1.0},
-               {"tenant": "t"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+    client = thttp.InferenceServerClient(
+        f"127.0.0.1:{free_port()}", retry_policy=RetryPolicy(max_attempts=1))
+    for kw in ({"retry_policy": RetryPolicy(max_attempts=1)},
+               {"deadline_s": 5.0}, {"tenant": "t", "priority": 2}):
+        with pytest.raises(ConnectionRefusedError):
             client.infer("simple", ins, **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-            client.async_infer("simple", ins, **kw)
+        with pytest.raises(InferenceServerException, match="refused"):
+            client.async_infer("simple", ins, **kw).get_result(timeout=30)
     with pytest.raises(InferenceServerException, match="scheme"):
         thttp.InferenceServerClient("http://localhost:1")

@@ -229,11 +229,17 @@ def test_csv_headers_match_reference(harness, tmp_path):
 @pytest.mark.parametrize("flag,why", [
     # the reference's rule: a stream is a gRPC stream
     (["--streaming"], "--streaming requires -i grpc"),
-    (["-i", "grpc", "--retries", "3"], "ROADMAP A6"),
+    # the reference's rules: a stream's answers come on its callback, its
+    # metadata is fixed when it opens
+    (["-i", "grpc", "--streaming", "--retries", "3"],
+     "--retries is not supported with --streaming"),
     (["-u", "a:1", "-u", "b:2"], "ROADMAP A6"),
     (["--balancing", "round_robin"], "ROADMAP A6"),
-    (["--hedge-ms", "5"], "ROADMAP A6"), (["--retries", "3"], "ROADMAP A6"),
-    (["--priority", "1"], "ROADMAP A6"), (["--tenant", "t"], "ROADMAP A6"),
+    (["--hedge-ms", "5"], "ROADMAP A6"),
+    (["-i", "grpc", "--streaming", "--tenant", "t"],
+     "--tenant is not supported with --streaming"),
+    (["--priority", "high"], "invalid int value"),
+    (["--retries", "x"], "invalid int value"),
     (["--export-metrics", "m.json"], "ROADMAP A6"),
 ])
 def test_flags_not_ported_are_refused(flag, why, capsys):

@@ -1,13 +1,18 @@
 """The pieces of ``triton_client_tpu/_telemetry.py`` the port uses (copies):
-the log-bucketed ``LatencyHistogram``, ``AppendFile`` and ``escape_label``.
+the log-bucketed ``LatencyHistogram``, ``AppendFile``, ``escape_label`` and
+the client registry's per-request ``retries`` record.
 
 ``perf_analyzer`` records every latency into one histogram, so its
 percentiles come out of the same buckets as the reference tool's; the
 server's flight recorder keeps one per model.  ``AppendFile`` is the cached
 append handle of the request tracer and the server log, ``escape_label``
-the Prometheus label escape of ``/metrics``.  The rest of the reference's
-client telemetry (counters, client tracing, OTLP) is not ported yet
-(ROADMAP A6b).
+the Prometheus label escape of ``/metrics``.  :func:`telemetry` is the
+process's client registry: the retry layer (``_resilience.py``) counts each
+committed retry per (model, protocol, method) there, and ``perf_analyzer``
+reads the counts back around each level (the reference's
+``snapshot()["requests"][i]["retries"]``).  The rest of the reference's
+client telemetry (latency and byte counters, client tracing, OTLP) is not
+ported yet (ROADMAP A6b).
 
 A package rather than a ``_telemetry.py`` file: the repository's lint
 (``triton-lint``'s METRICS-DECL) reads the one file of that name as the
@@ -142,3 +147,36 @@ class LatencyHistogram:
                 self._counts[i] += c
             self._count += count
             self._sum_s += sum_s
+
+
+class ClientTelemetry:
+    """The process's client registry, as far as the port has it: retries
+    per (model, protocol, method)."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._retries: dict = {}
+
+    def record_retry(self, model: str, protocol: str, method: str) -> None:
+        """Count one retried attempt (before the retry runs: a retry that
+        then succeeds is counted too)."""
+        key = (model, protocol, method)
+        with self._lock:
+            self._retries[key] = self._retries.get(key, 0) + 1
+
+    def snapshot(self) -> dict:
+        """``{"requests": [{"model", "protocol", "method", "retries"}]}``,
+        the reference's rows less their latency and byte counters."""
+        with self._lock:
+            rows = sorted(self._retries.items())
+        return {"requests": [
+            {"model": m, "protocol": p, "method": meth, "retries": n}
+            for (m, p, meth), n in rows]}
+
+
+_TELEMETRY = ClientTelemetry()
+
+
+def telemetry() -> ClientTelemetry:
+    """The process-wide client registry."""
+    return _TELEMETRY

@@ -20,11 +20,20 @@ The trace and log settings and the debug snapshots (the flight recorder,
 device statistics, costs) are the reference's calls, on the RPCs of the
 same names.
 
+Resilience and QoS, as in the reference: ``infer`` and a prepared
+request's ``infer`` take ``retry_policy`` (else the client's),
+``deadline_s``, ``tenant`` (``triton-tenant`` metadata, a header here) and
+``priority``; ``async_infer`` takes ``tenant``, ``retry_policy`` and
+``deadline_s`` too.  Each attempt stamps what is left of the deadline as
+the v2 ``timeout`` parameter (where the call set none) and caps its
+transport timeout with it; a refusal's ``retry-after-ms`` trailer sets the
+wait before the next attempt.  Under a client-level policy the health and
+metadata calls retry too.
+
 ``keepalive_options`` and ``channel_args`` are taken and mean nothing:
 they set HTTP/2 channel options, and these calls run on HTTP/1.1.  Not
 ported yet, and raising with their ROADMAP item: TLS and compression
-(A3b); the repository calls (A3b); ``infer_many``, the retry layer
-(``retry_policy``, ``deadline_s``, ``stream_timeout``) and QoS ``tenant``
+(A3b); the repository calls (A3b); ``infer_many`` and ``stream_timeout``
 (A6b).
 """
 
@@ -38,6 +47,7 @@ from typing import Callable, List, Optional
 
 from .._client import InferenceServerClientBase
 from .._request import Request
+from .._resilience import call_with_retry, min_timeout, remaining_us
 from ..http._client import _ConnectionPool, _not_ported
 from ..protocol import debug as pb_debug
 from ..protocol import inference as pb
@@ -58,16 +68,15 @@ def _maybe_json(message, as_json: bool):
     return to_dict(message) if as_json else message
 
 
-def _check_unported(retry_policy=None, deadline_s=None, tenant=None,
-                    compression_algorithm=None) -> None:
-    if retry_policy is not None:
-        _not_ported("retry_policy (the client retry layer)", "A6b")
-    if deadline_s is not None:
-        _not_ported("deadline_s (the client retry layer's deadlines)", "A6b")
-    if tenant is not None:
-        _not_ported("tenant (QoS tenants)", "A6b")
+def _check_unported(compression_algorithm=None) -> None:
     if compression_algorithm not in (None, "none"):
         _not_ported("gRPC compression", "A3b")
+
+
+#: the RPCs a client-level policy retries, by their retry class
+_IDEMPOTENT = {"ServerLive": "health", "ServerReady": "health",
+               "ModelReady": "health", "ServerMetadata": "metadata",
+               "ModelMetadata": "metadata", "ModelConfig": "metadata"}
 
 
 class KeepAliveOptions:
@@ -132,10 +141,22 @@ class PreparedRequest:
     def infer(self, request_id="", headers=None, tenant=None,
               client_timeout=None, retry_policy=None,
               deadline_s: Optional[float] = None) -> InferResult:
-        """Fast-path inference, with ``client.infer``'s contract."""
-        _check_unported(retry_policy, deadline_s, tenant)
-        return self._client._send_infer(self.template.stamp(request_id),
-                                        headers, client_timeout)
+        """Fast-path inference, with ``client.infer``'s contract (a retry
+        stamps the remaining deadline anew, where the template holds no
+        ``timeout`` of its own)."""
+        template = self.template
+
+        def attempt(remaining):
+            timeout_us = None
+            if remaining is not None and "timeout" not in template._params:
+                timeout_us = remaining_us(remaining)
+            return self._client._send_infer(
+                template.stamp(request_id, timeout_us), headers,
+                min_timeout(client_timeout, remaining), tenant)
+
+        return self._client._with_policy(
+            retry_policy, deadline_s, template.model_name, request_id,
+            "infer", attempt)
 
     def async_stream_infer(self, request_id="") -> None:
         """Send the request on the client's stream (``start_stream``); its
@@ -157,8 +178,6 @@ class InferenceServerClient(InferenceServerClientBase):
         super().__init__()
         if ssl or creds is not None:
             _not_ported("TLS (ssl=True, creds)", "A3b")
-        if retry_policy is not None:
-            _not_ported("retry_policy (the client retry layer)", "A6b")
         if "://" in url:
             raise_error("url should not include the scheme")
         self._url = url
@@ -168,6 +187,9 @@ class InferenceServerClient(InferenceServerClientBase):
         self._stream: Optional[_InferStream] = None
         self._executor: Optional[ThreadPoolExecutor] = None
         self._lock = threading.Lock()
+        # the client's default policy: health and metadata calls retry
+        # under it, infer where it opts in (a call's retry_policy wins)
+        self._retry_policy = retry_policy
 
     @property
     def url(self) -> str:
@@ -206,8 +228,30 @@ class InferenceServerClient(InferenceServerClientBase):
               client_timeout=None):
         if self._verbose:
             print(f"{method}, headers {headers}\n{request}")
-        return self._unary(method, encode_frame(request), response_type,
-                           headers, client_timeout)
+        frame = encode_frame(request)
+        kind = _IDEMPOTENT.get(method)
+        if self._retry_policy is None or kind is None:
+            return self._unary(method, frame, response_type, headers,
+                               client_timeout)
+        return call_with_retry(
+            self._retry_policy,
+            lambda remaining, _attempt: self._unary(
+                method, frame, response_type, headers,
+                min_timeout(client_timeout, remaining)),
+            method=kind, retry_meta=("", "grpc", kind, ""))
+
+    def _with_policy(self, retry_policy, deadline_s, model_name: str,
+                     request_id: str, method_name: str, attempt):
+        """``attempt(remaining_s)`` under the call's policy (else the
+        client's) and deadline; a single attempt without either."""
+        policy = retry_policy if retry_policy is not None \
+            else self._retry_policy
+        if policy is None and deadline_s is None:
+            return attempt(None)
+        return call_with_retry(
+            policy, lambda remaining, _attempt: attempt(remaining),
+            method="infer", deadline_s=deadline_s,
+            retry_meta=(model_name, "grpc", method_name, request_id))
 
     def _unary(self, method: str, frame: bytes, response_type, headers,
                client_timeout):
@@ -403,11 +447,34 @@ class InferenceServerClient(InferenceServerClientBase):
                    client_timeout)
 
     # -- inference ---------------------------------------------------------
-    def _send_infer(self, frame: bytes, headers, client_timeout):
-        """One ModelInfer call with an encoded request frame."""
+    def _send_infer(self, frame: bytes, headers, client_timeout,
+                    tenant: Optional[str] = None):
+        """One ModelInfer call with an encoded request frame; ``tenant`` in
+        the ``triton-tenant`` metadata."""
+        if tenant:
+            headers = dict(headers or {})
+            headers["triton-tenant"] = str(tenant)
         return InferResult(self._unary("ModelInfer", frame,
                                        pb.ModelInferResponse, headers,
                                        client_timeout))
+
+    def _infer_attempt(self, model_name, inputs, model_version, outputs,
+                       request_id, sequence_id, sequence_start, sequence_end,
+                       priority, timeout, client_timeout, headers,
+                       parameters, tenant, remaining):
+        """One attempt: what is left of the deadline as the ``timeout``
+        parameter (where the call set none) and the transport timeout."""
+        if timeout is None and remaining is not None:
+            timeout = remaining_us(remaining)
+        request = get_inference_request(
+            model_name, inputs, model_version, request_id, outputs,
+            sequence_id, sequence_start, sequence_end, priority, timeout,
+            parameters)
+        if self._verbose:
+            print(f"infer\n{request}")
+        return self._send_infer(encode_frame(request), headers,
+                                min_timeout(client_timeout, remaining),
+                                tenant)
 
     def infer(self, model_name, inputs, model_version="", outputs=None,
               request_id="", sequence_id=0, sequence_start=False,
@@ -416,17 +483,19 @@ class InferenceServerClient(InferenceServerClientBase):
               parameters=None, retry_policy=None,
               deadline_s: Optional[float] = None,
               tenant: Optional[str] = None) -> InferResult:
-        """Run one inference and wait for its result."""
-        _check_unported(retry_policy, deadline_s, tenant,
-                        compression_algorithm)
-        request = get_inference_request(
-            model_name, inputs, model_version, request_id, outputs,
-            sequence_id, sequence_start, sequence_end, priority, timeout,
-            parameters)
-        if self._verbose:
-            print(f"infer\n{request}")
-        return self._send_infer(encode_frame(request), headers,
-                                client_timeout)
+        """Run one inference and wait for its result.  ``retry_policy``
+        (else the client's) retries retryable failures where it opts in to
+        ``retry_infer``; ``deadline_s`` caps the time across attempts and
+        travels to the server as the ``timeout`` parameter; ``priority``
+        and ``tenant`` are the QoS identity, sent on every attempt."""
+        _check_unported(compression_algorithm)
+        return self._with_policy(
+            retry_policy, deadline_s, model_name, request_id, "infer",
+            lambda remaining: self._infer_attempt(
+                model_name, inputs, model_version, outputs, request_id,
+                sequence_id, sequence_start, sequence_end, priority,
+                timeout, client_timeout, headers, parameters, tenant,
+                remaining))
 
     def prepare(self, model_name, inputs, model_version="", outputs=None,
                 priority=0, timeout=None, parameters=None) -> PreparedRequest:
@@ -441,23 +510,50 @@ class InferenceServerClient(InferenceServerClientBase):
             Callable] = None, model_version="", outputs=None, request_id="",
             sequence_id=0, sequence_start=False, sequence_end=False,
             priority=0, timeout=None, client_timeout=None, headers=None,
-            compression_algorithm=None, parameters=None, tenant=None):
+            compression_algorithm=None, parameters=None, tenant=None,
+            retry_policy=None, deadline_s: Optional[float] = None):
         """Send an inference from the client's pool of threads.  With a
         ``callback``, it is called as ``callback(result, error)`` and a
         :class:`CallContext` returned; else an :class:`InferAsyncRequest`
         whose ``get_result()`` waits.  The request is encoded before this
-        returns, so the inputs may change afterwards."""
-        _check_unported(tenant=tenant,
-                        compression_algorithm=compression_algorithm)
-        frame = encode_frame(get_inference_request(
+        returns, so the inputs may change afterwards; retries and the
+        deadline, as ``infer``'s, run on the pool's thread (each attempt
+        encoded anew with the remaining deadline)."""
+        _check_unported(compression_algorithm)
+        request = get_inference_request(
             model_name, inputs, model_version, request_id, outputs,
             sequence_id, sequence_start, sequence_end, priority, timeout,
-            parameters))
+            parameters)
+        frame = encode_frame(request)
+        policy = retry_policy if retry_policy is not None \
+            else self._retry_policy
+
+        def attempt(remaining):
+            if remaining is None or timeout is not None:
+                return self._send_infer(frame, headers, client_timeout,
+                                        tenant)
+            request.parameters["timeout"] = pb.InferParameter(
+                int64_param=remaining_us(remaining))
+            return self._send_infer(encode_frame(request), headers,
+                                    min_timeout(client_timeout, remaining),
+                                    tenant)
+
+        if policy is not None or deadline_s is not None:
+            # later attempts encode the request anew: it must not see the
+            # caller's arrays change
+            raws = [bytes(r) for r in request.raw_input_contents]
+            del request.raw_input_contents[:]
+            request.raw_input_contents.extend(raws)
+
+        def send():
+            return self._with_policy(retry_policy, deadline_s, model_name,
+                                     request_id, "async_infer", attempt)
+
         def call():
             if callback is None:
-                return self._send_infer(frame, headers, client_timeout)
+                return send()
             try:
-                result = self._send_infer(frame, headers, client_timeout)
+                result = send()
             except InferenceServerException as e:
                 callback(result=None, error=e)
             else:
@@ -486,7 +582,7 @@ class InferenceServerClient(InferenceServerClientBase):
                      compression_algorithm=None) -> None:
         """Open the stream; ``callback(result, error)`` runs on its reader
         thread for every answer, in order."""
-        _check_unported(compression_algorithm=compression_algorithm)
+        _check_unported(compression_algorithm)
         if stream_timeout is not None:
             _not_ported("stream_timeout", "A6b")
         if self._stream is not None:

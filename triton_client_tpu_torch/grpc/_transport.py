@@ -23,13 +23,15 @@ a trailers frame (flags 0x80) holding ``grpc-status`` and a percent-encoded
 
 from __future__ import annotations
 
+import http.client
 import socket
 import threading
 import urllib.parse
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 from ..protocol.grpc_web import (CONTENT_TYPE, TRAILER_FLAG, iter_frames,
-                                 parse_trailers, read_chunked)
+                                 parse_trailer_fields, parse_trailers,
+                                 read_chunked)
 from ..protocol.service import StatusCode, path
 
 __all__ = ["RpcError", "StreamCall", "unary"]
@@ -39,16 +41,23 @@ class RpcError(Exception):
     """A call's non-OK status: ``code()`` and ``details()`` as
     ``grpc.RpcError`` has them."""
 
-    def __init__(self, code: StatusCode, details: str):
+    def __init__(self, code: StatusCode, details: str,
+                 trailing: Optional[Dict[str, str]] = None):
         super().__init__(details)
         self._code = code
         self._details = details
+        self._trailing = trailing or {}
 
     def code(self) -> StatusCode:
         return self._code
 
     def details(self) -> str:
         return self._details
+
+    def trailing_metadata(self):
+        """The answer's trailing metadata as ``(key, value)`` pairs (such as
+        the server's ``retry-after-ms``)."""
+        return tuple(self._trailing.items())
 
 
 #: the status of an answer that is not gRPC-Web, by its HTTP status (gRPC's
@@ -79,7 +88,8 @@ def unary(pool, method: str, frame: bytes, response_type, headers: dict,
                             timeout=timeout)
     except socket.timeout:
         raise RpcError(StatusCode.DEADLINE_EXCEEDED, "Deadline Exceeded")
-    except OSError as e:
+    except (OSError, http.client.HTTPException) as e:
+        # refused, reset, or cut short inside the answer
         raise RpcError(StatusCode.UNAVAILABLE, f"failed to connect: {e}")
     if resp.status != 200:
         raise http_error(resp.status, resp.data)
@@ -89,15 +99,16 @@ def unary(pool, method: str, frame: bytes, response_type, headers: dict,
         raise RpcError(StatusCode.INTERNAL, str(e))
     trailer = [p for flags, p in frames if flags & TRAILER_FLAG]
     frames = [p for flags, p in frames if not flags & TRAILER_FLAG]
+    trailing: Dict[str, str] = {}
     if trailer:
-        status, message = parse_trailers(trailer[-1])
+        status, message, trailing = parse_trailer_fields(trailer[-1])
     else:  # trailers-only: the status is a header
         raw = resp.headers.get("grpc-status")
         status = StatusCode.of(int(raw)) if raw is not None \
             else StatusCode.UNKNOWN
         message = urllib.parse.unquote(resp.headers.get("grpc-message", ""))
     if status != StatusCode.OK:
-        raise RpcError(status, message)
+        raise RpcError(status, message, trailing)
     if not frames:
         raise RpcError(StatusCode.INTERNAL, "missing response message")
     return response_type.FromString(frames[0])

@@ -15,9 +15,17 @@ _RESERVED_PARAMS = ("sequence_id", "sequence_start", "sequence_end",
 
 
 def get_error_grpc(rpc_error) -> InferenceServerException:
-    """An ``RpcError`` (``_transport.RpcError``) as the client's exception."""
-    return InferenceServerException(msg=rpc_error.details(),
-                                    status=str(rpc_error.code()))
+    """An ``RpcError`` (``_transport.RpcError``) as the client's exception;
+    the server's ``retry-after-ms`` trailer as its ``retry_after_s``."""
+    exc = InferenceServerException(msg=rpc_error.details(),
+                                   status=str(rpc_error.code()))
+    for key, value in rpc_error.trailing_metadata():
+        if key == "retry-after-ms":
+            try:
+                exc.retry_after_s = float(value) / 1e3
+            except ValueError:
+                pass
+    return exc
 
 
 def raise_error_grpc(rpc_error):
@@ -29,6 +37,7 @@ def raise_error_grpc(rpc_error):
 _STREAM_STATUS = {
     "400": "StatusCode.INVALID_ARGUMENT",
     "404": "StatusCode.NOT_FOUND",
+    "413": "StatusCode.RESOURCE_EXHAUSTED",
     "429": "StatusCode.RESOURCE_EXHAUSTED",
     "500": "StatusCode.INTERNAL",
     "503": "StatusCode.UNAVAILABLE",

@@ -20,8 +20,17 @@ The trace and log settings (``update_trace_settings``,
 the debug snapshots (``get_flight_recorder``, ``get_device_stats``,
 ``get_costs``) are the reference's calls on the same routes.
 
-Not ported yet: the retry layer and deadlines (``retry_policy``,
-``deadline_s``), QoS tenants (``tenant``), client telemetry and tracing
+Resilience and QoS, as in the reference: ``infer``, ``async_infer`` and a
+prepared request's ``infer`` take ``retry_policy`` (else the client's),
+``deadline_s``, ``tenant`` (the ``triton-tenant`` header) and ``priority``.
+Under a policy or a deadline each attempt goes out on a pooled connection
+with ``triton-timeout-us`` stamped anew from what is left of the deadline,
+which also caps the attempt's socket timeout; a refusal's pushback
+(``triton-retry-after-ms``) sets the wait before the next one
+(``_resilience.py``).  Under a client-level policy the health and metadata
+calls retry too.
+
+Not ported yet: client telemetry beyond the retry count and tracing
 headers (ROADMAP A6b); TLS and the repository API (ROADMAP A3b).
 ``infer_many`` and the ``xla`` aliases of the CUDA shared-memory calls are
 not ported.
@@ -43,6 +52,8 @@ from urllib.parse import quote, urlencode
 
 from .._client import InferenceServerClientBase
 from .._request import Request
+from .._resilience import (call_with_retry, min_timeout, normalized_status,
+                           remaining_us)
 from ..utils import InferenceServerException, raise_error
 from ._infer_result import InferResult
 from ._template import RequestTemplate
@@ -53,16 +64,6 @@ def _not_ported(name: str, item: str):
     raise NotImplementedError(
         f"{name} is not ported to triton_client_tpu_torch yet (ROADMAP "
         f"{item})")
-
-
-def _check_unported(retry_policy, deadline_s, tenant) -> None:
-    if retry_policy is not None:
-        _not_ported("retry_policy (the client retry layer)", "A6b")
-    if deadline_s is not None:
-        _not_ported("deadline_s (the client retry layer's deadlines)",
-                    "A6b")
-    if tenant is not None:
-        _not_ported("tenant (QoS tenants)", "A6b")
 
 
 class _Response:
@@ -178,10 +179,13 @@ class PreparedRequest:
     def infer(self, request_id="", headers=None, query_params=None,
               tenant=None, retry_policy=None,
               deadline_s: Optional[float] = None) -> InferResult:
-        """Fast-path inference, with ``client.infer``'s contract."""
-        _check_unported(retry_policy, deadline_s, tenant)
-        return self._client._infer_prepared(self, request_id, headers,
-                                            query_params)
+        """Fast-path inference, with ``client.infer``'s contract (a retry
+        stamps the deadline header anew)."""
+        client = self._client
+        return client._with_policy(
+            retry_policy, deadline_s, self.template.model_name, request_id,
+            "infer", lambda remaining: client._infer_prepared(
+                self, request_id, headers, query_params, tenant, remaining))
 
 
 class InferAsyncRequest:
@@ -233,8 +237,6 @@ class InferenceServerClient(InferenceServerClientBase):
                  ssl_context_factory=None,  # API compatibility
                  insecure: bool = False, retry_policy=None):
         super().__init__()
-        if retry_policy is not None:
-            _not_ported("retry_policy (the client retry layer)", "A6b")
         if ssl:
             _not_ported("TLS (ssl=True)", "A3b")
         if url.startswith("http://") or url.startswith("https://"):
@@ -249,11 +251,36 @@ class InferenceServerClient(InferenceServerClientBase):
                                      connection_timeout, network_timeout)
         self._executor: Optional[ThreadPoolExecutor] = None
         self._executor_lock = threading.Lock()
+        # the client's default policy: health and metadata calls retry
+        # under it, infer where it opts in (a call's retry_policy wins)
+        self._retry_policy = retry_policy
 
     @property
     def url(self) -> str:
         """The ``host:port`` this client talks to."""
         return self._url
+
+    def _with_policy(self, retry_policy, deadline_s, model_name: str,
+                     request_id: str, method_name: str, attempt):
+        """``attempt(remaining_s)`` under the call's policy (else the
+        client's) and deadline; a single attempt without either."""
+        policy = retry_policy if retry_policy is not None \
+            else self._retry_policy
+        if policy is None and deadline_s is None:
+            return attempt(None)
+        return call_with_retry(
+            policy, lambda remaining, _attempt: attempt(remaining),
+            method="infer", deadline_s=deadline_s,
+            retry_meta=(model_name, "http", method_name, request_id))
+
+    def _with_retry(self, method_kind: str, fn):
+        """An idempotent (health or metadata) call under the client's
+        policy, where it has one."""
+        if self._retry_policy is None:
+            return fn(None)
+        return call_with_retry(
+            self._retry_policy, lambda remaining, _attempt: fn(remaining),
+            method=method_kind, retry_meta=("", "http", method_kind, ""))
 
     # -- lifecycle ---------------------------------------------------------
     def close(self) -> None:
@@ -294,34 +321,43 @@ class InferenceServerClient(InferenceServerClientBase):
         return uri
 
     def _get(self, path: str, headers: Optional[dict],
-             query_params: Optional[dict]) -> _Response:
+             query_params: Optional[dict],
+             timeout_s: Optional[float] = None) -> _Response:
         uri = self._uri(path, query_params)
         if self._verbose:
             print(f"GET {uri}, headers {headers}")
         response = self._pool.request("GET", uri, None,
-                                 self._build_headers(headers))
+                                      self._build_headers(headers),
+                                      timeout=timeout_s)
         if self._verbose:
             print(response.status)
         return response
 
     def _post(self, path: str, body: bytes, headers: Optional[dict],
               query_params: Optional[dict],
-              extra_headers: Optional[dict] = None) -> _Response:
+              extra_headers: Optional[dict] = None,
+              timeout_s: Optional[float] = None) -> _Response:
         uri = self._uri(path, query_params)
         hdrs = self._build_headers(headers)
         if extra_headers:
             hdrs.update(extra_headers)
         if self._verbose:
             print(f"POST {uri}, headers {hdrs}\n{body[:256]!r}")
-        response = self._pool.request("POST", uri, body, hdrs)
+        response = self._pool.request("POST", uri, body, hdrs,
+                                      timeout=timeout_s)
         if self._verbose:
             print(response.status)
         return response
 
     def _get_json(self, path: str, headers, query_params):
-        response = self._get(path, headers, query_params)
-        raise_if_error(response.status, response.data)
-        return json.loads(response.data)
+        def call(remaining):
+            response = self._get(path, headers, query_params,
+                                 timeout_s=remaining)
+            raise_if_error(response.status, response.data,
+                           response.headers)
+            return response
+
+        return json.loads(self._with_retry("metadata", call).data)
 
     def _post_checked(self, path: str, body: bytes, headers,
                       query_params) -> None:
@@ -332,7 +368,24 @@ class InferenceServerClient(InferenceServerClientBase):
     # health probes answer with a bool: any status but 200 is False, as in
     # the reference, so they call no raise_if_error
     def _health(self, path: str, headers, query_params) -> bool:
-        return self._get(path, headers, query_params).status == 200
+        """Under a client-level policy a 429 or 503 is retried, and reads
+        False once the retries are spent."""
+        def call(remaining):
+            response = self._get(path, headers, query_params,
+                                 timeout_s=remaining)
+            if self._retry_policy is not None \
+                    and response.status in (429, 503):
+                raise_if_error(response.status, response.data,
+                               response.headers)
+            return response
+
+        try:
+            response = self._with_retry("health", call)
+        except InferenceServerException as e:
+            if normalized_status(e) in ("429", "503"):
+                return False  # still overloaded after every retry
+            raise
+        return response.status == 200
 
     # tpu-lint: disable=EXC-CONTRACT a health probe answers False on an error status, as in the reference
     def is_server_live(self, headers=None, query_params=None) -> bool:
@@ -500,13 +553,22 @@ class InferenceServerClient(InferenceServerClientBase):
             response_body, verbose, header_length, content_encoding)
 
     def _send_infer(self, path: str, body: bytes, json_size: Optional[int],
-                    headers, query_params,
-                    extra_headers: Dict[str, str]) -> InferResult:
+                    headers, query_params, extra_headers: Dict[str, str],
+                    tenant: Optional[str] = None,
+                    remaining_s: Optional[float] = None) -> InferResult:
+        """One attempt: ``tenant`` in ``triton-tenant``, what is left of the
+        deadline in ``triton-timeout-us`` and as the socket timeout."""
         if json_size is not None:
             extra_headers["Inference-Header-Content-Length"] = str(json_size)
-        response = self._post(path, body, headers, query_params,
-                              extra_headers)
-        raise_if_error(response.status, response.data)
+        if tenant:
+            extra_headers["triton-tenant"] = str(tenant)
+        if remaining_s is not None:
+            extra_headers["triton-timeout-us"] = str(
+                remaining_us(remaining_s))
+        response = self._post(
+            path, body, headers, query_params, extra_headers,
+            timeout_s=min_timeout(None, remaining_s))
+        raise_if_error(response.status, response.data, response.headers)
         header_length = response.headers.get(
             "Inference-Header-Content-Length")
         return InferResult(
@@ -520,7 +582,8 @@ class InferenceServerClient(InferenceServerClientBase):
                        priority, timeout, headers, query_params,
                        request_compression_algorithm,
                        response_compression_algorithm,
-                       parameters) -> InferResult:
+                       parameters, tenant=None,
+                       remaining_s=None) -> InferResult:
         body, json_size = get_inference_request_body(
             inputs, request_id, outputs, sequence_id, sequence_start,
             sequence_end, priority, timeout, parameters)
@@ -535,7 +598,8 @@ class InferenceServerClient(InferenceServerClientBase):
             extra_headers["Accept-Encoding"] = response_compression_algorithm
         return self._send_infer(
             _model_path(model_name, model_version) + "/infer", body,
-            json_size, headers, query_params, extra_headers)
+            json_size, headers, query_params, extra_headers, tenant,
+            remaining_s)
 
     def prepare(self, model_name, inputs, model_version="", outputs=None,
                 priority=0, timeout=None, parameters=None) -> PreparedRequest:
@@ -549,10 +613,11 @@ class InferenceServerClient(InferenceServerClientBase):
             parameters))
 
     def _infer_prepared(self, prep: PreparedRequest, request_id, headers,
-                        query_params) -> InferResult:
+                        query_params, tenant=None,
+                        remaining_s=None) -> InferResult:
         body, json_size = prep.template.stamp(request_id)
         return self._send_infer(prep.infer_path, body, json_size, headers,
-                                query_params, {})
+                                query_params, {}, tenant, remaining_s)
 
     def infer(self, model_name, inputs, model_version="", outputs=None,
               request_id="", sequence_id=0, sequence_start=False,
@@ -561,13 +626,21 @@ class InferenceServerClient(InferenceServerClientBase):
               response_compression_algorithm=None, parameters=None,
               retry_policy=None, deadline_s: Optional[float] = None,
               tenant: Optional[str] = None) -> InferResult:
-        """Run one inference and wait for its result."""
-        _check_unported(retry_policy, deadline_s, tenant)
-        return self._infer_request(
-            model_name, inputs, model_version, outputs, request_id,
-            sequence_id, sequence_start, sequence_end, priority, timeout,
-            headers, query_params, request_compression_algorithm,
-            response_compression_algorithm, parameters)
+        """Run one inference and wait for its result.  ``retry_policy``
+        (else the client's) retries retryable failures where it opts in to
+        ``retry_infer``; ``deadline_s`` caps the time across attempts and
+        travels to the server in ``triton-timeout-us``; ``priority`` (0 =
+        highest) and ``tenant`` are the QoS identity, sent on every
+        attempt."""
+        return self._with_policy(
+            retry_policy, deadline_s, model_name, request_id, "infer",
+            lambda remaining: self._infer_request(
+                model_name, inputs, model_version, outputs, request_id,
+                sequence_id, sequence_start, sequence_end, priority,
+                timeout, headers, query_params,
+                request_compression_algorithm,
+                response_compression_algorithm, parameters, tenant,
+                remaining))
 
     def async_infer(self, model_name, inputs, model_version="", outputs=None,
                     request_id="", sequence_id=0, sequence_start=False,
@@ -578,21 +651,28 @@ class InferenceServerClient(InferenceServerClientBase):
                     retry_policy=None, deadline_s: Optional[float] = None,
                     tenant: Optional[str] = None) -> InferAsyncRequest:
         """Submit an inference to the client's pool of ``concurrency``
-        threads and return its handle."""
-        _check_unported(retry_policy, deadline_s, tenant)
+        threads and return its handle; retries and the deadline, as
+        ``infer``'s, run on the pool's thread."""
         # the body is gathered on a worker after this returns: copy views
         # of the caller's arrays now
         for inp in inputs:
             inp._freeze_raw()
+
+        def task():
+            return self._with_policy(
+                retry_policy, deadline_s, model_name, request_id,
+                "async_infer", lambda remaining: self._infer_request(
+                    model_name, inputs, model_version, outputs, request_id,
+                    sequence_id, sequence_start, sequence_end, priority,
+                    timeout, headers, query_params,
+                    request_compression_algorithm,
+                    response_compression_algorithm, parameters, tenant,
+                    remaining))
+
         with self._executor_lock:
             if self._executor is None:
                 self._executor = ThreadPoolExecutor(
                     max_workers=self._concurrency,
                     thread_name_prefix="tc-torch-http")
-            future = self._executor.submit(
-                self._infer_request, model_name, inputs, model_version,
-                outputs, request_id, sequence_id, sequence_start,
-                sequence_end, priority, timeout, headers, query_params,
-                request_compression_algorithm,
-                response_compression_algorithm, parameters)
+            future = self._executor.submit(task)
         return InferAsyncRequest(future, self._verbose)

@@ -12,10 +12,12 @@ _RESERVED_PARAMETERS = ("sequence_id", "sequence_start", "sequence_end",
                         "priority", "binary_data_output")
 
 
-def raise_if_error(status: int, body: bytes) -> None:
+def raise_if_error(status: int, body: bytes, headers=None) -> None:
     """Raise :class:`InferenceServerException` for a status outside 2xx,
     with the message of the v2 ``{"error": msg}`` body where there is one
-    and the status as a string."""
+    and the status as a string.  The server's pushback in ``headers``
+    (``triton-retry-after-ms``, else ``Retry-After`` in seconds) lands on
+    the exception's ``retry_after_s``, which the retry layer honours."""
     if 200 <= status < 300:
         return
     msg = None
@@ -23,8 +25,21 @@ def raise_if_error(status: int, body: bytes) -> None:
         msg = json.loads(body).get("error")
     except (ValueError, AttributeError):
         msg = body.decode("utf-8", errors="replace") if body else None
-    raise InferenceServerException(
+    exc = InferenceServerException(
         msg=msg or f"[{status}] inference request failed", status=str(status))
+    if headers is not None:
+        # the precise horizon wins over the whole seconds beside it
+        for key, scale in (("triton-retry-after-ms", 1e-3),
+                           ("Retry-After", 1.0)):
+            value = headers.get(key)
+            if value is None:
+                continue
+            try:
+                exc.retry_after_s = float(value) * scale
+            except ValueError:
+                continue  # an HTTP date: the jittered backoff covers it
+            break
+    raise exc
 
 
 def build_infer_request_dict(inputs, request_id: str, outputs, sequence_id,

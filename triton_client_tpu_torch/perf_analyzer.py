@@ -39,16 +39,29 @@ default 100), off again after it whatever happened, and prints the
 per-stage breakdown of the file (``_trace_summary``); PATH is a path the
 server writes.
 
+QoS classes and retries (the reference's flags): ``--priority N`` and
+``--tenant NAME``, each repeatable, are zipped into classes (a shorter list
+repeats its last value); worker ``w`` sends as class ``w % n``, and a level
+of several classes reports each one's infer/s, latency percentiles and
+sheds (``classes`` in the ``result`` line, and a line per class).
+``--retries N`` sends every request under a retry policy of N attempts
+that may retry ``infer``, and each level counts the retries (``retries``,
+in its window).  ``--retries`` and ``--tenant`` are refused with
+``--streaming``, as in the reference.  Beside the reference's keys, a
+``result`` line holds ``rejected_run``, ``pushback_run`` and
+``retries_run``: the sheds, the sheds that carried the server's pushback
+and the retries of the level's whole run, its warm-up and its last
+requests included, to compare with the server's counters.
+
 Not ported yet (rejected with the ROADMAP item that brings them):
-several ``-u`` endpoints,
-``--balancing`` and ``--hedge-ms`` (the cluster client), ``--retries``,
-``--priority`` and ``--tenant`` (QoS classes) and ``--export-metrics``
-(client telemetry), all A6b.
+several ``-u`` endpoints, ``--balancing`` and ``--hedge-ms`` (the cluster
+client) and ``--export-metrics`` (client telemetry), all A6b.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import os
 import queue
@@ -60,9 +73,9 @@ from typing import Dict, List, Optional, Union
 
 import numpy as np
 
-from ._telemetry import LatencyHistogram
-from .utils import (InferenceServerException, serialized_byte_size,
-                    triton_to_np_dtype)
+from ._resilience import normalized_status
+from ._telemetry import LatencyHistogram, telemetry
+from .utils import serialized_byte_size, triton_to_np_dtype
 
 _SHM_MODES = ("none", "system", "cuda")
 
@@ -72,14 +85,37 @@ class _Stats:
     latency: LatencyHistogram = field(default_factory=LatencyHistogram)
     count: int = 0
     errors: int = 0
-    # requests the server shed (HTTP 429), a subset of errors
+    # requests the server shed (HTTP 429 / RESOURCE_EXHAUSTED), a subset
+    # of errors
     rejected: int = 0
     first_error: Optional[str] = None
+    # over the level's whole run: sheds, and sheds with pushback
+    rejected_run: int = 0
+    pushback_run: int = 0
 
 
 def _is_rejected(err: Exception) -> bool:
-    return isinstance(err, InferenceServerException) and \
-        err.status() in ("429", "StatusCode.RESOURCE_EXHAUSTED")
+    return normalized_status(err) in ("429", "RESOURCE_EXHAUSTED")
+
+
+def _retries_recorded(model_name: str) -> int:
+    """The client retries so far for ``model_name`` (process-wide)."""
+    return sum(r["retries"] for r in telemetry().snapshot()["requests"]
+               if r["model"] == model_name)
+
+
+def _parse_classes(priorities, tenants):
+    """The (priority, tenant) classes of repeated ``--priority`` and
+    ``--tenant`` flags, zipped, a shorter list repeating its last value;
+    None without either."""
+    priorities = priorities or []
+    tenants = tenants or []
+    if not priorities and not tenants:
+        return None
+    n = max(len(priorities), len(tenants))
+    return [(priorities[min(i, len(priorities) - 1)] if priorities else 0,
+             tenants[min(i, len(tenants) - 1)] if tenants else None)
+            for i in range(n)]
 
 
 def _protocol_module(protocol: str):
@@ -296,11 +332,13 @@ class _InferSession:
 
     def __init__(self, url, model_name, model_version, arrays, outputs,
                  shm_mode, output_byte_size, worker_id, cuda_device="cuda",
-                 protocol="http", streaming=False):
+                 protocol="http", streaming=False, qos_class=None,
+                 retry_policy=None):
         mod = _protocol_module(protocol)
         self._client = _make_client(url, protocol)
         self._shm_setup = None
         self._stream_open = False
+        priority, tenant = qos_class if qos_class else (0, None)
         try:
             infer_inputs = _build_inputs(mod, arrays, shm_mode)
             requested = [mod.InferRequestedOutput(o) for o in outputs]
@@ -310,9 +348,12 @@ class _InferSession:
             self._shm_setup.attach(infer_inputs, requested)
             prep = self._client.prepare(
                 model_name, infer_inputs, model_version=model_version,
-                outputs=requested)
-            self.infer = (self._stream_infer(prep) if streaming
-                          else prep.infer)
+                outputs=requested, priority=priority)
+            if streaming:
+                self.infer = self._stream_infer(prep)
+            else:
+                self.infer = lambda: prep.infer(retry_policy=retry_policy,
+                                                tenant=tenant)
         except Exception:
             self.close()
             raise
@@ -354,11 +395,13 @@ class _InferSession:
 
 def _worker(url, model_name, model_version, arrays, outputs, shm_mode,
             output_byte_size, worker_id, stop, measuring, stats: _Stats, lock,
-            cuda_device="cuda", protocol="http", streaming=False):
+            cuda_device="cuda", protocol="http", streaming=False,
+            qos_class=None, retry_policy=None):
     try:
         session = _InferSession(url, model_name, model_version,
                                 arrays, outputs, shm_mode, output_byte_size,
-                                worker_id, cuda_device, protocol, streaming)
+                                worker_id, cuda_device, protocol, streaming,
+                                qos_class, retry_policy)
     except Exception as e:  # noqa: BLE001 - reported, not a dead thread
         with lock:
             stats.errors += 1
@@ -366,7 +409,7 @@ def _worker(url, model_name, model_version, arrays, outputs, shm_mode,
                 stats.first_error = f"worker setup: {type(e).__name__}: {e}"
         return
     try:
-        n = errs = rejected = 0
+        n = errs = rejected = rejected_run = pushback_run = 0
         first_error = None
         while not stop.is_set():
             t0 = time.perf_counter()
@@ -376,6 +419,11 @@ def _worker(url, model_name, model_version, arrays, outputs, shm_mode,
             except Exception as e:  # noqa: BLE001 - counted per request
                 err = e
             dt_s = time.perf_counter() - t0
+            shed = err is not None and _is_rejected(err)
+            if shed:
+                rejected_run += 1
+                pushback_run += getattr(err, "retry_after_s", None) \
+                    is not None
             # completions after the window closed are not counted
             if measuring.is_set():
                 if err is None:
@@ -383,13 +431,15 @@ def _worker(url, model_name, model_version, arrays, outputs, shm_mode,
                     n += 1
                 else:
                     errs += 1
-                    rejected += _is_rejected(err)
+                    rejected += shed
                     if first_error is None:
                         first_error = f"{type(err).__name__}: {err}"
         with lock:
             stats.count += n
             stats.errors += errs
             stats.rejected += rejected
+            stats.rejected_run += rejected_run
+            stats.pushback_run += pushback_run
             if stats.first_error is None:
                 stats.first_error = first_error
     finally:
@@ -399,10 +449,14 @@ def _worker(url, model_name, model_version, arrays, outputs, shm_mode,
 def run_level(url, model_name, model_version, concurrency, arrays, outputs,
               shm_mode, output_byte_size, measure_s, warmup_s=1.0,
               extra_percentile=None, cuda_device="cuda", protocol="http",
-              streaming=False):
+              streaming=False, qos_classes=None, retry_policy=None):
     """One closed-loop level: ``concurrency`` workers, each sending its
-    next request as soon as the last one is answered."""
-    stats = _Stats()
+    next request as soon as the last one is answered.  With
+    ``qos_classes`` (``(priority, tenant)`` pairs) worker ``w`` sends as
+    class ``w % len(classes)`` and the result gains a per-class
+    ``classes`` breakdown."""
+    classes = list(qos_classes) if qos_classes else [(0, None)]
+    class_stats = [_Stats() for _ in classes]
     lock = threading.Lock()
     stop = threading.Event()
     measuring = threading.Event()
@@ -410,31 +464,64 @@ def run_level(url, model_name, model_version, concurrency, arrays, outputs,
         threading.Thread(
             target=_worker,
             args=(url, model_name, model_version, arrays, outputs,
-                  shm_mode, output_byte_size, w, stop, measuring, stats,
-                  lock, cuda_device, protocol, streaming),
+                  shm_mode, output_byte_size, w, stop, measuring,
+                  class_stats[w % len(classes)], lock, cuda_device,
+                  protocol, streaming, classes[w % len(classes)],
+                  retry_policy),
             daemon=True)
         for w in range(concurrency)]
+    retries_start = _retries_recorded(model_name)
     for t in threads:
         t.start()
     time.sleep(warmup_s)
+    # the window's retries, as its counts
+    retries_before = _retries_recorded(model_name)
     measuring.set()
     t0 = time.perf_counter()
     time.sleep(measure_s)
     measuring.clear()
     t1 = time.perf_counter()
+    retries_window = _retries_recorded(model_name) - retries_before
     stop.set()
     for t in threads:
         t.join(timeout=60)
+    stats = _Stats()
+    for cs in class_stats:
+        stats.latency.merge(cs.latency)
+        stats.count += cs.count
+        stats.errors += cs.errors
+        stats.rejected += cs.rejected
+        stats.rejected_run += cs.rejected_run
+        stats.pushback_run += cs.pushback_run
+        if stats.first_error is None:
+            stats.first_error = cs.first_error
+    elapsed = t1 - t0
     res = {
         "concurrency": concurrency,
-        "throughput": stats.count / (t1 - t0),
+        "throughput": stats.count / elapsed,
         "errors": stats.errors,
         "rejected": stats.rejected,
-        "rejected_per_sec": stats.rejected / (t1 - t0),
+        "rejected_per_sec": stats.rejected / elapsed,
+        "retries": retries_window,
         "first_error": stats.first_error,
         "window_start_s": t0,
         "window_end_s": t1,
+        "rejected_run": stats.rejected_run,
+        "pushback_run": stats.pushback_run,
+        "retries_run": _retries_recorded(model_name) - retries_start,
     }
+    if len(classes) > 1:
+        res["classes"] = [
+            dict(priority=cls[0], tenant=cls[1] or "",
+                 workers=sum(1 for w in range(concurrency)
+                             if w % len(classes) == i),
+                 throughput=cs.count / elapsed,
+                 rejected=cs.rejected,
+                 rejected_per_sec=cs.rejected / elapsed,
+                 rejected_run=cs.rejected_run,
+                 pushback_run=cs.pushback_run,
+                 **_latency_stats(cs.latency, extra_percentile))
+            for i, (cls, cs) in enumerate(zip(classes, class_stats))]
     res.update(_latency_stats(stats.latency, extra_percentile))
     return res
 
@@ -479,12 +566,15 @@ def run_rate_level(url, model_name, model_version, rate, arrays, outputs,
                    shm_mode, output_byte_size, measure_s, warmup_s=1.0,
                    distribution="constant", max_threads=64,
                    extra_percentile=None, cuda_device="cuda",
-                   protocol="http", streaming=False):
+                   protocol="http", streaming=False, qos_classes=None,
+                   retry_policy=None):
     """One open-loop level at ``rate`` requests/s: the send times are
     scheduled up front (constant or Poisson gaps, from a fixed seed) and
     latency counts from the scheduled time.  A server that cannot keep up
     shows as ``send_lag_*`` (how late sends left) and ``unsent`` (slots of
-    the window never sent)."""
+    the window never sent).  ``qos_classes`` as in :func:`run_level`:
+    sender ``w`` sends as class ``w % len(classes)``."""
+    classes = list(qos_classes) if qos_classes else [(0, None)]
     if rate <= 0:
         raise ValueError(f"request rate must be positive, got {rate}")
     # the schedule covers warm-up, window and 1 s more
@@ -501,18 +591,20 @@ def run_rate_level(url, model_name, model_version, rate, arrays, outputs,
     stop = threading.Event()
     next_slot = [0]
     sent = []   # (scheduled, send lag)
-    done = []   # (scheduled, latency from scheduled, error, rejected)
+    # (scheduled, latency from scheduled, error, rejected, class, pushback)
+    done = []
     setup_errors = []
     t0_box = [0.0]
     ready = [0]
     go = threading.Event()
 
     def worker(worker_id):
+        ci = worker_id % len(classes)
         try:
             session = _InferSession(url, model_name, model_version, arrays,
                                     outputs, shm_mode, output_byte_size,
                                     worker_id, cuda_device, protocol,
-                                    streaming)
+                                    streaming, classes[ci], retry_policy)
         except Exception as e:  # noqa: BLE001 - reported below
             with lock:
                 ready[0] += 1
@@ -539,21 +631,25 @@ def run_rate_level(url, model_name, model_version, rate, arrays, outputs,
                 if stop.is_set():
                     return  # a claimed slot never sent: counted unsent
                 lag = time.perf_counter() - target
-                err, rejected = None, False
+                err, rejected, pushback = None, False, False
                 try:
                     session.infer()
                 except Exception as e:  # noqa: BLE001 - recorded per slot
                     err = f"{type(e).__name__}: {e}"
                     rejected = _is_rejected(e)
+                    pushback = rejected and getattr(
+                        e, "retry_after_s", None) is not None
                 lat = time.perf_counter() - target
                 with lock:
                     sent.append((sched[k], lag))
-                    done.append((sched[k], lat, err, rejected))
+                    done.append((sched[k], lat, err, rejected, ci,
+                                 pushback))
         finally:
             session.close()
 
     threads = [threading.Thread(target=worker, args=(w,), daemon=True)
                for w in range(max_threads)]
+    retries_start = _retries_recorded(model_name)
     for t in threads:
         t.start()
     deadline = time.monotonic() + 30.0
@@ -562,15 +658,18 @@ def run_rate_level(url, model_name, model_version, rate, arrays, outputs,
     t0_box[0] = time.perf_counter()
     go.set()
     # the window owns every slot scheduled in it, sent or not
-    time.sleep(warmup_s + measure_s)
+    time.sleep(warmup_s)
+    retries_before = _retries_recorded(model_name)
+    time.sleep(measure_s)
+    retries_window = _retries_recorded(model_name) - retries_before
     stop.set()
     for t in threads:
         t.join(timeout=60)
     win_lo, win_hi = warmup_s, warmup_s + measure_s
     owed = int(np.sum((sched >= win_lo) & (sched < win_hi)))
     in_win = [row for row in done if win_lo <= row[0] < win_hi]
-    ok = [lat for _s, lat, err, _rej in in_win if err is None]
-    errs = [err for _s, _lat, err, _rej in in_win if err is not None]
+    ok = [row[1] for row in in_win if row[2] is None]
+    errs = [row[2] for row in in_win if row[2] is not None]
     n_rejected = sum(1 for row in in_win if row[3])
     lags = np.asarray([lag for s, lag in sent if win_lo <= s < win_hi])
     res = {
@@ -583,6 +682,7 @@ def run_rate_level(url, model_name, model_version, rate, arrays, outputs,
         "errors": len(errs) + len(setup_errors),
         "rejected": n_rejected,
         "rejected_per_sec": n_rejected / measure_s,
+        "retries": retries_window,
         "first_error": (setup_errors[0] if setup_errors
                         else errs[0] if errs else None),
         "send_lag_p50_ms": (float(np.percentile(lags, 50) * 1e3)
@@ -591,7 +691,27 @@ def run_rate_level(url, model_name, model_version, rate, arrays, outputs,
                             if lags.size else float("nan")),
         "window_start_s": t0_box[0] + win_lo,
         "window_end_s": t0_box[0] + win_hi,
+        "rejected_run": sum(1 for row in done if row[3]),
+        "pushback_run": sum(1 for row in done if row[5]),
+        "retries_run": _retries_recorded(model_name) - retries_start,
     }
+    if len(classes) > 1:
+        res["classes"] = []
+        for i, cls in enumerate(classes):
+            c_ok = [row[1] for row in in_win
+                    if row[4] == i and row[2] is None]
+            c_rej = sum(1 for row in in_win if row[4] == i and row[3])
+            res["classes"].append(dict(
+                priority=cls[0], tenant=cls[1] or "",
+                workers=sum(1 for w in range(max_threads)
+                            if w % len(classes) == i),
+                throughput=len(c_ok) / measure_s,
+                rejected=c_rej, rejected_per_sec=c_rej / measure_s,
+                rejected_run=sum(1 for row in done
+                                 if row[4] == i and row[3]),
+                pushback_run=sum(1 for row in done
+                                 if row[4] == i and row[5]),
+                **_latency_stats(c_ok, extra_percentile)))
     res.update(_latency_stats(ok, extra_percentile))
     return res
 
@@ -602,6 +722,8 @@ def _json_sanitize(v):
         return None
     if isinstance(v, dict):
         return {k: _json_sanitize(x) for k, x in v.items()}
+    if isinstance(v, list):
+        return [_json_sanitize(x) for x in v]
     return v
 
 
@@ -610,9 +732,6 @@ def _json_sanitize(v):
 _NOT_PORTED = (
     ("balancing", "--balancing", "A6b (the cluster client)"),
     ("hedge_ms", "--hedge-ms", "A6b (the cluster client)"),
-    ("retries", "--retries", "A6b (the client retry layer)"),
-    ("priority", "--priority", "A6b (QoS classes)"),
-    ("tenant", "--tenant", "A6b (QoS classes)"),
     ("export_metrics", "--export-metrics", "A6b (client telemetry)"),
 )
 
@@ -668,6 +787,22 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument("--shape", action="append", default=[],
                         help="name:d1,d2,... override for dynamic dims")
     parser.add_argument("--string-length", type=int, default=16)
+    parser.add_argument("--priority", action="append", type=int,
+                        default=None, metavar="N",
+                        help="v2 request priority (0 = highest); repeat "
+                             "together with --tenant for mixed-tier "
+                             "sweeps: workers round-robin over the "
+                             "(priority, tenant) classes and the report "
+                             "gives each one's infer/s, p99 and sheds")
+    parser.add_argument("--tenant", action="append", default=None,
+                        metavar="NAME",
+                        help="QoS tenant stamped on every request "
+                             "(triton-tenant); repeatable, zipped with "
+                             "--priority into classes")
+    parser.add_argument("--retries", type=int, default=0,
+                        help="send each request under a retry policy of "
+                             "this many attempts (0 = off); each level "
+                             "reports its retries")
     parser.add_argument("--percentile", type=int, default=None,
                         help="report this percentile as the headline latency")
     parser.add_argument("--trace-file", default=None, metavar="PATH",
@@ -682,10 +817,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument("-f", "--latency-report-file", default=None)
     parser.add_argument("-v", "--verbose", action="store_true")
     for dest, flag, item in _NOT_PORTED:
-        parser.add_argument(
-            flag, dest=dest, default=None,
-            action="append" if dest in ("priority", "tenant") else "store",
-            help=f"not ported yet (ROADMAP {item})")
+        parser.add_argument(flag, dest=dest, default=None,
+                            help=f"not ported yet (ROADMAP {item})")
     args = parser.parse_args(argv)
     for dest, flag, item in _NOT_PORTED:
         if getattr(args, dest) not in (None, False):
@@ -693,6 +826,20 @@ def main(argv: Optional[List[str]] = None) -> int:
                          f"yet (ROADMAP {item})")
     if args.streaming and args.protocol != "grpc":
         parser.error("--streaming requires -i grpc")
+    if args.streaming and args.retries:
+        # a stream's completion arrives on its callback: a per-request
+        # retry cannot apply
+        parser.error("--retries is not supported with --streaming")
+    if args.streaming and args.tenant:
+        # a stream's metadata is fixed when it opens
+        parser.error("--tenant is not supported with --streaming")
+    qos_classes = _parse_classes(args.priority, args.tenant)
+    retry_policy = None
+    if args.retries > 0:
+        from ._resilience import RetryPolicy
+
+        retry_policy = RetryPolicy(max_attempts=args.retries,
+                                   retry_infer=True)
     if args.concurrency_range and args.request_rate_range:
         parser.error("--concurrency-range and --request-rate-range are "
                      "mutually exclusive (closed- vs open-loop)")
@@ -707,6 +854,13 @@ def main(argv: Optional[List[str]] = None) -> int:
                      "A6b)")
     url = urls[0] if urls else "localhost:8000"
 
+    if args.shared_memory != "none":
+        # the region modules import torch: here, not inside a level's
+        # window, where a worker's first request would wait for it
+        importlib.import_module(
+            f"{__package__}.utils."
+            + ("shared_memory" if args.shared_memory == "system"
+               else "cuda_shared_memory"))
     meta_client = _make_client(url, args.protocol)
     try:
         inputs, output_specs, max_batch = _resolve_model(
@@ -750,6 +904,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         tail = ""
         if res.get("unsent"):
             tail += f", {res['unsent']} unsent"
+        if res.get("retries"):
+            tail += f", {res['retries']} retries"
         if res.get("rejected"):
             tail += f", rejected {res['rejected_per_sec']:.1f}/s"
         if res["errors"]:
@@ -766,6 +922,18 @@ def main(argv: Optional[List[str]] = None) -> int:
             if "send_lag_p99_ms" in res:
                 line += f", send lag p99 {res['send_lag_p99_ms']:.1f} ms"
             print(line)
+        for cls in res.get("classes", []):
+            label = f"p={cls['priority']}"
+            if cls["tenant"]:
+                label += f" tenant={cls['tenant']}"
+            p50, p99 = cls["p50_us"], cls["p99_us"]
+            p50_s = f"{p50:.0f}" if np.isfinite(p50) else "-"
+            p99_s = f"{p99:.0f}" if np.isfinite(p99) else "-"
+            print(f"    tier {label}: {cls['throughput']:.2f} infer/sec, "
+                  f"p50 {p50_s} usec, p99 {p99_s} usec, shed "
+                  f"{cls['rejected_per_sec']:.1f}/s "
+                  f"({cls['rejected']} total)")
+        if args.verbose:
             print("  result " + json.dumps(_json_sanitize(res)))
         sys.stdout.flush()
 
@@ -791,7 +959,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                     max_threads=args.max_threads,
                     extra_percentile=args.percentile,
                     cuda_device=args.cuda_shared_memory_device,
-                    protocol=args.protocol, streaming=args.streaming)
+                    protocol=args.protocol, streaming=args.streaming,
+                    qos_classes=qos_classes, retry_policy=retry_policy)
                 report(res, f"Request rate: {rate:g}/s, completed "
                             "(latency from scheduled send): ")
         else:
@@ -801,7 +970,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                     outputs, args.shared_memory, output_size,
                     measure_s, extra_percentile=args.percentile,
                     cuda_device=args.cuda_shared_memory_device,
-                    protocol=args.protocol, streaming=args.streaming)
+                    protocol=args.protocol, streaming=args.streaming,
+                    qos_classes=qos_classes, retry_policy=retry_policy)
                 report(res, f"Concurrency: {level}, throughput: ")
     finally:
         if args.trace_file:
@@ -828,11 +998,15 @@ def main(argv: Optional[List[str]] = None) -> int:
                   file=sys.stderr)
 
     if args.verbose:
-        from .utils import cuda_shared_memory, shared_memory
-
+        # a region module this run never imported holds no region (and
+        # importing one would import torch into a run that needed none)
+        shm = sys.modules.get(f"{__package__}.utils.shared_memory")
+        cuda_shm = sys.modules.get(f"{__package__}.utils.cuda_shared_memory")
         print("regions left " + json.dumps({
-            "system": shared_memory.mapped_shared_memory_regions(),
-            "cuda": cuda_shared_memory.allocated_shared_memory_regions()}))
+            "system": (shm.mapped_shared_memory_regions()
+                       if shm is not None else []),
+            "cuda": (cuda_shm.allocated_shared_memory_regions()
+                     if cuda_shm is not None else [])}))
 
     if args.latency_report_file:
         with open(args.latency_report_file, "w") as f:

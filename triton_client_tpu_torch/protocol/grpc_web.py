@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import struct
 import urllib.parse
-from typing import Iterable, Iterator, Tuple
+from typing import Dict, Iterable, Iterator, Optional, Tuple
 
 from .service import StatusCode
 
@@ -46,27 +46,42 @@ def percent_encode(msg: str) -> str:
     return "".join(out)
 
 
-def trailers(status: int, message: str = "") -> bytes:
-    """The trailers frame of an answer."""
+def trailers(status: int, message: str = "",
+             metadata: Optional[Dict[str, str]] = None) -> bytes:
+    """The trailers frame of an answer, with any trailing ``metadata``
+    (such as ``retry-after-ms``)."""
     text = f"grpc-status:{int(status)}\r\n"
     if message:
         text += f"grpc-message:{percent_encode(message)}\r\n"
+    for key, value in (metadata or {}).items():
+        text += f"{key}:{value}\r\n"
     payload = text.encode("ascii")
     return frame_header(len(payload), TRAILER_FLAG) + payload
 
 
 def parse_trailers(payload) -> Tuple[StatusCode, str]:
     """(status, message) of a trailers frame; UNKNOWN without a status."""
+    status, message, _ = parse_trailer_fields(payload)
+    return status, message
+
+
+def parse_trailer_fields(payload
+                         ) -> Tuple[StatusCode, str, Dict[str, str]]:
+    """(status, message, the other trailing metadata by lower-case name)
+    of a trailers frame."""
     status, message = StatusCode.UNKNOWN, "missing grpc-status"
+    metadata: Dict[str, str] = {}
     for line in bytes(payload).decode("utf-8", errors="replace").split(
             "\r\n"):
-        key, _, value = line.partition(":")
+        key, sep, value = line.partition(":")
         key = key.strip().lower()
         if key == "grpc-status":
             status, message = StatusCode.of(int(value.strip())), ""
         elif key == "grpc-message":
             message = urllib.parse.unquote(value.strip())
-    return status, message
+        elif key and sep:
+            metadata[key] = value.strip()
+    return status, message, metadata
 
 
 def read_chunked(rfile) -> Iterator[bytes]:

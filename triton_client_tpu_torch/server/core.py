@@ -74,10 +74,26 @@ time.  The first execution of each input signature of a
 :class:`TorchModel` runs counted (``costs.py``); the device statistics get
 each execution window, the batcher's ticks (bucket, padded rows, queue
 depth) and the readback transfers; the ledger charges each request its
-slot share of the window, to the reference's default tenant.
+slot share of the window, to the request's tenant (a batch's window
+splits between its members by rows).
 
-QoS tiers, the memory governor, chaos, the fleet controller and the
-response cache are not ported yet (ROADMAP A6b).
+Admission (the reference's ``_admit``, core.py:1022-1145): every v2 infer
+request passes, in order, the drain gate (503), its tenant's token bucket
+(429), the memory governor's byte budget (429, or 413 for a request that
+could never fit) and its QoS tier's share of the model's queue bound
+(429, after trying to preempt queued lower-tier work), each refusal with
+its pushback (``retry_after_s``).  The check and the pending count's
+increment are one step under the core's admission lock, so concurrent
+request threads see the bound as the reference's event loop does.  The
+batcher's queue is QoS's :class:`TieredQueue`; each item carries its
+deadline and ``(tenant, tier)``.  A request whose deadline passed fails
+with 504 before any compute: at dequeue, at its batch's assembly and at
+the last gate before the batch executes.  Chaos (``chaos.py``) draws once
+per request inside the traced envelope.  :meth:`InferenceCore.drain` stops
+admission (503) and waits for in-flight requests.
+
+The fleet controller and the response cache are not ported yet (ROADMAP
+A6b), nor device-fault quarantine (A7).
 """
 
 from __future__ import annotations
@@ -94,21 +110,20 @@ import torch
 
 from ..utils import np_to_triton_dtype, torch_to_triton_dtype
 from . import costs
+from .chaos import ChaosAbort
 from .costs import CostLedger, classify_roofline
 from .device_stats import DeviceStatsCollector, SloEngine, SloObjective
 from .flight_recorder import FlightRecorder
 from .log import LOG_DEFAULTS, ServerLog
+from .memory import MemoryGovernor
 from .model import EnsembleModel, Model, TorchModel
+from .qos import DEFAULT_TENANT, QosManager, TieredQueue
 from .registry import ModelRegistry
 from .shm import CudaShmRegistry, SystemShmRegistry
 from .trace import (TRACE_DEFAULTS, RequestTracer, reset_current_trace,
                     set_current_trace)
 from .types import (InferError, InferRequest, InferResponse, InputTensor,
                     OutputTensor)
-
-#: the tenant every request is charged to until QoS tenants are ported
-#: (the reference's ``qos.DEFAULT_TENANT``)
-DEFAULT_TENANT = "anonymous"
 
 
 def _batch_count(inputs: Dict[str, Any]) -> int:
@@ -228,6 +243,14 @@ def _host_array(value) -> np.ndarray:
 _STOP = object()
 
 
+def _fail(fut: concurrent.futures.Future, err: Exception) -> None:
+    """Fail a queued request's future once (a no-op where it is done)."""
+    try:
+        fut.set_exception(err)
+    except concurrent.futures.InvalidStateError:
+        pass
+
+
 class _DynamicBatcher:
     """Queue + pad-to-bucket batcher for one model.
 
@@ -236,7 +259,12 @@ class _DynamicBatcher:
     them along the batch axis, pads the batch to the smallest preferred
     size that holds it, executes once and splits the results.  A request
     that would overflow ``max_batch_size`` seeds the next batch.  Up to
-    ``MAX_INFLIGHT`` batches execute at once."""
+    ``MAX_INFLIGHT`` batches execute at once.
+
+    The queue is QoS's :class:`TieredQueue`: strict-priority (or
+    weighted-fair) across tiers, FIFO within one; the core's admission may
+    preempt its lower lanes.  An item whose deadline passed is failed with
+    504 at dequeue and again before its batch executes."""
 
     MAX_INFLIGHT = 4
 
@@ -247,10 +275,11 @@ class _DynamicBatcher:
         self._max_delay_s = cfg.max_queue_delay_microseconds / 1e6
         self._buckets = sorted(cfg.preferred_batch_size)
         self._max_bs = cfg.max_batch_size
-        self._queue: "queue.Queue" = queue.Queue()
+        self._queue = TieredQueue(core.qos.tiers, weights=core.qos.weights)
         self._inflight = threading.BoundedSemaphore(self.MAX_INFLIGHT)
         self._pool = concurrent.futures.ThreadPoolExecutor(
             self.MAX_INFLIGHT, thread_name_prefix=f"batch-{model.name}")
+        self._stopping = False
         self._thread = threading.Thread(
             target=self._run, daemon=True, name=f"batcher-{model.name}")
         self._thread.start()
@@ -258,20 +287,41 @@ class _DynamicBatcher:
     def submit(self, inputs: Dict[str, np.ndarray],
                parameters: Dict[str, Any],
                split: Optional[RequestSplit] = None, trace=None,
-               tenant: str = "") -> Dict[str, np.ndarray]:
-        """Queue one request and wait for its rows of the batch's outputs.
-        A queue item is ``(inputs, parameters, future, split, enqueue_ns,
-        trace, tenant)``: the trace context travels with it to the thread
-        that executes the batch."""
+               deadline_ns: int = 0, tenant: str = "",
+               tier: int = 0) -> Dict[str, np.ndarray]:
+        """Queue one request in its tier's lane and wait for its rows of
+        the batch's outputs.  A queue item is ``(inputs, parameters,
+        future, split, enqueue_ns, trace, deadline_ns, (tenant, tier))``:
+        the trace context travels with it to the thread that executes the
+        batch."""
         fut: concurrent.futures.Future = concurrent.futures.Future()
-        self._queue.put((inputs, parameters, fut, split,
-                         time.monotonic_ns(), trace, tenant))
+        self._queue.put_nowait((inputs, parameters, fut, split,
+                                time.monotonic_ns(), trace, deadline_ns,
+                                (tenant, tier)), tier)
         return fut.result()
 
     def stop(self) -> None:
-        self._queue.put(_STOP)
+        """Stop the batcher thread after the batch it is forming; whatever
+        is still queued then fails with 503."""
+        self._stopping = True
+        self._queue.put_nowait(_STOP, 0)
         self._thread.join(timeout=30)
         self._pool.shutdown(wait=True)
+        for item in self._queue.drain():
+            if item is not _STOP:
+                _fail(item[2], InferError("server is shutting down", 503))
+
+    def _drop_if_expired(self, item) -> bool:
+        """Fail an item whose deadline passed while it queued (504, before
+        any concatenation, padding or compute)."""
+        deadline_ns = item[6]
+        if not deadline_ns or time.monotonic_ns() < deadline_ns:
+            return False
+        self._core.count_deadline_exceeded(self._model.name)
+        _fail(item[2], InferError(
+            f"request to model '{self._model.name}' exceeded its "
+            "deadline while queued", http_status=504))
+        return True
 
     def _run(self) -> None:
         carry = None
@@ -280,6 +330,8 @@ class _DynamicBatcher:
             carry = None
             if first is _STOP:
                 return
+            if self._drop_if_expired(first):
+                continue  # expired at dequeue: zero compute
             pending = [first]
             total = _batch_count(first[0])
             deadline = time.monotonic() + self._max_delay_s
@@ -297,6 +349,8 @@ class _DynamicBatcher:
                 if item is _STOP:
                     stop = True
                     break
+                if self._drop_if_expired(item):
+                    continue
                 count = _batch_count(item[0])
                 if total + count > self._max_bs:
                     carry = item
@@ -319,6 +373,11 @@ class _DynamicBatcher:
             self._execute_group(group)
 
     def _execute_group(self, pending) -> None:
+        # the last deadline gate: a member that expired after dequeue must
+        # not ride the execution
+        pending = [p for p in pending if not self._drop_if_expired(p)]
+        if not pending:
+            return
         counts = [_batch_count(p[0]) for p in pending]
         total = sum(counts)
         padded = total
@@ -417,7 +476,7 @@ class _DynamicBatcher:
                                      exec_stats.get("bytes_accessed", 0.0))
         verdict = roofline["verdict"] if roofline is not None else None
         for item, count in zip(pending, counts):
-            tenant = item[6]
+            tenant = item[7][0]
             share = count / total
             dev_us = exec_ns * share / 1e3
             flops_share = exec_flops * share
@@ -470,6 +529,31 @@ class InferenceCore:
         self.flight_recorder.slo_engine = self.slo
         # per-(model, tenant) device time and FLOPs: nv_cost_*
         self.cost_ledger = CostLedger()
+        # -- admission -----------------------------------------------------
+        # False once a drain began: new requests get 503 while in-flight
+        # ones finish
+        self.accepting = True
+        # a model's bound on pending requests (0 = unbounded): the runtime
+        # override in queue_limits, the config's max_queue_size parameter,
+        # then this default
+        self.default_max_queue_size = 0
+        self.queue_limits: Dict[str, int] = {}
+        # base pushback of a shed (Retry-After / retry-after-ms), scaled by
+        # the shed tier's depth
+        self.shed_retry_after_s = 0.25
+        # priority tiers, tenant buckets, the best-effort lane (qos.py)
+        self.qos = QosManager()
+        # request and response bytes against --mem-budget-bytes (memory.py)
+        self.memory = MemoryGovernor()
+        # the fault injector (chaos.py, --chaos*), or None
+        self.chaos = None
+        # the check of a request's bound and its pending increment are one
+        # step: request threads admit one at a time
+        self._admit_lock = threading.Lock()
+        # nv_inference_rejected_total / nv_inference_deadline_exceeded_total
+        self._counts_lock = threading.Lock()
+        self.rejected_by_model: Dict[str, int] = {}
+        self.deadline_exceeded_by_model: Dict[str, int] = {}
         costs.warm_up()
 
     def _slo_from_config(self, name: str) -> Optional[SloObjective]:
@@ -497,7 +581,7 @@ class InferenceCore:
 
     # -- health / metadata -------------------------------------------------
     def ready(self) -> bool:
-        return self.live
+        return self.live and self.accepting
 
     def model_ready(self, name: str, version: str = "") -> bool:
         return self.registry.is_ready(name, version)
@@ -505,6 +589,199 @@ class InferenceCore:
     def server_metadata(self) -> dict:
         return {"name": self.SERVER_NAME, "version": self.SERVER_VERSION,
                 "extensions": list(self.EXTENSIONS)}
+
+    # -- admission ---------------------------------------------------------
+    def count_deadline_exceeded(self, model_name: str) -> None:
+        with self._counts_lock:
+            self.deadline_exceeded_by_model[model_name] = \
+                self.deadline_exceeded_by_model.get(model_name, 0) + 1
+
+    def max_queue_size(self, model: Model) -> int:
+        """The model's admission bound (0 = unbounded)."""
+        limit = self.queue_limits.get(model.name)
+        if limit is not None:
+            return int(limit)
+        if "max_queue_size" in model.config.parameters:
+            try:
+                return int(model.config.parameters["max_queue_size"])
+            except ValueError:
+                pass
+        return self.default_max_queue_size
+
+    def _count_shed(self, model: Model, tenant: str, tier: int) -> None:
+        with self._counts_lock:
+            self.rejected_by_model[model.name] = \
+                self.rejected_by_model.get(model.name, 0) + 1
+        self.qos.count_rejected(model.name, tenant, tier)
+
+    def _tier_depth(self, model: Model, tier: int) -> int:
+        """The shed tier's backlog, for the pushback: its batcher lane's
+        depth where the model batches, else the model's pending count."""
+        b = self._batchers.get(model.name)
+        if b is not None and b._queue.qsize():
+            return b._queue.depth(tier)
+        return model.stats.pending_count
+
+    def _admit(self, model: Model, request: InferRequest) -> None:
+        """Admission at request entry, in the reference's order: drain,
+        the tenant's bucket, the byte budget, the tier's queue bound (with
+        preemption of queued lower-tier work).  Resolves the request's tier
+        and default tenant.  Admitted, the request is counted pending (the
+        caller decrements); the bytes the governor reserved are released by
+        every refusal after the reservation."""
+        if not self.accepting:
+            err = InferError("server is shutting down", http_status=503,
+                             retry_after_s=self.shed_retry_after_s)
+            err.refusal_reason = "drain"
+            raise err
+        qos = self.qos
+        request.tier = qos.tier_of(request.priority)
+        if not request.tenant:
+            request.tenant = DEFAULT_TENANT
+        qos.count_request(request.tenant, request.tier)
+        retry_in = qos.admit_tenant(request.tenant)
+        if retry_in is not None:
+            self._count_shed(model, request.tenant, request.tier)
+            # the bucket's own horizon is the pushback: when a token frees
+            err = InferError(
+                f"tenant '{request.tenant}' is over its rate limit for "
+                f"model '{model.name}'; retry later",
+                http_status=429, retry_after_s=retry_in)
+            err.refusal_reason = "rate_limit"
+            raise err
+        verdict = self.memory.try_admit(
+            model.name, request.tenant, request.tier, request.wire_bytes,
+            qos=qos, base_pushback_s=self.shed_retry_after_s)
+        if verdict is not None:
+            retry_in, permanent = verdict
+            self._count_shed(model, request.tenant, request.tier)
+            if permanent:
+                # no wait admits it: the client's non-retryable class
+                err = InferError(
+                    f"request of {request.wire_bytes} bytes to model "
+                    f"'{model.name}' exceeds the tier-{request.tier} "
+                    "share of the server's memory budget "
+                    "(--mem-budget-bytes) and can never be admitted; "
+                    "reduce the payload or use shared memory",
+                    http_status=413)
+            else:
+                err = InferError(
+                    f"request of {request.wire_bytes} bytes to model "
+                    f"'{model.name}' exceeds the server's memory budget "
+                    f"for tier {request.tier}; retry later",
+                    http_status=429, retry_after_s=retry_in)
+            err.shed_reason = "memory"
+            raise err
+        limit = self.max_queue_size(model)
+        with self._admit_lock:
+            pending = model.stats.pending_count
+            if limit <= 0 or pending < qos.tier_limit(request.tier, limit):
+                model.stats.inc_pending()
+                return
+            # over the tier's bound.  A non-best-effort arrival at a full
+            # queue takes the slot of the newest queued item of the lowest
+            # lane below it; the victim gets the 429 a shed gets.
+            if request.tier < qos.best_effort_tier and pending >= limit:
+                b = self._batchers.get(model.name)
+                victim = (b._queue.preempt_lower(request.tier)
+                          if b is not None else None)
+                if victim is not None:
+                    v_tenant, v_tier = victim[7]
+                    self._count_shed(model, v_tenant or DEFAULT_TENANT,
+                                     v_tier)
+                    _fail(victim[2], InferError(
+                        f"request to model '{model.name}' preempted by "
+                        f"higher-priority traffic (tier {v_tier}); retry "
+                        "later", http_status=429,
+                        retry_after_s=qos.pushback_s(
+                            self.shed_retry_after_s,
+                            self._tier_depth(model, v_tier), limit)))
+                    model.stats.inc_pending()
+                    return
+        # refused on the queue bound after the byte reservation above
+        self.memory.release(model.name, request.tenant, request.wire_bytes)
+        self._count_shed(model, request.tenant, request.tier)
+        err = InferError(
+            f"request queue for model '{model.name}' is full for tier "
+            f"{request.tier} ({pending} pending, tier "
+            f"limit {qos.tier_limit(request.tier, limit)}); retry later",
+            http_status=429,
+            retry_after_s=qos.pushback_s(
+                self.shed_retry_after_s,
+                self._tier_depth(model, request.tier), limit))
+        err.refusal_reason = "queue_full"
+        raise err
+
+    def _admit_traced(self, model: Model, request: InferRequest) -> None:
+        """Admission whose refusal leaves a trace record (with the refusal
+        reason and the propagated trace context) where tracing is on."""
+        try:
+            self._admit(model, request)
+        except InferError as e:
+            self.tracer.record_refusal(
+                model.name,
+                shed_reason=(getattr(e, "refusal_reason", "")
+                             or e.shed_reason or ""),
+                status=e.http_status, tenant=request.tenant,
+                protocol=request.protocol,
+                client_request_id=request.client_request_id,
+                traceparent=request.traceparent)
+            raise
+
+    def _check_deadline(self, model: Model, request: InferRequest) -> None:
+        """Refuse an expired request before any compute (504; its span
+        tree has no COMPUTE child)."""
+        if request.expired():
+            self.count_deadline_exceeded(model.name)
+            raise InferError(
+                f"request to model '{model.name}' exceeded its deadline "
+                "before execution", http_status=504)
+
+    def _apply_chaos(self, model: Model, trace) -> None:
+        """The fault injector's verdict for this request, stamped on its
+        flight record."""
+        fault = self.chaos.decide(model.name)
+        if fault is None:
+            return
+        if trace is not None and trace.flight is not None:
+            trace.flight.chaos = fault.kind
+        if fault.kind == "latency":
+            time.sleep(fault.latency_s)
+            return
+        if fault.kind == "mem_pressure":
+            # the drawing request goes on; the live budget shrinks
+            self.memory.inject_pressure(fault.pressure_factor,
+                                        fault.latency_s)
+            return
+        if fault.kind == "abort":
+            raise ChaosAbort()
+        raise InferError(f"chaos: injected {fault.status} error",
+                         http_status=fault.status)
+
+    def drain(self, timeout_s: float) -> bool:
+        """Stop admitting (new requests get 503 with pushback) and wait up
+        to ``timeout_s`` for the pending requests to finish; True when none
+        is left."""
+        self.accepting = False
+        end = time.monotonic() + max(0.0, timeout_s)
+        while True:
+            if not any(m.stats.pending_count
+                       for m in self.registry.models()):
+                return True
+            if time.monotonic() >= end:
+                return False
+            time.sleep(0.02)
+
+    def qos_queue_depths(self) -> Dict[tuple, int]:
+        """The batchers' lane depths by ``(model, tier)``
+        (``nv_qos_queue_depth``)."""
+        out: Dict[tuple, int] = {}
+        with self._lock:
+            batchers = list(self._batchers.items())
+        for name, b in batchers:
+            for tier, depth in enumerate(b._queue.depths()):
+                out[(name, tier)] = depth
+        return out
 
     # -- inference ---------------------------------------------------------
     def infer(self, request: InferRequest) -> InferResponse:
@@ -514,15 +791,26 @@ class InferenceCore:
         if model.decoupled:
             raise InferError(
                 "doesn't support models with decoupled transaction policy")
+        self._admit_traced(model, request)
         return self._infer_on(model, request)
 
     def _infer_on(self, model: Model, request: InferRequest
                   ) -> InferResponse:
-        model.stats.inc_pending()
+        """An admitted request (counted pending by ``_admit``): its
+        envelope, then its pending count and its bytes in the memory
+        ledger (wire bytes, and the response's once built) released."""
+        held = request.wire_bytes
         try:
-            return self._infer_traced_entry(model, request)
+            resp = self._infer_traced_entry(model, request)
+            out_bytes = sum(int(getattr(o.data, "nbytes", 0))
+                            for o in resp.outputs if o.data is not None)
+            if out_bytes:
+                self.memory.add(model.name, request.tenant, out_bytes)
+                held += out_bytes
         finally:
             model.stats.dec_pending()
+            self.memory.release(model.name, request.tenant, held)
+        return resp
 
     def _infer_traced_entry(self, model: Model, request: InferRequest
                             ) -> InferResponse:
@@ -552,6 +840,11 @@ class InferenceCore:
         try:
             resp = self._infer_traced(model, request, trace)
         except BaseException as e:
+            reason = getattr(e, "shed_reason", None)
+            if reason and trace.flight is not None:
+                # a memory shed inside the envelope, tellable from a queue
+                # shed
+                trace.flight.shed_reason = reason
             trace.mark_failed(e)
             trace.emit()
             raise
@@ -591,6 +884,13 @@ class InferenceCore:
 
     def _infer_traced(self, model: Model, request: InferRequest, trace
                       ) -> InferResponse:
+        # the deadline gate before any compute; chaos inside the traced
+        # envelope, so an injected fault lands in the flight record, then
+        # the gate again (a latency fault may outlive the deadline)
+        self._check_deadline(model, request)
+        if self.chaos is not None:
+            self._apply_chaos(model, trace)
+            self._check_deadline(model, request)
         split = RequestSplit() if self.splits is not None else None
         t0 = time.monotonic_ns()
         inputs = self._resolve_inputs(model, request)
@@ -603,7 +903,8 @@ class InferenceCore:
                 # request's QUEUE, BATCH_ASSEMBLY and COMPUTE spans
                 outputs = self._batcher(model).submit(
                     inputs, params, split, trace=trace,
-                    tenant=request.tenant)
+                    deadline_ns=request.deadline_ns, tenant=request.tenant,
+                    tier=request.tier)
             else:
                 outputs = self._run_unbatched(model, request, inputs, params,
                                               split, trace)
@@ -641,7 +942,7 @@ class InferenceCore:
         try:
             if isinstance(model, EnsembleModel):
                 outputs = self._run_ensemble(model, inputs, params,
-                                             request.tenant)
+                                             request.tenant, request.tier)
             else:
                 keep = {o.name for o in request.outputs if o.shm is not None
                         and self.cuda_shm.has(o.shm.region_name)}
@@ -679,32 +980,49 @@ class InferenceCore:
         generator runs on the calling thread and is closed when the caller
         stops early."""
         model = self.registry.get(request.model_name, request.model_version)
+        # admission gates every stream entry, decoupled or not
+        self._admit_traced(model, request)
         if not model.decoupled:
             yield self._infer_on(model, request)
             return
-        trace = self._arm_trace(
-            model, request, request.client_request_id or request.id,
-            self.tracer.maybe_start_stream, self.tracer.start_stream_shadow,
-            batched=False)
+        try:
+            trace = self._arm_trace(
+                model, request, request.client_request_id or request.id,
+                self.tracer.maybe_start_stream,
+                self.tracer.start_stream_shadow, batched=False)
+        except BaseException:
+            model.stats.dec_pending()
+            self.memory.release(model.name, request.tenant,
+                                request.wire_bytes)
+            raise
         if trace is not None:
             trace.ts("REQUEST_START", request.arrival_ns)
             trace.ts("QUEUE_START", request.arrival_ns)
             trace.begin_root(request.arrival_ns)
-        model.stats.inc_pending()
         token = set_current_trace(trace) if trace is not None else None
         try:
+            self._check_deadline(model, request)
+            if self.chaos is not None:
+                self._apply_chaos(model, trace)
+                self._check_deadline(model, request)
             yield from self._stream_decoupled(model, request, trace)
         except BaseException as e:
             if trace is not None:
                 if isinstance(e, GeneratorExit):
                     trace.mark_cancelled()
                 else:
+                    reason = getattr(e, "shed_reason", None)
+                    if reason and trace.flight is not None:
+                        trace.flight.shed_reason = reason
                     trace.mark_failed(e)
             raise
         finally:
             if token is not None:
                 reset_current_trace(token)
             model.stats.dec_pending()
+            # a stream holds its wire bytes for its whole life
+            self.memory.release(model.name, request.tenant,
+                                request.wire_bytes)
             if trace is not None:
                 trace.emit()
 
@@ -744,11 +1062,12 @@ class InferenceCore:
 
     def device_stats_snapshot(self, model: Optional[str] = None) -> dict:
         """The ``/v2/debug/device_stats`` JSON: the collector's snapshot
-        with the SLO engine's under ``"slo"`` (the reference's ``"memory"``
-        and ``"kv_cache"`` sections come with their sources, ROADMAP A6b
-        and A7)."""
+        with the SLO engine's under ``"slo"`` and the memory governor's
+        under ``"memory"`` (the reference's ``"kv_cache"`` section comes
+        with its source, ROADMAP A7)."""
         out = self.device_stats.snapshot(model=model)
         out["slo"] = self.slo.snapshot(model=model)
+        out["memory"] = self.memory.snapshot()
         return out
 
     def statistics(self, name: Optional[str],
@@ -846,8 +1165,8 @@ class InferenceCore:
         return host
 
     def _run_ensemble(self, model: EnsembleModel, inputs: Dict[str, Any],
-                      params: Dict[str, Any], tenant: str = ""
-                      ) -> Dict[str, np.ndarray]:
+                      params: Dict[str, Any], tenant: str = "",
+                      tier: int = 0) -> Dict[str, np.ndarray]:
         """Run the ensemble's steps in data-dependency order; tensors flow
         between them through ``input_map``/``output_map``."""
         pool: Dict[str, Any] = dict(inputs)
@@ -863,7 +1182,8 @@ class InferenceCore:
                     f"ensemble '{model.name}': tensor(s) "
                     f"{', '.join(missing)} are never produced")
             for step in ready:
-                outs = self._run_ensemble_step(step, pool, params, tenant)
+                outs = self._run_ensemble_step(step, pool, params, tenant,
+                                               tier)
                 for member_output, pool_name in step.output_map.items():
                     if member_output not in outs:
                         raise InferError(
@@ -877,8 +1197,8 @@ class InferenceCore:
                          if o.name in pool})
 
     def _run_ensemble_step(self, step, pool: Dict[str, Any],
-                           params: Dict[str, Any], tenant: str = ""
-                           ) -> Dict[str, Any]:
+                           params: Dict[str, Any], tenant: str = "",
+                           tier: int = 0) -> Dict[str, Any]:
         member = self.registry.get(step.model_name)
         step_inputs = {member_input: pool[pool_name]
                        for member_input, pool_name in step.input_map.items()}
@@ -891,7 +1211,7 @@ class InferenceCore:
             member_params = {k: v for k, v in params.items()
                              if k not in SEQUENCE_KEYS}
             return self._batcher(member).submit(step_inputs, member_params,
-                                                tenant=tenant)
+                                                tenant=tenant, tier=tier)
         rows = _batch_count(step_inputs) or 1
         t0 = time.monotonic_ns()
         try:
@@ -927,6 +1247,7 @@ class InferenceCore:
             return b
 
     def shutdown(self) -> None:
+        self.accepting = False
         with self._lock:
             batchers = list(self._batchers.values())
             self._batchers.clear()

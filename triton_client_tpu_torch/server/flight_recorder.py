@@ -98,7 +98,7 @@ class FlightRecord:
                  "batch", "bytes_in", "bytes_out", "arrival_ns", "ts",
                  "queue_us", "compute_us", "total_us", "outcome",
                  "capture_reason", "spans", "tenant", "tier", "tick",
-                 "cost")
+                 "cost", "chaos", "shed_reason")
 
     def __init__(self, seq: int, model: str, version: str,
                  request_id: str = "", protocol: str = "",
@@ -120,7 +120,7 @@ class FlightRecord:
         self.outcome = "ok"
         self.capture_reason: Optional[str] = None
         self.spans: Optional[List[dict]] = None
-        # which tenant sent it (QoS tiers come with ROADMAP A6b)
+        # which tenant sent it, and its QoS tier
         self.tenant = tenant
         self.tier = tier
         # the batcher tick this request's execution rode, stamped by the
@@ -129,6 +129,11 @@ class FlightRecord:
         # this request's attributed device-time and FLOPs share and tenant
         # (costs.py): the join between the ring and the cost ledger
         self.cost: Optional[Dict[str, Any]] = None
+        # the injected fault's kind (chaos.py): pinned as an outlier, so
+        # injected weather is tellable from real weather
+        self.chaos: Optional[str] = None
+        # why an in-envelope shed refused it ("memory" for the governor's)
+        self.shed_reason: Optional[str] = None
 
     def to_dict(self, include_spans: bool = False) -> Dict[str, Any]:
         out: Dict[str, Any] = {
@@ -151,11 +156,11 @@ class FlightRecord:
             "tier": self.tier,
             "tick": self.tick,
             "cost": self.cost,
-            # the reference's stamps of sources not ported yet (chaos,
-            # memory sheds, device faults, the prefix cache): the record
-            # keeps its shape, with nothing to report
-            "chaos": None,
-            "shed_reason": None,
+            "chaos": self.chaos,
+            "shed_reason": self.shed_reason,
+            # the reference's stamps of sources not ported yet (device
+            # faults, the prefix cache): the record keeps its shape, with
+            # nothing to report
             "fault": None,
             "recovered": False,
             "cache_hit_tokens": 0,
@@ -330,6 +335,10 @@ class FlightRecorder:
             record.capture_reason = "slow"
         elif slo_pin:
             record.capture_reason = "slo_breach"
+        elif record.chaos is not None:
+            # injected faults are always pinned, even when the request
+            # survived them
+            record.capture_reason = f"chaos:{record.chaos}"
         if record.capture_reason is not None:
             # the retroactive promotion: snapshot the full span tree the
             # shadow context carried all along (built before the lock —

@@ -32,14 +32,19 @@ stream RPC takes an iterator of requests and yields responses.
 * The repository RPCs answer UNIMPLEMENTED, naming the ROADMAP item that
   brings them (``protocol.service.NOT_PORTED``).
 
-Status codes from the core's errors as in the reference's ``_grpc_code``.
+Status codes from the core's errors as in the reference's ``_grpc_code``:
+413 and 429 RESOURCE_EXHAUSTED, 503 UNAVAILABLE, 504 DEADLINE_EXCEEDED; a
+refusal with pushback carries ``retry-after-ms`` in its trailing metadata
+(grpc_server.py:523-530).  The tenant comes from the ``triton-tenant`` or
+``authorization`` metadata (:42-58), the deadline and priority from the
+request's ``timeout`` and ``priority`` parameters.
 """
 
 from __future__ import annotations
 
 import json
 import time
-from typing import Any, Dict, Iterable, Iterator
+from typing import Any, Dict, Iterable, Iterator, Optional
 
 import numpy as np
 
@@ -47,21 +52,41 @@ from ..protocol import debug as pb_debug
 from ..protocol import inference as pb
 from ..protocol.service import NOT_PORTED, StatusCode
 from ..utils import triton_to_np_dtype
-from .core import DEFAULT_TENANT, InferenceCore
+from .core import InferenceCore
 from .flight_recorder import parse_snapshot_limit
+from .memory import oversize_message
+from .qos import tenant_from_headers
 from .trace import TRACE_DEFAULTS, validate_trace_update
 from .types import (InferError, InferRequest, InferResponse, InputTensor,
-                    RequestedOutput, ShmRef, bytes_to_array, output_payload,
+                    RequestedOutput, ShmRef, apply_request_deadline,
+                    apply_request_priority, bytes_to_array, output_payload,
                     reshape_input)
 
 
 class GrpcError(Exception):
-    """An RPC's non-OK status and its message."""
+    """An RPC's non-OK status, its message and its trailing metadata."""
 
-    def __init__(self, code: StatusCode, message: str):
+    def __init__(self, code: StatusCode, message: str,
+                 trailing: Optional[Dict[str, str]] = None):
         super().__init__(message)
         self.code = code
         self.message = message
+        self.trailing = trailing or {}
+
+    @classmethod
+    def of(cls, e: InferError) -> "GrpcError":
+        """A core error as a status; its pushback as ``retry-after-ms``."""
+        trailing = {}
+        if e.retry_after_s is not None:
+            trailing["retry-after-ms"] = str(int(e.retry_after_s * 1000))
+        return cls(grpc_code(e), str(e), trailing)
+
+
+def oversize_error(size: int, cap: int) -> GrpcError:
+    """The ingress cap's refusal of one message: RESOURCE_EXHAUSTED whose
+    text marks it as an oversize (never retried)."""
+    return GrpcError(StatusCode.RESOURCE_EXHAUSTED,
+                     oversize_message(size, cap))
 
 
 def grpc_code(e: InferError) -> StatusCode:
@@ -204,8 +229,10 @@ def _statistic(count: int, ns: int) -> "pb.StatisticDuration":
 class InferenceServicer:
     """The RPCs of the v2 service on one :class:`InferenceCore`."""
 
-    def __init__(self, core: InferenceCore):
+    def __init__(self, core: InferenceCore, max_request_bytes: int = 0):
         self._core = core
+        #: the ingress cap on one request message (0: none)
+        self.max_request_bytes = max_request_bytes
 
     def unimplemented(self, method: str) -> GrpcError:
         what, item = NOT_PORTED.get(method, ("this RPC", "A3b"))
@@ -405,27 +432,36 @@ class InferenceServicer:
 
     # -- inference ---------------------------------------------------------
     def _decode(self, request, wire_bytes: int,
-                decode_start_ns: int = 0) -> InferRequest:
+                decode_start_ns: int = 0,
+                metadata: Optional[Dict[str, str]] = None) -> InferRequest:
         """The core's request; its decode window (for the request's split)
-        from ``decode_start_ns`` (the message's parse) where given."""
+        from ``decode_start_ns`` (the message's parse) where given; its
+        deadline and priority from its parameters, its tenant from the
+        call's ``metadata``."""
         start = decode_start_ns or time.monotonic_ns()
         req = decode_request(request)
         req.decode_start_ns, req.decode_end_ns = (start,
                                                   time.monotonic_ns())
         req.protocol = "grpc"
         req.wire_bytes = wire_bytes
-        req.tenant = DEFAULT_TENANT
+        apply_request_deadline(req)
+        apply_request_priority(req)
+        metadata = metadata or {}
+        req.tenant = tenant_from_headers(metadata.get("triton-tenant"),
+                                         metadata.get("authorization"))
         return req
 
     def ModelInfer(self, request, wire_bytes: int = 0,
-                   decode_start_ns: int = 0):
+                   decode_start_ns: int = 0,
+                   metadata: Optional[Dict[str, str]] = None):
         try:
-            req = self._decode(request, wire_bytes, decode_start_ns)
+            req = self._decode(request, wire_bytes, decode_start_ns,
+                               metadata)
             # this servicer finishes the trace: SERIALIZE, NETWORK_WRITE
             req.trace_handoff = True
             resp = self._core.infer(req)
         except InferError as e:
-            raise GrpcError(grpc_code(e), str(e))
+            raise GrpcError.of(e)
         trace = resp.trace
         if trace is None:
             return encode_response(resp)
@@ -444,16 +480,23 @@ class InferenceServicer:
             trace.emit()
         return out
 
-    def ModelStreamInfer(self, requests: Iterable
+    def ModelStreamInfer(self, requests: Iterable,
+                         metadata: Optional[Dict[str, str]] = None
                          ) -> Iterator["pb.ModelStreamInferResponse"]:
-        """Each request's responses in turn; a request's error travels
-        in-band, prefixed with its HTTP status, and the stream goes on.  A
-        decoupled model's empty final response is sent only where the
-        request sets ``triton_enable_empty_final_response`` (the
-        reference's rule, grpc_server.py:584-594)."""
-        for request in requests:
+        """Each request's responses in turn, from ``(request, wire bytes)``
+        pairs (a request the ingress cap refused is None); a request's
+        error travels in-band, prefixed with its HTTP status, and the
+        stream goes on.  A decoupled model's empty final response is sent
+        only where the request sets ``triton_enable_empty_final_response``
+        (the reference's rule, grpc_server.py:584-594)."""
+        for request, wire_bytes in requests:
+            if request is None:
+                yield pb.ModelStreamInferResponse(
+                    error_message="[413] " + oversize_message(
+                        wire_bytes, self.max_request_bytes))
+                continue
             try:
-                req = self._decode(request, 0)
+                req = self._decode(request, wire_bytes, metadata=metadata)
                 empty_final = bool(req.parameters.get(
                     "triton_enable_empty_final_response", False))
                 for resp in self._core.infer_stream(req):

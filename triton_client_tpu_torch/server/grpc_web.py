@@ -19,17 +19,24 @@ reference mounts its bridge:
   the reference's ``async for`` does, so a client can send its next request
   after the last answer (a generation loop).  A body with a
   ``Content-Length`` works too (all requests sent at once).
+
+The HTTP headers are the call's metadata (``triton-tenant``,
+``authorization``, the trace headers).  A refusal with pushback carries
+``retry-after-ms`` in its trailers, as the reference's servicer sets it
+in its trailing metadata.  A request message larger than the servicer's
+``max_request_bytes`` is not decoded: RESOURCE_EXHAUSTED on a unary call,
+an in-band ``[413]`` error on a stream.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Callable, Iterable, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional
 
 from ..protocol.grpc_web import (CONTENT_TYPE, CONTENT_TYPES, TRAILER_FLAG,
                                  frame_header, iter_frames, trailers)
 from ..protocol.service import METHODS, NOT_PORTED, StatusCode
-from .grpc_server import GrpcError, InferenceServicer
+from .grpc_server import GrpcError, InferenceServicer, oversize_error
 
 
 def _messages(chunks: Iterable[bytes]):
@@ -41,19 +48,22 @@ def _messages(chunks: Iterable[bytes]):
 
 def _status_of(e: Exception):
     if isinstance(e, GrpcError):
-        return e.code, e.message
-    return StatusCode.INTERNAL, str(e)
+        return e.code, e.message, e.trailing
+    return StatusCode.INTERNAL, str(e), {}
 
 
 def serve(servicer: InferenceServicer, method: str, content_type: str,
           chunks: Iterable[bytes], send: Callable,
-          start_stream: Callable[[], Callable[[bytes], None]]) -> None:
+          start_stream: Callable[[], Callable[[bytes], None]],
+          metadata: Optional[Dict[str, str]] = None) -> None:
     """Answer one gRPC-Web call on an HTTP exchange.
 
     ``chunks`` yields the request body as it arrives; ``send(status,
     payload, headers, content_type)`` writes a whole response;
     ``start_stream()`` writes a chunked response's head and returns the
-    function that writes one chunk (``b""`` ends the body)."""
+    function that writes one chunk (``b""`` ends the body); ``metadata``:
+    the request's headers, their names in lower case."""
+    metadata = metadata or {}
     if content_type.split(";", 1)[0].strip() not in CONTENT_TYPES:
         for _ in chunks:  # the body is read whole on every path
             pass
@@ -69,14 +79,15 @@ def serve(servicer: InferenceServicer, method: str, content_type: str,
         return
     arity, req_type, _ = METHODS[method]
     if arity == "uu":
-        _unary(servicer, method, req_type, chunks, send)
+        _unary(servicer, method, req_type, chunks, send, metadata)
     else:
-        _stream(servicer, method, req_type, chunks, start_stream())
+        _stream(servicer, method, req_type, chunks, start_stream(),
+                metadata)
 
 
-def _unary(servicer, method, req_type, chunks, send) -> None:
+def _unary(servicer, method, req_type, chunks, send, metadata) -> None:
     out: List = []
-    status, message = StatusCode.OK, ""
+    status, message, trailing = StatusCode.OK, "", {}
     try:
         frames = _messages(chunks)
         payload: Optional[memoryview] = next(frames, None)
@@ -84,34 +95,40 @@ def _unary(servicer, method, req_type, chunks, send) -> None:
             pass
         if payload is None:
             raise ValueError("missing request message")
+        cap = servicer.max_request_bytes
+        if cap and len(payload) > cap:
+            raise oversize_error(len(payload), cap)
         t0 = time.monotonic_ns()
         request = req_type.FromString(payload)
         if method == "ModelInfer":
-            resp = servicer.ModelInfer(request, len(payload), t0)
+            resp = servicer.ModelInfer(request, len(payload), t0, metadata)
         else:
             resp = getattr(servicer, method)(request)
         parts, n = resp.encode_parts()
         out = [frame_header(n), *parts]
     except Exception as e:  # noqa: BLE001 - the call's status
         out = []
-        status, message = _status_of(e)
-    out.append(trailers(status, message))
+        status, message, trailing = _status_of(e)
+    out.append(trailers(status, message, trailing))
     # tpu-lint: disable=WIRE-COPY the one gather of the response frames
     send(200, b"".join(out), {"grpc-status": str(int(status))},
          CONTENT_TYPE)
 
 
-def _stream(servicer, method, req_type, chunks, write) -> None:
-    status, message = StatusCode.OK, ""
+def _stream(servicer, method, req_type, chunks, write, metadata) -> None:
+    status, message, trailing = StatusCode.OK, "", {}
+    cap = servicer.max_request_bytes
     try:
-        requests = (req_type.FromString(p) for p in _messages(chunks))
-        for resp in getattr(servicer, method)(requests):
+        # (request, wire bytes); a message over the cap is not decoded
+        requests = ((None if cap and len(p) > cap else req_type.FromString(p),
+                     len(p)) for p in _messages(chunks))
+        for resp in getattr(servicer, method)(requests, metadata):
             parts, n = resp.encode_parts()
             # tpu-lint: disable=WIRE-COPY one chunk per response frame
             write(b"".join([frame_header(n), *parts]))
     except (BrokenPipeError, ConnectionResetError):
         raise  # the client went away: nothing left to answer
     except Exception as e:  # noqa: BLE001 - the stream's status
-        status, message = _status_of(e)
-    write(trailers(status, message))
+        status, message, trailing = _status_of(e)
+    write(trailers(status, message, trailing))
     write(b"")

@@ -38,6 +38,21 @@ NETWORK_WRITE (its write to the socket), then the record is emitted.  A
 ``log_verbose_level`` 1.  :class:`MetricsServer` is the second listener of
 ``--metrics-port``: ``/metrics`` and the debug snapshots only.
 
+Admission (the reference's, http_server.py:44-110 and :239-252): the
+tenant comes from the ``triton-tenant`` header or the basic-auth username,
+the priority from the v2 ``priority`` parameter, the deadline from the
+``triton-timeout-us`` header over the body's ``timeout`` parameter.  A 429,
+503 or 504 carries ``Retry-After`` (whole seconds) and
+``triton-retry-after-ms``.  The ingress cap (``max_request_bytes``, the
+``--max-request-bytes`` flag, default 64 MiB, 0 for none) answers 413 from
+the declared ``Content-Length`` or ``Inference-Header-Content-Length``
+before the body is read, and then reads the unread body away (or closes
+the connection where it is larger than :data:`_DRAIN_LIMIT`), so that a
+kept-alive connection never parses it as its next request; a chunked body
+is counted as it arrives and the connection closed where it passes the
+cap.  On a gRPC-Web path the same cap answers RESOURCE_EXHAUSTED.  A chaos
+``abort`` closes the connection in the middle of the response's body.
+
 Not ported yet: the repository API, generate/SSE, gzip and the wire
 templates.
 """
@@ -46,8 +61,11 @@ from __future__ import annotations
 
 import base64
 import binascii
+import contextlib
 import json
+import math
 import re
+import threading
 import time
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -56,19 +74,45 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..protocol.grpc_web import CONTENT_TYPE, read_chunked
+from ..protocol.grpc_web import CONTENT_TYPE, read_chunked, trailers
+from ..protocol.service import StatusCode
 from . import grpc_web
-from .core import DEFAULT_TENANT, InferenceCore
+from .chaos import ChaosAbort
+from .core import InferenceCore
 from .flight_recorder import parse_snapshot_limit
 from .grpc_server import InferenceServicer
+from .memory import DEFAULT_MAX_REQUEST_BYTES, oversize_message
+from .qos import tenant_from_headers
 from .trace import TRACE_DEFAULTS, validate_trace_update
 from .types import (InferError, InferRequest, InputTensor, RequestedOutput,
-                    ShmRef, bytes_to_array, numeric_dtype, output_payload,
+                    ShmRef, apply_request_deadline, apply_request_priority,
+                    bytes_to_array, numeric_dtype, output_payload,
                     reshape_input)
 
 _HEADER_LEN = "Inference-Header-Content-Length"
 _REQUEST_ID_HDR = "triton-request-id"
 _TRACEPARENT_HDR = "traceparent"
+# the client's remaining deadline in microseconds, stamped anew on each
+# attempt; wins over the body's `timeout` parameter
+_TIMEOUT_HDR = "triton-timeout-us"
+# the QoS tenant (else the basic-auth username, else "anonymous")
+_TENANT_HDR = "triton-tenant"
+#: an oversize body up to this many bytes is read away after the 413, so
+#: the kept-alive connection stays usable; a larger one closes it
+_DRAIN_LIMIT = 256 << 20
+
+
+class _TooLarge(Exception):
+    """A chunked request body passed the ingress cap."""
+
+
+def pushback_headers(retry_after_s: Optional[float]) -> Dict[str, str]:
+    """``Retry-After`` in whole seconds (RFC 7231, at least 1) and the
+    precise horizon in ``triton-retry-after-ms``; none without pushback."""
+    if retry_after_s is None:
+        return {}
+    return {"Retry-After": str(max(1, math.ceil(retry_after_s))),
+            "triton-retry-after-ms": str(int(retry_after_s * 1000))}
 _MODEL = r"/v2/models/(?P<model>[^/]+)(?:/versions/(?P<version>[^/]+))?"
 
 _SHM = r"/v2/(?P<kind>systemsharedmemory|cudasharedmemory)"
@@ -138,15 +182,26 @@ class _Handler(BaseHTTPRequestHandler):
         self._dispatch(_POST_ROUTES)
 
     def _dispatch(self, routes) -> None:
+        with self.server.exchange():
+            self._dispatch_one(routes)
+
+    def _dispatch_one(self, routes) -> None:
         path = urllib.parse.unquote(self.path.split("?", 1)[0])
         self._query = urllib.parse.parse_qs(
             urllib.parse.urlsplit(self.path).query)
-        if routes is _POST_ROUTES and path.startswith(_GRPC_PREFIX) \
-                and path[len(_GRPC_PREFIX):] in self.server.grpc_methods:
+        grpc = (routes is _POST_ROUTES and path.startswith(_GRPC_PREFIX)
+                and path[len(_GRPC_PREFIX):] in self.server.grpc_methods)
+        if self._refuse_oversize(grpc):
+            return
+        if grpc:
             self._grpc(path[len(_GRPC_PREFIX):])
             return
         try:
             body = self._read_body()
+        except _TooLarge as e:
+            self.close_connection = True
+            self._send_oversize(int(str(e)), False)
+            return
         except (ConnectionError, ValueError):
             self.close_connection = True
             self._send(400, _json_body({"error": "malformed request body"}))
@@ -160,13 +215,16 @@ class _Handler(BaseHTTPRequestHandler):
             try:
                 getattr(self, handler)(match.groupdict(), body)
                 log.verbose(1, f"{self.command} {path} -> 200", rid)
+            except ChaosAbort:
+                self._abort_mid_response()
             except InferError as e:
                 if e.http_status >= 500:
                     log.error(f"{self.command} {path} failed: {e}", rid)
                 else:
                     log.verbose(1, f"{self.command} {path} -> "
                                    f"{e.http_status}: {e}", rid)
-                self._send(e.http_status, _json_body({"error": str(e)}))
+                self._send(e.http_status, _json_body({"error": str(e)}),
+                           pushback_headers(e.retry_after_s))
             except Exception as e:  # noqa: BLE001 - a handler bug is a 500
                 log.error(f"{self.command} {path} crashed: {e}", rid)
                 self._send(500, _json_body({"error": str(e)}))
@@ -174,7 +232,17 @@ class _Handler(BaseHTTPRequestHandler):
         self._send(404, _json_body({"error": f"no route for {path}"}))
 
     def _read_body(self) -> bytes:
-        return b"".join(self._body_chunks())
+        cap = self.server.max_request_bytes
+        if not cap or "chunked" not in self.headers.get(
+                "Transfer-Encoding", "").lower():
+            return b"".join(self._body_chunks())
+        parts, total = [], 0
+        for chunk in self._body_chunks():
+            total += len(chunk)
+            if total > cap:
+                raise _TooLarge(total)
+            parts.append(chunk)
+        return b"".join(parts)
 
     def _body_chunks(self) -> Iterator[bytes]:
         """The request body as it arrives: one piece for a
@@ -185,6 +253,70 @@ class _Handler(BaseHTTPRequestHandler):
         n = int(self.headers.get("Content-Length") or 0)
         if n:
             yield self.rfile.read(n)
+
+    # -- ingress cap and chaos abort -----------------------------------------
+    def _refuse_oversize(self, grpc: bool) -> bool:
+        """Answer a request whose declared size passes the ingress cap,
+        before reading its body; then read the body away, or close the
+        connection where it is too large to read."""
+        cap = self.server.max_request_bytes
+        if not cap or self.command != "POST":
+            return False
+        try:
+            declared = int(self.headers.get("Content-Length") or 0)
+        except ValueError:
+            declared = 0
+        size = declared
+        if size <= cap:
+            try:
+                size = int(self.headers.get(_HEADER_LEN) or 0)
+            except ValueError:
+                return False  # the handler reports the junk header
+            if size <= cap:
+                return False
+        if declared and declared <= _DRAIN_LIMIT and "chunked" not in \
+                self.headers.get("Transfer-Encoding", "").lower():
+            self._send_oversize(size, grpc)
+            self._discard(declared)
+        else:
+            self.close_connection = True
+            self._send_oversize(size, grpc)
+        return True
+
+    def _send_oversize(self, size: int, grpc: bool) -> None:
+        cap = self.server.max_request_bytes
+        msg = oversize_message(size, cap)
+        if grpc:
+            self._send(200, trailers(StatusCode.RESOURCE_EXHAUSTED, msg),
+                       {"grpc-status": str(int(
+                           StatusCode.RESOURCE_EXHAUSTED))},
+                       content_type=CONTENT_TYPE)
+            return
+        self._send(413, _json_body({"error": msg}),
+                   {"Retry-After": "1", "triton-retry-after-ms": "1000",
+                    "triton-max-request-bytes": str(cap)})
+
+    def _discard(self, n: int) -> None:
+        """Read ``n`` body bytes away, a MiB at a time."""
+        while n > 0:
+            got = self.rfile.read(min(n, 1 << 20))
+            if not got:
+                self.close_connection = True
+                return
+            n -= len(got)
+
+    def _abort_mid_response(self) -> None:
+        """A chaos ``abort``: the head of a response and part of its body,
+        then the connection closed, so the client reads a connection that
+        broke in the middle of a response (not a stale kept-alive one)."""
+        self.close_connection = True
+        try:
+            self.wfile.write(b"HTTP/1.1 503 Service Unavailable\r\n"
+                             b"Content-Type: application/json\r\n"
+                             b"Content-Length: 64\r\n\r\n{\"error\": ")
+            self.wfile.flush()
+        except OSError:
+            pass
 
     def _grpc(self, method: str) -> None:
         """One gRPC-Web call (``grpc_web.serve``)."""
@@ -203,10 +335,12 @@ class _Handler(BaseHTTPRequestHandler):
         def send(status, payload, headers, content_type):
             self._send(status, payload, headers, content_type=content_type)
 
+        metadata = {k.lower(): v for k, v in self.headers.items()}
         try:
             grpc_web.serve(self.server.servicer, method,
                            self.headers.get("Content-Type", ""),
-                           self._body_chunks(), send, start_stream)
+                           self._body_chunks(), send, start_stream,
+                           metadata)
         except (ConnectionError, ValueError):
             # the client went away, or its chunked body was malformed: the
             # exchange cannot go on on this connection
@@ -228,6 +362,8 @@ class _Handler(BaseHTTPRequestHandler):
                          str(len(payload) + sum(s.nbytes for s in segments)))
         for k, v in (headers or {}).items():
             self.send_header(k, v)
+        if self.close_connection:
+            self.send_header("Connection", "close")
         # end_headers() without its own write: the blank line and the
         # payload join the buffered status line and headers, which
         # flush_headers() sends as one write
@@ -411,7 +547,10 @@ class _Handler(BaseHTTPRequestHandler):
         req.traceparent = self.headers.get(_TRACEPARENT_HDR, "")
         req.protocol = "http"
         req.wire_bytes = len(raw)
-        req.tenant = DEFAULT_TENANT
+        apply_request_deadline(req, header_us=self.headers.get(_TIMEOUT_HDR))
+        req.tenant = tenant_from_headers(self.headers.get(_TENANT_HDR),
+                                         self.headers.get("Authorization"))
+        apply_request_priority(req)
         # this frontend finishes the trace: SERIALIZE and NETWORK_WRITE
         req.trace_handoff = True
         resp = self.core.infer(req)
@@ -608,15 +747,39 @@ def encode_response(resp, requested: Dict[str, RequestedOutput],
     return _json_body(header), segments
 
 
-class HttpServer(ThreadingHTTPServer):
-    """The v2 HTTP frontend bound to one :class:`InferenceCore`."""
+class _CountingServer(ThreadingHTTPServer):
+    """A threading HTTP server that counts the exchanges in progress (a
+    request read until its response is written), so that a drain can wait
+    for the answers, not only for the core's requests."""
 
     daemon_threads = True
+    active = 0
+
+    def __init__(self, *args, **kwargs):
+        self._active_lock = threading.Lock()
+        super().__init__(*args, **kwargs)
+
+    @contextlib.contextmanager
+    def exchange(self):
+        with self._active_lock:
+            self.active += 1
+        try:
+            yield
+        finally:
+            with self._active_lock:
+                self.active -= 1
+
+
+class HttpServer(_CountingServer):
+    """The v2 HTTP frontend bound to one :class:`InferenceCore`."""
 
     def __init__(self, core: InferenceCore, host: str = "127.0.0.1",
-                 port: int = 8000):
+                 port: int = 8000,
+                 max_request_bytes: int = DEFAULT_MAX_REQUEST_BYTES):
         self.core = core
-        self.servicer = InferenceServicer(core)
+        #: the ingress cap in bytes (0: none)
+        self.max_request_bytes = max(0, int(max_request_bytes or 0))
+        self.servicer = InferenceServicer(core, self.max_request_bytes)
         self.grpc_methods = set(grpc_web.METHODS) | set(grpc_web.NOT_PORTED)
         super().__init__((host, port), _Handler)
 
@@ -631,15 +794,14 @@ class _MetricsHandler(_Handler):
         self._dispatch([])
 
 
-class MetricsServer(ThreadingHTTPServer):
+class MetricsServer(_CountingServer):
     """The ``--metrics-port`` listener (the reference's
     ``build_metrics_app``): ``/metrics`` and the debug snapshots of one
     :class:`InferenceCore`."""
 
-    daemon_threads = True
-
     def __init__(self, core: InferenceCore, host: str = "127.0.0.1",
                  port: int = 8002):
         self.core = core
+        self.max_request_bytes = 0
         self.grpc_methods = set()
         super().__init__((host, port), _MetricsHandler)

@@ -10,10 +10,13 @@ it describes the CUDA card).
 
 The families whose sources this port has: the per-model inference
 counters and the pending gauge, the flight recorder's watchdog counters,
-the device and scheduler family (``nv_tpu_*``, ``device_stats.py``), the
-SLO burn rates (``nv_slo_*``) and the cost ledger (``nv_cost_*``).  The
-reference's other families are absent, not zero, until their sources are
-ported: :data:`UNPORTED_FAMILIES` lists each with its ROADMAP item.
+deadline drops and chaos injections, the QoS families (sheds by model,
+tenant and tier, requests by tenant and tier, lane depths), the device and
+scheduler family (``nv_tpu_*``, ``device_stats.py``), the memory governor
+(``nv_mem_*``), the SLO burn rates (``nv_slo_*``) and the cost ledger
+(``nv_cost_*``).  The reference's other families are absent, not zero,
+until their sources are ported: :data:`UNPORTED_FAMILIES` lists each with
+its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -29,19 +32,13 @@ Family = Tuple[str, str, str, List[Tuple[Dict[str, str], Any]]]
 #: the reference's families whose source is not ported yet -> the ROADMAP
 #: item that brings it
 UNPORTED_FAMILIES: Dict[str, str] = {
-    **{name: "A6b (QoS)" for name in (
-        "nv_inference_rejected_total", "nv_qos_tenant_requests_total",
-        "nv_qos_queue_depth")},
-    **{name: "A6b (the memory governor)" for name in ('nv_mem_inflight_bytes', 'nv_mem_budget_bytes', 'nv_mem_shed_total', 'nv_mem_hbm_headroom_bytes', 'nv_mem_kv_pinned_bytes', 'nv_mem_cache_pinned_bytes')},
-    "nv_chaos_injected_total": "A6b (chaos)",
     **{name: "A6b (fleet)" for name in ('nv_fleet_instances', 'nv_fleet_serving_version', 'nv_fleet_scale_total', 'nv_fleet_rolling_update_total', 'nv_fleet_worker_restart_total')},
     **{name: "A6b (the host profiler and incidents)" for name in ('nv_host_loop_lag_us', 'nv_host_gc_pause_us_total', 'nv_host_profile_samples_total', 'nv_host_incident_total')},
     **{name: "A6b (OTLP export)" for name in (
         "nv_otlp_export_total", "nv_otlp_dropped_total")},
-    **{name: "A6b (the retry layer and the response cache)" for name in (
+    **{name: "A6b (the response cache)" for name in (
         "nv_cache_num_hits_per_model", "nv_cache_num_misses_per_model",
-        "nv_cache_num_evictions_per_model",
-        "nv_inference_deadline_exceeded_total")},
+        "nv_cache_num_evictions_per_model")},
     **{name: "A7 (the prefix/KV cache and device faults)"
        for name in ('nv_cache_hit_total', 'nv_cache_miss_total', 'nv_cache_evict_total', 'nv_cache_hit_tokens_total', 'nv_cache_pinned_bytes') + ('nv_device_fault_total', 'nv_device_recovered_sequences_total', 'nv_device_aborted_sequences_total', 'nv_device_quarantine')},
 }
@@ -145,6 +142,34 @@ _DEVICE_FAMILIES: List[Tuple[str, str, str, str]] = [
      "Device memory capacity of the card"),
 ]
 
+#: ``nv_mem_*`` family declarations, keyed by the row names
+#: ``MemoryGovernor.metric_rows`` emits (``memory.py``).
+_MEM_FAMILIES: List[Tuple[str, str, str, str]] = [
+    ("inflight", "nv_mem_inflight_bytes", "gauge",
+     "Queued + in-flight request/response payload bytes currently held "
+     "per model in the memory governor's ledger"),
+    ("budget", "nv_mem_budget_bytes", "gauge",
+     "Live host byte budget admission is gated against (--mem-budget-"
+     "bytes scaled by any active mem_pressure chaos window; absent when "
+     "unbounded)"),
+    ("shed", "nv_mem_shed_total", "counter",
+     "Requests shed by the memory governor per model, tenant, tier and "
+     "reason (host = byte budget, hbm = projected-KV headroom gate)"),
+    ("hbm_headroom", "nv_mem_hbm_headroom_bytes", "gauge",
+     "Device memory headroom per device (the card's free bytes plus "
+     "the caching allocator's reserved-but-unallocated bytes) — the "
+     "budget slot admission projects bytes against"),
+    ("kv_pinned", "nv_mem_kv_pinned_bytes", "gauge",
+     "KV-cache bytes currently pinned by admitted generation slots per "
+     "model (the governor's live pin ledger; byte-seconds accrue in "
+     "nv_cost_kv_byte_seconds_total)"),
+    ("cache_pinned", "nv_mem_cache_pinned_bytes", "gauge",
+     "Prefix/KV-cache block bytes currently pinned in device memory per "
+     "model — the cache's named reservation in the memory governor's "
+     "ledger (byte-seconds accrue to the pinning tenant in "
+     "nv_cost_kv_byte_seconds_total at eviction)"),
+]
+
 #: ``nv_cost_*`` family declarations, keyed by ``CostLedger.metric_rows``.
 _COST_FAMILIES: List[Tuple[str, str, str, str]] = [
     ("device_us", "nv_cost_device_us_total", "counter",
@@ -216,21 +241,61 @@ def collect_families(core: InferenceCore) -> List[Family]:
     # and captured (pinned with a full span tree), copied under its lock
     slow_by_model, captured_by_model = \
         core.flight_recorder.watchdog_counters()
-    for name, help_text, counts in (
-            ("nv_inference_slow_request_total",
-             "Number of requests that exceeded the flight recorder's "
-             "slow-request threshold", slow_by_model),
-            ("nv_flight_recorder_captured_total",
-             "Number of requests pinned into the flight recorder's outlier "
-             "buffer (slow or failed) with a full span tree",
-             captured_by_model)):
+    with core._counts_lock:
+        deadline_by_model = dict(core.deadline_exceeded_by_model)
+    by_model = [
+        ("nv_inference_slow_request_total",
+         "Number of requests that exceeded the flight recorder's "
+         "slow-request threshold", slow_by_model),
+        ("nv_flight_recorder_captured_total",
+         "Number of requests pinned into the flight recorder's outlier "
+         "buffer (slow or failed) with a full span tree",
+         captured_by_model),
+        ("nv_inference_deadline_exceeded_total",
+         "Number of inference requests dropped because their deadline "
+         "expired before execution", deadline_by_model),
+    ]
+    if core.chaos is not None:
+        by_model.append(
+            ("nv_chaos_injected_total",
+             "Number of faults injected by the chaos harness",
+             core.chaos.counters()))
+    for name, help_text, counts in by_model:
         families.append((name, help_text, "counter",
                          [({"model": model}, value)
                           for model, value in sorted(counts.items())]))
 
+    # QoS: sheds by (model, tenant, tier), requests by (tenant, tier), the
+    # batchers' lane depths
+    families.append((
+        "nv_inference_rejected_total",
+        "Number of inference requests shed by admission control (tenant "
+        "rate limit, tier queue threshold, or lower-tier preemption)",
+        "counter",
+        [({"model": model, "tenant": tenant, "tier": str(tier)}, value)
+         for (model, tenant, tier), value in sorted(
+             core.qos.rejected_counts().items())]))
+    families.append((
+        "nv_qos_tenant_requests_total",
+        "Number of inference requests per tenant and QoS tier (admitted "
+        "or shed)", "counter",
+        [({"tenant": tenant, "tier": str(tier)}, value)
+         for (tenant, tier), value in sorted(
+             core.qos.tenant_request_counts().items())]))
+    families.append((
+        "nv_qos_queue_depth",
+        "Requests currently queued in the dynamic batcher per model and "
+        "QoS tier", "gauge",
+        [({"model": model, "tier": str(tier)}, value)
+         for (model, tier), value in sorted(
+             core.qos_queue_depths().items())]))
+
     device_rows = core.device_stats.metric_rows()
     for key, name, kind, help_text in _DEVICE_FAMILIES:
         families.append((name, help_text, kind, device_rows.get(key, [])))
+    mem_rows = core.memory.metric_rows()
+    for key, name, kind, help_text in _MEM_FAMILIES:
+        families.append((name, help_text, kind, mem_rows.get(key, [])))
     slo_rows = core.slo.metric_rows()
     for key, name, kind, help_text in _SLO_FAMILIES:
         families.append((name, help_text, kind, slo_rows.get(key, [])))

@@ -497,6 +497,41 @@ class RequestTracer:
                                  client_request_id, traceparent,
                                  cls=StreamTraceContext)
 
+    def record_refusal(self, model_name: str, *,
+                       shed_reason: str = "", status: int = 0,
+                       tenant: str = "", protocol: str = "",
+                       client_request_id: str = "",
+                       traceparent: str = "") -> None:
+        """A request refused at admission (429, 413, 503): a minimal record
+        with its reason and propagated trace context, so a client's failed
+        attempt has a server record.  Nothing where tracing is off; it
+        takes no sampling turn (a shed storm must not starve the file of
+        the requests it sheds to protect)."""
+        if "TIMESTAMPS" not in (self._settings.get("trace_level") or ["OFF"]):
+            return
+        now = time.monotonic_ns()
+        with self._lock:
+            self._next_id += 1
+            rec_id = self._next_id
+            path = self._trace_file()
+        record: Dict[str, object] = {
+            "id": rec_id,
+            "model_name": model_name,
+            "model_version": "",
+            "timestamps": [{"name": "REFUSED", "ns": now}],
+            "spans": [{"name": "REQUEST", "start_ns": now,
+                       "end_ns": now, "parent": None}],
+            "refused": True,
+            "outcome": "shed",
+        }
+        for key, value in (("shed_reason", shed_reason), ("status", status),
+                           ("tenant", tenant), ("protocol", protocol),
+                           ("triton_request_id", client_request_id),
+                           ("traceparent", traceparent)):
+            if value:
+                record[key] = value
+        self._out.append(path, json.dumps(record) + "\n")
+
     def _emit(self, ctx: TraceContext) -> None:
         record = {
             "id": ctx.id,

@@ -3,8 +3,10 @@
 The port's own copy of ``triton_client_tpu/server/types.py`` (pure Python;
 kept field for field so the two packages' requests and responses mean the
 same thing).  This slice's HTTP frontend (``http_server.py``) decodes into
-these structures and the core (``core.py``) only ever sees them.  Fields for
-layers not ported yet (QoS, deadlines) stay, unused.
+these structures and the core (``core.py``) only ever sees them.  The
+frontends resolve a request's deadline and priority with
+:func:`apply_request_deadline` and :func:`apply_request_priority`, and its
+tenant with ``qos.tenant_from_headers``.
 """
 
 from __future__ import annotations

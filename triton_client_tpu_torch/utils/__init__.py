@@ -14,6 +14,11 @@ bytes>``.
 modules: a region is a ``torch.uint8`` tensor, and a tensor in it is a
 typed view of its bytes (a torch tensor, so any framework takes it through
 ``__dlpack__``).
+
+``torch`` is imported by the functions that use it, not with the module:
+the clients and ``perf_analyzer`` import this module and never touch a
+tensor unless a region or a BF16 tensor is involved, so a load generator's
+process starts without paying the framework's import.
 """
 
 from __future__ import annotations
@@ -23,7 +28,6 @@ import struct
 from typing import Optional
 
 import numpy as np
-import torch
 
 try:
     import ml_dtypes
@@ -63,6 +67,8 @@ class InferenceServerException(Exception):
         self._msg = msg
         self._status = status
         self._debug_details = debug_details
+        # the server's pushback in seconds, where it sent one
+        self.retry_after_s: Optional[float] = None
         super().__init__(msg)
 
     def __str__(self):
@@ -91,25 +97,37 @@ def raise_error(msg):
 
 
 
-_TRITON_TO_TORCH = {
-    "BOOL": torch.bool, "INT8": torch.int8, "INT16": torch.int16,
-    "INT32": torch.int32, "INT64": torch.int64, "UINT8": torch.uint8,
-    "UINT16": torch.uint16, "UINT32": torch.uint32, "UINT64": torch.uint64,
-    "FP16": torch.float16, "BF16": torch.bfloat16, "FP32": torch.float32,
-    "FP64": torch.float64,
-}
-_TORCH_TO_TRITON = {v: k for k, v in _TRITON_TO_TORCH.items()}
+# Triton dtype <-> torch dtype, both directions, built at the first use
+_TORCH_DTYPES: dict = {}
+_TRITON_OF_TORCH: dict = {}
+
+
+def _torch_dtypes() -> dict:
+    if not _TORCH_DTYPES:
+        import torch
+
+        _TORCH_DTYPES.update({
+            "BOOL": torch.bool, "INT8": torch.int8, "INT16": torch.int16,
+            "INT32": torch.int32, "INT64": torch.int64,
+            "UINT8": torch.uint8, "UINT16": torch.uint16,
+            "UINT32": torch.uint32, "UINT64": torch.uint64,
+            "FP16": torch.float16, "BF16": torch.bfloat16,
+            "FP32": torch.float32, "FP64": torch.float64,
+        })
+        _TRITON_OF_TORCH.update({v: k for k, v in _TORCH_DTYPES.items()})
+    return _TORCH_DTYPES
 
 
 def triton_to_torch_dtype(dtype: str) -> Optional[torch.dtype]:
     """Map a Triton v2 dtype string to a torch dtype (None for BYTES and
     unknown types)."""
-    return _TRITON_TO_TORCH.get(dtype)
+    return _torch_dtypes().get(dtype)
 
 
 def torch_to_triton_dtype(dtype: torch.dtype) -> Optional[str]:
     """Map a torch dtype to its Triton v2 dtype string (None if unknown)."""
-    return _TORCH_TO_TRITON.get(dtype)
+    _torch_dtypes()
+    return _TRITON_OF_TORCH.get(dtype)
 
 
 def typed_view(region: torch.Tensor, dtype: torch.dtype, shape,
@@ -234,6 +252,8 @@ def deserialize_bf16_tensor(encoded_tensor) -> np.ndarray:
 def bf16_from_bytes(encoded_tensor, shape) -> torch.Tensor:
     """Raw little-endian bf16 bytes as a ``torch.bfloat16`` CPU tensor of
     ``shape`` (one copy: the wire buffer may be read-only)."""
+    import torch
+
     bits = np.frombuffer(encoded_tensor, dtype=np.int16).copy()
     return torch.from_numpy(bits).view(torch.bfloat16).reshape(
         tuple(shape))
@@ -243,6 +263,8 @@ def bf16_to_bytes(tensor: torch.Tensor) -> np.ndarray:
     """A ``torch.bfloat16`` tensor's raw little-endian bytes, from its own
     bits (``view(torch.int16)``, no float32 detour), as a 1-D uint8 array:
     a view where the tensor is a contiguous CPU tensor."""
+    import torch
+
     bits = tensor.detach().contiguous().view(torch.int16).cpu()
     return bits.numpy().view(np.uint8).reshape(-1)
 
