@@ -791,3 +791,73 @@ def test_admission_changes_no_launch_of_an_admitted_request(cuda,
         err, f, i = launches()
         assert "memory budget" in str(err) and (f, i) == (0, 0)
         c.close()
+
+
+# ---------------------------------------------------------------------------
+# generation (models/decode.py)
+# ---------------------------------------------------------------------------
+
+def test_decode_readback_pair_on_card(cuda):
+    """start_readback copies into pinned memory behind a CUDA event and
+    returns at once; finish_readback waits on the event: the values are
+    those the tensor held when the copy was queued."""
+    from triton_client_tpu_torch.models import decode
+
+    x = torch.arange(12, dtype=torch.float32, device=cuda).reshape(3, 4)
+    pending = decode.start_readback(x)
+    assert pending.host.is_pinned()
+    x.add_(100)  # queued after the copy
+    np.testing.assert_array_equal(decode.finish_readback(pending),
+                                  np.arange(12, dtype=np.float32)
+                                  .reshape(3, 4))
+    assert decode.readback_ready(pending)
+
+
+def test_decode_batched_tick_on_card(cuda, monkeypatch):
+    """A T = 4 fused tick of the tiny preset (in f32) on the card: the
+    worker's thread starts on the card, two batched generations give the
+    same tokens as their independent chains on the card, and a closed-loop
+    sequence interleaves with them; a sampled request reproduces from its
+    seed and top_k = 1 is greedy."""
+    import dataclasses
+    import threading
+
+    from triton_client_tpu_torch.models import decode
+
+    monkeypatch.setitem(language._LLAMA_PRESETS, "tiny", dataclasses.replace(
+        language._LLAMA_PRESETS["tiny"], dtype=torch.float32))
+    monkeypatch.setenv("TRITON_TPU_LLAMA_PRESET", "tiny")
+    monkeypatch.setenv("TRITON_TPU_DECODE_STEPS", "4")
+    monkeypatch.setenv("TRITON_TPU_DECODE_SLOTS", "4")
+    monkeypatch.setenv("TRITON_TPU_DECODE_MODE", "independent")
+    ind = decode.DecodeModel(name="llama_decode_i", device="cuda")
+    monkeypatch.setenv("TRITON_TPU_DECODE_MODE", "batched")
+    bat = decode.DecodeModel(name="llama_decode_b", device="cuda")
+    gi, gb = decode.GenerateModel(ind), decode.GenerateModel(bat)
+
+    def toks(g, prompt, n, **params):
+        return [int(f["token_id"][0]) for f in g._generate(
+            {"text_input": np.array([prompt], object)},
+            {"max_tokens": n, **params})]
+
+    want = {p: toks(gi, p, 13) for p in (b"first prompt", b"second one")}
+    got = {}
+    threads = [threading.Thread(target=lambda p=p: got.__setitem__(
+        p, toks(gb, p, 13))) for p in want]
+    for t in threads:
+        t.start()
+    win = np.zeros(128, np.int32)
+    res = bat._execute({"TOKENS": win},
+                       {"sequence_id": 7, "sequence_start": True})
+    for i in range(3):
+        res = bat._execute({"TOKENS": res["NEXT_TOKEN"]},
+                           {"sequence_id": 7, "sequence_end": i == 2})
+    for t in threads:
+        t.join(timeout=120)
+    bat._shutdown()
+    assert got == want
+    # a sampled request draws on the card from a generator of its seed
+    sampled = toks(gi, b"first prompt", 9, temperature=1.5, seed=4)
+    assert sampled == toks(gi, b"first prompt", 9, temperature=1.5, seed=4)
+    assert toks(gi, b"first prompt", 9, temperature=1.5, top_k=1,
+                seed=5) == want[b"first prompt"][:9]

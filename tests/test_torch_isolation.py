@@ -46,6 +46,28 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert bad == "", f"the port pulled in: {bad}"
 
 
+@pytest.mark.parametrize("module", [
+    "triton_client_tpu_torch.models.decode",
+    "triton_client_tpu_torch.server.generate",
+])
+def test_generation_modules_stand_alone(module):
+    """The generation stack's modules, each imported alone in a fresh
+    interpreter, pull in neither JAX nor the JAX package."""
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        importlib.import_module({module!r})
+        print(",".join(sorted(
+            n for n in sys.modules
+            if n.split(".")[0] in ("jax", "jaxlib", "triton_client_tpu"))))
+    """)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = _REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "", f"{module} pulled in: {out.stdout}"
+
+
 @pytest.fixture
 def no_cuda():
     if torch.cuda.is_available():

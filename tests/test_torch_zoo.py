@@ -25,8 +25,8 @@ requests to both servers, and each test holds equal:
 * classification strings: the core's ``_classify`` on arrays with ties,
   batched and unbatched, with and without labels, and end to end.
 
-Beside: ``register_all`` registers the reference's models in its order,
-less the two that wait for ROADMAP A7; ``custom_identity_int32`` sleeps
+Beside: ``register_all`` registers the reference's 25 models in its
+order; ``custom_identity_int32`` sleeps
 for its ``execute_delay_ms``.
 """
 
@@ -156,10 +156,9 @@ def test_register_all_registers_the_reference_models_in_order():
     jzoo.register_all(jreg)
     treg = ModelRegistry()
     tzoo.register_all(treg, device="cpu")
-    want = [n for n in jreg._models
-            if n not in ("llama_decode", "llama_generate")]
+    want = list(jreg._models)
     assert [m.name for m in treg.models()] == want
-    assert len(want) == 23
+    assert len(want) == 25
 
 
 def _without(d, *keys):

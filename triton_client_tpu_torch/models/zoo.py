@@ -22,8 +22,9 @@ that the reference's examples and clients are written against, and
 Host fixtures stay on the host (``KIND_CPU``), as the reference's do.
 ``dense_tpu`` and ``simple_cnn`` draw their weights from a
 ``torch.Generator`` at the first request, so not the reference's numbers;
-``params=`` (numpy arrays) serves the reference's.  The decode model and
-``llama_generate`` are not ported yet (ROADMAP A7).
+``params=`` (numpy arrays) serves the reference's.  ``llama_decode`` and
+``llama_generate`` (``models/decode.py``) share one set of ``llama_tpu``'s
+weights, built at the first request.
 """
 
 from __future__ import annotations
@@ -405,11 +406,23 @@ def make_ensemble_scale_sum() -> EnsembleModel:
     return EnsembleModel(cfg)
 
 
+def make_llama_decode(device=None,
+                      params: Optional[Dict[str, np.ndarray]] = None):
+    """The ``DecodeModel`` behind ``llama_decode`` (its ``.model``) and
+    ``llama_generate`` (``decode.make_llama_generate`` of it): the
+    ``TRITON_TPU_LLAMA_PRESET`` preset for ``device`` (``1b`` on CUDA,
+    ``tiny`` on the CPU), ``llama_tpu``'s seed, or ``params``."""
+    from .decode import DecodeModel
+
+    return DecodeModel(device=device, params=params)
+
+
 def register_all(registry: ModelRegistry, device=None) -> None:
     """Register every ported model in the reference's order; the device
     models on ``device`` (default CUDA).  Registration is cheap: each
     device model draws its weights at its first request."""
     from . import language, vision
+    from .decode import make_llama_generate
 
     registry.register_model(make_simple())
     registry.register_model(vision.make_resnet50(device))
@@ -420,6 +433,9 @@ def register_all(registry: ModelRegistry, device=None) -> None:
     registry.register_model(language.make_ensemble_llama())
     registry.register_model(language.make_longctx_tpu(device))
     registry.register_model(language.make_moe_tpu(device))
+    decode = make_llama_decode(device)
+    registry.register_model(decode.model)
+    registry.register_model(make_llama_generate(decode))
     registry.register_model(make_simple_string())
     registry.register_model(make_simple_int8())
     registry.register_model(make_simple_identity())

@@ -3,16 +3,18 @@ over the v2 HTTP protocol, and v2 gRPC as gRPC-Web on the same port.
 
     python -m triton_client_tpu_torch.server --http-port 8000 [--device cuda|cpu]
 
-Registers 23 models, by the reference's names and in its order: ``simple``,
-``resnet50``, ``bert_large``, ``ensemble_llama`` (with its
+Registers the reference's 25 models, by its names and in its order:
+``simple``, ``resnet50``, ``bert_large``, ``ensemble_llama`` (with its
 ``llama_preprocess``, ``llama_tpu`` and ``llama_postprocess`` steps),
-``longctx_tpu``, ``moe_tpu``, and the fixtures ``simple_string``,
-``simple_int8``, ``simple_identity``, ``custom_identity_int32``,
-``identity_fp32``, ``identity_bf16``, ``simple_sequence``,
-``simple_dyna_sequence``, ``repeat_int32`` and ``square_int32`` (decoupled:
-gRPC streams only), ``dense_tpu``, ``simple_cnn``, ``scale_by_two`` and
-``ensemble_scale_sum``.  The decode model and ``llama_generate`` are not
-ported yet (ROADMAP A7).
+``longctx_tpu``, ``moe_tpu``, ``llama_decode`` and ``llama_generate``
+(decoupled: ``/generate_stream`` or a gRPC stream; both on
+``llama_tpu``'s weights, ``TRITON_TPU_DECODE_MODE`` independent or
+batched), and the fixtures ``simple_string``, ``simple_int8``,
+``simple_identity``, ``custom_identity_int32``, ``identity_fp32``,
+``identity_bf16``, ``simple_sequence``, ``simple_dyna_sequence``,
+``repeat_int32`` and ``square_int32`` (decoupled: gRPC streams only),
+``dense_tpu``, ``simple_cnn``, ``scale_by_two`` and
+``ensemble_scale_sum``.
 
 ``--device cuda`` (the default) serves ``resnet50`` in bf16, the
 full-size transformer presets (``longctx_tpu`` base, ``moe_tpu`` base,

@@ -18,7 +18,7 @@ faults out).  The data-plane kinds:
 The reference's other kinds belong to modules the port does not have yet
 and are refused when an injector is built, naming their ROADMAP item:
 ``worker_kill`` (the fleet, A6b), ``load_fail`` (the repository API, A3b)
-and ``device_error`` (device-fault containment, A7).
+and ``device_error`` (device-fault containment, A7b).
 
 Every injected fault stamps the request's flight record (``chaos=<kind>``)
 and the recorder pins it as an outlier.
@@ -39,7 +39,7 @@ _KINDS = ("latency", "error", "abort", "mem_pressure")
 NOT_PORTED_KINDS = {
     "worker_kill": "A6b (fleet)",
     "load_fail": "A3b (the repository API)",
-    "device_error": "A7 (device-fault containment)",
+    "device_error": "A7b (device-fault containment)",
 }
 
 

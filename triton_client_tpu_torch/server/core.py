@@ -92,8 +92,16 @@ the last gate before the batch executes.  Chaos (``chaos.py``) draws once
 per request inside the traced envelope.  :meth:`InferenceCore.drain` stops
 admission (503) and waits for in-flight requests.
 
+Device-loop models (``llama_decode`` and ``llama_generate``, whose worker
+ticks on its own) get the device statistics and the cost ledger through
+their ``attach_device_stats`` / ``attach_cost_ledger`` hooks before they
+execute, and the request's tenant as the ``_cost_tenant`` parameter; the
+stream's device time comes back as the ``_cost_device_us`` parameter and
+rides the final response as ``device_time_us`` (the reference's,
+core.py:1400-1406, :1585-1605, :1695-1699).
+
 The fleet controller and the response cache are not ported yet (ROADMAP
-A6b), nor device-fault quarantine (A7).
+A6b), nor device-fault quarantine (A7b).
 """
 
 from __future__ import annotations
@@ -497,9 +505,12 @@ class _DynamicBatcher:
 class InferenceCore:
     SERVER_NAME = "triton_client_tpu_torch_harness"
     SERVER_VERSION = "2.0.0-cuda"
-    EXTENSIONS = ["binary_tensor_data", "model_configuration",
-                  "system_shared_memory", "cuda_shared_memory",
-                  "statistics", "trace", "logging"]
+    # the reference's list in its order, less model_repository (A6b-1) and
+    # xla_shared_memory (the port's device regions are cuda_shared_memory)
+    EXTENSIONS = ["classification", "sequence", "schedule_policy",
+                  "model_configuration", "system_shared_memory",
+                  "cuda_shared_memory", "binary_tensor_data", "statistics",
+                  "trace", "logging"]
 
     def __init__(self, registry: ModelRegistry):
         self.registry = registry
@@ -897,6 +908,7 @@ class InferenceCore:
         if split is not None:
             split.resolve = (time.monotonic_ns() - t0) / 1e6
         params = dict(request.parameters)
+        self._attach_device_loop(model, request, params)
         try:
             if self._use_batcher(model, request):
                 # the batcher records the batch's statistics, and this
@@ -1026,13 +1038,29 @@ class InferenceCore:
             if trace is not None:
                 trace.emit()
 
+    def _attach_device_loop(self, model: Model, request: InferRequest,
+                            params: Dict[str, Any]) -> None:
+        """A device-loop model (its own worker ticks the card) gets the
+        collector and the ledger, and the tenant in ``params``."""
+        attach = getattr(model, "attach_device_stats", None)
+        if attach is None:
+            return
+        attach(self.device_stats)
+        attach_ledger = getattr(model, "attach_cost_ledger", None)
+        if attach_ledger is not None:
+            attach_ledger(self.cost_ledger)
+        if request.tenant:
+            params["_cost_tenant"] = request.tenant
+
     def _stream_decoupled(self, model: Model, request: InferRequest,
                           trace) -> Iterator[InferResponse]:
         inputs = self._resolve_inputs(model, request)
+        params = dict(request.parameters)
+        self._attach_device_loop(model, request, params)
         t0 = time.monotonic_ns()
         if trace is not None:
             trace.add_span("QUEUE", request.arrival_ns, t0)
-        gen = model.execute_decoupled(inputs, dict(request.parameters))
+        gen = model.execute_decoupled(inputs, params)
         try:
             for out in gen:
                 resp = self._build_response(model, request, readback(out))
@@ -1058,13 +1086,17 @@ class InferenceCore:
                               model_version=model.served_version,
                               id=request.id)
         final.parameters["triton_final_response"] = True
+        # the stream's device time, written back by the model
+        device_us = params.get("_cost_device_us")
+        if device_us is not None:
+            final.parameters["device_time_us"] = device_us
         yield final
 
     def device_stats_snapshot(self, model: Optional[str] = None) -> dict:
         """The ``/v2/debug/device_stats`` JSON: the collector's snapshot
         with the SLO engine's under ``"slo"`` and the memory governor's
         under ``"memory"`` (the reference's ``"kv_cache"`` section comes
-        with its source, ROADMAP A7)."""
+        with its source, the prefix/KV cache: ROADMAP A7b)."""
         out = self.device_stats.snapshot(model=model)
         out["slo"] = self.slo.snapshot(model=model)
         out["memory"] = self.memory.snapshot()
@@ -1253,6 +1285,10 @@ class InferenceCore:
             self._batchers.clear()
         for b in batchers:
             b.stop()
+        for m in self.registry.models():
+            unload = getattr(m, "unload", None)
+            if unload is not None:
+                unload()  # a model's own worker threads stop
         self.tracer.shutdown()
         self.log.shutdown()
 

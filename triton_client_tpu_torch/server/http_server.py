@@ -53,8 +53,23 @@ is counted as it arrives and the connection closed where it passes the
 cap.  On a gRPC-Web path the same cap answers RESOURCE_EXHAUSTED.  A chaos
 ``abort`` closes the connection in the middle of the response's body.
 
-Not ported yet: the repository API, generate/SSE, gzip and the wire
-templates.
+Generate (the reference's ``_generate`` / ``_generate_stream``,
+http_server.py:397-505): ``POST /v2/models/{m}[/versions/{v}]/generate``
+answers one flat JSON object (``generate.py``), ``.../generate_stream`` a
+Server-Sent Events stream in chunked transfer coding, one ``data: {json}``
+frame per response; the first response is taken before the 200 is
+committed, so a refused request gets its HTTP status, and a failure after
+it is an in-band ``data: {"error": ...}`` frame.  A consumer that goes away
+closes the core's stream (its generation is cancelled).
+
+Request bodies in ``Content-Encoding`` gzip or deflate are inflated with
+``zlib``; the ingress cap counts the inflated bytes.  HEAD is served on the
+GET routes; a path that only another method's route serves gets 405 with
+``Allow``; an HTTP/2 request line (the preface of a client trying h2c
+first) gets an HTTP/1.1 400 and the connection closes, so such a client
+falls back to gRPC-Web.
+
+Not ported yet: the repository API and the wire templates.
 """
 
 from __future__ import annotations
@@ -68,6 +83,7 @@ import re
 import threading
 import time
 import urllib.parse
+import zlib
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -80,6 +96,7 @@ from . import grpc_web
 from .chaos import ChaosAbort
 from .core import InferenceCore
 from .flight_recorder import parse_snapshot_limit
+from .generate import build_generate_request, response_to_json, sse_frame
 from .grpc_server import InferenceServicer
 from .memory import DEFAULT_MAX_REQUEST_BYTES, oversize_message
 from .qos import tenant_from_headers
@@ -149,6 +166,8 @@ _GET_ROUTES = [
 ]
 _POST_ROUTES = [
     (re.compile(_MODEL + r"/infer"), "_infer"),
+    (re.compile(_MODEL + r"/generate"), "_generate"),
+    (re.compile(_MODEL + r"/generate_stream"), "_generate_stream"),
     (re.compile(r"/v2/trace/setting"), "_set_trace"),
     (re.compile(_MODEL_TRACE), "_set_trace"),
     (re.compile(r"/v2/logging"), "_set_logging"),
@@ -174,22 +193,58 @@ class _Handler(BaseHTTPRequestHandler):
     def log_message(self, format, *args):  # noqa: A002 - stdlib signature
         pass  # no per-request stderr lines
 
+    #: the routes of each method; HEAD serves GET's
+    ROUTES = {"GET": _GET_ROUTES, "POST": _POST_ROUTES}
+
     # -- dispatch ----------------------------------------------------------
+    def parse_request(self) -> bool:
+        """An HTTP/2 request line (h2c's ``PRI * HTTP/2.0`` preface) gets
+        an HTTP/1.1 status line and headers, then the connection closes:
+        the stdlib would answer it without a status line."""
+        words = self.raw_requestline.split()
+        if len(words) == 3 and words[2].upper().startswith(
+                (b"HTTP/2", b"HTTP/3")):
+            self.command = words[0].decode("latin-1")
+            self.requestline = self.raw_requestline.decode(
+                "latin-1").rstrip("\r\n")
+            self.request_version = "HTTP/1.1"
+            self.close_connection = True
+            self.send_error(400, None, "this port speaks HTTP/1.1 only; "
+                            "gRPC is served as gRPC-Web")
+            return False
+        return super().parse_request()
+
     def do_GET(self):
-        self._dispatch(_GET_ROUTES)
+        self._dispatch(self.ROUTES["GET"])
+
+    def do_HEAD(self):
+        self._dispatch(self.ROUTES["GET"])
 
     def do_POST(self):
-        self._dispatch(_POST_ROUTES)
+        self._dispatch(self.ROUTES["POST"])
+
+    def do_PUT(self):
+        self._dispatch([])
+
+    do_DELETE = do_PATCH = do_OPTIONS = do_PUT
 
     def _dispatch(self, routes) -> None:
         with self.server.exchange():
             self._dispatch_one(routes)
 
+    def _allowed(self, path: str) -> List[str]:
+        """The methods whose routes serve ``path``."""
+        out = []
+        for method, routes in self.ROUTES.items():
+            if any(p.fullmatch(path) for p, _ in routes):
+                out += [method, "HEAD"] if method == "GET" else [method]
+        return out
+
     def _dispatch_one(self, routes) -> None:
         path = urllib.parse.unquote(self.path.split("?", 1)[0])
         self._query = urllib.parse.parse_qs(
             urllib.parse.urlsplit(self.path).query)
-        grpc = (routes is _POST_ROUTES and path.startswith(_GRPC_PREFIX)
+        grpc = (self.command == "POST" and path.startswith(_GRPC_PREFIX)
                 and path[len(_GRPC_PREFIX):] in self.server.grpc_methods)
         if self._refuse_oversize(grpc):
             return
@@ -229,20 +284,55 @@ class _Handler(BaseHTTPRequestHandler):
                 log.error(f"{self.command} {path} crashed: {e}", rid)
                 self._send(500, _json_body({"error": str(e)}))
             return
+        allowed = self._allowed(path)
+        if allowed:
+            self._send(405, _json_body(
+                {"error": f"method {self.command} is not allowed for "
+                          f"{path}"}), {"Allow": ", ".join(allowed)})
+            return
         self._send(404, _json_body({"error": f"no route for {path}"}))
 
     def _read_body(self) -> bytes:
+        """The request body, inflated where its ``Content-Encoding`` is
+        gzip or deflate.  The ingress cap counts the bytes as they arrive
+        (a chunked body) and then the inflated bytes: a compressed body
+        that inflates past the cap is refused as one sent that large."""
         cap = self.server.max_request_bytes
         if not cap or "chunked" not in self.headers.get(
                 "Transfer-Encoding", "").lower():
-            return b"".join(self._body_chunks())
+            return self._inflate(b"".join(self._body_chunks()))
         parts, total = [], 0
         for chunk in self._body_chunks():
             total += len(chunk)
             if total > cap:
                 raise _TooLarge(total)
             parts.append(chunk)
-        return b"".join(parts)
+        return self._inflate(b"".join(parts))
+
+    def _inflate(self, body: bytes) -> bytes:
+        enc = self.headers.get("Content-Encoding", "").strip().lower()
+        if enc in ("", "identity") or not body:
+            return body
+        if enc in ("gzip", "x-gzip"):
+            wbits = 16 + zlib.MAX_WBITS
+        elif enc == "deflate":
+            # zlib-wrapped (RFC 1950, what clients send), else raw deflate
+            zlib_header = (len(body) > 1 and body[0] & 0x0F == 8
+                           and (body[0] << 8 | body[1]) % 31 == 0)
+            wbits = zlib.MAX_WBITS if zlib_header else -zlib.MAX_WBITS
+        else:
+            raise ValueError(f"unsupported Content-Encoding {enc!r}")
+        cap = self.server.max_request_bytes
+        d = zlib.decompressobj(wbits)
+        try:
+            out = d.decompress(body, cap + 1) if cap else d.decompress(body)
+        except zlib.error as e:
+            raise ValueError(f"corrupt {enc} body: {e}")
+        if cap and len(out) > cap:
+            raise _TooLarge(len(out))
+        if not d.eof:
+            raise ValueError(f"truncated {enc} body")
+        return out
 
     def _body_chunks(self) -> Iterator[bytes]:
         """The request body as it arrives: one piece for a
@@ -364,6 +454,11 @@ class _Handler(BaseHTTPRequestHandler):
             self.send_header(k, v)
         if self.close_connection:
             self.send_header("Connection", "close")
+        if self.command == "HEAD":
+            # the GET response's headers, no body
+            self._headers_buffer.append(b"\r\n")
+            self.flush_headers()
+            return
         # end_headers() without its own write: the blank line and the
         # payload join the buffered status line and headers, which
         # flush_headers() sends as one write
@@ -543,14 +638,7 @@ class _Handler(BaseHTTPRequestHandler):
                              body, binary)
         req.decode_start_ns, req.decode_end_ns = (decode_start,
                                                   time.monotonic_ns())
-        req.client_request_id = self.headers.get(_REQUEST_ID_HDR, "")
-        req.traceparent = self.headers.get(_TRACEPARENT_HDR, "")
-        req.protocol = "http"
-        req.wire_bytes = len(raw)
-        apply_request_deadline(req, header_us=self.headers.get(_TIMEOUT_HDR))
-        req.tenant = tenant_from_headers(self.headers.get(_TENANT_HDR),
-                                         self.headers.get("Authorization"))
-        apply_request_priority(req)
+        self._stamp(req, raw)
         # this frontend finishes the trace: SERIALIZE and NETWORK_WRITE
         req.trace_handoff = True
         resp = self.core.infer(req)
@@ -580,6 +668,81 @@ class _Handler(BaseHTTPRequestHandler):
         finally:
             if trace is not None:
                 trace.emit()
+
+
+    def _stamp(self, req: InferRequest, raw: bytes) -> None:
+        """The request's trace ids, wire size and admission fields
+        (deadline, tenant, priority) from this exchange."""
+        req.client_request_id = self.headers.get(_REQUEST_ID_HDR, "")
+        req.traceparent = self.headers.get(_TRACEPARENT_HDR, "")
+        req.protocol = "http"
+        req.wire_bytes = len(raw)
+        apply_request_deadline(req, header_us=self.headers.get(_TIMEOUT_HDR))
+        req.tenant = tenant_from_headers(self.headers.get(_TENANT_HDR),
+                                         self.headers.get("Authorization"))
+        apply_request_priority(req)
+
+    # -- generate ------------------------------------------------------------
+    def _build_generate(self, groups, raw: bytes):
+        name, version = groups["model"], groups["version"] or ""
+        model = self.core.registry.get(name, version)
+        try:
+            body = json.loads(raw)
+        except ValueError:
+            raise InferError("failed to parse generate request JSON", 400)
+        req = build_generate_request(model, name, version, body)
+        self._stamp(req, raw)
+        return name, version, model, req
+
+    def _generate(self, groups, raw: bytes):
+        name, version, model, req = self._build_generate(groups, raw)
+        if model.decoupled:
+            raise InferError(
+                f"model '{name}' is decoupled: use generate_stream", 400)
+        resp = self.core.infer(req)
+        self._send(200, response_to_json(name, version, resp).encode())
+
+    def _write_chunk(self, data: bytes) -> None:
+        """One chunk of a chunked body in one write (empty: the end)."""
+        # tpu-lint: disable=WIRE-COPY a chunk's size line and its frame in one write
+        self.wfile.write(b"%X\r\n%s\r\n" % (len(data), data)
+                         if data else b"0\r\n\r\n")
+
+    def _generate_stream(self, groups, raw: bytes):
+        name, version, _model, req = self._build_generate(groups, raw)
+        stream = self.core.infer_stream(req)
+        try:
+            # the first response before the 200: a refused request gets
+            # its own status
+            first = next(stream, None)
+            self.send_response(200)
+            self.send_header("Content-Type", "text/event-stream")
+            self.send_header("Cache-Control", "no-cache")
+            self.send_header("Transfer-Encoding", "chunked")
+            self.end_headers()
+            try:
+                for resp in ([first] if first is not None else []):
+                    self._write_event(name, version, resp)
+                for resp in stream:
+                    self._write_event(name, version, resp)
+            except InferError as e:
+                # the headers are out: the failure goes in band
+                self._write_chunk(sse_frame(json.dumps({"error": str(e)})))
+            except OSError:
+                # the client went away: the stream closes below
+                self.close_connection = True
+                return
+            self._write_chunk(b"")
+        finally:
+            stream.close()
+
+    def _write_event(self, name: str, version: str, resp) -> None:
+        if not resp.outputs:
+            return  # a decoupled stream's final empty response
+        t0 = time.monotonic_ns()
+        self._write_chunk(sse_frame(response_to_json(name, version, resp)))
+        if resp.trace is not None:
+            resp.trace.record_write(t0, time.monotonic_ns())
 
 
 def _json_object(body: bytes) -> dict:
@@ -787,11 +950,7 @@ class HttpServer(_CountingServer):
 class _MetricsHandler(_Handler):
     """``/metrics`` and the debug snapshots, nothing else."""
 
-    def do_GET(self):
-        self._dispatch(_DEBUG_ROUTES)
-
-    def do_POST(self):
-        self._dispatch([])
+    ROUTES = {"GET": _DEBUG_ROUTES, "POST": []}
 
 
 class MetricsServer(_CountingServer):

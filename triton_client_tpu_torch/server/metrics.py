@@ -39,7 +39,7 @@ UNPORTED_FAMILIES: Dict[str, str] = {
     **{name: "A6b (the response cache)" for name in (
         "nv_cache_num_hits_per_model", "nv_cache_num_misses_per_model",
         "nv_cache_num_evictions_per_model")},
-    **{name: "A7 (the prefix/KV cache and device faults)"
+    **{name: "A7b (the prefix/KV cache and device faults)"
        for name in ('nv_cache_hit_total', 'nv_cache_miss_total', 'nv_cache_evict_total', 'nv_cache_hit_tokens_total', 'nv_cache_pinned_bytes') + ('nv_device_fault_total', 'nv_device_recovered_sequences_total', 'nv_device_aborted_sequences_total', 'nv_device_quarantine')},
 }
 

@@ -69,6 +69,11 @@ def token_event_stride(default: int = 8) -> int:
     return n if n > 0 else default
 
 
+#: a stream record keeps this many decode ticks (the first ones) and counts
+#: the rest in ``ticks_dropped``
+MAX_TICKS_PER_STREAM = 512
+
+
 #: the trace context of the request this thread is working for
 _CURRENT_TRACE: "contextvars.ContextVar[Optional[TraceContext]]" = \
     contextvars.ContextVar("triton_torch_current_trace", default=None)
@@ -263,13 +268,16 @@ class TraceContext:
 class StreamTraceContext(TraceContext):
     """One traced decoupled stream: open across the whole stream, with a
     strided token timeline (``FIRST_TOKEN``, then ``TOKEN[n]`` every
-    ``token_event_stride()`` chunks), emitted once when the stream
-    closes.  The decode worker's tick joins and the prefix-cache stamp of
-    the reference's records come with the generation stack (ROADMAP
-    A7)."""
+    ``token_event_stride()`` chunks) and the decode worker's dispatches the
+    stream rode (``ticks``, each with its ``tick_seq``, the join key to the
+    device statistics' tick rows), emitted once when the stream closes.
+    ``record_chunk`` runs on the stream's thread, ``add_tick`` on the decode
+    worker's: list appends and attribute stores, atomic under the GIL.
+    The prefix-cache stamp stays 0 / null until the cache is ported (ROADMAP
+    A7b)."""
 
     __slots__ = ("stride", "token_count", "first_token_ns", "last_token_ns",
-                 "_writes")
+                 "ticks", "ticks_dropped", "_writes")
 
     def __init__(self, *args, **kwargs) -> None:
         super().__init__(*args, **kwargs)
@@ -277,7 +285,18 @@ class StreamTraceContext(TraceContext):
         self.token_count = 0
         self.first_token_ns: Optional[int] = None
         self.last_token_ns: Optional[int] = None
+        self.ticks: List[Dict[str, int]] = []
+        self.ticks_dropped = 0
         self._writes = 0
+
+    def add_tick(self, tick: Dict[str, int]) -> None:
+        """The decode worker dispatched a tick this stream rode; past
+        ``MAX_TICKS_PER_STREAM`` the record keeps the first ones and
+        counts the rest."""
+        if len(self.ticks) >= MAX_TICKS_PER_STREAM:
+            self.ticks_dropped += 1
+            return
+        self.ticks.append(tick)
 
     def record_chunk(self, ns: Optional[int] = None) -> int:
         """One streamed response left the core; returns its index."""
@@ -555,6 +574,10 @@ class RequestTracer:
             # the reference's prefix-cache stamp: no cache yet, no hit
             record["cache_hit_tokens"] = 0
             record["prefix_hash"] = None
+            if ctx.ticks:
+                record["ticks"] = ctx.ticks
+            if ctx.ticks_dropped:
+                record["ticks_dropped"] = ctx.ticks_dropped
         if ctx.client_request_id:
             record["triton_request_id"] = ctx.client_request_id
         if ctx.traceparent:
