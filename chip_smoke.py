@@ -210,6 +210,8 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
+import urllib.request
 
 # H100 SXM data-sheet peaks (dense), at the full 700 W power limit.  The
 # bf16 peak and the memory rate are the port's own constants
@@ -2136,7 +2138,7 @@ def grpc_phase(torch, counters) -> None:
     launches per forward) at batch 4 by each gRPC transport beside HTTP
     (``grpc_transports``); then ``perf_analyzer -i grpc --streaming`` from a
     process of its own (BASELINE row 4): ``bert_large`` int8 -b 32 at c = 1
-    and 4 with CUDA shm and by wire (c = 4 traced once more), unary -b 32
+    and 4 with CUDA shm and by wire, unary -b 32
     at c = 1, ``longctx_tpu`` -b 4 on a stream at c = 1, each level beside
     this run's HTTP level; then BASELINE row 5 (``grpc_generate``)."""
     from triton_client_tpu_torch.models import language
@@ -2177,14 +2179,6 @@ def grpc_phase(torch, counters) -> None:
                             "--shared-memory", shm], counters, 0, layers,
                            window_ms=PERF_LONG_WINDOW_MS, paths=GRPC_PATHS)
                 _beside_http(label, f"perf bert_large int8 -b 32 {shm}")
-            # where the device's time goes under four streams, beside the
-            # perf phase's traced HTTP run at c = 4
-            perf_sweep("perf grpc stream bert_large int8 -b 32 none c=4 "
-                       "traced", harness, bert,
-                       ["-i", "grpc", "--streaming", "-b", "32",
-                        "--concurrency-range", "4"], counters, 0, layers,
-                       window_ms=PERF_LONG_WINDOW_MS, trace=True,
-                       paths=GRPC_PATHS)
             label = "perf grpc unary bert_large int8 -b 32 none"
             perf_sweep(label, harness, bert,
                        ["-i", "grpc", "-b", "32", "--concurrency-range", "1"],
@@ -3434,6 +3428,8 @@ GEN_SLOTS, GEN_S_MAX = 8, 256
 GEN_PARITY_STEPS, GEN_TOKENS, GEN_STREAMS = 32, 64, 8
 #: "generation <mode> <surface> <streams>" -> that window's kernel launches
 GEN_PATHS = {}
+#: the generation phase's weights, chains and prompts, for the next phase
+GEN_SHARED = {}
 #: where the phase runs ("cpu" only in a rehearsal of it off the card)
 GEN_DEVICE = "cuda"
 
@@ -3456,14 +3452,16 @@ def _gen_window(torch, prompt: bytes):
             GEN_DEVICE)
 
 
-def _gen_chain(torch, dec, prompt: bytes, n: int):
+def _gen_chain(torch, dec, prompt: bytes, n: int, s_max: int = GEN_S_MAX,
+               params=None):
     """The independent chain (``make_prefill`` + greedy ``make_decode_step``
     on the card): the first ``n`` greedy tokens of ``prompt``, with each
-    position's logits."""
+    position's logits (``params`` in place of the model's where given)."""
     from triton_client_tpu_torch.models import decode
 
-    params, cfg = dec._ensure_params()
-    prefill = decode.make_prefill(cfg, GEN_S_MAX)
+    own, cfg = dec._ensure_params()
+    params = own if params is None else params
+    prefill = decode.make_prefill(cfg, s_max)
     step = decode.make_decode_step(cfg)
     toks, logits_all = [], []
     logits, cache = prefill(params, _gen_window(torch, prompt))
@@ -3524,12 +3522,15 @@ def _gen_parity(label, torch, dec) -> None:
     check_tokens(label, toks, plain, atol)
 
 
-def _gen_near_ties(label, torch, dec, chains, prompt, toks) -> bool:
+def _gen_near_ties(label, torch, dec, chains, prompt, toks,
+                   atol=None) -> bool:
     """A served stream equals the independent chain's tokens, or parts from
     it where the chain's logits had a near tie (both tokens within the
-    bound of the maximum; a batch of another size rounds its bf16 GEMMs
-    otherwise).  Returns whether it equals the chain."""
+    bound of the maximum, SERVED_ATOL's unless ``atol`` is given; a batch
+    of another size rounds its bf16 GEMMs otherwise).  Returns whether it
+    equals the chain."""
     want, logits = chains[prompt]
+    want = want[:len(toks)]
     if toks == want:
         return True
     if len(toks) != len(want):
@@ -3537,7 +3538,7 @@ def _gen_near_ties(label, torch, dec, chains, prompt, toks) -> bool:
     j = next(i for i, (a, b) in enumerate(zip(toks, want)) if a != b)
     row = logits[j]
     top = float(row.max())
-    atol = SERVED_ATOL["llama_tpu", False]
+    atol = SERVED_ATOL["llama_tpu", False] if atol is None else atol
     if not (float(row[toks[j]]) >= top - atol
             and float(row[want[j]]) >= top - atol):
         fail(f"{label}: token {j} is {toks[j]}, the chain's is {want[j]}, "
@@ -3546,7 +3547,8 @@ def _gen_near_ties(label, torch, dec, chains, prompt, toks) -> bool:
     return False
 
 
-def _sse_stream(port: int, prompt: bytes, n: int):
+def _sse_stream(port: int, prompt: bytes, n: int,
+                model: str = "llama_generate"):
     """One ``/generate_stream`` over HTTP/1.1 (the standard library's
     client: the v2 clients have no generate API, as the reference's have
     none): (token ids, seconds from the request to each frame)."""
@@ -3558,7 +3560,7 @@ def _sse_stream(port: int, prompt: bytes, n: int):
     toks, times = [], []
     try:
         t0 = time.perf_counter()
-        conn.request("POST", "/v2/models/llama_generate/generate_stream",
+        conn.request("POST", f"/v2/models/{model}/generate_stream",
                      body=raw, headers={"Content-Type": "application/json"})
         resp = conn.getresponse()
         if resp.status != 200:
@@ -3578,9 +3580,10 @@ def _sse_stream(port: int, prompt: bytes, n: int):
     return toks, times
 
 
-def _grpc_gen_stream(port: int, prompt: bytes, n: int):
+def _grpc_gen_stream(port: int, prompt: bytes, n: int, final=None):
     """``llama_generate`` on one gRPC-Web stream of the port's client:
-    (token ids, seconds from the request to each response)."""
+    (token ids, seconds from the request to each response); the final
+    response's parameters into ``final`` where given."""
     import queue
 
     import numpy as np
@@ -3603,8 +3606,10 @@ def _grpc_gen_stream(port: int, prompt: bytes, n: int):
             result, error, t = got.get(timeout=300)
             if error is not None:
                 fail(f"llama_generate gRPC stream: {error}")
-            if result.get_response().parameters[
-                    "triton_final_response"].bool_param:
+            params = result.get_response().parameters
+            if params["triton_final_response"].bool_param:
+                if final is not None:
+                    final.update({k: v for k, v in params.items()})
                 break
             times.append(t - t0)
             toks.append(int(result.as_numpy("token_id")[0]))
@@ -3786,7 +3791,7 @@ def generation_phase(torch, counters) -> None:
     each mode (independent; batched with 8 slots at the default
     TRITON_TPU_DECODE_STEPS of 4) served: /generate_stream over HTTP and a
     gRPC-Web stream at 1 and 8 streams of 64 tokens, llama_decode closed
-    loop for 2 sequences, every stream's tokens held to the independent
+    loop for 1 sequence, every stream's tokens held to the independent
     chain, no kernel of the port launched; the card's idle share with 8
     streams traced.  Beside row 5's ensemble_llama figures (PERF.md)."""
     from triton_client_tpu_torch.models import decode
@@ -3828,7 +3833,7 @@ def generation_phase(torch, counters) -> None:
                                      torch, dec, counters, chains, fn, port,
                                      prompts[:n])
                 _gen_closed_loop(f"{label} llama_decode http", torch, dec,
-                                 chains, port, prompts[:2])
+                                 chains, port, prompts[:1])
                 # one stream where each is served alone, the batch of 8
                 # where they share the tick
                 _gen_idle_share(f"{label} http sse", torch, _sse_stream,
@@ -3843,10 +3848,707 @@ def generation_phase(torch, counters) -> None:
     finally:
         for var in ("TRITON_TPU_DECODE_MODE", "TRITON_TPU_DECODE_SLOTS"):
             os.environ.pop(var, None)
-    del params
+    # the weights, chains and prompts go on to the cache and faults phase
+    GEN_SHARED.update(params=params, chains=chains, prompts=prompts)
     gc.collect()
     if GEN_DEVICE == "cuda":
         torch.cuda.empty_cache()
+
+# ---------------------------------------------------------------------------
+# The cache and faults phase: the prefix/KV cache, int8 KV and device-fault
+# containment on llama 1b (llama_decode / llama_generate)
+# ---------------------------------------------------------------------------
+
+#: a 1,024-token prompt in 64-token blocks: the store holds 15 of its 16
+#: (120 MiB in bf16); the budget holds the four prompts' chains
+CF_PROMPT_LEN, CF_TOKENS = 1024, 8
+CF_CACHE_BYTES = 512 << 20
+#: int8 KV against bf16 KV, NEXT_LOGIT on the card (stated in PERF.md
+#: before the first chip run), its teacher-forced steps and controls (the
+#: post-prefill int8 scales of k and v off by each of CONTROL_SCALES)
+CF_KV8_ATOL = 1e-1
+CF_KV8_STEPS = 32
+CF_KV8_TOKENS = 32
+#: the transient drill's live streams and their length
+CF_DRILL_STREAMS, CF_DRILL_TOKENS = 6, 64
+#: the real stall: --tick-stall-ms, and how long the card sleeps
+CF_STALL_MS, CF_STALL_S = 250, 1.5
+#: the persistent drill's first probe (the checks run before it)
+CF_PROBE_BACKOFF_S = 2.0
+CF_PATHS = {}
+#: the SM clock (nvidia-smi), to turn the stall's seconds into cycles
+SM_CLOCK_HZ = 0.0
+
+
+def _cf_prompts(seed: int, n: int, length: int):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [bytes(rng.integers(32, 127, length).astype(np.uint8))
+            for _ in range(n)]
+
+
+@contextlib.contextmanager
+def _cf_env(**env):
+    """The decode models' environment for one step, removed after."""
+    for k, v in env.items():
+        os.environ[k] = str(v)
+    try:
+        yield
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+
+
+def _cf_launches(label, counters) -> None:
+    launches = {name: mod.launches for name, mod in counters.items()}
+    launches["int8_quantize_rows"] = counters["int8_matmul"].quantize_launches
+    CF_PATHS[label] = launches
+    if any(launches.values()):
+        fail(f"{label}: the port's kernels launched {launches}; generation "
+             "runs none")
+
+
+#: the prefix/KV cache's and device faults' /metrics families
+CF_CACHE_FAMILIES = ("nv_cache_hit_total", "nv_cache_miss_total",
+                     "nv_cache_evict_total", "nv_cache_hit_tokens_total",
+                     "nv_cache_pinned_bytes")
+CF_FAULT_FAMILIES = ("nv_device_fault_total",
+                     "nv_device_recovered_sequences_total",
+                     "nv_device_aborted_sequences_total",
+                     "nv_device_quarantine")
+
+
+def _cf_metrics(port: int, names, model: str) -> dict:
+    """``/metrics`` samples of the families ``names`` for ``model``, by
+    family and label set."""
+    fams = _metrics(port)
+    out = {}
+    for name in names:
+        if name not in fams:
+            fail(f"/metrics lacks the family {name}")
+        for labels, value in fams[name]["samples"]:
+            if labels.get("model") == model:
+                key = name + "".join(f",{k}={v}" for k, v in sorted(
+                    labels.items()) if k != "model")
+                out[key] = value
+    return out
+
+
+def _cf_block_lane_equal(torch, dec, kvc, window) -> list:
+    """The slots whose lane holds the stored chain of ``window`` byte for
+    byte (k and v, positions 0 .. hit)."""
+    digs = kvc.chain_digests(window)
+    with kvc._lock:
+        blocks = [kvc._blocks.get(d) for d in digs]
+    if any(b is None for b in blocks):
+        fail(f"the store lacks the chain of a committed prompt "
+             f"({sum(b is None for b in blocks)} of {len(blocks)} blocks)")
+    kb = torch.cat([b.k for b in blocks], dim=3)
+    vb = torch.cat([b.v for b in blocks], dim=3)
+    n = kb.shape[3]
+    return [s for s in range(dec._buckets[0][0])
+            if torch.equal(dec._k[0][:, s:s + 1, :, :n], kb)
+            and torch.equal(dec._v[0][:, s:s + 1, :, :n], vb)]
+
+
+def _cf_forced_rows(torch, params, cfg, prompt: bytes, toks, s_max: int):
+    """The logits rows of the independent chain fed ``toks`` (teacher
+    forcing): row i chose token i."""
+    from triton_client_tpu_torch.models import decode
+
+    prefill = decode.make_prefill(cfg, s_max)
+    step = decode.make_decode_step(cfg)
+    logits, cache = prefill(params, _gen_window(torch, prompt))
+    rows = [logits[0].float()]
+    for tok in toks[:-1]:
+        logits, cache = step(params, cache, torch.tensor(
+            [[tok]], dtype=torch.int32, device=GEN_DEVICE))
+        rows.append(logits[0].float())
+    return torch.stack(rows).cpu().numpy()
+
+
+def _cf_prefix(torch, params, counters) -> None:
+    """Cold then warm on shared 1,024-token prompts: over HTTP SSE and
+    gRPC-Web, and a llama_decode sequence (NEXT_LOGIT).  The stored blocks
+    equal the lane the cold prefill wrote; the lanes are wrecked (NaN)
+    before the warm stream, whose lane must then hold the blocks again,
+    byte for byte.  Tokens equal the independent chain or part at a near
+    tie; the warm NEXT_LOGIT within SERVED_ATOL of the plain recompute,
+    beside the controls.  Time to the first token cold and warm, the hit
+    tokens, ``nv_cache_*`` and ``kv_cache``."""
+    import numpy as np
+
+    from triton_client_tpu_torch import http
+    from triton_client_tpu_torch.models import decode
+    from triton_client_tpu_torch.server import kvcache
+
+    label = "cache prefix"
+    with _cf_env(TRITON_TPU_DECODE_MODE="batched",
+                 TRITON_TPU_DECODE_SLOTS=GEN_SLOTS,
+                 **{kvcache.cache_env_key("llama_decode"): CF_CACHE_BYTES}):
+        dec = decode.DecodeModel(device=GEN_DEVICE, prompt_len=CF_PROMPT_LEN)
+        dec._params = params
+        gen_model = decode.make_llama_generate(dec)
+        p_warm, p_sse, p_grpc, p_dec = _cf_prompts(12, 4, CF_PROMPT_LEN)
+        with torch.inference_mode():
+            chains = {p: _gen_chain(torch, dec, p, CF_TOKENS, dec._s_max)
+                      for p in (p_sse, p_grpc, p_dec)}
+        try:
+            with serving_harness([dec.model, gen_model]) as harness:
+                port = harness.http_port
+                # a throwaway prompt cold and warm: the first use of each
+                # path's shapes (cuBLAS heuristics, lazily loaded kernels)
+                # stays out of the timed ones
+                for _ in range(2):
+                    _sse_stream(port, p_warm, 2)
+                _reset(counters)
+                kvc = dec._kv_cache
+                if kvc is None or kvc.block_tokens != 64:
+                    fail(f"{label}: no 64-token block store on the model")
+                ttft = {}
+                for surface, prompt in (("http sse", p_sse),
+                                        ("grpc-web", p_grpc)):
+                    win = np.frombuffer(prompt, np.uint8).astype(np.int32)
+                    finals = []
+                    for temp in ("cold", "warm"):
+                        if temp == "warm":
+                            # every lane's prompt positions wrecked: the
+                            # warm stream must restore them itself
+                            dec._k[0][:, :, :, :CF_PROMPT_LEN] = float("nan")
+                            dec._v[0][:, :, :, :CF_PROMPT_LEN] = float("nan")
+                        final = {}
+                        if surface == "http sse":
+                            toks, times = _sse_stream(port, prompt,
+                                                      CF_TOKENS)
+                        else:
+                            toks, times = _grpc_gen_stream(
+                                port, prompt, CF_TOKENS, final=final)
+                        finals.append(final.get("cache_hit_tokens"))
+                        ttft[surface, temp] = 1e3 * times[0]
+                        same = _gen_near_ties(f"{label} {surface} {temp}",
+                                              torch, dec, chains, prompt,
+                                              toks)
+                        lanes = _cf_block_lane_equal(torch, dec, kvc, win)
+                        if not lanes:
+                            fail(f"{label} {surface} {temp}: no lane holds "
+                                 "the stored blocks byte for byte")
+                        print(f"{label} {surface} {temp}: {CF_TOKENS} "
+                              f"tokens, first after {ttft[surface, temp]:.3f}"
+                              f" ms; equal to the chain: {same}; stored "
+                              f"blocks byte-equal (torch.equal) to lane(s) "
+                              f"{lanes}; {CARD}", flush=True)
+                    if surface == "grpc-web":
+                        hit = finals[1].int64_param if finals[1] else None
+                        if finals[0] is not None or hit != 960:
+                            fail(f"{label}: cache_hit_tokens cold "
+                                 f"{finals[0]}, warm {hit}; expected none "
+                                 "and 960")
+                # llama_decode, cold then warm: a sequence fed the chain's
+                # tokens, so each step's NEXT_LOGIT meets the chain's row
+                want_toks, want_logits = chains[p_dec]
+                got = []
+                with http.InferenceServerClient(
+                        f"127.0.0.1:{port}", network_timeout=300) as client:
+                    for sid in (1, 2):
+                        x = np.frombuffer(p_dec, np.uint8).astype(np.int32)
+                        for i in range(CF_TOKENS):
+                            inp = http.InferInput("TOKENS", [len(x)],
+                                                  "INT32")
+                            inp.set_data_from_numpy(x)
+                            res = client.infer(
+                                "llama_decode", [inp], sequence_id=sid,
+                                sequence_start=i == 0,
+                                sequence_end=i == CF_TOKENS - 1)
+                            got.append((i, res))
+                            x = np.array([want_toks[i]], np.int32)
+                rows_np = [r.cpu().numpy() for r in want_logits]
+                errs = [abs(float(r.as_numpy("NEXT_LOGIT")[0])
+                            - float(rows_np[i].max())) for i, r in got]
+                check_tokens(f"{label} llama_decode cold, warm",
+                             [r.as_numpy("NEXT_TOKEN") for _i, r in got],
+                             [rows_np[i] for i, _r in got],
+                             SERVED_ATOL["llama_tpu", False])
+                with torch.inference_mode():
+                    controls = []
+                    for sc in CONTROL_SCALES:
+                        ctl = _cf_forced_rows(
+                            torch, control_params(torch, params[0], sc),
+                            params[1], p_dec, want_toks, dec._s_max)
+                        controls.append(max(
+                            abs(float(r.as_numpy("NEXT_LOGIT")[0])
+                                - float(ctl[i].max())) for i, r in got))
+                check_served(f"{label} llama_decode",
+                             f"NEXT_LOGIT of 2 x {CF_TOKENS} steps (cold, "
+                             "warm)", SERVED_ATOL["llama_tpu", False],
+                             max(errs), float(np.mean(errs)), controls,
+                             float(np.mean([abs(float(r.max()))
+                                            for r in rows_np])))
+                _cf_launches(label, counters)
+                rows = _cf_metrics(port, CF_CACHE_FAMILIES, "llama_decode")
+                snap = json.loads(urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/v2/debug/device_stats",
+                    timeout=60).read())["kv_cache"]["llama_decode"]
+                want_hits = 4     # the throwaway's, two streams', a sequence's
+                if (rows.get("nv_cache_hit_total") != want_hits
+                        or rows.get("nv_cache_hit_tokens_total")
+                        != 960 * want_hits
+                        or snap["hits"] != want_hits
+                        or snap["pinned_bytes"] != rows.get(
+                            "nv_cache_pinned_bytes")):
+                    fail(f"{label}: /metrics {rows}, kv_cache {snap}; "
+                         f"expected {want_hits} hits of 960 tokens")
+                per_tok = dec._kv_bytes_per_token()
+                print(f"{label}: time to the first token cold / warm: "
+                      + "; ".join(
+                          f"{s} {ttft[s, 'cold']:.3f} / {ttft[s, 'warm']:.3f}"
+                          f" ms ({ttft[s, 'cold'] / ttft[s, 'warm']:.2f}x)"
+                          for s in ("http sse", "grpc-web"))
+                      + f"; hit 960 of {CF_PROMPT_LEN} tokens; /metrics "
+                      f"{rows}; kv_cache {snap}; {per_tok} bytes a token "
+                      f"projected; {CARD}", flush=True)
+        finally:
+            dec._shutdown()
+
+
+def _cf_kv8_steps(torch, decode, params, cfg, win, k, v, toks):
+    """Teacher-forced slot steps on one slot's cache ``k`` / ``v`` (bf16
+    or an int8 pair), fed ``toks``: each step's logits row."""
+    blocks = decode._layer_blocks(params, cfg)
+    dev = win.device
+    rows = []
+    for i, tok in enumerate(toks):
+        pos = torch.tensor([win.shape[1] + i], dtype=torch.int32, device=dev)
+        act = torch.ones(1, dtype=torch.bool, device=dev)
+        t = torch.tensor([tok], dtype=torch.int32, device=dev)
+        k, v, logits = decode._slot_forward(params, blocks, k, v, t, pos,
+                                            act, cfg)
+        rows.append(logits[0].float())
+    return torch.stack(rows)
+
+
+def _cf_int8(torch, params, chains, prompts, counters) -> None:
+    """TRITON_TPU_KV_QUANT=int8, batched, 8 slots: the slab's bytes by
+    ``torch.cuda.memory_allocated`` against ``_kv_bytes_per_token``'s
+    projection; CF_KV8_STEPS teacher-forced steps over an int8 cache
+    against a bf16 one (NEXT_LOGIT within CF_KV8_ATOL, tokens equal or a
+    near tie), beside the controls; 8 served streams at once, each held
+    to the bf16 chain at that bound."""
+    import numpy as np
+
+    from triton_client_tpu_torch.models import decode
+
+    label = "cache int8 kv"
+    p, cfg = params
+    with _cf_env(TRITON_TPU_DECODE_MODE="batched",
+                 TRITON_TPU_DECODE_SLOTS=GEN_SLOTS,
+                 TRITON_TPU_KV_QUANT="int8"):
+        dec = decode.DecodeModel(device=GEN_DEVICE)
+        dec._params = params
+        gen_model = decode.make_llama_generate(dec)
+        try:
+            if GEN_DEVICE == "cuda":
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+            dec._ensure_fns()
+            if GEN_DEVICE == "cuda":
+                torch.cuda.synchronize()
+                grown = torch.cuda.memory_allocated() - before
+            else:
+                grown = float("nan")
+            exact = sum(t.numel() * t.element_size()
+                        for c in dec._k + dec._v for t in c.values())
+            tokens = sum(cnt * cap for cnt, cap in dec._buckets)
+            per_tok = dec._kv_bytes_per_token()
+            if dec._k[0]["q"].dtype != torch.int8:
+                fail(f"{label}: the slab is not int8")
+            print(f"{label}: slab of {tokens} token positions: "
+                  f"torch.cuda.memory_allocated grew {grown} bytes "
+                  f"({grown / tokens:.1f} a token); the pairs hold {exact} "
+                  f"({exact // tokens} a token); _kv_bytes_per_token "
+                  f"projects {per_tok} a token ({tokens * per_tok} bytes), "
+                  f"{exact / (tokens * per_tok):.5f}x of it; bf16 would be "
+                  f"{2 * per_tok}; {CARD}", flush=True)
+            prompt = prompts[0]
+            with torch.inference_mode():
+                win = _gen_window(torch, prompt)
+                want, _logits = chains[prompt]
+                feed = want[:CF_KV8_STEPS]
+                kb, vb = (torch.zeros((cfg.n_layers, 1, cfg.n_heads,
+                                       GEN_S_MAX, cfg.head_dim),
+                                      dtype=cfg.dtype, device=GEN_DEVICE)
+                          for _ in range(2))
+                k8, v8 = dec._new_cache_arrays(1, GEN_S_MAX, cfg)
+                pre = decode.make_slot_prefill(cfg)
+                _, bb, _, kb, vb = pre(p, kb, vb, win, 0)
+                _, b8, _, k8, v8 = pre(p, k8, v8, win, 0)
+                k8c = {n: t.clone() for n, t in k8.items()}
+                v8c = {n: t.clone() for n, t in v8.items()}
+                ref = _cf_kv8_steps(torch, decode, p, cfg, win, kb, vb, feed)
+                got = _cf_kv8_steps(torch, decode, p, cfg, win, k8, v8, feed)
+                err = (got.amax(-1) - ref.amax(-1)).abs().cpu().numpy()
+                controls = []
+                for sc in CONTROL_SCALES:
+                    kc = {"q": k8c["q"].clone(), "s": k8c["s"] * sc}
+                    vc = {"q": v8c["q"].clone(), "s": v8c["s"] * sc}
+                    ctl = _cf_kv8_steps(torch, decode, p, cfg, win, kc, vc,
+                                        feed)
+                    controls.append(float(
+                        (ctl.amax(-1) - ref.amax(-1)).abs().max()))
+                plain = list(ref.cpu().numpy())
+            caught = [s for s, c in zip(CONTROL_SCALES, controls)
+                      if c > CF_KV8_ATOL]
+            print(f"{label}: NEXT_LOGIT of prefill ({abs(float(b8 - bb)):.3e})"
+                  f" + {CF_KV8_STEPS} steps, int8 KV vs bf16 KV: max_abs_err "
+                  f"{float(err.max()):.3e} (atol {CF_KV8_ATOL}), mean "
+                  f"{float(err.mean()):.3e}; controls (k and v scales x"
+                  + ", x".join(f"{s}: {c:.3e}"
+                               for s, c in zip(CONTROL_SCALES, controls))
+                  + f"), caught from x{caught[0] if caught else None}; "
+                  f"{CARD}", flush=True)
+            if not err.max() <= CF_KV8_ATOL:
+                fail(f"{label}: int8 KV's NEXT_LOGIT beyond {CF_KV8_ATOL}")
+            if not controls[-1] > CF_KV8_ATOL:
+                fail(f"{label}: the control x{CONTROL_SCALES[-1]} reads "
+                     f"{controls[-1]:.3e}, within the bound")
+            check_tokens(f"{label} steps", [int(r.argmax()) for r in
+                                            got.cpu().numpy()], plain,
+                         CF_KV8_ATOL)
+            with serving_harness([dec.model, gen_model]) as harness:
+                port = harness.http_port
+                _sse_stream(port, b"warm-up", 2)
+                _reset(counters)
+                results = [None] * GEN_STREAMS
+                errors = []
+
+                def run(i):
+                    try:
+                        results[i] = _sse_stream(port, prompts[i],
+                                                 CF_KV8_TOKENS)
+                    except BaseException as e:  # reported below
+                        errors.append(repr(e))
+
+                threads = [threading.Thread(target=run, args=(i,))
+                           for i in range(GEN_STREAMS)]
+                t0 = time.perf_counter()
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=600)
+                wall = time.perf_counter() - t0
+                if errors or any(r is None for r in results):
+                    fail(f"{label}: streams failed: {errors}")
+                equal = sum(_gen_near_ties(f"{label} served", torch, dec,
+                                           chains, prompts[i], r[0],
+                                           atol=CF_KV8_ATOL)
+                            for i, r in enumerate(results))
+                _cf_launches(label, counters)
+                print(f"{label}: {GEN_STREAMS} x {CF_KV8_TOKENS} tokens in "
+                      f"{wall:.3f} s, {GEN_STREAMS * CF_KV8_TOKENS / wall:.2f}"
+                      f" tokens/s together; {equal} of {GEN_STREAMS} equal "
+                      f"to the bf16 chain (the rest part at a near tie "
+                      f"within {CF_KV8_ATOL}); {CARD}", flush=True)
+        finally:
+            dec._shutdown()
+
+
+def _cf_device_stall(torch, seconds: float) -> None:
+    """Queue a kernel that spins ``seconds`` of SM clocks on the current
+    stream (the decode worker's too): a real wedge of the card."""
+    torch.cuda._sleep(int(seconds * SM_CLOCK_HZ))
+
+
+def _cf_ready(port: int, model: str):
+    """Model readiness over HTTP and over gRPC-Web."""
+    from triton_client_tpu_torch import grpc
+
+    try:
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/v2/models/{model}/ready",
+                timeout=60) as r:
+            http_ready = r.status == 200
+    except urllib.error.HTTPError:
+        http_ready = False
+    with grpc.InferenceServerClient(f"127.0.0.1:{port}") as c:
+        return http_ready, c.is_model_ready(model)
+
+
+def _cf_refusals(label, port: int, prompt: bytes) -> str:
+    """A quarantined model's refusals: llama_decode over HTTP (503,
+    Retry-After, the marker the retry layer reads) and over gRPC-Web
+    (UNAVAILABLE), and a generate_stream (503)."""
+    import numpy as np
+
+    from triton_client_tpu_torch import grpc, http
+    from triton_client_tpu_torch._resilience import is_quarantine_error
+
+    x = np.frombuffer(prompt, np.uint8).astype(np.int32)
+    raw = json.dumps({"inputs": [{"name": "TOKENS", "shape": [len(x)],
+                                  "datatype": "INT32",
+                                  "data": x.tolist()}],
+                      "parameters": {"sequence_id": 77,
+                                     "sequence_start": True,
+                                     "sequence_end": True}}).encode()
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v2/models/llama_decode/infer", data=raw,
+        headers={"Content-Type": "application/json"})
+    try:
+        urllib.request.urlopen(req, timeout=60)
+        fail(f"{label}: a quarantined llama_decode answered 200")
+    except urllib.error.HTTPError as e:
+        status, retry_after, body = e.code, e.headers.get("Retry-After"), \
+            e.read().decode()
+    if status != 503 or retry_after is None or "quarantined" not in body:
+        fail(f"{label}: HTTP refusal {status}, Retry-After {retry_after}, "
+             f"{body}")
+    with http.InferenceServerClient(f"127.0.0.1:{port}") as c:
+        inp = http.InferInput("TOKENS", [len(x)], "INT32")
+        inp.set_data_from_numpy(x)
+        try:
+            c.infer("llama_decode", [inp], sequence_id=78,
+                    sequence_start=True, sequence_end=True)
+            fail(f"{label}: a quarantined llama_decode answered")
+        except Exception as e:  # noqa: BLE001 - classified below
+            if not is_quarantine_error(e):
+                fail(f"{label}: the port's HTTP client read {e!r}, not a "
+                     "quarantine refusal")
+    with grpc.InferenceServerClient(f"127.0.0.1:{port}") as c:
+        inp = grpc.InferInput("TOKENS", [len(x)], "INT32")
+        inp.set_data_from_numpy(x)
+        try:
+            c.infer("llama_decode", [inp], sequence_id=79,
+                    sequence_start=True, sequence_end=True)
+            fail(f"{label}: a quarantined llama_decode answered on gRPC")
+        except Exception as e:  # noqa: BLE001 - classified below
+            if not is_quarantine_error(e) or \
+                    e.status() != "StatusCode.UNAVAILABLE":
+                fail(f"{label}: gRPC-Web refusal {e!r}")
+    sse = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v2/models/llama_generate/generate_stream",
+        data=json.dumps({"text_input": "x", "max_tokens": 2}).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        urllib.request.urlopen(sse, timeout=60)
+        fail(f"{label}: a quarantined llama_generate streamed")
+    except urllib.error.HTTPError as e:
+        if e.code != 503:
+            fail(f"{label}: generate_stream refusal {e.code}")
+    return f"HTTP 503 Retry-After {retry_after} s, gRPC-Web UNAVAILABLE"
+
+
+def _cf_wait(pred, timeout_s: float, what: str) -> float:
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > timeout_s:
+            fail(f"timed out after {timeout_s} s waiting for {what}")
+        time.sleep(0.005)
+    return time.perf_counter()
+
+
+def _cf_faults(torch, params, chains, prompts, counters) -> None:
+    """Device faults on llama 1b, batched, 8 slots, over one server: a
+    persistent device_error at threshold 3 (quarantine: 503 with pushback
+    and the marker, not ready on both frontends; then the core's probe
+    releases it), a seeded transient device_error against live streams
+    (zero caller errors, every stream recovered, no quarantine), and a
+    real stall of the card under --tick-stall-ms (quarantined while stuck,
+    released once it drains)."""
+    import numpy as np
+
+    from triton_client_tpu_torch.models import decode
+    from triton_client_tpu_torch.server.chaos import ChaosInjector
+
+    label = "faults"
+    with _cf_env(TRITON_TPU_DECODE_MODE="batched",
+                 TRITON_TPU_DECODE_SLOTS=GEN_SLOTS):
+        dec = decode.DecodeModel(device=GEN_DEVICE)
+        dec._params = params
+        gen_model = decode.make_llama_generate(dec)
+        stall = decode.DecodeModel(name="llama_decode_stall",
+                                   device=GEN_DEVICE)
+        stall._params = params
+        stall_gen = decode.GenerateModel(stall, name="llama_generate_stall")
+    try:
+        with serving_harness([dec.model, gen_model, stall.model,
+                              stall_gen.model]) as harness:
+            port, core = harness.http_port, harness.core
+            faults = core.device_faults
+            faults.threshold, faults.window_s = 3, 30.0
+            faults.probe_backoff_s = CF_PROBE_BACKOFF_S
+            _sse_stream(port, b"warm-up", 2)
+            with _cf_env(TRITON_TPU_TICK_STALL_MS=CF_STALL_MS):
+                _sse_stream(port, b"warm-up", 2,
+                            model="llama_generate_stall")
+            _reset(counters)
+
+            # -- persistent: three faults in the window ------------------
+            core.chaos = ChaosInjector(rate=1.0, kinds=["device_error"],
+                                       seed=7, max_faults=3,
+                                       models=["llama_decode"])
+            t0 = time.perf_counter()
+            toks, _times = _sse_stream(port, prompts[0], 16)
+            _gen_near_ties(f"{label} persistent", torch, dec, chains,
+                           prompts[0], toks)
+            if not (faults.is_quarantined("llama_decode")
+                    and faults.is_quarantined("llama_generate")):
+                fail(f"{label}: three faults did not quarantine "
+                     f"{faults.snapshot()}")
+            ready = [_cf_ready(port, m) for m in ("llama_decode",
+                                                  "llama_generate")]
+            if any(any(r) for r in ready):
+                fail(f"{label}: quarantined but ready {ready}")
+            refused = _cf_refusals(label, port, prompts[1])
+            snap = faults.snapshot()
+            t_rel = _cf_wait(lambda: not any(
+                faults.is_quarantined(m) for m in ("llama_decode",
+                                                   "llama_generate")),
+                30.0, "the probe's release")
+            ready_after = [_cf_ready(port, m) for m in ("llama_decode",
+                                                        "llama_generate")]
+            if not all(all(r) for r in ready_after):
+                fail(f"{label}: released but not ready {ready_after}")
+            print(f"{label} persistent: {snap['faults']}; quarantined "
+                  f"(reason {snap['quarantined']['llama_decode']['reason']!r}"
+                  f"); stream of 16 tokens recovered, zero errors; ready "
+                  f"false on HTTP and gRPC-Web; refused: {refused}; the "
+                  f"probe released both names {t_rel - t0:.3f} s after the "
+                  f"stream began (first probe {CF_PROBE_BACKOFF_S} s after "
+                  f"the quarantine); ready again on both; {CARD}",
+                  flush=True)
+
+            # -- transient: one fault against live streams ---------------
+            core.chaos = None
+            dec.attach_chaos(None)
+            results = [None] * CF_DRILL_STREAMS
+            errors = []
+
+            def run(i):
+                try:
+                    results[i] = _sse_stream(port, prompts[i],
+                                             CF_DRILL_TOKENS)
+                except BaseException as e:  # reported below
+                    errors.append(repr(e))
+
+            threads = [threading.Thread(target=run, args=(i,))
+                       for i in range(CF_DRILL_STREAMS)]
+            recovered0 = faults.snapshot()["recovered"].get("llama_decode", 0)
+            for t in threads:
+                t.start()
+            _cf_wait(lambda: len(dec._auto_slots) == CF_DRILL_STREAMS
+                     and all(len(i["sink"].emitted) >= 2
+                             for i in list(dec._auto_slots.values())),
+                     60.0, "every stream live")
+            inj = ChaosInjector(rate=1.0, kinds=["device_error"], seed=11,
+                                max_faults=1, models=["llama_decode"])
+            core.chaos = inj
+            dec.attach_chaos(inj)
+            for t in threads:
+                t.join(timeout=600)
+            if errors or any(r is None for r in results):
+                fail(f"{label} transient: caller errors {errors}")
+            snap = faults.snapshot()
+            recovered = snap["recovered"].get("llama_decode", 0) - recovered0
+            if inj.injected_total != 1 or recovered < 1 or \
+                    faults.is_quarantined("llama_decode"):
+                fail(f"{label} transient: injected {inj.injected_total}, "
+                     f"recovered {recovered}, {snap}")
+            equal = sum(_gen_near_ties(f"{label} transient", torch, dec,
+                                       chains, prompts[i], r[0])
+                        for i, r in enumerate(results))
+            gaps = [np.diff(r[1]) for r in results]
+            worst = [1e3 * float(g.max()) for g in gaps]
+            typical = 1e3 * float(np.median(np.concatenate(gaps)))
+            rows = _cf_metrics(port, CF_FAULT_FAMILIES, "llama_decode")
+            print(f"{label} transient: {CF_DRILL_STREAMS} live streams x "
+                  f"{CF_DRILL_TOKENS} tokens, one device_error: zero caller "
+                  f"errors, {recovered} recovered, not quarantined; {equal} "
+                  f"of {CF_DRILL_STREAMS} equal to the chain (the rest part "
+                  f"at a near tie); the longest gap between two tokens per "
+                  f"stream {', '.join(f'{w:.1f}' for w in worst)} ms "
+                  f"against a median gap of {typical:.2f} ms; /metrics "
+                  f"{rows}; {CARD}", flush=True)
+            core.chaos = None
+            dec.attach_chaos(None)
+
+            # -- a real stall of the card --------------------------------
+            faults.probe_backoff_s = 0.05
+            out = {}
+
+            def stalled():
+                try:
+                    out["stream"] = _sse_stream(
+                        port, prompts[2], CF_TOKENS,
+                        model="llama_generate_stall")
+                except BaseException as e:  # reported below
+                    out["error"] = repr(e)
+
+            t0 = time.perf_counter()
+            _cf_device_stall(torch, CF_STALL_S)
+            th = threading.Thread(target=stalled)
+            th.start()
+            t_q = _cf_wait(lambda: faults.is_quarantined(
+                "llama_decode_stall"), 30.0, "the watchdog's quarantine")
+            stuck = th.is_alive()
+            ready = [_cf_ready(port, m) for m in ("llama_decode_stall",
+                                                  "llama_generate_stall")]
+            reason = faults.snapshot()["quarantined"].get(
+                "llama_decode_stall", {}).get("reason", "")
+            t_r = _cf_wait(lambda: not any(
+                faults.is_quarantined(m) for m in ("llama_decode_stall",
+                                                   "llama_generate_stall")),
+                30.0, "the release after the stall")
+            th.join(timeout=120)
+            if "error" in out or "stream" not in out:
+                fail(f"{label} stall: the stalled stream failed: {out}")
+            _gen_near_ties(f"{label} stall", torch, stall, chains,
+                           prompts[2], out["stream"][0])
+            if not stuck or any(any(r) for r in ready) or \
+                    "cannot be killed" not in reason:
+                fail(f"{label} stall: stuck {stuck}, ready {ready}, "
+                     f"reason {reason!r}")
+            if t_r - t0 < 0.8 * CF_STALL_S:
+                fail(f"{label} stall: released {t_r - t0:.3f} s in, before "
+                     f"the {CF_STALL_S} s stall drained")
+            if faults.is_quarantined("llama_decode"):
+                fail(f"{label} stall: the other model was quarantined")
+            _cf_launches(label, counters)
+            print(f"{label} stall: the card slept {CF_STALL_S} s "
+                  f"(torch.cuda._sleep) ahead of a stream's prefill; "
+                  f"quarantined {t_q - t0:.3f} s in (--tick-stall-ms "
+                  f"{CF_STALL_MS}) while stuck, not ready on both frontends; "
+                  f"released by the probe {t_r - t0:.3f} s in, once the "
+                  f"card drained; the stream finished with its tokens; "
+                  f"{CARD}", flush=True)
+    finally:
+        dec._shutdown()
+        stall._shutdown()
+
+
+def cache_faults_phase(torch, counters) -> None:
+    """The prefix/KV cache, int8 KV and device-fault containment on llama
+    1b (the generation phase's weights, chains and prompts): cold and warm
+    1,024-token prompts, an int8-KV cohort of 8 slots, and the three fault
+    drills.  No kernel of the port runs here."""
+    params = GEN_SHARED.pop("params")
+    chains = GEN_SHARED.pop("chains")
+    prompts = GEN_SHARED.pop("prompts")
+    try:
+        for step, fn, args in (
+                ("prefix cache", _cf_prefix, (torch, params, counters)),
+                ("int8 kv", _cf_int8, (torch, params, chains, prompts,
+                                       counters)),
+                ("device faults", _cf_faults, (torch, params, chains,
+                                               prompts, counters))):
+            t0 = time.perf_counter()
+            fn(*args)
+            gc.collect()
+            print(f"cache and faults: {step} took "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        del params
+        gc.collect()
+        if GEN_DEVICE == "cuda":
+            torch.cuda.empty_cache()
 
 
 def _signature_of(harness, model, x):
@@ -3895,6 +4597,8 @@ def main() -> int:
     except (IndexError, ValueError):
         fail(f"nvidia-smi gave no SM clock: {clock.stdout!r} "
              f"{clock.stderr.strip()}")
+    global SM_CLOCK_HZ
+    SM_CLOCK_HZ = sm_clock_hz
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}",
           flush=True)
@@ -3989,6 +4693,8 @@ def main() -> int:
                             (torch, counters)),
                            ("overload", overload_phase, (torch, counters)),
                            ("generation", generation_phase,
+                            (torch, counters)),
+                           ("cache and faults", cache_faults_phase,
                             (torch, counters))):
         t0 = time.perf_counter()
         fn(*args)
@@ -4004,6 +4710,7 @@ def main() -> int:
     paths.update(OBS_PATHS)
     paths.update(OVERLOAD_PATHS)
     paths.update(GEN_PATHS)
+    paths.update(CF_PATHS)
     for path, launches in paths.items():
         print(f"launches on {path}: flash_attention "
               f"{launches['flash_attention']}, int8_matmul "

@@ -19,8 +19,15 @@ packages in f32.  Held to rtol / atol 2e-4 on logits, as
   against the reference's int8 decode to 2e-4, and against fp to
   ``tests/test_decode.py``'s own bounds.
 
+Int8 KV (``TRITON_TPU_KV_QUANT=int8``): ``_kv_quantize`` bit for bit
+against the reference's eager call; the slot prefill, chunked prefill and
+steps over int8 cache pairs against the reference's, and both served
+models, within the bounds stated in ``KV8_*`` before they were measured;
+the slab's bytes against the projection.
+
 Beside: the readback pair on the CPU, the bucket and step knobs against
-the reference's parsing, and the refusal of what is not ported (int8 KV).
+the reference's parsing, and the refusal of int8 KV in independent mode
+and of unknown values.
 The served models are held in ``tests/test_torch_decode_models.py``.
 """
 
@@ -417,6 +424,218 @@ def test_int8_decode_matches_reference_and_tracks_fp(model):
 
 
 # ---------------------------------------------------------------------------
+# int8 KV
+# ---------------------------------------------------------------------------
+
+#: int8 KV against the reference's int8 KV, on the CPU in f32 (stated
+#: before it was measured): the reference quantizes inside ``jit``, where
+#: XLA may turn ``a / 127`` into a multiply, so a code may differ by one
+#: on at most 1% of the entries; logits within 5e-3 and tokens equal.
+KV8_CODE_FLIPS = 0.01
+KV8_ATOL = 5e-3
+
+
+def _kv_inputs(seed, shape, dtype):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape).astype(np.float32) * 3
+    x[..., 0, :] = 0.0                      # all-zero vectors: scale 1
+    x[..., 1, :3] = [127.0, -63.5, 0.5]     # ties at half a step
+    x[..., 1, 3:] = 0.0
+    return x.astype(dtype)
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 16), (3, 2, 5, 128), (1, 7, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kv_quantize_bit_exact_against_reference(shape, dtype):
+    """The same inputs through both packages' eager ``_kv_quantize``: the
+    codes and the scales bit for bit (a true divide, round half to even,
+    scale 1 where a vector is all zeros)."""
+    x = _kv_inputs(sum(shape), shape, np.float32)
+    if dtype == "bfloat16":
+        jx = jnp.asarray(x).astype(jnp.bfloat16)
+        tx = torch.from_numpy(x).to(torch.bfloat16)
+    else:
+        jx, tx = jnp.asarray(x), torch.from_numpy(x)
+    jq, js = jdec._kv_quantize(jx)
+    tq, ts = tdec._kv_quantize(tx)
+    assert tq.dtype == torch.int8 and ts.dtype == torch.float32
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy().view(np.uint32),
+                                  np.asarray(js).view(np.uint32))
+    assert float(ts[(0,) * (len(shape) - 2) + (0,)].max()) == 1.0
+
+
+def _int8_caches_both(cfg_t, jcfg, n=N_SLOTS, s=S_MAX):
+    shape = (jcfg.n_layers, n, jcfg.n_heads, s, jcfg.head_dim)
+
+    def j():
+        return {"q": jnp.zeros(shape, jnp.int8),
+                "s": jnp.ones(shape[:-1], jnp.float32)}
+
+    def t():
+        return {"q": torch.zeros(shape, dtype=torch.int8),
+                "s": torch.ones(shape[:-1], dtype=torch.float32)}
+
+    return (j(), j()), (t(), t())
+
+
+def _codes_close(tc, jc):
+    d = np.abs(tc["q"].numpy().astype(np.int32)
+               - np.asarray(jc["q"]).astype(np.int32))
+    assert d.max() <= 1 and (d > 0).mean() <= KV8_CODE_FLIPS, (
+        d.max(), (d > 0).mean())
+    np.testing.assert_allclose(tc["s"].numpy(), np.asarray(jc["s"]),
+                               rtol=1e-6, atol=0)
+
+
+def test_int8_kv_slot_path_matches_reference(dense):
+    """Slot prefill, chunked prefill and slot steps over int8 cache pairs,
+    against the reference's jitted functions on the same pairs: codes,
+    scales, logits and tokens within KV8_*."""
+    jcfg, tcfg, jp, tp = dense
+    (jk, jv), (tk, tv) = _int8_caches_both(tcfg, jcfg, n=4)
+    toks = _tokens(21, (1, 8))
+    jn, jb, _jl, jk, jv = jdec.make_slot_prefill(jcfg)(
+        jp, jk, jv, jnp.asarray(toks), 1)
+    tn, tb, _tl, tk, tv = tdec.make_slot_prefill(tcfg)(
+        tp, tk, tv, torch.from_numpy(toks), 1)
+    assert int(tn) == int(jn)
+    np.testing.assert_allclose(float(tb), float(jb), atol=KV8_ATOL, rtol=0)
+    _codes_close(tk, jk)
+    _codes_close(tv, jv)
+    # a chunked prefill of another slot attends over quantized chunks
+    chunk_j = jdec.make_slot_chunk_prefill(jcfg, S_MAX)
+    chunk_t = tdec.make_slot_chunk_prefill(tcfg, S_MAX)
+    for pos0 in (0, 4):
+        c = toks[:, pos0:pos0 + 4]
+        jn, jb, _jl, jk, jv = chunk_j(jp, jk, jv, jnp.asarray(c), 2, pos0)
+        tn, tb, _tl, tk, tv = chunk_t(tp, tk, tv, torch.from_numpy(c), 2,
+                                      pos0)
+    assert int(tn) == int(jn)
+    np.testing.assert_allclose(float(tb), float(jb), atol=KV8_ATOL, rtol=0)
+    # steps: slots 1 and 2 active at position 8, fed their own tokens
+    jstep, tstep = jdec.make_slot_step(jcfg), tdec.make_slot_step(tcfg)
+    tok = np.array([0, int(tn), int(tn), 0], np.int32)
+    pos = np.array([0, 8, 8, 0], np.int32)
+    act = np.array([False, True, True, False])
+    for _ in range(4):
+        jres = jstep(jp, jk, jv, jnp.asarray(tok), jnp.asarray(tok),
+                     jnp.asarray(pos), jnp.asarray(act),
+                     jnp.zeros(4, bool))
+        tres = tstep(tp, tk, tv, torch.from_numpy(tok),
+                     torch.from_numpy(tok), torch.from_numpy(pos),
+                     torch.from_numpy(act), torch.zeros(4, dtype=torch.bool))
+        jk, jv, tk, tv = jres[3], jres[4], tres[3], tres[4]
+        assert tres[0].numpy()[act].tolist() == \
+            np.asarray(jres[0])[act].tolist()
+        np.testing.assert_allclose(_np(tres[1])[act],
+                                   np.asarray(jres[1])[act],
+                                   atol=KV8_ATOL, rtol=0)
+        tok = np.where(act, np.asarray(jres[0]), tok).astype(np.int32)
+        pos = pos + act
+    _codes_close(tk, jk)
+
+
+def _f32_tiny_preset(monkeypatch):
+    from triton_client_tpu.models import language as jlang
+    from triton_client_tpu_torch.models import language as tlang
+
+    for presets, dtype in ((jlang._LLAMA_PRESETS, jnp.float32),
+                           (tlang._LLAMA_PRESETS, torch.float32)):
+        monkeypatch.setitem(presets, "tiny", dataclasses.replace(
+            presets["tiny"], dtype=dtype))
+    monkeypatch.setenv("TRITON_TPU_LLAMA_PRESET", "tiny")
+    monkeypatch.setenv("TRITON_TPU_DECODE_MODE", "batched")
+    monkeypatch.setenv("TRITON_TPU_DECODE_SLOTS", "4")
+    for var in ("TRITON_TPU_DECODE_BUCKETS", "TRITON_TPU_PREFILL_CHUNK",
+                "TRITON_TPU_KV_CACHE_BYTES", "TRITON_TPU_DECODE_STEPS"):
+        monkeypatch.delenv(var, raising=False)
+    jp = jtr.init_params(jax.random.PRNGKey(3), jlang._LLAMA_PRESETS["tiny"])
+    return {k: np.asarray(v) for k, v in jp.items()}
+
+
+def _gen_tokens(gen_model, prompt, n):
+    return [int(f["token_id"][0]) for f in gen_model._generate(
+        {"text_input": np.array([prompt], object)}, {"max_tokens": n})]
+
+
+@pytest.mark.parametrize("chunk", ["0", "32"])
+def test_int8_kv_models_match_reference_and_track_fp(monkeypatch, chunk):
+    """``TRITON_TPU_KV_QUANT=int8`` served in batched mode by both
+    packages (tiny preset, f32, the reference's weights): the cache is an
+    int8 pair, generated tokens equal the reference's, NEXT_LOGIT within
+    KV8_ATOL of the reference's int8 path, and tokens equal the port's fp
+    cache's (the reference's own claim for this preset) with NEXT_LOGIT
+    within its 5e-2."""
+    params = _f32_tiny_preset(monkeypatch)
+    monkeypatch.setenv("TRITON_TPU_PREFILL_CHUNK", chunk)
+    win = np.zeros((128,), np.int32)
+    win[-5:] = [7, 11, 13, 17, 19]
+    seq = {"sequence_id": 9301, "sequence_start": True,
+           "sequence_end": True}
+    out = {}
+    for quant in ("int8", None):
+        if quant:
+            monkeypatch.setenv("TRITON_TPU_KV_QUANT", quant)
+        else:
+            monkeypatch.delenv("TRITON_TPU_KV_QUANT", raising=False)
+        tag = f"kv{quant or 'fp'}{chunk}"
+        t = tdec.DecodeModel(name=f"llama_decode_{tag}", device="cpu",
+                             params=params)
+        j = jdec.DecodeModel(name=f"llama_decode_{tag}") if quant else None
+        try:
+            tg = tdec.GenerateModel(t, name=f"llama_generate_{tag}")
+            got = (_gen_tokens(tg, b"kv quant check", 8),
+                   t._execute({"TOKENS": win}, dict(seq)))
+            if quant:
+                k0 = t._k[0]
+                assert isinstance(k0, dict)
+                assert k0["q"].dtype == torch.int8
+                assert k0["s"].dtype == torch.float32
+                assert k0["q"].shape[:-1] == k0["s"].shape
+                jg = jdec.GenerateModel(j, name=f"llama_generate_{tag}")
+                want = (_gen_tokens(jg, b"kv quant check", 8),
+                        j._execute({"TOKENS": win}, dict(seq)))
+                assert got[0] == want[0]
+                assert got[1]["NEXT_TOKEN"][0] == want[1]["NEXT_TOKEN"][0]
+                np.testing.assert_allclose(got[1]["NEXT_LOGIT"],
+                                           want[1]["NEXT_LOGIT"],
+                                           atol=KV8_ATOL, rtol=0)
+            out[quant] = got
+        finally:
+            t._shutdown()
+            if j is not None:
+                j._shutdown()
+    assert out["int8"][0] == out[None][0]
+    assert out["int8"][1]["NEXT_TOKEN"][0] == out[None][1]["NEXT_TOKEN"][0]
+    np.testing.assert_allclose(out["int8"][1]["NEXT_LOGIT"],
+                               out[None][1]["NEXT_LOGIT"], rtol=0.05,
+                               atol=0.05)
+
+
+def test_int8_kv_slab_bytes_and_projection(monkeypatch):
+    """The int8 slab's bytes against ``_kv_bytes_per_token``'s projection:
+    the reference's formula leaves out the f32 scales (4 bytes per head,
+    position and k or v), so the slab holds (K + 4) / K of it."""
+    params = _f32_tiny_preset(monkeypatch)
+    monkeypatch.setenv("TRITON_TPU_KV_QUANT", "int8")
+    t = tdec.DecodeModel(name="llama_decode_kvbytes", device="cpu",
+                         params=params)
+    try:
+        t._ensure_fns()
+        _, cfg = t._params
+        slab = sum(x.numel() * x.element_size()
+                   for c in t._k + t._v for x in c.values())
+        tokens = sum(cnt * cap for cnt, cap in t._buckets)
+        per_tok = t._kv_bytes_per_token()
+        assert per_tok == cfg.n_layers * 2 * cfg.n_heads * cfg.head_dim
+        assert slab == tokens * per_tok * (cfg.head_dim + 4) \
+            // cfg.head_dim
+    finally:
+        t._shutdown()
+
+
+# ---------------------------------------------------------------------------
 # readback pair, knobs
 # ---------------------------------------------------------------------------
 
@@ -463,9 +682,14 @@ def test_decode_steps_knob_as_reference(monkeypatch, value):
 
 
 def test_int8_kv_and_unknown_modes_refused(monkeypatch):
+    # int8 KV serves in batched mode only, as in the reference
+    monkeypatch.setenv("TRITON_TPU_DECODE_MODE", "independent")
     monkeypatch.setenv("TRITON_TPU_KV_QUANT", "int8")
-    with pytest.raises(ValueError, match="A7b"):
+    with pytest.raises(ValueError, match="requires.*batched"):
         tdec.DecodeModel(device="cpu")
+    with pytest.raises(ValueError, match="requires.*batched"):
+        jdec.DecodeModel(name="llama_decode_kvbad")
+    monkeypatch.delenv("TRITON_TPU_DECODE_MODE")
     monkeypatch.setenv("TRITON_TPU_KV_QUANT", "fp4")
     with pytest.raises(ValueError, match="expected 'int8' or unset"):
         tdec.DecodeModel(device="cpu")

@@ -231,3 +231,55 @@ def test_metrics_port_serves_metrics_and_debug_only(scraped):
         srv.shutdown()
         srv.server_close()
         t.join(timeout=10)
+
+
+def test_cache_and_fault_families_render_as_reference():
+    """The nine families of the prefix/KV cache and device faults: the
+    same calls on both packages' stores and fault managers give the same
+    names, types and samples on ``/metrics``."""
+    import torch
+
+    from triton_client_tpu.server import kvcache as jkv
+    from triton_client_tpu_torch.server import kvcache as tkv
+
+    names = ("nv_cache_hit_total", "nv_cache_miss_total",
+             "nv_cache_evict_total", "nv_cache_hit_tokens_total",
+             "nv_cache_pinned_bytes", "nv_device_fault_total",
+             "nv_device_recovered_sequences_total",
+             "nv_device_aborted_sequences_total", "nv_device_quarantine")
+    out = {}
+    for pkg, kv, leaf, harness, reg in (
+            ("port", tkv, lambda n: torch.zeros(n, dtype=torch.uint8),
+             ServerHarness, ModelRegistry),
+            ("jax", jkv, lambda n: np.zeros(n, np.uint8), JaxHarness,
+             JaxRegistry)):
+        store = kv.for_model("metrics_kv_m", budget_bytes=40,
+                             block_tokens=4)
+        try:
+            toks = np.arange(9, dtype=np.int32)
+            digs = store.chain_digests(toks)
+            for i, d in enumerate(digs):
+                store.put(d, digs[i - 1] if i else b"", leaf(8), leaf(8))
+            _hit, blocks, _ = store.match(toks)
+            store.release(blocks)
+            store.match(np.full(9, 5, np.int32))
+            store.put(b"x", b"", leaf(8), leaf(8))
+            with harness(reg()) as h:
+                f = h.core.device_faults
+                f.record_fault("metrics_f_m", "step")
+                f.record_fault("metrics_f_m", "tick_stall",
+                               force_quarantine=True)
+                f.record_recovered("metrics_f_m", 2)
+                f.record_aborted("metrics_f_m")
+                fams = parse_prometheus(urllib.request.urlopen(
+                    f"http://{h.http_url}/metrics").read().decode())
+                f.unquarantine("metrics_f_m")
+            out[pkg] = {n: (fams[n]["type"], fams[n]["help"], sorted(
+                (sorted(lb.items()), v) for lb, v in fams[n]["samples"]
+                if lb.get("model") in ("metrics_kv_m", "metrics_f_m")))
+                for n in names}
+        finally:
+            kv.drop("metrics_kv_m")
+    assert out["port"] == out["jax"]
+    assert all(out["port"][n][2] for n in names), out["port"]
+    assert not set(names) & set(tmetrics.UNPORTED_FAMILIES)

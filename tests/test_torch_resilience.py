@@ -270,11 +270,14 @@ def test_build_injector_validates_and_refuses_unported_kinds():
             mod.build_injector(0.5, kinds_csv="explode")
         assert mod.build_injector(0.5, kinds_csv="latency, error",
                                   seed=3).kinds == ("latency", "error")
-    for kind, item in (("worker_kill", "A6b"), ("load_fail", "A3b"),
-                       ("device_error", "A7")):
+    for kind, item in (("worker_kill", "A6b"), ("load_fail", "A3b")):
         with pytest.raises(ValueError, match=f"ROADMAP {item}"):
             tchaos.build_injector(0.5, kinds_csv=f"error,{kind}")
         jchaos.build_injector(0.5, kinds_csv=f"error,{kind}")  # accepted
+    # device_error is ported: accepted by both, never drawn per request
+    for mod in (tchaos, jchaos):
+        assert mod.build_injector(0.5, kinds_csv="error,device_error",
+                                  seed=3).kinds == ("error", "device_error")
 
 
 def test_chaos_abort_is_503_infer_error():

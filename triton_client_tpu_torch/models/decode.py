@@ -34,13 +34,33 @@ mirror makes after it.  Readbacks are a non-blocking copy into pinned host
 memory plus a CUDA event (``start_readback``); ``finish_readback`` is the
 one place that waits.
 
-Not ported yet (ROADMAP A7b): the prefix/KV block cache, int8 KV
-(``TRITON_TPU_KV_QUANT``), HBM gating of admission, device-fault
-containment (recovery of a generation after a failed dispatch, the stall
-watchdog, ``device_error`` chaos).  A failed dispatch rebuilds its bucket
-and fails the generations that rode it, which is what the reference does
-when its recovery budget is spent.  Serve meshes (A8): the port is one
-device.
+The rest of the reference's serving machinery:
+
+* **int8 KV** (``TRITON_TPU_KV_QUANT=int8``, batched mode): the slot cache
+  is a ``{"q": int8, "s": f32}`` pair per bucket, quantized per vector
+  over the head dim (absmax / 127, a true divide, round half to even) and
+  dequantized at the attention.
+* **The prefix/KV block cache** (``server/kvcache.py``,
+  ``TRITON_TPU_KV_CACHE_BYTES[_<MODEL>]``): after a prefill the window's
+  complete blocks are cloned out of the slab into the store; an admission
+  whose window starts with stored blocks writes them back verbatim and
+  prefills only the tail (a chunk prefill at ``pos0`` = the hit tokens).
+  Off under int8 KV, as in the reference.
+* **HBM gating** through the memory governor's ``admit_hbm``: the slab's
+  one-time allocation in batched mode, each fresh cache in independent
+  mode (less the hit tokens), with the reference's projection
+  (:meth:`DecodeModel._kv_bytes_per_token`).
+* **Device-fault containment**: a failed dispatch (or a seeded
+  ``device_error``, which wrecks the bucket's tensors in place first) is
+  reported to the core's ``DeviceFaultManager``; the bucket is rebuilt and
+  its live generations re-admitted by re-prefilling ``prompt + emitted``
+  (``TRITON_TPU_RECOVERY_BUDGET`` attempts each, then a typed 500); a
+  bucket that cannot be rebuilt (a dead CUDA context) quarantines the model
+  and closes the worker.  The stall watchdog (``TRITON_TPU_TICK_STALL_MS``)
+  reads host timestamps of the readbacks in flight and quarantines the
+  model when one is stuck.
+
+Serve meshes (A8): the port is one device.
 """
 
 from __future__ import annotations
@@ -215,12 +235,13 @@ def _attn_out(blk, x, o):
 
 
 def _attend(q, kc, vc, valid, dtype, head_dim: int):
-    """Scores and softmax in f32 from casts of q and the keys, masked at
-    -1e30 where ``valid`` is false; the output cast to ``dtype``."""
-    s = (q.float() @ kc.float().transpose(-1, -2)) \
+    """Scores and softmax in f32 from casts of q and the keys (an int8
+    cache pair dequantized), masked at -1e30 where ``valid`` is false; the
+    output cast to ``dtype``."""
+    s = (q.float() @ _cache_read_f32(kc).transpose(-1, -2)) \
         * (1.0 / math.sqrt(head_dim))
     p = torch.softmax(torch.where(valid, s, -1e30), dim=-1)
-    return (p @ vc.float()).to(dtype)
+    return (p @ _cache_read_f32(vc)).to(dtype)
 
 
 def _prefill_layer(blk, x, cfg: tr.TransformerConfig, rope, valid):
@@ -374,27 +395,67 @@ def parse_cache_buckets(spec, n_slots: int, s_max: int, prompt_len: int):
     return out
 
 
-def _kv_quant_refused() -> None:
-    """``TRITON_TPU_KV_QUANT``: unset or ``none`` only; int8 KV is not
-    ported yet, and other values fail as in the reference."""
+def kv_quant_enabled() -> bool:
+    """``TRITON_TPU_KV_QUANT=int8`` stores the slot cache as int8 with
+    per-(head, position) scales (half bf16's bytes); unset or ``none``
+    keeps the compute dtype.  Other values fail as in the reference."""
     v = os.environ.get("TRITON_TPU_KV_QUANT", "")
     if v in ("", "none"):
-        return
+        return False
     if v == "int8":
-        raise ValueError(
-            "TRITON_TPU_KV_QUANT=int8 is not ported yet (ROADMAP A7b)")
+        return True
     raise ValueError(
         f"TRITON_TPU_KV_QUANT={v!r}: expected 'int8' or unset")
 
 
+def _kv_quantize(x):
+    """``[..., K]`` -> (int8 ``[..., K]``, f32 scale ``[...]``): symmetric
+    absmax over the head dim, scale ``a / 127`` (1 where ``a`` is 0), a
+    true divide, then ``torch.round`` (half to even, as ``jnp.round``)."""
+    xf = x.float()
+    a = xf.abs().amax(dim=-1)
+    scale = torch.where(a > 0, a / 127.0, torch.ones_like(a))
+    q = torch.round(xf / scale[..., None]).to(torch.int8)
+    return q, scale
+
+
+def _cache_read_f32(c):
+    """A cache leaf's values in f32: a tensor cast, or an int8 pair
+    ``{"q": [..., S, K], "s": [..., S]}`` dequantized."""
+    if isinstance(c, dict):
+        return c["q"].float() * c["s"][..., None]
+    return c.float()
+
+
+def _cache_at(c, idx):
+    """``c[idx]`` of a cache leaf, both tensors of an int8 pair (``idx``
+    indexes leading axes only: views, written in place)."""
+    if isinstance(c, dict):
+        return {"q": c["q"][idx], "s": c["s"][idx]}
+    return c[idx]
+
+
+def _cache_seq_len(c) -> int:
+    return (c["q"] if isinstance(c, dict) else c).shape[-2]
+
+
 def _cache_row_write(cache, new_rows, pos, active):
     """Write each slot's ``new_rows [B, H, 1, K]`` at its position ``pos
-    [B]`` of ``cache [B, H, S, K]``, keeping the current entry where the
-    slot is inactive (the reference's vmapped row write).  A position past
-    the slab (an inactive slot that reached its cap) is clamped, as
-    ``dynamic_update_slice`` clamps it; the kept entry makes it a no-op."""
-    rows = torch.arange(cache.shape[0], device=cache.device)
-    p = pos.long().clamp(0, cache.shape[2] - 1)
+    [B]`` of ``cache [B, H, S, K]`` (or its int8 pair, quantized), keeping
+    the current entry where the slot is inactive (the reference's vmapped
+    row write).  A position past the slab (an inactive slot that reached
+    its cap) is clamped, as ``dynamic_update_slice`` clamps it; the kept
+    entry makes it a no-op."""
+    ref = cache["q"] if isinstance(cache, dict) else cache
+    rows = torch.arange(ref.shape[0], device=ref.device)
+    p = pos.long().clamp(0, ref.shape[2] - 1)
+    if isinstance(cache, dict):
+        q_new, s_new = _kv_quantize(new_rows[:, :, 0])      # [B, H, K]
+        q, s = cache["q"], cache["s"]
+        q[rows, :, p] = torch.where(active[:, None, None], q_new,
+                                    q[rows, :, p])
+        s[rows, :, p] = torch.where(active[:, None], s_new, s[rows, :, p])
+        return
     cur = cache[rows, :, p]                                 # [B, H, K]
     cache[rows, :, p] = torch.where(active[:, None, None],
                                     new_rows[:, :, 0].to(cache.dtype), cur)
@@ -402,14 +463,30 @@ def _cache_row_write(cache, new_rows, pos, active):
 
 def _cache_block_write(cache, values, slot: int, pos0: int):
     """Write a ``[1, H, C, K]`` block into one slot of ``cache [B, H, S,
-    K]`` at positions ``pos0 .. pos0 + C`` (full-slot or chunked
-    prefill)."""
-    cache[slot, :, pos0:pos0 + values.shape[2]] = values[0].to(cache.dtype)
+    K]`` (or its int8 pair, quantized) at positions ``pos0 .. pos0 + C``
+    (full-slot or chunked prefill)."""
+    C = values.shape[2]
+    if isinstance(cache, dict):
+        q, s = _kv_quantize(values[0])
+        cache["q"][slot, :, pos0:pos0 + C] = q
+        cache["s"][slot, :, pos0:pos0 + C] = s
+        return
+    cache[slot, :, pos0:pos0 + C] = values[0].to(cache.dtype)
 
 
 def _cache_slot_slice(cache, slot: int):
     """One slot's ``[1, H, S, K]`` view of a ``[B, H, S, K]`` cache."""
-    return cache[slot:slot + 1]
+    return _cache_at(cache, slice(slot, slot + 1))
+
+
+def _cache_clear_tail(cache, slot: int, start: int) -> None:
+    """Zero one slot's ``[L, ., H, start:, K]`` positions (an int8 pair:
+    codes 0, scales 1, which is what quantizing zeros writes)."""
+    if isinstance(cache, dict):
+        cache["q"][:, slot, :, start:] = 0
+        cache["s"][:, slot, :, start:] = 1
+        return
+    cache[:, slot, :, start:] = 0
 
 
 def _greedy_head(logits):
@@ -460,12 +537,13 @@ def _slot_forward(params, blocks, k, v, tokens, pos, active,
     [L, B, H, S, K] written in place.  Returns (k, v, raw logits [B, V])."""
     x = _embed(params, tokens[:, None], cfg)                # [B, 1, D]
     rope = _rope_at_tables(pos, cfg.head_dim // 2, cfg.rope_theta)
-    S = k.shape[3]
+    S = _cache_seq_len(k)
     valid = (torch.arange(S, device=x.device)[None, :]
              <= pos[:, None])[:, None, None, :]             # [B, 1, 1, S]
     for layer, blk in enumerate(blocks):
-        x = _slot_decode_layer(blk, x, k[layer], v[layer], pos, active, cfg,
-                               rope, valid)
+        x = _slot_decode_layer(blk, x, _cache_at(k, layer),
+                               _cache_at(v, layer), pos, active, cfg, rope,
+                               valid)
     return k, v, _head(params, x, cfg)[:, -1]
 
 
@@ -601,7 +679,7 @@ def _fused_tick_frame(n_steps: int):
 
     def run(k, v, state, step_mask, step_tokens, extra, body_step, n_run):
         B = step_mask.shape[0]
-        S = k.shape[3]
+        S = _cache_seq_len(k)
         st = dict(state,
                   tokens=torch.where(step_mask, step_tokens,
                                      state["tokens"]),
@@ -706,10 +784,10 @@ def _prefill_slot(params, k, v, tokens, slot: int, cfg):
     valid = _causal(positions)
     for layer, blk in enumerate(_layer_blocks(params, cfg)):
         x, kl, vl = _prefill_layer(blk, x, cfg, rope, valid)
-        _cache_block_write(k[layer], kl, slot, 0)
-        _cache_block_write(v[layer], vl, slot, 0)
-    k[:, slot, :, S:] = 0
-    v[:, slot, :, S:] = 0
+        _cache_block_write(_cache_at(k, layer), kl, slot, 0)
+        _cache_block_write(_cache_at(v, layer), vl, slot, 0)
+    _cache_clear_tail(k, slot, S)
+    _cache_clear_tail(v, slot, S)
     return _head(params, x, cfg)[:, -1]
 
 
@@ -746,36 +824,114 @@ def make_slot_prefill_pen(cfg: tr.TransformerConfig):
     return prefill
 
 
+def _chunk_logits(params, k, v, chunk, slot: int, pos0: int, cfg):
+    """One chunk ``[1, C]`` of a slot's prompt at positions ``pos0 ..``:
+    its K/V written into the slot, attending to the slot's cache prefix
+    (positions < ``pos0``) and causally within itself.  Returns the raw
+    last logits ``[1, V]``."""
+    B, C = chunk.shape
+    S = _cache_seq_len(k)
+    x = _embed(params, chunk, cfg)
+    dev = x.device
+    positions = torch.arange(pos0, pos0 + C, device=dev)
+    cos, sin = _rope_tables(positions, cfg.head_dim // 2, cfg.rope_theta)
+    # [C, S]: chunk position i sees cache entries j <= pos0 + i
+    valid = torch.arange(S, device=dev)[None, :] <= positions[:, None]
+    for layer, blk in enumerate(_layer_blocks(params, cfg)):
+        kl, vl = _cache_at(k, layer), _cache_at(v, layer)
+        q, kk, vv = _project_qkv(blk, x, cfg)
+        q, kk = _rotate_qk(q, kk, cos, sin)
+        _cache_block_write(kl, kk, slot, pos0)
+        _cache_block_write(vl, vv, slot, pos0)
+        o = _attend(q, _cache_slot_slice(kl, slot),
+                    _cache_slot_slice(vl, slot), valid, x.dtype,
+                    cfg.head_dim)
+        x = _ffn(blk, _attn_out(blk, x, o), cfg)
+    return _head(params, x, cfg)[:, -1]
+
+
 def make_slot_chunk_prefill(cfg: tr.TransformerConfig, s_max: int):
     """(params, k, v, chunk [1, C], slot, pos0) -> (next token, best logit,
     logprob, k', v'): prefills one chunk of a slot's prompt.  The chunk
     attends to the cache prefix earlier chunks wrote (positions < pos0) and
     causally within itself, exactly reproducing full-prompt prefill; the
-    token is meaningful on the final chunk only."""
+    token is meaningful on the final chunk only.  A prefix-cache hit's tail
+    is one such chunk at ``pos0`` = the hit tokens."""
 
     def chunk_prefill(params, k, v, chunk, slot, pos0):
-        B, C = chunk.shape
-        S = k.shape[3]
-        x = _embed(params, chunk, cfg)
-        dev = x.device
-        positions = torch.arange(pos0, pos0 + C, device=dev)
-        rope = _rope_tables(positions, cfg.head_dim // 2, cfg.rope_theta)
-        # [C, S]: chunk position i sees cache entries j <= pos0 + i
-        valid = torch.arange(S, device=dev)[None, :] <= positions[:, None]
-        for layer, blk in enumerate(_layer_blocks(params, cfg)):
-            cos, sin = rope
-            q, kk, vv = _project_qkv(blk, x, cfg)
-            q, kk = _rotate_qk(q, kk, cos, sin)
-            _cache_block_write(k[layer], kk, slot, pos0)
-            _cache_block_write(v[layer], vv, slot, pos0)
-            o = _attend(q, _cache_slot_slice(k[layer], slot),
-                        _cache_slot_slice(v[layer], slot), valid, x.dtype,
-                        cfg.head_dim)
-            x = _ffn(blk, _attn_out(blk, x, o), cfg)
-        nxt, best, lp = _greedy_head(_head(params, x, cfg)[:, -1])
+        nxt, best, lp = _greedy_head(
+            _chunk_logits(params, k, v, chunk, slot, pos0, cfg))
         return nxt[0], best[0], lp[0], k, v
 
     return chunk_prefill
+
+
+def make_prefill_tail(cfg: tr.TransformerConfig, s_max: int):
+    """(params, k, v, tail [1, T], pos0) -> (last logits [1, V], cache):
+    completes an independent-mode prefill whose first ``pos0`` positions
+    were restored from the prefix cache into ``k`` / ``v`` ``[L, 1, H,
+    s_max, K]``.  The same math as :func:`make_slot_chunk_prefill`, and
+    :func:`make_prefill`'s ``(logits, {"k", "v", "pos"})`` contract."""
+
+    def tail(params, k, v, chunk, pos0):
+        logits = _chunk_logits(params, k, v, chunk, 0, pos0, cfg)
+        return logits, {"k": k, "v": v, "pos": pos0 + chunk.shape[1]}
+
+    return tail
+
+
+def make_cache_block_ops(block_tokens: int):
+    """``(extract, insert_run)`` of the prefix/KV block cache
+    (``server/kvcache.py``) over the ``[L, B, H, S, K]`` layout (slot
+    buckets and independent caches alike: ``slot`` indexes axis 1).
+
+    ``extract(k, v, slot, pos)`` clones one ``block_tokens``-deep block
+    into tensors of its own: the slabs are updated in place, so a view
+    would carry a later tick's write or a rebuild's wreck into the store.
+    ``insert_run(k, v, kbs, vbs, slot, pos)`` writes a matched chain of
+    stored blocks back verbatim (no quantize round trip) in one write, in
+    place, and returns ``k`` / ``v``.
+    A retired block (:func:`kvcache.retire`) is refused with a runtime
+    error before any read: reading a 0-byte storage is an out-of-bounds
+    access, not an error, so the check stands where the reference's read
+    of a deleted buffer fails."""
+    from ..server import kvcache
+
+    bt = int(block_tokens)
+
+    def _slice_one(c, slot, pos):
+        if isinstance(c, dict):
+            return {n: _slice_one(t, slot, pos) for n, t in c.items()}
+        return c[:, slot:slot + 1, :, pos:pos + bt].clone()
+
+    def _write_one(c, blk, slot, pos):
+        if isinstance(c, dict):
+            for n in c:
+                _write_one(c[n], blk[n], slot, pos)
+            return
+        c[:, slot:slot + 1, :, pos:pos + blk.shape[3]] = blk
+
+    def _concat(blks):
+        if isinstance(blks[0], dict):
+            return {n: torch.cat([b[n] for b in blks], dim=3)
+                    for n in blks[0]}
+        return torch.cat(blks, dim=3)
+
+    def _check(*leaves):
+        if kvcache.retired(*leaves):
+            raise RuntimeError(
+                "prefix cache block was retired before its insert")
+
+    def extract(k, v, slot, pos):
+        return _slice_one(k, slot, pos), _slice_one(v, slot, pos)
+
+    def insert_run(k, v, kbs, vbs, slot, pos):
+        _check(*kbs, *vbs)
+        _write_one(k, _concat(kbs), slot, pos)
+        _write_one(v, _concat(vbs), slot, pos)
+        return k, v
+
+    return extract, insert_run
 
 
 def _next_pair(logits):
@@ -847,7 +1003,12 @@ class DecodeModel:
                 "shared slot cache to bucket)")
         self._buckets = parse_cache_buckets(
             bucket_spec, n_slots, self._s_max, self._prompt_len)
-        _kv_quant_refused()
+        # int8 KV storage of the slot cache (batched mode only)
+        self._kv_quant = kv_quant_enabled()
+        if self._kv_quant and self._mode != "batched":
+            raise ValueError(
+                "TRITON_TPU_KV_QUANT requires TRITON_TPU_DECODE_MODE="
+                "batched (independent mode has no shared slot cache)")
         self._decode_steps = resolve_decode_steps()
         self._n_slots = sum(c for c, _ in self._buckets)
         self._s_max = max(cap for _, cap in self._buckets)
@@ -880,10 +1041,46 @@ class DecodeModel:
             def attach_cost_ledger(inner, ledger):
                 outer.attach_cost_ledger(ledger)
 
+            def attach_memory_governor(inner, gov):
+                outer.attach_memory_governor(gov)
+
+            def attach_device_faults(inner, mgr):
+                outer.attach_device_faults(mgr, inner.name)
+
+            def attach_chaos(inner, injector):
+                outer.attach_chaos(injector)
+
         self._model = _Impl(cfg)
         self._model.decode_model = self
         self._device_stats = None
         self._cost_ledger = None
+        # the core's MemoryGovernor: HBM gating and the slots' KV pins
+        self._memory_governor = None
+        # the core's DeviceFaultManager; the generate wrapper serves the
+        # same worker under its own name, so every alias quarantines (and
+        # a probe releases) together
+        self._fault_mgr = None
+        self._fault_names = [name]
+        # the seeded chaos injector, consulted at dispatch boundaries
+        self._chaos = None
+        # re-prefill attempts per generation before the typed 500
+        self._recovery_budget = int(os.environ.get(
+            "TRITON_TPU_RECOVERY_BUDGET", "3"))
+        # the stall watchdog (armed in _ensure_fns by
+        # TRITON_TPU_TICK_STALL_MS): readbacks in flight, by watch id, as
+        # [host start, kind, reported]
+        self._stall_s = 0.0
+        self._watch_lock = threading.Lock()
+        self._watched: Dict[int, list] = {}
+        self._watch_seq = 0
+        # slot -> the governor's KV pin handle of a busy slot
+        self._slot_kv_pin: Dict[int, int] = {}
+        # the prefix/KV block store (None: off) and its ops
+        self._kv_cache = None
+        self._cache_extract_fn = None
+        self._cache_insert_run_fn = None
+        self._cache_tail_fn = None
+        self._ind_tail_fn = None
         self._slot_tenant: Dict[int, str] = {}
         self._state: Dict[Any, Any] = {}      # seq_id -> slot or cache
         self._free = set(range(self._n_slots))
@@ -929,6 +1126,301 @@ class DecodeModel:
         each live slot's tenant an equal share of every tick's dispatch
         window and its generated tokens."""
         self._cost_ledger = ledger
+
+    def attach_memory_governor(self, gov) -> None:
+        """The serving core's ``MemoryGovernor``: slot admission gates on
+        projected KV bytes against the card's headroom (inert without a
+        card), and each admitted slot pins its KV bytes."""
+        self._memory_governor = gov
+
+    def attach_device_faults(self, mgr, name: str = None) -> None:
+        """The serving core's ``DeviceFaultManager``: every failed dispatch
+        reports a fault, every recovered generation a recovery, and the
+        manager gets :meth:`_probe_dispatch` for each alias.  ``name``
+        registers an alias (the generate wrapper's)."""
+        if name and name not in self._fault_names:
+            self._fault_names.append(name)
+        self._fault_mgr = mgr
+        for alias in self._fault_names:
+            mgr.register_probe(alias, self._probe_dispatch)
+
+    def attach_chaos(self, injector) -> None:
+        """The seeded chaos injector: the worker consults
+        ``maybe_device_fault`` at its dispatch boundaries."""
+        self._chaos = injector
+
+    def _report_fault(self, kind: str, reason: str = "",
+                      force_quarantine: bool = False) -> None:
+        """One device fault on every alias (nothing without a manager)."""
+        mgr = self._fault_mgr
+        if mgr is None:
+            return
+        for alias in self._fault_names:
+            mgr.record_fault(alias, kind, reason=reason,
+                             force_quarantine=force_quarantine)
+
+    def _report_recovered(self, n: int = 1) -> None:
+        mgr = self._fault_mgr
+        if mgr is None:
+            return
+        for alias in self._fault_names:
+            mgr.record_recovered(alias, n)
+
+    def _report_aborted(self, n: int = 1) -> None:
+        mgr = self._fault_mgr
+        if mgr is None:
+            return
+        for alias in self._fault_names:
+            mgr.record_aborted(alias, n)
+
+    def _probe_dispatch(self) -> bool:
+        """The quarantine probe: one tiny real dispatch on the model's
+        device, read back synchronously on the manager's probe thread (it
+        never touches the slot caches).  On the card it queues behind
+        whatever the device is still running, so a wedged stream releases
+        only once it drains.  An armed injector is consulted first, so a
+        seeded persistent fault fails probes until its budget runs dry."""
+        try:
+            if self._closed:
+                return False
+            chaos = self._chaos
+            if chaos is not None and chaos.maybe_device_fault(
+                    self._fault_names[0]):
+                return False
+            x = torch.ones(1, dtype=torch.int32, device=self._device) + 1
+            return int(finish_readback(start_readback(x))[0]) == 2
+        except Exception:  # noqa: BLE001 - a raising probe failed
+            return False
+
+    # -- the stall watchdog ------------------------------------------------
+    def _watch_readback(self, kind: str):
+        """Register one dispatch and its readback with the watchdog, from
+        before the dispatch is queued: the id its resolver hands to
+        :meth:`_unwatch_readback`; None when unarmed."""
+        if self._stall_s <= 0.0:
+            return None
+        with self._watch_lock:
+            self._watch_seq += 1
+            wid = self._watch_seq
+            self._watched[wid] = [time.monotonic(), kind, False]
+        return wid
+
+    def _unwatch_readback(self, wid) -> None:
+        if wid is None:
+            return
+        with self._watch_lock:
+            self._watched.pop(wid, None)
+
+    def _watchdog_loop(self) -> None:
+        """Sweep the readbacks in flight: one older than the stall bound
+        reports a ``tick_stall`` fault with forced quarantine, once.  Host
+        timestamps only (no event query, no device read): a wedged
+        dispatch cannot be killed from the host, so what the watchdog buys
+        is the quarantine (not ready, 503 with pushback) while it is
+        stuck."""
+        while not self._closed:
+            time.sleep(min(0.25, self._stall_s / 2.0))
+            now = time.monotonic()
+            stalled = []
+            with self._watch_lock:
+                for ent in self._watched.values():
+                    if not ent[2] and now - ent[0] >= self._stall_s:
+                        ent[2] = True
+                        stalled.append((ent[1], now - ent[0]))
+            for kind, age in stalled:
+                self._report_fault(
+                    "tick_stall",
+                    reason=(f"{kind} readback stalled {age * 1e3:.0f}ms "
+                            f"(tick-stall-ms={self._stall_s * 1e3:.0f}); "
+                            "a wedged device dispatch cannot be killed "
+                            "from the host — quarantining so traffic "
+                            "reroutes while it is stuck"),
+                    force_quarantine=True)
+
+    # -- device faults: injection and recovery -----------------------------
+    def _maybe_inject_device_fault(self, b: int) -> None:
+        """The ``device_error`` chaos consult at a dispatch boundary: when
+        the draw fires, wreck the bucket's cache and control tensors in
+        place (NaN, or the dtype's least integer: garbage a stale read
+        would show; the reference deletes its donated buffers) and raise
+        :class:`ChaosDeviceError`.  What follows is the real containment
+        path."""
+        chaos = self._chaos
+        if chaos is None or not chaos.maybe_device_fault(
+                self._fault_names[0]):
+            return
+        from ..server.chaos import ChaosDeviceError
+
+        def wreck(t):
+            if isinstance(t, dict):
+                for leaf in t.values():
+                    wreck(leaf)
+            elif t.is_floating_point():
+                t.fill_(float("nan"))
+            elif t.dtype == torch.bool:
+                t.fill_(True)
+            else:
+                t.fill_(torch.iinfo(t.dtype).min)
+
+        wreck(self._k[b])
+        wreck(self._v[b])
+        wreck(self._dstate[b])
+        raise ChaosDeviceError(self._fault_names[0])
+
+    def _recover_handoff(self, sink) -> None:
+        """Hand one live generation to the recovery queue after a fault
+        invalidated its bucket (worker thread).  The ``prompt + emitted``
+        snapshot is taken on the ordered gen-reader thread: every token
+        delivered before the fault has run its ``emitted.append`` there,
+        readbacks of the failed dispatch resolve (or fail, setting
+        ``sink.failed``) ahead of it, and the rebuild's generation bump
+        stops any later one, so the snapshot is the stream's state at its
+        last good dispatch."""
+        from ..server.types import InferError
+
+        def snapshot():
+            if getattr(sink, "cancelled", False):
+                self._close_decode_span(sink)
+                sink.put(None)
+                return
+            if sink.failed:
+                # a readback of the failed dispatch already surfaced the
+                # error on this stream
+                self._report_aborted()
+                return
+            st = getattr(sink, "trace", None)
+            if st is not None and st.flight is not None:
+                st.flight.fault = "device_error"
+            if sink.recoveries >= self._recovery_budget:
+                sink.failed = True
+                self._report_aborted()
+                sink.put(InferError(
+                    f"model '{self._model.name}': decode cache was "
+                    "rebuilt after a device error and the generation's "
+                    f"recovery budget ({self._recovery_budget}) is "
+                    "exhausted; generation aborted", 500))
+                return
+            sink.recoveries += 1
+            self._jobs.put(("recover", (sink, list(sink.emitted)), None))
+
+        self._gen_reader.submit(snapshot)
+
+    # -- the prefix cache and the memory governor ---------------------------
+    def _stamp_cache_hit(self, completion, hit: int, phash) -> None:
+        """A generation's prefix-cache outcome on its sink (the response's
+        ``cache_hit_tokens``), its stream trace and its flight record."""
+        if completion[0] != "gen":
+            return
+        sink = completion[2]
+        sink.cache_hit_tokens = int(hit)
+        sink.prefix_hash = phash
+        st = getattr(sink, "trace", None)
+        if st is not None:
+            st.cache_hit_tokens = int(hit)
+            st.prefix_hash = phash
+            if st.flight is not None:
+                st.flight.cache_hit_tokens = int(hit)
+                st.flight.prefix_hash = phash
+
+    def _commit_blocks(self, tokens, hit: int, k, v, li: int,
+                       tenant: str) -> None:
+        """Clone the window's complete blocks past the hit (positions
+        ``[hit, floor((len - 1) / B) * B)``) out of lane ``li`` of ``k`` /
+        ``v`` into the store.  Best effort: a full store declines."""
+        kvc = self._kv_cache
+        if kvc is None:
+            return
+        digs = kvc.chain_digests(tokens)
+        bt = kvc.block_tokens
+        for i in range(hit // bt, len(digs)):
+            d = digs[i]
+            if kvc.has(d):
+                continue
+            kb, vb = self._cache_extract_fn(k, v, li, i * bt)
+            kvc.put(d, digs[i - 1] if i else b"", kb, vb, tenant)
+
+    def _kv_pin_slot(self, slot: int, tokens: int, tenant: str) -> None:
+        """Open the governor's KV byte-seconds clock of an admitted slot
+        (attribution only).  A slot a concurrent rebuild freed meanwhile
+        closes its pin at once."""
+        gov = self._memory_governor
+        if gov is None:
+            return
+        nbytes = int(tokens) * self._kv_bytes_per_token()
+        if nbytes <= 0:
+            return
+        handle = gov.kv_pin(self._model.name, nbytes, tenant)
+        with self._lock:
+            released = slot in self._free
+            if not released:
+                self._slot_kv_pin[slot] = handle
+        if released:
+            self._kv_unpin_charge(handle)
+
+    def _kv_unpin_charge(self, handle) -> None:
+        """Close a slot's KV clock and charge its tenant exactly the
+        byte-seconds the governor integrated (safe under self._lock: the
+        governor's and the ledger's locks are leaves)."""
+        gov = self._memory_governor
+        if handle is None or gov is None:
+            return
+        tenant, byte_s = gov.kv_unpin(handle)
+        ledger = self._cost_ledger
+        if ledger is not None and ledger.enabled and byte_s > 0:
+            ledger.charge(self._model.name, tenant, kv_byte_seconds=byte_s)
+
+    def _kv_bytes_per_token(self) -> int:
+        """The KV bytes of one cached position, the reference's formula:
+        layers x (k + v) x heads x head_dim x (1 under int8 KV, else 2).
+        It leaves out int8 KV's f32 scales (4 bytes per head, position and
+        k or v), as the reference does."""
+        if self._params is None:
+            return 0
+        _, cfg = self._params
+        per = cfg.n_layers * 2 * cfg.n_heads * cfg.head_dim
+        return per * (1 if self._kv_quant else 2)
+
+    def _gate_hbm(self, need_s: int) -> None:
+        """The headroom gate of new device memory: independent mode's fresh
+        per-sequence cache, before it is allocated."""
+        gov = self._memory_governor
+        if gov is None:
+            return
+        gov.admit_hbm(self._model.name,
+                      int(need_s) * self._kv_bytes_per_token())
+
+    def _gate_hbm_slab(self) -> None:
+        """Batched mode's gate: the slab is allocated once, at the first
+        request, so that allocation (every bucket's footprint) must fit;
+        once it is resident a slot admission pins no new memory."""
+        gov = self._memory_governor
+        if gov is None or self._fns is not None:
+            return
+        self._ensure_params()
+        slab_tokens = sum(cnt * cap for cnt, cap in self._buckets)
+        gov.admit_hbm(self._model.name,
+                      slab_tokens * self._kv_bytes_per_token())
+
+    def _setup_prefix_cache(self, cfg) -> None:
+        """The model's block store and its ops (under ``_init_lock``); off
+        where the budget is 0 and under int8 KV (a tail would attend over
+        dequantized prefix reads where the cold prefill attended over its
+        own keys)."""
+        from ..server import kvcache
+
+        if self._kv_quant or self._kv_cache is not None:
+            return
+        cache = kvcache.for_model(self._model.name,
+                                  governor=self._memory_governor,
+                                  ledger=self._cost_ledger)
+        if cache is None:
+            return
+        ext, ins_run = make_cache_block_ops(cache.block_tokens)
+        self._cache_extract_fn = ext
+        self._cache_insert_run_fn = ins_run
+        self._cache_tail_fn = (self._chunk_fn
+                               or make_slot_chunk_prefill(cfg, self._s_max))
+        self._kv_cache = cache
 
     # -- lazy init ---------------------------------------------------------
     def _ensure_params(self):
@@ -1022,24 +1514,41 @@ class DecodeModel:
                         cfg, self._decode_steps)
                     self._fused_pen_fn = make_fused_slot_step_pen(
                         cfg, self._decode_steps)
+                    self._setup_prefix_cache(cfg)
                     self._worker = threading.Thread(
                         target=self._worker_loop, daemon=True,
                         name=f"{self._model.name}-decode-worker")
                     self._fns = (make_slot_prefill(cfg), params, cfg)
                     self._worker.start()
+                    # the stall watchdog, armed by --tick-stall-ms
+                    self._stall_s = float(os.environ.get(
+                        "TRITON_TPU_TICK_STALL_MS", "0")) / 1e3
+                    if self._stall_s > 0.0:
+                        threading.Thread(
+                            target=self._watchdog_loop, daemon=True,
+                            name=f"{self._model.name}-stall-watch").start()
         return self._fns
 
     def _shutdown(self):
+        from ..server import kvcache
+
         with self._lock:
             self._closed = True
         if self._jobs is not None:
             self._jobs.put(None)
+        # the store's governor pins must not outlive the model
+        kvcache.drop(self._model.name)
+        self._kv_cache = None
 
     def _ensure_fns_independent(self):
         if self._fns_ind is None:
             params, cfg = self._ensure_params()
             with self._init_lock:
                 if self._fns_ind is None:
+                    self._setup_prefix_cache(cfg)
+                    if self._kv_cache is not None:
+                        self._ind_tail_fn = make_prefill_tail(cfg,
+                                                              self._s_max)
                     self._fns_ind = (make_prefill(cfg, self._s_max),
                                      make_decode_step(cfg), params, cfg)
         return self._fns_ind
@@ -1089,6 +1598,7 @@ class DecodeModel:
             self._free.add(slot)
             self._slot_gen[slot] += 1
             self._slot_tenant.pop(slot, None)
+            self._kv_unpin_charge(self._slot_kv_pin.pop(slot, None))
         self._touched.pop(seq_id, None)
         self._seq_locks.pop(seq_id, None)
 
@@ -1127,6 +1637,8 @@ class DecodeModel:
                     continue
                 if j[0] in ("prefill", "prefill_cont"):
                     deliver_error(j[1][-1], err)
+                elif j[0] == "recover":
+                    self._gen_reader.submit(j[1][0].put, err)
                 elif j[0] == "step":
                     j[2].set_exception(err)
             for info in self._auto_slots.values():
@@ -1147,11 +1659,12 @@ class DecodeModel:
             sink.t_prefill0 = now
 
         def finish_prefill(slot, gen, win_len, nxt_dev, best_dev, lp_dev,
-                           completion):
+                           completion, wid=None):
             """Prefill finished: the sequence path resolves its future
             with the first token; the generation path streams it, seeds
             the device-side feedback and registers the slot as
-            self-feeding."""
+            self-feeding (``wid``: its dispatch's stall watch, handed to
+            the resolver)."""
             self._pos[slot] = win_len
             b, li = self._slot_bucket(slot)
             if completion[0] == "fut":
@@ -1164,18 +1677,36 @@ class DecodeModel:
                                      completion[1])
                 return
             _tag, n_tokens, sink = completion
+            if sink.recovering:
+                # a recovery's re-prefill landed: the stream is live again.
+                # Counted, stamped, and its wall window charged to the
+                # tenant (its tokens recomputed)
+                sink.recovering = False
+                self._report_recovered()
+                st = getattr(sink, "trace", None)
+                if st is not None and st.flight is not None:
+                    st.flight.recovered = True
+                ledger = self._cost_ledger
+                if ledger is not None and ledger.enabled:
+                    dt_us = (time.monotonic() - sink.recover_t0) * 1e6
+                    ledger.charge(self._model.name, sink.tenant,
+                                  device_us=dt_us, tokens=0)
             st = getattr(sink, "trace", None)
             if st is not None:
                 now = time.monotonic_ns()
                 if getattr(sink, "t_prefill0", None) is not None:
-                    st.add_span("PREFILL", sink.t_prefill0, now)
+                    span = st.add_span("PREFILL", sink.t_prefill0, now)
+                    if sink.cache_hit_tokens:
+                        # the prompt positions the span did not recompute
+                        span.set_attr("cached_tokens",
+                                      int(sink.cache_hit_tokens))
                 # the DECODE stage closes with the last token
                 sink.t_decode0 = now
             _state_admit(self._dstate[b], li, nxt_dev, win_len,
                          n_tokens > 1, n_tokens - 1)
             pair = start_readback(torch.stack([nxt_dev.float(), lp_dev]))
             self._gen_reader.submit(self._resolve_gen_token, pair, sink,
-                                    n_tokens == 1, slot, gen)
+                                    n_tokens == 1, slot, gen, wid)
             if n_tokens > 1:
                 self._auto_slots[slot] = {
                     "remaining": n_tokens - 1, "sink": sink, "gen": gen}
@@ -1222,8 +1753,109 @@ class DecodeModel:
         def stale_prefill(slot, gen, completion) -> bool:
             if gen == self._slot_gen[slot]:
                 return False
-            deliver_error(completion, _stale_error(self._model.name))
+            if completion[0] == "gen":
+                # a queued generation goes stale only through a bucket
+                # rebuild (its slot has no sequence id to evict): recover
+                # it rather than fail a stream the fault did not reach
+                self._recover_handoff(completion[2])
+            else:
+                deliver_error(completion, _stale_error(self._model.name))
             return True
+
+        def prefill_failed(b, completion, e, blocks=None) -> None:
+            """A prefill's dispatch failed: the fault is reported, a
+            generation goes to recovery, a sequence's future fails (only
+            its client can replay the protocol), and the bucket is rebuilt
+            (every slot in it freed and invalidated, this one too)."""
+            if blocks:
+                self._kv_cache.release(blocks)
+            self._report_fault("prefill", reason=str(e))
+            if completion[0] == "gen":
+                self._recover_handoff(completion[2])
+            else:
+                deliver_error(completion, e)
+            self._rebuild_bucket_cache(b)
+
+        def watch_dispatch(kind, completion):
+            """A generation's dispatch is watched from before its enqueue:
+            on the card a wedged device fills the launch queue, and the
+            enqueue itself blocks (the reference's dispatch never does,
+            and it watches from the dispatch's return)."""
+            return (self._watch_readback(kind) if completion[0] == "gen"
+                    else None)
+
+        def completion_tenant(slot, completion) -> str:
+            if completion[0] == "gen":
+                return completion[2].tenant
+            return self._slot_tenant.get(slot, "")
+
+        def recover_job(payload) -> None:
+            """Re-admit a generation whose bucket a fault took down:
+            prefill ``prompt + emitted`` into a free slot (the same bucket
+            class: prompt + emitted + remaining is the first admission's
+            size) and let it self-feed the rest.  Greedy decode depends on
+            the token prefix only, so the resumed stream is the
+            interrupted one (on the card, up to rounding: a re-prefill is
+            a GEMM of another shape than the steps it replaces)."""
+            sink, emitted = payload
+            if getattr(sink, "cancelled", False):
+                self._close_decode_span(sink)
+                self._gen_reader.submit(sink.put, None)
+                return
+            if self._closed:
+                # the fault closed the model: a re-admission would hang
+                sink.failed = True
+                self._report_aborted()
+                self._gen_reader.submit(sink.put, InferError(
+                    f"model '{self._model.name}' is unloading", 503))
+                return
+            remaining = sink.n_tokens_total - len(emitted)
+            if remaining <= 0:
+                # every token was out; only the end was outstanding
+                self._close_decode_span(sink)
+                self._gen_reader.submit(sink.put, None)
+                return
+            win = sink.window
+            toks = np.fromiter((t for t, _lp in emitted), dtype=np.int32,
+                               count=len(emitted))
+            if len(toks):
+                win = np.concatenate([win, toks[None, :]], axis=1)
+            need_s = int(win.shape[1]) + int(remaining)
+            use_pen = sink.freq_pen != 0.0 or sink.pres_pen != 0.0
+            with self._lock:
+                slot = self._alloc_slot_locked(need_s)
+                if slot is None:
+                    self._evict_idle_locked(time.monotonic())
+                    slot = self._alloc_slot_locked(need_s)
+                if slot is not None:
+                    gen = self._slot_gen[slot]
+                    self._slot_tenant[slot] = sink.tenant
+                    if use_pen:
+                        # the counts of the real prompt and everything
+                        # emitted: the interrupted slot's count row
+                        pl = sink.prompt_len
+                        real = (sink.window[0, sink.window.shape[1] - pl:]
+                                if pl else np.zeros(0, np.int32))
+                        row = np.bincount(
+                            np.concatenate([real, toks]),
+                            minlength=cfg.vocab_size).astype(np.int32)
+                        self._slot_pen_seed[slot] = (
+                            sink.freq_pen, sink.pres_pen, row)
+            if slot is None:
+                sink.failed = True
+                self._report_aborted()
+                self._gen_reader.submit(sink.put, InferError(
+                    f"model '{self._model.name}': no free decode slot for "
+                    "device-fault recovery; generation aborted", 500))
+                return
+            self._kv_pin_slot(slot, need_s, sink.tenant)
+            # closed at the re-prefill's finish_prefill; the trace shows a
+            # second SLOT_WAIT / PREFILL pair
+            sink.recovering = True
+            sink.recover_t0 = time.monotonic()
+            sink.t_prefill0 = None
+            self._jobs.put(("prefill", (slot, gen, win,
+                                        ("gen", remaining, sink)), None))
 
         while True:
             if self._dead_gens:
@@ -1258,7 +1890,11 @@ class DecodeModel:
                 b, li = self._slot_bucket(slot)
                 with self._lock:
                     seed = self._slot_pen_seed.pop(slot, None)
+                kvc = self._kv_cache
+                hit, blocks = 0, None
+                wid = watch_dispatch("prefill", completion)
                 try:
+                    self._maybe_inject_device_fault(b)
                     if seed is not None:
                         # penalized: the first token respects the prompt
                         # counts (a full prefill)
@@ -1279,7 +1915,33 @@ class DecodeModel:
                             self._pen_pp[b][li] = pp
                             self._pen_n[b] += 1
                         finish_prefill(slot, gen, win.shape[1], nxt, best,
-                                       lp, completion)
+                                       lp, completion, wid)
+                        continue
+                    if kvc is not None:
+                        # the longest stored chain of this window (host
+                        # hashing); its blocks stay referenced until their
+                        # insert is queued.  A penalized admission took the
+                        # full prefill above.
+                        hit, blocks, phash = kvc.match(win[0])
+                        self._stamp_cache_hit(completion, hit, phash)
+                    if hit:
+                        # the stored prefix verbatim into this lane, then
+                        # the tail as a chunk prefill at pos0 = hit
+                        self._k[b], self._v[b] = self._cache_insert_run_fn(
+                            self._k[b], self._v[b],
+                            tuple(blk.k for blk in blocks),
+                            tuple(blk.v for blk in blocks), li, 0)
+                        (nxt, best, lp, self._k[b],
+                         self._v[b]) = self._cache_tail_fn(
+                            params, self._k[b], self._v[b],
+                            _upload(win[:, hit:], dev), li, hit)
+                        kvc.release(blocks)
+                        blocks = None
+                        self._commit_blocks(
+                            win[0], hit, self._k[b], self._v[b], li,
+                            completion_tenant(slot, completion))
+                        finish_prefill(slot, gen, win.shape[1], nxt, best,
+                                       lp, completion, wid)
                         continue
                     if C and win.shape[1] > C:
                         # chunked: the first chunk now, the continuation at
@@ -1287,6 +1949,7 @@ class DecodeModel:
                         _, _, _, self._k[b], self._v[b] = self._chunk_fn(
                             params, self._k[b], self._v[b],
                             _upload(win[:, :C], dev), li, 0)
+                        self._unwatch_readback(wid)
                         self._jobs.put(("prefill_cont",
                                         (slot, gen, win, C, completion),
                                         None))
@@ -1294,13 +1957,14 @@ class DecodeModel:
                     nxt, best, lp, self._k[b], self._v[b] = prefill(
                         params, self._k[b], self._v[b], _upload(win, dev),
                         li)
+                    self._commit_blocks(win[0], 0, self._k[b], self._v[b],
+                                        li, completion_tenant(slot,
+                                                              completion))
                     finish_prefill(slot, gen, win.shape[1], nxt, best, lp,
-                                   completion)
+                                   completion, wid)
                 except Exception as e:  # noqa: BLE001 - via completion
-                    deliver_error(completion, e)
-                    # frees and invalidates every slot of the bucket, this
-                    # one included
-                    self._rebuild_bucket_cache(b)
+                    self._unwatch_readback(wid)
+                    prefill_failed(b, completion, e, blocks)
                 continue
             if kind == "prefill_cont":
                 slot, gen, win, pos0, completion = payload
@@ -1309,20 +1973,31 @@ class DecodeModel:
                     continue
                 C = self._prefill_chunk
                 b, li = self._slot_bucket(slot)
+                wid = watch_dispatch("prefill", completion)
                 try:
+                    self._maybe_inject_device_fault(b)
                     nxt, best, lp, self._k[b], self._v[b] = self._chunk_fn(
                         params, self._k[b], self._v[b],
                         _upload(win[:, pos0:pos0 + C], dev), li, pos0)
                     if pos0 + C < win.shape[1]:
+                        self._unwatch_readback(wid)
                         self._jobs.put(("prefill_cont",
                                         (slot, gen, win, pos0 + C,
                                          completion), None))
                         continue
+                    # the final chunk: the lane holds the whole window
+                    self._commit_blocks(win[0], 0, self._k[b], self._v[b],
+                                        li, completion_tenant(slot,
+                                                              completion))
                     finish_prefill(slot, gen, win.shape[1], nxt, best, lp,
-                                   completion)
+                                   completion, wid)
                 except Exception as e:  # noqa: BLE001 - via completion
-                    deliver_error(completion, e)
-                    self._rebuild_bucket_cache(b)
+                    self._unwatch_readback(wid)
+                    # a partial prefill's recovery restarts the prompt
+                    prefill_failed(b, completion, e)
+                continue
+            if kind == "recover":
+                recover_job(payload)
                 continue
             # Merge steps into this tick.  The accumulation window lets a
             # cohort's next requests, which land a few milliseconds after
@@ -1411,6 +2086,8 @@ class DecodeModel:
                 steps_run = max([1 if w["batch"] else 0]
                                 + list(advances.values()))
                 self._tick_budget.acquire()
+                # watched from before the enqueue, as a prefill is
+                wid = self._watch_readback("tick")
                 uploads = 0
                 if w["batch"]:
                     # the only per-tick control uploads: this dispatch's
@@ -1423,6 +2100,7 @@ class DecodeModel:
                     step_mask = self._zero_mask[b]
                 t_disp0 = time.monotonic_ns()
                 try:
+                    self._maybe_inject_device_fault(b)
                     if self._pen_n[b] > 0:
                         # a penalized generation in this bucket: the
                         # penalized tick (zero rows are the plain head)
@@ -1445,6 +2123,11 @@ class DecodeModel:
                         self._pos[off + li] += 1
                 except Exception as e:  # noqa: BLE001 - via futures
                     self._tick_budget.release()
+                    self._unwatch_readback(wid)
+                    self._report_fault("step", reason=str(e))
+                    # client steps fail (their client replays the
+                    # protocol); the rebuild hands the bucket's live
+                    # generations to recovery
                     for _li, f in w["batch"]:
                         f.set_exception(e)
                     self._rebuild_bucket_cache(b)
@@ -1474,7 +2157,7 @@ class DecodeModel:
                 # _tick_budget)
                 pool = self._gen_reader if gen_batch else self._readers
                 pool.submit(self._resolve_tick, out, w["batch"], gen_batch,
-                            self._tick_budget)
+                            self._tick_budget, wid)
                 t_asm0 = time.monotonic_ns()
 
     def _record_tick(self, b, w, gen_batch, queue_depth, steps_run, uploads,
@@ -1554,10 +2237,15 @@ class DecodeModel:
         except Exception as e:  # noqa: BLE001 - surfaced via future
             fut.set_exception(e)
 
-    def _resolve_gen_token(self, pair, sink, done, slot, gen):
+    def _resolve_gen_token(self, pair, sink, done, slot, gen,
+                           watch_id=None):
         try:
             vals = finish_readback(pair)
-            sink.put((int(vals[0]), float(vals[1])))
+            tok = (int(vals[0]), float(vals[1]))
+            # the host mirror a recovery re-prefills from, appended on
+            # this ordered thread in step with what the consumer sees
+            sink.emitted.append(tok)
+            sink.put(tok)
             if done:
                 # span before sentinel: the envelope emits the record the
                 # moment it sees the end
@@ -1568,8 +2256,12 @@ class DecodeModel:
             sink.put(e)
             with self._lock:
                 self._dead_gens.add((slot, gen))
+            self._report_fault("readback", reason=str(e))
+        finally:
+            self._unwatch_readback(watch_id)
 
-    def _resolve_tick(self, out, batch, gen_batch=(), budget=None):
+    def _resolve_tick(self, out, batch, gen_batch=(), budget=None,
+                      watch_id=None):
         """Resolve one fused dispatch's ``[3, T, B]`` token block: each
         client step from its step-0 row, each generation's ``n_emit`` rows
         in order.  ``li`` is bucket-local, ``slot`` global."""
@@ -1578,6 +2270,7 @@ class DecodeModel:
         except Exception as e:  # noqa: BLE001 - surfaced via futures/sinks
             if budget is not None:
                 budget.release()
+            self._unwatch_readback(watch_id)
             for _li, f in batch:
                 f.set_exception(e)
             for _li, slot, sink, _n_emit, _done, gen in gen_batch:
@@ -1585,43 +2278,58 @@ class DecodeModel:
                 sink.put(e)
                 with self._lock:
                     self._dead_gens.add((slot, gen))
+            self._report_fault("readback", reason=str(e))
             return
         if budget is not None:
             budget.release()
+        self._unwatch_readback(watch_id)
         for li, f in batch:
             f.set_result((int(vals[0, 0, li]), float(vals[1, 0, li])))
         for li, _slot, sink, n_emit, done, _gen in gen_batch:
             for t in range(n_emit):
-                sink.put((int(vals[0, t, li]), float(vals[2, t, li])))
+                tok = (int(vals[0, t, li]), float(vals[2, t, li]))
+                sink.emitted.append(tok)
+                sink.put(tok)
             if done:
                 self._close_decode_span(sink)
                 sink.put(None)
 
     def _new_cache_arrays(self, cnt: int, cap: int, cfg):
         """A fresh zeroed k/v cache pair of one bucket,
-        ``[L, cnt, H, cap, K]`` in the compute dtype."""
+        ``[L, cnt, H, cap, K]`` in the compute dtype, or under int8 KV
+        ``{"q": int8 zeros, "s": f32 ones [L, cnt, H, cap]}`` each (zero
+        entries dequantize to zero)."""
         shape = (cfg.n_layers, cnt, cfg.n_heads, cap, cfg.head_dim)
-        return (torch.zeros(shape, dtype=cfg.dtype, device=self._device),
-                torch.zeros(shape, dtype=cfg.dtype, device=self._device))
+        dev = self._device
+
+        def one():
+            if self._kv_quant:
+                return {"q": torch.zeros(shape, dtype=torch.int8, device=dev),
+                        "s": torch.ones(shape[:-1], dtype=torch.float32,
+                                        device=dev)}
+            return torch.zeros(shape, dtype=cfg.dtype, device=dev)
+
+        return one(), one()
 
     def _rebuild_bucket_cache(self, b: int) -> None:
-        """Worker-side, after a failed dispatch or prefill: the cache may
-        hold a partial write, so rebuild the bucket zeroed and invalidate
-        every slot in it.  Queued sequence jobs then fail stale; the
-        bucket's live generations fail with a 500 (the reference recovers
-        them by re-prefilling, ROADMAP A7b)."""
-        from ..server.types import InferError
-
+        """Worker-side, after a failed dispatch or prefill: the bucket may
+        hold a partial write (or a chaos wreck), so rebuild it zeroed and
+        invalidate every slot in it.  Queued sequence jobs then fail
+        stale; the bucket's live generations go to the recovery queue
+        (re-prefill of ``prompt + emitted``, within the recovery budget).
+        A bucket that cannot be rebuilt (a dead CUDA context, where the
+        allocation fails too) quarantines the model at once and closes the
+        worker: it never retries in a loop."""
         cnt, cap = self._buckets[b]
         off = self._bucket_off[b]
-        err = InferError(
-            f"model '{self._model.name}': decode cache was rebuilt after a "
-            "device error; generation aborted", 500)
+        # the store's blocks are tensors of their own, so a wrecked slab
+        # leaves them intact; a retired one is dropped here (metadata)
+        if self._kv_cache is not None:
+            self._kv_cache.revalidate()
         for slot in range(off, off + cnt):
             info = self._auto_slots.pop(slot, None)
             if info is not None:
-                info["sink"].failed = True
-                self._gen_reader.submit(info["sink"].put, err)
+                self._recover_handoff(info["sink"])
         with self._lock:
             # one atomic section: a live sequence whose mapping survived
             # would pass the worker's stale check and decode against the
@@ -1634,6 +2342,7 @@ class DecodeModel:
                 self._slot_gen[slot] += 1
                 self._clear_pen_locked(slot)
                 self._slot_tenant.pop(slot, None)
+                self._kv_unpin_charge(self._slot_kv_pin.pop(slot, None))
         try:
             _params, cfg = self._params
             self._pen_counts[b] = None
@@ -1643,11 +2352,14 @@ class DecodeModel:
                                               device=self._device)
             self._pen_pp_dev[b] = torch.zeros(cnt, dtype=torch.float32,
                                               device=self._device)
-        except Exception:  # noqa: BLE001 - the device cannot hold a cache
-            # fail pending work (503 through the drain) instead of letting
-            # the worker die with futures left hanging
+        except Exception as e:  # noqa: BLE001 - escalated, not swallowed
+            self._report_fault("rebuild", reason=str(e),
+                               force_quarantine=True)
             with self._lock:
                 self._closed = True
+            # the shutdown sentinel rides the ordered gen reader, behind
+            # every recovery handoff already submitted, so their recover
+            # jobs reach the drain
             self._gen_reader.submit(self._jobs.put, None)
 
     def _ensure_pen_bucket(self, b: int) -> None:
@@ -1688,6 +2400,8 @@ class DecodeModel:
             self._slot_gen[slot] += 1
             self._clear_pen_locked(slot)
             self._slot_tenant.pop(slot, None)
+            pin = self._slot_kv_pin.pop(slot, None)
+        self._kv_unpin_charge(pin)
         if had_pen:
             # a later unpenalized occupant must not inherit the penalties
             # while the bucket still runs the penalized tick
@@ -1708,6 +2422,9 @@ class DecodeModel:
 
         st = current_trace()
         t_submit = time.monotonic_ns()
+        # the slab's one-time allocation must fit the card's headroom: a
+        # typed 429 (shed_reason "memory") instead of an allocator failure
+        self._gate_hbm_slab()
         self._ensure_fns()
         if self._closed:
             raise InferError(
@@ -1740,6 +2457,7 @@ class DecodeModel:
                     real, minlength=cfg.vocab_size).astype(np.int32)
                 self._slot_pen_seed[slot] = (
                     float(freq_pen), float(pres_pen), row)
+        self._kv_pin_slot(slot, need_s, tenant)
         sink: "_queue.Queue" = _queue.Queue()
         # lifecycle spans ride the sink: only stream contexts (add_tick)
         sink.trace = st if hasattr(st, "add_tick") else None
@@ -1750,6 +2468,20 @@ class DecodeModel:
         sink.tenant = tenant
         sink.cost_device_us = 0.0
         sink.cost_tokens = 0
+        # the prefix cache's outcome, stamped by the worker at prefill
+        sink.cache_hit_tokens = 0
+        sink.prefix_hash = None
+        # what a recovery re-prefills from: ``emitted`` grows only on the
+        # ordered gen-reader thread, in step with what the consumer gets;
+        # ``failed`` marks a stream that already surfaced an exception
+        sink.window = window
+        sink.prompt_len = prompt_len
+        sink.n_tokens_total = int(n_tokens)
+        sink.freq_pen = float(freq_pen)
+        sink.pres_pen = float(pres_pen)
+        sink.emitted = []
+        sink.recoveries = 0
+        sink.recovering = False
         sink.failed = False
         self._jobs.put(("prefill",
                         (slot, gen, window, ("gen", n_tokens, sink)), None))
@@ -1813,10 +2545,8 @@ class DecodeModel:
                         f"model '{self._model.name}': sequence_start "
                         f"expects a [1,{self._prompt_len}] prompt, got "
                         f"{list(toks.shape)}")
-                with self._enqueue_lock:
-                    logits, cache = prefill(params,
-                                            _upload(toks, self._device))
-                    pair = _next_pair(logits)
+                logits, cache, pair = self._prefill_independent(
+                    toks, parameters, prefill, params, cfg)
                 host_pos = toks.shape[1]
             else:
                 cache, host_pos = entry
@@ -1849,10 +2579,49 @@ class DecodeModel:
         return {"NEXT_TOKEN": np.array([nxt], np.int32),
                 "NEXT_LOGIT": np.array([best], np.float32)}
 
+    def _prefill_independent(self, toks, parameters, prefill, params, cfg):
+        """A sequence's fresh cache, gated on the card's headroom: a full
+        prefill, or the stored prefix restored and its tail prefilled.  A
+        hit shrinks the projection by the hit tokens (their bytes are the
+        store's already).  The window's new blocks are committed after.
+        Returns (logits, cache, the started next-token readback)."""
+        kvc = self._kv_cache
+        hit, blocks = 0, None
+        if kvc is not None:
+            hit, blocks, _phash = kvc.match(toks[0])
+        try:
+            self._gate_hbm(self._s_max - hit)
+            with self._enqueue_lock:
+                if hit:
+                    shape = (cfg.n_layers, 1, cfg.n_heads, self._s_max,
+                             cfg.head_dim)
+                    kz = torch.zeros(shape, dtype=cfg.dtype,
+                                     device=self._device)
+                    vz = torch.zeros(shape, dtype=cfg.dtype,
+                                     device=self._device)
+                    kz, vz = self._cache_insert_run_fn(
+                        kz, vz, tuple(blk.k for blk in blocks),
+                        tuple(blk.v for blk in blocks), 0, 0)
+                    logits, cache = self._ind_tail_fn(
+                        params, kz, vz, _upload(toks[:, hit:], self._device),
+                        hit)
+                else:
+                    logits, cache = prefill(params,
+                                            _upload(toks, self._device))
+                pair = _next_pair(logits)
+                self._commit_blocks(toks[0], hit, cache["k"], cache["v"], 0,
+                                    parameters.get("_cost_tenant") or "")
+        finally:
+            if blocks:
+                kvc.release(blocks)
+        return logits, cache, pair
+
     def _execute_batched(self, inputs, parameters):
         from ..server.types import InferError
 
         seq_id, start, end = self._check_id(parameters)
+        # the slab's one-time allocation, gated as submit_generation gates
+        self._gate_hbm_slab()
         _prefill, _params, cfg = self._ensure_fns()
         toks = _host_tokens(inputs["TOKENS"]).reshape(1, -1).astype(np.int32)
         toks = np.clip(toks, 0, cfg.vocab_size - 1)
@@ -1876,6 +2645,7 @@ class DecodeModel:
                         f"{list(toks.shape)}")
                 with self._lock:
                     slot = self._state.get(seq_id)
+                    fresh = slot is None
                     if slot is None:
                         # open-ended length: the largest slab
                         need = self._prompt_len + 1
@@ -1895,6 +2665,10 @@ class DecodeModel:
                         self._slot_tenant[slot] = \
                             parameters.get("_cost_tenant") or ""
                     gen = self._slot_gen[slot]
+                if fresh:
+                    # an open-ended sequence pins its whole lane
+                    self._kv_pin_slot(slot, self._slot_cap(slot),
+                                      parameters.get("_cost_tenant") or "")
                 fut = self._submit("prefill", (slot, gen, toks))
             else:
                 # this slot's previous step completed before its future
@@ -2024,6 +2798,18 @@ class GenerateModel:
             def attach_cost_ledger(inner, ledger):
                 outer._decode.attach_cost_ledger(ledger)
 
+            def attach_memory_governor(inner, gov):
+                # slot admission is the shared decode model's
+                outer._decode.attach_memory_governor(gov)
+
+            def attach_device_faults(inner, mgr):
+                # faults strike the shared worker: this name is an alias,
+                # quarantined and released with it
+                outer._decode.attach_device_faults(mgr, inner.name)
+
+            def attach_chaos(inner, injector):
+                outer._decode.attach_chaos(injector)
+
         self.model = _Impl(cfg)
 
     def _generate_batched(self, window, n_tokens, freq_pen=0.0,
@@ -2045,6 +2831,10 @@ class GenerateModel:
                     if parameters is not None and sink.cost_device_us:
                         parameters["_cost_device_us"] = round(
                             sink.cost_device_us, 1)
+                    if parameters is not None and sink.cache_hit_tokens:
+                        # and the prompt tokens the prefix cache restored
+                        parameters["_cache_hit_tokens"] = int(
+                            sink.cache_hit_tokens)
                     return
                 if isinstance(item, Exception):
                     if isinstance(item, InferError):

@@ -36,12 +36,22 @@ pushback), ``--max-request-bytes`` (the ingress cap, default 64 MiB),
 and tenants (``--qos-tiers``, ``--qos-weights``, ``--qos-tenant-rate``,
 ``--qos-tenant-burst``, ``--qos-tenant-limit NAME=RATE[:BURST]``,
 ``--qos-best-effort-fraction``) and fault injection (``--chaos RATE``,
-``--chaos-kinds`` of ``latency,error,abort,mem_pressure``,
+``--chaos-kinds`` of ``latency,error,abort,mem_pressure,device_error``,
 ``--chaos-seed``, ``--chaos-latency-ms``, ``--chaos-model``,
 ``--chaos-transient``, ``--chaos-pressure-s``,
 ``--chaos-pressure-factor``).  SIGTERM or SIGINT drains: new requests get
 503 with ``Retry-After``, in-flight ones finish, and the process exits
 within ``--drain-timeout`` seconds.
+
+The generation stack's cache and device faults (the reference's flags,
+``__main__.py:210-340``, :426-430): ``--kv-cache-bytes MODEL=N | N``
+(repeatable; the prefix/KV block store's budget,
+``TRITON_TPU_KV_CACHE_BYTES[_<MODEL>]``), ``--device-fault-threshold``,
+``--device-fault-window``, ``--device-fault-probe-backoff``,
+``--device-fault-probe-backoff-max`` (the quarantine state machine) and
+``--tick-stall-ms`` (the decode readback watchdog,
+``TRITON_TPU_TICK_STALL_MS``).  ``TRITON_TPU_KV_QUANT=int8`` stores the
+batched slot cache as int8 with per-vector scales.
 
 Observability (the reference's flags): ``--capture-slower-than P|MS``,
 ``--flight-recorder-size``, ``--flight-recorder-outliers`` and
@@ -57,6 +67,7 @@ way).  Tracing and logging are set at run time through
 from __future__ import annotations
 
 import argparse
+import os
 import signal
 import sys
 import threading
@@ -67,6 +78,7 @@ from .chaos import build_injector
 from .core import InferenceCore
 from .device_stats import parse_slo_spec
 from .http_server import HttpServer, MetricsServer
+from .kvcache import cache_env_key
 from .memory import DEFAULT_MAX_REQUEST_BYTES
 from .qos import QosManager, parse_tenant_limit
 from .registry import ModelRegistry
@@ -125,8 +137,12 @@ def _add_admission_flags(ap: argparse.ArgumentParser) -> None:
                     help="fault-injection rate in [0,1], drawn per request "
                     "from a seeded RNG")
     ap.add_argument("--chaos-kinds", default="error",
-                    help="comma list of latency,error,abort,mem_pressure "
-                    "(default: error)")
+                    help="comma list of latency,error,abort,mem_pressure,"
+                    "device_error (default: error).  device_error fires at "
+                    "the decode worker's dispatch boundaries: it wrecks "
+                    "the bucket's cache and raises a CUDA-shaped failure, "
+                    "driving the real rebuild / generation-recovery / "
+                    "quarantine path")
     ap.add_argument("--chaos-seed", type=int, default=0,
                     help="RNG seed: a fixed seed gives the same fault "
                     "sequence for the same arrivals")
@@ -148,6 +164,73 @@ def _add_admission_flags(ap: argparse.ArgumentParser) -> None:
                     help="the live byte budget under a mem_pressure "
                     "window, as a fraction of --mem-budget-bytes "
                     "(default 0.5)")
+
+
+def _add_generation_flags(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--kv-cache-bytes", action="append", default=None,
+                    metavar="MODEL=N | N",
+                    help="prefix/KV-cache byte budget: 'MODEL=N' for one "
+                    "decode model, a bare 'N' for every one (repeatable; "
+                    "TRITON_TPU_KV_CACHE_BYTES[_MODEL]; 0/unset = cache "
+                    "off).  Block size from TRITON_TPU_KV_BLOCK_TOKENS "
+                    "(default 64)")
+    ap.add_argument("--device-fault-threshold", type=int, default=3,
+                    metavar="K",
+                    help="dispatch faults inside --device-fault-window "
+                    "that quarantine a model: not ready on both "
+                    "protocols, typed retryable 503s with pushback until "
+                    "a probe dispatch succeeds (default 3)")
+    ap.add_argument("--device-fault-window", type=float, default=30.0,
+                    metavar="S",
+                    help="sliding window of the K-fault detector (default "
+                    "30s)")
+    ap.add_argument("--device-fault-probe-backoff", type=float,
+                    default=1.0, metavar="S",
+                    help="delay before a quarantined model's first probe; "
+                    "doubles per failed probe (default 1s)")
+    ap.add_argument("--device-fault-probe-backoff-max", type=float,
+                    default=30.0, metavar="S",
+                    help="probe backoff ceiling (default 30s)")
+    ap.add_argument("--tick-stall-ms", type=float, default=None,
+                    metavar="MS",
+                    help="arm the decode readback watchdog: a tick or "
+                    "prefill readback slower than MS reports a tick_stall "
+                    "device fault and quarantines the model (a wedged "
+                    "dispatch cannot be killed from the host; this "
+                    "reroutes traffic while it is stuck; sets "
+                    "TRITON_TPU_TICK_STALL_MS)")
+
+
+def _configure_generation(ap: argparse.ArgumentParser, args,
+                          core: InferenceCore) -> None:
+    """The cache and device-fault flags: the decode models read theirs
+    from the environment at their first request."""
+    if args.tick_stall_ms is not None:
+        if args.tick_stall_ms <= 0:
+            ap.error("--tick-stall-ms must be positive")
+        os.environ["TRITON_TPU_TICK_STALL_MS"] = str(args.tick_stall_ms)
+    for spec in args.kv_cache_bytes or []:
+        name, sep, val = spec.partition("=")
+        raw = val if sep else name
+        try:
+            nbytes = int(raw)
+        except ValueError:
+            ap.error(f"--kv-cache-bytes {spec!r}: budget must be an "
+                     "integer byte count")
+        if nbytes < 0:
+            ap.error(f"--kv-cache-bytes {spec!r}: budget must be >= 0")
+        key = cache_env_key(name) if sep else "TRITON_TPU_KV_CACHE_BYTES"
+        os.environ[key] = str(nbytes)
+    if args.device_fault_threshold < 1:
+        ap.error("--device-fault-threshold must be >= 1")
+    if args.device_fault_window <= 0:
+        ap.error("--device-fault-window must be positive")
+    faults = core.device_faults
+    faults.threshold = args.device_fault_threshold
+    faults.window_s = args.device_fault_window
+    faults.probe_backoff_s = max(0.05, args.device_fault_probe_backoff)
+    faults.probe_backoff_max_s = max(faults.probe_backoff_s,
+                                     args.device_fault_probe_backoff_max)
 
 
 def _configure_admission(ap: argparse.ArgumentParser, args,
@@ -221,12 +304,14 @@ def main(argv=None) -> int:
                     help="second listener for /metrics and the debug "
                     "snapshots (0: none; /metrics stays on the HTTP port)")
     _add_admission_flags(ap)
+    _add_generation_flags(ap)
     args = ap.parse_args(argv)
 
     registry = ModelRegistry()
     zoo.register_all(registry, device=args.device)
     core = InferenceCore(registry)
     _configure_admission(ap, args, core)
+    _configure_generation(ap, args, core)
     try:
         core.flight_recorder.configure(
             capacity=args.flight_recorder_size,

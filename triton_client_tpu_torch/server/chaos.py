@@ -15,10 +15,20 @@ faults out).  The data-plane kinds:
   ``pressure_factor`` of its bound for ``pressure_s`` seconds; the drawing
   request goes on.
 
+One dispatch-plane kind, never drawn by ``decide``:
+
+* ``device_error`` -- consumed by the decode worker at its dispatch
+  boundaries (:meth:`ChaosInjector.maybe_device_fault`): the worker
+  wrecks the bucket's cache and control tensors in place, then raises
+  :class:`ChaosDeviceError`, so the drill runs the real rebuild, recovery
+  and quarantine path.  With ``transient_s`` the fault is a blip a
+  recovery rides out; without it a persistent fault drives the model into
+  quarantine.
+
 The reference's other kinds belong to modules the port does not have yet
 and are refused when an injector is built, naming their ROADMAP item:
-``worker_kill`` (the fleet, A6b), ``load_fail`` (the repository API, A3b)
-and ``device_error`` (device-fault containment, A7b).
+``worker_kill`` (the fleet, A6b) and ``load_fail`` (the repository API,
+A3b).
 
 Every injected fault stamps the request's flight record (``chaos=<kind>``)
 and the recorder pins it as an outlier.
@@ -33,13 +43,15 @@ from typing import Dict, Iterable, Optional, Sequence
 
 from .types import InferError
 
-#: the kinds the port injects; all are drawn per request by ``decide``
-_KINDS = ("latency", "error", "abort", "mem_pressure")
+#: the kinds the port injects
+_KINDS = ("latency", "error", "abort", "mem_pressure", "device_error")
+#: the kinds drawn per request by ``decide``; ``device_error`` is
+#: dispatch-plane only (``maybe_device_fault``)
+_DATA_KINDS = ("latency", "error", "abort", "mem_pressure")
 #: the reference's kinds whose machinery is not ported -> ROADMAP item
 NOT_PORTED_KINDS = {
     "worker_kill": "A6b (fleet)",
     "load_fail": "A3b (the repository API)",
-    "device_error": "A7b (device-fault containment)",
 }
 
 
@@ -51,6 +63,19 @@ class ChaosAbort(InferError):
 
     def __init__(self, msg: str = "chaos: injected connection abort"):
         super().__init__(msg, http_status=503)
+
+
+class ChaosDeviceError(RuntimeError):
+    """Injected dispatch failure, shaped as PyTorch raises a failed CUDA
+    launch.  Not an ``InferError``: a real failure surfaces from the
+    dispatch call as a runtime error, and the decode worker's containment
+    path (the wrecked bucket, its rebuild, recovery, quarantine) must see
+    the same exception shape.  The reference mimics an XLA failure."""
+
+    def __init__(self, model_name: str):
+        super().__init__(
+            "CUDA error: an illegal memory access was encountered "
+            f"(injected device_error, chaos, model '{model_name}')")
 
 
 class ChaosFault:
@@ -117,6 +142,8 @@ class ChaosInjector:
         self.transient_s = float(transient_s)
         self.pressure_s = max(0.0, float(pressure_s))
         self.pressure_factor = float(pressure_factor)
+        # the per-request pool: device_error never fires mid-infer
+        self.data_kinds = tuple(k for k in kinds if k in _DATA_KINDS)
         self._rng = random.Random(seed)
         self._lock = threading.Lock()
         self._healthy_until = 0.0
@@ -125,10 +152,11 @@ class ChaosInjector:
         # (model, kind) -> count: what a drill compares its retries with
         self.injected_by_kind: Dict[tuple, int] = {}
 
-    def _draw(self, model_name: str) -> Optional[str]:
-        """One rate-gated draw of a kind under the lock, or None."""
-        pool = self.kinds
-        if self.rate <= 0.0:
+    def _draw(self, model_name: str,
+              pool: Sequence[str]) -> Optional[str]:
+        """One rate-gated draw of a kind of ``pool`` under the lock (one
+        RNG, one max_faults / transient budget), or None."""
+        if self.rate <= 0.0 or not pool:
             return None
         if self.models is not None and model_name not in self.models:
             return None
@@ -154,7 +182,7 @@ class ChaosInjector:
 
     def decide(self, model_name: str) -> Optional[ChaosFault]:
         """The verdict for one request (None: leave it alone)."""
-        kind = self._draw(model_name)
+        kind = self._draw(model_name, self.data_kinds)
         if kind is None:
             return None
         if kind == "latency":
@@ -165,6 +193,16 @@ class ChaosInjector:
         if kind == "abort":
             return ChaosFault(kind)
         return ChaosFault("error", status=self.error_status)
+
+    def maybe_device_fault(self, model_name: str) -> bool:
+        """The dispatch-plane verdict for one decode dispatch: True when a
+        ``device_error`` draw fires (counted like every injection).  The
+        caller wrecks its buffers and raises :class:`ChaosDeviceError`:
+        only the decode worker knows which buffers a failed dispatch
+        leaves behind."""
+        if "device_error" not in self.kinds:
+            return False
+        return self._draw(model_name, ("device_error",)) is not None
 
     def counters(self) -> Dict[str, int]:
         """Injected faults per model (``nv_chaos_injected_total``)."""

@@ -93,15 +93,28 @@ per request inside the traced envelope.  :meth:`InferenceCore.drain` stops
 admission (503) and waits for in-flight requests.
 
 Device-loop models (``llama_decode`` and ``llama_generate``, whose worker
-ticks on its own) get the device statistics and the cost ledger through
-their ``attach_device_stats`` / ``attach_cost_ledger`` hooks before they
-execute, and the request's tenant as the ``_cost_tenant`` parameter; the
-stream's device time comes back as the ``_cost_device_us`` parameter and
-rides the final response as ``device_time_us`` (the reference's,
-core.py:1400-1406, :1585-1605, :1695-1699).
+ticks on its own) get the device statistics, the cost ledger, the memory
+governor, the device-fault manager and the chaos injector through their
+``attach_*`` hooks before they execute, and the request's tenant as the
+``_cost_tenant`` parameter; the stream's device time and prefix-cache
+hit come back as the ``_cost_device_us`` and ``_cache_hit_tokens``
+parameters and ride the final response as ``device_time_us`` and
+``cache_hit_tokens`` (the reference's, core.py:1400-1406, :1585-1616,
+:1695-1703).
+
+Device-fault containment (the reference's ``DeviceFaultManager``,
+core.py:543-808): the decode worker reports each failed dispatch; K
+faults inside a sliding window, or one forced fault, quarantine the model:
+not ready on both protocols and refused at admission with a typed 503,
+the probe's pushback and the ``quarantined`` marker the clients' retry
+layer reads.  Probes run on a doubling backoff.  The reference's fleet
+controller drives them; the port has no fleet yet (ROADMAP A6b), so the
+core's own prober thread drives them while a model is quarantined.  The
+reference's quarantine also triggers an incident bundle; incidents are
+not ported yet (ROADMAP A6b-3) and the port logs the quarantine.
 
 The fleet controller and the response cache are not ported yet (ROADMAP
-A6b), nor device-fault quarantine (A7b).
+A6b).
 """
 
 from __future__ import annotations
@@ -111,7 +124,8 @@ import queue
 import threading
 import time
 from dataclasses import dataclass
-from typing import Any, Collection, Dict, Iterator, List, Optional
+from typing import (Any, Collection, Dict, Iterator, List, Optional, Set,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -502,6 +516,258 @@ class _DynamicBatcher:
                     tr.flight.cost = cost
 
 
+class DeviceFaultManager:
+    """Device-fault accounting and the per-model quarantine state machine
+    (the reference's, with its thresholds, texts and export rows).
+
+    The decode worker and its stall watchdog report each failed dispatch
+    (``record_fault``); ``threshold`` faults inside the sliding
+    ``window_s``, or a forced fault, quarantine the model: not ready on
+    both protocols (``InferenceCore.model_ready``) and refused at admission
+    with a typed retryable 503 (``refusal_reason="quarantine"``).  Due
+    probes (``maybe_probe``) run on a doubling backoff: a registered probe
+    that succeeds releases the model, and ``escalate_after`` failures in a
+    row call ``escalation_cb`` once.  A model with no probe is released
+    when its backoff expires; a persistent fault trips the detector again.
+    Thread-safe: faults arrive from the decode worker and the watchdog,
+    probes run on threads of their own, admission reads from request
+    threads."""
+
+    #: how often the core's prober thread looks for due probes
+    PROBE_POLL_S = 0.05
+
+    def __init__(self, core=None, threshold: int = 3, window_s: float = 30.0,
+                 probe_backoff_s: float = 1.0,
+                 probe_backoff_max_s: float = 30.0,
+                 escalate_after: int = 3):
+        self.core = core
+        self.threshold = max(1, int(threshold))
+        self.window_s = float(window_s)
+        self.probe_backoff_s = float(probe_backoff_s)
+        self.probe_backoff_max_s = float(probe_backoff_max_s)
+        self.escalate_after = max(1, int(escalate_after))
+        #: called once per quarantine as ``cb(model, state)`` when
+        #: ``escalate_after`` probes in a row failed
+        self.escalation_cb = None
+        self._lock = threading.Lock()
+        # nv_device_fault_total{model,kind} and the sequence counters
+        self._faults: Dict[Tuple[str, str], int] = {}
+        self._recovered: Dict[str, int] = {}
+        self._aborted: Dict[str, int] = {}
+        # the sliding K-in-window detector, per model
+        self._recent: Dict[str, List[float]] = {}
+        # model -> {"since", "reason", "backoff_s", "probe_at",
+        #           "probes_failed", "escalated"}
+        self._quarantined: Dict[str, Dict[str, Any]] = {}
+        self._probes: Dict[str, Any] = {}
+        self._probing: Set[str] = set()
+        # every model that ever faulted keeps a 0/1 gauge row
+        self._ever: Set[str] = set()
+        self._prober: Optional[threading.Thread] = None
+
+    # -- fault intake ------------------------------------------------------
+    def record_fault(self, model: str, kind: str, reason: str = "",
+                     force_quarantine: bool = False) -> bool:
+        """One device fault (``kind``: prefill / step / readback / rebuild
+        / tick_stall).  True when it tripped (or kept) the quarantine."""
+        now = time.monotonic()
+        with self._lock:
+            self._ever.add(model)
+            key = (model, kind)
+            self._faults[key] = self._faults.get(key, 0) + 1
+            recent = self._recent.setdefault(model, [])
+            recent.append(now)
+            cutoff = now - self.window_s
+            while recent and recent[0] < cutoff:
+                recent.pop(0)
+            trip = force_quarantine or len(recent) >= self.threshold
+        if trip:
+            self.quarantine(model, reason or f"{kind} fault")
+        return trip
+
+    def record_recovered(self, model: str, n: int = 1) -> None:
+        """``n`` generations re-admitted after a device fault."""
+        with self._lock:
+            self._ever.add(model)
+            self._recovered[model] = self._recovered.get(model, 0) + int(n)
+
+    def record_aborted(self, model: str, n: int = 1) -> None:
+        """``n`` generations that got the typed 500 instead."""
+        with self._lock:
+            self._ever.add(model)
+            self._aborted[model] = self._aborted.get(model, 0) + int(n)
+
+    # -- the state machine -------------------------------------------------
+    def quarantine(self, model: str, reason: str = "") -> None:
+        """Quarantine ``model`` (a fault while quarantined only refreshes
+        the reason)."""
+        now = time.monotonic()
+        with self._lock:
+            self._ever.add(model)
+            state = self._quarantined.get(model)
+            if state is not None:
+                state["reason"] = reason or state["reason"]
+                return
+            self._quarantined[model] = {
+                "since": now,
+                "reason": reason,
+                "backoff_s": self.probe_backoff_s,
+                "probe_at": now + self.probe_backoff_s,
+                "probes_failed": 0,
+                "escalated": False,
+            }
+        core = self.core
+        if core is not None:
+            core.log.error(f"model '{model}' quarantined: {reason}")
+            self._start_prober()
+
+    def unquarantine(self, model: str) -> None:
+        with self._lock:
+            if self._quarantined.pop(model, None) is None:
+                return
+            # a fault after the release starts a fresh window
+            self._recent.pop(model, None)
+        core = self.core
+        if core is not None:
+            core.log.warning(f"model '{model}' un-quarantined")
+
+    def is_quarantined(self, model: str) -> bool:
+        with self._lock:
+            return model in self._quarantined
+
+    def retry_in(self, model: str) -> float:
+        """A refusal's pushback: the time until the next probe could
+        release the model, at least 50 ms."""
+        now = time.monotonic()
+        with self._lock:
+            state = self._quarantined.get(model)
+            if state is None:
+                return 0.05
+            return max(0.05, state["probe_at"] - now)
+
+    # -- probing -----------------------------------------------------------
+    def register_probe(self, model: str, cb) -> None:
+        """``cb() -> bool`` runs one real probe dispatch; True releases."""
+        with self._lock:
+            self._probes[model] = cb
+
+    def maybe_probe(self, now: Optional[float] = None) -> None:
+        """Start the due probes, each on a thread of its own (a probe is a
+        device dispatch); a model with no probe is released."""
+        now = time.monotonic() if now is None else now
+        due: List[Tuple[str, Any]] = []
+        with self._lock:
+            for model, state in self._quarantined.items():
+                if now < state["probe_at"] or model in self._probing:
+                    continue
+                cb = self._probes.get(model)
+                if cb is not None:
+                    self._probing.add(model)
+                due.append((model, cb))
+        for model, cb in due:
+            if cb is None:
+                self.unquarantine(model)
+                continue
+            threading.Thread(
+                target=self._run_probe, args=(model, cb), daemon=True,
+                name=f"tc-torch-fault-probe-{model}").start()
+
+    def _run_probe(self, model: str, cb) -> None:
+        try:
+            ok = bool(cb())
+        except Exception:  # noqa: BLE001 - a raising probe failed
+            ok = False
+        finally:
+            with self._lock:
+                self._probing.discard(model)
+        self.note_probe_result(model, ok)
+
+    def note_probe_result(self, model: str, ok: bool) -> None:
+        if ok:
+            self.unquarantine(model)
+            return
+        escalate = None
+        with self._lock:
+            state = self._quarantined.get(model)
+            if state is None:
+                return
+            state["probes_failed"] += 1
+            state["backoff_s"] = min(self.probe_backoff_max_s,
+                                     state["backoff_s"] * 2.0)
+            state["probe_at"] = time.monotonic() + state["backoff_s"]
+            if (state["probes_failed"] >= self.escalate_after
+                    and not state["escalated"]):
+                state["escalated"] = True
+                escalate = dict(state)
+        if escalate is None:
+            return
+        core = self.core
+        if core is not None:
+            core.log.error(
+                f"model '{model}' still quarantined after "
+                f"{escalate['probes_failed']} failed probes; escalating to "
+                "supervisor")
+        cb = self.escalation_cb
+        if cb is not None:
+            try:
+                cb(model, escalate)
+            except Exception:  # noqa: BLE001 - probing goes on
+                pass
+
+    def _start_prober(self) -> None:
+        """The core's driver of due probes (the reference's fleet loop):
+        one daemon thread while any model is quarantined."""
+        with self._lock:
+            if self._prober is not None:
+                return
+            self._prober = threading.Thread(
+                target=self._prober_loop, daemon=True,
+                name="tc-torch-fault-prober")
+            self._prober.start()
+
+    def _prober_loop(self) -> None:
+        while True:
+            time.sleep(self.PROBE_POLL_S)
+            with self._lock:
+                if not self._quarantined:
+                    self._prober = None
+                    return
+            self.maybe_probe()
+
+    # -- surfaces ----------------------------------------------------------
+    def snapshot(self) -> Dict[str, Any]:
+        now = time.monotonic()
+        with self._lock:
+            return {
+                "faults": {f"{m}/{k}": v
+                           for (m, k), v in sorted(self._faults.items())},
+                "recovered": dict(self._recovered),
+                "aborted": dict(self._aborted),
+                "quarantined": {
+                    m: {"since_s": round(now - s["since"], 3),
+                        "reason": s["reason"],
+                        "backoff_s": s["backoff_s"],
+                        "probes_failed": s["probes_failed"],
+                        "escalated": s["escalated"]}
+                    for m, s in sorted(self._quarantined.items())},
+            }
+
+    def metric_rows(self) -> Dict[str, List[Tuple[Dict[str, str], float]]]:
+        """The ``nv_device_*`` rows (``metrics.collect_families``)."""
+        with self._lock:
+            fault = [({"model": m, "kind": k}, float(v))
+                     for (m, k), v in sorted(self._faults.items())]
+            recovered = [({"model": m}, float(v))
+                         for m, v in sorted(self._recovered.items())]
+            aborted = [({"model": m}, float(v))
+                       for m, v in sorted(self._aborted.items())]
+            quarantine = [({"model": m},
+                           1.0 if m in self._quarantined else 0.0)
+                          for m in sorted(self._ever)]
+        return {"device_fault": fault, "device_recovered": recovered,
+                "device_aborted": aborted, "device_quarantine": quarantine}
+
+
 class InferenceCore:
     SERVER_NAME = "triton_client_tpu_torch_harness"
     SERVER_VERSION = "2.0.0-cuda"
@@ -558,6 +824,9 @@ class InferenceCore:
         self.memory = MemoryGovernor()
         # the fault injector (chaos.py, --chaos*), or None
         self.chaos = None
+        # the quarantine state machine: the decode worker reports its
+        # dispatch faults, admission and readiness consult it
+        self.device_faults = DeviceFaultManager(self)
         # the check of a request's bound and its pending increment are one
         # step: request threads admit one at a time
         self._admit_lock = threading.Lock()
@@ -595,7 +864,10 @@ class InferenceCore:
         return self.live and self.accepting
 
     def model_ready(self, name: str, version: str = "") -> bool:
-        return self.registry.is_ready(name, version)
+        """Registry-ready and not quarantined, on both protocols (the
+        server's own readiness stays up)."""
+        return (self.registry.is_ready(name, version)
+                and not self.device_faults.is_quarantined(name))
 
     def server_metadata(self) -> dict:
         return {"name": self.SERVER_NAME, "version": self.SERVER_VERSION,
@@ -644,6 +916,16 @@ class InferenceCore:
             err = InferError("server is shutting down", http_status=503,
                              retry_after_s=self.shed_retry_after_s)
             err.refusal_reason = "drain"
+            raise err
+        if self.device_faults.is_quarantined(model.name):
+            # the 'quarantined' marker is what the clients' retry layer
+            # reads to go to another replica
+            err = InferError(
+                f"model '{model.name}' is quarantined after repeated "
+                "device faults; retry on another replica",
+                http_status=503,
+                retry_after_s=self.device_faults.retry_in(model.name))
+            err.refusal_reason = "quarantine"
             raise err
         qos = self.qos
         request.tier = qos.tier_of(request.priority)
@@ -1041,14 +1323,19 @@ class InferenceCore:
     def _attach_device_loop(self, model: Model, request: InferRequest,
                             params: Dict[str, Any]) -> None:
         """A device-loop model (its own worker ticks the card) gets the
-        collector and the ledger, and the tenant in ``params``."""
+        collector, the ledger, the memory governor, the fault manager and
+        the chaos injector, and the tenant in ``params``."""
         attach = getattr(model, "attach_device_stats", None)
         if attach is None:
             return
         attach(self.device_stats)
-        attach_ledger = getattr(model, "attach_cost_ledger", None)
-        if attach_ledger is not None:
-            attach_ledger(self.cost_ledger)
+        for hook, value in (("attach_cost_ledger", self.cost_ledger),
+                            ("attach_memory_governor", self.memory),
+                            ("attach_device_faults", self.device_faults),
+                            ("attach_chaos", self.chaos)):
+            fn = getattr(model, hook, None)
+            if fn is not None and value is not None:
+                fn(value)
         if request.tenant:
             params["_cost_tenant"] = request.tenant
 
@@ -1090,16 +1377,23 @@ class InferenceCore:
         device_us = params.get("_cost_device_us")
         if device_us is not None:
             final.parameters["device_time_us"] = device_us
+        # and the prompt tokens restored from the prefix cache
+        cache_hit = params.get("_cache_hit_tokens")
+        if cache_hit is not None:
+            final.parameters["cache_hit_tokens"] = cache_hit
         yield final
 
     def device_stats_snapshot(self, model: Optional[str] = None) -> dict:
         """The ``/v2/debug/device_stats`` JSON: the collector's snapshot
-        with the SLO engine's under ``"slo"`` and the memory governor's
-        under ``"memory"`` (the reference's ``"kv_cache"`` section comes
-        with its source, the prefix/KV cache: ROADMAP A7b)."""
+        with the SLO engine's under ``"slo"``, the memory governor's under
+        ``"memory"`` and the prefix/KV block stores' under ``"kv_cache"``
+        (both frontends)."""
+        from . import kvcache
+
         out = self.device_stats.snapshot(model=model)
         out["slo"] = self.slo.snapshot(model=model)
         out["memory"] = self.memory.snapshot()
+        out["kv_cache"] = kvcache.snapshot()
         return out
 
     def statistics(self, name: Optional[str],

@@ -261,7 +261,8 @@ class CostLedger:
     """Per-(model, tenant) cost attribution: device time (each request's
     slot share of its batch's compute window), FLOPs (the same share of
     the signature's counted FLOPs), generated tokens and KV byte-seconds
-    (the generation stack's, not ported yet).  Beyond
+    (the decode slots' pins and the prefix cache's blocks, charged at
+    release with the governor's own integral).  Beyond
     :data:`MAX_TRACKED_TENANTS` tenants, new ones fold into
     :data:`OVERFLOW_TENANT`.  ``enabled=False`` makes ``charge`` a no-op."""
 

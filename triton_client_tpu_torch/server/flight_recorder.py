@@ -98,7 +98,8 @@ class FlightRecord:
                  "batch", "bytes_in", "bytes_out", "arrival_ns", "ts",
                  "queue_us", "compute_us", "total_us", "outcome",
                  "capture_reason", "spans", "tenant", "tier", "tick",
-                 "cost", "chaos", "shed_reason")
+                 "cost", "chaos", "shed_reason", "fault", "recovered",
+                 "cache_hit_tokens", "prefix_hash")
 
     def __init__(self, seq: int, model: str, version: str,
                  request_id: str = "", protocol: str = "",
@@ -134,6 +135,14 @@ class FlightRecord:
         self.chaos: Optional[str] = None
         # why an in-envelope shed refused it ("memory" for the governor's)
         self.shed_reason: Optional[str] = None
+        # device-fault stamps (models/decode.py): the fault whose rebuild
+        # interrupted this generation, and whether its recovery landed
+        self.fault: Optional[str] = None
+        self.recovered = False
+        # the prefix cache's outcome (server/kvcache.py): prompt tokens
+        # restored from stored blocks, and the deepest block's digest
+        self.cache_hit_tokens = 0
+        self.prefix_hash: Optional[str] = None
 
     def to_dict(self, include_spans: bool = False) -> Dict[str, Any]:
         out: Dict[str, Any] = {
@@ -158,13 +167,10 @@ class FlightRecord:
             "cost": self.cost,
             "chaos": self.chaos,
             "shed_reason": self.shed_reason,
-            # the reference's stamps of sources not ported yet (device
-            # faults, the prefix cache): the record keeps its shape, with
-            # nothing to report
-            "fault": None,
-            "recovered": False,
-            "cache_hit_tokens": 0,
-            "prefix_hash": None,
+            "fault": self.fault,
+            "recovered": self.recovered,
+            "cache_hit_tokens": self.cache_hit_tokens,
+            "prefix_hash": self.prefix_hash,
         }
         if include_spans:
             out["spans"] = self.spans or []

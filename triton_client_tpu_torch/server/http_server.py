@@ -33,7 +33,10 @@ debug snapshots ``GET /v2/debug/flight_recorder`` (``?model=``,
 ``?limit=``), ``/v2/debug/device_stats`` and ``/v2/debug/costs``
 (``?model=``).  An infer request's trace gets its DECODE span here, and
 this frontend finishes it: SERIALIZE (the response's encoding) and
-NETWORK_WRITE (its write to the socket), then the record is emitted.  A
+NETWORK_WRITE (until the response is handed to the socket write), then the
+record is emitted before the write, as the reference's (aiohttp writes
+after the handler returns) and the gRPC bridge's are: a client that reads
+the flight recorder after its answer finds its request there.  A
 5xx is written to the server log, and each request at
 ``log_verbose_level`` 1.  :class:`MetricsServer` is the second listener of
 ``--metrics-port``: ``/metrics`` and the debug snapshots only.
@@ -655,10 +658,6 @@ class _Handler(BaseHTTPRequestHandler):
             t_ser1 = time.monotonic_ns()
             if trace is not None:
                 trace.add_span("SERIALIZE", t_ser0, t_ser1)
-            self._send(200, header, headers,
-                       content_type="application/octet-stream",
-                       segments=segments)
-            if trace is not None:
                 trace.add_span("NETWORK_WRITE", t_ser1, time.monotonic_ns())
         except BaseException as e:
             # a failure after the core's success is still a failure
@@ -668,6 +667,9 @@ class _Handler(BaseHTTPRequestHandler):
         finally:
             if trace is not None:
                 trace.emit()
+        self._send(200, header, headers,
+                   content_type="application/octet-stream",
+                   segments=segments)
 
 
     def _stamp(self, req: InferRequest, raw: bytes) -> None:

@@ -13,8 +13,10 @@ counters and the pending gauge, the flight recorder's watchdog counters,
 deadline drops and chaos injections, the QoS families (sheds by model,
 tenant and tier, requests by tenant and tier, lane depths), the device and
 scheduler family (``nv_tpu_*``, ``device_stats.py``), the memory governor
-(``nv_mem_*``), the SLO burn rates (``nv_slo_*``) and the cost ledger
-(``nv_cost_*``).  The reference's other families are absent, not zero,
+(``nv_mem_*``), the prefix/KV block stores (``nv_cache_*``,
+``kvcache.py``), the SLO burn rates (``nv_slo_*``), device-fault
+containment (``nv_device_*``, ``core.DeviceFaultManager``) and the cost
+ledger (``nv_cost_*``).  The reference's other families are absent, not zero,
 until their sources are ported: :data:`UNPORTED_FAMILIES` lists each with
 its ROADMAP item.
 """
@@ -24,6 +26,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Tuple
 
 from .._telemetry import escape_label as _escape_label
+from . import kvcache
 from .core import InferenceCore
 
 #: One declared family: (name, help text, type, [(labels, value), ...]).
@@ -39,8 +42,6 @@ UNPORTED_FAMILIES: Dict[str, str] = {
     **{name: "A6b (the response cache)" for name in (
         "nv_cache_num_hits_per_model", "nv_cache_num_misses_per_model",
         "nv_cache_num_evictions_per_model")},
-    **{name: "A7b (the prefix/KV cache and device faults)"
-       for name in ('nv_cache_hit_total', 'nv_cache_miss_total', 'nv_cache_evict_total', 'nv_cache_hit_tokens_total', 'nv_cache_pinned_bytes') + ('nv_device_fault_total', 'nv_device_recovered_sequences_total', 'nv_device_aborted_sequences_total', 'nv_device_quarantine')},
 }
 
 _COUNTERS: List[Tuple[str, str, str]] = [
@@ -171,6 +172,47 @@ _MEM_FAMILIES: List[Tuple[str, str, str, str]] = [
 ]
 
 #: ``nv_cost_*`` family declarations, keyed by ``CostLedger.metric_rows``.
+#: Prefix/KV block-cache families, keyed by the short row names
+#: ``kvcache.metric_rows`` emits.  Not the response cache's
+#: ``nv_cache_num_*_per_model`` (A6b): these count KV block reuse inside
+#: the decode prefill path.
+_KVCACHE_FAMILIES: List[Tuple[str, str, str, str]] = [
+    ("hit", "nv_cache_hit_total", "counter",
+     "Prefix-cache hits per model (admissions that restored at least one "
+     "cached KV block instead of recomputing the prefix)"),
+    ("miss", "nv_cache_miss_total", "counter",
+     "Prefix-cache misses per model (admissions that matched no cached "
+     "block and prefilled the whole window)"),
+    ("evict", "nv_cache_evict_total", "counter",
+     "Prefix-cache block evictions per model (largest/LRU-hybrid over "
+     "unreferenced chains when the byte budget is exceeded, plus "
+     "revalidation drops after donated-buffer rebuilds)"),
+    ("hit_tokens", "nv_cache_hit_tokens_total", "counter",
+     "Prompt tokens served from cached KV blocks per model (the prefill "
+     "compute the cache saved, in tokens)"),
+    ("pinned_bytes", "nv_cache_pinned_bytes", "gauge",
+     "Bytes currently pinned by resident prefix-cache blocks per model "
+     "(mirrors nv_mem_cache_pinned_bytes from the governor's ledger)"),
+]
+
+#: ``nv_device_*`` families, keyed by ``DeviceFaultManager.metric_rows``.
+_FAULT_FAMILIES: List[Tuple[str, str, str, str]] = [
+    ("device_fault", "nv_device_fault_total", "counter",
+     "Device dispatch faults reported by the decode worker per model "
+     "and fault kind (prefill / step / readback / rebuild / tick_stall)"),
+    ("device_recovered", "nv_device_recovered_sequences_total", "counter",
+     "Server-side generations recovered bit-identical after a device "
+     "fault (re-admitted and re-prefilled from prompt + emitted tokens)"),
+    ("device_aborted", "nv_device_aborted_sequences_total", "counter",
+     "Server-side generations aborted with a typed 500 after a device "
+     "fault (recovery budget exhausted, no free slot, or stream already "
+     "failed)"),
+    ("device_quarantine", "nv_device_quarantine", "gauge",
+     "1 while the model is quarantined after repeated device faults "
+     "(not-ready on both protocols, typed retryable 503s with pushback; "
+     "probe dispatches un-quarantine on success)"),
+]
+
 _COST_FAMILIES: List[Tuple[str, str, str, str]] = [
     ("device_us", "nv_cost_device_us_total", "counter",
      "Attributed device-time in microseconds per model and tenant (each "
@@ -296,9 +338,15 @@ def collect_families(core: InferenceCore) -> List[Family]:
     mem_rows = core.memory.metric_rows()
     for key, name, kind, help_text in _MEM_FAMILIES:
         families.append((name, help_text, kind, mem_rows.get(key, [])))
+    kvc_rows = kvcache.metric_rows()
+    for key, name, kind, help_text in _KVCACHE_FAMILIES:
+        families.append((name, help_text, kind, kvc_rows.get(key, [])))
     slo_rows = core.slo.metric_rows()
     for key, name, kind, help_text in _SLO_FAMILIES:
         families.append((name, help_text, kind, slo_rows.get(key, [])))
+    fault_rows = core.device_faults.metric_rows()
+    for key, name, kind, help_text in _FAULT_FAMILIES:
+        families.append((name, help_text, kind, fault_rows.get(key, [])))
     cost_rows = core.cost_ledger.metric_rows()
     for key, name, kind, help_text in _COST_FAMILIES:
         families.append((name, help_text, kind, cost_rows.get(key, [])))

@@ -154,7 +154,7 @@ class Span:
     another thread than the one that opened it; attribute stores are
     atomic under the interpreter lock."""
 
-    __slots__ = ("name", "start_ns", "end_ns", "parent")
+    __slots__ = ("name", "start_ns", "end_ns", "parent", "attrs")
 
     def __init__(self, name: str, start_ns: int,
                  parent: Optional[str] = "REQUEST") -> None:
@@ -162,9 +162,18 @@ class Span:
         self.start_ns = int(start_ns)
         self.end_ns: Optional[int] = None
         self.parent = parent
+        # attributes (a PREFILL span's ``cached_tokens``), written as
+        # "attrs" on the span's record only when set
+        self.attrs: Optional[Dict[str, object]] = None
 
     def end(self, ns: Optional[int] = None) -> None:
         self.end_ns = int(ns if ns is not None else time.monotonic_ns())
+
+    def set_attr(self, key: str, value) -> None:
+        attrs = self.attrs
+        if attrs is None:
+            attrs = self.attrs = {}
+        attrs[key] = value
 
 
 class TraceContext:
@@ -272,12 +281,13 @@ class StreamTraceContext(TraceContext):
     stream rode (``ticks``, each with its ``tick_seq``, the join key to the
     device statistics' tick rows), emitted once when the stream closes.
     ``record_chunk`` runs on the stream's thread, ``add_tick`` on the decode
-    worker's: list appends and attribute stores, atomic under the GIL.
-    The prefix-cache stamp stays 0 / null until the cache is ported (ROADMAP
-    A7b)."""
+    worker's: list appends and attribute stores, atomic under the GIL.  The
+    worker also stamps the prefix cache's outcome (``cache_hit_tokens``, the
+    deepest matched block's ``prefix_hash``)."""
 
     __slots__ = ("stride", "token_count", "first_token_ns", "last_token_ns",
-                 "ticks", "ticks_dropped", "_writes")
+                 "ticks", "ticks_dropped", "_writes", "cache_hit_tokens",
+                 "prefix_hash")
 
     def __init__(self, *args, **kwargs) -> None:
         super().__init__(*args, **kwargs)
@@ -288,6 +298,8 @@ class StreamTraceContext(TraceContext):
         self.ticks: List[Dict[str, int]] = []
         self.ticks_dropped = 0
         self._writes = 0
+        self.cache_hit_tokens = 0
+        self.prefix_hash: Optional[str] = None
 
     def add_tick(self, tick: Dict[str, int]) -> None:
         """The decode worker dispatched a tick this stream rode; past
@@ -562,7 +574,8 @@ class RequestTracer:
             record["spans"] = [
                 {"name": s.name, "start_ns": s.start_ns,
                  "end_ns": s.end_ns if s.end_ns is not None else s.start_ns,
-                 "parent": s.parent}
+                 "parent": s.parent,
+                 **({"attrs": s.attrs} if s.attrs else {})}
                 for s in ctx.spans]
         if ctx.tick is not None:
             record["tick"] = ctx.tick
@@ -571,9 +584,8 @@ class RequestTracer:
         if isinstance(ctx, StreamTraceContext):
             record["tokens"] = ctx.token_count
             record["outcome"] = ctx.outcome
-            # the reference's prefix-cache stamp: no cache yet, no hit
-            record["cache_hit_tokens"] = 0
-            record["prefix_hash"] = None
+            record["cache_hit_tokens"] = ctx.cache_hit_tokens
+            record["prefix_hash"] = ctx.prefix_hash
             if ctx.ticks:
                 record["ticks"] = ctx.ticks
             if ctx.ticks_dropped:
