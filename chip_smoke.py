@@ -73,8 +73,8 @@ Phases (any failure exits non-zero and prints no result line):
    ``bert_large`` int8 (``TRITON_TPU_QUANT_BERT_LARGE=int8``,
    ``TRITON_TPU_INT8_FUSED=w2``) and run ``python -m
    triton_client_tpu_torch.perf_analyzer`` in a process of its own against
-   it: -b 32 at concurrency 1 and 4 by wire, system shm and CUDA shm (the
-   tool's regions, which the server maps with cudaIpcOpenMemHandle); -b 1
+   it: -b 32 at concurrency 1 and 4 by wire and CUDA shm (the tool's
+   regions, which the server maps with cudaIpcOpenMemHandle); -b 1
    at concurrency 1, 8 and 15 through the dynamic batcher; open loop at
    half of concurrency 1's infer/s and at half of concurrency 8's; one run
    at concurrency 4 traced.  Then ``bert_large`` bf16 at -b 32,
@@ -177,15 +177,38 @@ Phases (any failure exits non-zero and prints no result line):
     together, time to the first token, per-token p50 / p99 and the card's
     idle share (torch.profiler), beside row 5's ``ensemble_llama``
     figures; no kernel of the port launches;
-15. print each kernel's launches on every served path, one JSON line
+15. the cache and faults: the prefix/KV cache on 1,024-token prompts,
+    int8 KV and the device-fault drills on llama 1b (``cache_faults_phase``);
+16. OpenAI, genai_perf and the repository: ``llama_generate`` over llama
+    1b, batched with 8 slots and the prefix cache, through ``/v1``: a
+    greedy completion of 64 tokens held to the independent chain (its
+    characters ``chr(token % 256)``, or parting at a near tie) and to
+    ``/generate_stream``'s, the first chunk streamed beside
+    ``generate_stream``'s, a chat stream's ``include_usage`` counts, a stop
+    that ends a stream and frees its slot, ``n = 16`` on the 8 slots
+    refused with 429 and every slot free after, ``n = 8`` greedy streams
+    and seeded ones reproduced, ``best_of = 4``, and
+    ``cached_tokens`` 960 on a warm 1,024-token prompt; ``genai_perf`` in
+    processes of its own (SSE at concurrency 1 and 8, the ``llama_decode``
+    closed loop on gRPC-Web at 1 and 4, 64 tokens): no error, every request
+    complete, ``itl_steady`` within 35% of (latency - TTFT) / (n - 1)
+    (read once more on a miss); then a temporary model repository with a
+    ``longctx_tpu``-base model (versions 1 and 2 from their seeds): version
+    1 loaded, served and unloaded, both under a JSON override with
+    ``version_policy`` all, a ``load_fail`` draw and a ``files`` load,
+    each version's LOGPROBS within ``SERVED_ATOL`` of its own seed's
+    plain-kernel forward beside the controls and the other seed, flash 8
+    a forward, and ``torch.cuda.memory_allocated()`` back within 2 MiB of
+    its value before the load after each of the three unloads;
+17. print each kernel's launches on every served path, one JSON line
     describing every kernel, then the result line
     ``{"ok": true, "device": {...}}``.
 
 Every request goes through the port's own HTTP client
 (``triton_client_tpu_torch.http``) on kept-alive connections, or its gRPC
-client (``triton_client_tpu_torch.grpc``), but ``/generate_stream``, which
-neither client speaks (as the reference's do not): the standard library's
-``http.client`` reads its events.
+client (``triton_client_tpu_torch.grpc``), but ``/generate_stream`` and
+the ``/v1`` routes, which neither client speaks (as the reference's do
+not): the standard library's ``http.client`` reads their events.
 
 Each model and precision has its own bound (``SERVED_ATOL``).  NEXT_LOGIT
 is held to it; a NEXT_TOKEN that differs from the plain forward's argmax
@@ -1811,8 +1834,8 @@ def _warm(harness, model, rows: int) -> None:
 def perf_phase(torch, counters, fa) -> None:
     """The load generator drives the served models at full width from a
     process of its own: ``bert_large`` int8 (``w2``: 24 int8 launches per
-    forward) at -b 32, c = 1 and 4, by wire, system shm and CUDA shm (the
-    tool's regions, mapped with cudaIPC); at -b 1, c = 1, 8 and 15, through
+    forward) at -b 32, c = 1 and 4, by wire and CUDA shm (the tool's
+    regions, mapped with cudaIPC); at -b 1, c = 1, 8 and 15, through
     the dynamic batcher; open loop at half of c = 1's and of c = 8's
     infer/s; c = 4 traced; ``bert_large`` bf16 at -b 32, c = 1 (to compare
     with the transport phase); ``longctx_tpu`` base bf16 (8 flash launches
@@ -1829,7 +1852,9 @@ def perf_phase(torch, counters, fa) -> None:
         with serving_harness([bert]) as harness:
             _warm(harness, bert, 32)
             check_precision("perf bert_large int8", bert.transformer, True)
-            for shm in ("none", "system", "cuda"):
+            # system shm is served on every earlier path; here the wire
+            # and the tool's CUDA regions (cut to make room, PERF.md)
+            for shm in ("none", "cuda"):
                 perf_sweep(f"perf bert_large int8 -b 32 {shm}", harness,
                            bert, ["-b", "32", "--concurrency-range", "1:4:3",
                                   "--shared-memory", shm], counters, 0,
@@ -3828,7 +3853,12 @@ def generation_phase(torch, counters) -> None:
                 _sse_stream(port, b"warm-up", 2)
                 for surface, fn in (("http sse", _sse_stream),
                                     ("grpc-web", _grpc_gen_stream)):
-                    for n in (1, GEN_STREAMS):
+                    # independent mode serves 8 streams one request's work
+                    # at a time; its 8-stream window is read over SSE only
+                    # (cut to make room for the last phase, PERF.md)
+                    for n in ((1,) if (mode, surface) == ("independent",
+                                                          "grpc-web")
+                              else (1, GEN_STREAMS)):
                         _gen_streams(f"{label} {surface} {n} stream(s)",
                                      torch, dec, counters, chains, fn, port,
                                      prompts[:n])
@@ -3900,10 +3930,12 @@ def _cf_env(**env):
             os.environ.pop(k, None)
 
 
-def _cf_launches(label, counters) -> None:
+def _cf_launches(label, counters, paths=None) -> None:
+    """The launches since the counters were zeroed, kept in ``paths``
+    (CF_PATHS by default); generation launches no kernel of the port."""
     launches = {name: mod.launches for name, mod in counters.items()}
     launches["int8_quantize_rows"] = counters["int8_matmul"].quantize_launches
-    CF_PATHS[label] = launches
+    (CF_PATHS if paths is None else paths)[label] = launches
     if any(launches.values()):
         fail(f"{label}: the port's kernels launched {launches}; generation "
              "runs none")
@@ -4529,7 +4561,8 @@ def cache_faults_phase(torch, counters) -> None:
     1b (the generation phase's weights, chains and prompts): cold and warm
     1,024-token prompts, an int8-KV cohort of 8 slots, and the three fault
     drills.  No kernel of the port runs here."""
-    params = GEN_SHARED.pop("params")
+    # the weights stay for the OpenAI phase
+    params = GEN_SHARED["params"]
     chains = GEN_SHARED.pop("chains")
     prompts = GEN_SHARED.pop("prompts")
     try:
@@ -4549,6 +4582,649 @@ def cache_faults_phase(torch, counters) -> None:
         gc.collect()
         if GEN_DEVICE == "cuda":
             torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# The OpenAI, genai_perf and repository phase: the /v1 routes and genai_perf
+# on llama 1b (llama_generate / llama_decode, batched, 8 slots), and a
+# longctx_tpu-base model loaded from a model repository
+# ---------------------------------------------------------------------------
+
+#: "openai <path>" / "genai_perf <path>" / "repository <path>" -> launches
+OAI_PATHS = {}
+#: greedy /v1 answers and the stop case, tokens; the n = 8 cohorts
+OAI_TOKENS, OAI_N, OAI_N_TOKENS, OAI_BEST_OF = 64, 8, 16, 4
+#: the second reading of the first chunk streams this many tokens
+OAI_TTFT_TOKENS = 8
+#: a warm 1,024-token prompt: 15 of its 16 64-token blocks come from the
+#: prefix cache
+OAI_CACHED_TOKENS = 960
+#: genai_perf: (endpoint, model, concurrency, requests) at GENAI_TOKENS
+GENAI_TOKENS = 64
+GENAI_RUNS = (("generate", "llama_generate", 1, 2),
+              ("generate", "llama_generate", 8, 8),
+              ("stream", "llama_decode", 1, 2),
+              ("stream", "llama_decode", 4, 4))
+#: itl_steady against (request latency - TTFT) / (tokens - 1), the
+#: reference test's 35%
+GENAI_ITL_TOL = 0.35
+#: the repository's longctx_tpu-base model: each version's seed
+REPO_SEEDS = {1: 101, 2: 202}
+REPO_MODEL = "longctx_repo"
+#: device memory after an unload against before the load
+REPO_MEM_TOL = 2 << 20
+#: where the repository model runs (rehearsals off the card: KIND_CPU)
+REPO_KIND = "KIND_GPU"
+REPO_DIR = os.path.join(REPO, "build", "chip_smoke_repo")
+
+_REPO_MODEL_PY = '''
+import torch
+
+from triton_client_tpu_torch.models import language
+from triton_client_tpu_torch.server.model import (TorchModel,
+                                                  resolve_instance_device)
+
+SEED = {seed}
+
+
+def get_model(config):
+    dev = resolve_instance_device(config)
+    cfg = language.longctx_cfg(dev)
+    run = language.LazyTransformer(cfg, seed=SEED, device=dev,
+                                   model_name=config.name)
+
+    def fn(TOKENS):
+        tokens = torch.clamp(TOKENS, 0, cfg.vocab_size - 1)
+        return {{"LOGPROBS": language.longctx_scores(run(tokens), tokens)}}
+
+    model = TorchModel(config, fn)
+    model.transformer = run
+    return model
+'''
+
+
+def _oai_request(port: int, path: str, body: dict, stream: bool = False,
+                 status: int = 200):
+    """One OpenAI request over HTTP/1.1 (the standard library's client: the
+    v2 clients have no OpenAI API): the JSON body and its seconds, or where
+    ``stream`` the SSE frames and each one's seconds from the request.  An
+    answer of another status than ``status`` fails the run."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", path, body=json.dumps(body).encode(),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        if resp.status != status:
+            fail(f"{path} answered {resp.status}, expected {status}: "
+                 f"{resp.read()!r}")
+        if not stream:
+            out = json.loads(resp.read())
+            return out, time.perf_counter() - t0
+        frames, times, done = [], [], False
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            if not line.startswith(b"data: "):
+                continue
+            payload = line[6:].strip()
+            if payload == b"[DONE]":
+                done = True
+                continue
+            frame = json.loads(payload)
+            if "error" in frame:
+                fail(f"{path}: in-band error {frame['error']}")
+            frames.append(frame)
+            times.append(time.perf_counter() - t0)
+        if not done:
+            fail(f"{path}: the stream ended without [DONE]")
+        return frames, times
+    finally:
+        conn.close()
+
+
+def _oai_text(frames, index: int = 0, chat: bool = False) -> str:
+    """Choice ``index``'s text of a stream's frames."""
+    return "".join(
+        (f["choices"][0]["delta"].get("content") or "") if chat
+        else (f["choices"][0].get("text") or "")
+        for f in frames if f["choices"] and f["choices"][0]["index"] == index)
+
+
+def _oai_near_tie(label, chains, prompt: bytes, text: str) -> bool:
+    """A /v1 text equal to the chain's tokens as the byte detokenizer
+    writes them (``chr(token % 256)``), or parting where the chain had a
+    near tie: the served character is some token within SERVED_ATOL of
+    the maximum, as is the chain's.  Returns whether it is equal."""
+    want, logits = chains[prompt]
+    want_text = "".join(chr(t % 256) for t in want[:len(text)])
+    if text == want_text:
+        return True
+    if len(text) != len(want_text):
+        fail(f"{label}: {len(text)} characters, the chain has "
+             f"{len(want_text)}")
+    j = next(i for i, (a, b) in enumerate(zip(text, want_text)) if a != b)
+    row = logits[j]
+    top = float(row.max())
+    atol = SERVED_ATOL["llama_tpu", False]
+    served = float(row[ord(text[j])::256].max())
+    if not (served >= top - atol and float(row[want[j]]) >= top - atol):
+        fail(f"{label}: character {j} is {text[j]!r}, the chain's "
+             f"{want_text[j]!r}, and no near tie (best logit of a token "
+             f"writing it {served:.4f}, the chain's "
+             f"{float(row[want[j]]):.4f}, max {top:.4f})")
+    return False
+
+
+def _oai_slots_free(label, dec) -> None:
+    _cf_wait(lambda: len(dec._free) == GEN_SLOTS, 10,
+             f"{label}: every decode slot free")
+
+
+def _oai_routes(torch, dec, port, counters) -> None:
+    """The OpenAI routes on llama_generate (batched, 8 slots, the prefix
+    cache on): greedy completions against the independent chain and
+    /generate_stream, the first chunk against generate_stream's, a chat
+    stream's usage, a stop that ends a stream, n = 16 refused on 8 slots,
+    n = 8 greedy and seeded (twice), best_of, and cached_tokens on a warm
+    1,024-token prompt."""
+    p0, p_chat, p_n, p_cache = _cf_prompts(13, 4, CF_PROMPT_LEN)
+    head, tail = "user: ", "\nassistant:"
+    chat_content = p_chat[:CF_PROMPT_LEN - len(head) - len(tail)].decode()
+    p_chat = (head + chat_content + tail).encode()
+    with torch.inference_mode():
+        chains = {p: _gen_chain(torch, dec, p, OAI_TOKENS, dec._s_max)
+                  for p in (p0, p_chat)}
+    label = "openai"
+    _reset(counters)
+    # greedy, not streamed: the chain's text, as /generate_stream's
+    out, wall1 = _oai_request(port, "/v1/completions", {
+        "model": "llama_generate", "prompt": p0.decode(),
+        "max_tokens": OAI_TOKENS})
+    text = out["choices"][0]["text"]
+    usage = out["usage"]
+    if usage["completion_tokens"] != OAI_TOKENS or \
+            usage["prompt_tokens"] != CF_PROMPT_LEN or \
+            out["choices"][0]["finish_reason"] != "length":
+        fail(f"{label}: greedy completion's usage / finish {usage} "
+             f"{out['choices'][0]['finish_reason']}")
+    if not usage.get("device_time_us", 0) > 0:
+        fail(f"{label}: usage carries no device time: {usage}")
+    same_v1 = _oai_near_tie(f"{label} completions", chains, p0, text)
+    toks, _ = _sse_stream(port, p0, OAI_TOKENS)
+    same_sse = _gen_near_ties(f"{label} generate_stream", torch, dec,
+                              chains, p0, toks)
+    sse_text = "".join(chr(t % 256) for t in toks)
+    print(f"{label}: greedy /v1/completions {OAI_TOKENS} tokens in "
+          f"{wall1:.3f} s ({OAI_TOKENS / wall1:.2f} tokens/s at n = 1), "
+          f"equal to the chain: {same_v1}, to generate_stream's text: "
+          f"{text == sse_text} (generate_stream equal to the chain: "
+          f"{same_sse}); device_time_us {usage['device_time_us']}; {CARD}",
+          flush=True)
+    # the first chunk: /v1 streamed against generate_stream, warm prompt
+    ttft = {"v1": [], "generate_stream": []}
+    for n_tok in (OAI_TOKENS, OAI_TTFT_TOKENS):
+        frames, times = _oai_request(port, "/v1/completions", {
+            "model": "llama_generate", "prompt": p0.decode(),
+            "max_tokens": n_tok, "stream": True}, stream=True)
+        ttft["v1"].append(1e3 * times[0])
+        if n_tok == OAI_TOKENS:
+            streamed_s = times[-1]
+        stream_text = _oai_text(frames)
+        _oai_near_tie(f"{label} completions streamed", chains, p0,
+                      stream_text)
+        _toks, sse_times = _sse_stream(port, p0, n_tok)
+        ttft["generate_stream"].append(1e3 * sse_times[0])
+    print(f"{label}: time to the first chunk on the warm prompt, /v1 "
+          f"streamed {', '.join(f'{t:.2f}' for t in ttft['v1'])} ms, "
+          f"generate_stream {', '.join(f'{t:.2f}' for t in ttft['generate_stream'])} ms; "
+          f"{OAI_TOKENS} tokens streamed in {streamed_s:.3f} s "
+          f"({OAI_TOKENS / streamed_s:.2f} tokens/s); {CARD}", flush=True)
+    # a chat stream with include_usage
+    frames, times = _oai_request(port, "/v1/chat/completions", {
+        "model": "llama_generate",
+        "messages": [{"role": "user", "content": chat_content}],
+        "max_tokens": OAI_TOKENS, "stream": True,
+        "stream_options": {"include_usage": True}}, stream=True)
+    chat_text = _oai_text(frames, chat=True)
+    final = frames[-1]
+    if final["choices"] or final["usage"]["completion_tokens"] != \
+            len(chat_text) or len(chat_text) != OAI_TOKENS or \
+            final["usage"]["prompt_tokens"] != CF_PROMPT_LEN or \
+            any(f["usage"] is not None for f in frames[:-1]):
+        fail(f"{label}: chat usage {final} against {len(chat_text)} "
+             "characters streamed")
+    _oai_near_tie(f"{label} chat", chains, p_chat, chat_text)
+    # a stop sequence that ends a stream early frees its slot
+    stop = text[8:10]
+    frames, _ = _oai_request(port, "/v1/completions", {
+        "model": "llama_generate", "prompt": p0.decode(),
+        "max_tokens": OAI_TOKENS, "stop": stop, "stream": True,
+        "stream_options": {"include_usage": True}}, stream=True)
+    stopped = _oai_text(frames)
+    fin = [f["choices"][0]["finish_reason"] for f in frames
+           if f["choices"] and f["choices"][0]["finish_reason"]]
+    used = frames[-1]["usage"]["completion_tokens"]
+    if fin != ["stop"] or stop in stopped or not used < OAI_TOKENS:
+        fail(f"{label}: the stop {stop!r} gave finish {fin}, "
+             f"{used} tokens, text {stopped!r}")
+    _oai_slots_free(f"{label} stop", dec)
+    print(f"{label}: stop {stop!r} ended the stream after {used} of "
+          f"{OAI_TOKENS} tokens; every slot free", flush=True)
+    # n = 16 greedy on 8 slots: the choices beyond them are refused (429),
+    # the first refusal cancels the rest, and every slot is free after
+    out, _ = _oai_request(port, "/v1/completions", {
+        "model": "llama_generate", "prompt": p0.decode(),
+        "max_tokens": OAI_TOKENS, "n": 2 * OAI_N}, status=429)
+    _oai_slots_free(f"{label} n = {2 * OAI_N}", dec)
+    print(f"{label}: n = {2 * OAI_N} on {GEN_SLOTS} slots answered 429 "
+          f"({out['error']['message']}); every slot free after", flush=True)
+    # n = 8 greedy, streamed: every choice the chain's (or a near tie)
+    frames, times = _oai_request(port, "/v1/completions", {
+        "model": "llama_generate", "prompt": p0.decode(),
+        "max_tokens": OAI_TOKENS, "n": OAI_N, "stream": True},
+        stream=True)
+    same = sum(_oai_near_tie(f"{label} n = {OAI_N} greedy", chains, p0,
+                             _oai_text(frames, i)) for i in range(OAI_N))
+    print(f"{label}: n = {OAI_N} greedy streams of {OAI_TOKENS} tokens, "
+          f"{OAI_N * OAI_TOKENS / times[-1]:.2f} tokens/s together; {same} "
+          f"of {OAI_N} equal to the chain (the rest part at a near tie); "
+          f"{CARD}", flush=True)
+    _oai_slots_free(f"{label} n = {OAI_N} greedy", dec)
+    # n = 8 seeded, streamed, twice: reproducible, every slot free after
+    runs = []
+    for _ in range(2):
+        frames, times = _oai_request(port, "/v1/completions", {
+            "model": "llama_generate", "prompt": p_n.decode(),
+            "max_tokens": OAI_N_TOKENS, "n": OAI_N, "temperature": 1.0,
+            "seed": 5, "stream": True}, stream=True)
+        texts = [_oai_text(frames, i) for i in range(OAI_N)]
+        if any(len(t) != OAI_N_TOKENS for t in texts):
+            fail(f"{label}: n = {OAI_N} choices of "
+                 f"{[len(t) for t in texts]} characters")
+        runs.append((texts, times[-1]))
+        _oai_slots_free(f"{label} n = {OAI_N}", dec)
+    if runs[0][0] != runs[1][0]:
+        fail(f"{label}: n = {OAI_N} seeded streams differ between runs")
+    if len(set(runs[0][0])) < 2:
+        fail(f"{label}: n = {OAI_N} seeded choices are all alike")
+    print(f"{label}: n = {OAI_N} seeded streams of {OAI_N_TOKENS} tokens "
+          f"reproduce; {', '.join(f'{OAI_N * OAI_N_TOKENS / w:.2f}' for _t, w in runs)} "
+          f"tokens/s together; every slot free after; {CARD}", flush=True)
+    # best_of = 4, n = 1
+    out, _ = _oai_request(port, "/v1/completions", {
+        "model": "llama_generate", "prompt": p_n.decode(),
+        "max_tokens": 16, "n": 1, "best_of": OAI_BEST_OF,
+        "temperature": 1.0, "seed": 9})
+    if len(out["choices"]) != 1 or \
+            out["usage"]["completion_tokens"] != OAI_BEST_OF * 16:
+        fail(f"{label}: best_of {OAI_BEST_OF} answered {out}")
+    _oai_slots_free(f"{label} best_of", dec)
+    # a repeated 1,024-token prompt: the warm one reports cached_tokens
+    cold, _ = _oai_request(port, "/v1/completions", {
+        "model": "llama_generate", "prompt": p_cache.decode(),
+        "max_tokens": 4})
+    warm, _ = _oai_request(port, "/v1/completions", {
+        "model": "llama_generate", "prompt": p_cache.decode(),
+        "max_tokens": 4})
+    hit = warm["usage"].get("prompt_tokens_details", {}).get(
+        "cached_tokens")
+    if "prompt_tokens_details" in cold["usage"] or hit != OAI_CACHED_TOKENS:
+        fail(f"{label}: cached_tokens cold {cold['usage']}, warm "
+             f"{warm['usage']}; expected {OAI_CACHED_TOKENS} warm")
+    print(f"{label}: best_of {OAI_BEST_OF} ranked 1 of "
+          f"{out['usage']['completion_tokens']} tokens; the warm "
+          f"{CF_PROMPT_LEN}-token prompt reports cached_tokens {hit}",
+          flush=True)
+    _cf_launches(label, counters, OAI_PATHS)
+
+
+def _genai_once(label, port, endpoint, model, concurrency, requests):
+    """One genai_perf run, a process of its own: its report."""
+    out_dir = os.path.join(REPO, "build", "chip_smoke_genai")
+    os.makedirs(out_dir, exist_ok=True)
+    out = os.path.join(out_dir, f"{endpoint}_{model}_c{concurrency}.json")
+    cmd = [sys.executable, "-m", "triton_client_tpu_torch.genai_perf",
+           "-m", model, "-u", f"127.0.0.1:{port}", "--endpoint", endpoint,
+           "--concurrency", str(concurrency), "--output-tokens",
+           str(GENAI_TOKENS), "--num-requests", str(requests),
+           "--stream-timeout", "120", "--profile-export-file", out]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                          cwd=REPO)
+    if proc.returncode != 0:
+        fail(f"{label}: genai_perf exited {proc.returncode}: "
+             f"{proc.stderr.strip()[-2000:]}")
+    with open(out) as f:
+        return json.load(f)
+
+
+def _genai(port, counters) -> None:
+    """genai_perf from processes of its own against this server: SSE on
+    llama_generate at concurrency 1 and 8, the llama_decode closed loop on
+    gRPC-Web streams at 1 and 4, GENAI_TOKENS tokens a request.  No error,
+    every request complete, itl_steady within GENAI_ITL_TOL of (latency -
+    TTFT) / (tokens - 1) (a gate on the host's clock: read once more on a
+    miss, HOST_GATE_RUNS)."""
+    for endpoint, model, conc, requests in GENAI_RUNS:
+        label = f"genai_perf {endpoint} {model} c={conc}"
+        tokens = GENAI_TOKENS + (1 if endpoint == "stream" else 0)
+        for attempt in range(1, HOST_GATE_RUNS + 1):
+            _reset(counters)
+            rep = _genai_once(label, port, endpoint, model, conc, requests)
+            _cf_launches(label, counters, OAI_PATHS)
+            if rep["errors"] or rep["requests_completed"] != requests or \
+                    rep["output_tokens_per_request"] != tokens:
+                fail(f"{label}: {rep['errors']} errors "
+                     f"({rep.get('first_error')}), "
+                     f"{rep['requests_completed']} of {requests} requests, "
+                     f"{rep['output_tokens_per_request']} tokens each")
+            steady = rep["itl_steady_ms"]["avg"]
+            want = (rep["request_latency_ms"]["avg"]
+                    - rep["time_to_first_token_ms"]["avg"]) / (tokens - 1)
+            off = abs(steady - want) / want
+            ttft, itl = (rep["time_to_first_token_ms"],
+                         rep["inter_token_latency_ms"])
+            print(f"{label}: TTFT p50 {ttft['p50']:.2f} ms (max "
+                  f"{ttft['max']:.2f}), ITL p50 {itl['p50']:.2f} ms, p99 "
+                  f"{itl['p99']:.2f} ms, itl_steady avg {steady:.3f} ms "
+                  f"against {want:.3f} ms ({100 * off:.1f}% off), "
+                  f"{rep['output_token_throughput_per_sec']} tokens/s, "
+                  f"{rep['request_throughput_per_sec']} requests/s; "
+                  f"{CARD}", flush=True)
+            if off <= GENAI_ITL_TOL:
+                break
+            if attempt == HOST_GATE_RUNS:
+                fail(f"{label}: itl_steady {steady:.3f} ms is "
+                     f"{100 * off:.1f}% off {want:.3f} ms")
+            print(f"{label}: itl_steady off by more than "
+                  f"{100 * GENAI_ITL_TOL:.0f}%: once more", flush=True)
+
+
+def _repo_write(versions, policy: str = "") -> None:
+    """The repository: REPO_MODEL at longctx_tpu's width, ``versions``
+    (each built from its REPO_SEEDS seed)."""
+    import shutil
+
+    from triton_client_tpu_torch.models import language
+    from triton_client_tpu_torch.server.model import resolve_instance_device
+    from triton_client_tpu_torch.server.model import ModelConfig
+
+    dev = resolve_instance_device(ModelConfig(REPO_MODEL,
+                                              instance_kind=REPO_KIND))
+    s = language.longctx_seq_len(dev)
+    shutil.rmtree(REPO_DIR, ignore_errors=True)
+    mdir = os.path.join(REPO_DIR, REPO_MODEL)
+    for v in versions:
+        os.makedirs(os.path.join(mdir, str(v)))
+        with open(os.path.join(mdir, str(v), "model.py"), "w") as f:
+            f.write(_REPO_MODEL_PY.format(seed=REPO_SEEDS[v]))
+    with open(os.path.join(mdir, "config.pbtxt"), "w") as f:
+        f.write(_repo_config(s) + policy)
+
+
+def _repo_config(s: int) -> str:
+    return (f'name: "{REPO_MODEL}"\nbackend: "pytorch"\n'
+            "max_batch_size: 4\n"
+            f'input [{{ name: "TOKENS" data_type: TYPE_INT32 dims: [ {s} ] '
+            "}]\n"
+            f'output [{{ name: "LOGPROBS" data_type: TYPE_FP32 dims: [ {s} ] '
+            "}]\n"
+            "dynamic_batching { preferred_batch_size: [ 1, 2, 4 ] "
+            "max_queue_delay_microseconds: 2000 }\n"
+            f"instance_group [{{ kind: {REPO_KIND} }}]\n")
+
+
+def _repo_memory(torch) -> int:
+    gc.collect()
+    if REPO_KIND == "KIND_CPU":
+        return 0
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def _repo_serve(label, torch, harness, counters, version: str,
+                x, expect_seed: int, other_seed: int) -> None:
+    """Serve ``x`` (rows of tokens) to ``version`` of REPO_MODEL: LOGPROBS
+    within SERVED_ATOL bf16 of the plain-kernel forward of the weights of
+    ``expect_seed``, the controls (those weights with the planted fault)
+    and the other version's weights beyond it; flash once per layer of
+    each forward."""
+    import numpy as np
+
+    from triton_client_tpu_torch import http
+    from triton_client_tpu_torch.models import language
+    from triton_client_tpu_torch.models import transformer as tr
+
+    model = harness.registry.get(REPO_MODEL, version)
+    run = model.transformer
+    st = model.stats
+    runs0 = st.execution_count
+    _reset(counters)
+    with http.InferenceServerClient(f"127.0.0.1:{harness.http_port}",
+                                    network_timeout=300) as client:
+        got = []
+        for row in x:
+            inp = http.InferInput("TOKENS", [1, row.shape[0]], "INT32")
+            inp.set_data_from_numpy(row[None])
+            got.append(client.infer(REPO_MODEL, [inp],
+                                    model_version=version)
+                       .as_numpy("LOGPROBS"))
+    executions = st.execution_count - runs0
+    launches = {name: mod.launches for name, mod in counters.items()}
+    launches["int8_quantize_rows"] = counters["int8_matmul"].quantize_launches
+    OAI_PATHS[f"{label} v{version}"] = launches
+    layers = run.cfg.n_layers
+    if REPO_KIND == "KIND_GPU":
+        check_launches(f"{label} v{version}", launches, executions, layers, 0)
+    got = np.concatenate(got)
+    dev = run.device
+    fwd = tr.make_forward(run.cfg, plain=True)
+    t = torch.from_numpy(x).to(dev)
+
+    def scores(params):
+        return language.longctx_scores(fwd(params, t), t).float().cpu() \
+            .numpy()
+
+    with torch.inference_mode():
+        own = tr.init_params(torch.Generator(dev).manual_seed(expect_seed),
+                             run.cfg)
+        want = scores(own)
+        controls = [float(np.abs(got - scores(control_params(
+            torch, own, s))).max()) for s in CONTROL_SCALES]
+        del own
+        other = tr.init_params(torch.Generator(dev).manual_seed(other_seed),
+                               run.cfg)
+        cross = float(np.abs(got - scores(other)).max())
+        del other
+    atol = SERVED_ATOL["longctx_tpu", False]
+    check_served(f"{label} v{version}", "LOGPROBS", atol,
+                 float(np.abs(got - want).max()),
+                 float(np.abs(got - want).mean()), controls,
+                 float(np.abs(want).mean()))
+    print(f"{label} v{version}: {executions} forwards, launches "
+          f"{launches}; against the other version's seed {cross:.3e}",
+          flush=True)
+    if not cross > atol:
+        fail(f"{label} v{version}: the answers are as close to the other "
+             "version's weights as the bound")
+
+
+def _repo_unload(label, torch, client, harness, base: int, readings):
+    """Unload REPO_MODEL: its seconds, its batchers' threads stopped when
+    the unload answers, and device memory back within REPO_MEM_TOL of
+    ``base`` (before the load)."""
+    threads = [b._thread for k, b in harness.core._batchers.items()
+               if k.startswith(f"{REPO_MODEL}@")]
+    before = _repo_memory(torch)
+    t0 = time.perf_counter()
+    client.unload_model(REPO_MODEL)
+    unload_s = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        fail(f"{label}: a retired batcher still runs after the unload")
+    after = _repo_memory(torch)
+    readings.append(after)
+    print(f"{label}: unloaded in {unload_s:.3f} s; device memory "
+          f"{before} -> {after} bytes ({before - after} freed), "
+          f"{after - base:+d} against before the load; {CARD}", flush=True)
+    if abs(after - base) > REPO_MEM_TOL:
+        fail(f"{label}: device memory {after} after the unload, {base} "
+             f"before the load ({after - base:+d} bytes)")
+
+
+def _repository(torch, counters) -> None:
+    """A temporary model repository with REPO_MODEL (longctx_tpu base,
+    versions 1 and 2 from their seeds): version 1 loaded, served and
+    unloaded; both versions under a JSON config override (version_policy
+    all) served as their own seeds; a files load; a load_fail draw; three
+    load/unload cycles, device memory back to where it was before each
+    load."""
+    from triton_client_tpu_torch import http
+    from triton_client_tpu_torch.models import language
+    from triton_client_tpu_torch.server import chaos
+    from triton_client_tpu_torch.server.model import resolve_instance_device
+    from triton_client_tpu_torch.server.model import ModelConfig
+    from triton_client_tpu_torch.server.registry import ModelRegistry
+    from triton_client_tpu_torch.server.testing import ServerHarness
+
+    _repo_write((1, 2), "version_policy { specific { versions: [ 1 ] } }\n")
+    dev = resolve_instance_device(ModelConfig(REPO_MODEL,
+                                              instance_kind=REPO_KIND))
+    s = language.longctx_seq_len(dev)
+    x = model_tokens(LONGCTX_SEED, 2, s, 256)
+    label = "repository"
+    readings = []
+    with ServerHarness(ModelRegistry(repository_path=REPO_DIR)) as harness, \
+            http.InferenceServerClient(f"127.0.0.1:{harness.http_port}",
+                                       network_timeout=300) as client:
+        index = client.get_model_repository_index()
+        if index != [{"name": REPO_MODEL, "version": "1",
+                      "state": "UNAVAILABLE", "reason": "unloaded"}]:
+            fail(f"{label}: index before a load {index}")
+        base = _repo_memory(torch)
+        # 1: version 1 alone (the config's policy)
+        t0 = time.perf_counter()
+        client.load_model(REPO_MODEL)
+        load_s = time.perf_counter() - t0
+        md = client.get_model_metadata(REPO_MODEL)
+        if md["versions"] != ["1"]:
+            fail(f"{label}: versions {md['versions']}, expected ['1']")
+        print(f"{label}: loaded version 1 in {load_s:.3f} s", flush=True)
+        _repo_serve(f"{label} cycle 1", torch, harness, counters, "1", x,
+                    REPO_SEEDS[1], REPO_SEEDS[2])
+        print(f"{label} cycle 1: device memory {_repo_memory(torch) - base} "
+              "bytes above before the load while served", flush=True)
+        _repo_unload(f"{label} cycle 1", torch, client, harness, base,
+                     readings)
+        # 2: a JSON config override with version_policy all
+        override = json.dumps({
+            "name": REPO_MODEL, "backend": "pytorch", "max_batch_size": 4,
+            "input": [{"name": "TOKENS", "data_type": "TYPE_INT32",
+                       "dims": [s]}],
+            "output": [{"name": "LOGPROBS", "data_type": "TYPE_FP32",
+                        "dims": [s]}],
+            "dynamic_batching": {"preferred_batch_size": [1, 2, 4],
+                                 "max_queue_delay_microseconds": 2000},
+            "instance_group": [{"kind": REPO_KIND}],
+            "version_policy": {"all": {}}})
+        t0 = time.perf_counter()
+        client.load_model(REPO_MODEL, config=override)
+        load_s = time.perf_counter() - t0
+        md = client.get_model_metadata(REPO_MODEL)
+        rows = [(m["version"], m["state"])
+                for m in client.get_model_repository_index()]
+        if md["versions"] != ["1", "2"] or rows != [("1", "READY"),
+                                                    ("2", "READY")]:
+            fail(f"{label}: under version_policy all: {md['versions']}, "
+                 f"index {rows}")
+        print(f"{label}: loaded versions 1 and 2 (JSON override, "
+              f"version_policy all) in {load_s:.3f} s", flush=True)
+        for v in ("1", "2"):
+            _repo_serve(f"{label} cycle 2", torch, harness, counters, v, x,
+                        REPO_SEEDS[int(v)], REPO_SEEDS[3 - int(v)])
+        # unversioned: the latest
+        if harness.registry.get(REPO_MODEL).served_version != "2":
+            fail(f"{label}: the default version is not the latest")
+        _repo_unload(f"{label} cycle 2", torch, client, harness, base,
+                     readings)
+        # 3: a load_fail draw, then a files load of version 2's source
+        harness.core.chaos = chaos.ChaosInjector(
+            rate=1.0, kinds=("load_fail",), seed=0, max_faults=1)
+        try:
+            refusal = None
+            try:
+                client.load_model(REPO_MODEL)
+            except Exception as e:  # noqa: BLE001 - the injected failure
+                refusal = str(e)
+            if refusal is None or "injected load failure" not in refusal:
+                fail(f"{label}: the load_fail draw did not fail the load: "
+                     f"{refusal}")
+            print(f"{label}: load_fail: {refusal}", flush=True)
+            if abs(_repo_memory(torch) - base) > REPO_MEM_TOL:
+                fail(f"{label}: a failed load left device memory behind")
+            with open(os.path.join(REPO_DIR, REPO_MODEL, "2",
+                                   "model.py"), "rb") as f:
+                source = f.read()
+            t0 = time.perf_counter()
+            client.load_model(REPO_MODEL, config=override, files={
+                "file:2/model.py": source})
+            load_s = time.perf_counter() - t0
+        finally:
+            harness.core.chaos = None
+        if client.get_model_metadata(REPO_MODEL)["versions"] != ["2"]:
+            fail(f"{label}: the files load serves another version set")
+        print(f"{label}: files load (version 2's model.py in the request) "
+              f"in {load_s:.3f} s", flush=True)
+        _repo_serve(f"{label} cycle 3", torch, harness, counters, "2", x,
+                    REPO_SEEDS[2], REPO_SEEDS[1])
+        _repo_unload(f"{label} cycle 3", torch, client, harness, base,
+                     readings)
+    growth = max(readings) - min(readings)
+    print(f"{label}: device memory after each of the 3 unloads "
+          f"{readings} (spread {growth} bytes); {CARD}", flush=True)
+    if growth > REPO_MEM_TOL:
+        fail(f"{label}: device memory grew {growth} bytes over 3 cycles")
+
+
+def openai_repository_phase(torch, counters) -> None:
+    """The OpenAI routes and genai_perf on llama 1b (the generation
+    phase's weights) served batched with 8 slots and the prefix cache,
+    then the repository's longctx_tpu-base model."""
+    from triton_client_tpu_torch.models import decode
+    from triton_client_tpu_torch.server import kvcache
+
+    params = GEN_SHARED.pop("params")
+    t0 = time.perf_counter()
+    try:
+        with _cf_env(TRITON_TPU_DECODE_MODE="batched",
+                     TRITON_TPU_DECODE_SLOTS=GEN_SLOTS,
+                     **{kvcache.cache_env_key("llama_decode"):
+                        CF_CACHE_BYTES}):
+            dec = decode.DecodeModel(device=GEN_DEVICE,
+                                     prompt_len=CF_PROMPT_LEN)
+            dec._params = params
+            gen_model = decode.make_llama_generate(dec)
+            with serving_harness([dec.model, gen_model]) as harness:
+                port = harness.http_port
+                _sse_stream(port, b"warm-up", 2)
+                _oai_routes(torch, dec, port, counters)
+                print(f"openai: took {time.perf_counter() - t0:.1f} s",
+                      flush=True)
+                t1 = time.perf_counter()
+                _genai(port, counters)
+                print(f"genai_perf: took {time.perf_counter() - t1:.1f} s",
+                      flush=True)
+            del dec, gen_model
+    finally:
+        del params
+        gc.collect()
+        if GEN_DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    _repository(torch, counters)
+    print(f"repository: took {time.perf_counter() - t1:.1f} s", flush=True)
 
 
 def _signature_of(harness, model, x):
@@ -4695,7 +5371,9 @@ def main() -> int:
                            ("generation", generation_phase,
                             (torch, counters)),
                            ("cache and faults", cache_faults_phase,
-                            (torch, counters))):
+                            (torch, counters)),
+                           ("openai, genai_perf and repository",
+                            openai_repository_phase, (torch, counters))):
         t0 = time.perf_counter()
         fn(*args)
         print(f"{name} phase took {time.perf_counter() - t0:.1f} s",
@@ -4711,6 +5389,7 @@ def main() -> int:
     paths.update(OVERLOAD_PATHS)
     paths.update(GEN_PATHS)
     paths.update(CF_PATHS)
+    paths.update(OAI_PATHS)
     for path, launches in paths.items():
         print(f"launches on {path}: flash_attention "
               f"{launches['flash_attention']}, int8_matmul "

@@ -14,8 +14,8 @@ bytes to both and holds the port to the reference's answer:
 * request bodies compressed with gzip or deflate (both packages' HTTP
   clients, ``request_compression_algorithm``) get the reference's answers,
   and the ingress cap counts the inflated bytes;
-* ``/v2``'s extensions are the reference's, less those the port does not
-  serve (``model_repository*``, ``xla_shared_memory``).
+* ``/v2``'s extensions are the reference's, less the one the port does
+  not serve (``xla_shared_memory``).
 """
 
 import gzip
@@ -239,8 +239,7 @@ def _post_encoded(url, body):
 
 
 def test_extensions_are_the_reference_less_unported(servers):
-    unported = {"model_repository", "model_repository(unload_dependents)",
-                "xla_shared_memory"}
+    unported = {"xla_shared_memory"}
     want = [e for e in JaxCore.EXTENSIONS if e not in unported]
     assert InferenceCore.EXTENSIONS == want
     port, ref = servers

@@ -6,7 +6,10 @@ the client registry's per-request ``retries`` record.
 percentiles come out of the same buckets as the reference tool's; the
 server's flight recorder keeps one per model.  ``AppendFile`` is the cached
 append handle of the request tracer and the server log, ``escape_label``
-the Prometheus label escape of ``/metrics``.  :func:`telemetry` is the
+the Prometheus label escape of ``/metrics``.  :func:`new_trace_context`
+gives one request's propagation headers, a W3C ``traceparent`` and a
+``triton-request-id`` (``genai_perf`` stamps each request with them; the
+server records both in the request's trace).  :func:`telemetry` is the
 process's client registry: the retry layer (``_resilience.py``) counts each
 committed retry per (model, protocol, method) there, and ``perf_analyzer``
 reads the counts back around each level (the reference's
@@ -22,7 +25,29 @@ reference's client metrics registry.
 from __future__ import annotations
 
 import math
+import os
+import re
 import threading
+from typing import Dict
+
+#: the correlation id header (the server echoes it on the response)
+REQUEST_ID_HEADER = "triton-request-id"
+#: the W3C Trace Context header stamped beside it
+#: (00-<trace 16 bytes>-<span 8 bytes>-01)
+TRACEPARENT_HEADER = "traceparent"
+
+# a header-safe id: visible ASCII; another id stays in the body only
+_HEADER_SAFE = re.compile(r"[\x20-\x7e]+\Z")
+
+
+def new_trace_context(request_id: str = "") -> Dict[str, str]:
+    """Fresh propagation headers for one request: ``request_id`` is the
+    correlation id where it is header-safe, else a random 16-hex id is
+    minted; the trace and span ids are random."""
+    if not request_id or not _HEADER_SAFE.match(request_id):
+        request_id = os.urandom(8).hex()
+    traceparent = f"00-{os.urandom(16).hex()}-{os.urandom(8).hex()}-01"
+    return {REQUEST_ID_HEADER: request_id, TRACEPARENT_HEADER: traceparent}
 
 
 class AppendFile:

@@ -31,10 +31,11 @@ wait before the next attempt.  Under a client-level policy the health and
 metadata calls retry too.
 
 ``keepalive_options`` and ``channel_args`` are taken and mean nothing:
-they set HTTP/2 channel options, and these calls run on HTTP/1.1.  Not
-ported yet, and raising with their ROADMAP item: TLS and compression
-(A3b); the repository calls (A3b); ``infer_many`` and ``stream_timeout``
-(A6b).
+they set HTTP/2 channel options, and these calls run on HTTP/1.1.  The
+repository calls (``get_model_repository_index``, ``load_model`` with
+``config`` and ``files``, ``unload_model`` with ``unload_dependents``) are
+the reference's.  Not ported yet, and raising with their ROADMAP item:
+TLS and compression (A3b); ``infer_many`` and ``stream_timeout`` (A6b).
 """
 
 from __future__ import annotations
@@ -379,16 +380,35 @@ class InferenceServerClient(InferenceServerClientBase):
             "Costs", pb_debug.CostsRequest(model_name=model_name or ""),
             pb_debug.CostsResponse, headers, client_timeout).payload_json)
 
+    # -- the repository ----------------------------------------------------
+    def get_model_repository_index(self, headers=None, as_json=False,
+                                   client_timeout=None):
+        return _maybe_json(self._call(
+            "RepositoryIndex", pb.RepositoryIndexRequest(),
+            pb.RepositoryIndexResponse, headers, client_timeout), as_json)
+
+    def load_model(self, model_name, headers=None,
+                   config: Optional[str] = None, files=None,
+                   client_timeout=None) -> None:
+        request = pb.RepositoryModelLoadRequest(model_name=model_name)
+        if config is not None:
+            request.parameters["config"] = pb.ModelRepositoryParameter(
+                string_param=config)
+        for path, content in (files or {}).items():
+            request.parameters[path] = pb.ModelRepositoryParameter(
+                bytes_param=content)
+        self._call("RepositoryModelLoad", request,
+                   pb.RepositoryModelLoadResponse, headers, client_timeout)
+
+    def unload_model(self, model_name, headers=None, unload_dependents=False,
+                     client_timeout=None) -> None:
+        request = pb.RepositoryModelUnloadRequest(model_name=model_name)
+        request.parameters["unload_dependents"] = \
+            pb.ModelRepositoryParameter(bool_param=unload_dependents)
+        self._call("RepositoryModelUnload", request,
+                   pb.RepositoryModelUnloadResponse, headers, client_timeout)
+
     # -- not ported --------------------------------------------------------
-    def get_model_repository_index(self, *args, **kwargs):
-        _not_ported("get_model_repository_index (the repository API)", "A3b")
-
-    def load_model(self, *args, **kwargs):
-        _not_ported("load_model (the repository API)", "A3b")
-
-    def unload_model(self, *args, **kwargs):
-        _not_ported("unload_model (the repository API)", "A3b")
-
     def infer_many(self, *args, **kwargs):
         _not_ported("infer_many", "A6b")
 

@@ -30,14 +30,20 @@ which also caps the attempt's socket timeout; a refusal's pushback
 (``_resilience.py``).  Under a client-level policy the health and metadata
 calls retry too.
 
+The repository calls are the reference's: ``get_model_repository_index``,
+``load_model`` (``config``, a JSON config override; ``files``,
+``"file:<path>"`` -> bytes, sent base64) and ``unload_model``
+(``unload_dependents``).
+
 Not ported yet: client telemetry beyond the retry count and tracing
-headers (ROADMAP A6b); TLS and the repository API (ROADMAP A3b).
+headers (ROADMAP A6b); TLS (ROADMAP A3b).
 ``infer_many`` and the ``xla`` aliases of the CUDA shared-memory calls are
 not ported.
 """
 
 from __future__ import annotations
 
+import base64
 import gzip
 import http.client
 import json
@@ -415,6 +421,39 @@ class InferenceServerClient(InferenceServerClientBase):
         return self._get_json(
             _model_path(model_name, model_version) + "/config", headers,
             query_params)
+
+    # -- the repository ----------------------------------------------------
+    def get_model_repository_index(self, headers=None,
+                                   query_params=None) -> list:
+        response = self._post("v2/repository/index", b"", headers,
+                              query_params)
+        raise_if_error(response.status, response.data)
+        return json.loads(response.data)
+
+    def load_model(self, model_name, headers=None, query_params=None,
+                   config: Optional[str] = None,
+                   files: Optional[Dict[str, bytes]] = None) -> None:
+        """Load or reload a model; ``config`` is a JSON config override,
+        ``files`` maps ``"file:<path>"`` to the file's bytes."""
+        load_request: Dict[str, dict] = {}
+        if config is not None or files:
+            load_request["parameters"] = {}
+        if config is not None:
+            load_request["parameters"]["config"] = config
+        for path, content in (files or {}).items():
+            load_request["parameters"][path] = \
+                base64.b64encode(content).decode()
+        self._post_checked(
+            f"v2/repository/models/{quote(model_name)}/load",
+            json.dumps(load_request).encode() if load_request else b"",
+            headers, query_params)
+
+    def unload_model(self, model_name, headers=None, query_params=None,
+                     unload_dependents: bool = False) -> None:
+        body = {"parameters": {"unload_dependents": unload_dependents}}
+        self._post_checked(
+            f"v2/repository/models/{quote(model_name)}/unload",
+            json.dumps(body).encode(), headers, query_params)
 
     def get_inference_statistics(self, model_name="", model_version="",
                                  headers=None, query_params=None) -> dict:

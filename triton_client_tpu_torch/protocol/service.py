@@ -6,8 +6,7 @@ its arity (``"uu"`` unary, ``"ss"`` a bidirectional stream) and its request
 and response message classes (``inference.py``).  The port serves them as
 gRPC-Web on its HTTP/1.1 port (``server/grpc_web.py``).  The reference's
 debug RPCs (``FlightRecorder``, ``DeviceStats``, ``Costs``) take their
-messages from ``debug.py``.  The repository RPCs are in :data:`NOT_PORTED`
-with the ROADMAP item that brings them.
+messages from ``debug.py``.
 """
 
 from __future__ import annotations
@@ -43,15 +42,6 @@ METHODS.update({
     name: ("uu", getattr(pb_debug, name + "Request"),
            getattr(pb_debug, name + "Response"))
     for name in ("FlightRecorder", "DeviceStats", "Costs")})
-
-#: RPCs the port answers with UNIMPLEMENTED -> what they are and the
-#: ROADMAP item that brings them
-NOT_PORTED = {
-    "RepositoryIndex": ("the model repository API", "A3b"),
-    "RepositoryModelLoad": ("the model repository API", "A3b"),
-    "RepositoryModelUnload": ("the model repository API", "A3b"),
-}
-
 
 def path(method: str) -> str:
     """The HTTP path of ``method``."""

@@ -2,8 +2,14 @@
 over the v2 HTTP protocol, and v2 gRPC as gRPC-Web on the same port.
 
     python -m triton_client_tpu_torch.server --http-port 8000 [--device cuda|cpu]
+        [--model-repository DIR] [--zoo]
 
-Registers the reference's 25 models, by its names and in its order:
+With ``--model-repository DIR`` every model of the repository (Triton's
+layout: ``DIR/<model>/config.pbtxt`` and ``DIR/<model>/<N>/model.py``
+exposing ``get_model(config)`` that returns a model of this package) is
+loaded at start; the repository API loads and unloads them later.  The
+model zoo is registered with ``--zoo``, or where no repository is given.
+The zoo registers the reference's 25 models, by its names and in its order:
 ``simple``, ``resnet50``, ``bert_large``, ``ensemble_llama`` (with its
 ``llama_preprocess``, ``llama_tpu`` and ``llama_postprocess`` steps),
 ``longctx_tpu``, ``moe_tpu``, ``llama_decode`` and ``llama_generate``
@@ -36,7 +42,8 @@ pushback), ``--max-request-bytes`` (the ingress cap, default 64 MiB),
 and tenants (``--qos-tiers``, ``--qos-weights``, ``--qos-tenant-rate``,
 ``--qos-tenant-burst``, ``--qos-tenant-limit NAME=RATE[:BURST]``,
 ``--qos-best-effort-fraction``) and fault injection (``--chaos RATE``,
-``--chaos-kinds`` of ``latency,error,abort,mem_pressure,device_error``,
+``--chaos-kinds`` of
+``latency,error,abort,load_fail,mem_pressure,device_error``,
 ``--chaos-seed``, ``--chaos-latency-ms``, ``--chaos-model``,
 ``--chaos-transient``, ``--chaos-pressure-s``,
 ``--chaos-pressure-factor``).  SIGTERM or SIGINT drains: new requests get
@@ -137,8 +144,10 @@ def _add_admission_flags(ap: argparse.ArgumentParser) -> None:
                     help="fault-injection rate in [0,1], drawn per request "
                     "from a seeded RNG")
     ap.add_argument("--chaos-kinds", default="error",
-                    help="comma list of latency,error,abort,mem_pressure,"
-                    "device_error (default: error).  device_error fires at "
+                    help="comma list of latency,error,abort,load_fail,"
+                    "mem_pressure,device_error (default: error).  "
+                    "load_fail fails repository loads only.  "
+                    "device_error fires at "
                     "the decode worker's dispatch boundaries: it wrecks "
                     "the bucket's cache and raises a CUDA-shaped failure, "
                     "driving the real rebuild / generation-recovery / "
@@ -275,6 +284,12 @@ def _configure_admission(ap: argparse.ArgumentParser, args,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m triton_client_tpu_torch.server")
+    ap.add_argument("--model-repository", default=None,
+                    help="model repository directory; every model in it "
+                    "is loaded at start")
+    ap.add_argument("--zoo", action="store_true",
+                    help="register the built-in model zoo (the default "
+                    "without --model-repository)")
     ap.add_argument("--http-port", type=int, default=8000)
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
@@ -307,8 +322,18 @@ def main(argv=None) -> int:
     _add_generation_flags(ap)
     args = ap.parse_args(argv)
 
-    registry = ModelRegistry()
-    zoo.register_all(registry, device=args.device)
+    registry = ModelRegistry(repository_path=args.model_repository)
+    if args.model_repository:
+        for entry in registry.index():
+            try:
+                registry.load(entry["name"])
+                print(f"loaded model '{entry['name']}'")
+            except Exception as e:  # noqa: BLE001 - reported, serving goes on
+                print(f"failed to load '{entry['name']}': {e}")
+    if args.zoo or not args.model_repository:
+        zoo.register_all(registry, device=args.device)
+        print(f"registered model zoo: "
+              f"{[e['name'] for e in registry.index()]}")
     core = InferenceCore(registry)
     _configure_admission(ap, args, core)
     _configure_generation(ap, args, core)

@@ -15,6 +15,13 @@ faults out).  The data-plane kinds:
   ``pressure_factor`` of its bound for ``pressure_s`` seconds; the drawing
   request goes on.
 
+One control-plane kind, never drawn by ``decide``:
+
+* ``load_fail`` -- consumed by the core's ``load_model``
+  (:meth:`ChaosInjector.maybe_fail_load`): a repository load fails before
+  it touches the registry, as a corrupt artifact or an initializer out of
+  memory would, under the same rate, seed and ``max_faults``.
+
 One dispatch-plane kind, never drawn by ``decide``:
 
 * ``device_error`` -- consumed by the decode worker at its dispatch
@@ -25,10 +32,9 @@ One dispatch-plane kind, never drawn by ``decide``:
   recovery rides out; without it a persistent fault drives the model into
   quarantine.
 
-The reference's other kinds belong to modules the port does not have yet
-and are refused when an injector is built, naming their ROADMAP item:
-``worker_kill`` (the fleet, A6b) and ``load_fail`` (the repository API,
-A3b).
+The reference's other kind belongs to a module the port does not have yet
+and is refused when an injector is built, naming its ROADMAP item:
+``worker_kill`` (the fleet, A6b).
 
 Every injected fault stamps the request's flight record (``chaos=<kind>``)
 and the recorder pins it as an outlier.
@@ -44,14 +50,15 @@ from typing import Dict, Iterable, Optional, Sequence
 from .types import InferError
 
 #: the kinds the port injects
-_KINDS = ("latency", "error", "abort", "mem_pressure", "device_error")
-#: the kinds drawn per request by ``decide``; ``device_error`` is
+_KINDS = ("latency", "error", "abort", "load_fail", "mem_pressure",
+          "device_error")
+#: the kinds drawn per request by ``decide``; ``load_fail`` is
+#: control-plane only (``maybe_fail_load``) and ``device_error``
 #: dispatch-plane only (``maybe_device_fault``)
 _DATA_KINDS = ("latency", "error", "abort", "mem_pressure")
 #: the reference's kinds whose machinery is not ported -> ROADMAP item
 NOT_PORTED_KINDS = {
     "worker_kill": "A6b (fleet)",
-    "load_fail": "A3b (the repository API)",
 }
 
 
@@ -193,6 +200,17 @@ class ChaosInjector:
         if kind == "abort":
             return ChaosFault(kind)
         return ChaosFault("error", status=self.error_status)
+
+    def maybe_fail_load(self, model_name: str) -> None:
+        """The control-plane verdict for one repository load: raises the
+        injected failure (503) when a ``load_fail`` draw fires, counted
+        like every injection."""
+        if "load_fail" not in self.kinds:
+            return
+        if self._draw(model_name, ("load_fail",)) is not None:
+            raise InferError(
+                f"chaos: injected load failure for '{model_name}'",
+                http_status=503)
 
     def maybe_device_fault(self, model_name: str) -> bool:
         """The dispatch-plane verdict for one decode dispatch: True when a

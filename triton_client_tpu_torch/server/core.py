@@ -113,6 +113,17 @@ core's own prober thread drives them while a model is quarantined.  The
 reference's quarantine also triggers an incident bundle; incidents are
 not ported yet (ROADMAP A6b-3) and the port logs the quarantine.
 
+The repository (the reference's ``load_model`` and
+``retire_name_caches``, core.py:1780-1853): :meth:`InferenceCore.load_model`
+draws the chaos ``load_fail`` first, then loads through the registry;
+a load or an unload retires what the core keeps for the name's old
+instances: each dynamic batcher is keyed ``name@version`` and stamped with
+the registry's generation, so a swapped instance gets a new one and the
+stale one's thread stops; the SLO objective and the device statistics'
+signatures go, and once the name is unloaded its prefix/KV store, its
+quarantine state and its governor pins.  Server readiness is false while
+a model is LOADING.  Warmup at load is not ported yet (ROADMAP A6b-5).
+
 The fleet controller and the response cache are not ported yet (ROADMAP
 A6b).
 """
@@ -265,6 +276,11 @@ def _host_array(value) -> np.ndarray:
 _STOP = object()
 
 
+def _batcher_key(model: Model) -> str:
+    """A batcher per served version: ``name@version``."""
+    return f"{model.name}@{model.served_version}"
+
+
 def _fail(fut: concurrent.futures.Future, err: Exception) -> None:
     """Fail a queued request's future once (a no-op where it is done)."""
     try:
@@ -293,6 +309,8 @@ class _DynamicBatcher:
     def __init__(self, core: "InferenceCore", model: Model):
         self._core = core
         self._model = model
+        #: the registry's generation of the name when this batcher began
+        self.generation = 0
         cfg = model.config
         self._max_delay_s = cfg.max_queue_delay_microseconds / 1e6
         self._buckets = sorted(cfg.preferred_batch_size)
@@ -322,16 +340,16 @@ class _DynamicBatcher:
                                 (tenant, tier)), tier)
         return fut.result()
 
-    def stop(self) -> None:
+    def stop(self, reason: str = "server is shutting down") -> None:
         """Stop the batcher thread after the batch it is forming; whatever
-        is still queued then fails with 503."""
+        is still queued then fails with 503 and ``reason``."""
         self._stopping = True
         self._queue.put_nowait(_STOP, 0)
         self._thread.join(timeout=30)
         self._pool.shutdown(wait=True)
         for item in self._queue.drain():
             if item is not _STOP:
-                _fail(item[2], InferError("server is shutting down", 503))
+                _fail(item[2], InferError(reason, 503))
 
     def _drop_if_expired(self, item) -> bool:
         """Fail an item whose deadline passed while it queued (504, before
@@ -631,6 +649,14 @@ class DeviceFaultManager:
         if core is not None:
             core.log.warning(f"model '{model}' un-quarantined")
 
+    def forget(self, model: str) -> None:
+        """An unloaded model's quarantine, fault window and probe (which
+        holds the retired instance) go; its counters stay."""
+        with self._lock:
+            self._quarantined.pop(model, None)
+            self._recent.pop(model, None)
+            self._probes.pop(model, None)
+
     def is_quarantined(self, model: str) -> bool:
         with self._lock:
             return model in self._quarantined
@@ -771,9 +797,10 @@ class DeviceFaultManager:
 class InferenceCore:
     SERVER_NAME = "triton_client_tpu_torch_harness"
     SERVER_VERSION = "2.0.0-cuda"
-    # the reference's list in its order, less model_repository (A6b-1) and
-    # xla_shared_memory (the port's device regions are cuda_shared_memory)
-    EXTENSIONS = ["classification", "sequence", "schedule_policy",
+    # the reference's list in its order, less xla_shared_memory (the
+    # port's device regions are cuda_shared_memory)
+    EXTENSIONS = ["classification", "sequence", "model_repository",
+                  "model_repository(unload_dependents)", "schedule_policy",
                   "model_configuration", "system_shared_memory",
                   "cuda_shared_memory", "binary_tensor_data", "statistics",
                   "trace", "logging"]
@@ -861,7 +888,9 @@ class InferenceCore:
 
     # -- health / metadata -------------------------------------------------
     def ready(self) -> bool:
-        return self.live and self.accepting
+        """Up, accepting, and no model LOADING (the reference's)."""
+        return (self.live and self.accepting
+                and not self.registry.any_loading())
 
     def model_ready(self, name: str, version: str = "") -> bool:
         """Registry-ready and not quarantined, on both protocols (the
@@ -900,7 +929,7 @@ class InferenceCore:
     def _tier_depth(self, model: Model, tier: int) -> int:
         """The shed tier's backlog, for the pushback: its batcher lane's
         depth where the model batches, else the model's pending count."""
-        b = self._batchers.get(model.name)
+        b = self._batchers.get(_batcher_key(model))
         if b is not None and b._queue.qsize():
             return b._queue.depth(tier)
         return model.stats.pending_count
@@ -975,7 +1004,7 @@ class InferenceCore:
             # queue takes the slot of the newest queued item of the lowest
             # lane below it; the victim gets the 429 a shed gets.
             if request.tier < qos.best_effort_tier and pending >= limit:
-                b = self._batchers.get(model.name)
+                b = self._batchers.get(_batcher_key(model))
                 victim = (b._queue.preempt_lower(request.tier)
                           if b is not None else None)
                 if victim is not None:
@@ -1059,7 +1088,7 @@ class InferenceCore:
         end = time.monotonic() + max(0.0, timeout_s)
         while True:
             if not any(m.stats.pending_count
-                       for m in self.registry.models()):
+                       for m in self.registry.all_version_models()):
                 return True
             if time.monotonic() >= end:
                 return False
@@ -1071,9 +1100,10 @@ class InferenceCore:
         out: Dict[tuple, int] = {}
         with self._lock:
             batchers = list(self._batchers.items())
-        for name, b in batchers:
+        for key, b in batchers:
+            name = key.rsplit("@", 1)[0]
             for tier, depth in enumerate(b._queue.depths()):
-                out[(name, tier)] = depth
+                out[(name, tier)] = out.get((name, tier), 0) + depth
         return out
 
     # -- inference ---------------------------------------------------------
@@ -1401,10 +1431,14 @@ class InferenceCore:
         """The v2 statistics of one model, or of every model (the
         reference's ``InferenceCore.statistics``); an unknown model is a
         400."""
-        if name:
+        if name and version:
             models = [self.registry.get(name, version)]
+        elif name:
+            # unversioned: every served version of the name
+            self.registry.get(name)  # an unknown name is a 400
+            models = self.registry.version_models(name)
         else:
-            models = self.registry.models()
+            models = self.registry.all_version_models()
         return [m.stats.snapshot(m.name, m.served_version) for m in models]
 
     def run_model(self, model: Model, inputs: Dict[str, Any],
@@ -1565,12 +1599,85 @@ class InferenceCore:
                 and not any(o.shm is not None for o in request.outputs))
 
     def _batcher(self, model: Model) -> _DynamicBatcher:
+        """The batcher of this instance: keyed by ``name@version`` and
+        stamped with the registry's generation, so a swapped instance gets
+        a new one and the stale one is retired (the reference's)."""
+        gen = self.registry.generation(model.name)
+        key = _batcher_key(model)
+        stale = None
         with self._lock:
-            b = self._batchers.get(model.name)
+            b = self._batchers.get(key)
+            if b is not None and b.generation != gen:
+                stale, b = self._batchers.pop(key), None
             if b is None:
                 b = _DynamicBatcher(self, model)
-                self._batchers[model.name] = b
-            return b
+                b.generation = gen
+                self._batchers[key] = b
+        if stale is not None:
+            self._retire_batcher(stale)
+        return b
+
+    def _retire_batcher(self, b: _DynamicBatcher) -> None:
+        """Stop a stale batcher on a thread of its own: its batches in
+        flight finish, and what is still queued fails with 503."""
+        threading.Thread(
+            target=b.stop, args=("model was reloaded while queued",),
+            daemon=True, name=f"retire-{b._model.name}").start()
+
+    # -- the repository API ------------------------------------------------
+    def load_model(self, name: str, config_override: Optional[str] = None,
+                   files: Optional[Dict[str, str]] = None) -> None:
+        """The repository's load (the reference's ``load_model`` less its
+        warmup, ROADMAP A6b-5): the chaos ``load_fail`` draw first, then
+        the registry's load, then the name's stale caches retired."""
+        if self.chaos is not None:
+            self.chaos.maybe_fail_load(name)
+        self.registry.load(name, config_override=config_override,
+                           files=files)
+        self.retire_name_caches(name)
+        self.log.info(f"successfully loaded model '{name}'")
+
+    def unload_model(self, name: str,
+                     unload_dependents: bool = False) -> None:
+        """The repository's unload; the name's caches, and its dependents'
+        where they were unloaded too, are retired."""
+        model = self.registry.get(name) if self.registry.is_ready(name) \
+            else None
+        self.registry.unload(name, unload_dependents=unload_dependents)
+        names = [name]
+        if unload_dependents and model is not None:
+            names += [s.model_name for s in model.config.ensemble_scheduling
+                      if not self.registry.is_ready(s.model_name)]
+        for n in names:
+            self.retire_name_caches(n)
+        self.log.info(f"successfully unloaded model '{name}'")
+
+    def retire_name_caches(self, name: str) -> None:
+        """Drop what the core keeps for ``name``'s retired instances: the
+        batchers of another generation (stopped before this returns: their
+        batches in flight finish, what is queued fails with 503), the SLO
+        objective resolved from the old config and the device statistics'
+        signatures and FLOPs (cumulative counters stay).  Once the name is
+        unloaded, its prefix/KV store, its quarantine state (whose probe
+        holds the old instance) and its governor pins go too."""
+        from . import kvcache
+
+        gen = self.registry.generation(name)
+        prefix = f"{name}@"
+        with self._lock:
+            stale = [self._batchers.pop(k) for k in list(self._batchers)
+                     if k.startswith(prefix)
+                     and self._batchers[k].generation != gen]
+        for b in stale:
+            # on the control plane's thread: when a load or an unload
+            # returns, no batcher thread holds the retired instance
+            b.stop("model was reloaded while queued")
+        self.slo.invalidate(name)
+        self.device_stats.forget_model(name)
+        if self.registry.get_state(name)[0] != "READY":
+            kvcache.drop(name)
+            self.device_faults.forget(name)
+            self.memory.forget_model(name)
 
     def shutdown(self) -> None:
         self.accepting = False
@@ -1579,10 +1686,8 @@ class InferenceCore:
             self._batchers.clear()
         for b in batchers:
             b.stop()
-        for m in self.registry.models():
-            unload = getattr(m, "unload", None)
-            if unload is not None:
-                unload()  # a model's own worker threads stop
+        for m in self.registry.all_version_models():
+            m.unload()  # a model's own worker threads stop
         self.tracer.shutdown()
         self.log.shutdown()
 

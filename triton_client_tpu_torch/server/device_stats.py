@@ -194,6 +194,20 @@ class DeviceStatsCollector:
         with self._lock:
             self._flops_pe.setdefault(model, flops_per_element)
 
+    def forget_model(self, model: str) -> None:
+        """A reloaded or unloaded model's FLOPs declaration, measured
+        FLOPs and signatures with their counted costs go (its next
+        instance counts anew); cumulative counters stay."""
+        with self._lock:
+            self._flops_pe.pop(model, None)
+            self._flops_measured.pop(model, None)
+            self._drift_warned.discard(model)
+            self._sig_costs = {k: v for k, v in self._sig_costs.items()
+                               if k[0] != model}
+            cc = self._compile.get(model)
+            if cc is not None:
+                cc.signatures = set()
+
     def signature_known(self, model: str, signature: tuple) -> bool:
         """Whether this input-shape signature has been seen (i.e. its
         compile — and cost analysis, if available — already happened).

@@ -29,8 +29,11 @@ stream RPC takes an iterator of requests and yields responses.
   JSON.  A traced ``ModelInfer`` is finished here: SERIALIZE (the response
   message built) and NETWORK_WRITE (until it is handed to the bridge); a
   traced decoupled stream gets a NETWORK_WRITE span every few chunks.
-* The repository RPCs answer UNIMPLEMENTED, naming the ROADMAP item that
-  brings them (``protocol.service.NOT_PORTED``).
+* The repository RPCs (the reference's, grpc_server.py:263-310):
+  ``RepositoryIndex``, ``RepositoryModelLoad`` (a ``config`` string
+  parameter and ``file:<path>`` bytes parameters) and
+  ``RepositoryModelUnload`` (``unload_dependents``), a failure INTERNAL
+  with the core's text, as in the reference.
 
 Status codes from the core's errors as in the reference's ``_grpc_code``:
 413 and 429 RESOURCE_EXHAUSTED, 503 UNAVAILABLE, 504 DEADLINE_EXCEEDED; a
@@ -42,6 +45,7 @@ request's ``timeout`` and ``priority`` parameters.
 
 from __future__ import annotations
 
+import base64
 import json
 import time
 from typing import Any, Dict, Iterable, Iterator, Optional
@@ -50,7 +54,7 @@ import numpy as np
 
 from ..protocol import debug as pb_debug
 from ..protocol import inference as pb
-from ..protocol.service import NOT_PORTED, StatusCode
+from ..protocol.service import StatusCode
 from ..utils import triton_to_np_dtype
 from .core import InferenceCore
 from .flight_recorder import parse_snapshot_limit
@@ -234,13 +238,6 @@ class InferenceServicer:
         #: the ingress cap on one request message (0: none)
         self.max_request_bytes = max_request_bytes
 
-    def unimplemented(self, method: str) -> GrpcError:
-        what, item = NOT_PORTED.get(method, ("this RPC", "A3b"))
-        return GrpcError(
-            StatusCode.UNIMPLEMENTED,
-            f"{method} ({what}) is not ported to triton_client_tpu_torch "
-            f"yet (ROADMAP {item})")
-
     # -- health / metadata -------------------------------------------------
     def ServerLive(self, request):
         return pb.ServerLiveResponse(live=self._core.live)
@@ -300,6 +297,42 @@ class InferenceServicer:
                     for key in ("success", "fail", "queue", "compute_input",
                                 "compute_infer", "compute_output")})))
         return resp
+
+    # -- the repository ----------------------------------------------------
+    def RepositoryIndex(self, request):
+        resp = pb.RepositoryIndexResponse()
+        for entry in self._core.registry.index(ready_only=request.ready):
+            resp.models.append(pb.RepositoryIndexResponse.ModelIndex(
+                name=entry["name"], version=entry.get("version", "1"),
+                state=entry["state"], reason=entry.get("reason", "")))
+        return resp
+
+    def RepositoryModelLoad(self, request):
+        config_override, files = None, {}
+        for k, v in request.parameters.items():
+            which = v.WhichOneof("parameter_choice")
+            if k == "config" and which == "string_param":
+                config_override = v.string_param
+            elif k.startswith("file:") and which == "bytes_param":
+                files[k] = base64.b64encode(bytes(v.bytes_param)).decode()
+        try:
+            self._core.load_model(request.model_name,
+                                  config_override=config_override,
+                                  files=files or None)
+        except InferError as e:
+            raise GrpcError(StatusCode.INTERNAL, str(e))
+        return pb.RepositoryModelLoadResponse()
+
+    def RepositoryModelUnload(self, request):
+        p = request.parameters.get("unload_dependents")
+        unload_dependents = bool(
+            p is not None and p.WhichOneof("parameter_choice") == "bool_param"
+            and p.bool_param)
+        try:
+            self._core.unload_model(request.model_name, unload_dependents)
+        except InferError as e:
+            raise GrpcError(StatusCode.INTERNAL, str(e))
+        return pb.RepositoryModelUnloadResponse()
 
     # -- shared memory -----------------------------------------------------
     def SystemSharedMemoryStatus(self, request):

@@ -35,7 +35,7 @@ from typing import Callable, Dict, Iterable, List, Optional
 
 from ..protocol.grpc_web import (CONTENT_TYPE, CONTENT_TYPES, TRAILER_FLAG,
                                  frame_header, iter_frames, trailers)
-from ..protocol.service import METHODS, NOT_PORTED, StatusCode
+from ..protocol.service import METHODS, StatusCode
 from .grpc_server import GrpcError, InferenceServicer, oversize_error
 
 
@@ -69,13 +69,6 @@ def serve(servicer: InferenceServicer, method: str, content_type: str,
             pass
         send(415, f"unsupported content type {content_type}".encode(),
              {}, "text/plain; charset=utf-8")
-        return
-    if method in NOT_PORTED:
-        for _ in chunks:
-            pass
-        err = servicer.unimplemented(method)
-        send(200, trailers(err.code, err.message),
-             {"grpc-status": str(int(err.code))}, CONTENT_TYPE)
         return
     arity, req_type, _ = METHODS[method]
     if arity == "uu":

@@ -72,7 +72,22 @@ GET routes; a path that only another method's route serves gets 405 with
 first) gets an HTTP/1.1 400 and the connection closes, so such a client
 falls back to gRPC-Web.
 
-Not ported yet: the repository API and the wire templates.
+The repository API (the reference's, http_server.py:124-126 and
+:319-345): ``POST /v2/repository/index`` (``{"ready": true}`` lists the
+ready rows only), ``POST /v2/repository/models/{m}/load`` (the body's
+``parameters``: ``config``, a JSON config override, and ``file:<path>``
+entries, base64 files of an in-request model directory) and
+``.../unload`` (``parameters.unload_dependents``).  A model's
+``/versions/{v}/`` routes reach that version's instance.
+
+OpenAI (the reference's ``openai_api.py``): ``GET /v1/models``, ``POST
+/v1/completions`` and ``POST /v1/chat/completions`` (``openai_api.py``),
+their errors in OpenAI's shape, ``{"error": {"message", "type"}}``; a
+streamed one is SSE with the ``generate_stream`` lifecycle (the first
+frame before the 200, a failure after it in band, a client that goes away
+closes every choice's stream).
+
+Not ported yet: the wire templates.
 """
 
 from __future__ import annotations
@@ -95,7 +110,7 @@ import torch
 
 from ..protocol.grpc_web import CONTENT_TYPE, read_chunked, trailers
 from ..protocol.service import StatusCode
-from . import grpc_web
+from . import grpc_web, openai_api
 from .chaos import ChaosAbort
 from .core import InferenceCore
 from .flight_recorder import parse_snapshot_limit
@@ -165,6 +180,7 @@ _GET_ROUTES = [
     (re.compile(r"/v2/trace/setting"), "_get_trace"),
     (re.compile(_MODEL_TRACE), "_get_trace"),
     (re.compile(r"/v2/logging"), "_get_logging"),
+    (re.compile(r"/v1/models"), "_oai_models"),
     *_DEBUG_ROUTES,
 ]
 _POST_ROUTES = [
@@ -177,6 +193,13 @@ _POST_ROUTES = [
     (re.compile(_SHM_REGION + r"/register"), "_shm_register"),
     (re.compile(_SHM + r"/unregister"), "_shm_unregister"),
     (re.compile(_SHM_REGION + r"/unregister"), "_shm_unregister"),
+    (re.compile(r"/v2/repository/index"), "_repo_index"),
+    (re.compile(r"/v2/repository/models/(?P<model>[^/]+)/load"),
+     "_repo_load"),
+    (re.compile(r"/v2/repository/models/(?P<model>[^/]+)/unload"),
+     "_repo_unload"),
+    (re.compile(r"/v1/completions"), "_oai_completions"),
+    (re.compile(r"/v1/chat/completions"), "_oai_chat_completions"),
 ]
 
 
@@ -547,6 +570,79 @@ class _Handler(BaseHTTPRequestHandler):
     def _shm_unregister(self, groups, body):
         self._shm_registry(groups).unregister(groups.get("name"))
         self._send(200)
+
+    # -- the repository ------------------------------------------------------
+    def _repo_index(self, groups, body):
+        ready = bool(_json_object(body).get("ready", False))
+        self._send(200, _json_body(self.core.registry.index(
+            ready_only=ready)))
+
+    def _repo_load(self, groups, body):
+        params = _json_object(body).get("parameters", {}) or {}
+        files = {k: v for k, v in params.items() if k.startswith("file:")}
+        self.core.load_model(groups["model"],
+                             config_override=params.get("config"),
+                             files=files or None)
+        self._send(200)
+
+    def _repo_unload(self, groups, body):
+        params = _json_object(body).get("parameters", {}) or {}
+        self.core.unload_model(
+            groups["model"],
+            unload_dependents=bool(params.get("unload_dependents")))
+        self._send(200)
+
+    # -- OpenAI ----------------------------------------------------------------
+    def _oai_models(self, groups, body):
+        self._send(200, _json_body(openai_api.models_body(self.core)))
+
+    def _oai_completions(self, groups, body):
+        self._oai(body, chat=False)
+
+    def _oai_chat_completions(self, groups, body):
+        self._oai(body, chat=True)
+
+    def _oai(self, raw: bytes, chat: bool) -> None:
+        """One OpenAI request; its errors in OpenAI's shape."""
+        frames = None
+        try:
+            out, frames = openai_api.completion(self.core, raw, self.headers,
+                                                chat)
+            if frames is None:
+                self._send(200, _json_body(out))
+                return
+            # the first frame before the 200: a refusal (429, no free
+            # slot) gets its own status
+            first = next(frames, None)
+        except Exception as e:  # noqa: BLE001 - OpenAI's error shape
+            if frames is not None:
+                frames.close()
+            status, payload = openai_api.error_body(e)
+            if status >= 500:
+                self.core.log.error(f"POST {self.path} failed: {e}")
+            self._send(status, _json_body(payload))
+            return
+        try:
+            self.send_response(200)
+            self.send_header("Content-Type", "text/event-stream")
+            self.send_header("Cache-Control", "no-cache")
+            self.send_header("Transfer-Encoding", "chunked")
+            self.end_headers()
+            try:
+                if first is not None:
+                    self._write_chunk(first)
+                for frame in frames:
+                    self._write_chunk(frame)
+            except InferError as e:
+                # the headers are out: the failure goes in band
+                self._write_chunk(openai_api.error_frame(e))
+            except OSError:
+                # the client went away: every choice's stream closes below
+                self.close_connection = True
+                return
+            self._write_chunk(b"")
+        finally:
+            frames.close()
 
     # -- trace and log settings ----------------------------------------------
     def _get_trace(self, groups, body):
@@ -945,7 +1041,7 @@ class HttpServer(_CountingServer):
         #: the ingress cap in bytes (0: none)
         self.max_request_bytes = max(0, int(max_request_bytes or 0))
         self.servicer = InferenceServicer(core, self.max_request_bytes)
-        self.grpc_methods = set(grpc_web.METHODS) | set(grpc_web.NOT_PORTED)
+        self.grpc_methods = set(grpc_web.METHODS)
         super().__init__((host, port), _Handler)
 
 

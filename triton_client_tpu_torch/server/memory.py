@@ -335,6 +335,19 @@ class MemoryGovernor:
                 self.kv_byte_seconds.get(key, 0.0) + byte_seconds
         return tenant, byte_seconds
 
+    def forget_model(self, model: str) -> None:
+        """An unloaded model's open KV and cache pins close (its retired
+        instance can no longer unpin them); their byte-seconds are
+        booked."""
+        with self._lock:
+            handles = [(self._kv_pins, self._kv_pinned_by_model, h)
+                       for h, e in self._kv_pins.items() if e[0] == model]
+            handles += [(self._cache_pins, self._cache_pinned_by_model, h)
+                        for h, e in self._cache_pins.items()
+                        if e[0] == model]
+        for pins, by_model, h in handles:
+            self._unpin(pins, by_model, h, None)
+
     # -- export ------------------------------------------------------------
     def shed_total(self) -> int:
         with self._lock:

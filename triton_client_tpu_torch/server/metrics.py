@@ -254,7 +254,7 @@ def collect_families(core: InferenceCore) -> List[Family]:
     keys = [key for _, _, key in _COUNTERS] + [key for _, _, key in _GAUGES]
     rows: Dict[str, List[Tuple[Dict[str, str], Any]]] = \
         {key: [] for key in keys}
-    for m in core.registry.models():
+    for m in core.registry.all_version_models():
         s = m.stats
         with s.lock:
             values = {

@@ -17,6 +17,11 @@ message's proto3 JSON (the HTTP ``/config`` body), as the reference's does.
   one yields 0..N response dicts from ``execute_decoupled``.
 * :class:`EnsembleModel` names a DAG of member models (its config's
   ``ensemble_scheduling``); the core runs it.
+
+:func:`config_from_pb` reads a ``ModelConfig`` message (a repository's
+``config.pbtxt`` or a load's JSON override, ``protocol/text_format.py``)
+into the dataclass; a field the port does not serve is a load error naming
+the ROADMAP item that brings it, never dropped.
 """
 
 from __future__ import annotations
@@ -76,6 +81,12 @@ class ModelConfig:
     # sequence_batching.max_sequence_idle_microseconds; None: no sequence
     # batching
     max_sequence_idle_microseconds: Optional[int] = None
+    # the repository's ModelVersionPolicy message (protocol/inference.py),
+    # or None: the latest version
+    version_policy: Any = None
+    # instance_group's name (None: the model's) and count
+    instance_name: Optional[str] = None
+    instance_count: int = 1
 
     def to_pb(self):
         """The config as the v2 protocol's ``ModelConfig`` message (what
@@ -108,10 +119,14 @@ class ModelConfig:
             out.sequence_batching = pb.ModelSequenceBatching(
                 max_sequence_idle_microseconds=self
                 .max_sequence_idle_microseconds)
+        if self.version_policy is not None:
+            out.version_policy = self.version_policy
         if self.instance_kind:
             out.instance_group.append(pb.ModelInstanceGroup(
-                name=self.name, count=1, kind=pb.enum_value(
-                    "ModelInstanceGroup.Kind", self.instance_kind)))
+                name=self.name if self.instance_name is None
+                else self.instance_name, count=self.instance_count,
+                kind=pb.enum_value("ModelInstanceGroup.Kind",
+                                   self.instance_kind)))
         for k, v in self.parameters.items():
             out.parameters[k] = pb.ModelParameter(string_value=v)
         if self.ensemble_scheduling:
@@ -131,6 +146,90 @@ class ModelConfig:
 
 
 _INSTANCE_KINDS = ("KIND_AUTO", "KIND_GPU", "KIND_CPU", "KIND_MODEL")
+
+
+def _refused(name: str, field_name: str, item: str) -> InferError:
+    return InferError(
+        f"failed to load '{name}': config field '{field_name}' is not "
+        f"served by triton_client_tpu_torch yet (ROADMAP {item})")
+
+
+def config_from_pb(msg, name: str) -> "ModelConfig":
+    """The dataclass of a ``ModelConfig`` message (its name defaults to
+    ``name``).  A field the port does not serve is refused
+    (:class:`InferError` naming its ROADMAP item)."""
+    from ..protocol import inference as pb
+
+    name = msg.name or name
+    refusals = [
+        (bool(msg.model_warmup), "model_warmup", "A6b-5 (model warmup)"),
+        (msg.response_cache is not None, "response_cache",
+         "A6b-5 (the response cache)"),
+        (bool(msg.default_model_filename), "default_model_filename",
+         "A3b"),
+        (any(i.allow_ragged_batch for i in msg.input),
+         "input.allow_ragged_batch", "A3b"),
+        (msg.dynamic_batching is not None
+         and msg.dynamic_batching.preserve_ordering,
+         "dynamic_batching.preserve_ordering", "A3b"),
+        (msg.sequence_batching is not None
+         and bool(msg.sequence_batching.control_input),
+         "sequence_batching.control_input", "A3b"),
+        (len(msg.instance_group) > 1, "instance_group (more than one)",
+         "A6b-2 (fleet)"),
+        (any(g.count > 1 for g in msg.instance_group),
+         "instance_group.count > 1", "A6b-2 (fleet)"),
+        (any(g.gpus for g in msg.instance_group), "instance_group.gpus",
+         "A8"),
+        (msg.ensemble_scheduling is not None and any(
+            s.model_version not in (0, -1)
+            for s in msg.ensemble_scheduling.step),
+         "ensemble_scheduling.step.model_version", "A3b"),
+    ]
+    for refused, field_name, item in refusals:
+        if refused:
+            raise _refused(name, field_name, item)
+    kinds = {v: k for k, v in pb.ENUMS["ModelInstanceGroup.Kind"].items()}
+    dtypes = {v: k for k, v in pb.ENUMS["DataType"].items()}
+
+    def dtype(number: int) -> str:
+        label = dtypes.get(number, "TYPE_INVALID")
+        if label == "TYPE_INVALID":
+            raise InferError(f"failed to load '{name}': tensor data_type "
+                             f"{label} is not a Triton datatype")
+        return "BYTES" if label == "TYPE_STRING" else label[len("TYPE_"):]
+
+    group = msg.instance_group[0] if msg.instance_group else None
+    kind = kinds.get(group.kind) if group is not None else None
+    if kind == "KIND_TPU":
+        raise _refused(name, "instance_group.kind KIND_TPU", "A9")
+    db, sb, ens = (msg.dynamic_batching, msg.sequence_batching,
+                   msg.ensemble_scheduling)
+    return ModelConfig(
+        name=name, platform=msg.platform, backend=msg.backend,
+        max_batch_size=msg.max_batch_size,
+        input=[TensorConfig(t.name, dtype(t.data_type), list(t.dims),
+                            optional=t.optional) for t in msg.input],
+        output=[TensorConfig(t.name, dtype(t.data_type), list(t.dims),
+                             label_filename=t.label_filename)
+                for t in msg.output],
+        preferred_batch_size=list(db.preferred_batch_size) if db else [],
+        max_queue_delay_microseconds=(db.max_queue_delay_microseconds
+                                      if db else 0),
+        dynamic_batching=db is not None,
+        instance_kind=kind,
+        instance_name=group.name if group is not None else None,
+        instance_count=group.count if group is not None else 1,
+        parameters={k: v.string_value for k, v in msg.parameters.items()},
+        ensemble_scheduling=[
+            EnsembleStep(s.model_name, dict(s.input_map), dict(s.output_map))
+            for s in (ens.step if ens is not None else [])],
+        decoupled=bool(msg.model_transaction_policy is not None
+                       and msg.model_transaction_policy.decoupled),
+        max_sequence_idle_microseconds=(
+            sb.max_sequence_idle_microseconds if sb is not None else None),
+        version_policy=msg.version_policy,
+    )
 
 
 def make_config(
@@ -286,8 +385,10 @@ class Model(abc.ABC):
     """Base model: subclasses implement ``execute`` over a dict of input
     arrays and return a dict of output arrays or tensors."""
 
-    #: version number this instance serves
+    #: version number this instance serves (the registry stamps it)
     served_version: str = "1"
+    #: the directory a repository model was loaded from, else None
+    model_dir: Optional[str] = None
 
     def __init__(self, config: ModelConfig):
         self.config = config
@@ -299,7 +400,9 @@ class Model(abc.ABC):
 
     @property
     def versions(self) -> List[str]:
-        return [self.served_version]
+        """Every version served under this model's name (the registry
+        stamps the list on each loaded instance)."""
+        return list(getattr(self, "_version_list", ("1",)))
 
     @property
     def max_batch_size(self) -> int:
@@ -344,6 +447,9 @@ class Model(abc.ABC):
     def labels(self, output_name: str) -> Optional[List[str]]:
         """Classification labels of an output, where it has them."""
         return None
+
+    def unload(self) -> None:
+        """Release what the model holds when the registry unloads it."""
 
     def flops_per_element(self) -> Optional[float]:
         """Analytic forward FLOPs per batch element, the live-MFU numerator
@@ -468,5 +574,5 @@ class TorchModel(Model):
 
 __all__ = ["EnsembleModel", "EnsembleStep", "Model", "ModelConfig",
            "ModelStats", "PyModel", "TensorConfig", "TorchModel",
-           "make_config",
+           "config_from_pb", "make_config",
            "resolve_instance_device"]
