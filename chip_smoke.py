@@ -74,7 +74,8 @@ Phases (any failure exits non-zero and prints no result line):
    ``TRITON_TPU_INT8_FUSED=w2``) and run ``python -m
    triton_client_tpu_torch.perf_analyzer`` in a process of its own against
    it: -b 32 at concurrency 1 and 4 by wire and CUDA shm (the tool's
-   regions, which the server maps with cudaIpcOpenMemHandle); -b 1
+   regions, which the server maps with cudaIpcOpenMemHandle), at 1 by
+   system shm (the tool's POSIX regions); -b 1
    at concurrency 1, 8 and 15 through the dynamic batcher; open loop at
    half of concurrency 1's infer/s and at half of concurrency 8's; one run
    at concurrency 4 traced.  Then ``bert_large`` bf16 at -b 32,
@@ -180,19 +181,23 @@ Phases (any failure exits non-zero and prints no result line):
 15. the cache and faults: the prefix/KV cache on 1,024-token prompts,
     int8 KV and the device-fault drills on llama 1b (``cache_faults_phase``);
 16. OpenAI, genai_perf and the repository: ``llama_generate`` over llama
-    1b, batched with 8 slots and the prefix cache, through ``/v1``: a
-    greedy completion of 64 tokens held to the independent chain (its
-    characters ``chr(token % 256)``, or parting at a near tie) and to
-    ``/generate_stream``'s, the first chunk streamed beside
-    ``generate_stream``'s, a chat stream's ``include_usage`` counts, a stop
-    that ends a stream and frees its slot, ``n = 16`` on the 8 slots
-    refused with 429 and every slot free after, ``n = 8`` greedy streams
-    and seeded ones reproduced, ``best_of = 4``, and
-    ``cached_tokens`` 960 on a warm 1,024-token prompt; ``genai_perf`` in
-    processes of its own (SSE at concurrency 1 and 8, the ``llama_decode``
-    closed loop on gRPC-Web at 1 and 4, 64 tokens): no error, every request
-    complete, ``itl_steady`` within 35% of (latency - TTFT) / (n - 1)
-    (read once more on a miss); then a temporary model repository with a
+    1b, batched with 8 slots and the prefix cache, through ``/v1``:
+    greedy completions of 64 tokens, streamed and not, and ``n = 8``
+    greedy streams held token by token (their characters ``chr(token %
+    256)`` and chosen-token logprobs) to a warm ``/generate_stream``'s
+    tokens, parting only at a near tie of the recomputed logits, a cold
+    ``/generate_stream`` held to the independent chain, the first chunk
+    streamed beside ``generate_stream``'s, a chat stream's
+    ``include_usage`` counts and tokens against the chain, a stop that
+    ends a stream and frees its slot, ``n = 16`` on the 8 slots refused
+    with 429 and every slot free after, ``n = 8`` seeded streams
+    reproduced, ``best_of = 4``, and ``cached_tokens`` 960 on a warm
+    1,024-token prompt; ``genai_perf`` in processes of its own (SSE at
+    concurrency 1 and 8, the ``llama_decode`` closed loop on gRPC-Web at 1
+    and 4, 64 tokens): no error, every request complete, its report
+    consistent, and ``itl_steady`` within 35% of an independent reading of
+    the same token gaps just before, from a process of its own (both read
+    once more on a miss); then a temporary model repository with a
     ``longctx_tpu``-base model (versions 1 and 2 from their seeds): version
     1 loaded, served and unloaded, both under a JSON override with
     ``version_policy`` all, a ``load_fail`` draw and a ``files`` load,
@@ -1835,7 +1840,8 @@ def perf_phase(torch, counters, fa) -> None:
     """The load generator drives the served models at full width from a
     process of its own: ``bert_large`` int8 (``w2``: 24 int8 launches per
     forward) at -b 32, c = 1 and 4, by wire and CUDA shm (the tool's
-    regions, mapped with cudaIPC); at -b 1, c = 1, 8 and 15, through
+    regions, mapped with cudaIPC), c = 1 by system shm (the tool's POSIX
+    regions); at -b 1, c = 1, 8 and 15, through
     the dynamic batcher; open loop at half of c = 1's and of c = 8's
     infer/s; c = 4 traced; ``bert_large`` bf16 at -b 32, c = 1 (to compare
     with the transport phase); ``longctx_tpu`` base bf16 (8 flash launches
@@ -1852,11 +1858,12 @@ def perf_phase(torch, counters, fa) -> None:
         with serving_harness([bert]) as harness:
             _warm(harness, bert, 32)
             check_precision("perf bert_large int8", bert.transformer, True)
-            # system shm is served on every earlier path; here the wire
-            # and the tool's CUDA regions (cut to make room, PERF.md)
-            for shm in ("none", "cuda"):
+            # by system shm the tool's POSIX regions at c = 1 only (c = 4
+            # cut to make room, PERF.md)
+            for shm, levels in (("none", "1:4:3"), ("system", "1"),
+                                ("cuda", "1:4:3")):
                 perf_sweep(f"perf bert_large int8 -b 32 {shm}", harness,
-                           bert, ["-b", "32", "--concurrency-range", "1:4:3",
+                           bert, ["-b", "32", "--concurrency-range", levels,
                                   "--shared-memory", shm], counters, 0,
                            layers, window_ms=PERF_LONG_WINDOW_MS)
             levels = perf_sweep(
@@ -3507,7 +3514,8 @@ def _gen_recompute(torch, params, cfg, prompt: bytes, toks):
 
     seq = torch.cat([_gen_window(torch, prompt), torch.tensor(
         [toks[:-1]], dtype=torch.int32, device=GEN_DEVICE)], dim=1)
-    return decode.reference_forward(params, seq, cfg)[0, 127:].float()
+    return decode.reference_forward(params, seq, cfg)[
+        0, len(prompt) - 1:].float()
 
 
 def _gen_parity(label, torch, dec) -> None:
@@ -4592,8 +4600,9 @@ def cache_faults_phase(torch, counters) -> None:
 
 #: "openai <path>" / "genai_perf <path>" / "repository <path>" -> launches
 OAI_PATHS = {}
-#: greedy /v1 answers and the stop case, tokens; the n = 8 cohorts
-OAI_TOKENS, OAI_N, OAI_N_TOKENS, OAI_BEST_OF = 64, 8, 16, 4
+#: greedy /v1 answers and the stop case, tokens; the n = 8 cohorts (the
+#: seeded ones at OAI_N_TOKENS, cut from 16 to make room)
+OAI_TOKENS, OAI_N, OAI_N_TOKENS, OAI_BEST_OF = 64, 8, 8, 4
 #: the second reading of the first chunk streams this many tokens
 OAI_TTFT_TOKENS = 8
 #: a warm 1,024-token prompt: 15 of its 16 64-token blocks come from the
@@ -4601,20 +4610,20 @@ OAI_TTFT_TOKENS = 8
 OAI_CACHED_TOKENS = 960
 #: genai_perf: (endpoint, model, concurrency, requests) at GENAI_TOKENS
 GENAI_TOKENS = 64
-GENAI_RUNS = (("generate", "llama_generate", 1, 2),
+#: (one request at c = 1: cut from 2 to make room)
+GENAI_RUNS = (("generate", "llama_generate", 1, 1),
               ("generate", "llama_generate", 8, 8),
-              ("stream", "llama_decode", 1, 2),
+              ("stream", "llama_decode", 1, 1),
               ("stream", "llama_decode", 4, 4))
-#: itl_steady against (request latency - TTFT) / (tokens - 1), the
-#: reference test's 35%
+#: genai_perf's itl_steady against an independent reading of it
+#: (``_genai_own``) and against (request latency - TTFT) / (tokens - 1) of
+#: its own report: the reference test's 35%
 GENAI_ITL_TOL = 0.35
 #: the repository's longctx_tpu-base model: each version's seed
 REPO_SEEDS = {1: 101, 2: 202}
 REPO_MODEL = "longctx_repo"
 #: device memory after an unload against before the load
 REPO_MEM_TOL = 2 << 20
-#: where the repository model runs (rehearsals off the card: KIND_CPU)
-REPO_KIND = "KIND_GPU"
 REPO_DIR = os.path.join(REPO, "build", "chip_smoke_repo")
 
 _REPO_MODEL_PY = '''
@@ -4694,29 +4703,55 @@ def _oai_text(frames, index: int = 0, chat: bool = False) -> str:
         for f in frames if f["choices"] and f["choices"][0]["index"] == index)
 
 
-def _oai_near_tie(label, chains, prompt: bytes, text: str) -> bool:
-    """A /v1 text equal to the chain's tokens as the byte detokenizer
-    writes them (``chr(token % 256)``), or parting where the chain had a
-    near tie: the served character is some token within SERVED_ATOL of
-    the maximum, as is the chain's.  Returns whether it is equal."""
-    want, logits = chains[prompt]
-    want_text = "".join(chr(t % 256) for t in want[:len(text)])
-    if text == want_text:
-        return True
-    if len(text) != len(want_text):
-        fail(f"{label}: {len(text)} characters, the chain has "
-             f"{len(want_text)}")
-    j = next(i for i, (a, b) in enumerate(zip(text, want_text)) if a != b)
-    row = logits[j]
-    top = float(row.max())
+def _oai_logprobs(frames_or_choice, index: int = 0,
+                  chat: bool = False):
+    """The chosen-token logprobs of a /v1 answer: a choice of a full body,
+    or choice ``index`` of a stream's frames."""
+    if isinstance(frames_or_choice, dict):
+        parts = [frames_or_choice["logprobs"]]
+    else:
+        parts = [f["choices"][0]["logprobs"] for f in frames_or_choice
+                 if f["choices"] and f["choices"][0]["index"] == index
+                 and f["choices"][0].get("logprobs")]
+    if chat:
+        return [e["logprob"] for p in parts for e in p["content"]]
+    return [lp for p in parts for lp in p["token_logprobs"]]
+
+
+def _oai_hold(label, torch, text: str, lps, toks, rows):
+    """A greedy /v1 answer held token by token to ``toks``, what another
+    route chose on the same prompt from the same prefix-cache state, and
+    ``rows``, the logits that chose them.  While the two agree, each
+    character is ``chr(toks[i] % 256)`` (the byte detokenizer's) and each
+    logprob is ``toks[i]``'s in its row within SERVED_ATOL, so /v1 chose
+    those very tokens.  At the first position where they do not, /v1's
+    token is the one of the character's ~500 tokens whose logprob the
+    answer reports (within SERVED_ATOL), and it and ``toks[j]`` must both
+    lie within SERVED_ATOL of the row's maximum: a near tie.  Past a
+    parting the contexts differ and nothing more is compared.  Returns the
+    position of the parting, or None where the answer is ``toks``."""
     atol = SERVED_ATOL["llama_tpu", False]
-    served = float(row[ord(text[j])::256].max())
-    if not (served >= top - atol and float(row[want[j]]) >= top - atol):
-        fail(f"{label}: character {j} is {text[j]!r}, the chain's "
-             f"{want_text[j]!r}, and no near tie (best logit of a token "
-             f"writing it {served:.4f}, the chain's "
-             f"{float(row[want[j]]):.4f}, max {top:.4f})")
-    return False
+    if not (len(text) == len(lps) == len(toks)):
+        fail(f"{label}: {len(text)} characters and {len(lps)} logprobs "
+             f"against {len(toks)} tokens")
+    for j, (ch, lp, tok) in enumerate(zip(text, lps, toks)):
+        row = rows[j].float()
+        ls = torch.log_softmax(row, dim=-1)
+        if ch == chr(tok % 256) and abs(float(ls[tok]) - lp) <= atol:
+            continue
+        cand = torch.arange(ord(ch), row.numel(), 256, device=row.device)
+        mine = int(cand[int(torch.argmin((ls[cand] - lp).abs()))])
+        top = float(row.max())
+        if abs(float(ls[mine]) - lp) > atol or not (
+                float(row[mine]) >= top - atol
+                and float(row[tok]) >= top - atol):
+            fail(f"{label}: token {j} is {mine} ({ch!r}, logprob {lp:.4f} "
+                 f"served, {float(ls[mine]):.4f} recomputed), the other "
+                 f"route's {tok} ({chr(tok % 256)!r}, "
+                 f"{float(ls[tok]):.4f}); logits {float(row[mine]):.4f} / "
+                 f"{float(row[tok]):.4f} (max {top:.4f}) are no near tie")
+        return j
+    return None
 
 
 def _oai_slots_free(label, dec) -> None:
@@ -4726,11 +4761,13 @@ def _oai_slots_free(label, dec) -> None:
 
 def _oai_routes(torch, dec, port, counters) -> None:
     """The OpenAI routes on llama_generate (batched, 8 slots, the prefix
-    cache on): greedy completions against the independent chain and
-    /generate_stream, the first chunk against generate_stream's, a chat
-    stream's usage, a stop that ends a stream, n = 16 refused on 8 slots,
-    n = 8 greedy and seeded (twice), best_of, and cached_tokens on a warm
-    1,024-token prompt."""
+    cache on): greedy completions, streamed and not, and n = 8 greedy
+    choices held token by token to a warm /generate_stream's tokens (a
+    cold one held to the independent chain first), the first chunk against
+    generate_stream's, a chat stream's usage and tokens against the chain,
+    a stop that ends a stream, n = 16 refused on 8 slots, n = 8 seeded
+    (twice), best_of, and cached_tokens on a warm 1,024-token prompt."""
+    params, cfg = dec._ensure_params()
     p0, p_chat, p_n, p_cache = _cf_prompts(13, 4, CF_PROMPT_LEN)
     head, tail = "user: ", "\nassistant:"
     chat_content = p_chat[:CF_PROMPT_LEN - len(head) - len(tail)].decode()
@@ -4740,11 +4777,17 @@ def _oai_routes(torch, dec, port, counters) -> None:
                   for p in (p0, p_chat)}
     label = "openai"
     _reset(counters)
-    # greedy, not streamed: the chain's text, as /generate_stream's
+    # generate_stream, cold: the chain's tokens or a near tie; it fills the
+    # prefix cache, so every greedy answer below starts warm
+    toks, _ = _sse_stream(port, p0, OAI_TOKENS)
+    cold_same = _gen_near_ties(f"{label} generate_stream cold", torch, dec,
+                               chains, p0, toks)
+    # greedy, not streamed
     out, wall1 = _oai_request(port, "/v1/completions", {
         "model": "llama_generate", "prompt": p0.decode(),
-        "max_tokens": OAI_TOKENS})
+        "max_tokens": OAI_TOKENS, "logprobs": True})
     text = out["choices"][0]["text"]
+    greedy_lps = _oai_logprobs(out["choices"][0])
     usage = out["usage"]
     if usage["completion_tokens"] != OAI_TOKENS or \
             usage["prompt_tokens"] != CF_PROMPT_LEN or \
@@ -4753,41 +4796,45 @@ def _oai_routes(torch, dec, port, counters) -> None:
              f"{out['choices'][0]['finish_reason']}")
     if not usage.get("device_time_us", 0) > 0:
         fail(f"{label}: usage carries no device time: {usage}")
-    same_v1 = _oai_near_tie(f"{label} completions", chains, p0, text)
-    toks, _ = _sse_stream(port, p0, OAI_TOKENS)
-    same_sse = _gen_near_ties(f"{label} generate_stream", torch, dec,
-                              chains, p0, toks)
-    sse_text = "".join(chr(t % 256) for t in toks)
-    print(f"{label}: greedy /v1/completions {OAI_TOKENS} tokens in "
-          f"{wall1:.3f} s ({OAI_TOKENS / wall1:.2f} tokens/s at n = 1), "
-          f"equal to the chain: {same_v1}, to generate_stream's text: "
-          f"{text == sse_text} (generate_stream equal to the chain: "
-          f"{same_sse}); device_time_us {usage['device_time_us']}; {CARD}",
-          flush=True)
-    # the first chunk: /v1 streamed against generate_stream, warm prompt
+    # the first chunk: /v1 streamed against generate_stream, both warm;
+    # the warm generate_stream's tokens are what every greedy /v1 answer on
+    # this prompt is held to, token by token
     ttft = {"v1": [], "generate_stream": []}
+    held = {}
     for n_tok in (OAI_TOKENS, OAI_TTFT_TOKENS):
         frames, times = _oai_request(port, "/v1/completions", {
             "model": "llama_generate", "prompt": p0.decode(),
-            "max_tokens": n_tok, "stream": True}, stream=True)
+            "max_tokens": n_tok, "stream": True, "logprobs": True},
+            stream=True)
         ttft["v1"].append(1e3 * times[0])
+        sse_toks, sse_times = _sse_stream(port, p0, n_tok)
+        ttft["generate_stream"].append(1e3 * sse_times[0])
         if n_tok == OAI_TOKENS:
             streamed_s = times[-1]
-        stream_text = _oai_text(frames)
-        _oai_near_tie(f"{label} completions streamed", chains, p0,
-                      stream_text)
-        _toks, sse_times = _sse_stream(port, p0, n_tok)
-        ttft["generate_stream"].append(1e3 * sse_times[0])
+            warm = sse_toks
+            with torch.inference_mode():
+                rows = _gen_recompute(torch, params, cfg, p0, warm)
+            held["completions"] = _oai_hold(
+                f"{label} completions", torch, text, greedy_lps, warm, rows)
+        held[f"completions streamed {n_tok}"] = _oai_hold(
+            f"{label} completions streamed {n_tok}", torch,
+            _oai_text(frames), _oai_logprobs(frames), warm[:n_tok],
+            rows[:n_tok])
+    warm_same = _gen_near_ties(f"{label} generate_stream warm", torch, dec,
+                               chains, p0, warm)
+    print(f"{label}: greedy /v1/completions {OAI_TOKENS} tokens in "
+          f"{wall1:.3f} s ({OAI_TOKENS / wall1:.2f} tokens/s at n = 1); "
+          f"device_time_us {usage['device_time_us']}; {CARD}", flush=True)
     print(f"{label}: time to the first chunk on the warm prompt, /v1 "
           f"streamed {', '.join(f'{t:.2f}' for t in ttft['v1'])} ms, "
           f"generate_stream {', '.join(f'{t:.2f}' for t in ttft['generate_stream'])} ms; "
           f"{OAI_TOKENS} tokens streamed in {streamed_s:.3f} s "
           f"({OAI_TOKENS / streamed_s:.2f} tokens/s); {CARD}", flush=True)
-    # a chat stream with include_usage
+    # a chat stream with include_usage, cold: held to the chain
     frames, times = _oai_request(port, "/v1/chat/completions", {
         "model": "llama_generate",
         "messages": [{"role": "user", "content": chat_content}],
-        "max_tokens": OAI_TOKENS, "stream": True,
+        "max_tokens": OAI_TOKENS, "stream": True, "logprobs": True,
         "stream_options": {"include_usage": True}}, stream=True)
     chat_text = _oai_text(frames, chat=True)
     final = frames[-1]
@@ -4797,7 +4844,10 @@ def _oai_routes(torch, dec, port, counters) -> None:
             any(f["usage"] is not None for f in frames[:-1]):
         fail(f"{label}: chat usage {final} against {len(chat_text)} "
              "characters streamed")
-    _oai_near_tie(f"{label} chat", chains, p_chat, chat_text)
+    chat_chain, chat_rows = chains[p_chat]
+    held["chat against the chain"] = _oai_hold(
+        f"{label} chat", torch, chat_text,
+        _oai_logprobs(frames, chat=True), chat_chain, chat_rows)
     # a stop sequence that ends a stream early frees its slot
     stop = text[8:10]
     frames, _ = _oai_request(port, "/v1/completions", {
@@ -4822,17 +4872,27 @@ def _oai_routes(torch, dec, port, counters) -> None:
     _oai_slots_free(f"{label} n = {2 * OAI_N}", dec)
     print(f"{label}: n = {2 * OAI_N} on {GEN_SLOTS} slots answered 429 "
           f"({out['error']['message']}); every slot free after", flush=True)
-    # n = 8 greedy, streamed: every choice the chain's (or a near tie)
+    # n = 8 greedy, streamed, warm: every choice held to the warm
+    # generate_stream's tokens
     frames, times = _oai_request(port, "/v1/completions", {
         "model": "llama_generate", "prompt": p0.decode(),
-        "max_tokens": OAI_TOKENS, "n": OAI_N, "stream": True},
-        stream=True)
-    same = sum(_oai_near_tie(f"{label} n = {OAI_N} greedy", chains, p0,
-                             _oai_text(frames, i)) for i in range(OAI_N))
+        "max_tokens": OAI_TOKENS, "n": OAI_N, "stream": True,
+        "logprobs": True}, stream=True)
+    for i in range(OAI_N):
+        held[f"n = {OAI_N} choice {i}"] = _oai_hold(
+            f"{label} n = {OAI_N} greedy choice {i}", torch,
+            _oai_text(frames, i), _oai_logprobs(frames, i), warm, rows)
     print(f"{label}: n = {OAI_N} greedy streams of {OAI_TOKENS} tokens, "
-          f"{OAI_N * OAI_TOKENS / times[-1]:.2f} tokens/s together; {same} "
-          f"of {OAI_N} equal to the chain (the rest part at a near tie); "
+          f"{OAI_N * OAI_TOKENS / times[-1]:.2f} tokens/s together; "
           f"{CARD}", flush=True)
+    parted = {k: v for k, v in held.items() if v is not None}
+    print(f"{label}: greedy answers held token by token, equal: "
+          f"{len(held) - len(parted)} of {len(held)} (the chat to the "
+          "independent chain, the rest to the warm generate_stream's "
+          f"tokens); parted at a near tie (token index): "
+          f"{parted or 'none'}; generate_stream "
+          f"equal to the independent chain: cold {cold_same}, warm "
+          f"{warm_same}; {CARD}", flush=True)
     _oai_slots_free(f"{label} n = {OAI_N} greedy", dec)
     # n = 8 seeded, streamed, twice: reproducible, every slot free after
     runs = []
@@ -4901,17 +4961,109 @@ def _genai_once(label, port, endpoint, model, concurrency, requests):
         return json.load(f)
 
 
+def _genai_own(label, port, endpoint, concurrency) -> float:
+    """An independent reading of what genai_perf's ``itl_steady`` reads,
+    on the same server just before it, through other code in a process of
+    its own as genai_perf runs in one (a client in the server's process
+    would share its interpreter lock): ``chip_smoke.py --genai-own``."""
+    spec = json.dumps({"port": port, "endpoint": endpoint,
+                       "concurrency": concurrency})
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--genai-own", spec], capture_output=True,
+                          text=True, timeout=300, cwd=REPO)
+    res = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")]
+    if proc.returncode != 0 or not res:
+        fail(f"{label}: the independent reading exited {proc.returncode}: "
+             f"{proc.stdout.strip()[-1000:]} {proc.stderr.strip()[-1000:]}")
+    return json.loads(res[-1][7:])["ms"]
+
+
+def genai_own_main(spec_json: str) -> int:
+    """``chip_smoke.py --genai-own SPEC``: ``_genai_own_reading`` of the
+    SPEC's port, endpoint and concurrency; prints one ``RESULT`` line."""
+    spec = json.loads(spec_json)
+    sys.path.insert(0, REPO)
+    ms = _genai_own_reading(spec["port"], spec["endpoint"],
+                            spec["concurrency"])
+    print("RESULT " + json.dumps({"ms": ms}), flush=True)
+    return 0
+
+
+def _genai_own_reading(port, endpoint, concurrency) -> float:
+    """At ``concurrency`` at once, one request of GENAI_TOKENS each: its
+    time from the first token to the last over the tokens between (ms, the
+    mean over requests).  ``generate``: /generate_stream on genai_perf's prompt
+    through the standard library's client; ``stream``: the llama_decode
+    closed loop on a gRPC-Web stream of the port's client, as genai_perf's
+    transport, on a window laid out as genai_perf's (the prompt
+    right-aligned in zeros)."""
+    import queue
+
+    import numpy as np
+
+    from triton_client_tpu_torch import grpc
+
+    gaps = [None] * concurrency
+
+    def generate(k):
+        _toks, times = _sse_stream(port, b"In a hole in the ground",
+                                   GENAI_TOKENS)
+        gaps[k] = (times[-1] - times[0]) / (len(times) - 1)
+
+    def decode(k):
+        window = np.zeros(CF_PROMPT_LEN, np.int32)
+        window[CF_PROMPT_LEN // 2:] = np.random.default_rng(900 + k) \
+            .integers(32, 127, CF_PROMPT_LEN // 2)
+        x, times, got = window, [], queue.Queue()
+        client = grpc.InferenceServerClient(f"127.0.0.1:{port}")
+        client.start_stream(callback=lambda result, error: got.put(
+            (result, error, time.perf_counter())))
+        try:
+            for i in range(GENAI_TOKENS + 1):
+                inp = grpc.InferInput("TOKENS", [len(x)], "INT32")
+                inp.set_data_from_numpy(x)
+                client.async_stream_infer("llama_decode", [inp],
+                                          sequence_id=7_000 + k,
+                                          sequence_start=i == 0,
+                                          sequence_end=i == GENAI_TOKENS)
+                result, error, t = got.get(timeout=300)
+                if error is not None:
+                    return
+                times.append(t)
+                x = result.as_numpy("NEXT_TOKEN").astype(np.int32) \
+                    .reshape(1)
+        finally:
+            client.stop_stream()
+            client.close()
+        gaps[k] = (times[-1] - times[0]) / (len(times) - 1)
+
+    fn = generate if endpoint == "generate" else decode
+    threads = [threading.Thread(target=fn, args=(k,))
+               for k in range(concurrency)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    if any(g is None for g in gaps):
+        fail(f"genai_perf {endpoint}: the independent reading failed")
+    return 1e3 * sum(gaps) / len(gaps)
+
+
 def _genai(port, counters) -> None:
     """genai_perf from processes of its own against this server: SSE on
     llama_generate at concurrency 1 and 8, the llama_decode closed loop on
     gRPC-Web streams at 1 and 4, GENAI_TOKENS tokens a request.  No error,
-    every request complete, itl_steady within GENAI_ITL_TOL of (latency -
-    TTFT) / (tokens - 1) (a gate on the host's clock: read once more on a
-    miss, HOST_GATE_RUNS)."""
+    every request complete, and its report consistent: ``itl_steady``
+    (each request's (last - first) / (n - 1)) within GENAI_ITL_TOL of
+    (latency - TTFT) / (n - 1) of the means.  Its ITL is held to an
+    independent reading of the same quantity just before it
+    (``_genai_own``), within GENAI_ITL_TOL: a gate on the host's clock,
+    both read once more on a miss (HOST_GATE_RUNS)."""
     for endpoint, model, conc, requests in GENAI_RUNS:
         label = f"genai_perf {endpoint} {model} c={conc}"
         tokens = GENAI_TOKENS + (1 if endpoint == "stream" else 0)
         for attempt in range(1, HOST_GATE_RUNS + 1):
+            own = _genai_own(label, port, endpoint, conc)
             _reset(counters)
             rep = _genai_once(label, port, endpoint, model, conc, requests)
             _cf_launches(label, counters, OAI_PATHS)
@@ -4924,23 +5076,34 @@ def _genai(port, counters) -> None:
             steady = rep["itl_steady_ms"]["avg"]
             want = (rep["request_latency_ms"]["avg"]
                     - rep["time_to_first_token_ms"]["avg"]) / (tokens - 1)
-            off = abs(steady - want) / want
+            if abs(steady - want) > GENAI_ITL_TOL * want:
+                fail(f"{label}: itl_steady {steady:.3f} ms against "
+                     f"(latency - TTFT) / (n - 1) {want:.3f} ms of its "
+                     "own report")
+            off = abs(steady - own) / own
             ttft, itl = (rep["time_to_first_token_ms"],
                          rep["inter_token_latency_ms"])
             print(f"{label}: TTFT p50 {ttft['p50']:.2f} ms (max "
                   f"{ttft['max']:.2f}), ITL p50 {itl['p50']:.2f} ms, p99 "
                   f"{itl['p99']:.2f} ms, itl_steady avg {steady:.3f} ms "
-                  f"against {want:.3f} ms ({100 * off:.1f}% off), "
-                  f"{rep['output_token_throughput_per_sec']} tokens/s, "
-                  f"{rep['request_throughput_per_sec']} requests/s; "
-                  f"{CARD}", flush=True)
+                  f"((latency - TTFT) / (n - 1) {want:.3f} ms), the "
+                  f"independent reading {own:.3f} ms ({100 * off:.1f}% "
+                  f"off), {rep['output_token_throughput_per_sec']} "
+                  f"tokens/s, {rep['request_throughput_per_sec']} "
+                  f"requests/s; {CARD}", flush=True)
             if off <= GENAI_ITL_TOL:
                 break
             if attempt == HOST_GATE_RUNS:
                 fail(f"{label}: itl_steady {steady:.3f} ms is "
-                     f"{100 * off:.1f}% off {want:.3f} ms")
+                     f"{100 * off:.1f}% off the independent reading "
+                     f"{own:.3f} ms")
             print(f"{label}: itl_steady off by more than "
                   f"{100 * GENAI_ITL_TOL:.0f}%: once more", flush=True)
+
+
+def _repo_kind() -> str:
+    """The repository model's instance kind: where generation runs."""
+    return "KIND_GPU" if GEN_DEVICE == "cuda" else "KIND_CPU"
 
 
 def _repo_write(versions, policy: str = "") -> None:
@@ -4953,7 +5116,7 @@ def _repo_write(versions, policy: str = "") -> None:
     from triton_client_tpu_torch.server.model import ModelConfig
 
     dev = resolve_instance_device(ModelConfig(REPO_MODEL,
-                                              instance_kind=REPO_KIND))
+                                              instance_kind=_repo_kind()))
     s = language.longctx_seq_len(dev)
     shutil.rmtree(REPO_DIR, ignore_errors=True)
     mdir = os.path.join(REPO_DIR, REPO_MODEL)
@@ -4974,12 +5137,12 @@ def _repo_config(s: int) -> str:
             "}]\n"
             "dynamic_batching { preferred_batch_size: [ 1, 2, 4 ] "
             "max_queue_delay_microseconds: 2000 }\n"
-            f"instance_group [{{ kind: {REPO_KIND} }}]\n")
+            f"instance_group [{{ kind: {_repo_kind()} }}]\n")
 
 
 def _repo_memory(torch) -> int:
     gc.collect()
-    if REPO_KIND == "KIND_CPU":
+    if GEN_DEVICE != "cuda":
         return 0
     torch.cuda.synchronize()
     return torch.cuda.memory_allocated()
@@ -5017,7 +5180,7 @@ def _repo_serve(label, torch, harness, counters, version: str,
     launches["int8_quantize_rows"] = counters["int8_matmul"].quantize_launches
     OAI_PATHS[f"{label} v{version}"] = launches
     layers = run.cfg.n_layers
-    if REPO_KIND == "KIND_GPU":
+    if GEN_DEVICE == "cuda":
         check_launches(f"{label} v{version}", launches, executions, layers, 0)
     got = np.concatenate(got)
     dev = run.device
@@ -5091,7 +5254,7 @@ def _repository(torch, counters) -> None:
 
     _repo_write((1, 2), "version_policy { specific { versions: [ 1 ] } }\n")
     dev = resolve_instance_device(ModelConfig(REPO_MODEL,
-                                              instance_kind=REPO_KIND))
+                                              instance_kind=_repo_kind()))
     s = language.longctx_seq_len(dev)
     x = model_tokens(LONGCTX_SEED, 2, s, 256)
     label = "repository"
@@ -5127,7 +5290,7 @@ def _repository(torch, counters) -> None:
                         "dims": [s]}],
             "dynamic_batching": {"preferred_batch_size": [1, 2, 4],
                                  "max_queue_delay_microseconds": 2000},
-            "instance_group": [{"kind": REPO_KIND}],
+            "instance_group": [{"kind": _repo_kind()}],
             "version_policy": {"all": {}}})
         t0 = time.perf_counter()
         client.load_model(REPO_MODEL, config=override)
@@ -5422,4 +5585,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--shm-client"]:
         sys.exit(shm_client_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--genai-own"]:
+        sys.exit(genai_own_main(sys.argv[2]))
     sys.exit(main())

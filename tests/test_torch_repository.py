@@ -13,7 +13,8 @@ HTTP client and its gRPC-Web client:
   the in-request directory, a version the policy asks for and the
   repository lacks, an unloaded model's infer);
 * a reload serves the new instance, through a new dynamic batcher, and
-  the stale batcher's thread stops;
+  the stale batcher's thread stops; a request parked across a reload or
+  an unload gets 503 rather than a batcher of the retired instance;
 * the JSON config override and a plain reload restoring ``config.pbtxt``,
   the ``files`` load, the version policies (latest, all, specific),
   per-version statistics and metadata;
@@ -283,6 +284,100 @@ def test_unload_frees_the_instance(tmp_path, kind):
             assert not any(t.is_alive() for t in threads)
             gc.collect()
             assert ref() is None
+
+
+@pytest.mark.parametrize("swap", ["reload", "unload"])
+def test_request_parked_across_a_swap(tmp_path, swap):
+    """The port serves each connection on a thread of its own, so a request
+    can resolve its instance, wait (here a chaos latency fault parks it)
+    and reach the batcher after a load or an unload swapped that instance
+    out.  It is refused with 503 rather than given a batcher around the
+    retired instance; the next request runs the new instance, and the
+    retired one is collected."""
+    import gc
+    import threading
+    import weakref
+
+    root = str(tmp_path)
+    _write(os.path.join(root, "batched", "config.pbtxt"), BATCHED_PBTXT)
+    _write(os.path.join(root, "batched", "1", "model.py"),
+           _model_py("port", 3))
+    with ServerHarness(ModelRegistry(repository_path=root)) as h, \
+            thttp.InferenceServerClient(h.http_url) as c:
+        c.load_model("batched")
+        np.testing.assert_array_equal(
+            _infer(c, "batched", [1, 2, 3, 4], batched=True), [[3, 6, 9, 12]])
+        old = weakref.ref(h.registry.get("batched"))
+        h.core.chaos = tchaos.ChaosInjector(
+            rate=1.0, kinds=("latency",), latency_ms=2000, seed=0,
+            max_faults=1, models=["batched"])
+        parked = {}
+
+        def run():
+            with thttp.InferenceServerClient(h.http_url) as c2:
+                parked["outcome"] = _outcome(lambda: _infer(
+                    c2, "batched", [1, 1, 1, 1], batched=True))
+
+        t = threading.Thread(target=run)
+        t.start()
+        deadline = time.monotonic() + 10
+        while h.core.chaos.counters().get("batched") != 1:
+            assert time.monotonic() < deadline, "the request never parked"
+            time.sleep(0.01)
+        _write(os.path.join(root, "batched", "1", "model.py"),
+               _model_py("port", 7))
+        if swap == "reload":
+            c.load_model("batched")
+        else:
+            c.unload_model("batched")
+        t.join(timeout=30)
+        assert not t.is_alive()
+        status, message = parked["outcome"][1:]
+        assert status == "503" and "reloaded or unloaded" in message
+        if swap == "reload":
+            np.testing.assert_array_equal(
+                _infer(c, "batched", [1, 2, 3, 4], batched=True),
+                [[7, 14, 21, 28]])
+            (key, b), = h.core._batchers.items()
+            assert key == "batched@1"
+            assert b._model is h.registry.get("batched")
+        else:
+            assert not h.core._batchers
+        h.core.chaos = None
+        gc.collect()
+        assert old() is None
+
+
+def test_override_of_a_registered_model_gets_a_new_batcher():
+    """A registered model's load with a config override changes the config
+    of the same instance: the batcher built from the old config is
+    retired, and the next request runs through one built from the new."""
+    from triton_client_tpu_torch.server.model import PyModel, config_from_pb
+
+    cfg = config_from_pb(parse_text(BATCHED_PBTXT, tpb.ModelConfig),
+                         "batched")
+    model = PyModel(cfg, lambda inputs, params: {
+        "Y": (np.asarray(inputs["X"]) * 3).astype(np.int32)})
+    reg = ModelRegistry()
+    reg.register_model(model)
+    override = json.dumps({
+        "name": "batched", "backend": "python", "max_batch_size": 8,
+        "input": [{"name": "X", "data_type": "TYPE_INT32", "dims": [4]}],
+        "output": [{"name": "Y", "data_type": "TYPE_INT32", "dims": [4]}],
+        "dynamic_batching": {"max_queue_delay_microseconds": 300}})
+    with ServerHarness(reg) as h, \
+            thttp.InferenceServerClient(h.http_url) as c:
+        np.testing.assert_array_equal(
+            _infer(c, "batched", [1, 2, 3, 4], batched=True), [[3, 6, 9, 12]])
+        old = h.core._batchers["batched@1"]
+        c.load_model("batched", config=override)
+        assert h.registry.get("batched") is model
+        assert not old._thread.is_alive()
+        np.testing.assert_array_equal(
+            _infer(c, "batched", [1, 2, 3, 4], batched=True), [[3, 6, 9, 12]])
+        new = h.core._batchers["batched@1"]
+        assert new is not old and new._model is model
+        assert new._max_delay_s == 300e-6
 
 
 def test_load_with_config_override(servers):

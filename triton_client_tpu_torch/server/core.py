@@ -117,12 +117,14 @@ The repository (the reference's ``load_model`` and
 ``retire_name_caches``, core.py:1780-1853): :meth:`InferenceCore.load_model`
 draws the chaos ``load_fail`` first, then loads through the registry;
 a load or an unload retires what the core keeps for the name's old
-instances: each dynamic batcher is keyed ``name@version`` and stamped with
-the registry's generation, so a swapped instance gets a new one and the
-stale one's thread stops; the SLO objective and the device statistics'
-signatures go, and once the name is unloaded its prefix/KV store, its
-quarantine state and its governor pins.  Server readiness is false while
-a model is LOADING.  Warmup at load is not ported yet (ROADMAP A6b-5).
+instances: each dynamic batcher is keyed ``name@version`` and runs one
+instance in one config, so a swapped instance (or config) gets a new one
+and the stale one's thread stops before the call answers; a request that
+resolved a swapped-out instance before the swap is refused with 503
+rather than given a batcher of it.  The SLO objective and the device
+statistics' signatures go, and once the name is unloaded its prefix/KV
+store, its quarantine state and its governor pins.  Server readiness is
+false while a model is LOADING.  Warmup at load is not ported yet (ROADMAP A6b-5).
 
 The fleet controller and the response cache are not ported yet (ROADMAP
 A6b).
@@ -309,9 +311,7 @@ class _DynamicBatcher:
     def __init__(self, core: "InferenceCore", model: Model):
         self._core = core
         self._model = model
-        #: the registry's generation of the name when this batcher began
-        self.generation = 0
-        cfg = model.config
+        cfg = self._config = model.config
         self._max_delay_s = cfg.max_queue_delay_microseconds / 1e6
         self._buckets = sorted(cfg.preferred_batch_size)
         self._max_bs = cfg.max_batch_size
@@ -339,6 +339,11 @@ class _DynamicBatcher:
                                 time.monotonic_ns(), trace, deadline_ns,
                                 (tenant, tier)), tier)
         return fut.result()
+
+    def serves(self, model: Model) -> bool:
+        """Whether this batcher runs ``model`` in its present config (a
+        load's override swaps the config of a registered instance)."""
+        return self._model is model and self._config is model.config
 
     def stop(self, reason: str = "server is shutting down") -> None:
         """Stop the batcher thread after the batch it is forming; whatever
@@ -1599,30 +1604,43 @@ class InferenceCore:
                 and not any(o.shm is not None for o in request.outputs))
 
     def _batcher(self, model: Model) -> _DynamicBatcher:
-        """The batcher of this instance: keyed by ``name@version`` and
-        stamped with the registry's generation, so a swapped instance gets
-        a new one and the stale one is retired (the reference's)."""
-        gen = self.registry.generation(model.name)
+        """The batcher of this instance, keyed ``name@version``.  A request
+        that resolved its instance before a load or an unload swapped it
+        out is refused with 503 rather than given a batcher of the retired
+        instance; a batcher left from a swapped instance whose retirement
+        has not run yet is retired first, as a load retires it."""
         key = _batcher_key(model)
-        stale = None
-        with self._lock:
-            b = self._batchers.get(key)
-            if b is not None and b.generation != gen:
-                stale, b = self._batchers.pop(key), None
-            if b is None:
-                b = _DynamicBatcher(self, model)
-                b.generation = gen
-                self._batchers[key] = b
-        if stale is not None:
-            self._retire_batcher(stale)
-        return b
+        while True:
+            with self._lock:
+                b = self._batchers.get(key)
+                if b is None or not b.serves(model):
+                    if not self._is_served(model):
+                        raise InferError(
+                            f"model '{model.name}' was reloaded or unloaded "
+                            "while the request waited", http_status=503)
+                    if b is None:
+                        b = self._batchers[key] = _DynamicBatcher(self, model)
+                if b.serves(model):
+                    return b
+            self._retire_batchers(model.name)
 
-    def _retire_batcher(self, b: _DynamicBatcher) -> None:
-        """Stop a stale batcher on a thread of its own: its batches in
-        flight finish, and what is still queued fails with 503."""
-        threading.Thread(
-            target=b.stop, args=("model was reloaded while queued",),
-            daemon=True, name=f"retire-{b._model.name}").start()
+    def _is_served(self, model: Model) -> bool:
+        """Whether the registry serves this very instance."""
+        return any(m is model for m in self.registry.version_models(
+            model.name))
+
+    def _retire_batchers(self, name: str) -> None:
+        """Stop ``name``'s batchers whose instance the registry no longer
+        serves, or serves in another config, on the calling thread: their
+        batches in flight finish, what is queued fails with 503."""
+        prefix = f"{name}@"
+        with self._lock:
+            stale = [self._batchers.pop(k) for k, b in
+                     list(self._batchers.items()) if k.startswith(prefix)
+                     and not (b.serves(b._model)
+                              and self._is_served(b._model))]
+        for b in stale:
+            b.stop("model was reloaded while queued")
 
     # -- the repository API ------------------------------------------------
     def load_model(self, name: str, config_override: Optional[str] = None,
@@ -1654,24 +1672,16 @@ class InferenceCore:
 
     def retire_name_caches(self, name: str) -> None:
         """Drop what the core keeps for ``name``'s retired instances: the
-        batchers of another generation (stopped before this returns: their
-        batches in flight finish, what is queued fails with 503), the SLO
+        batchers of a swapped instance or config (stopped before this
+        returns, so no batcher thread holds a retired instance once a load
+        or an unload answers), the SLO
         objective resolved from the old config and the device statistics'
         signatures and FLOPs (cumulative counters stay).  Once the name is
         unloaded, its prefix/KV store, its quarantine state (whose probe
         holds the old instance) and its governor pins go too."""
         from . import kvcache
 
-        gen = self.registry.generation(name)
-        prefix = f"{name}@"
-        with self._lock:
-            stale = [self._batchers.pop(k) for k in list(self._batchers)
-                     if k.startswith(prefix)
-                     and self._batchers[k].generation != gen]
-        for b in stale:
-            # on the control plane's thread: when a load or an unload
-            # returns, no batcher thread holds the retired instance
-            b.stop("model was reloaded while queued")
+        self._retire_batchers(name)
         self.slo.invalidate(name)
         self.device_stats.forget_model(name)
         if self.registry.get_state(name)[0] != "READY":

@@ -19,8 +19,9 @@ the repository states.  Two sources of models:
   ``version_policy`` picks the versions served: ``latest`` (1 by default),
   ``all`` or ``specific``.
 
-Each load or unload bumps the name's :meth:`ModelRegistry.generation`, so
-the core's per-name caches (its batchers) can tell a swapped instance.
+Each load or unload bumps the name's :meth:`ModelRegistry.generation`, as
+in the reference, whose response cache keys on it (ROADMAP A6b-5).  The
+core tells a swapped instance by identity (:meth:`ModelRegistry.version_models`).
 
 The reference's rolling-update staging (``stage_version``, ``promote``,
 ``demote``) belongs to its fleet and comes with it (ROADMAP A6b-2).
