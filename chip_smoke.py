@@ -3347,15 +3347,24 @@ def _overload_drain() -> None:
             "data": np.zeros(S, np.int32).tolist()}]}).encode()
         if post()[0] != 200:  # builds the weights
             fail(f"{label}: the first request failed")
-        records, stop = [], threading.Event()
+        records, stop, hold = [], threading.Event(), threading.Event()
+        lock, open_ = threading.Lock(), [0]
 
         def client():
             while not stop.is_set():
+                if hold.is_set():
+                    time.sleep(0.005)
+                    continue
+                with lock:
+                    open_[0] += 1
                 t0 = time.perf_counter()
                 try:
                     status, retry_after = post()
                 except OSError:
                     return  # the listener closed
+                finally:
+                    with lock:
+                        open_[0] -= 1
                 records.append((t0, time.perf_counter(), status,
                                 retry_after))
                 if status != 200:
@@ -3366,8 +3375,35 @@ def _overload_drain() -> None:
         for t in threads:
             t.start()
         time.sleep(1.0)
+        # the signal comes once every request the clients have open is
+        # admitted: no new one is sent while the server's pending count
+        # (admitted, not yet answered) is read against the open ones, so a
+        # request sent just before the signal cannot reach admission after
+        # it and be counted in flight
+        hold.set()
+        end = time.monotonic() + 30
+        while True:
+            with lock:
+                n_open = open_[0]
+            pending = sum(_cf_metrics(
+                port, ["nv_inference_pending_request_count"],
+                "longctx_tpu").values())
+            with lock:
+                # none answered while the count was read
+                settled = open_[0] == n_open
+            if n_open and settled and pending >= n_open:
+                break
+            if time.monotonic() > end:
+                fail(f"{label}: {n_open} requests open, {pending:g} "
+                     "admitted on the server")
+            if not n_open:  # all answered meanwhile: let them send again
+                hold.clear()
+                time.sleep(0.1)
+                hold.set()
+            time.sleep(0.005)
         t_sig = time.perf_counter()
         proc.send_signal(signal.SIGTERM)
+        hold.clear()
         try:
             code = proc.wait(timeout=DRAIN_TIMEOUT_S + 30)
         except subprocess.TimeoutExpired:
