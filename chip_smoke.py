@@ -4,7 +4,10 @@
     python3 chip_smoke.py
 
 (``chip_smoke.py --shm-client SPEC`` is the cross-process shared-memory
-client that the run starts itself.)
+client that the run starts itself.  ``chip_smoke.py --obs-spread N`` runs
+the observability phase's traced ``longctx_tpu`` sweep N times alone and
+prints, for each execution far from the forward on an idle card, the
+host's and the card's times at each layer's end.)
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -2892,6 +2895,104 @@ def observability_phase(torch, counters) -> None:
             os.environ.pop(var, None)
 
 
+def obs_spread_main(sweeps: int) -> int:
+    """``chip_smoke.py --obs-spread N``: the observability phase's traced
+    ``longctx_tpu`` sweep N times, each held by :func:`_obs_check_traces`
+    and, beside it, by the rule the phase held before (every execution
+    within OBS_TOL of the CUDA-event forward on an idle card).  Each
+    layer's end is marked on both clocks; for an execution beyond that
+    rule, the host's and the card's times at each layer's end are printed
+    beside their medians: a host that issued late shows as card times that
+    follow the host's, a slow card as a host that stays ahead."""
+    import statistics
+
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("CUDA is not available")
+    sys.path.insert(0, REPO)
+    global CARD, PEAK_BF16_FLOPS, PEAK_BYTES_PER_S
+    from triton_client_tpu_torch.models import language
+    from triton_client_tpu_torch.models import transformer as tr
+    from triton_client_tpu_torch.ops import _build
+    from triton_client_tpu_torch.server.costs import peak_bytes_per_s
+    from triton_client_tpu_torch.server.device_stats import peak_flops
+
+    PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = peak_flops(), peak_bytes_per_s()
+    CARD = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    _build.build()
+    counters = {n: importlib.import_module(f"triton_client_tpu_torch.ops.{n}")
+                for n in ("flash_attention", "int8_matmul")}
+    marks = []
+    ffn = tr._ffn_apply
+
+    def marked(*args, **kw):
+        out = ffn(*args, **kw)
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        marks.append((time.monotonic_ns(), end))
+        return out
+
+    os.makedirs(OBS_DIR, exist_ok=True)
+    layers = language.longctx_cfg("cuda").n_layers
+    os.environ.update(TRITON_TPU_QUANT_LONGCTX_TPU="int8",
+                      TRITON_TPU_INT8_FUSED="all")
+    label = "obs spread longctx_tpu int8 all"
+    model = language.make_longctx_tpu("cuda")
+    old_misses = new_misses = 0
+    gc.collect()
+    gc.freeze()
+    tr._ffn_apply = marked
+    try:
+        with serving_harness([model]) as harness:
+            _warm(harness, model, 4)
+            x = _obs_served_equal(label, harness, model, 4,
+                                  SERVED_ATOL[("longctx_tpu", True)])
+            fwd_ms = _obs_forward_ms(torch, model, x)
+            for sweep in range(1, sweeps + 1):
+                marks.clear()
+                with _obs_executions(model) as runs:
+                    _, path = _obs_sweep(label, harness, model, counters, 4,
+                                         layers, 2 * layers, True,
+                                         PERF_WINDOW_MS)
+                new_misses += _obs_check_traces(label, path, fwd_ms, runs,
+                                                batched=True) is None
+                layer_times = []
+                for i, (t0, start, end) in enumerate(runs):
+                    t1 = runs[i + 1][0] if i + 1 < len(runs) else None
+                    layer_times.append((start.elapsed_time(end), [
+                        ((ns - t0) / 1e6, start.elapsed_time(ev))
+                        for ns, ev in marks
+                        if t0 <= ns and (t1 is None or ns < t1)]))
+                far = [(ms, at) for ms, at in layer_times
+                       if abs(ms - fwd_ms) > OBS_TOL * fwd_ms]
+                old_misses += bool(far)
+                full = [at for _, at in layer_times if len(at) == layers]
+                median = [tuple(statistics.median(at[j][k] for at in full)
+                                for k in (0, 1))
+                          for j in range(layers if full else 0)]
+                print(f"{label} sweep {sweep}: {len(runs)} executions, "
+                      f"{len(far)} beyond {OBS_TOL:.0%} of the forward on "
+                      f"an idle card {fwd_ms:.3f} ms; host / card ms at "
+                      "each layer's end, the median: " + "; ".join(
+                          f"{h:.2f}/{c:.2f}" for h, c in median), flush=True)
+                for ms, at in far:
+                    print(f"  an execution of {ms:.3f} ms "
+                          f"({ms / fwd_ms - 1:+.1%}): " + "; ".join(
+                              f"{h:.2f}/{c:.2f}" for h, c in at), flush=True)
+    finally:
+        tr._ffn_apply = ffn
+        gc.unfreeze()
+        for var in ("TRITON_TPU_QUANT_LONGCTX_TPU", "TRITON_TPU_INT8_FUSED"):
+            os.environ.pop(var, None)
+    print(f"{label}: {sweeps} sweeps; the rule held before missed "
+          f"{old_misses}, the phase's gate {new_misses}; {CARD}", flush=True)
+    return 0
+
+
 # ---------------------------------------------------------------------------
 # Overload: QoS tiers, the memory governor, deadlines, chaos and drain
 # ---------------------------------------------------------------------------
@@ -5676,4 +5777,6 @@ if __name__ == "__main__":
         sys.exit(shm_client_main(sys.argv[2]))
     if sys.argv[1:2] == ["--genai-own"]:
         sys.exit(genai_own_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--obs-spread"]:
+        sys.exit(obs_spread_main(int(sys.argv[2])))
     sys.exit(main())
