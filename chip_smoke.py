@@ -2499,6 +2499,16 @@ def parse_prometheus(text: str) -> dict:
     return families
 
 
+def _obs_fresh_dir() -> None:
+    """An empty OBS_DIR: the trace files are appended to and the PROFILE
+    window's directory is globbed, so an earlier run's files left in the
+    checkout would be read as this run's."""
+    import shutil
+
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    os.makedirs(OBS_DIR)
+
+
 def _obs_set(core, on: bool) -> None:
     """Device statistics and the flight recorder on or off (tracing is
     set by perf_analyzer's --trace-file)."""
@@ -2820,7 +2830,7 @@ def observability_phase(torch, counters) -> None:
     slower."""
     from triton_client_tpu_torch.models import language
 
-    os.makedirs(OBS_DIR, exist_ok=True)
+    _obs_fresh_dir()
     layers = language.longctx_cfg("cuda").n_layers
     # the earlier phases' long-lived objects out of the collector's scans:
     # a full collection in the middle of a served forward stalls the
@@ -2936,7 +2946,7 @@ def obs_spread_main(sweeps: int) -> int:
         marks.append((time.monotonic_ns(), end))
         return out
 
-    os.makedirs(OBS_DIR, exist_ok=True)
+    _obs_fresh_dir()
     layers = language.longctx_cfg("cuda").n_layers
     os.environ.update(TRITON_TPU_QUANT_LONGCTX_TPU="int8",
                       TRITON_TPU_INT8_FUSED="all")
