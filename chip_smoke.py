@@ -38,15 +38,16 @@ Phases (any failure exits non-zero and prints no result line):
    kernel launch counts checked; then on the same server one batch of 4 by
    three transports -- (a) the HTTP body, (b) system shm, (c) CUDA shm in
    this process -- each LOGPROBS held to the plain forward and to (a),
-   flash once per layer, and per transport p50 / p99 of 30 requests one
-   after another, infer/s from 4 clients at once and the server's split of
-   a request; then one full batch timed and traced;
+   flash once per layer, and per transport p50 / p99 of
+   ``SHM_SEQUENTIAL`` requests one after another, infer/s from
+   ``SHM_CLIENTS`` clients at once and the server's split of a request;
+   then one full batch timed and traced;
 5. the same served int8 (``TRITON_TPU_QUANT=int8``), under the
    default ``TRITON_TPU_INT8_FUSED=w2`` (one int8 launch per layer) and
    then under ``all`` (two: FFN-up too), for its forward time beside the
    default's;
 6. serve ``bert_large`` at full width (S = 384) and ``BERT_SERVE_LAYERS``
-   (12) of its 24 layers: 40 requests of
+   (12) of its 24 layers: 40 requests (16 under ``all``) of
    4 sequences from 8 threads, so the batcher forms batches up to 32, in
    bf16, int8 under ``w2`` and int8 under ``all``; each LOGITS held to the
    plain-kernel forward of the same tokens, and the control (that forward
@@ -76,14 +77,14 @@ Phases (any failure exits non-zero and prints no result line):
    ``bert_large`` int8 (``TRITON_TPU_QUANT_BERT_LARGE=int8``,
    ``TRITON_TPU_INT8_FUSED=w2``) and run ``python -m
    triton_client_tpu_torch.perf_analyzer`` in a process of its own against
-   it: -b 32 at concurrency 1 and 4 by wire and CUDA shm (the tool's
-   regions, which the server maps with cudaIpcOpenMemHandle), at 1 by
-   system shm (the tool's POSIX regions); -b 1
-   at concurrency 1, 8 and 15 through the dynamic batcher; open loop at
-   half of concurrency 1's infer/s and at half of concurrency 8's; one run
-   at concurrency 4 traced.  Then ``bert_large`` bf16 at -b 32,
+   it: -b 32 at concurrency 1 by wire and by system shm (the tool's POSIX
+   regions), at 1 and 4 by CUDA shm (the tool's regions, which the server
+   maps with cudaIpcOpenMemHandle), at 4 by wire, traced; -b 1
+   at concurrency 1 and 8 through the dynamic batcher; open loop at
+   half of concurrency 1's infer/s and at half of concurrency 8's.  Then
+   ``bert_large`` bf16 at -b 32,
    concurrency 1, and ``longctx_tpu`` base bf16 at -b 4, concurrency 1 and
-   4, by wire and CUDA shm, and traced at each.  Each level prints
+   4, by CUDA shm, and by wire traced at each.  Each level prints
    infer/s, p50 / p90 / p99, errors, the model's executions in its window
    with their batch sizes and the server's split; a traced run, the card's
    busy share.  Each run must have no error, exactly 24 int8 (bert int8)
@@ -210,7 +211,41 @@ Phases (any failure exits non-zero and prints no result line):
     plain-kernel forward beside the controls and the other seed, flash 8
     a forward, and ``torch.cuda.memory_allocated()`` back within 2 MiB of
     its value before the load after each of the three unloads;
-17. print each kernel's launches on every served path, one JSON line
+17. the fleet: ``python -m triton_client_tpu_torch.server --frontends 2``
+    and ``--frontends 1`` (the zoo on the card) start in processes of
+    their own while ``bert_large`` int8 ``w2`` at ``BERT_SERVE_LAYERS``
+    runs here under a fleet controller (bounds 1..8, held at 1 for the
+    first cooldown of the window): ``perf_analyzer`` c = 16 -b 32 scales it
+    out one instance a cooldown and an idle second scales it back in,
+    infer/s and the card's idle share (``nvidia-smi`` utilization.gpu,
+    100 ms samples) printed at each in-flight count (readings taken during
+    the scale-out, each about one cooldown long, beside the fleets'
+    start), the answer before the load held to the plain forward beside
+    the controls, int8 once per layer of every forward.  Then
+    ``longctx_tpu`` base through both fleets (every worker's first answer
+    held to the plain forward beside the controls), ``perf_analyzer`` c =
+    4 -b 4 against each from a process of its own (infer/s, p50 / p99, the
+    idle share, each worker's executions), CUDA regions of this process
+    registered through one worker and used until both workers served them
+    (the sibling opens the cudaIPC handle from the manifest; each answer
+    the wire's), the regions gone from every worker's status, each
+    worker's ``/metrics`` on its own port.  Worker 0 is SIGKILLed a
+    quarter into a c = 4 ``--retries 3`` window, once it has executed in
+    that window: zero errors, each worker's executions printed, and at
+    least one request cut off and sent again (the client's resends on a
+    new connection and its retries).  While it restarts, an in-process
+    ``longctx_tpu`` model (``FLEET_SEEDS``) under a c = 4 closed loop is
+    rolled from version 1 to 2 (warmed, promoted, baked): zero caller
+    errors, each answer one version's (v1 before the flip, v2 for a
+    request sent after ``promote`` returned), flash 8 a forward (the
+    warmup's included), v1's batcher drained and v1 addressable; then an
+    update to a version that fails every request rolls back to v2 and
+    ``torch.cuda.memory_allocated()`` comes back within 2 MiB of its value
+    before it was staged.  Then the respawned worker: its metrics port
+    back with ``nv_fleet_worker_restart_total`` 1 (1 on both), its answers
+    held, and SIGTERM drains the fleet to exit 0.  Every child process is
+    stopped on every exit path;
+18. print each kernel's launches on every served path, one JSON line
     describing every kernel, then the result line
     ``{"ok": true, "device": {...}}``.
 
@@ -952,8 +987,8 @@ def serve_longctx(label: str, torch, counters, int8: bool,
 
 
 def serve_bert(label: str, torch, counters, int8: bool, int8_per_layer: int,
-               transports: bool = False):
-    """Serve bert_large at full width: BERT_REQUESTS requests of BERT_ROWS
+               transports: bool = False, n_requests: int = BERT_REQUESTS):
+    """Serve bert_large at full width: ``n_requests`` requests of BERT_ROWS
     sequences from BERT_THREADS threads, each LOGITS held to the
     plain-kernel forward of its tokens, and the control beyond the bound;
     int8 launches ``int8_per_layer`` per layer, flash none.  Where
@@ -968,7 +1003,7 @@ def serve_bert(label: str, torch, counters, int8: bool, int8_per_layer: int,
     S, V = language.BERT_SEQ_LEN, language.BERT_LARGE.vocab_size
     rng = np.random.default_rng(4321)
     tokens = [rng.integers(0, V, (BERT_ROWS, S)).astype(np.int32)
-              for _ in range(BERT_REQUESTS)]
+              for _ in range(n_requests)]
     with serving_harness([model]) as harness:
         results, launches, executions = send_requests(
             label, harness.http_port, "bert_large",
@@ -993,8 +1028,8 @@ def serve_bert(label: str, torch, counters, int8: bool, int8_per_layer: int,
             if got.shape != (BERT_ROWS, S, 2) or not np.isfinite(got).all():
                 fail(f"{label}: bad LOGITS shape {got.shape} or non-finite")
             worst = max(worst, float(np.abs(got - want).max()))
-            mean += float(np.abs(got - want).mean()) / BERT_REQUESTS
-            typical += float(np.abs(want).mean()) / BERT_REQUESTS
+            mean += float(np.abs(got - want).mean()) / n_requests
+            typical += float(np.abs(want).mean()) / n_requests
         for i, scale in enumerate(CONTROL_SCALES):
             faulty = control_params(torch, run.params, scale)
             for toks, res in zip(tokens, results):
@@ -1253,7 +1288,9 @@ def serve_ensemble(label: str, torch, counters, int8: bool):
 
 # per transport: requests one after another (p50, p99), then clients sending
 # at once (infer/s)
-SHM_SEQUENTIAL, SHM_CLIENTS, SHM_PER_CLIENT = 30, 4, 8
+#: (30 one after another and 8 a client before the cut that made room for
+#: the fleet phase, PERF.md)
+SHM_SEQUENTIAL, SHM_CLIENTS, SHM_PER_CLIENT = 15, 4, 4
 # bert_large's transport requests: one batch of 32 sequences
 BERT_SHM_ROWS = 32
 # system shm keys of this run start with this and the pid
@@ -1612,8 +1649,9 @@ def serve_transports(label: str, harness, model, counters, x, seed: int,
 # law over a window counts, per worker, the requests that end in it: their
 # latencies sum to the window give or take the request in flight at each
 # edge, so the reading is off by up to (longest latency) / (window).  2 s
-# where requests take up to ~0.2 s (longctx_tpu); 6 s where they take up
-# to ~1 s (bert_large at -b 32 and c = 4, at -b 1 and c = 15), at most 17%
+# where requests take up to ~0.2 s (longctx_tpu, bert_large -b 32 at
+# c = 1); 6 s where they take up to ~1 s (bert_large at -b 32 and c = 4,
+# at -b 1 and c = 8), at most 17%
 PERF_WINDOW_MS = 2000
 PERF_LONG_WINDOW_MS = 6000
 # Little's law at each closed-loop level: the concurrency within this share
@@ -1847,13 +1885,13 @@ def _warm(harness, model, rows: int) -> None:
 def perf_phase(torch, counters, fa) -> None:
     """The load generator drives the served models at full width from a
     process of its own: ``bert_large`` int8 (``w2``: 24 int8 launches per
-    forward) at -b 32, c = 1 and 4, by wire and CUDA shm (the tool's
-    regions, mapped with cudaIPC), c = 1 by system shm (the tool's POSIX
-    regions); at -b 1, c = 1, 8 and 15, through
+    forward) at -b 32, c = 1 by wire and by system shm (the tool's POSIX
+    regions), c = 1 and 4 by CUDA shm (the tool's regions, mapped with
+    cudaIPC), c = 4 by wire traced; at -b 1, c = 1 and 8, through
     the dynamic batcher; open loop at half of c = 1's and of c = 8's
-    infer/s; c = 4 traced; ``bert_large`` bf16 at -b 32, c = 1 (to compare
+    infer/s; ``bert_large`` bf16 at -b 32, c = 1 (to compare
     with the transport phase); ``longctx_tpu`` base bf16 (8 flash launches
-    per forward) at -b 4, c = 1 and 4, by wire and CUDA shm, and traced at
+    per forward) at -b 4, c = 1 and 4, by CUDA shm, and by wire traced at
     c = 1 and 4."""
     from triton_client_tpu_torch.models import language
 
@@ -1866,17 +1904,21 @@ def perf_phase(torch, counters, fa) -> None:
         with serving_harness([bert]) as harness:
             _warm(harness, bert, 32)
             check_precision("perf bert_large int8", bert.transformer, True)
-            # by system shm the tool's POSIX regions at c = 1 only (c = 4
-            # cut to make room, PERF.md)
-            for shm, levels in (("none", "1:4:3"), ("system", "1"),
-                                ("cuda", "1:4:3")):
+            # c = 1 by wire and by the tool's system regions, in the short
+            # window; c = 1 and 4 by its CUDA regions, in the long one; c =
+            # 4 by wire is the traced run below (c = 4 untraced cut to make
+            # room, PERF.md)
+            for shm, levels, window in (
+                    ("none", "1", PERF_WINDOW_MS),
+                    ("system", "1", PERF_WINDOW_MS),
+                    ("cuda", "1:4:3", PERF_LONG_WINDOW_MS)):
                 perf_sweep(f"perf bert_large int8 -b 32 {shm}", harness,
                            bert, ["-b", "32", "--concurrency-range", levels,
                                   "--shared-memory", shm], counters, 0,
-                           layers, window_ms=PERF_LONG_WINDOW_MS)
+                           layers, window_ms=window)
             levels = perf_sweep(
                 "perf bert_large int8 -b 1 dynamic batching", harness, bert,
-                ["-b", "1", "--concurrency-range", "1:15:7"], counters, 0,
+                ["-b", "1", "--concurrency-range", "1:8:7"], counters, 0,
                 layers, window_ms=PERF_LONG_WINDOW_MS)
             # open loop at half of c = 1's infer/s and at half of c = 8's:
             # c = 8's runs on batches of 8 that paced arrivals, one every
@@ -1910,11 +1952,12 @@ def perf_phase(torch, counters, fa) -> None:
         check_precision("perf longctx_tpu bf16", longctx.transformer, False)
         perf_sweep("perf bert_large bf16 -b 32 none", harness, bert,
                    ["-b", "32", "--concurrency-range", "1"], counters, 0, 0)
-        for shm in ("none", "cuda"):
-            perf_sweep(f"perf longctx_tpu bf16 -b 4 {shm}", harness, longctx,
-                       ["-b", "4", "--concurrency-range", "1:4:3",
-                        "--shared-memory", shm], counters,
-                       longctx.transformer.cfg.n_layers, 0)
+        # by wire the traced runs below are the levels (the untraced sweep
+        # cut to make room, PERF.md)
+        perf_sweep("perf longctx_tpu bf16 -b 4 cuda", harness, longctx,
+                   ["-b", "4", "--concurrency-range", "1:4:3",
+                    "--shared-memory", "cuda"], counters,
+                   longctx.transformer.cfg.n_layers, 0)
         for c in ("1", "4"):
             perf_sweep(f"perf longctx_tpu bf16 -b 4 none c={c} traced",
                        harness, longctx, ["-b", "4", "--concurrency-range",
@@ -2033,14 +2076,17 @@ def grpc_transports(label: str, harness, model, counters, x, seed: int,
              f"/dev/shm, status {status}")
 
 
-def _beside_http(label: str, http_label: str) -> None:
+def _beside_http(label: str, *http_labels: str) -> None:
     """Each level of the gRPC run ``label`` beside the same concurrency of
-    this run's HTTP run ``http_label``."""
-    http_levels = {r["concurrency"]: r for r in PERF_LEVELS[http_label]}
+    this run's HTTP runs ``http_labels`` (the first that has it)."""
+    http_levels = {}
+    for http_label in reversed(http_labels):
+        http_levels.update({r["concurrency"]: (http_label, r)
+                            for r in PERF_LEVELS[http_label]})
     for res in PERF_LEVELS[label]:
-        h = http_levels.get(res["concurrency"])
-        if h is None:
+        if res["concurrency"] not in http_levels:
             continue
+        http_label, h = http_levels[res["concurrency"]]
         print(f"{label} c={res['concurrency']} vs {http_label}: infer/s "
               f"{res['throughput']:.3f} / {h['throughput']:.3f}, p50 "
               f"{res['p50_us'] / 1e3:.3f} / {h['p50_us'] / 1e3:.3f} ms, p99 "
@@ -2218,11 +2264,12 @@ def grpc_phase(torch, counters) -> None:
                             "--concurrency-range", "1:4:3",
                             "--shared-memory", shm], counters, 0, layers,
                            window_ms=PERF_LONG_WINDOW_MS, paths=GRPC_PATHS)
-                _beside_http(label, f"perf bert_large int8 -b 32 {shm}")
+                _beside_http(label, f"perf bert_large int8 -b 32 {shm}",
+                             "perf bert_large int8 -b 32 none c=4 traced")
             label = "perf grpc unary bert_large int8 -b 32 none"
             perf_sweep(label, harness, bert,
                        ["-i", "grpc", "-b", "32", "--concurrency-range", "1"],
-                       counters, 0, layers, window_ms=PERF_LONG_WINDOW_MS,
+                       counters, 0, layers, window_ms=PERF_WINDOW_MS,
                        paths=GRPC_PATHS)
             _beside_http(label, "perf bert_large int8 -b 32 none")
             label = "perf grpc stream longctx_tpu bf16 -b 4 none"
@@ -2230,7 +2277,7 @@ def grpc_phase(torch, counters) -> None:
                        ["-i", "grpc", "--streaming", "-b", "4",
                         "--concurrency-range", "1"], counters,
                        longctx.transformer.cfg.n_layers, 0, paths=GRPC_PATHS)
-            _beside_http(label, "perf longctx_tpu bf16 -b 4 none")
+            _beside_http(label, "perf longctx_tpu bf16 -b 4 none c=1 traced")
             _no_regions_left("grpc bert_large int8, longctx_tpu bf16",
                              harness)
     finally:
@@ -5590,6 +5637,942 @@ def openai_repository_phase(torch, counters) -> None:
     print(f"repository: took {time.perf_counter() - t1:.1f} s", flush=True)
 
 
+# -- the fleet (phase 17) ------------------------------------------------------
+
+#: "<window>" -> that window's kernel launches (the in-process paths)
+FLEET_PATHS = {}
+#: each perf_analyzer window of the frontend comparison, and of the SIGKILL
+#: run (which spans the kill and the sibling serving alone)
+FLEET_WINDOW_MS, FLEET_KILL_WINDOW_MS = 2000, 3000
+#: the in-process rolling update's longctx_tpu-base versions, by seed
+FLEET_SEEDS = {1: 101, 2: 202, 3: 303}
+FLEET_MODEL = "longctx_fleet"
+#: the autoscaler's load (perf_analyzer c = 16, -b 32) and its cooldown out
+FLEET_SCALE_WINDOW_MS, FLEET_SCALE_COOLDOWN_S = 10500, 1.2
+FLEET_DIR = os.path.join(REPO, "build", "chip_smoke_fleet")
+
+
+class _UtilSampler:
+    """``nvidia-smi --query-gpu=utilization.gpu`` every 100 ms, each reading
+    stamped with ``time.perf_counter``: the share of each sample period in
+    which a kernel of any process ran."""
+
+    def __init__(self):
+        self.samples = []
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "-i", "0", "--query-gpu=utilization.gpu",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        self._thread = threading.Thread(target=self._read, daemon=True)
+        self._thread.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            try:
+                self.samples.append((time.perf_counter(),
+                                     float(line.strip())))
+            except ValueError:
+                continue
+
+    def idle(self, t0: float, t1: float):
+        """The idle share over [t0, t1] (None without a sample)."""
+        vals = [v for t, v in self.samples if t0 <= t <= t1]
+        return 1.0 - sum(vals) / len(vals) / 100.0 if vals else None
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        self._thread.join(timeout=10)
+
+
+def _share(x) -> str:
+    return "not measured" if x is None else f"{x:.1%}"
+
+
+def _adjacent_ports(n: int) -> int:
+    """A port P with P .. P + n - 1 free (worker i serves /metrics on
+    P + i)."""
+    import socket
+
+    from triton_client_tpu_torch.server.testing import free_port
+
+    for _ in range(100):
+        p = free_port()
+        try:
+            for i in range(1, n):
+                with socket.socket() as s:
+                    s.bind(("127.0.0.1", p + i))
+            return p
+        except OSError:
+            continue
+    fail("fleet: no free run of metrics ports")
+
+
+class _FleetServer:
+    """``python -m triton_client_tpu_torch.server --frontends N`` (the
+    zoo on the card) in a process of its own, its output in a log under
+    FLEET_DIR; ``close`` sends SIGTERM and waits, and kills what is left
+    on every exit path."""
+
+    def __init__(self, frontends: int):
+        from triton_client_tpu_torch.server.testing import free_port
+
+        self.n = frontends
+        self.port = free_port()
+        self.mport = _adjacent_ports(frontends)
+        os.makedirs(FLEET_DIR, exist_ok=True)
+        self.log_path = os.path.join(FLEET_DIR, f"frontends_{frontends}.log")
+        self._log = open(self.log_path, "w")
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("TRITON_TPU_")}
+        env["PYTHONPATH"] = REPO
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "triton_client_tpu_torch.server",
+             "--http-port", str(self.port), "--metrics-port",
+             str(self.mport), "--frontends", str(frontends),
+             "--drain-timeout", "20", "--worker-restart-window", "60"],
+            cwd=REPO, env=env, stdout=self._log, stderr=subprocess.STDOUT)
+        self.url = f"127.0.0.1:{self.port}"
+
+    def tail(self) -> str:
+        with open(self.log_path) as f:
+            return f.read()[-3000:]
+
+    def metrics(self, i: int):
+        """Worker i's /metrics families, None while its port is down."""
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{self.mport + i}/metrics",
+                    timeout=10) as r:
+                return parse_prometheus(r.read().decode())
+        except OSError:
+            return None
+
+    def execs(self, model: str = "longctx_tpu"):
+        """Each worker's executions of ``model`` (None: its port down)."""
+        out = []
+        for i in range(self.n):
+            fams = self.metrics(i)
+            out.append(None if fams is None else _metric_sum(
+                fams, "nv_inference_exec_count", model=model))
+        return out
+
+    def pids(self) -> dict:
+        """Worker index -> its latest pid (the supervisor's lines)."""
+        out = {}
+        with open(self.log_path) as f:
+            for line in f:
+                if line.startswith("frontend worker ") and ": pid " in line:
+                    parts = line.split()
+                    out[int(parts[2].rstrip(":"))] = int(parts[-1])
+        return out
+
+    def wait_up(self, label: str, timeout: float = 240.0) -> float:
+        """Until every worker's metrics port answers; its seconds."""
+        t0 = time.perf_counter()
+        while any(self.metrics(i) is None for i in range(self.n)):
+            if self.proc.poll() is not None or \
+                    time.perf_counter() - t0 > timeout:
+                fail(f"{label}: the fleet did not come up: {self.tail()}")
+            time.sleep(0.2)
+        return time.perf_counter() - t0
+
+    def close(self) -> int:
+        """SIGTERM, then its exit code (every worker drains); what has not
+        exited within the drain's time is killed, its workers too."""
+        import signal
+
+        try:
+            if self.proc.poll() is None:
+                self.proc.send_signal(signal.SIGTERM)
+                try:
+                    self.proc.wait(timeout=90)
+                except subprocess.TimeoutExpired:
+                    self.proc.kill()
+                    self.proc.wait()
+        finally:
+            if self.proc.returncode != 0:
+                # a supervisor that failed or was killed may leave workers
+                for pid in self.pids().values():
+                    try:
+                        os.kill(pid, signal.SIGKILL)
+                    except OSError:
+                        pass
+            self._log.close()
+        return self.proc.returncode
+
+
+def _longctx_holder(label: str, torch, run, x):
+    """The check of longctx_tpu bf16 LOGPROBS answers to ``x`` (rows of
+    tokens) served from ``run``'s weights: within SERVED_ATOL of the
+    plain-kernel forward, the controls beyond it (``check_served``)."""
+    import numpy as np
+
+    from triton_client_tpu_torch.models import language
+    from triton_client_tpu_torch.models import transformer as tr
+
+    fwd = tr.make_forward(run.cfg, plain=True)
+    t = torch.from_numpy(x).to("cuda")
+    with torch.inference_mode():
+        want = language.longctx_scores(fwd(run.params, t), t).cpu().numpy()
+        controls = []
+        for scale in CONTROL_SCALES:
+            faulty = control_params(torch, run.params, scale)
+            controls.append(language.longctx_scores(
+                fwd(faulty, t), t).cpu().numpy())
+            del faulty
+    atol = SERVED_ATOL["longctx_tpu", False]
+
+    def check(name, got):
+        if got.shape != want.shape or not np.isfinite(got).all():
+            fail(f"{label} {name}: bad LOGPROBS shape {got.shape} or "
+                 "non-finite")
+        diff = np.abs(got - want)
+        check_served(f"{label} {name}", "LOGPROBS", atol, float(diff.max()),
+                     float(diff.mean()),
+                     [float(np.abs(got - c).max()) for c in controls],
+                     float(np.abs(want).mean()))
+
+    return check
+
+
+def _fleet_wire(srv, x):
+    """One LOGPROBS request of ``x`` on a connection of its own (the kernel
+    picks the worker); (answer, the worker that executed it)."""
+    before = srv.execs()
+    client = _client(srv.port)
+    try:
+        got, _ = _post_infer(client, "longctx_tpu",
+                             [("TOKENS", "INT32", x)], ["LOGPROBS"])
+    finally:
+        client.close()
+    return got["LOGPROBS"], _fleet_who(srv, before)
+
+
+def _fleet_who(srv, before) -> int:
+    """The worker whose longctx_tpu executions rose since ``before``."""
+    end = time.monotonic() + 10
+    while True:
+        after = srv.execs()
+        rose = [i for i, (a, b) in enumerate(zip(after, before))
+                if a is not None and a > (b or 0)]
+        if len(rose) == 1:
+            return rose[0]
+        if time.monotonic() > end:
+            fail(f"fleet: cannot tell which worker served ({before} -> "
+                 f"{after})")
+        time.sleep(0.02)
+
+
+def _fleet_every_worker(label, srv, send, check, tries: int = 40) -> list:
+    """``send()`` (one request on a fresh connection: (answer, worker))
+    until every worker served one; each answer held by ``check``.  Returns
+    the workers in order."""
+    served = []
+    while len(set(served)) < srv.n:
+        if len(served) >= tries:
+            fail(f"{label}: {tries} connections reached workers {served} "
+                 f"of {srv.n}")
+        got, who = send()
+        check(f"worker {who}", got)
+        served.append(who)
+    return served
+
+
+def _fleet_perf(label, srv, args, window_ms: int, sampler):
+    """``perf_analyzer -v`` with ``args`` in a process of its own against
+    ``srv``: its one level's result (zero errors, or the run fails), the
+    idle share over its window and each worker's executions in it."""
+    before = srv.execs()
+    cmd = [sys.executable, "-m", "triton_client_tpu_torch.perf_analyzer",
+           "-m", "longctx_tpu", "-u", srv.url, "-v",
+           "--measurement-interval", str(window_ms), *args]
+    proc = subprocess.run(cmd, cwd=REPO, env=dict(os.environ,
+                                                  PYTHONPATH=REPO),
+                          capture_output=True, text=True, timeout=600)
+    after = srv.execs()
+    res = _fleet_result(label, proc)
+    split = [(a or 0) - (b or 0) for a, b in zip(after, before)]
+    idle = sampler.idle(res["window_start_s"], res["window_end_s"])
+    print(f"{label}: {res['throughput']:.3f} infer/s, p50 "
+          f"{res['p50_us'] / 1e3:.3f} ms, p99 {res['p99_us'] / 1e3:.3f} ms, "
+          f"errors {res['errors']}, retries {res['retries_run']}; card idle "
+          f"{_share(idle)} (nvidia-smi utilization.gpu, 100 ms samples); "
+          f"executions by worker {split}; {CARD}", flush=True)
+    return res, idle, split
+
+
+def _fleet_result(label, proc) -> dict:
+    if proc.returncode != 0:
+        fail(f"{label}: perf_analyzer exited {proc.returncode}: "
+             f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    results = [json.loads(ln.split("result ", 1)[1])
+               for ln in proc.stdout.splitlines()
+               if ln.startswith("  result ")]
+    if len(results) != 1:
+        fail(f"{label}: perf_analyzer printed {len(results)} levels: "
+             f"{proc.stdout[-2000:]}")
+    res = results[0]
+    if res["errors"] or res["first_error"] or not res["throughput"]:
+        fail(f"{label}: {res['errors']} errors ({res['first_error']}), "
+             f"{res['throughput']} infer/s")
+    return res
+
+
+def _fleet_region(label, torch, srv, x, check, wire) -> None:
+    """CUDA regions of this process for TOKENS and LOGPROBS, registered
+    through one worker, then used by requests on fresh connections until
+    both workers served one: the sibling opens the cudaIPC handle from the
+    manifest.  Each answer held by ``check`` and to the wire's; the
+    regions leave every worker's status after the unregister."""
+    import numpy as np
+
+    from triton_client_tpu_torch import http
+    from triton_client_tpu_torch.utils import cuda_shared_memory as cudashm
+
+    S = x.shape[1]
+    regions = {}
+    client = _client(srv.port)
+    try:
+        for role, nbytes in (("in", x.nbytes), ("out", x.shape[0] * S * 4)):
+            name = f"fleet_{os.getpid()}_{role}"
+            h = cudashm.create_shared_memory_region(name, nbytes, 0)
+            regions[role] = (name, h, nbytes)
+        cudashm.set_shared_memory_region(regions["in"][1], [x])
+        for name, h, nbytes in regions.values():
+            client.register_cuda_shared_memory(
+                name, cudashm.get_raw_handle(h), 0, nbytes)
+        listed = sorted(r["name"] for r in
+                        client.get_cuda_shared_memory_status())
+        if listed != sorted(name for name, _, _ in regions.values()):
+            fail(f"{label}: the status after the register lists {listed}")
+
+        def send():
+            before = srv.execs()
+            c = _client(srv.port)
+            try:
+                inp = http.InferInput("TOKENS", list(x.shape), "INT32")
+                inp.set_shared_memory(regions["in"][0], regions["in"][2])
+                out = http.InferRequestedOutput("LOGPROBS")
+                out.set_shared_memory(regions["out"][0], regions["out"][2])
+                res = c.infer("longctx_tpu", [inp], outputs=[out])
+                if res.get_output("LOGPROBS").get("parameters", {}).get(
+                        "shared_memory_region") != regions["out"][0]:
+                    fail(f"{label}: the answer did not name the region")
+            finally:
+                c.close()
+            who = _fleet_who(srv, before)
+            got = np.array(cudashm.get_contents_as_numpy(
+                regions["out"][1], np.float32, [x.shape[0], S]))
+            return got, who
+
+        def held(name, got):
+            check(name, got)
+            diff = float(np.abs(got - wire).max())
+            print(f"{label} {name}: against the wire's answer {diff:.3e}",
+                  flush=True)
+            if diff > SERVED_ATOL["longctx_tpu", False]:
+                fail(f"{label} {name}: the region's answer is not the "
+                     "wire's")
+
+        served = _fleet_every_worker(label, srv, send, held)
+        print(f"{label}: registered through one worker (its status lists "
+              f"{listed}), served by workers {served} (the sibling mapped "
+              "the region from the manifest)", flush=True)
+    finally:
+        for name, h, _ in regions.values():
+            client.unregister_cuda_shared_memory(name)
+        for _, h, _ in regions.values():
+            cudashm.destroy_shared_memory_region(h)
+        client.close()
+    # every worker's status (each read on a fresh connection) is empty
+    for _ in range(8):
+        if _shm_status(srv.port)["cudasharedmemory"]:
+            fail(f"{label}: a region is left in a worker's status")
+
+
+def _fleet_frontends(torch, srv2, srv1, sampler):
+    """Part 1: ``--frontends 2`` against ``--frontends 1`` under
+    perf_analyzer c = 4 -b 4 (every answer this script reads held to the
+    plain forward), a CUDA region across the siblings, each worker's
+    metrics port.  Returns the check of ``x`` and ``x``."""
+    from triton_client_tpu_torch.models import language
+
+    label = "fleet frontends"
+    ref = language.make_longctx_tpu("cuda")
+    run = ref.transformer
+    run._ensure()
+    S = ref.config.input[0].dims[0]
+    x = model_tokens(LONGCTX_SEED, ref.max_batch_size, S, 256)
+    check = _longctx_holder(label, torch, run, x)
+    up = [srv.wait_up(label) for srv in (srv2, srv1)]
+    print(f"{label}: both fleets up ({up[0]:.1f} / {up[1]:.1f} s after "
+          "this wait began)", flush=True)
+    # every worker builds its weights at its first request: six requests
+    # to the pair and one to the single worker at once, each on its own
+    # connection
+    t0 = time.perf_counter()
+    answers, errors = [], []
+
+    def warm(srv):
+        try:
+            client = _client(srv.port)
+            try:
+                got, _ = _post_infer(client, "longctx_tpu",
+                                     [("TOKENS", "INT32", x)], ["LOGPROBS"])
+            finally:
+                client.close()
+            answers.append((srv.n, got["LOGPROBS"]))
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=warm, args=(srv,), daemon=True)
+               for srv in [srv2] * 6 + [srv1]]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    if errors or len(answers) != len(threads):
+        fail(f"{label}: the warm-up failed: {errors}")
+    for n, got in answers:
+        check(f"warm-up, --frontends {n}", got)
+    wire = {"x": answers[0][1]}
+    if not all(srv2.execs()):
+        # the kernel gave a worker no connection: one by one until it has
+        _fleet_every_worker(f"{label} warm-up", srv2,
+                            lambda: _fleet_wire(srv2, x), check)
+    print(f"{label}: every worker built its weights in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    pair = _fleet_perf(
+        f"{label} --frontends 2 c=4 -b 4", srv2,
+        ["-b", "4", "--concurrency-range", "4:4"], FLEET_WINDOW_MS, sampler)
+    _fleet_single(srv1, sampler, pair)
+    _fleet_region(f"{label} cuda region", torch, srv2, x, check, wire["x"])
+    for i in range(srv2.n):
+        fams = srv2.metrics(i)
+        if fams is None or "nv_fleet_worker_restart_total" not in fams:
+            fail(f"{label}: worker {i}'s metrics port lacks the fleet "
+                 "families")
+    print(f"{label}: each worker answers /metrics on its own port "
+          f"({srv2.mport}, {srv2.mport + 1})", flush=True)
+    return check, x
+
+
+def _fleet_single(srv1, sampler, pair) -> None:
+    """The same perf_analyzer run against ``--frontends 1``, printed beside
+    the pair's reading ``pair``, then its drained exit."""
+    label = "fleet frontends"
+    single = _fleet_perf(
+        f"{label} --frontends 1 c=4 -b 4", srv1,
+        ["-b", "4", "--concurrency-range", "4:4"], FLEET_WINDOW_MS, sampler)
+    print(f"{label}: --frontends 2 / 1: {pair[0]['throughput']:.3f} / "
+          f"{single[0]['throughput']:.3f} infer/s, p99 "
+          f"{pair[0]['p99_us'] / 1e3:.3f} / {single[0]['p99_us'] / 1e3:.3f} "
+          f"ms, idle {_share(pair[1])} / {_share(single[1])}; {CARD}",
+          flush=True)
+    code = srv1.close()
+    if code != 0:
+        fail(f"{label}: --frontends 1 exited {code} after SIGTERM: "
+             f"{srv1.tail()}")
+
+
+def _fleet_kill(srv2):
+    """Part 2, first half: worker 0 SIGKILLed a quarter into a c = 4
+    perf_analyzer window with --retries 3, once it has executed requests
+    in that window: zero errors, and at least one request cut off and sent
+    again (the client's resends and retries).  Returns (the victim's pid,
+    the kill's time, a dict where a thread of its own puts the time worker
+    0's metrics port answers again with its restart counted: "back")."""
+    import signal
+
+    label = "fleet self-healing"
+    pids = srv2.pids()
+    victim = pids[0]
+    cmd = [sys.executable, "-m", "triton_client_tpu_torch.perf_analyzer",
+           "-m", "longctx_tpu", "-u", srv2.url, "-v", "-b", "4",
+           "--concurrency-range", "4:4", "--retries", "3",
+           "--measurement-interval", str(FLEET_KILL_WINDOW_MS)]
+    proc = subprocess.Popen(cmd, cwd=REPO, env=dict(os.environ,
+                                                    PYTHONPATH=REPO),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    respawn = {}
+
+    def watch_respawn():
+        end = time.monotonic() + 240
+        while time.monotonic() < end and srv2.proc.poll() is None:
+            fams = srv2.metrics(0)
+            if fams is not None and _metric_sum(
+                    fams, "nv_fleet_worker_restart_total") == 1.0:
+                respawn["back"] = time.perf_counter()
+                return
+            time.sleep(0.05)
+
+    try:
+        # the tool's first request starts its 1 s warm-up; the kill comes a
+        # quarter into its window, once worker 0 has executed in it
+        begun = sum(n or 0 for n in srv2.execs())
+        end = time.monotonic() + 120
+        while sum(n or 0 for n in srv2.execs()) == begun:
+            if proc.poll() is not None or time.monotonic() > end:
+                fail(f"{label}: perf_analyzer sent nothing")
+            time.sleep(0.02)
+        time.sleep(1.0)
+        at_window = srv2.execs()
+        time.sleep(FLEET_KILL_WINDOW_MS / 4e3)
+        end = time.monotonic() + FLEET_KILL_WINDOW_MS / 2e3
+        while True:
+            pre = srv2.execs()
+            if (pre[0] or 0) > (at_window[0] or 0):
+                break
+            if time.monotonic() > end:
+                fail(f"{label}: worker 0 executed nothing in the window "
+                     f"before the kill (executions {at_window} -> {pre})")
+            time.sleep(0.02)
+        t_kill = time.perf_counter()
+        os.kill(victim, signal.SIGKILL)
+        respawn["thread"] = threading.Thread(target=watch_respawn,
+                                             daemon=True)
+        respawn["thread"].start()
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    after = srv2.execs()
+    res = _fleet_result(label, subprocess.CompletedProcess(
+        cmd, proc.returncode, out, err))
+    if not res["window_start_s"] <= t_kill <= res["window_end_s"]:
+        fail(f"{label}: the kill at {t_kill:.3f} fell outside the window "
+             f"[{res['window_start_s']:.3f}, {res['window_end_s']:.3f}]")
+    # worker 0's executions from about the window's start to the kill,
+    # worker 1's to the run's end
+    split = [(pre[0] or 0) - (at_window[0] or 0),
+             (after[1] or 0) - (at_window[1] or 0)]
+    cut = res["resends_run"] + res["retries_run"]
+    print(f"{label}: worker 0 (pid {victim}) SIGKILLed inside the window: "
+          f"{res['throughput']:.3f} infer/s, p99 {res['p99_us'] / 1e3:.3f} "
+          f"ms, errors {res['errors']}; executions by worker {split} (worker "
+          f"0 to the kill); requests cut off and sent again: "
+          f"{res['resends_run']} on a new connection, {res['retries_run']} "
+          "by the retry policy", flush=True)
+    if cut < 1:
+        fail(f"{label}: no request was cut off by the kill")
+    return victim, t_kill, respawn
+
+
+def _fleet_healed(srv2, victim, t_kill, respawn, check, x) -> None:
+    """Part 2, second half: the supervisor respawned worker 0,
+    nv_fleet_worker_restart_total reads 1 on both workers' ports, the
+    respawned worker's answers hold, and SIGTERM drains the fleet to exit
+    0."""
+    label = "fleet self-healing"
+    respawn["thread"].join(timeout=240)
+    end = time.monotonic() + 60
+    while True:
+        counts = []
+        for i in range(srv2.n):
+            fams = srv2.metrics(i)
+            counts.append(None if fams is None else _metric_sum(
+                fams, "nv_fleet_worker_restart_total"))
+        if counts == [1.0] * srv2.n:
+            break
+        if srv2.proc.poll() is not None or time.monotonic() > end:
+            fail(f"{label}: restart counters {counts}: {srv2.tail()}")
+        time.sleep(0.1)
+    if "back" not in respawn:
+        fail(f"{label}: worker 0's metrics port never answered with its "
+             f"restart counted: {srv2.tail()}")
+    respawn_s = respawn["back"] - t_kill
+    new_pid = srv2.pids()[0]
+    if new_pid == victim:
+        fail(f"{label}: worker 0 was not respawned")
+    t0 = time.perf_counter()
+    while True:
+        got, who = _fleet_wire(srv2, x)
+        check(f"worker {who}", got)
+        if who == 0:
+            break
+        if time.perf_counter() - t0 > 60:
+            fail(f"{label}: the respawned worker served nothing")
+    print(f"{label}: respawned as pid {new_pid}; its metrics port answered "
+          f"with nv_fleet_worker_restart_total 1 {respawn_s:.1f} s after "
+          "the kill (1 on both workers' ports); its first answer took "
+          f"{time.perf_counter() - t0:.1f} s (weights built); {CARD}",
+          flush=True)
+    t0 = time.perf_counter()
+    code = srv2.close()
+    if code != 0:
+        fail(f"{label}: the fleet exited {code} after SIGTERM: "
+             f"{srv2.tail()}")
+    print(f"{label}: SIGTERM drained the fleet: exit 0 in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def _fleet_version(torch, seed: int, warmup: bool = True,
+                   fail_requests: bool = False):
+    """A ``longctx_tpu``-base model named FLEET_MODEL on the card from
+    ``seed`` (bf16, flash in every layer), one warmup sample of batch 4
+    where ``warmup``; ``fail_requests``: it runs the forward, then fails."""
+    from triton_client_tpu_torch.models import language
+    from triton_client_tpu_torch.server.model import TorchModel, make_config
+
+    cfg_t = language.longctx_cfg("cuda")
+    s = language.longctx_seq_len("cuda")
+    config = make_config(
+        FLEET_MODEL, inputs=[("TOKENS", "INT32", [s])],
+        outputs=[("LOGPROBS", "FP32", [s])], max_batch_size=4,
+        preferred_batch_sizes=[1, 2, 4], max_queue_delay_us=2000,
+        instance_kind="KIND_GPU",
+        warmup=[{"name": "w", "batch_size": 4,
+                 "inputs": {"TOKENS": ("INT32", [s], "random")}}]
+        if warmup else None)
+    run = language.LazyTransformer(cfg_t, seed=seed, device="cuda",
+                                   model_name=FLEET_MODEL)
+
+    def fn(TOKENS):
+        tokens = torch.clamp(TOKENS, 0, cfg_t.vocab_size - 1)
+        out = language.longctx_scores(run(tokens), tokens)
+        if fail_requests:
+            raise RuntimeError("bad version")
+        return {"LOGPROBS": out}
+
+    model = TorchModel(config, fn)
+    model.transformer = run
+    model.stats.executions = []
+    return model
+
+
+def _fleet_rolling(torch, counters) -> None:
+    """Part 3: FLEET_MODEL v1 under a c = 4 closed loop, rolled to v2
+    (warmed, promoted, baked); each answer one version's; then an update to
+    a version that fails every request rolls back and gives its memory
+    back."""
+    import numpy as np
+
+    from triton_client_tpu_torch import http
+    from triton_client_tpu_torch.models import language
+    from triton_client_tpu_torch.models import transformer as tr
+    from triton_client_tpu_torch.server.fleet import FleetController
+
+    label = "fleet rolling update"
+    atol = SERVED_ATOL["longctx_tpu", False]
+    v1 = _fleet_version(torch, FLEET_SEEDS[1])
+    cfg_t, S = v1.transformer.cfg, v1.config.input[0].dims[0]
+    x = model_tokens(LONGCTX_SEED, 4, S, 256)
+    fwd = tr.make_forward(cfg_t, plain=True)
+    t = torch.from_numpy(x).to("cuda")
+    want = {}
+    with torch.inference_mode():
+        for v in (1, 2):
+            params = tr.init_params(
+                torch.Generator("cuda").manual_seed(FLEET_SEEDS[v]), cfg_t)
+            want[v] = language.longctx_scores(fwd(params, t), t).cpu() \
+                .numpy()
+            del params
+    with serving_harness([v1]) as harness:
+        core = harness.core
+        # no counted first executions: each batch size would run one
+        core.device_stats.enabled = False
+        ctl = FleetController(core, bake_s=1.0, bake_min_samples=4)
+        core.fleet = ctl
+        registry = core.registry
+        flip = {}
+        promote = registry.promote
+
+        def timed_promote(name, version):
+            flip.setdefault("start", time.perf_counter())
+            staged = registry.staged_version(name, version)
+            flip["warm_executions"] = len(staged.stats.executions)
+            out = promote(name, version)
+            flip.setdefault("end", time.perf_counter())
+            return out
+
+        registry.promote = timed_promote
+        records, errors, stop = [], [], threading.Event()
+
+        def loop(row):
+            c = _client(harness.http_port)
+            inp = http.InferInput("TOKENS", [1, S], "INT32")
+            inp.set_data_from_numpy(x[row:row + 1])
+            try:
+                while not stop.is_set():
+                    t0 = time.perf_counter()
+                    got = c.infer(FLEET_MODEL, [inp]).as_numpy("LOGPROBS")
+                    records.append((t0, time.perf_counter(), row, got[0]))
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(repr(e))
+            finally:
+                c.close()
+
+        with _client(harness.http_port) as c:
+            _post_infer(c, FLEET_MODEL, [("TOKENS", "INT32", x[:1])],
+                        ["LOGPROBS"])
+        # counted from here to the last answer: every forward whole
+        v1.stats.executions = []
+        _reset(counters)
+        threads = [threading.Thread(target=loop, args=(r,), daemon=True)
+                   for r in range(4)]
+        for th in threads:
+            th.start()
+        time.sleep(1.0)
+        v2 = _fleet_version(torch, FLEET_SEEDS[2])
+        t0 = time.perf_counter()
+        outcome = ctl.rolling_update(FLEET_MODEL, v2)
+        update_s = time.perf_counter() - t0
+        time.sleep(0.5)
+        stop.set()
+        for th in threads:
+            th.join(timeout=120)
+        launches = {name: mod.launches for name, mod in counters.items()}
+        launches["int8_quantize_rows"] = \
+            counters["int8_matmul"].quantize_launches
+        if errors or outcome != "completed":
+            fail(f"{label}: outcome {outcome}, caller errors {errors}")
+        if f"{FLEET_MODEL}@1" in core._batchers:
+            fail(f"{label}: v1's batcher was not drained")
+        executions = len(v1.stats.executions) + len(v2.stats.executions)
+        check_launches(label, launches, executions, cfg_t.n_layers, 0)
+        if flip.get("warm_executions") != 1:
+            fail(f"{label}: v2 executed {flip.get('warm_executions')} times "
+                 "before the flip, not its one warmup sample")
+        FLEET_PATHS[label] = launches
+        counts = {1: 0, 2: 0}
+        first_v2 = None
+        for t_send, t_recv, row, got in records:
+            errs = {v: float(np.abs(got - want[v][row]).max())
+                    for v in (1, 2)}
+            which = [v for v in (1, 2) if errs[v] <= atol]
+            if len(which) != 1:
+                fail(f"{label}: an answer is neither version's: {errs}")
+            v = which[0]
+            counts[v] += 1
+            if t_recv < flip["start"] and v != 1:
+                fail(f"{label}: v2 answered before the flip")
+            if t_send > flip["end"] and v != 2:
+                fail(f"{label}: v1 answered a request sent after promote "
+                     "returned")
+            if v == 2 and t_recv > flip["end"]:
+                first_v2 = t_recv if first_v2 is None else min(first_v2,
+                                                               t_recv)
+        # v1 stays addressable
+        with _client(harness.http_port) as c:
+            inp = http.InferInput("TOKENS", [1, S], "INT32")
+            inp.set_data_from_numpy(x[:1])
+            old = c.infer(FLEET_MODEL, [inp], model_version="1") \
+                .as_numpy("LOGPROBS")
+        if float(np.abs(old[0] - want[1][0]).max()) > atol:
+            fail(f"{label}: version 1 is not addressable after the update")
+        print(f"{label}: {outcome} in {update_s:.2f} s under c = 4, zero "
+              f"caller errors; answers v1 {counts[1]}, v2 {counts[2]}; v2 "
+              f"warmed by 1 sample ({cfg_t.n_layers} flash launches), "
+              f"{executions} forwards in the window, launches {launches}; "
+              f"flip to the first v2 answer "
+              f"{1e3 * (first_v2 - flip['end']):.1f} ms; v1's batcher "
+              f"drained, v1 addressable; {CARD}", flush=True)
+
+        # a version that fails every request: rolled back, memory returned
+        label = "fleet rollback"
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        v3 = _fleet_version(torch, FLEET_SEEDS[3], warmup=False,
+                            fail_requests=True)
+        box = {}
+        th = threading.Thread(target=lambda: box.setdefault(
+            "outcome", ctl.rolling_update(FLEET_MODEL, v3, bake_s=30.0)),
+            daemon=True)
+        th.start()
+        failed = 0
+        c = _client(harness.http_port)
+        try:
+            inp = http.InferInput("TOKENS", [1, S], "INT32")
+            inp.set_data_from_numpy(x[:1])
+            end = time.monotonic() + 60
+            while th.is_alive():
+                if time.monotonic() > end:
+                    fail(f"{label}: no rollback within 60 s")
+                try:
+                    c.infer(FLEET_MODEL, [inp])
+                except Exception:  # noqa: BLE001 - v3 fails each request
+                    failed += 1
+            th.join()
+            if box.get("outcome") != "rolled_back":
+                fail(f"{label}: outcome {box}")
+            after = c.infer(FLEET_MODEL, [inp]).as_numpy("LOGPROBS")
+        finally:
+            c.close()
+        if float(np.abs(after[0] - want[2][0]).max()) > atol:
+            fail(f"{label}: the default is not v2 after the rollback")
+        del v3
+        gc.collect()
+        torch.cuda.synchronize()
+        mem = torch.cuda.memory_allocated()
+        print(f"{label}: rolled back to v2 after {failed} failed requests; "
+              f"device memory {base} before v3 was staged, {mem} after "
+              f"({mem - base:+d} bytes); update events "
+              f"{dict(ctl.update_events)}; {CARD}", flush=True)
+        if abs(mem - base) > REPO_MEM_TOL:
+            fail(f"{label}: device memory {mem - base:+d} bytes against "
+                 "before the staging")
+        del v1, v2
+
+
+def _fleet_autoscale(torch, counters, sampler) -> None:
+    """Part 4: bert_large int8 ``w2`` at BERT_SERVE_LAYERS under the fleet
+    controller (bounds 1..8, pinned at 1): a c = 16 -b 32 backlog from
+    perf_analyzer scales it out one instance a cooldown; an idle window
+    scales it back in.  infer/s and the idle share at each in-flight count
+    it passes through; int8 once per layer of every forward."""
+    from triton_client_tpu_torch.models import language
+    from triton_client_tpu_torch.server.fleet import FleetController
+
+    label = "fleet autoscale"
+    S, V = language.BERT_SEQ_LEN, language.BERT_LARGE.vocab_size
+    os.environ.update(TRITON_TPU_QUANT="int8", TRITON_TPU_INT8_FUSED="w2")
+    try:
+        with bert_depth(BERT_SERVE_LAYERS):
+            model = language.make_bert_large("cuda")
+            layers = language.BERT_LARGE.n_layers
+            with serving_harness([model]) as harness:
+                core = harness.core
+                # the duty cycle's window: scale-in reads idleness within
+                # 2 s of the load's end, not the default minute
+                core.device_stats.window_s = 1.0
+                # held at 1 until perf_analyzer's window opens (below)
+                ctl = FleetController(
+                    core, interval_s=0.1, bounds={"bert_large": (1, 1)},
+                    queue_high=1.0,
+                    scale_out_cooldown_s=FLEET_SCALE_COOLDOWN_S,
+                    scale_in_cooldown_s=0.2, idle_cycles=3)
+                core.fleet = ctl
+                ctl.scale_to("bert_large", 1)
+                x = model_tokens(BERT_SEED, 32, S, V)
+                with _client(harness.http_port) as c:
+                    got, _ = _post_infer(c, "bert_large",
+                                         [("INPUT_IDS", "INT32", x)],
+                                         ["LOGITS"])
+                check_precision(label, model.transformer, True)
+                bert_check(label, torch, model, True, x)(
+                    "before the load", got["LOGITS"])
+                batcher = core._batchers["bert_large@1"]
+                timeline, stop = [(time.perf_counter(), 1)], threading.Event()
+
+                def watch():
+                    while not stop.is_set():
+                        n = batcher.instances
+                        if n != timeline[-1][1]:
+                            timeline.append((time.perf_counter(), n))
+                        time.sleep(0.005)
+
+                def open_bounds():
+                    # the tool's first request starts its 1 s warm-up; one
+                    # cooldown of the window at 1 in flight, then the
+                    # ladder up, one instance a cooldown
+                    end = time.monotonic() + 120
+                    while not model.stats.executions:
+                        if stop.is_set() or time.monotonic() > end:
+                            return
+                        time.sleep(0.005)
+                    time.sleep(1.0 + FLEET_SCALE_COOLDOWN_S)
+                    ctl.bounds["bert_large"] = (1, 8)
+
+                watcher = threading.Thread(target=watch, daemon=True)
+                watcher.start()
+                opener = threading.Thread(target=open_bounds, daemon=True)
+                opener.start()
+                ctl.start()
+                try:
+                    results, launches, executions, _ = _perf_analyzer(
+                        label, harness, model,
+                        ["-b", "32", "--concurrency-range", "16:16"],
+                        counters, FLEET_SCALE_WINDOW_MS)
+                    res = results[0]
+                    if res["errors"]:
+                        fail(f"{label}: {res['errors']} errors")
+                    check_launches(label, launches, len(executions), 0,
+                                   layers)
+                    FLEET_PATHS[label] = launches
+                    peak = max(n for _, n in timeline)
+                    t_idle = time.perf_counter()
+                    end = time.monotonic() + 60
+                    while batcher.instances != 1:
+                        if time.monotonic() > end:
+                            fail(f"{label}: no scale-in within 60 s "
+                                 f"({batcher.instances} instances)")
+                        time.sleep(0.05)
+                    in_s = time.perf_counter() - t_idle
+                finally:
+                    ctl.stop()
+                    stop.set()
+                    watcher.join(timeout=10)
+                    opener.join(timeout=10)
+                w0, w1 = res["window_start_s"], res["window_end_s"]
+                print(f"{label}: c=16 -b 32 {res['throughput']:.3f} infer/s "
+                      f"over the window, scaled out to {peak} instances "
+                      f"(events {dict(ctl.scale_events)}), back to 1 in "
+                      f"{in_s:.1f} s idle; launches {launches} over "
+                      f"{len(executions)} forwards", flush=True)
+                if peak < 4 or ctl.scale_events.get(
+                        ("bert_large", "in"), 0) < 1:
+                    fail(f"{label}: scaled out to {peak}, in "
+                         f"{ctl.scale_events}")
+                spans = timeline + [(w1, None)]
+                for (a, n), (b, _) in zip(spans, spans[1:]):
+                    lo, hi = max(a, w0), min(b, w1)
+                    if hi - lo < 0.3:
+                        continue
+                    done = sum(1 for t_end, _ in executions
+                               if lo <= t_end < hi)
+                    print(f"{label}: {n} in flight for {hi - lo:.2f} s: "
+                          f"{done / (hi - lo):.3f} infer/s, card idle "
+                          f"{_share(sampler.idle(lo, hi))}; {CARD}",
+                          flush=True)
+    finally:
+        for var in ("TRITON_TPU_QUANT", "TRITON_TPU_INT8_FUSED"):
+            os.environ.pop(var, None)
+
+
+def fleet_phase(torch, counters) -> None:
+    """The fleet: two CLI servers (``--frontends 2`` and ``1``) start in
+    processes of their own while the autoscaler runs in this process, then
+    the frontend comparison, the CUDA region across siblings and the
+    SIGKILL drill; the rolling update runs in this process while the
+    killed worker restarts, then the healed worker's answers and the
+    drained exit.  Every child process is stopped on every exit path."""
+    sampler = _UtilSampler()
+    servers = []
+
+    def step(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"fleet: {name} took {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        return out
+
+    try:
+        servers = [_FleetServer(2), _FleetServer(1)]
+        # the fleets start while the autoscaler runs in this process: its
+        # readings share the host with their start
+        step("autoscaler", _fleet_autoscale, torch, counters, sampler)
+        check, x = step("frontends", _fleet_frontends, torch, *servers,
+                        sampler)
+        victim, t_kill, respawn = step("kill", _fleet_kill, servers[0])
+        # the rolling update runs while the killed worker restarts; its one
+        # timing, the flip to the first v2 answer, shares the host with
+        # that start
+        step("rolling update", _fleet_rolling, torch, counters)
+        step("healing", _fleet_healed, servers[0], victim, t_kill, respawn,
+             check, x)
+    finally:
+        for srv in servers:
+            srv.close()
+        sampler.close()
+
+
 def _signature_of(harness, model, x):
     """The input signature the server records for a batch like ``x``."""
     from triton_client_tpu_torch.server.core import _signature
@@ -5598,16 +6581,33 @@ def _signature_of(harness, model, x):
 
 
 
+#: the bytecode of every module that this script and its child processes
+#: import: the card's machine keeps none for most of the installed
+#: packages, so each process (a server worker, perf_analyzer) would compile
+#: PyTorch's sources again as it starts
+PYCACHE = os.path.join(REPO, "build", "pycache")
+
+
+def share_bytecode() -> None:
+    """Write and read bytecode under PYCACHE, here and in every child."""
+    os.makedirs(PYCACHE, exist_ok=True)
+    os.environ["PYTHONPYCACHEPREFIX"] = PYCACHE
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    sys.pycache_prefix = PYCACHE
+    sys.dont_write_bytecode = False
+
+
 def main() -> int:
     t_start = time.perf_counter()
+    if not os.path.isdir(os.path.join(REPO, "triton_client_tpu_torch")):
+        fail("triton_client_tpu_torch is not beside chip_smoke.py")
+    share_bytecode()
     try:
         import torch
     except ImportError:
         fail("torch is not installed")
     if not torch.cuda.is_available():
         fail("CUDA is not available")
-    if not os.path.isdir(os.path.join(REPO, "triton_client_tpu_torch")):
-        fail("triton_client_tpu_torch is not beside chip_smoke.py")
     sys.path.insert(0, REPO)
     global PEAK_BF16_FLOPS, PEAK_BYTES_PER_S
     from triton_client_tpu_torch.server.costs import peak_bytes_per_s
@@ -5710,8 +6710,10 @@ def main() -> int:
         paths["bert_large int8"] = phase(
             "serve bert_large int8", serve_bert, int8_per_layer=1, int8=True,
             transports=True)
+        # for its forward time and error: 16 requests (40 before the cut
+        # that made room for the fleet phase, PERF.md)
         phase("serve bert_large int8 fused=all", serve_bert,
-              int8_per_layer=2, int8=True, fused="all")
+              int8_per_layer=2, int8=True, fused="all", n_requests=16)
     paths["moe_tpu bf16"] = phase(
         "serve moe_tpu bf16", serve_next_token, language.make_moe_tpu,
         "moe_tpu", int8_per_layer=0)
@@ -5736,7 +6738,8 @@ def main() -> int:
                            ("cache and faults", cache_faults_phase,
                             (torch, counters)),
                            ("openai, genai_perf and repository",
-                            openai_repository_phase, (torch, counters))):
+                            openai_repository_phase, (torch, counters)),
+                           ("fleet", fleet_phase, (torch, counters))):
         t0 = time.perf_counter()
         fn(*args)
         print(f"{name} phase took {time.perf_counter() - t0:.1f} s",
@@ -5753,6 +6756,7 @@ def main() -> int:
     paths.update(GEN_PATHS)
     paths.update(CF_PATHS)
     paths.update(OAI_PATHS)
+    paths.update(FLEET_PATHS)
     for path, launches in paths.items():
         print(f"launches on {path}: flash_attention "
               f"{launches['flash_attention']}, int8_matmul "

@@ -456,8 +456,11 @@ def test_connection_closed_by_the_server_is_reopened(servers, accepted,
         while len(accepted) < 1 and time.monotonic() < deadline:
             time.sleep(0.01)
         time.sleep(0.6)  # the server has closed the idle connection
+        resends = thttp._client.connection_resends()
         res = client.infer("simple", ins, request_id="second")
         np.testing.assert_array_equal(res.as_numpy("OUTPUT0"), a + b)
+        # counted as a resend (perf_analyzer's resends_run)
+        assert thttp._client.connection_resends() == resends + 1
     assert seen == ["first", "second"]  # each sent once
     assert len(accepted) == 2  # on a new connection
 

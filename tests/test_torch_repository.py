@@ -712,20 +712,45 @@ def test_reference_model_py_is_refused(tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    ("model_warmup [{ name: \"w\" batch_size: 1 }]", "A6b-5"),
+    ("model_warmup [{ name: \"w\" batch_size: 1 }]", None),
     ("response_cache { enable: true }", "A6b-5"),
-    ("instance_group [{ count: 2 kind: KIND_CPU }]", "A6b-2"),
+    ("instance_group [{ count: 2 kind: KIND_CPU }]", None),
     ("dynamic_batching { preserve_ordering: true }", "A3b"),
 ], ids=["warmup", "response-cache", "instances", "preserve-ordering"])
 def test_unserved_config_fields_are_refused(tmp_path, extra, item):
-    _write(str(tmp_path / "m" / "config.pbtxt"),
-           CONFIG_PBTXT.replace('"tripler"', '"m"') + extra + "\n")
-    _write(str(tmp_path / "m" / "1" / "model.py"), _model_py("port", 3))
-    with ServerHarness(ModelRegistry(repository_path=str(tmp_path))) as h, \
-            thttp.InferenceServerClient(h.http_url) as c:
-        with pytest.raises(InferenceServerException) as e:
-            c.load_model("m")
-        assert f"ROADMAP {item}" in e.value.message()
+    """A field the port does not serve is refused, naming its ROADMAP item.
+    The fields it serves since the fleet (``model_warmup``, and
+    ``instance_group`` beyond one group of count 1; ``item`` None) load in
+    both packages with the reference's answer: the same refusal (a warmup
+    sample without the model's input fails the load) or the same config
+    and outputs."""
+    outcomes = {}
+    for which, registry, harness in (("port", ModelRegistry, ServerHarness),
+                                     ("ref", JaxRegistry, JaxHarness)):
+        if which == "ref" and item is not None:
+            continue
+        root = tmp_path / which
+        _write(str(root / "m" / "config.pbtxt"),
+               CONFIG_PBTXT.replace('"tripler"', '"m"') + extra + "\n")
+        _write(str(root / "m" / "1" / "model.py"), _model_py(which, 3))
+        with harness(registry(repository_path=str(root))) as h, \
+                thttp.InferenceServerClient(h.http_url) as c:
+            try:
+                c.load_model("m")
+            except InferenceServerException as e:
+                outcomes[which] = ("refused", e.message())
+                continue
+            cfg = c.get_model_config("m")
+            x = thttp.InferInput("X", [4], "INT32")
+            x.set_data_from_numpy(np.arange(4, dtype=np.int32))
+            outcomes[which] = ("loaded", cfg.get("instance_group"),
+                               cfg.get("model_warmup"),
+                               c.infer("m", [x]).as_numpy("Y").tolist())
+    if item is not None:
+        assert outcomes["port"][0] == "refused"
+        assert f"ROADMAP {item}" in outcomes["port"][1]
+    else:
+        assert outcomes["port"] == outcomes["ref"]
 
 
 # -- the readers ------------------------------------------------------------

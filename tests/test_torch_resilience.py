@@ -270,9 +270,20 @@ def test_build_injector_validates_and_refuses_unported_kinds():
             mod.build_injector(0.5, kinds_csv="explode")
         assert mod.build_injector(0.5, kinds_csv="latency, error",
                                   seed=3).kinds == ("latency", "error")
-    with pytest.raises(ValueError, match="ROADMAP A6b"):
-        tchaos.build_injector(0.5, kinds_csv="error,worker_kill")
-    jchaos.build_injector(0.5, kinds_csv="error,worker_kill")  # accepted
+    # worker_kill is ported: accepted by both, drawn per request alike
+    t, j = (mod.build_injector(0.5, kinds_csv="error,worker_kill", seed=3)
+            for mod in (tchaos, jchaos))
+    assert t.kinds == j.kinds == ("error", "worker_kill")
+    seq = [[getattr(inj.decide("m"), "kind", None) for _ in range(40)]
+           for inj in (t, j)]
+    assert seq[0] == seq[1] and "worker_kill" in seq[0]
+    # and a junk kind is refused with the reference's text
+    texts = []
+    for mod in (tchaos, jchaos):
+        with pytest.raises(ValueError) as e:
+            mod.build_injector(0.5, kinds_csv="explode")
+        texts.append(str(e.value))
+    assert texts[0] == texts[1]
     # device_error and load_fail are ported: accepted by both, never drawn
     # per request
     for kind in ("device_error", "load_fail"):

@@ -84,6 +84,23 @@ class _Response:
         self.data = data
 
 
+_resends_lock = threading.Lock()
+_resends = 0
+
+
+def connection_resends() -> int:
+    """The requests this process has sent again on another connection
+    because a kept-alive one failed before any response byte (the server
+    closed it, or its process was lost)."""
+    return _resends
+
+
+def _count_resend() -> None:
+    global _resends
+    with _resends_lock:
+        _resends += 1
+
+
 class _ConnectionPool:
     """Kept-alive connections to one server, shared by threads.
 
@@ -154,6 +171,7 @@ class _ConnectionPool:
                 if not arrived:
                     if reused:
                         conn.close()
+                        _count_resend()
                         continue
                     raise http.client.RemoteDisconnected(
                         "Remote end closed connection without response")

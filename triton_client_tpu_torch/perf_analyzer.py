@@ -51,7 +51,11 @@ in its window).  ``--retries`` and ``--tenant`` are refused with
 ``result`` line holds ``rejected_run``, ``pushback_run`` and
 ``retries_run``: the sheds, the sheds that carried the server's pushback
 and the retries of the level's whole run, its warm-up and its last
-requests included, to compare with the server's counters.
+requests included, to compare with the server's counters; and
+``resends_run``: the HTTP requests of that run sent again on a new
+connection because a kept-alive one failed before any response byte
+(the client does this below its retry policy, so a server process lost
+under load shows here, not in ``retries``).
 
 Not ported yet (rejected with the ROADMAP item that brings them):
 several ``-u`` endpoints, ``--balancing`` and ``--hedge-ms`` (the cluster
@@ -96,6 +100,13 @@ class _Stats:
 
 def _is_rejected(err: Exception) -> bool:
     return normalized_status(err) in ("429", "RESOURCE_EXHAUSTED")
+
+
+def _resends_recorded() -> int:
+    """The HTTP client's resends so far (process-wide)."""
+    from .http._client import connection_resends
+
+    return connection_resends()
 
 
 def _retries_recorded(model_name: str) -> int:
@@ -471,6 +482,7 @@ def run_level(url, model_name, model_version, concurrency, arrays, outputs,
             daemon=True)
         for w in range(concurrency)]
     retries_start = _retries_recorded(model_name)
+    resends_start = _resends_recorded()
     for t in threads:
         t.start()
     time.sleep(warmup_s)
@@ -509,6 +521,7 @@ def run_level(url, model_name, model_version, concurrency, arrays, outputs,
         "rejected_run": stats.rejected_run,
         "pushback_run": stats.pushback_run,
         "retries_run": _retries_recorded(model_name) - retries_start,
+        "resends_run": _resends_recorded() - resends_start,
     }
     if len(classes) > 1:
         res["classes"] = [
@@ -650,6 +663,7 @@ def run_rate_level(url, model_name, model_version, rate, arrays, outputs,
     threads = [threading.Thread(target=worker, args=(w,), daemon=True)
                for w in range(max_threads)]
     retries_start = _retries_recorded(model_name)
+    resends_start = _resends_recorded()
     for t in threads:
         t.start()
     deadline = time.monotonic() + 30.0
@@ -694,6 +708,7 @@ def run_rate_level(url, model_name, model_version, rate, arrays, outputs,
         "rejected_run": sum(1 for row in done if row[3]),
         "pushback_run": sum(1 for row in done if row[5]),
         "retries_run": _retries_recorded(model_name) - retries_start,
+        "resends_run": _resends_recorded() - resends_start,
     }
     if len(classes) > 1:
         res["classes"] = []

@@ -43,7 +43,7 @@ and tenants (``--qos-tiers``, ``--qos-weights``, ``--qos-tenant-rate``,
 ``--qos-tenant-burst``, ``--qos-tenant-limit NAME=RATE[:BURST]``,
 ``--qos-best-effort-fraction``) and fault injection (``--chaos RATE``,
 ``--chaos-kinds`` of
-``latency,error,abort,load_fail,mem_pressure,device_error``,
+``latency,error,abort,worker_kill,load_fail,mem_pressure,device_error``,
 ``--chaos-seed``, ``--chaos-latency-ms``, ``--chaos-model``,
 ``--chaos-transient``, ``--chaos-pressure-s``,
 ``--chaos-pressure-factor``).  SIGTERM or SIGINT drains: new requests get
@@ -69,6 +69,26 @@ the SLO engine; ``--no-device-stats`` turns the device statistics off;
 debug snapshots on a second listener (they are on the HTTP port either
 way).  Tracing and logging are set at run time through
 ``/v2/trace/setting`` and ``/v2/logging``.
+
+The fleet (the reference's flags, ``__main__.py:41-80``): ``--frontends
+N`` runs a supervisor that starts N worker processes (this module with
+``--frontend-worker i``), each a whole server sharing the HTTP port through
+``SO_REUSEPORT`` (the kernel spreads the connections) and serving
+``/metrics`` on ``--metrics-port`` + i; client shared-memory registrations
+reach every worker through a manifest directory.  A worker that dies is
+started again after a capped, doubling backoff and counted in
+``nv_fleet_worker_restart_total`` on every worker;
+``--worker-restart-limit`` crashes of one worker inside
+``--worker-restart-window`` seconds fail the fleet fast.  SIGTERM and
+SIGINT reach every worker, each of which drains.  On the card every worker
+opens the device: each holds its own CUDA context and its own copy of the
+weights.  ``--autoscale MODEL=MIN..MAX`` (repeatable) bounds a model's
+batches in flight for the fleet controller every process runs, evaluated
+each ``--autoscale-interval`` seconds; a model's config can declare the
+same through its ``autoscale.min_instances`` / ``autoscale.max_instances``
+parameters.  Models with ``model_warmup`` samples are warmed before the
+listeners open; one whose warmup fails is unloaded.  A ``worker_kill``
+chaos draw exits the process with code 70.
 """
 
 from __future__ import annotations
@@ -79,17 +99,21 @@ import signal
 import sys
 import threading
 import time
+from typing import TYPE_CHECKING
 
-from ..models import zoo
+# PyTorch, the zoo and the core are imported by the worker path of main():
+# the supervisor of --frontends N loads no model, and spawns its workers
+# without paying for them
 from .chaos import build_injector
-from .core import InferenceCore
+from .fleet import FleetController, parse_autoscale_spec
 from .device_stats import parse_slo_spec
-from .http_server import HttpServer, MetricsServer
 from .kvcache import cache_env_key
 from .memory import DEFAULT_MAX_REQUEST_BYTES
 from .qos import QosManager, parse_tenant_limit
-from .registry import ModelRegistry
 from .types import InferError
+
+if TYPE_CHECKING:
+    from .core import InferenceCore
 
 
 def _add_admission_flags(ap: argparse.ArgumentParser) -> None:
@@ -144,8 +168,10 @@ def _add_admission_flags(ap: argparse.ArgumentParser) -> None:
                     help="fault-injection rate in [0,1], drawn per request "
                     "from a seeded RNG")
     ap.add_argument("--chaos-kinds", default="error",
-                    help="comma list of latency,error,abort,load_fail,"
-                    "mem_pressure,device_error (default: error).  "
+                    help="comma list of latency,error,abort,worker_kill,"
+                    "load_fail,mem_pressure,device_error (default: "
+                    "error).  worker_kill exits the process (code 70; "
+                    "a --frontends supervisor restarts it).  "
                     "load_fail fails repository loads only.  "
                     "device_error fires at "
                     "the decode worker's dispatch boundaries: it wrecks "
@@ -282,6 +308,182 @@ def _configure_admission(ap: argparse.ArgumentParser, args,
               f"kinds={core.chaos.kinds} seed={args.chaos_seed}")
 
 
+def _add_fleet_flags(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--frontends", type=int, default=1, metavar="N",
+                    help="frontend processes sharing the HTTP port through "
+                    "SO_REUSEPORT (the kernel spreads accepted "
+                    "connections), so that serving scales past one "
+                    "interpreter.  Worker i serves /metrics on "
+                    "--metrics-port + i; client shared-memory "
+                    "registrations reach every worker through a manifest "
+                    "directory.  On the card each worker holds its own CUDA "
+                    "context and copy of the weights.  Default 1 (one "
+                    "process, no SO_REUSEPORT)")
+    ap.add_argument("--frontend-worker", type=int, default=None,
+                    help=argparse.SUPPRESS)  # a worker's index
+    ap.add_argument("--worker-restart-limit", type=int, default=5,
+                    metavar="K",
+                    help="the supervisor's storm bound: a crashed worker is "
+                    "restarted after a capped, doubling backoff, but K "
+                    "crashes of one worker inside --worker-restart-window "
+                    "fail the fleet fast; 1 fails on the first crash "
+                    "(default 5)")
+    ap.add_argument("--worker-restart-window", type=float, default=30.0,
+                    metavar="S",
+                    help="the sliding window (seconds) the storm bound "
+                    "counts crashes over; crashes that age out of it also "
+                    "reset the backoff (default 30)")
+    ap.add_argument("--autoscale", action="append", default=None,
+                    metavar="MODEL=MIN..MAX",
+                    help="closed-loop autoscaling of MODEL between MIN and "
+                    "MAX batches in flight (repeatable; either bound may "
+                    "be left out around '..').  Out on an SLO burn at or "
+                    "over --slo-burn-threshold or a deep batcher backlog, "
+                    "in on a sustained idle duty cycle.  A config may "
+                    "declare the same through its autoscale.min_instances "
+                    "/ autoscale.max_instances parameters")
+    ap.add_argument("--autoscale-interval", type=float, default=1.0,
+                    metavar="S",
+                    help="the fleet controller's evaluation period "
+                    "(default 1.0 s)")
+
+
+def _run_supervisor(ap: argparse.ArgumentParser, args, argv) -> int:
+    """``--frontends N``: start N workers that run this module again with
+    ``--frontend-worker i``, each binding the same HTTP port with
+    SO_REUSEPORT, and watch them (the reference's ``_run_supervisor``).
+
+    A worker that dies on its own is started again after its
+    ``RestartPolicy``'s backoff, on the same port and manifest directory,
+    and the restart is written to the fleet's state file.  A crash storm
+    (``--worker-restart-limit`` crashes of one worker inside
+    ``--worker-restart-window``) fails the fleet fast: the siblings are
+    sent SIGTERM and drain.  SIGINT and SIGTERM are passed to every worker,
+    each of which drains.  Returns the exit code: the largest of the
+    workers' last codes (a worker killed by a signal counts 1), or the
+    crashed worker's on a storm."""
+    import shutil
+    import socket
+    import subprocess
+    import tempfile
+
+    from .fleet import (FLEET_STATE_ENV, MANIFEST_ENV, RestartPolicy,
+                        SupervisorState, crash_reason_from_exit)
+
+    if not hasattr(socket, "SO_REUSEPORT"):
+        ap.error("--frontends > 1 requires SO_REUSEPORT (Linux)")
+    if args.worker_restart_limit < 1:
+        ap.error("--worker-restart-limit must be >= 1")
+    if args.device == "cuda":
+        print("frontend supervisor: every worker opens the card: each "
+              "holds its own CUDA context and its own copy of the weights",
+              file=sys.stderr, flush=True)
+    # a register lands on one worker; the manifest lets every sibling
+    # resolve it (shm.py).  The fleet's state file lives beside it
+    manifest = tempfile.mkdtemp(prefix="tc-torch-shm-manifest-")
+    fleet_state = SupervisorState(os.path.join(manifest, "fleet-state.json"))
+    env = dict(os.environ)
+    env[MANIFEST_ENV] = manifest
+    env[FLEET_STATE_ENV] = fleet_state.path
+
+    def spawn(i: int) -> subprocess.Popen:
+        cmd = [sys.executable, "-m", "triton_client_tpu_torch.server",
+               *argv, "--frontend-worker", str(i)]
+        p = subprocess.Popen(cmd, env=env)
+        print(f"frontend worker {i}: pid {p.pid}", flush=True)
+        return p
+
+    procs: list = []
+    rc = 0
+    try:
+        procs = [spawn(i) for i in range(args.frontends)]
+        policies = [RestartPolicy(storm_limit=args.worker_restart_limit,
+                                  window_s=args.worker_restart_window)
+                    for _ in procs]
+        restart_at: list = [None] * len(procs)
+        crash_reason: list = [None] * len(procs)
+        print(f"frontend supervisor: {args.frontends} workers sharing "
+              f"http={args.host}:{args.http_port} (SO_REUSEPORT, "
+              "self-healing: restart with backoff, fail-fast after "
+              f"{args.worker_restart_limit} crashes/"
+              f"{args.worker_restart_window:g}s)", flush=True)
+        state = {"stopping": False}
+
+        def forward(signum, _frame):
+            # each worker drains itself; a pending restart is dropped
+            state["stopping"] = True
+            for p in procs:
+                if p is not None and p.poll() is None:
+                    try:
+                        p.send_signal(signum)
+                    except OSError:
+                        pass
+
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            signal.signal(sig, forward)
+
+        def fail_fast() -> None:
+            state["stopping"] = True
+            for q in procs:
+                if q is not None and q.poll() is None:
+                    try:
+                        q.send_signal(signal.SIGTERM)
+                    except OSError:
+                        pass
+
+        while True:
+            now = time.monotonic()
+            if not state["stopping"]:
+                for i, p in enumerate(procs):
+                    if p is None or p.poll() is None:
+                        continue
+                    # a worker that exits while the fleet is not stopping
+                    # crashed: a server runs until it is told to stop
+                    code = p.returncode or 0
+                    procs[i] = None
+                    crash_reason[i] = crash_reason_from_exit(p.returncode)
+                    delay = policies[i].on_crash(now)
+                    if delay is None:
+                        print(f"frontend worker {i}: "
+                              f"{policies[i].storm_limit} crashes inside "
+                              f"{policies[i].window_s:g}s — crash storm, "
+                              "failing fast (draining siblings)",
+                              file=sys.stderr, flush=True)
+                        rc = max(rc, 1 if code <= 0 else code)
+                        fail_fast()
+                        restart_at = [None] * len(procs)
+                        break
+                    print(f"frontend worker {i} exited rc={code} "
+                          f"({crash_reason[i]}); restarting in {delay:g}s",
+                          file=sys.stderr, flush=True)
+                    restart_at[i] = now + delay
+                for i, due in enumerate(restart_at):
+                    if due is not None and now >= due \
+                            and not state["stopping"]:
+                        restart_at[i] = None
+                        procs[i] = spawn(i)
+                        fleet_state.record_restart(
+                            str(i), reason=crash_reason[i])
+            alive = any(p is not None and p.poll() is None for p in procs)
+            pending = any(due is not None for due in restart_at)
+            if state["stopping"] and not alive:
+                break
+            if not state["stopping"] and not alive and not pending:
+                break  # nothing left to watch
+            time.sleep(0.2)
+        # a worker killed by a signal failed; healed crashes do not count
+        rc = max([rc] + [1 if (p.returncode or 0) < 0
+                         else (p.returncode or 0)
+                         for p in procs if p is not None])
+    finally:
+        for p in procs:
+            if p is not None and p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(manifest, ignore_errors=True)
+    return rc
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m triton_client_tpu_torch.server")
     ap.add_argument("--model-repository", default=None,
@@ -320,7 +522,31 @@ def main(argv=None) -> int:
                     "snapshots (0: none; /metrics stays on the HTTP port)")
     _add_admission_flags(ap)
     _add_generation_flags(ap)
+    _add_fleet_flags(ap)
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = ap.parse_args(argv)
+    if args.frontends < 1:
+        ap.error("--frontends must be >= 1")
+    # before the supervisor's branch: a typo must fail at once, not crash
+    # N workers into a storm with the message in their output
+    autoscale_bounds = {}
+    for spec in args.autoscale or []:
+        try:
+            name, bounds = parse_autoscale_spec(spec)
+        except ValueError as e:
+            ap.error(str(e))
+        autoscale_bounds[name] = bounds
+    if args.autoscale_interval <= 0:
+        ap.error("--autoscale-interval must be positive")
+    worker_index = args.frontend_worker
+    if args.frontends > 1 and worker_index is None:
+        # the supervisor: it loads no model
+        return _run_supervisor(ap, args, argv)
+
+    from ..models import zoo
+    from .core import InferenceCore
+    from .http_server import HttpServer, MetricsServer
+    from .registry import ModelRegistry
 
     registry = ModelRegistry(repository_path=args.model_repository)
     if args.model_repository:
@@ -337,6 +563,18 @@ def main(argv=None) -> int:
     core = InferenceCore(registry)
     _configure_admission(ap, args, core)
     _configure_generation(ap, args, core)
+    if core.chaos is not None and "worker_kill" in core.chaos.kinds:
+        # a worker_kill draw looks like a real crash: no drain, no atexit;
+        # the supervisor (or the operator's init system) heals it
+        core.chaos.worker_kill_cb = lambda: os._exit(70)
+        print("chaos: worker_kill armed — this process hard-exits when "
+              "the fault fires")
+    # always attached (rolling updates and the nv_fleet_* counters need
+    # it); its loop actuates only models with bounds
+    core.fleet = FleetController(core, interval_s=args.autoscale_interval,
+                                 bounds=autoscale_bounds)
+    for name, (lo, hi) in sorted(autoscale_bounds.items()):
+        print(f"autoscale: {name} instances in [{lo}, {hi}]")
     try:
         core.flight_recorder.configure(
             capacity=args.flight_recorder_size,
@@ -359,11 +597,19 @@ def main(argv=None) -> int:
         core.slo.set_objective(name, objective)
         print(f"SLO: {name} p99<={objective.p99_ms:g}ms "
               f"availability={objective.availability:g}")
+    warmed = core.warmup_models()
+    if warmed:
+        print(f"warmed up: {warmed}", flush=True)
+    core.fleet.start()
     server = HttpServer(core, args.host, args.http_port,
-                        max_request_bytes=args.max_request_bytes)
+                        max_request_bytes=args.max_request_bytes,
+                        reuse_port=worker_index is not None)
     servers = [server]
-    if args.metrics_port:
-        metrics = MetricsServer(core, args.host, args.metrics_port)
+    # worker i serves its own metrics port: the HTTP port is shared
+    metrics_port = (args.metrics_port + (worker_index or 0)
+                    if args.metrics_port else 0)
+    if metrics_port:
+        metrics = MetricsServer(core, args.host, metrics_port)
         servers.append(metrics)
         threading.Thread(target=metrics.serve_forever, daemon=True,
                          name="tc-torch-metrics").start()
@@ -392,10 +638,12 @@ def main(argv=None) -> int:
 
     signal.signal(signal.SIGTERM, _stop)
     signal.signal(signal.SIGINT, _stop)
-    metrics_at = (f", metrics on {args.host}:{args.metrics_port}"
-                  if args.metrics_port else "")
+    metrics_at = (f", metrics on {args.host}:{metrics_port}"
+                  if metrics_port else "")
+    worker = (f" [frontend worker {worker_index}/{args.frontends}]"
+              if worker_index is not None else "")
     print(f"serving v2 HTTP on {args.host}:{args.http_port} "
-          f"(device {args.device}){metrics_at}", flush=True)
+          f"(device {args.device}){metrics_at}{worker}", flush=True)
     try:
         server.serve_forever()
     finally:

@@ -13,7 +13,11 @@ faults out).  The data-plane kinds:
   the client retry layer must absorb;
 * ``mem_pressure`` -- the live host byte budget shrinks to
   ``pressure_factor`` of its bound for ``pressure_s`` seconds; the drawing
-  request goes on.
+  request goes on;
+* ``worker_kill`` -- the worker goes down: the core calls
+  ``worker_kill_cb`` (a CLI ``--frontends`` worker exits with code 70; a
+  drill's replica supervisor kills its replica and heals it), then fails
+  the request as a severed connection.
 
 One control-plane kind, never drawn by ``decide``:
 
@@ -32,10 +36,6 @@ One dispatch-plane kind, never drawn by ``decide``:
   recovery rides out; without it a persistent fault drives the model into
   quarantine.
 
-The reference's other kind belongs to a module the port does not have yet
-and is refused when an injector is built, naming its ROADMAP item:
-``worker_kill`` (the fleet, A6b).
-
 Every injected fault stamps the request's flight record (``chaos=<kind>``)
 and the recorder pins it as an outlier.
 """
@@ -49,17 +49,13 @@ from typing import Dict, Iterable, Optional, Sequence
 
 from .types import InferError
 
-#: the kinds the port injects
-_KINDS = ("latency", "error", "abort", "load_fail", "mem_pressure",
-          "device_error")
+#: the kinds the port injects (the reference's, in its order)
+_KINDS = ("latency", "error", "abort", "worker_kill", "load_fail",
+          "mem_pressure", "device_error")
 #: the kinds drawn per request by ``decide``; ``load_fail`` is
 #: control-plane only (``maybe_fail_load``) and ``device_error``
 #: dispatch-plane only (``maybe_device_fault``)
-_DATA_KINDS = ("latency", "error", "abort", "mem_pressure")
-#: the reference's kinds whose machinery is not ported -> ROADMAP item
-NOT_PORTED_KINDS = {
-    "worker_kill": "A6b (fleet)",
-}
+_DATA_KINDS = ("latency", "error", "abort", "worker_kill", "mem_pressure")
 
 
 class ChaosAbort(InferError):
@@ -125,12 +121,6 @@ class ChaosInjector:
         if not 0.0 <= rate <= 1.0:
             raise ValueError(f"chaos rate must be in [0, 1], got {rate}")
         kinds = tuple(kinds)
-        for k in kinds:
-            if k in NOT_PORTED_KINDS:
-                raise ValueError(
-                    f"chaos kind '{k}' is not ported to "
-                    "triton_client_tpu_torch yet (ROADMAP "
-                    f"{NOT_PORTED_KINDS[k]})")
         bad = [k for k in kinds if k not in _KINDS]
         if bad or not kinds:
             raise ValueError(
@@ -151,6 +141,9 @@ class ChaosInjector:
         self.pressure_factor = float(pressure_factor)
         # the per-request pool: device_error never fires mid-infer
         self.data_kinds = tuple(k for k in kinds if k in _DATA_KINDS)
+        #: what a worker_kill draw calls to take the worker down; unset,
+        #: the drawing request still fails as a severed connection
+        self.worker_kill_cb = None
         self._rng = random.Random(seed)
         self._lock = threading.Lock()
         self._healthy_until = 0.0
@@ -197,7 +190,7 @@ class ChaosInjector:
         if kind == "mem_pressure":
             return ChaosFault("mem_pressure", latency_s=self.pressure_s,
                               pressure_factor=self.pressure_factor)
-        if kind == "abort":
+        if kind in ("abort", "worker_kill"):
             return ChaosFault(kind)
         return ChaosFault("error", status=self.error_status)
 
@@ -239,8 +232,8 @@ def build_injector(rate: float, kinds_csv: str = "error", seed: int = 0,
                    transient_s: float = 0.0,
                    pressure_s: float = 1.0,
                    pressure_factor: float = 0.5) -> ChaosInjector:
-    """The injector of the ``--chaos*`` flags; a ValueError on junk (or a
-    kind not ported), so that a typo fails at start-up."""
+    """The injector of the ``--chaos*`` flags; a ValueError on junk, so
+    that a typo fails at start-up."""
     kinds = [k.strip() for k in kinds_csv.split(",") if k.strip()]
     return ChaosInjector(rate=rate, kinds=kinds, seed=seed,
                          latency_ms=latency_ms, models=models,

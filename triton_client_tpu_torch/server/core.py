@@ -107,9 +107,9 @@ core.py:543-808): the decode worker reports each failed dispatch; K
 faults inside a sliding window, or one forced fault, quarantine the model:
 not ready on both protocols and refused at admission with a typed 503,
 the probe's pushback and the ``quarantined`` marker the clients' retry
-layer reads.  Probes run on a doubling backoff.  The reference's fleet
-controller drives them; the port has no fleet yet (ROADMAP A6b), so the
-core's own prober thread drives them while a model is quarantined.  The
+layer reads.  Probes run on a doubling backoff, driven by the fleet
+controller's loop where one runs (``core.fleet``, ``fleet.py``), else by
+the core's own prober thread while a model is quarantined.  The
 reference's quarantine also triggers an incident bundle; incidents are
 not ported yet (ROADMAP A6b-3) and the port logs the quarantine.
 
@@ -124,10 +124,17 @@ resolved a swapped-out instance before the swap is refused with 503
 rather than given a batcher of it.  The SLO objective and the device
 statistics' signatures go, and once the name is unloaded its prefix/KV
 store, its quarantine state and its governor pins.  Server readiness is
-false while a model is LOADING.  Warmup at load is not ported yet (ROADMAP A6b-5).
+false while a model is LOADING, which a load holds while it runs the
+model's warmup samples (``warmup.py``; :meth:`InferenceCore.warmup_models`
+runs them at server start).
 
-The fleet controller and the response cache are not ported yet (ROADMAP
-A6b).
+The fleet (the reference's, core.py:263-296 and :1947-1972): a batcher
+executes up to ``instances`` batches at once, resized live by the fleet
+controller (``_DynamicBatcher.set_instances``), and a rolling update drains
+the old version's batcher (:meth:`InferenceCore.drain_batcher`).  The
+chaos ``worker_kill`` kind calls ``chaos.worker_kill_cb`` and fails its
+request as a severed connection.  The response cache is not ported yet
+(ROADMAP A6b-5).
 """
 
 from __future__ import annotations
@@ -291,6 +298,12 @@ def _fail(fut: concurrent.futures.Future, err: Exception) -> None:
         pass
 
 
+class _BatcherStopped(Exception):
+    """Raised by :meth:`_DynamicBatcher.submit` on a batcher that is
+    stopping: the request was not queued (the core resolves a batcher
+    again)."""
+
+
 class _DynamicBatcher:
     """Queue + pad-to-bucket batcher for one model.
 
@@ -298,8 +311,12 @@ class _DynamicBatcher:
     (or until the largest preferred batch size is reached), concatenates
     them along the batch axis, pads the batch to the smallest preferred
     size that holds it, executes once and splits the results.  A request
-    that would overflow ``max_batch_size`` seeds the next batch.  Up to
-    ``MAX_INFLIGHT`` batches execute at once.
+    that would overflow ``max_batch_size`` seeds the next batch.
+
+    Up to ``instances`` batches execute at once (``MAX_INFLIGHT`` unless the
+    fleet controller set a target for the model): a permit count under a
+    condition variable, resized live by :meth:`set_instances`, and a pool
+    of batch threads that grows with it.
 
     The queue is QoS's :class:`TieredQueue`: strict-priority (or
     weighted-fair) across tiers, FIFO within one; the core's admission may
@@ -308,7 +325,8 @@ class _DynamicBatcher:
 
     MAX_INFLIGHT = 4
 
-    def __init__(self, core: "InferenceCore", model: Model):
+    def __init__(self, core: "InferenceCore", model: Model,
+                 instances: Optional[int] = None):
         self._core = core
         self._model = model
         cfg = self._config = model.config
@@ -316,13 +334,55 @@ class _DynamicBatcher:
         self._buckets = sorted(cfg.preferred_batch_size)
         self._max_bs = cfg.max_batch_size
         self._queue = TieredQueue(core.qos.tiers, weights=core.qos.weights)
-        self._inflight = threading.BoundedSemaphore(self.MAX_INFLIGHT)
+        #: the batches executing at once: the fleet controller's actuation
+        #: target (a batcher born while the model is scaled starts there)
+        self.instances = max(1, int(instances or self.MAX_INFLIGHT))
+        # the permits free, the batches running, and the permits a shrink
+        # still owes: completions absorb the debt instead of freeing their
+        # permit, so a shrink never interrupts a batch nor touches the queue
+        self._cv = threading.Condition()
+        self._permits = self.instances
+        self._running = 0
+        self._shrink_debt = 0
+        self._workers = self.instances
         self._pool = concurrent.futures.ThreadPoolExecutor(
-            self.MAX_INFLIGHT, thread_name_prefix=f"batch-{model.name}")
+            self._workers, thread_name_prefix=f"batch-{model.name}")
         self._stopping = False
         self._thread = threading.Thread(
             target=self._run, daemon=True, name=f"batcher-{model.name}")
         self._thread.start()
+
+    def set_instances(self, n: int) -> None:
+        """Resize the batches in flight.  Growth frees permits at once (and
+        grows the pool); a shrink takes the free permits, and what it still
+        owes is a debt that completions absorb (the reference's shrink
+        debt)."""
+        n = max(1, int(n))
+        with self._cv:
+            delta = n - self.instances
+            self.instances = n
+            if delta > 0:
+                settle = min(delta, self._shrink_debt)
+                self._shrink_debt -= settle
+                self._permits += delta - settle
+                if n > self._workers:
+                    # the old pool's threads finish their batches, then go
+                    old, self._workers = self._pool, n
+                    self._pool = concurrent.futures.ThreadPoolExecutor(
+                        n, thread_name_prefix=f"batch-{self._model.name}")
+                    old.shutdown(wait=False)
+                self._cv.notify_all()
+            elif delta < 0:
+                # the free permits go at once; what is executing owes
+                # the rest
+                take = min(-delta, self._permits)
+                self._permits -= take
+                self._shrink_debt += -delta - take
+
+    def idle(self) -> bool:
+        """Nothing queued and no batch executing."""
+        with self._cv:
+            return not self._queue.qsize() and not self._running
 
     def submit(self, inputs: Dict[str, np.ndarray],
                parameters: Dict[str, Any],
@@ -333,11 +393,14 @@ class _DynamicBatcher:
         the batch's outputs.  A queue item is ``(inputs, parameters,
         future, split, enqueue_ns, trace, deadline_ns, (tenant, tier))``:
         the trace context travels with it to the thread that executes the
-        batch."""
+        batch.  Raises :class:`_BatcherStopped` on a stopping batcher."""
         fut: concurrent.futures.Future = concurrent.futures.Future()
-        self._queue.put_nowait((inputs, parameters, fut, split,
-                                time.monotonic_ns(), trace, deadline_ns,
-                                (tenant, tier)), tier)
+        with self._cv:
+            if self._stopping:
+                raise _BatcherStopped()
+            self._queue.put_nowait((inputs, parameters, fut, split,
+                                    time.monotonic_ns(), trace, deadline_ns,
+                                    (tenant, tier)), tier)
         return fut.result()
 
     def serves(self, model: Model) -> bool:
@@ -346,15 +409,36 @@ class _DynamicBatcher:
         return self._model is model and self._config is model.config
 
     def stop(self, reason: str = "server is shutting down") -> None:
-        """Stop the batcher thread after the batch it is forming; whatever
-        is still queued then fails with 503 and ``reason``."""
-        self._stopping = True
-        self._queue.put_nowait(_STOP, 0)
+        """Stop the batcher thread after the batch it is forming, and wait
+        for the batches executing; whatever is still queued then fails
+        with 503 and ``reason``."""
+        with self._cv:
+            self._stopping = True
+            self._queue.put_nowait(_STOP, 0)
+            self._cv.notify_all()
         self._thread.join(timeout=30)
-        self._pool.shutdown(wait=True)
+        with self._cv:
+            self._cv.wait_for(lambda: not self._running, timeout=30)
+            pool = self._pool
+        pool.shutdown(wait=True)
         for item in self._queue.drain():
             if item is not _STOP:
                 _fail(item[2], InferError(reason, 503))
+
+    def _acquire(self) -> None:
+        with self._cv:
+            self._cv.wait_for(lambda: self._permits > 0)
+            self._permits -= 1
+            self._running += 1
+
+    def _release(self, _task=None) -> None:
+        with self._cv:
+            self._running -= 1
+            if self._shrink_debt > 0:
+                self._shrink_debt -= 1
+            else:
+                self._permits += 1
+            self._cv.notify_all()
 
     def _drop_if_expired(self, item) -> bool:
         """Fail an item whose deadline passed while it queued (504, before
@@ -402,9 +486,11 @@ class _DynamicBatcher:
                     break
                 pending.append(item)
                 total += count
-            self._inflight.acquire()
-            task = self._pool.submit(self._execute_batch, pending)
-            task.add_done_callback(lambda _t: self._inflight.release())
+            self._acquire()
+            # under the lock: set_instances may replace (and shut) the pool
+            with self._cv:
+                task = self._pool.submit(self._execute_batch, pending)
+            task.add_done_callback(self._release)
             if stop:
                 return
 
@@ -746,8 +832,9 @@ class DeviceFaultManager:
                 pass
 
     def _start_prober(self) -> None:
-        """The core's driver of due probes (the reference's fleet loop):
-        one daemon thread while any model is quarantined."""
+        """The core's own probe loop, for where no fleet loop runs (the
+        reference runs due probes from its fleet loop only): one daemon
+        thread while any model is quarantined."""
         with self._lock:
             if self._prober is not None:
                 return
@@ -763,6 +850,9 @@ class DeviceFaultManager:
                 if not self._quarantined:
                     self._prober = None
                     return
+            fleet = getattr(self.core, "fleet", None)
+            if fleet is not None and fleet.running:
+                continue  # the fleet's loop drives the probes
             self.maybe_probe()
 
     # -- surfaces ----------------------------------------------------------
@@ -816,7 +906,13 @@ class InferenceCore:
         self.cuda_shm = CudaShmRegistry()
         self._batchers: Dict[str, _DynamicBatcher] = {}
         self._lock = threading.Lock()
+        # set by shutdown(): no batcher is made after it
+        self._closed = False
         self.live = True
+        #: the fleet controller (``fleet.py``), or None: it sets the
+        #: batchers' instances, rolls versions and, while its loop runs,
+        #: drives the quarantine probes
+        self.fleet = None
         #: a list to collect each request's RequestSplit in, or None
         self.splits: Optional[List[RequestSplit]] = None
         self.trace_settings: Dict[str, List[str]] = {
@@ -1082,6 +1178,18 @@ class InferenceCore:
             return
         if fault.kind == "abort":
             raise ChaosAbort()
+        if fault.kind == "worker_kill":
+            # the registered callback takes the worker down (a CLI worker
+            # exits at once; a drill kills its replica through the replica
+            # supervisor).  Where it returns, or none is set, the request
+            # fails as a severed connection, what a crashing worker shows
+            # on the wire.  The reference bundles an incident first; the
+            # port logs it (ROADMAP A6b-3)
+            self.log.error(f"chaos: worker_kill on {model.name}")
+            cb = self.chaos.worker_kill_cb
+            if cb is not None:
+                cb()
+            raise ChaosAbort("chaos: injected worker kill")
         raise InferError(f"chaos: injected {fault.status} error",
                          http_status=fault.status)
 
@@ -1230,8 +1338,8 @@ class InferenceCore:
             if self._use_batcher(model, request):
                 # the batcher records the batch's statistics, and this
                 # request's QUEUE, BATCH_ASSEMBLY and COMPUTE spans
-                outputs = self._batcher(model).submit(
-                    inputs, params, split, trace=trace,
+                outputs = self._submit(
+                    model, inputs, params, split, trace=trace,
                     deadline_ns=request.deadline_ns, tenant=request.tenant,
                     tier=request.tier)
             else:
@@ -1575,8 +1683,8 @@ class InferenceCore:
             # its own and concurrent streams would not coalesce
             member_params = {k: v for k, v in params.items()
                              if k not in SEQUENCE_KEYS}
-            return self._batcher(member).submit(step_inputs, member_params,
-                                                tenant=tenant, tier=tier)
+            return self._submit(member, step_inputs, member_params,
+                                tenant=tenant, tier=tier)
         rows = _batch_count(step_inputs) or 1
         t0 = time.monotonic_ns()
         try:
@@ -1603,15 +1711,41 @@ class InferenceCore:
                 and not any(t.shm is not None for t in request.inputs)
                 and not any(o.shm is not None for o in request.outputs))
 
+    def _submit(self, model: Model, inputs: Dict[str, Any],
+                params: Dict[str, Any], split: Optional[RequestSplit] = None,
+                **kw) -> Dict[str, Any]:
+        """One request through its instance's batcher.  A batcher that
+        began to stop (drained or retired) between its lookup and the
+        queueing took nothing: the request resolves its batcher again, and
+        runs on the instance it resolved while the registry serves it."""
+        while True:
+            try:
+                return self._batcher(model).submit(inputs, params, split,
+                                                   **kw)
+            except _BatcherStopped:
+                continue
+
     def _batcher(self, model: Model) -> _DynamicBatcher:
         """The batcher of this instance, keyed ``name@version``.  A request
         that resolved its instance before a load or an unload swapped it
         out is refused with 503 rather than given a batcher of the retired
         instance; a batcher left from a swapped instance whose retirement
-        has not run yet is retired first, as a load retires it."""
+        has not run yet is retired first, as a load retires it.  A new
+        batcher starts at the fleet controller's target for the model."""
         key = _batcher_key(model)
+        fleet = self.fleet
         while True:
             with self._lock:
+                b = self._batchers.get(key)
+            if b is not None and b.serves(model):
+                return b
+            # read outside the core's lock: the controller's counter lock
+            # nests with no other
+            instances = (fleet.desired_instances(model.name)
+                         if fleet is not None else None)
+            with self._lock:
+                if self._closed:
+                    raise InferError("server is shutting down", 503)
                 b = self._batchers.get(key)
                 if b is None or not b.serves(model):
                     if not self._is_served(model):
@@ -1619,7 +1753,8 @@ class InferenceCore:
                             f"model '{model.name}' was reloaded or unloaded "
                             "while the request waited", http_status=503)
                     if b is None:
-                        b = self._batchers[key] = _DynamicBatcher(self, model)
+                        b = self._batchers[key] = _DynamicBatcher(
+                            self, model, instances)
                 if b.serves(model):
                     return b
             self._retire_batchers(model.name)
@@ -1642,17 +1777,109 @@ class InferenceCore:
         for b in stale:
             b.stop("model was reloaded while queued")
 
+    def drain_batcher(self, name: str, version: str,
+                      timeout_s: float = 30.0) -> bool:
+        """Drain one version's batcher gracefully (the reference's): it
+        leaves the core's map at once (a request that resolves the version
+        later gets a batcher of its own), its queued work runs on its
+        instance, and once nothing is queued or executing it stops.  Only
+        past ``timeout_s`` does what is still queued fail with 503.  True
+        when the drain was clean."""
+        key = f"{name}@{version}"
+        with self._lock:
+            b = self._batchers.pop(key, None)
+        if b is None:
+            return True
+        end = time.monotonic() + max(0.0, timeout_s)
+        clean = True
+        while not b.idle():
+            if time.monotonic() >= end:
+                clean = False
+                break
+            time.sleep(0.02)
+        b.stop(f"model '{name}' version {version} was drained")
+        return clean
+
+    # -- warmup ------------------------------------------------------------
+    def _warmup_one(self, model: Model) -> int:
+        """Run one model's configured warmup samples through the real
+        execute path (``run_model``; the reference's ``_warmup_one``).
+        They stay out of the inference statistics; they build the weights
+        and earn the input signatures their counted first execution.
+        Returns the executions run."""
+        from .warmup import warmup_samples
+
+        if isinstance(model, EnsembleModel):
+            return 0  # the core runs ensembles; their members warm alone
+        n = 0
+        for _name, count, inputs in warmup_samples(model):
+            for _ in range(count):
+                self.run_model(model, dict(inputs), {})
+                n += 1
+        return n
+
+    def warmup_models(self) -> Dict[str, Any]:
+        """Warm every served model that declares ``model_warmup`` samples
+        (the reference's, at server start).  A model whose warmup fails is
+        unloaded and reported under ``"<name>:error"``; the others serve."""
+        ran: Dict[str, Any] = {}
+        for model in self.registry.all_version_models():
+            if not model.config.model_warmup:
+                continue
+            if not self.registry.is_ready(model.name, model.served_version):
+                continue  # a sibling version's failure unloaded the name
+            key = (model.name if model.versions == ["1"]
+                   else f"{model.name}/{model.served_version}")
+            try:
+                ran[key] = self._warmup_one(model)
+            except Exception as e:  # noqa: BLE001 - one model at a time
+                ran[f"{key}:error"] = str(e)
+                self.log.error(
+                    f"model '{model.name}' unloaded: warmup failed: {e}")
+                try:
+                    self.registry.unload(model.name)
+                except InferError:
+                    pass
+                self.retire_name_caches(model.name)
+        return ran
+
     # -- the repository API ------------------------------------------------
     def load_model(self, name: str, config_override: Optional[str] = None,
                    files: Optional[Dict[str, str]] = None) -> None:
-        """The repository's load (the reference's ``load_model`` less its
-        warmup, ROADMAP A6b-5): the chaos ``load_fail`` draw first, then
-        the registry's load, then the name's stale caches retired."""
+        """The repository's load (the reference's ``load_model``): the
+        chaos ``load_fail`` draw first, then the registry's load, the
+        name's stale caches retired, then every loaded version's warmup
+        samples.  The name (and the server's readiness) reads LOADING for
+        the whole warmup, and no exit path leaves it LOADING; a failed
+        warmup unloads the name and fails the load with 400."""
         if self.chaos is not None:
             self.chaos.maybe_fail_load(name)
         self.registry.load(name, config_override=config_override,
                            files=files)
         self.retire_name_caches(name)
+        warm = [m for m in self.registry.version_models(name)
+                if m.config.model_warmup]
+        if warm:
+            self.registry.set_state(name, "LOADING", "warming up")
+            try:
+                for model in warm:
+                    self._warmup_one(model)
+            except Exception as e:  # noqa: BLE001 - a failed load
+                try:
+                    self.registry.unload(name)
+                except InferError:
+                    pass
+                self.retire_name_caches(name)
+                self.log.error(
+                    f"failed to load model '{name}': warmup failed: {e}")
+                raise InferError(
+                    f"failed to load '{name}': warmup failed: {e}",
+                    http_status=400)
+            finally:
+                # the failure's unload moved the state off LOADING; what
+                # is still LOADING here is a loaded instance that serves
+                if self.registry.get_state(name)[0] == "LOADING":
+                    self.registry.set_state(name, "READY", "")
         self.log.info(f"successfully loaded model '{name}'")
 
     def unload_model(self, name: str,
@@ -1691,7 +1918,12 @@ class InferenceCore:
 
     def shutdown(self) -> None:
         self.accepting = False
+        if self.fleet is not None:
+            # the control loop first: an actuation or a bake mid-teardown
+            # would race the batchers' stop below
+            self.fleet.stop()
         with self._lock:
+            self._closed = True
             batchers = list(self._batchers.values())
             self._batchers.clear()
         for b in batchers:

@@ -1032,12 +1032,17 @@ class _CountingServer(ThreadingHTTPServer):
 
 
 class HttpServer(_CountingServer):
-    """The v2 HTTP frontend bound to one :class:`InferenceCore`."""
+    """The v2 HTTP frontend bound to one :class:`InferenceCore`.  With
+    ``reuse_port`` the port is bound with ``SO_REUSEPORT``: the
+    ``--frontends`` workers share it and the kernel spreads the accepted
+    connections (the reference's ``start_frontends(reuse_port=...)``)."""
 
     def __init__(self, core: InferenceCore, host: str = "127.0.0.1",
                  port: int = 8000,
-                 max_request_bytes: int = DEFAULT_MAX_REQUEST_BYTES):
+                 max_request_bytes: int = DEFAULT_MAX_REQUEST_BYTES,
+                 reuse_port: bool = False):
         self.core = core
+        self.allow_reuse_port = reuse_port
         #: the ingress cap in bytes (0: none)
         self.max_request_bytes = max(0, int(max_request_bytes or 0))
         self.servicer = InferenceServicer(core, self.max_request_bytes)

@@ -15,8 +15,8 @@ tenant and tier, requests by tenant and tier, lane depths), the device and
 scheduler family (``nv_tpu_*``, ``device_stats.py``), the memory governor
 (``nv_mem_*``), the prefix/KV block stores (``nv_cache_*``,
 ``kvcache.py``), the SLO burn rates (``nv_slo_*``), device-fault
-containment (``nv_device_*``, ``core.DeviceFaultManager``) and the cost
-ledger (``nv_cost_*``).  The reference's other families are absent, not zero,
+containment (``nv_device_*``, ``core.DeviceFaultManager``), the cost
+ledger (``nv_cost_*``) and the fleet (``nv_fleet_*``, ``fleet.py``).  The reference's other families are absent, not zero,
 until their sources are ported: :data:`UNPORTED_FAMILIES` lists each with
 its ROADMAP item.
 """
@@ -28,6 +28,7 @@ from typing import Any, Dict, List, Tuple
 from .._telemetry import escape_label as _escape_label
 from . import kvcache
 from .core import InferenceCore
+from .fleet import collect_fleet_rows
 
 #: One declared family: (name, help text, type, [(labels, value), ...]).
 Family = Tuple[str, str, str, List[Tuple[Dict[str, str], Any]]]
@@ -35,7 +36,6 @@ Family = Tuple[str, str, str, List[Tuple[Dict[str, str], Any]]]
 #: the reference's families whose source is not ported yet -> the ROADMAP
 #: item that brings it
 UNPORTED_FAMILIES: Dict[str, str] = {
-    **{name: "A6b (fleet)" for name in ('nv_fleet_instances', 'nv_fleet_serving_version', 'nv_fleet_scale_total', 'nv_fleet_rolling_update_total', 'nv_fleet_worker_restart_total')},
     **{name: "A6b (the host profiler and incidents)" for name in ('nv_host_loop_lag_us', 'nv_host_gc_pause_us_total', 'nv_host_profile_samples_total', 'nv_host_incident_total')},
     **{name: "A6b (OTLP export)" for name in (
         "nv_otlp_export_total", "nv_otlp_dropped_total")},
@@ -231,6 +231,27 @@ _COST_FAMILIES: List[Tuple[str, str, str, str]] = [
      "lifetime; reconciles with the memory governor's pin ledger)"),
 ]
 
+#: ``nv_fleet_*`` family declarations, keyed by the row names
+#: ``fleet.collect_fleet_rows`` emits.
+_FLEET_FAMILIES: List[Tuple[str, str, str, str]] = [
+    ("instances", "nv_fleet_instances", "gauge",
+     "Live batcher instance parallelism (concurrent in-flight batches) "
+     "per model — the autoscaler's actuation target, summed across "
+     "served versions"),
+    ("serving_version", "nv_fleet_serving_version", "gauge",
+     "Model version unversioned requests currently route to (the "
+     "rolling-update flip moves this)"),
+    ("scale", "nv_fleet_scale_total", "counter",
+     "Autoscaler actuation events per model and direction (out = scale "
+     "out on burn/backlog pressure, in = scale in on sustained idle)"),
+    ("rolling_update", "nv_fleet_rolling_update_total", "counter",
+     "Rolling model updates per model and outcome (completed, "
+     "rolled_back, warmup_failed)"),
+    ("worker_restart", "nv_fleet_worker_restart_total", "counter",
+     "Frontend worker restarts performed by the self-healing "
+     "supervisor, per worker index (from the shared fleet state file)"),
+]
+
 #: ``nv_slo_*`` family declarations, keyed by ``SloEngine.metric_rows``.
 _SLO_FAMILIES: List[Tuple[str, str, str, str]] = [
     ("burn_rate", "nv_slo_burn_rate", "gauge",
@@ -350,6 +371,9 @@ def collect_families(core: InferenceCore) -> List[Family]:
     cost_rows = core.cost_ledger.metric_rows()
     for key, name, kind, help_text in _COST_FAMILIES:
         families.append((name, help_text, kind, cost_rows.get(key, [])))
+    fleet_rows = collect_fleet_rows(core)
+    for key, name, kind, help_text in _FLEET_FAMILIES:
+        families.append((name, help_text, kind, fleet_rows.get(key, [])))
     return families
 
 

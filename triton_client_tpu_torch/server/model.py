@@ -21,7 +21,9 @@ message's proto3 JSON (the HTTP ``/config`` body), as the reference's does.
 :func:`config_from_pb` reads a ``ModelConfig`` message (a repository's
 ``config.pbtxt`` or a load's JSON override, ``protocol/text_format.py``)
 into the dataclass; a field the port does not serve is a load error naming
-the ROADMAP item that brings it, never dropped.
+the ROADMAP item that brings it, never dropped.  ``instance_group`` is read
+as the reference reads it: any number of groups of any count, the first
+group's kind placing the model.
 """
 
 from __future__ import annotations
@@ -87,6 +89,13 @@ class ModelConfig:
     # instance_group's name (None: the model's) and count
     instance_name: Optional[str] = None
     instance_count: int = 1
+    # every instance_group message as read (config_from_pb), rendered as
+    # is; empty: the one group of instance_kind.  Only the first group's
+    # kind places the model, as in the reference
+    instance_groups: List[Any] = field(default_factory=list)
+    # the ModelWarmup messages (protocol/inference.py), run through the
+    # execute path before the model serves (warmup.py)
+    model_warmup: List[Any] = field(default_factory=list)
 
     def to_pb(self):
         """The config as the v2 protocol's ``ModelConfig`` message (what
@@ -121,7 +130,9 @@ class ModelConfig:
                 .max_sequence_idle_microseconds)
         if self.version_policy is not None:
             out.version_policy = self.version_policy
-        if self.instance_kind:
+        if self.instance_groups:
+            out.instance_group = list(self.instance_groups)
+        elif self.instance_kind:
             out.instance_group.append(pb.ModelInstanceGroup(
                 name=self.name if self.instance_name is None
                 else self.instance_name, count=self.instance_count,
@@ -135,6 +146,7 @@ class ModelConfig:
                                         input_map=dict(s.input_map),
                                         output_map=dict(s.output_map))
                 for s in self.ensemble_scheduling])
+        out.model_warmup = list(self.model_warmup)
         return out
 
     def to_json(self) -> dict:
@@ -162,7 +174,6 @@ def config_from_pb(msg, name: str) -> "ModelConfig":
 
     name = msg.name or name
     refusals = [
-        (bool(msg.model_warmup), "model_warmup", "A6b-5 (model warmup)"),
         (msg.response_cache is not None, "response_cache",
          "A6b-5 (the response cache)"),
         (bool(msg.default_model_filename), "default_model_filename",
@@ -175,10 +186,6 @@ def config_from_pb(msg, name: str) -> "ModelConfig":
         (msg.sequence_batching is not None
          and bool(msg.sequence_batching.control_input),
          "sequence_batching.control_input", "A3b"),
-        (len(msg.instance_group) > 1, "instance_group (more than one)",
-         "A6b-2 (fleet)"),
-        (any(g.count > 1 for g in msg.instance_group),
-         "instance_group.count > 1", "A6b-2 (fleet)"),
         (any(g.gpus for g in msg.instance_group), "instance_group.gpus",
          "A8"),
         (msg.ensemble_scheduling is not None and any(
@@ -220,6 +227,7 @@ def config_from_pb(msg, name: str) -> "ModelConfig":
         instance_kind=kind,
         instance_name=group.name if group is not None else None,
         instance_count=group.count if group is not None else 1,
+        instance_groups=list(msg.instance_group),
         parameters={k: v.string_value for k, v in msg.parameters.items()},
         ensemble_scheduling=[
             EnsembleStep(s.model_name, dict(s.input_map), dict(s.output_map))
@@ -229,6 +237,7 @@ def config_from_pb(msg, name: str) -> "ModelConfig":
         max_sequence_idle_microseconds=(
             sb.max_sequence_idle_microseconds if sb is not None else None),
         version_policy=msg.version_policy,
+        model_warmup=list(msg.model_warmup),
     )
 
 
@@ -247,9 +256,12 @@ def make_config(
     decoupled: bool = False,
     sequence_batching: bool = False,
     labels: Optional[Dict[str, List[str]]] = None,
+    warmup: Optional[Sequence[dict]] = None,
 ) -> ModelConfig:
     """Config builder with the reference's signature, for the fields the
-    port uses (no warmup or response-cache configs yet).
+    port uses (no response-cache config yet).  ``warmup``: the reference's
+    samples, ``[{"name", "batch_size", "count", "inputs": {tensor: (dtype,
+    dims, "zero" | "random")}}]``.
     ``inputs``/``outputs``: (name, Triton dtype, dims), dims excluding the
     batch dimension when ``max_batch_size > 0``.  An output named in
     ``labels`` gets the reference's ``label_filename``
@@ -278,7 +290,25 @@ def make_config(
         decoupled=decoupled,
         max_sequence_idle_microseconds=60_000_000 if sequence_batching
         else None,
+        model_warmup=[_warmup_sample(w) for w in warmup or []],
     )
+
+
+def _warmup_sample(w: dict):
+    """One ``ModelWarmup`` message of a ``make_config`` warmup entry."""
+    from ..protocol import inference as pb
+
+    inputs = {}
+    for tensor, (dt, dims, mode) in w["inputs"].items():
+        data = ({"random_data": True} if mode == "random"
+                else {"zero_data": True})
+        inputs[tensor] = pb.ModelWarmup.Input(
+            data_type=pb.enum_value("DataType", "TYPE_" + (
+                "STRING" if dt == "BYTES" else dt)),
+            dims=list(dims), **data)
+    return pb.ModelWarmup(name=w.get("name", "sample"),
+                          batch_size=w.get("batch_size", 0),
+                          count=w.get("count", 1), inputs=inputs)
 
 
 def resolve_instance_device(config: ModelConfig) -> torch.device:

@@ -23,8 +23,12 @@ Each load or unload bumps the name's :meth:`ModelRegistry.generation`, as
 in the reference, whose response cache keys on it (ROADMAP A6b-5).  The
 core tells a swapped instance by identity (:meth:`ModelRegistry.version_models`).
 
-The reference's rolling-update staging (``stage_version``, ``promote``,
-``demote``) belongs to its fleet and comes with it (ROADMAP A6b-2).
+The rolling-update staging the fleet controller drives (``fleet.py``):
+:meth:`ModelRegistry.stage_version` parks a new version outside the
+version set, readiness, routing and the index; :meth:`ModelRegistry.promote`
+moves it in and makes it the default in one swap under the lock;
+:meth:`ModelRegistry.demote` takes a version out again.  None of them moves
+the generation: the core tells the promoted instance by identity.
 """
 
 from __future__ import annotations
@@ -52,6 +56,9 @@ class ModelRegistry:
         self._version_sets: Dict[str, Dict[str, Model]] = {}
         self._states: Dict[str, Tuple[str, str]] = {}  # (state, reason)
         self._generations: Dict[str, int] = {}
+        # the rolling updates' staging: name -> {version -> Model}, outside
+        # the version sets until promoted
+        self._staged: Dict[str, Dict[str, Model]] = {}
         self._lock = threading.RLock()
         self._repository_path = repository_path
         if repository_path:
@@ -105,6 +112,9 @@ class ModelRegistry:
             self._version_sets[name] = vset
             self._states[name] = ("READY", "")
             self._generations[name] = self._generations.get(name, 0) + 1
+            # a load supersedes a rolling update half done: its staged
+            # instances are freed
+            _unload_quietly(self._staged.pop(name, {}).values())
 
     def unload(self, name: str, unload_dependents: bool = False) -> None:
         with self._lock:
@@ -114,6 +124,7 @@ class ModelRegistry:
                     f"failed to unload '{name}': model is not loaded")
             for m in self._version_sets.pop(name, {"_": model}).values():
                 m.unload()
+            _unload_quietly(self._staged.pop(name, {}).values())
             self._states[name] = ("UNAVAILABLE", "unloaded")
             self._generations[name] = self._generations.get(name, 0) + 1
             if unload_dependents:
@@ -152,6 +163,89 @@ class ModelRegistry:
                     "is not found", http_status=400)
             return m
         return model  # unversioned: the policy's latest
+
+    # -- the rolling updates' staging ------------------------------------
+    def stage_version(self, name: str, model: Model, version: str) -> None:
+        """Park a new version of a loaded name: it takes no traffic and is
+        not ready until :meth:`promote`.  The generation does not move."""
+        try:
+            int(version)
+        except (TypeError, ValueError):
+            raise InferError(
+                f"cannot stage '{name}' version '{version}': versions "
+                "are numeric strings")
+        with self._lock:
+            if name not in self._models:
+                raise InferError(
+                    f"cannot stage a version for '{name}': model is not "
+                    "loaded")
+            vset = self._version_sets.get(name) or {}
+            staged = self._staged.setdefault(name, {})
+            if version in vset or version in staged:
+                raise InferError(
+                    f"cannot stage '{name}' version {version}: that "
+                    "version is already served or staged")
+            model.served_version = version
+            staged[version] = model
+
+    def staged_version(self, name: str, version: str) -> Optional[Model]:
+        with self._lock:
+            return self._staged.get(name, {}).get(version)
+
+    def abort_stage(self, name: str, version: str) -> Optional[Model]:
+        """Drop a staged instance (a failed warmup, an update abandoned)."""
+        with self._lock:
+            staged = self._staged.get(name)
+            model = staged.pop(version, None) if staged else None
+            if staged is not None and not staged:
+                self._staged.pop(name, None)
+            return model
+
+    def promote(self, name: str, version: str) -> Model:
+        """The flip of a rolling update: the staged instance joins the
+        served version set and becomes the default (unversioned) target,
+        in one swap under the lock.  Requests that resolved the old
+        instance keep it; the old version stays served and addressable."""
+        with self._lock:
+            staged = self._staged.get(name, {})
+            model = staged.pop(version, None)
+            if model is None:
+                raise InferError(
+                    f"no staged version {version} for '{name}' to promote")
+            if not staged:
+                self._staged.pop(name, None)
+            vset = self._version_sets.setdefault(name, {})
+            vset[version] = model
+            version_list = sorted(vset, key=int)
+            for m in vset.values():
+                m._version_list = version_list
+            self._models[name] = model
+            self._states[name] = ("READY", "")
+            return model
+
+    def demote(self, name: str, version: str,
+               fallback: Optional[str] = None) -> Model:
+        """Take one served version out (a rollback): the default returns
+        to ``fallback`` where it is served, else the highest version left.
+        The only version cannot be demoted: that is an unload."""
+        with self._lock:
+            vset = self._version_sets.get(name) or {}
+            if version not in vset:
+                raise InferError(
+                    f"cannot demote '{name}' version {version}: not served")
+            if len(vset) == 1:
+                raise InferError(
+                    f"cannot demote the only served version of '{name}' "
+                    "(unload the model instead)")
+            model = vset.pop(version)
+            version_list = sorted(vset, key=int)
+            for m in vset.values():
+                m._version_list = version_list
+            if fallback is not None and fallback in vset:
+                self._models[name] = vset[fallback]
+            elif self._models.get(name) is model:
+                self._models[name] = vset[version_list[-1]]
+            return model
 
     def generation(self, name: str) -> int:
         """Bumped whenever the instance behind ``name`` is swapped (load,
@@ -301,6 +395,14 @@ class ModelRegistry:
                     pass
             raise
         return vset[str(max(chosen))], vset
+
+
+def _unload_quietly(models) -> None:
+    for m in models:
+        try:
+            m.unload()
+        except Exception:  # noqa: BLE001 - best-effort cleanup
+            pass
 
 
 def _apply_version_policy(name: str, config: ModelConfig,

@@ -14,8 +14,23 @@ v2 shared-memory extensions (``systemsharedmemory``, ``cudasharedmemory``):
   holds a ``torch.uint8`` tensor of the region's memory: an input is a typed
   view of it (zero-copy), an output is copied device-to-device into it.
 
-Not ported: the reference's sibling-worker manifest (its ``SO_REUSEPORT``
-multi-frontend mode, which the port does not have).
+The sibling-worker manifest (the reference's, shm.py:37-126): with
+``--frontends N`` the N workers share one port, so a client's register
+lands on one worker and its infers on any.  Each registry publishes its
+registrations into the directory ``TRITON_TPU_SHM_MANIFEST`` (the
+supervisor sets it), one JSON file per region written atomically, and a
+worker resolves a region name it does not know from there at first use.  A
+system region attaches by its key.  A CUDA region's entry carries its raw
+handle, whose ``cuda_ipc_handle`` a sibling opens with
+``cudaIpcOpenMemHandle`` at first use (a region made in the sibling's own
+process is found by its uuid in the broker instead): the counterpart of the
+reference's host staging path.  Every registration made under a manifest
+carries its entry, direct ones too, and is checked against the manifest at
+each use (and at each status): once the entry is gone or changed (an
+unregister, or a register again, through another worker) the attachment
+is dropped and its handle closed, and a direct register of the name
+evicts it.  An unregister removes the entry and closes the region in the
+worker that served it; the others drop theirs at their next use.
 """
 
 from __future__ import annotations
@@ -24,7 +39,9 @@ import base64
 import binascii
 import json
 import math
+import os
 import threading
+import urllib.parse
 from dataclasses import dataclass
 from typing import Any, Dict, Optional
 
@@ -37,7 +54,85 @@ from ..utils import (bf16_to_bytes, deserialize_bytes_tensor,
                      serialize_byte_tensor, triton_to_np_dtype,
                      triton_to_torch_dtype, typed_view)
 from ..utils import shared_memory as sysshm
+from .fleet import MANIFEST_ENV
 from .types import InferError, ShmRef
+
+
+# -- the sibling-worker manifest ---------------------------------------------
+
+
+def _manifest_dir() -> Optional[str]:
+    return os.environ.get(MANIFEST_ENV) or None
+
+
+def _manifest_path(kind: str, name: str) -> Optional[str]:
+    d = _manifest_dir()
+    if d is None:
+        return None
+    return os.path.join(d, f"{kind}_{urllib.parse.quote(name, safe='')}.json")
+
+
+def _manifest_write(kind: str, name: str, payload: dict) -> None:
+    path = _manifest_path(kind, name)
+    if path is None:
+        return
+    tmp = f"{path}.tmp.{os.getpid()}"
+    try:
+        with open(tmp, "w") as f:
+            json.dump(payload, f)
+        os.replace(tmp, path)  # a reader never sees a torn file
+    except OSError:
+        pass  # the manifest is best-effort; the registration stands
+
+
+def _manifest_remove(kind: str, name: Optional[str]) -> None:
+    d = _manifest_dir()
+    if d is None:
+        return
+    try:
+        if name:
+            paths = [_manifest_path(kind, name)]
+        else:
+            paths = [os.path.join(d, fn) for fn in os.listdir(d)
+                     if fn.startswith(f"{kind}_") and fn.endswith(".json")]
+        for p in paths:
+            try:
+                os.unlink(p)
+            except OSError:
+                pass
+    except OSError:
+        pass
+
+
+def _manifest_load(kind: str, name: str) -> Optional[dict]:
+    path = _manifest_path(kind, name)
+    if path is None:
+        return None
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None
+
+
+def _manifest_names(kind: str) -> Dict[str, dict]:
+    d = _manifest_dir()
+    if d is None:
+        return {}
+    out: Dict[str, dict] = {}
+    try:
+        for fn in os.listdir(d):
+            if not (fn.startswith(f"{kind}_") and fn.endswith(".json")):
+                continue
+            name = urllib.parse.unquote(fn[len(kind) + 1:-5])
+            try:
+                with open(os.path.join(d, fn)) as f:
+                    out[name] = json.load(f)
+            except (OSError, ValueError):
+                continue
+    except OSError:
+        pass
+    return out
 
 
 def _check_extent(ref: ShmRef, region_size: int) -> None:
@@ -68,55 +163,149 @@ class SystemShmRegion:
     offset: int
     byte_size: int
     handle: sysshm.SharedMemoryRegionHandle
+    # the manifest entry this registration was published as or resolved
+    # from (None without a manifest): a sibling's unregister or
+    # re-register changes it, and the attachment is then dropped
+    manifest: Optional[dict] = None
 
 
-class SystemShmRegistry:
+class _ManifestRegistry:
+    """What both registries share: the regions by name under a lock, the
+    manifest's publishing and lazy resolution."""
+
+    KIND = ""
+
     def __init__(self):
-        self._regions: Dict[str, SystemShmRegion] = {}
+        self._regions: Dict[str, Any] = {}
         self._lock = threading.Lock()
 
-    def register(self, name: str, key: str, offset: int,
-                 byte_size: int) -> None:
+    def _close(self, region) -> None:
+        raise NotImplementedError
+
+    def _resolve(self, name: str, entry: dict) -> None:
+        """Register ``name`` from its manifest ``entry`` (not published)."""
+        raise NotImplementedError
+
+    def _evict(self, name: str, region) -> None:
         with self._lock:
-            if name in self._regions:
-                raise InferError(
-                    f"shared memory region '{name}' already in manager")
+            if self._regions.get(name) is not region:
+                return
+            self._regions.pop(name)
+        self._close(region)
+
+    def _stale(self, region) -> bool:
+        """A registration made under a manifest whose entry is gone or
+        changed."""
+        return region.manifest is not None and \
+            _manifest_load(self.KIND, region.name) != region.manifest
+
+    def _lookup(self, name: str):
+        """The region of ``name``: this worker's, else resolved from the
+        manifest (a stale one dropped first); None."""
+        with self._lock:
+            region = self._regions.get(name)
+        if region is not None and self._stale(region):
+            self._evict(name, region)
+            region = None
+        if region is None:
+            entry = _manifest_load(self.KIND, name)
+            if entry is not None:
+                try:
+                    self._resolve(name, entry)
+                except (InferError, KeyError, TypeError, ValueError):
+                    pass
+                with self._lock:
+                    region = self._regions.get(name)
+        return region
+
+    def _get(self, ref: ShmRef):
+        region = self._lookup(ref.region_name)
+        if region is None:
+            raise InferError(
+                f"Unable to find shared memory region: '{ref.region_name}'")
+        return region
+
+    def _take_stale(self, name: str, publish: bool) -> None:
+        """Make room for a register of ``name``: a direct register evicts
+        a registration made under the manifest (a sibling may have
+        unregistered it); any other holder refuses it."""
+        stale = self._regions.get(name)
+        if stale is None:
+            return
+        if publish and stale.manifest is not None:
+            self._regions.pop(name)
+            self._close(stale)
+            return
+        raise InferError(
+            f"shared memory region '{name}' already in manager")
+
+    def unregister(self, name: Optional[str]) -> None:
+        """Unregister one region, or every region when ``name`` is empty
+        (its manifest entries removed)."""
+        with self._lock:
+            names = [name] if name else list(self._regions)
+            regions = [self._regions.pop(n) for n in names
+                       if n in self._regions]
+        for region in regions:
+            self._close(region)
+        _manifest_remove(self.KIND, name)
+
+    def _status(self, name: Optional[str], row, entry_row) -> Dict[str, dict]:
+        with self._lock:
+            local = [r for n, r in self._regions.items()
+                     if not name or n == name]
+        out = {}
+        for r in local:
+            if self._stale(r):
+                self._evict(r.name, r)
+            else:
+                out[r.name] = row(r)
+        # regions registered through a sibling worker show here too
+        for n, m in _manifest_names(self.KIND).items():
+            if n not in out and (not name or n == name):
+                out[n] = entry_row(n, m)
+        return out
+
+    def has(self, name: str) -> bool:
+        return self._lookup(name) is not None
+
+
+class SystemShmRegistry(_ManifestRegistry):
+    KIND = "sys"
+
+    def register(self, name: str, key: str, offset: int, byte_size: int,
+                 publish: bool = True,
+                 manifest: Optional[dict] = None) -> None:
+        if publish and manifest is None and _manifest_dir() is not None:
+            manifest = {"key": key, "offset": offset, "byte_size": byte_size}
+        with self._lock:
+            self._take_stale(name, publish)
             try:
                 handle = sysshm.attach_shared_memory_region(
                     name, key, byte_size, offset)
             except sysshm.SharedMemoryException as e:
                 raise InferError(
                     f"failed to register shared memory region '{name}': {e}")
-            self._regions[name] = SystemShmRegion(name, key, offset,
-                                                  byte_size, handle)
+            self._regions[name] = SystemShmRegion(
+                name, key, offset, byte_size, handle, manifest=manifest)
+        if publish and manifest is not None:
+            _manifest_write(self.KIND, name, manifest)
 
-    def unregister(self, name: Optional[str]) -> None:
-        """Unregister one region, or every region when ``name`` is empty."""
-        with self._lock:
-            names = [name] if name else list(self._regions)
-            regions = [self._regions.pop(n) for n in names
-                       if n in self._regions]
-        for region in regions:
-            sysshm.destroy_shared_memory_region(region.handle)
+    def _resolve(self, name: str, entry: dict) -> None:
+        self.register(name, entry["key"], int(entry.get("offset", 0)),
+                      int(entry["byte_size"]), publish=False,
+                      manifest=entry)
+
+    def _close(self, region: SystemShmRegion) -> None:
+        sysshm.destroy_shared_memory_region(region.handle)
 
     def status(self, name: Optional[str]) -> Dict[str, dict]:
-        with self._lock:
-            return {n: {"name": r.name, "key": r.key, "offset": r.offset,
-                        "byte_size": r.byte_size}
-                    for n, r in self._regions.items()
-                    if not name or n == name}
-
-    def has(self, name: str) -> bool:
-        with self._lock:
-            return name in self._regions
-
-    def _get(self, ref: ShmRef) -> SystemShmRegion:
-        with self._lock:
-            region = self._regions.get(ref.region_name)
-        if region is None:
-            raise InferError(
-                f"Unable to find shared memory region: '{ref.region_name}'")
-        return region
+        return self._status(
+            name, lambda r: {"name": r.name, "key": r.key,
+                             "offset": r.offset, "byte_size": r.byte_size},
+            lambda n, m: {"name": n, "key": m.get("key", ""),
+                          "offset": int(m.get("offset", 0)),
+                          "byte_size": int(m.get("byte_size", 0))})
 
     def read(self, ref: ShmRef, datatype: str, shape) -> np.ndarray:
         """The input at ``ref``: a numpy view of the mapped bytes (BYTES:
@@ -166,15 +355,20 @@ class CudaShmRegion:
     tensor: torch.Tensor  # uint8, byte_size bytes of the region's memory
     # the cudaIpcOpenMemHandle pointer of a region of another process
     ipc_ptr: Optional[int] = None
+    # as SystemShmRegion's
+    manifest: Optional[dict] = None
 
 
-class CudaShmRegistry:
-    def __init__(self):
-        self._regions: Dict[str, CudaShmRegion] = {}
-        self._lock = threading.Lock()
+class CudaShmRegistry(_ManifestRegistry):
+    KIND = "cuda"
 
     def register(self, name: str, raw_handle: bytes, device_id: int,
-                 byte_size: int) -> None:
+                 byte_size: int, publish: bool = True,
+                 manifest: Optional[dict] = None) -> None:
+        if publish and manifest is None and _manifest_dir() is not None:
+            manifest = {"raw_handle_b64":
+                        base64.b64encode(bytes(raw_handle)).decode("ascii"),
+                        "device_id": device_id, "byte_size": byte_size}
         try:
             desc = json.loads(bytes(raw_handle).decode("utf-8"))
             if not isinstance(desc, dict):
@@ -184,9 +378,7 @@ class CudaShmRegistry:
                 f"failed to register CUDA/XLA shared memory region '{name}': "
                 "raw handle is not a valid descriptor")
         with self._lock:
-            if name in self._regions:
-                raise InferError(
-                    f"shared memory region '{name}' already in manager")
+            self._take_stale(name, publish)
             entry = broker().lookup(str(desc.get("uuid", "")))
             if entry is not None:
                 # made in this process: share its tensor (cudaIpcOpen-
@@ -204,7 +396,16 @@ class CudaShmRegistry:
                     f"failed to register XLA shared memory region '{name}': "
                     "handle refers to neither an in-process slot nor a "
                     "staging region")
+            region.manifest = manifest
             self._regions[name] = region
+        if publish and manifest is not None:
+            _manifest_write(self.KIND, name, manifest)
+
+    def _resolve(self, name: str, entry: dict) -> None:
+        self.register(name, base64.b64decode(entry["raw_handle_b64"]),
+                      int(entry.get("device_id", 0)),
+                      int(entry["byte_size"]), publish=False,
+                      manifest=entry)
 
     @staticmethod
     def _check_size(name: str, byte_size: int, allocated: int) -> None:
@@ -231,37 +432,20 @@ class CudaShmRegistry:
             raise
         return CudaShmRegion(name, device_id, byte_size, tensor, ptr)
 
-    def unregister(self, name: Optional[str]) -> None:
-        """Unregister one region, or every region when ``name`` is empty;
-        the device's queued work is finished before a mapping closes."""
-        with self._lock:
-            names = [name] if name else list(self._regions)
-            regions = [self._regions.pop(n) for n in names
-                       if n in self._regions]
-        for region in regions:
-            if region.ipc_ptr is not None:
-                region.tensor = None
-                torch.cuda.synchronize(region.device_id)
-                _cuda_ipc.close_handle(region.device_id, region.ipc_ptr)
+    def _close(self, region: CudaShmRegion) -> None:
+        """Close a mapping of another process's region, once the device's
+        queued work is finished."""
+        if region.ipc_ptr is not None:
+            region.tensor = None
+            torch.cuda.synchronize(region.device_id)
+            _cuda_ipc.close_handle(region.device_id, region.ipc_ptr)
 
     def status(self, name: Optional[str]) -> Dict[str, dict]:
-        with self._lock:
-            return {n: {"name": r.name, "device_id": r.device_id,
-                        "byte_size": r.byte_size}
-                    for n, r in self._regions.items()
-                    if not name or n == name}
-
-    def has(self, name: str) -> bool:
-        with self._lock:
-            return name in self._regions
-
-    def _get(self, ref: ShmRef) -> CudaShmRegion:
-        with self._lock:
-            region = self._regions.get(ref.region_name)
-        if region is None:
-            raise InferError(
-                f"Unable to find shared memory region: '{ref.region_name}'")
-        return region
+        return self._status(
+            name, lambda r: {"name": r.name, "device_id": r.device_id,
+                             "byte_size": r.byte_size},
+            lambda n, m: {"name": n, "device_id": int(m.get("device_id", 0)),
+                          "byte_size": int(m.get("byte_size", 0))})
 
     def read(self, ref: ShmRef, datatype: str, shape):
         """The input at ``ref``: a typed view of the region's memory, on

@@ -1,17 +1,26 @@
 """In-process server harness for tests and co-located serving.
 
-Counterpart of ``triton_client_tpu/server/testing.py``'s ``ServerHarness``:
-the port's HTTP frontend on a free local port, served from a background
-thread of the current process.  While it serves, the CUDA shared-memory
-broker's ``server_present`` is set: a region made in this process is read
-in place, by uuid.
+Counterpart of ``triton_client_tpu/server/testing.py``:
+
+* ``ServerHarness``: the port's HTTP frontend on a free local port, served
+  from a background thread of the current process, after the models'
+  warmup samples ran.  While it serves, the CUDA shared-memory broker's
+  ``server_present`` is set: a region made in this process is read in
+  place, by uuid.
+* ``ClusterHarness``: N of them, each with its own registry and core, with
+  ``kill`` and ``restart`` on the same port.
+* ``ReplicaSupervisor``: the self-healing of a ``ClusterHarness`` on the
+  CLI supervisor's ``RestartPolicy`` and ``SupervisorState``.
 """
 
 from __future__ import annotations
 
+import os
 import socket
+import tempfile
 import threading
-from typing import Optional
+import time
+from typing import Callable, List, Optional
 
 from .._cuda_broker import broker
 from .core import InferenceCore
@@ -53,6 +62,9 @@ class ServerHarness:
         return f"{self.host}:{self.http_port}"
 
     def start(self) -> "ServerHarness":
+        # warm before serving: a first request must not pay for what the
+        # models' warmup samples build
+        self.core.warmup_models()
         self._server = HttpServer(self.core, self.host, self.http_port)
         self._thread = threading.Thread(
             target=self._server.serve_forever, daemon=True,
@@ -77,3 +89,136 @@ class ServerHarness:
 
     def __exit__(self, *exc):
         self.stop()
+
+
+class ClusterHarness:
+    """N in-process servers behind one fixture (the reference's).
+
+    ``registry_factory`` is called once per server: each replica gets its
+    own registry and core, as N processes would.  ``kill(i)`` stops
+    replica *i* (its port then refuses connections); ``restart(i)`` brings
+    it back on the same port with a fresh registry and core;
+    ``chaos(i, injector)`` degrades one replica.  ``core_setup`` runs on
+    every replica that starts, a restarted one included."""
+
+    def __init__(self, registry_factory: Callable[[], ModelRegistry],
+                 n: int = 3, host: str = "127.0.0.1",
+                 core_setup: Optional[Callable[[ServerHarness], None]]
+                 = None):
+        if n < 1:
+            raise ValueError("ClusterHarness needs at least one server")
+        self._registry_factory = registry_factory
+        self.host = host
+        self._core_setup = core_setup
+        self.harnesses: List[Optional[ServerHarness]] = [
+            ServerHarness(registry_factory(), host=host) for _ in range(n)]
+        # ports pinned at construction, so that restart(i) rebinds them
+        self._http_ports = [h.http_port for h in self.harnesses]
+
+    @property
+    def http_urls(self) -> List[str]:
+        return [f"{self.host}:{p}" for p in self._http_ports]
+
+    def start(self) -> "ClusterHarness":
+        for h in self.harnesses:
+            h.start()
+            if self._core_setup is not None:
+                self._core_setup(h)
+        return self
+
+    def stop(self) -> None:
+        for i, h in enumerate(self.harnesses):
+            if h is not None:
+                h.stop()
+                self.harnesses[i] = None
+
+    def kill(self, i: int) -> None:
+        """Take replica ``i`` down."""
+        h = self.harnesses[i]
+        if h is not None:
+            h.stop()
+            self.harnesses[i] = None
+
+    def restart(self, i: int) -> None:
+        """Bring replica ``i`` back on its port, with a fresh registry and
+        core, as a process restart would."""
+        if self.harnesses[i] is not None:
+            raise RuntimeError(f"server {i} is already running")
+        h = ServerHarness(self._registry_factory(),
+                          http_port=self._http_ports[i], host=self.host)
+        h.start()
+        if self._core_setup is not None:
+            self._core_setup(h)
+        self.harnesses[i] = h
+
+    def chaos(self, i: int, injector) -> None:
+        """Install a chaos injector on replica ``i`` (None clears it)."""
+        self.harnesses[i].core.chaos = injector
+
+    def __enter__(self):
+        return self.start()
+
+    def __exit__(self, *exc):
+        self.stop()
+
+
+class ReplicaSupervisor:
+    """Self-healing for a :class:`ClusterHarness`, on the CLI supervisor's
+    crash arithmetic (``fleet.RestartPolicy``) and restart accounting
+    (``fleet.SupervisorState``), so that a drill runs the policy the
+    ``--frontends`` supervisor runs.
+
+    ``crash(i)`` is the kill (a chaos injector's ``worker_kill_cb``): on a
+    thread of its own the replica is stopped, the policy's backoff paid,
+    the replica restarted on its port and the restart written to the state
+    file; with ``TRITON_TPU_FLEET_STATE`` naming it, every replica's
+    ``/metrics`` shows ``nv_fleet_worker_restart_total``.  A storm leaves
+    the replica down."""
+
+    def __init__(self, cluster: ClusterHarness, policy=None,
+                 state_path: Optional[str] = None):
+        from .fleet import RestartPolicy, SupervisorState
+
+        self.cluster = cluster
+        self.policy_factory = policy or (
+            lambda: RestartPolicy(base_delay_s=0.05, max_delay_s=1.0))
+        self._policies = {}
+        if state_path is None:
+            fd, state_path = tempfile.mkstemp(
+                prefix="tc-torch-fleet-state-", suffix=".json")
+            os.close(fd)
+            os.unlink(state_path)
+        self.state = SupervisorState(state_path)
+        self._threads: List[threading.Thread] = []
+        self._lock = threading.Lock()
+
+    def crash(self, i: int, reason: str = "chaos:worker_kill") -> None:
+        """Kill replica ``i`` and heal it with backoff, on a thread of its
+        own (the caller may be one of the replica's request threads)."""
+        t = threading.Thread(target=self._heal, args=(i, reason),
+                             daemon=True, name=f"tc-torch-heal-{i}")
+        with self._lock:
+            self._threads.append(t)
+        t.start()
+
+    def _heal(self, i: int, reason: str = "") -> None:
+        with self._lock:
+            policy = self._policies.setdefault(i, self.policy_factory())
+            delay = policy.on_crash()
+        self.cluster.kill(i)
+        if delay is None:
+            return  # a crash storm: the replica stays down
+        time.sleep(delay)
+        with self._lock:
+            if self.cluster.harnesses[i] is not None:
+                return  # brought back meanwhile
+            self.cluster.restart(i)
+            self.state.record_restart(str(i), reason=reason or None)
+
+    def join(self, timeout: float = 30.0) -> None:
+        """Wait for the heals in progress."""
+        deadline = time.monotonic() + timeout
+        with self._lock:
+            threads = list(self._threads)
+        for t in threads:
+            t.join(timeout=max(0.0, deadline - time.monotonic()))
