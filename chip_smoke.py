@@ -141,7 +141,27 @@ Phases (any failure exits non-zero and prints no result line):
     kernels; no region left; ``bert_large`` runs off, then on, and on may
     be at most ``OBS_TOL`` slower (the spans and the cost read once more
     on a miss, ``HOST_GATE_RUNS``);
-13. overload: ``bert_large`` int8 ``w2`` at -b 1 under a queue bound of
+13. the host's view: ``longctx_tpu`` base bf16 and ``bert_large`` int8
+    ``w2`` (``BERT_SERVE_LAYERS``) served together; ``perf_analyzer``
+    -b 4 at c = 4 with the sampling profiler off (``set_hz(0)``), then at
+    its default 19 Hz, the card traced in both: infer/s, p50 / p99 and the
+    idle share printed, at most ``HOST_COST_TOL`` slower in mean latency
+    (read once more on a miss, ``HOST_GATE_RUNS``), flash exactly 8 a
+    forward; then ``/v2/debug/profile``: the forward's frames
+    (``transformer.py``) under the batcher or frontend role, every request
+    thread's stack under ``frontend``, each role's samples grown, the
+    frontend's lag probe and the GC pauses on ``/metrics``, the top five
+    stacks per role printed; a ``POST /v2/debug/incident`` inside a c = 4
+    window: every file of the bundle there and none failed, its profile,
+    device statistics and costs naming ``longctx_tpu`` with its
+    executions, ``incident_report --latest`` rendering it, its write time
+    and that sweep's p99 printed beside the run without it; a
+    ``bert_large`` sweep (12 int8 launches a forward); then OTLP: the
+    server's and the client's exporters to a stub collector in this
+    process, 16 traced requests: every server root joined to its client
+    REQUEST span on one trace id, ``nv_otlp_export_total{ok}`` the
+    server's posts, nothing dropped;
+14. overload: ``bert_large`` int8 ``w2`` at -b 1 under a queue bound of
     16 and the reference's 4 tiers (3 ms batching delay): two classes
     (``--priority 0 --tenant gold``, ``--priority 3 --tenant bulk``) at
     c = 16 over HTTP (traced) and gRPC, both honouring the server's
@@ -156,7 +176,8 @@ Phases (any failure exits non-zero and prints no result line):
     injected errors and aborts, answers served under chaos within
     ``SERVED_ATOL`` of the plain forward; then a ``mem_pressure`` drill
     (a byte budget of two requests, windows that halve it): sheds,
-    retried, no caller error, the budget back afterwards.
+    retried, no caller error, the budget back afterwards, and the first
+    draw's ``chaos`` incident bundle complete and counted.
     ``longctx_tpu`` base int8 ``all`` with a byte budget of 1.5 requests:
     sheds at c = 4 with pushback (``nv_mem_shed_total`` equal to them), a
     request over its tier's share a 413 sent once, requests past their
@@ -169,7 +190,7 @@ Phases (any failure exits non-zero and prints no result line):
     24 int8 (``bert_large``), 8 flash + 16 int8 (``longctx_tpu``) per
     execution in every window: a shed, expired or injected request
     launches nothing;
-14. generation (``models/decode.py``): ``llama_decode`` and
+15. generation (``models/decode.py``): ``llama_decode`` and
     ``llama_generate`` over llama 1b (bf16 layers, the f32 head; a
     128-token prompt in a 256-token cache, 8 slots).  The port's prefill
     and 32 greedy decode steps held to the full recompute of the same
@@ -183,10 +204,13 @@ Phases (any failure exits non-zero and prints no result line):
     over HTTP for 2 sequences held the same way; tokens/s per stream and
     together, time to the first token, per-token p50 / p99 and the card's
     idle share (torch.profiler), beside row 5's ``ensemble_llama``
-    figures; no kernel of the port launches;
-15. the cache and faults: the prefix/KV cache on 1,024-token prompts,
-    int8 KV and the device-fault drills on llama 1b (``cache_faults_phase``);
-16. OpenAI, genai_perf and the repository: ``llama_generate`` over llama
+    figures; no kernel of the port launches; the always-on profiler's
+    top stacks of the decode worker and the request threads printed;
+16. the cache and faults: the prefix/KV cache on 1,024-token prompts,
+    int8 KV and the device-fault drills on llama 1b (``cache_faults_phase``;
+    the persistent fault's quarantine writes a complete, counted
+    ``device_fault`` incident bundle);
+17. OpenAI, genai_perf and the repository: ``llama_generate`` over llama
     1b, batched with 8 slots and the prefix cache, through ``/v1``:
     greedy completions of 64 tokens, streamed and not, and ``n = 8``
     greedy streams held token by token (their characters ``chr(token %
@@ -211,11 +235,17 @@ Phases (any failure exits non-zero and prints no result line):
     plain-kernel forward beside the controls and the other seed, flash 8
     a forward, and ``torch.cuda.memory_allocated()`` back within 2 MiB of
     its value before the load after each of the three unloads;
-17. the fleet: ``python -m triton_client_tpu_torch.server --frontends 2``
+18. the fleet: ``python -m triton_client_tpu_torch.server --frontends 2``
     and ``--frontends 1`` (the zoo on the card) start in processes of
     their own while ``bert_large`` int8 ``w2`` at ``BERT_SERVE_LAYERS``
     runs here under a fleet controller (bounds 1..8, held at 1 for the
-    first cooldown of the window): ``perf_analyzer`` c = 16 -b 32 scales it
+    first cooldown of the window); the pair is started with its bundles in
+    an incident directory and a ``worker_kill`` chaos draw on ``simple``
+    only: one ``simple`` request kills the worker that takes it, whose
+    ``chaos`` bundle and its sibling's ``worker_crash`` bundle must be
+    complete, then SIGUSR2 to the sibling writes a ``sigusr2`` bundle
+    (both counted on the sibling's ``/metrics``), and the worker comes
+    back before the comparison; ``perf_analyzer`` c = 16 -b 32 scales it
     out one instance a cooldown and an idle second scales it back in,
     infer/s and the card's idle share (``nvidia-smi`` utilization.gpu,
     100 ms samples) printed at each in-flight count (readings taken during
@@ -242,10 +272,11 @@ Phases (any failure exits non-zero and prints no result line):
     update to a version that fails every request rolls back to v2 and
     ``torch.cuda.memory_allocated()`` comes back within 2 MiB of its value
     before it was staged.  Then the respawned worker: its metrics port
-    back with ``nv_fleet_worker_restart_total`` 1 (1 on both), its answers
-    held, and SIGTERM drains the fleet to exit 0.  Every child process is
+    back with ``nv_fleet_worker_restart_total`` 2 (the draw's restart and
+    the kill's, 2 on both), its answers held, and SIGTERM drains the fleet
+    to exit 0.  Every child process is
     stopped on every exit path;
-18. print each kernel's launches on every served path, one JSON line
+19. print each kernel's launches on every served path, one JSON line
     describing every kernel, then the result line
     ``{"ok": true, "device": {...}}``.
 
@@ -3051,6 +3082,444 @@ def obs_spread_main(sweeps: int) -> int:
 
 
 # ---------------------------------------------------------------------------
+# The host's view: the sampling profiler, the incident bundles and OTLP
+# export (server/profiler.py, server/incident.py, otlp.py)
+# ---------------------------------------------------------------------------
+
+#: "<path>" -> the kernel launches of that host-view run
+HOST_PATHS = {}
+HOST_DIR = os.path.join(REPO, "build", "chip_smoke_host")
+#: the sampler at its default rate may cost the c = 4 sweep at most this
+#: share of mean latency against hz = 0 (observability's cost bound)
+HOST_COST_TOL = 0.10
+HOST_WINDOW_MS = 3000
+#: requests sent with the OTLP exporters on (the server's and the client's)
+HOST_OTLP_REQUESTS = 16
+#: every file of a complete incident bundle
+BUNDLE_FILES = (
+    "manifest.json", "profile.folded", "threads.txt", "profiler.json",
+    "flight_recorder.json", "device_stats.json", "costs.json",
+    "memory.json", "metrics.txt", "trace_tail.jsonl", "config.json",
+    "incident.json")
+
+
+def _incident_dir(name: str) -> str:
+    """An empty directory for one server's incident bundles."""
+    import shutil
+
+    path = os.path.join(HOST_DIR, name)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def _bundles(path: str, trigger: str = "") -> list:
+    """The bundles of ``trigger`` (of every trigger where empty) in
+    ``path``, oldest first."""
+    try:
+        return sorted(os.path.join(path, e) for e in os.listdir(path)
+                      if e.startswith("incident-")
+                      and e.endswith(f"-{trigger}" if trigger else ""))
+    except OSError:
+        return []
+
+
+def _bundle_kinds(path: str) -> list:
+    """Each bundle's trigger in ``path``, oldest first."""
+    return [os.path.basename(b).split("-", 4)[4] for b in _bundles(path)]
+
+
+def _wait_bundle(label: str, path: str, trigger: str,
+                 timeout_s: float = 60.0) -> str:
+    """The first bundle of ``trigger`` to appear in ``path``."""
+    end = time.monotonic() + timeout_s
+    while not _bundles(path, trigger):
+        if time.monotonic() > end:
+            fail(f"{label}: no {trigger} bundle in {path} after "
+                 f"{timeout_s:g} s")
+        time.sleep(0.1)
+    return _bundles(path, trigger)[0]
+
+
+def _check_bundle(label: str, bundle: str, trigger: str,
+                  reason: str) -> dict:
+    """A complete bundle of ``trigger`` whose reason holds ``reason``:
+    every file there, none failed in the manifest, a profile captured.
+    Returns its manifest."""
+    with open(os.path.join(bundle, "manifest.json")) as f:
+        manifest = json.load(f)
+    missing = [n for n in BUNDLE_FILES
+               if not os.path.isfile(os.path.join(bundle, n))]
+    failed = [f for f in manifest["files"] if "error" in f]
+    with open(os.path.join(bundle, "profile.folded")) as f:
+        folded = f.read()
+    if missing or failed or manifest["trigger"] != trigger or \
+            reason not in manifest["reason"] or not folded.strip():
+        fail(f"{label}: bundle {bundle}: missing {missing}, failed "
+             f"{failed}, trigger {manifest['trigger']!r}, reason "
+             f"{manifest['reason']!r}, profile {len(folded)} bytes")
+    print(f"{label}: {trigger} bundle {os.path.basename(bundle)} complete "
+          f"({len(manifest['files'])} files, none failed, "
+          f"{len(folded.splitlines())} folded stacks); reason "
+          f"{manifest['reason']!r}", flush=True)
+    return manifest
+
+
+def _incidents_written(families: dict, trigger: str) -> float:
+    return _metric_sum(families, "nv_host_incident_total", trigger=trigger,
+                       outcome="written")
+
+
+def _check_counted(label: str, families: dict, trigger: str,
+                   want: int = 1) -> None:
+    got = _incidents_written(families, trigger)
+    if got != want:
+        fail(f"{label}: nv_host_incident_total{{trigger={trigger!r},"
+             f"outcome=\"written\"}} reads {got:g}, expected {want}")
+
+
+def _report(label: str, incident_dir: str, trigger: str) -> None:
+    """``python -m triton_client_tpu_torch.tools.incident_report --latest``
+    renders the newest bundle and names its trigger."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "triton_client_tpu_torch.tools."
+         "incident_report", "--latest", incident_dir], cwd=REPO,
+        env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+        text=True, timeout=120)
+    if proc.returncode != 0 or f"trigger:  {trigger}" not in proc.stdout:
+        fail(f"{label}: incident_report exited {proc.returncode}: "
+             f"{proc.stdout[-1500:]} {proc.stderr[-1500:]}")
+    print(f"{label}: incident_report --latest renders it "
+          f"({len(proc.stdout.splitlines())} lines, trigger {trigger})",
+          flush=True)
+
+
+def _top_stacks(label: str, profiler, roles, n: int = 5) -> None:
+    """The profiler's ``n`` hottest stacks of each role, their last four
+    frames."""
+    for role in roles:
+        for r, stack, count in profiler.top_stacks(n, role=role):
+            frames = stack.split(";")
+            tail = ";".join(frames[-4:])
+            print(f"{label}: [{r}] {count:>5}  "
+                  f"{'...;' if len(frames) > 4 else ''}{tail}", flush=True)
+
+
+def _host_profile_checks(label: str, harness, before: dict) -> None:
+    """/v2/debug/profile after the sweep: the forward's frames under the
+    batcher or the frontend, every request thread under frontend, samples
+    grown per role, the frontend's lag probe and the GC pauses on
+    /metrics; the top five stacks per role and the lag printed."""
+    port = harness.http_port
+    with urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/v2/debug/profile", timeout=60) as r:
+        text = r.read().decode()
+    stacks = []
+    for line in text.splitlines():
+        stack, _, count = line.rpartition(" ")
+        role, _, frames = stack.partition(";")
+        stacks.append((role, frames, int(count)))
+    forward = [s for s in stacks if s[0] in ("batcher", "frontend")
+               and "transformer.py:" in s[1]]
+    requests = [s for s in stacks
+                if "socketserver.py:process_request_thread" in s[1]]
+    misread = [s for s in requests if s[0] != "frontend"]
+    gc.collect()  # at least one collection with the callback in place
+    after = _metrics(port)
+    grown = {role: _metric_sum(after, "nv_host_profile_samples_total",
+                               role=role)
+             - _metric_sum(before, "nv_host_profile_samples_total",
+                           role=role)
+             for role in ("frontend", "batcher")}
+    lag = [v for lab, v in after.get("nv_host_loop_lag_us", {})
+           .get("samples", []) if lab.get("loop") == "frontend"]
+    pauses = after.get("nv_host_gc_pause_us_total", {}).get("samples", [])
+    print(f"{label}: /v2/debug/profile {len(stacks)} stacks, "
+          f"{sum(s[2] for s in forward)} samples in the forward "
+          f"(transformer.py) under batcher/frontend, {len(requests)} "
+          f"request-thread stacks ({len(misread)} not frontend); samples "
+          f"grown {grown}; frontend lag max "
+          f"{lag[0] if lag else float('nan'):.0f} us; GC pauses "
+          f"{[(lab['generation'], round(v)) for lab, v in pauses]} us; "
+          f"{CARD}", flush=True)
+    if not forward or not requests or misread:
+        fail(f"{label}: forward stacks {len(forward)}, request threads "
+             f"{len(requests)}, misread {misread[:3]}")
+    if min(grown.values()) <= 0 or not lag or not pauses:
+        fail(f"{label}: samples grown {grown}, lag {lag}, pauses {pauses}")
+    _top_stacks(label, harness.core.profiler,
+                ("frontend", "batcher", "other"))
+
+
+def _host_cost(label: str, harness, model, counters, layers: int):
+    """The sampler's cost: perf_analyzer -b 4 c = 4 with the sampler off
+    (hz = 0) and at its default rate, the card traced in both; at most
+    HOST_COST_TOL slower in mean latency (read once more on a miss,
+    HOST_GATE_RUNS).  Returns the on run's result."""
+    profiler = harness.core.profiler
+    hz = profiler.hz
+    args = ["-b", "4", "--concurrency-range", "4"]
+    for run in range(1, HOST_GATE_RUNS + 1):
+        profiler.set_hz(0)
+        (off,), _ = _perf_sweep_once(
+            f"{label} profiler off (run {run})", harness, model, args,
+            counters, layers, 0, HOST_WINDOW_MS, True, HOST_PATHS)
+        profiler.set_hz(hz)
+        before = _metrics(harness.http_port)
+        (on,), _ = _perf_sweep_once(
+            f"{label} profiler {hz:g} Hz (run {run})", harness, model, args,
+            counters, layers, 0, HOST_WINDOW_MS, True, HOST_PATHS)
+        slower = on["avg_us"] / off["avg_us"] - 1
+        print(f"{label}: sampler off: {off['throughput']:.3f} infer/s, p50 "
+              f"{off['p50_us'] / 1e3:.3f} ms, p99 {off['p99_us'] / 1e3:.3f} "
+              f"ms; at {hz:g} Hz: {on['throughput']:.3f} infer/s, p50 "
+              f"{on['p50_us'] / 1e3:.3f} ms, p99 {on['p99_us'] / 1e3:.3f} "
+              f"ms; mean {slower:+.1%} (bound +{HOST_COST_TOL:.0%}); the "
+              f"idle shares are the two traced lines above; {CARD}",
+              flush=True)
+        if slower <= HOST_COST_TOL:
+            break
+        if run == HOST_GATE_RUNS:
+            fail(f"{label}: the sampler at {hz:g} Hz is {slower:.1%} "
+                 f"slower in {run} runs")
+    _host_profile_checks(label, harness, before)
+    return on
+
+
+def _host_bundle(label: str, harness, model, counters, layers: int,
+                 plain) -> None:
+    """POST /v2/debug/incident inside the window of a c = 4 sweep: the
+    bundle complete, its profile, device statistics and costs naming the
+    model with its executions, incident_report rendering it; its write
+    time printed, and the sweep's p99 beside the run without a bundle."""
+    port, core = harness.http_port, harness.core
+    out = {}
+
+    def poke():
+        st = model.stats
+        n0 = st.execution_count
+        end = time.monotonic() + 120
+        while st.execution_count < n0 + 8 and time.monotonic() < end:
+            time.sleep(0.02)
+        time.sleep(1.0)  # inside the window, past the tool's warm-up
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/v2/debug/incident",
+            data=json.dumps({"reason": "chip smoke c = 4 sweep"}).encode(),
+            method="POST")
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                out["answer"] = (r.status, json.loads(r.read()))
+        except OSError as e:
+            out["answer"] = (None, repr(e))
+        out["write_s"] = time.perf_counter() - t0
+        out["at"] = t0
+
+    th = threading.Thread(target=poke, daemon=True)
+    th.start()
+    (res,), _ = _perf_sweep_once(
+        f"{label} profiler on, a bundle in the window", harness, model,
+        ["-b", "4", "--concurrency-range", "4"], counters, layers, 0,
+        HOST_WINDOW_MS, False, HOST_PATHS)
+    th.join(timeout=180)
+    status, answer = out.get("answer", (None, "no answer"))
+    if status != 200 or answer.get("status") != "written":
+        fail(f"{label}: POST /v2/debug/incident answered {status} {answer}")
+    if not res["window_start_s"] <= out["at"] <= res["window_end_s"]:
+        print(f"{label}: the bundle's request fell outside the window",
+              flush=True)
+    bundle = answer["bundle"]
+    _check_bundle(label, bundle, "manual", "chip smoke")
+    with open(os.path.join(bundle, "device_stats.json")) as f:
+        execs = json.load(f)["models"].get(model.name, {}).get(
+            "executions", 0)
+    with open(os.path.join(bundle, "costs.json")) as f:
+        costs = json.load(f)["models"].get(model.name, {})
+    if not execs or not costs:
+        fail(f"{label}: the bundle's device_stats name {model.name} with "
+             f"{execs} executions, its costs {costs}")
+    _report(label, core.incidents.dir, "manual")
+    print(f"{label}: the bundle took {out['write_s']:.3f} s to write (a "
+          f"{core.incidents.profile_window_s:g} s capture at "
+          f"{core.incidents.profile_hz:g} Hz, then the snapshots); "
+          f"device_stats names {model.name} with {execs} executions; the "
+          f"sweep's p99 {res['p99_us'] / 1e3:.3f} ms with the bundle, "
+          f"{plain['p99_us'] / 1e3:.3f} ms without; infer/s "
+          f"{res['throughput']:.3f} against {plain['throughput']:.3f}; "
+          f"{CARD}", flush=True)
+    _check_counted(label, _metrics(port), "manual")
+
+
+class _Collector:
+    """A stub OTLP/HTTP collector: an ``http.server`` thread that keeps
+    every POST's JSON body."""
+
+    def __init__(self):
+        import http.server
+
+        bodies = self.bodies = []
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):
+                n = int(self.headers.get("Content-Length", 0))
+                bodies.append(json.loads(self.rfile.read(n)))
+                self.send_response(200)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+            def log_message(self, *args):
+                pass
+
+        self.srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"127.0.0.1:{self.srv.server_address[1]}"
+        self.thread = threading.Thread(target=self.srv.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def posts(self, service: str) -> list:
+        return [b for b in self.bodies
+                if b["resourceSpans"][0]["resource"]["attributes"][0]
+                ["value"]["stringValue"] == service]
+
+    def close(self) -> None:
+        self.srv.shutdown()
+        self.srv.server_close()
+        self.thread.join(timeout=10)
+
+
+def _host_otlp(label: str, harness, model, counters, layers: int) -> None:
+    """The server with ``enable_otlp``, the client with
+    ``telemetry().enable_otlp``, HOST_OTLP_REQUESTS traced requests: the
+    collector holds each one's server spans, whose root is the child of the
+    client's REQUEST span on one trace id; nv_otlp_export_total{ok}
+    equals the server's posts that arrived, nv_otlp_dropped_total 0."""
+    import numpy as np
+
+    from triton_client_tpu_torch import http
+    from triton_client_tpu_torch._telemetry import telemetry
+
+    port, core = harness.http_port, harness.core
+    collector = _Collector()
+    tel = telemetry()
+    core.enable_otlp(collector.url, replica="chip-smoke")
+    exporter = tel.enable_otlp(collector.url)
+    client = _client(port)
+    cfg = model.config.input[0]
+    x = np.zeros([1] + list(cfg.dims), np.int32)
+    st = model.stats
+    try:
+        client.update_trace_settings(settings={
+            "trace_file": [os.path.join(HOST_DIR, "otlp-trace.jsonl")],
+            "trace_level": ["TIMESTAMPS"], "trace_rate": ["1"]})
+        _reset(counters)
+        execs0 = st.execution_count
+        for i in range(HOST_OTLP_REQUESTS):
+            inp = http.InferInput(cfg.name, list(x.shape), cfg.data_type)
+            inp.set_data_from_numpy(x)
+            client.infer(model.name, [inp], request_id=f"otlp-{i}")
+        execs = st.execution_count - execs0
+        launches = {name: mod.launches for name, mod in counters.items()}
+        launches["int8_quantize_rows"] = \
+            counters["int8_matmul"].quantize_launches
+        client.update_trace_settings(settings={"trace_level": ["OFF"]})
+        if not (exporter.flush(30) and core.tracer.otlp.flush(30)):
+            fail(f"{label}: an OTLP exporter did not drain")
+        fams = _metrics(port)
+        counts = core.tracer.otlp.counters()
+    finally:
+        client.close()
+        tel.disable_otlp()
+        otlp, core.tracer.otlp = core.tracer.otlp, None
+        if otlp is not None:
+            otlp.shutdown()
+        collector.close()
+    check_launches(f"{label} otlp", launches, execs, layers, 0)
+    HOST_PATHS[f"{label} otlp"] = launches
+    spans = [s for body in collector.bodies
+             for rs in body["resourceSpans"] for ss in rs["scopeSpans"]
+             for s in ss["spans"]]
+    clients = {s["spanId"]: s for s in spans if s["kind"] == 3}
+    roots = [s for s in spans if s["kind"] == 2 and any(
+        a["key"] == "triton.request_id"
+        and a["value"]["stringValue"].startswith("otlp-")
+        for a in s.get("attributes", []))]
+    joined = [r for r in roots if r.get("parentSpanId") in clients
+              and clients[r["parentSpanId"]]["traceId"] == r["traceId"]]
+    server_posts = len(collector.posts("triton-tpu-server"))
+    ok = _metric_sum(fams, "nv_otlp_export_total", outcome="ok")
+    dropped = _metric_sum(fams, "nv_otlp_dropped_total")
+    print(f"{label}: OTLP: {HOST_OTLP_REQUESTS} requests, {len(roots)} "
+          f"server roots at the collector, {len(joined)} joined to their "
+          f"client REQUEST span on one trace id; {len(spans)} spans in "
+          f"{len(collector.bodies)} posts ({server_posts} the server's); "
+          f"nv_otlp_export_total{{ok}} {ok:g}, dropped {dropped:g}, "
+          f"errors {counts['error']}; {CARD}", flush=True)
+    if len(roots) != HOST_OTLP_REQUESTS or len(joined) != len(roots):
+        fail(f"{label}: OTLP: {len(roots)} server roots, {len(joined)} "
+             f"joined, of {HOST_OTLP_REQUESTS} requests")
+    if ok != server_posts or dropped or counts["error"] or \
+            counts["ok"] != server_posts:
+        fail(f"{label}: OTLP: ok {ok:g} against {server_posts} posts, "
+             f"dropped {dropped:g}, {counts}")
+
+
+def host_view_phase(torch, counters) -> None:
+    """The host's view on the card: ``longctx_tpu`` base bf16 (8 flash
+    launches a forward) and ``bert_large`` int8 ``w2`` at
+    ``BERT_SERVE_LAYERS`` (one int8 launch a layer) served together;
+    perf_analyzer -b 4 c = 4 with the sampler off and at its default rate
+    (the cost gate), /v2/debug/profile, a manual bundle inside a sweep's
+    window, a bert_large sweep, and OTLP export of traced requests to a
+    stub collector in this process."""
+    import shutil
+
+    from triton_client_tpu_torch.models import language
+
+    shutil.rmtree(HOST_DIR, ignore_errors=True)
+    os.makedirs(HOST_DIR)
+    for var, val in (("TRITON_TPU_QUANT_BERT_LARGE", "int8"),
+                     ("TRITON_TPU_INT8_FUSED", "w2")):
+        os.environ[var] = val
+    try:
+        with bert_depth(BERT_SERVE_LAYERS):
+            longctx = language.make_longctx_tpu("cuda")
+            bert = language.make_bert_large("cuda")
+            label = "host longctx_tpu bf16"
+            with serving_harness([longctx, bert]) as harness:
+                core = harness.core
+                core.incidents.dir = _incident_dir("host")
+                _warm(harness, longctx, 4)
+                _warm(harness, bert, 8)
+                check_precision(label, longctx.transformer, False)
+                check_precision("host bert_large int8", bert.transformer,
+                                True)
+                layers = longctx.transformer.cfg.n_layers
+                t0 = time.perf_counter()
+                on = _host_cost(label, harness, longctx, counters, layers)
+                t1 = time.perf_counter()
+                _host_bundle(label, harness, longctx, counters, layers, on)
+                t2 = time.perf_counter()
+                blabel = "host bert_large int8 w2"
+                _perf_sweep_once(
+                    f"{blabel} -b 8 c = 2", harness, bert,
+                    ["-b", "8", "--concurrency-range", "2"], counters, 0,
+                    bert.transformer.cfg.n_layers, PERF_WINDOW_MS, False,
+                    HOST_PATHS)
+                t3 = time.perf_counter()
+                _host_otlp(label, harness, longctx, counters, layers)
+                print(f"host: the cost gate {t1 - t0:.1f} s, the bundle "
+                      f"{t2 - t1:.1f} s, bert_large {t3 - t2:.1f} s, OTLP "
+                      f"{time.perf_counter() - t3:.1f} s", flush=True)
+                _no_regions_left(label, harness)
+            del longctx, bert
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        for var in ("TRITON_TPU_QUANT_BERT_LARGE", "TRITON_TPU_INT8_FUSED"):
+            os.environ.pop(var, None)
+
+
+# ---------------------------------------------------------------------------
 # Overload: QoS tiers, the memory governor, deadlines, chaos and drain
 # ---------------------------------------------------------------------------
 
@@ -3293,6 +3762,7 @@ def _overload_chaos(label, torch, harness, model, counters) -> None:
 
     layers = model.transformer.cfg.n_layers
     core = harness.core
+    core.incidents.dir = _incident_dir("overload")
     core.chaos = build_injector(**CHAOS_ARGS)
     res = _overload_run(f"{label} chaos --retries 3", harness, model,
                         ["-b", "1", "--concurrency-range", "4",
@@ -3357,6 +3827,18 @@ def _overload_chaos(label, torch, harness, model, counters) -> None:
             or snap["inflight_bytes"]:
         fail(f"{label} mem_pressure: the governor did not recover")
     core.chaos = None
+    # the first draw's bundle (the class's later draws are rate-limited)
+    core.incidents.wait()
+    bundle = _wait_bundle(f"{label} mem_pressure", core.incidents.dir,
+                          "chaos")
+    _check_bundle(f"{label} mem_pressure", bundle, "chaos",
+                  f"mem_pressure on {model.name}")
+    fams = _metrics(harness.http_port)
+    _check_counted(f"{label} mem_pressure", fams, "chaos")
+    held = _metric_sum(fams, "nv_host_incident_total", trigger="chaos",
+                       outcome="suppressed")
+    print(f"{label}: the server's bundles {_bundle_kinds(core.incidents.dir)}"
+          f"; later chaos draws rate-limited {held:g}", flush=True)
     core.memory = MemoryGovernor()
 
 
@@ -4124,6 +4606,12 @@ def generation_phase(torch, counters) -> None:
                 _gen_idle_share(f"{label} http sse", torch, _sse_stream,
                                 port, prompts[:1 if mode == "independent"
                                               else GEN_STREAMS])
+                # where the decode step's host time went: the always-on
+                # profiler's hottest stacks of the decode worker (batched)
+                # and of the request threads (independent mode decodes on
+                # them), a reading
+                _top_stacks(f"{label} host profile",
+                            harness.core.profiler, ("decode", "frontend"))
             del dec, gen_model
             gc.collect()
         print("generation: BASELINE row 5 through ensemble_llama read "
@@ -4659,6 +5147,7 @@ def _cf_faults(torch, params, chains, prompts, counters) -> None:
         with serving_harness([dec.model, gen_model, stall.model,
                               stall_gen.model]) as harness:
             port, core = harness.http_port, harness.core
+            core.incidents.dir = _incident_dir("faults")
             faults = core.device_faults
             faults.threshold, faults.window_s = 3, 30.0
             faults.probe_backoff_s = CF_PROBE_BACKOFF_S
@@ -4702,6 +5191,15 @@ def _cf_faults(torch, params, chains, prompts, counters) -> None:
                   f"stream began (first probe {CF_PROBE_BACKOFF_S} s after "
                   f"the quarantine); ready again on both; {CARD}",
                   flush=True)
+            # the first quarantine's bundle (the second name's, inside the
+            # class's interval, is rate-limited)
+            core.incidents.wait()
+            bundle = _wait_bundle(f"{label} persistent", core.incidents.dir,
+                                  "device_fault")
+            _check_bundle(f"{label} persistent", bundle, "device_fault",
+                          "quarantined")
+            _check_counted(f"{label} persistent", _metrics(port),
+                           "device_fault")
 
             # -- transient: one fault against live streams ---------------
             core.chaos = None
@@ -5715,10 +6213,12 @@ class _FleetServer:
     FLEET_DIR; ``close`` sends SIGTERM and waits, and kills what is left
     on every exit path."""
 
-    def __init__(self, frontends: int):
+    def __init__(self, frontends: int, *extra: str):
         from triton_client_tpu_torch.server.testing import free_port
 
         self.n = frontends
+        #: nv_fleet_worker_restart_total before the SIGKILL drill
+        self.restarts = 0.0
         self.port = free_port()
         self.mport = _adjacent_ports(frontends)
         os.makedirs(FLEET_DIR, exist_ok=True)
@@ -5731,7 +6231,8 @@ class _FleetServer:
             [sys.executable, "-m", "triton_client_tpu_torch.server",
              "--http-port", str(self.port), "--metrics-port",
              str(self.mport), "--frontends", str(frontends),
-             "--drain-timeout", "20", "--worker-restart-window", "60"],
+             "--drain-timeout", "20", "--worker-restart-window", "60",
+             *extra],
             cwd=REPO, env=env, stdout=self._log, stderr=subprocess.STDOUT)
         self.url = f"127.0.0.1:{self.port}"
 
@@ -6078,17 +6579,22 @@ def _fleet_single(srv1, sampler, pair) -> None:
 
 
 def _fleet_kill(srv2):
-    """Part 2, first half: worker 0 SIGKILLed a quarter into a c = 4
+    """Part 2, first half: a worker SIGKILLed a quarter into a c = 4
     perf_analyzer window with --retries 3, once it has executed requests
     in that window: zero errors, and at least one request cut off and sent
-    again (the client's resends and retries).  Returns (the victim's pid,
-    the kill's time, a dict where a thread of its own puts the time worker
-    0's metrics port answers again with its restart counted: "back")."""
+    again (the client's resends and retries).  The kernel hands each of
+    the tool's four connections to a worker by a hash of its ports, so all
+    four land on one worker one run in eight: the victim is worker 0 where
+    it executed in the window, else the worker that did.  Returns (the
+    victim's index, its pid, the kill's time, a dict where a thread of its
+    own puts the time the victim's metrics port answers again with its
+    restart counted: "back")."""
     import signal
 
     label = "fleet self-healing"
     pids = srv2.pids()
-    victim = pids[0]
+    srv2.restarts = _metric_sum(srv2.metrics(1) or {},
+                                "nv_fleet_worker_restart_total")
     cmd = [sys.executable, "-m", "triton_client_tpu_torch.perf_analyzer",
            "-m", "longctx_tpu", "-u", srv2.url, "-v", "-b", "4",
            "--concurrency-range", "4:4", "--retries", "3",
@@ -6102,16 +6608,17 @@ def _fleet_kill(srv2):
     def watch_respawn():
         end = time.monotonic() + 240
         while time.monotonic() < end and srv2.proc.poll() is None:
-            fams = srv2.metrics(0)
+            fams = srv2.metrics(idx)
             if fams is not None and _metric_sum(
-                    fams, "nv_fleet_worker_restart_total") == 1.0:
+                    fams, "nv_fleet_worker_restart_total") \
+                    == srv2.restarts + 1:
                 respawn["back"] = time.perf_counter()
                 return
             time.sleep(0.05)
 
     try:
         # the tool's first request starts its 1 s warm-up; the kill comes a
-        # quarter into its window, once worker 0 has executed in it
+        # quarter into its window, once the victim has executed in it
         begun = sum(n or 0 for n in srv2.execs())
         end = time.monotonic() + 120
         while sum(n or 0 for n in srv2.execs()) == begun:
@@ -6124,12 +6631,16 @@ def _fleet_kill(srv2):
         end = time.monotonic() + FLEET_KILL_WINDOW_MS / 2e3
         while True:
             pre = srv2.execs()
-            if (pre[0] or 0) > (at_window[0] or 0):
+            busy = [i for i in range(srv2.n)
+                    if (pre[i] or 0) > (at_window[i] or 0)]
+            if busy:
+                idx = busy[0]
                 break
             if time.monotonic() > end:
-                fail(f"{label}: worker 0 executed nothing in the window "
-                     f"before the kill (executions {at_window} -> {pre})")
+                fail(f"{label}: no worker executed in the window before the "
+                     f"kill (executions {at_window} -> {pre})")
             time.sleep(0.02)
+        victim = pids[idx]
         t_kill = time.perf_counter()
         os.kill(victim, signal.SIGKILL)
         respawn["thread"] = threading.Thread(target=watch_respawn,
@@ -6146,24 +6657,89 @@ def _fleet_kill(srv2):
     if not res["window_start_s"] <= t_kill <= res["window_end_s"]:
         fail(f"{label}: the kill at {t_kill:.3f} fell outside the window "
              f"[{res['window_start_s']:.3f}, {res['window_end_s']:.3f}]")
-    # worker 0's executions from about the window's start to the kill,
-    # worker 1's to the run's end
-    split = [(pre[0] or 0) - (at_window[0] or 0),
-             (after[1] or 0) - (at_window[1] or 0)]
+    # the victim's executions from about the window's start to the kill,
+    # its sibling's to the run's end
+    split = [((pre if i == idx else after)[i] or 0) - (at_window[i] or 0)
+             for i in range(srv2.n)]
     cut = res["resends_run"] + res["retries_run"]
-    print(f"{label}: worker 0 (pid {victim}) SIGKILLed inside the window: "
-          f"{res['throughput']:.3f} infer/s, p99 {res['p99_us'] / 1e3:.3f} "
-          f"ms, errors {res['errors']}; executions by worker {split} (worker "
-          f"0 to the kill); requests cut off and sent again: "
+    print(f"{label}: worker {idx} (pid {victim}) SIGKILLed inside the "
+          f"window: {res['throughput']:.3f} infer/s, p99 "
+          f"{res['p99_us'] / 1e3:.3f} ms, errors {res['errors']}; executions "
+          f"by worker {split} (worker {idx} to the kill); requests cut off "
+          f"and sent again: "
           f"{res['resends_run']} on a new connection, {res['retries_run']} "
           "by the retry policy", flush=True)
     if cut < 1:
         fail(f"{label}: no request was cut off by the kill")
-    return victim, t_kill, respawn
+    return idx, victim, t_kill, respawn
 
 
-def _fleet_healed(srv2, victim, t_kill, respawn, check, x) -> None:
-    """Part 2, second half: the supervisor respawned worker 0,
+def _fleet_incidents(srv2) -> None:
+    """A ``worker_kill`` draw on ``--frontends 2`` (chaos on ``simple``
+    only): the drawing worker's ``chaos`` bundle written before it exits,
+    its sibling's ``worker_crash`` bundle naming it and the reason, the
+    worker restarted; then SIGUSR2 to the sibling: a ``sigusr2`` bundle.
+    Every bundle complete in the fleet's --incident-dir, and counted on
+    the sibling's /metrics (the exited worker's counts went with it)."""
+    import signal
+
+    label = "fleet incidents"
+    srv2.wait_up(label)
+    dirname = srv2.incident_dir
+    t0 = time.perf_counter()
+    req = urllib.request.Request(
+        f"http://{srv2.url}/v2/models/simple/infer",
+        data=json.dumps({"inputs": [
+            {"name": n, "shape": [1, 16], "datatype": "INT32",
+             "data": [0] * 16} for n in ("INPUT0", "INPUT1")]}).encode(),
+        method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            fail(f"{label}: the worker_kill draw answered {r.status}")
+    except (OSError, urllib.error.HTTPError) as e:
+        cut = repr(e)
+    bundle = _wait_bundle(label, dirname, "chaos")
+    m = _check_bundle(label, bundle, "chaos", "worker_kill on simple")
+    victim = int(m["replica"].rsplit("#w", 1)[1])
+    sibling = 1 - victim
+    crash = _wait_bundle(label, dirname, "worker_crash")
+    mc = _check_bundle(label, crash, "worker_crash",
+                       f"worker {victim}: chaos:worker_kill")
+    if not mc["replica"].endswith(f"#w{sibling}"):
+        fail(f"{label}: the worker_crash bundle came from "
+             f"{mc['replica']}, not worker {sibling}")
+    t_crash = time.perf_counter() - t0
+    pid = srv2.pids()[sibling]
+    os.kill(pid, signal.SIGUSR2)
+    sig = _wait_bundle(label, dirname, "sigusr2")
+    ms = _check_bundle(label, sig, "sigusr2", "operator SIGUSR2")
+    if ms["pid"] != pid:
+        fail(f"{label}: the sigusr2 bundle came from pid {ms['pid']}, not "
+             f"{pid}")
+    end = time.monotonic() + 240
+    while True:
+        fams = [srv2.metrics(i) for i in range(srv2.n)]
+        if all(f is not None and _metric_sum(
+                f, "nv_fleet_worker_restart_total") == 1.0 for f in fams):
+            break
+        if srv2.proc.poll() is not None or time.monotonic() > end:
+            fail(f"{label}: worker {victim} did not come back: "
+                 f"{srv2.tail()}")
+        time.sleep(0.1)
+    for trigger in ("worker_crash", "sigusr2"):
+        _check_counted(label, fams[sibling], trigger)
+    _report(label, dirname, "sigusr2")
+    print(f"{label}: a simple request drew worker_kill on worker {victim} "
+          f"(the client saw {cut[:60]}...); its chaos bundle, then worker "
+          f"{sibling}'s worker_crash bundle {t_crash:.1f} s after the "
+          f"request; SIGUSR2 to worker {sibling} (pid {pid}) wrote a "
+          f"sigusr2 bundle; worker {victim} back "
+          f"{time.perf_counter() - t0:.1f} s after the request; {CARD}",
+          flush=True)
+
+
+def _fleet_healed(srv2, idx, victim, t_kill, respawn, check, x) -> None:
+    """Part 2, second half: the supervisor respawned worker ``idx``,
     nv_fleet_worker_restart_total reads 1 on both workers' ports, the
     respawned worker's answers hold, and SIGTERM drains the fleet to exit
     0."""
@@ -6176,30 +6752,41 @@ def _fleet_healed(srv2, victim, t_kill, respawn, check, x) -> None:
             fams = srv2.metrics(i)
             counts.append(None if fams is None else _metric_sum(
                 fams, "nv_fleet_worker_restart_total"))
-        if counts == [1.0] * srv2.n:
+        if counts == [srv2.restarts + 1] * srv2.n:
             break
         if srv2.proc.poll() is not None or time.monotonic() > end:
             fail(f"{label}: restart counters {counts}: {srv2.tail()}")
         time.sleep(0.1)
     if "back" not in respawn:
-        fail(f"{label}: worker 0's metrics port never answered with its "
+        fail(f"{label}: worker {idx}'s metrics port never answered with its "
              f"restart counted: {srv2.tail()}")
     respawn_s = respawn["back"] - t_kill
-    new_pid = srv2.pids()[0]
+    new_pid = srv2.pids()[idx]
     if new_pid == victim:
-        fail(f"{label}: worker 0 was not respawned")
+        fail(f"{label}: worker {idx} was not respawned")
     t0 = time.perf_counter()
     while True:
         got, who = _fleet_wire(srv2, x)
         check(f"worker {who}", got)
-        if who == 0:
+        if who == idx:
             break
         if time.perf_counter() - t0 > 60:
             fail(f"{label}: the respawned worker served nothing")
+    total = srv2.restarts + 1
     print(f"{label}: respawned as pid {new_pid}; its metrics port answered "
-          f"with nv_fleet_worker_restart_total 1 {respawn_s:.1f} s after "
-          "the kill (1 on both workers' ports); its first answer took "
+          f"with nv_fleet_worker_restart_total {total:g} {respawn_s:.1f} s "
+          f"after the kill ({total:g} on both workers' ports, the "
+          f"worker_kill drill's restart included); its first answer took "
           f"{time.perf_counter() - t0:.1f} s (weights built); {CARD}",
+          flush=True)
+    # the SIGKILL's worker_crash bundle from the sibling (rate-limited
+    # where it wrote the worker_kill drill's inside the class's interval)
+    sibling = 1 - idx
+    fams = srv2.metrics(sibling) or {}
+    print(f"{label}: worker {sibling}'s worker_crash bundles: written "
+          f"{_incidents_written(fams, 'worker_crash'):g}, rate-limited "
+          f"{_metric_sum(fams, 'nv_host_incident_total', trigger='worker_crash', outcome='suppressed'):g}; "
+          f"the fleet's bundles {_bundle_kinds(srv2.incident_dir)}",
           flush=True)
     t0 = time.perf_counter()
     code = srv2.close()
@@ -6554,19 +7141,30 @@ def fleet_phase(torch, counters) -> None:
         return out
 
     try:
-        servers = [_FleetServer(2), _FleetServer(1)]
+        # the pair's workers write their bundles under FLEET incidents;
+        # a worker_kill draw fires on ``simple`` only (no other drill
+        # sends it)
+        fleet_dir = _incident_dir("fleet")
+        servers = [_FleetServer(2, "--incident-dir", fleet_dir, "--chaos",
+                                "1.0", "--chaos-kinds", "worker_kill",
+                                "--chaos-model", "simple"),
+                   _FleetServer(1, "--incident-dir",
+                                _incident_dir("fleet-single"))]
+        servers[0].incident_dir = fleet_dir
         # the fleets start while the autoscaler runs in this process: its
         # readings share the host with their start
         step("autoscaler", _fleet_autoscale, torch, counters, sampler)
+        step("worker_kill and SIGUSR2", _fleet_incidents, servers[0])
         check, x = step("frontends", _fleet_frontends, torch, *servers,
                         sampler)
-        victim, t_kill, respawn = step("kill", _fleet_kill, servers[0])
+        idx, victim, t_kill, respawn = step("kill", _fleet_kill,
+                                            servers[0])
         # the rolling update runs while the killed worker restarts; its one
         # timing, the flip to the first v2 answer, shares the host with
         # that start
         step("rolling update", _fleet_rolling, torch, counters)
-        step("healing", _fleet_healed, servers[0], victim, t_kill, respawn,
-             check, x)
+        step("healing", _fleet_healed, servers[0], idx, victim, t_kill,
+             respawn, check, x)
     finally:
         for srv in servers:
             srv.close()
@@ -6732,6 +7330,7 @@ def main() -> int:
                            ("vision", vision_phase, (torch, counters)),
                            ("observability", observability_phase,
                             (torch, counters)),
+                           ("host view", host_view_phase, (torch, counters)),
                            ("overload", overload_phase, (torch, counters)),
                            ("generation", generation_phase,
                             (torch, counters)),
@@ -6752,6 +7351,7 @@ def main() -> int:
     paths.update(GRPC_PATHS)
     paths.update(VISION_PATHS)
     paths.update(OBS_PATHS)
+    paths.update(HOST_PATHS)
     paths.update(OVERLOAD_PATHS)
     paths.update(GEN_PATHS)
     paths.update(CF_PATHS)

@@ -458,8 +458,8 @@ def test_unary_infer_on_a_decoupled_model_is_refused_as_in_reference(
 def test_unported_rpcs_answer_unimplemented_naming_the_roadmap(servers):
     """No RPC of the service is unported now: the repository RPCs answer
     as the reference's (an unknown model's load is INTERNAL with the same
-    text); the client calls that are not ported still raise, naming their
-    ROADMAP item."""
+    text); TLS, the one client option not ported, still raises, naming
+    its ROADMAP item, and ``infer_many`` (once refused) now answers."""
     jh, th = servers
     answers = []
     for url in (th.http_url, jh.http_url):
@@ -484,9 +484,7 @@ def test_unported_rpcs_answer_unimplemented_naming_the_roadmap(servers):
     assert answers[0] == answers[1]
     assert answers[0][1] == "StatusCode.INTERNAL"
     with tgrpc.InferenceServerClient(th.http_url) as c:
-        for call, item in ((c.infer_many, "A6b"),):
-            with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-                call()
+        assert c.infer_many("simple", []) == []
         with pytest.raises(NotImplementedError, match="ROADMAP A3b"):
             tgrpc.InferenceServerClient(th.http_url, ssl=True)
     # keepalive options and channel args are taken, and mean nothing

@@ -18,6 +18,7 @@ For the same traffic (``simple``, the batched ``dense_tpu`` and the tiny
 
 import json
 import re
+import time
 import urllib.error
 import urllib.request
 
@@ -282,4 +283,51 @@ def test_cache_and_fault_families_render_as_reference():
             kv.drop("metrics_kv_m")
     assert out["port"] == out["jax"]
     assert all(out["port"][n][2] for n in names), out["port"]
+    assert not set(names) & set(tmetrics.UNPORTED_FAMILIES)
+
+
+def test_host_and_otlp_families_render_as_reference(tmp_path):
+    """The six families that left ``UNPORTED_FAMILIES`` with the host
+    profiler, the incident bundles and OTLP export: on both servers, after
+    the same manual bundle and with an exporter set, the same names, types
+    and label keys, and the same incident counts and OTLP samples; the
+    OTLP families are absent (not zero) without an exporter."""
+    names = ("nv_host_loop_lag_us", "nv_host_gc_pause_us_total",
+             "nv_host_profile_samples_total", "nv_host_incident_total",
+             "nv_otlp_export_total", "nv_otlp_dropped_total")
+    out = {}
+    for pkg, harness, reg in (("port", ServerHarness, ModelRegistry),
+                              ("jax", JaxHarness, JaxRegistry)):
+        with harness(reg()) as h:
+            core = h.core
+            inc = core.incidents
+            inc.dir = str(tmp_path / pkg)
+            inc.profile_window_s, inc.min_interval_s = 0.05, 0.0
+            core.profiler._sample_once()
+            core.profiler._gc_events.append((2, 1000))
+            time.sleep(0.6)  # each lag probe's first wake
+            inc.trigger("manual", reason="metrics", sync=True)
+            before = parse_prometheus(urllib.request.urlopen(
+                f"http://{h.http_url}/metrics").read().decode())
+            core.enable_otlp(f"127.0.0.1:{free_port()}", replica="r")
+            try:
+                fams = parse_prometheus(urllib.request.urlopen(
+                    f"http://{h.http_url}/metrics").read().decode())
+            finally:
+                otlp, core.tracer.otlp = core.tracer.otlp, None
+                otlp.shutdown()
+        assert not {"nv_otlp_export_total", "nv_otlp_dropped_total"} \
+            & set(before)
+        out[pkg] = {n: (fams[n]["type"],
+                        sorted({tuple(sorted(lb)) for lb, _ in
+                                fams[n]["samples"]}),
+                        sorted((sorted(lb.items()), v)
+                               for lb, v in fams[n]["samples"])
+                        if n in ("nv_host_incident_total",
+                                 "nv_otlp_export_total",
+                                 "nv_otlp_dropped_total") else None)
+                    for n in names}
+    assert out["port"] == out["jax"]
+    assert out["port"]["nv_host_incident_total"][2] == \
+        [([("outcome", "written"), ("trigger", "manual")], 1.0)]
     assert not set(names) & set(tmetrics.UNPORTED_FAMILIES)

@@ -240,7 +240,9 @@ def test_csv_headers_match_reference(harness, tmp_path):
      "--tenant is not supported with --streaming"),
     (["--priority", "high"], "invalid int value"),
     (["--retries", "x"], "invalid int value"),
-    (["--export-metrics", "m.json"], "ROADMAP A6"),
+    # --export-metrics is served now (tests/test_torch_client_telemetry.py);
+    # without its PATH it is refused
+    (["--export-metrics"], "expected one argument"),
 ])
 def test_flags_not_ported_are_refused(flag, why, capsys):
     with pytest.raises(SystemExit) as err:

@@ -174,6 +174,24 @@ def _shape(rec):
     }
 
 
+#: the client's trace context in a record: the reference's gRPC-Web
+#: bridge hands its servicer no metadata, so its gRPC records lack them
+#: (its HTTP/2 servicer records them, ``_read_trace_metadata``); the
+#: port's gRPC-Web servicer reads them from the call's headers
+_TRACE_KEYS = ("traceparent", "triton_request_id")
+
+
+def _without_bridge_loss(shape, protocol):
+    """The port's record shape less the trace-context keys a gRPC-Web call
+    carries (checked present first), to hold against the reference
+    bridge's."""
+    if protocol == "http":
+        return shape
+    assert set(_TRACE_KEYS) <= set(shape["keys"]), shape["keys"]
+    return {**shape, "keys": [k for k in shape["keys"]
+                              if k not in _TRACE_KEYS]}
+
+
 @pytest.mark.parametrize("protocol", ["http", "grpc", "stream"])
 @pytest.mark.parametrize("model", ["simple", "longctx_tpu", "dense_tpu"])
 def test_span_trees_match_reference(servers, tmp_path, model, protocol):
@@ -190,6 +208,7 @@ def test_span_trees_match_reference(servers, tmp_path, model, protocol):
         for s in spans[1:]:
             assert root["start_ns"] <= s["start_ns"] <= s["end_ns"] \
                 <= root["end_ns"], (pkg, s)
+    got["port"] = _without_bridge_loss(got["port"], protocol)
     assert got["port"] == got["jax"]
     names = [n for n, _ in got["port"]["spans"]]
     assert "COMPUTE" in names and "D2H_TRANSFER" in names
@@ -215,7 +234,10 @@ def test_decoupled_stream_record_matches_reference(servers, tmp_path):
         recs = _traced(url, tmp_path / f"{pkg}.json", send)
         assert len(recs) == 1, recs
         rec = recs[0]
-        got[pkg] = (_shape(rec), rec["tokens"], rec["outcome"],
+        shape = _shape(rec)
+        if pkg == "port":
+            shape = _without_bridge_loss(shape, "stream")
+        got[pkg] = (shape, rec["tokens"], rec["outcome"],
                     rec["cache_hit_tokens"], rec["prefix_hash"])
     assert got["port"] == got["jax"]
     assert got["port"][1] == 3 and got["port"][2] == "ok"

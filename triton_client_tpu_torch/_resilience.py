@@ -22,7 +22,12 @@ that broke (``IncompleteRead`` where a response was cut short, as a chaos
 ``abort`` does), and both clients raise ``InferenceServerException`` with
 the HTTP status or the gRPC status spelling (``"StatusCode.UNAVAILABLE"``).
 Each committed retry is counted in the client registry
-(``_telemetry.telemetry()``), which ``perf_analyzer`` reads back.
+(``_telemetry.telemetry()``), which ``perf_analyzer`` reads back, and
+where client tracing is on it leaves a RETRY span over the failed
+attempt.  A single request's retry loop (``journey=True``) runs inside a
+journey (``_telemetry.begin_journey``): every attempt sends a traceparent
+with the journey's one trace id and a span id of its own, so the server
+records of all attempts join the client's under one trace.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ import random
 import time
 from typing import Any, Callable, Optional
 
-from ._telemetry import telemetry
+from ._telemetry import begin_journey, current_journey, end_journey, telemetry
 from .utils import InferenceServerException
 
 __all__ = [
@@ -203,6 +208,22 @@ class RetryPolicy:
         return self._rng.uniform(0.0, cap)
 
 
+def _record_retry(model: str, protocol: str, method_name: str,
+                  request_id: str, attempt_start_ns: int) -> None:
+    """A committed retry: counted, and where client tracing is on, a RETRY
+    span over the failed attempt (under the journey's traceparent and
+    attempt number where one is open)."""
+    tel = telemetry()
+    tel.record_retry(model, protocol, method_name)
+    if tel.tracing_enabled:
+        journey = current_journey()
+        tel.record_client_trace(
+            request_id or (journey.request_id if journey else ""),
+            model, protocol, method_name,
+            spans=[("RETRY", attempt_start_ns, time.monotonic_ns())],
+            ok=False)
+
+
 def call_with_retry(
     policy: Optional[RetryPolicy],
     attempt_fn: Callable[[Optional[float], int], Any],
@@ -210,6 +231,7 @@ def call_with_retry(
     deadline_s: Optional[float] = None,
     retry_meta=None,
     on_failure: Optional[Callable[[BaseException, int], None]] = None,
+    journey: bool = False,
 ) -> Any:
     """Run ``attempt_fn(remaining_s, attempt)`` under ``policy``.
 
@@ -218,41 +240,52 @@ def call_with_retry(
     server.  ``retry_meta`` is ``(model, protocol, method_name,
     request_id)`` for the retry count, or None.  With ``policy=None``: one
     attempt under the deadline.  ``on_failure(exc, attempt)`` runs for
-    every failed attempt."""
+    every failed attempt.  ``journey`` (one request's call sites, not a
+    batch's) opens a journey around the attempts, where none is open."""
     if deadline_s is None and policy is not None:
         deadline_s = policy.deadline_s
     deadline = (time.monotonic() + deadline_s
                 if deadline_s is not None else None)
+    scope = begin_journey(retry_meta[3] if retry_meta else "") \
+        if journey else None
     attempt = 0
-    while True:
-        attempt += 1
-        remaining = None
-        if deadline is not None:
-            remaining = deadline - time.monotonic()
-            if remaining <= 0:
-                raise deadline_exceeded_error()
-        try:
-            return attempt_fn(remaining, attempt)
-        except BaseException as e:
-            if on_failure is not None:
-                on_failure(e, attempt)
-            if deadline is not None and is_timeout_error(e) \
-                    and time.monotonic() >= deadline - 1e-3:
-                # the budget, not a shorter per-attempt timeout, ran out:
-                # the typed deadline failure
-                raise deadline_exceeded_error() from e
-            if policy is None \
-                    or not policy.should_retry(e, method, attempt):
-                raise
-            delay = policy.backoff_s(
-                attempt, retry_after_s=getattr(e, "retry_after_s", None))
-            if deadline is not None \
-                    and time.monotonic() + delay >= deadline:
-                raise  # the budget cannot cover another attempt
-            # counted once the retry is committed
-            if retry_meta is not None:
-                telemetry().record_retry(*retry_meta[:3])
-            time.sleep(delay)
+    try:
+        while True:
+            attempt += 1
+            if scope is not None:
+                scope[0].attempt = attempt
+            remaining = None
+            if deadline is not None:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    raise deadline_exceeded_error()
+            t0_ns = time.monotonic_ns()
+            try:
+                return attempt_fn(remaining, attempt)
+            except BaseException as e:
+                if on_failure is not None:
+                    on_failure(e, attempt)
+                if deadline is not None and is_timeout_error(e) \
+                        and time.monotonic() >= deadline - 1e-3:
+                    # the budget, not a shorter per-attempt timeout, ran
+                    # out: the typed deadline failure
+                    raise deadline_exceeded_error() from e
+                if policy is None \
+                        or not policy.should_retry(e, method, attempt):
+                    raise
+                delay = policy.backoff_s(
+                    attempt,
+                    retry_after_s=getattr(e, "retry_after_s", None))
+                if deadline is not None \
+                        and time.monotonic() + delay >= deadline:
+                    raise  # the budget cannot cover another attempt
+                # counted once the retry is committed
+                if retry_meta is not None:
+                    _record_retry(*retry_meta, t0_ns)
+                time.sleep(delay)
+    finally:
+        if scope is not None:
+            end_journey(scope)
 
 
 def min_timeout(client_timeout: Optional[float],

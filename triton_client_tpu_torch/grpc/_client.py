@@ -34,21 +34,35 @@ metadata calls retry too.
 they set HTTP/2 channel options, and these calls run on HTTP/1.1.  The
 repository calls (``get_model_repository_index``, ``load_model`` with
 ``config`` and ``files``, ``unload_model`` with ``unload_dependents``) are
-the reference's.  Not ported yet, and raising with their ROADMAP item:
-TLS and compression (A3b); ``infer_many`` and ``stream_timeout`` (A6b).
+the reference's.
+
+Telemetry, as in the HTTP client: each call of ``infer``, a prepared
+request's ``infer``, ``async_infer`` and ``infer_many`` stamps
+``traceparent`` and ``triton-request-id`` (headers here, metadata in
+gRPC), is counted in the client registry and, where client tracing is on,
+records its spans; a stream carries one trace context, and each request
+sent on it is counted without a latency.  ``infer_many`` is the HTTP
+client's, over ModelInfer.  ``start_stream(stream_timeout=S)`` is the
+stream's deadline: each read of its socket waits at most until S seconds
+after the start, and then the callback gets DEADLINE_EXCEEDED and the
+stream ends.  Not ported, and raising with their ROADMAP item: TLS and
+compression (A3b).
 """
 
 from __future__ import annotations
 
 import json
 import threading
+import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from concurrent.futures import TimeoutError as FuturesTimeoutError
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional
 
 from .._client import InferenceServerClientBase
 from .._request import Request
-from .._resilience import call_with_retry, min_timeout, remaining_us
+from .._resilience import (call_with_retry, deadline_exceeded_error,
+                           min_timeout, remaining_us)
+from .._telemetry import merge_trace_headers, telemetry, traceparent_on_wire
 from ..http._client import _ConnectionPool, _not_ported
 from ..protocol import debug as pb_debug
 from ..protocol import inference as pb
@@ -146,23 +160,20 @@ class PreparedRequest:
         stamps the remaining deadline anew, where the template holds no
         ``timeout`` of its own)."""
         template = self.template
-
-        def attempt(remaining):
-            timeout_us = None
-            if remaining is not None and "timeout" not in template._params:
-                timeout_us = remaining_us(remaining)
-            return self._client._send_infer(
-                template.stamp(request_id, timeout_us), headers,
-                min_timeout(client_timeout, remaining), tenant)
-
         return self._client._with_policy(
             retry_policy, deadline_s, template.model_name, request_id,
-            "infer", attempt)
+            "infer", lambda remaining: self._client._infer_prepared(
+                self, request_id, headers, tenant, client_timeout,
+                remaining))
 
     def async_stream_infer(self, request_id="") -> None:
         """Send the request on the client's stream (``start_stream``); its
         answer reaches the stream's callback."""
-        self._client._stream_send(self.template.stamp(request_id))
+        frame = self.template.stamp(request_id)
+        self._client._stream_send(frame)
+        telemetry().record_request(
+            self.template.model_name, "grpc", "stream_infer", None, ok=True,
+            request_bytes=len(frame) - 5, request_id=request_id)
 
 
 class InferenceServerClient(InferenceServerClientBase):
@@ -252,15 +263,16 @@ class InferenceServerClient(InferenceServerClientBase):
         return call_with_retry(
             policy, lambda remaining, _attempt: attempt(remaining),
             method="infer", deadline_s=deadline_s,
-            retry_meta=(model_name, "grpc", method_name, request_id))
+            retry_meta=(model_name, "grpc", method_name, request_id),
+            journey=True)
 
     def _unary(self, method: str, frame: bytes, response_type, headers,
-               client_timeout):
+               client_timeout, sizes: Optional[list] = None):
         """One unary call of an encoded request frame: its response, or
         InferenceServerException with the call's status."""
         try:
             response = unary(self._pool, method, frame, response_type,
-                             self._headers(headers), client_timeout)
+                             self._headers(headers), client_timeout, sizes)
         except RpcError as e:
             raise_error_grpc(e)
         if self._verbose:
@@ -408,10 +420,6 @@ class InferenceServerClient(InferenceServerClientBase):
         self._call("RepositoryModelUnload", request,
                    pb.RepositoryModelUnloadResponse, headers, client_timeout)
 
-    # -- not ported --------------------------------------------------------
-    def infer_many(self, *args, **kwargs):
-        _not_ported("infer_many", "A6b")
-
     # -- shared memory -----------------------------------------------------
     def get_system_shared_memory_status(self, region_name="", headers=None,
                                         as_json=False, client_timeout=None):
@@ -430,6 +438,7 @@ class InferenceServerClient(InferenceServerClientBase):
                        byte_size=byte_size),
                    pb.SystemSharedMemoryRegisterResponse, headers,
                    client_timeout)
+        telemetry().record_shm_register("grpc", "system", byte_size)
 
     def unregister_system_shared_memory(self, name="", headers=None,
                                         client_timeout=None) -> None:
@@ -458,6 +467,7 @@ class InferenceServerClient(InferenceServerClientBase):
                        device_id=device_id, byte_size=byte_size),
                    pb.CudaSharedMemoryRegisterResponse, headers,
                    client_timeout)
+        telemetry().record_shm_register("grpc", "cuda", byte_size)
 
     def unregister_cuda_shared_memory(self, name="", headers=None,
                                       client_timeout=None) -> None:
@@ -468,15 +478,57 @@ class InferenceServerClient(InferenceServerClientBase):
 
     # -- inference ---------------------------------------------------------
     def _send_infer(self, frame: bytes, headers, client_timeout,
-                    tenant: Optional[str] = None):
-        """One ModelInfer call with an encoded request frame; ``tenant`` in
-        the ``triton-tenant`` metadata."""
+                    tenant: Optional[str], model_name: str, method: str,
+                    request_id: str, t_ser0: int,
+                    sink: Optional[list] = None) -> InferResult:
+        """One ModelInfer call of an encoded request frame: ``tenant`` in
+        the ``triton-tenant`` metadata, the trace headers; counted in the
+        client registry (or, with ``sink``, its outcome appended there for
+        the caller's one count of a flight) and, where tracing is on, its
+        spans recorded (``t_ser0``: when the request's build began)."""
+        user = dict(headers or {})
+        trace_headers, rid = merge_trace_headers(user, request_id)
+        sent: Dict[str, str] = {**user, **trace_headers}
         if tenant:
-            headers = dict(headers or {})
-            headers["triton-tenant"] = str(tenant)
-        return InferResult(self._unary("ModelInfer", frame,
-                                       pb.ModelInferResponse, headers,
-                                       client_timeout))
+            sent["triton-tenant"] = str(tenant)
+        tel = telemetry()
+        t_ser1 = time.monotonic_ns()
+        req_bytes = len(frame) - 5  # less the gRPC-Web frame header
+        sizes: list = []
+        t0 = time.perf_counter()
+        try:
+            response = self._unary("ModelInfer", frame,
+                                   pb.ModelInferResponse, sent,
+                                   client_timeout, sizes)
+        except InferenceServerException:
+            latency = time.perf_counter() - t0
+            if sink is not None:
+                sink.append((False, latency, req_bytes, 0, rid))
+            else:
+                tel.record_request(model_name, "grpc", method, latency,
+                                   ok=False, request_bytes=req_bytes,
+                                   request_id=rid)
+                if tel.tracing_enabled:
+                    tel.record_infer_spans(
+                        rid, model_name, "grpc", method, t_ser0, t_ser1,
+                        time.monotonic_ns(),
+                        traceparent=traceparent_on_wire(user, trace_headers),
+                        ok=False)
+            raise
+        t_net1 = time.monotonic_ns()
+        outcome = (True, time.perf_counter() - t0, req_bytes, sizes[0], rid)
+        if sink is not None:
+            sink.append(outcome)
+        else:
+            tel.record_request(model_name, "grpc", method, outcome[1],
+                               ok=True, request_bytes=req_bytes,
+                               response_bytes=outcome[3], request_id=rid)
+        result = InferResult(response)
+        if tel.tracing_enabled:
+            tel.record_infer_spans(
+                rid, model_name, "grpc", method, t_ser0, t_ser1, t_net1,
+                traceparent=traceparent_on_wire(user, trace_headers))
+        return result
 
     def _infer_attempt(self, model_name, inputs, model_version, outputs,
                        request_id, sequence_id, sequence_start, sequence_end,
@@ -484,6 +536,7 @@ class InferenceServerClient(InferenceServerClientBase):
                        parameters, tenant, remaining):
         """One attempt: what is left of the deadline as the ``timeout``
         parameter (where the call set none) and the transport timeout."""
+        t_ser0 = time.monotonic_ns()
         if timeout is None and remaining is not None:
             timeout = remaining_us(remaining)
         request = get_inference_request(
@@ -494,7 +547,80 @@ class InferenceServerClient(InferenceServerClientBase):
             print(f"infer\n{request}")
         return self._send_infer(encode_frame(request), headers,
                                 min_timeout(client_timeout, remaining),
-                                tenant)
+                                tenant, model_name, "infer", request_id,
+                                t_ser0)
+
+    def _infer_prepared(self, prep: PreparedRequest, request_id, headers,
+                        tenant, client_timeout, remaining, raws=None,
+                        sink=None) -> InferResult:
+        """One attempt of a prepared request (the remaining deadline as the
+        ``timeout`` parameter, where the template holds none), of the
+        bound inputs' data or of ``raws``."""
+        t_ser0 = time.monotonic_ns()
+        template = prep.template
+        timeout_us = None
+        if remaining is not None and "timeout" not in template._params:
+            timeout_us = remaining_us(remaining)
+        return self._send_infer(
+            template.stamp(request_id, timeout_us, raws), headers,
+            min_timeout(client_timeout, remaining), tenant,
+            template.model_name, "infer", request_id, t_ser0, sink)
+
+    def infer_many(self, model_name, requests, model_version="",
+                   outputs=None, priority=0, timeout=None, parameters=None,
+                   request_ids=None, headers=None,
+                   tenant: Optional[str] = None, client_timeout=None,
+                   retry_policy=None,
+                   deadline_s: Optional[float] = None) -> List[InferResult]:
+        """Send every item of ``requests`` (each a list of ``InferInput``
+        with data, of the first item's names, datatypes and shapes) through
+        one compiled template, one after another, under one retry and
+        deadline envelope: the results, in order, equal N ``infer`` calls.
+        The client registry counts each request, under one lock per
+        flight; a retry resumes at the request that failed, and one
+        deadline covers the whole flight."""
+        items = list(requests)
+        if not items:
+            return []
+        template = RequestTemplate(model_name, items[0], outputs,
+                                   model_version, priority, timeout,
+                                   parameters)
+        prep = PreparedRequest(self, template)
+        payloads = [template.raws_for(item) for item in items]
+        ids = list(request_ids) if request_ids else [""] * len(items)
+        if len(ids) != len(items):
+            raise_error("request_ids length must match requests")
+        results: List[Optional[InferResult]] = [None] * len(items)
+        done = [0]  # the requests answered, across attempts
+
+        def flight(remaining, _attempt):
+            deadline = (time.monotonic() + remaining
+                        if remaining is not None else None)
+            sink: list = []
+            try:
+                while done[0] < len(items):
+                    i = done[0]
+                    left = None
+                    if deadline is not None:
+                        left = deadline - time.monotonic()
+                        if left <= 0:
+                            raise deadline_exceeded_error()
+                    results[i] = self._infer_prepared(
+                        prep, ids[i], headers, tenant, client_timeout, left,
+                        raws=payloads[i], sink=sink)
+                    done[0] += 1
+            finally:
+                telemetry().record_request_batch(model_name, "grpc",
+                                                 "infer", sink)
+            return results
+
+        policy = retry_policy if retry_policy is not None \
+            else self._retry_policy
+        if policy is None and deadline_s is None:
+            return flight(None, 1)
+        return call_with_retry(policy, flight, method="infer",
+                               deadline_s=deadline_s,
+                               retry_meta=(model_name, "grpc", "infer", ""))
 
     def infer(self, model_name, inputs, model_version="", outputs=None,
               request_id="", sequence_id=0, sequence_start=False,
@@ -549,14 +675,17 @@ class InferenceServerClient(InferenceServerClientBase):
             else self._retry_policy
 
         def attempt(remaining):
+            t_ser0 = time.monotonic_ns()
             if remaining is None or timeout is not None:
                 return self._send_infer(frame, headers, client_timeout,
-                                        tenant)
+                                        tenant, model_name, "async_infer",
+                                        request_id, t_ser0)
             request.parameters["timeout"] = pb.InferParameter(
                 int64_param=remaining_us(remaining))
             return self._send_infer(encode_frame(request), headers,
                                     min_timeout(client_timeout, remaining),
-                                    tenant)
+                                    tenant, model_name, "async_infer",
+                                    request_id, t_ser0)
 
         if policy is not None or deadline_s is not None:
             # later attempts encode the request anew: it must not see the
@@ -603,17 +732,17 @@ class InferenceServerClient(InferenceServerClientBase):
         """Open the stream; ``callback(result, error)`` runs on its reader
         thread for every answer, in order."""
         _check_unported(compression_algorithm)
-        if stream_timeout is not None:
-            _not_ported("stream_timeout", "A6b")
         if self._stream is not None:
             raise_error(
                 "cannot start another stream with one already running. "
                 "'InferenceServerClient' supports only a single active "
                 "stream at a given time.")
+        # one trace context for the stream: its requests share it
+        sent = self._headers(headers)
+        sent.update(merge_trace_headers(sent)[0])
         try:
-            self._stream = _InferStream(self._url, callback,
-                                        self._headers(headers),
-                                        self._verbose)
+            self._stream = _InferStream(self._url, callback, sent,
+                                        self._verbose, stream_timeout)
         except RpcError as e:
             raise_error_grpc(e)
 
@@ -642,7 +771,13 @@ class InferenceServerClient(InferenceServerClientBase):
                 pb.InferParameter(bool_param=True)
         if self._verbose:
             print(f"async_stream_infer\n{request}")
-        self._stream_send(encode_frame(request))
+        frame = encode_frame(request)
+        self._stream_send(frame)
+        # counted when sent, without a latency: the answer comes on the
+        # stream's callback
+        telemetry().record_request(
+            model_name, "grpc", "stream_infer", None, ok=True,
+            request_bytes=len(frame) - 5, request_id=request_id)
 
     def stop_stream(self, cancel_requests: bool = False) -> None:
         """Close the stream: after the server has answered every request

@@ -4,7 +4,8 @@
 the user's callback on the reader thread, in order, as ``callback(result,
 error)``.  An in-band error (``error_message``) is an error for its
 request only; a non-OK status of the call ends the stream, and later
-sends raise."""
+sends raise.  A stream opened with a deadline (``stream_timeout``) ends
+with DEADLINE_EXCEEDED when it passes."""
 
 from __future__ import annotations
 
@@ -20,12 +21,13 @@ from ..protocol.service import StatusCode
 
 class _InferStream:
     def __init__(self, host: str, callback: Callable, headers: dict,
-                 verbose: bool = False):
+                 verbose: bool = False, deadline_s=None):
         self._callback = callback
         self._verbose = verbose
         self._active = True
         self._call = StreamCall(host, "ModelStreamInfer", headers,
-                                self._on_message, self._on_end)
+                                self._on_message, self._on_end,
+                                deadline_s=deadline_s)
 
     def _on_message(self, payload: bytes) -> None:
         response = pb.ModelStreamInferResponse.FromString(payload)

@@ -123,12 +123,51 @@ class RequestTemplate:
             raws.append(raw)
         return raws
 
+    def raws_for(self, inputs) -> List:
+        """Another request's tensor payloads in this template's order
+        (``infer_many``), each input checked against the template's: the
+        same name, datatype and shape, a compiled-in (shared-memory) input
+        with the same submessage, and a payload of the frozen size."""
+        if len(inputs) != len(self._inputs):
+            raise_error("infer_many item does not match the template's "
+                        f"input count ({len(inputs)} != "
+                        f"{len(self._inputs)})")
+        for ours, theirs in zip(self._inputs, inputs):
+            if (theirs.name() != ours.name()
+                    or theirs.datatype() != ours.datatype()
+                    or list(theirs.shape()) != list(ours.shape())):
+                raise_error(
+                    f"infer_many item input {theirs.name()!r} does not "
+                    "match the template spec (name/dtype/shape must be "
+                    "identical; re-prepare for a new shape)")
+        for i, frozen in self._static_inputs:
+            inp = inputs[i]
+            if inp._get_raw_data() is not None \
+                    or inp._get_tensor_pb().SerializeToString() != frozen:
+                raise_error(f"infer_many item input {inp.name()!r} does not "
+                            "match the template's shared-memory input")
+        raws = []
+        for slot, i in enumerate(self._raw_idx):
+            raw = inputs[i]._get_raw_data()
+            if raw is None:
+                raise_error(f"infer_many item input {inputs[i].name()!r} "
+                            "has no binary data attached")
+            frozen = self._frozen_sizes[slot]
+            if frozen is not None and wire_length(raw) != frozen:
+                raise_error(f"infer_many item input {inputs[i].name()!r} "
+                            f"payload is {wire_length(raw)} bytes, the "
+                            f"template's {frozen}")
+            raws.append(raw)
+        return raws
+
     def stamp(self, request_id: str = "",
-              timeout_us: Optional[int] = None) -> bytes:
+              timeout_us: Optional[int] = None, raws=None) -> bytes:
         """The gRPC-Web frame of the request for the bound inputs' current
-        data: byte for byte the slow path's message with this
-        ``request_id`` (and ``timeout`` parameter, where given)."""
-        raws = self._check()
+        data, or for the payloads ``raws`` (:meth:`raws_for`): byte for
+        byte the slow path's message with this ``request_id`` (and
+        ``timeout`` parameter, where given)."""
+        if raws is None:
+            raws = self._check()
         parts = [self._prefix]
         if request_id:
             rid = request_id.encode("utf-8")

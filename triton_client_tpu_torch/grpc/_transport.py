@@ -26,6 +26,7 @@ from __future__ import annotations
 import http.client
 import socket
 import threading
+import time
 import urllib.parse
 from typing import Callable, Dict, Optional
 
@@ -77,10 +78,11 @@ def http_error(status: int, body: bytes) -> RpcError:
 
 
 def unary(pool, method: str, frame: bytes, response_type, headers: dict,
-          timeout: Optional[float] = None):
+          timeout: Optional[float] = None, sizes: Optional[list] = None):
     """One unary call of an encoded request ``frame`` on ``pool`` (an
     ``http._client._ConnectionPool``): the decoded response, or
-    :class:`RpcError`."""
+    :class:`RpcError`.  ``sizes``, where given, gets the response
+    message's encoded length appended."""
     hdrs = dict(headers)
     hdrs["Content-Type"] = CONTENT_TYPE
     try:
@@ -111,6 +113,8 @@ def unary(pool, method: str, frame: bytes, response_type, headers: dict,
         raise RpcError(status, message, trailing)
     if not frames:
         raise RpcError(StatusCode.INTERNAL, "missing response message")
+    if sizes is not None:
+        sizes.append(len(frames[0]))
     return response_type.FromString(frames[0])
 
 
@@ -119,18 +123,22 @@ class StreamCall:
 
     ``on_message(payload)`` runs on the reader thread for each response
     frame; ``on_end(code, message)`` once, when the response ended (its
-    trailers' status), the connection broke (UNAVAILABLE) or the call was
-    cancelled (CANCELLED)."""
+    trailers' status), the connection broke (UNAVAILABLE), the call was
+    cancelled (CANCELLED) or its ``deadline_s`` passed (DEADLINE_EXCEEDED:
+    each read of the stream's socket waits at most until then)."""
 
     def __init__(self, host: str, method: str, headers: dict,
                  on_message: Callable[[bytes], None],
                  on_end: Callable[[StatusCode, str], None],
-                 connect_timeout: float = 60.0):
+                 connect_timeout: float = 60.0,
+                 deadline_s: Optional[float] = None):
         hostname, _, port = host.rpartition(":")
         if not hostname:
             hostname, port = host, "80"
         self._on_message, self._on_end = on_message, on_end
         self._cancelled = False
+        self._deadline = (time.monotonic() + deadline_s
+                          if deadline_s is not None else None)
         self._send_lock = threading.Lock()
         try:
             self._sock = socket.create_connection((hostname, int(port)),
@@ -185,6 +193,8 @@ class StreamCall:
         code, message = StatusCode.OK, ""
         try:
             rfile = self._sock.makefile("rb")
+            if self._deadline is not None:
+                rfile = _DeadlineReader(rfile, self._sock, self._deadline)
             status_line = rfile.readline(65537).decode("latin-1")
             parts = status_line.split(" ", 2)
             if len(parts) < 2 or not parts[0].startswith("HTTP/"):
@@ -212,6 +222,8 @@ class StreamCall:
                     code, message = parse_trailers(payload)
                 else:
                     self._on_message(payload)
+        except socket.timeout:
+            code, message = StatusCode.DEADLINE_EXCEEDED, "Deadline Exceeded"
         except (OSError, ValueError) as e:
             if self._cancelled:
                 code, message = StatusCode.CANCELLED, \
@@ -224,3 +236,26 @@ class StreamCall:
                 code, message = StatusCode.CANCELLED, \
                     "Locally cancelled by application!"
             self._on_end(code, message)
+
+
+class _DeadlineReader:
+    """A stream's reader under a deadline: before each read the socket's
+    timeout is set to what is left, so the read that would outlast the
+    deadline raises ``socket.timeout``."""
+
+    def __init__(self, rfile, sock, deadline: float):
+        self._rfile, self._sock, self._deadline = rfile, sock, deadline
+
+    def _arm(self) -> None:
+        left = self._deadline - time.monotonic()
+        if left <= 0:
+            raise socket.timeout("deadline exceeded")
+        self._sock.settimeout(left)
+
+    def read(self, *args):
+        self._arm()
+        return self._rfile.read(*args)
+
+    def readline(self, *args):
+        self._arm()
+        return self._rfile.readline(*args)

@@ -35,10 +35,19 @@ The repository calls are the reference's: ``get_model_repository_index``,
 ``"file:<path>"`` -> bytes, sent base64) and ``unload_model``
 (``unload_dependents``).
 
-Not ported yet: client telemetry beyond the retry count and tracing
-headers (ROADMAP A6b); TLS (ROADMAP A3b).
-``infer_many`` and the ``xla`` aliases of the CUDA shared-memory calls are
-not ported.
+Telemetry, as in the reference: every inference stamps a
+``traceparent`` and a ``triton-request-id`` (a caller's own headers of
+those names win), is counted in the process's client registry
+(``_telemetry.telemetry()``: successes, failures, bytes, latency) and,
+where client tracing is on, records its REQUEST, SERIALIZE, NETWORK and
+DESERIALIZE spans, a failed attempt too.  A request under a retry policy
+is one journey: its attempts share one trace id.  ``infer_many`` sends N
+requests of one shape through one compiled template under one retry and
+deadline envelope (a retry resumes at the request that failed) and counts
+them under one lock; its results equal N ``infer`` calls.
+
+Not ported: TLS (ROADMAP A3b) and the ``xla`` aliases of the CUDA
+shared-memory calls.
 """
 
 from __future__ import annotations
@@ -49,17 +58,19 @@ import http.client
 import json
 import socket
 import threading
+import time
 import zlib
 from collections import deque
 from concurrent.futures import Future, ThreadPoolExecutor
 from concurrent.futures import TimeoutError as FuturesTimeoutError
-from typing import Deque, Dict, Optional, Tuple
+from typing import Deque, Dict, List, Optional, Tuple
 from urllib.parse import quote, urlencode
 
 from .._client import InferenceServerClientBase
 from .._request import Request
-from .._resilience import (call_with_retry, min_timeout, normalized_status,
-                           remaining_us)
+from .._resilience import (call_with_retry, deadline_exceeded_error,
+                           min_timeout, normalized_status, remaining_us)
+from .._telemetry import merge_trace_headers, telemetry, traceparent_on_wire
 from ..utils import InferenceServerException, raise_error
 from ._infer_result import InferResult
 from ._template import RequestTemplate
@@ -295,7 +306,8 @@ class InferenceServerClient(InferenceServerClientBase):
         return call_with_retry(
             policy, lambda remaining, _attempt: attempt(remaining),
             method="infer", deadline_s=deadline_s,
-            retry_meta=(model_name, "http", method_name, request_id))
+            retry_meta=(model_name, "http", method_name, request_id),
+            journey=True)
 
     def _with_retry(self, method_kind: str, fn):
         """An idempotent (health or metadata) call under the client's
@@ -557,6 +569,7 @@ class InferenceServerClient(InferenceServerClientBase):
         self._post_checked(
             f"v2/systemsharedmemory/region/{quote(name)}/register",
             json.dumps(body).encode(), headers, query_params)
+        telemetry().record_shm_register("http", "system", byte_size)
 
     def unregister_system_shared_memory(self, name="", headers=None,
                                         query_params=None) -> None:
@@ -583,6 +596,7 @@ class InferenceServerClient(InferenceServerClientBase):
         self._post_checked(
             f"v2/cudasharedmemory/region/{quote(name)}/register",
             json.dumps(body).encode(), headers, query_params)
+        telemetry().record_shm_register("http", "cuda", byte_size)
 
     def unregister_cuda_shared_memory(self, name="", headers=None,
                                       query_params=None) -> None:
@@ -611,10 +625,15 @@ class InferenceServerClient(InferenceServerClientBase):
 
     def _send_infer(self, path: str, body: bytes, json_size: Optional[int],
                     headers, query_params, extra_headers: Dict[str, str],
-                    tenant: Optional[str] = None,
-                    remaining_s: Optional[float] = None) -> InferResult:
+                    tenant: Optional[str], remaining_s: Optional[float],
+                    model_name: str, method: str, request_id: str,
+                    t_ser0: int, sink: Optional[list] = None) -> InferResult:
         """One attempt: ``tenant`` in ``triton-tenant``, what is left of the
-        deadline in ``triton-timeout-us`` and as the socket timeout."""
+        deadline in ``triton-timeout-us`` and as the socket timeout, the
+        trace headers; the request is counted in the client registry (or,
+        with ``sink``, its outcome appended there for the caller's one
+        count of a flight) and, where tracing is on, its spans recorded
+        (``t_ser0``: when the body's build began)."""
         if json_size is not None:
             extra_headers["Inference-Header-Content-Length"] = str(json_size)
         if tenant:
@@ -622,17 +641,53 @@ class InferenceServerClient(InferenceServerClientBase):
         if remaining_s is not None:
             extra_headers["triton-timeout-us"] = str(
                 remaining_us(remaining_s))
-        response = self._post(
-            path, body, headers, query_params, extra_headers,
-            timeout_s=min_timeout(None, remaining_s))
-        raise_if_error(response.status, response.data, response.headers)
+        trace_headers, rid = merge_trace_headers(headers, request_id)
+        extra_headers.update(trace_headers)
+        tel = telemetry()
+        t_ser1 = time.monotonic_ns()
+        t0 = time.perf_counter()
+        try:
+            response = self._post(
+                path, body, headers, query_params, extra_headers,
+                timeout_s=min_timeout(None, remaining_s))
+            raise_if_error(response.status, response.data, response.headers)
+        except Exception:
+            latency = time.perf_counter() - t0
+            if sink is not None:
+                sink.append((False, latency, len(body), 0, rid))
+            else:
+                tel.record_request(model_name, "http", method, latency,
+                                   ok=False, request_bytes=len(body),
+                                   request_id=rid)
+                if tel.tracing_enabled:
+                    tel.record_infer_spans(
+                        rid, model_name, "http", method, t_ser0, t_ser1,
+                        time.monotonic_ns(),
+                        traceparent=traceparent_on_wire(headers,
+                                                        trace_headers),
+                        ok=False)
+            raise
+        t_net1 = time.monotonic_ns()
+        outcome = (True, time.perf_counter() - t0, len(body),
+                   len(response.data), rid)
+        if sink is not None:
+            sink.append(outcome)
+        else:
+            tel.record_request(model_name, "http", method, outcome[1],
+                               ok=True, request_bytes=outcome[2],
+                               response_bytes=outcome[3], request_id=rid)
         header_length = response.headers.get(
             "Inference-Header-Content-Length")
-        return InferResult(
+        result = InferResult(
             response.data, self._verbose,
             int(header_length) if header_length is not None else None,
             response.headers.get("Content-Encoding"),
             headers=response.headers)
+        if tel.tracing_enabled:
+            tel.record_infer_spans(
+                rid, model_name, "http", method, t_ser0, t_ser1, t_net1,
+                traceparent=traceparent_on_wire(headers, trace_headers))
+        return result
 
     def _infer_request(self, model_name, inputs, model_version, outputs,
                        request_id, sequence_id, sequence_start, sequence_end,
@@ -640,7 +695,8 @@ class InferenceServerClient(InferenceServerClientBase):
                        request_compression_algorithm,
                        response_compression_algorithm,
                        parameters, tenant=None,
-                       remaining_s=None) -> InferResult:
+                       remaining_s=None, method="infer") -> InferResult:
+        t_ser0 = time.monotonic_ns()
         body, json_size = get_inference_request_body(
             inputs, request_id, outputs, sequence_id, sequence_start,
             sequence_end, priority, timeout, parameters)
@@ -656,7 +712,7 @@ class InferenceServerClient(InferenceServerClientBase):
         return self._send_infer(
             _model_path(model_name, model_version) + "/infer", body,
             json_size, headers, query_params, extra_headers, tenant,
-            remaining_s)
+            remaining_s, model_name, method, request_id, t_ser0)
 
     def prepare(self, model_name, inputs, model_version="", outputs=None,
                 priority=0, timeout=None, parameters=None) -> PreparedRequest:
@@ -670,11 +726,69 @@ class InferenceServerClient(InferenceServerClientBase):
             parameters))
 
     def _infer_prepared(self, prep: PreparedRequest, request_id, headers,
-                        query_params, tenant=None,
-                        remaining_s=None) -> InferResult:
-        body, json_size = prep.template.stamp(request_id)
+                        query_params, tenant=None, remaining_s=None,
+                        raws=None, sink=None) -> InferResult:
+        t_ser0 = time.monotonic_ns()
+        body, json_size = prep.template.stamp(request_id, raws)
         return self._send_infer(prep.infer_path, body, json_size, headers,
-                                query_params, {}, tenant, remaining_s)
+                                query_params, {}, tenant, remaining_s,
+                                prep.template.model_name, "infer",
+                                request_id, t_ser0, sink)
+
+    def infer_many(self, model_name, requests, model_version="",
+                   outputs=None, priority=0, timeout=None, parameters=None,
+                   request_ids=None, headers=None, query_params=None,
+                   tenant: Optional[str] = None, retry_policy=None,
+                   deadline_s: Optional[float] = None) -> List[InferResult]:
+        """Send every item of ``requests`` (each a list of ``InferInput``
+        with data, of the first item's names, datatypes and shapes) through
+        one compiled template, one after another, under one retry and
+        deadline envelope: the results, in order, equal N ``infer`` calls.
+        The client registry counts each request, under one lock per
+        flight; a retry resumes at the request that failed, and one
+        deadline covers the whole flight."""
+        items = list(requests)
+        if not items:
+            return []
+        template = RequestTemplate(model_name, items[0], outputs,
+                                   model_version, priority, timeout,
+                                   parameters)
+        prep = PreparedRequest(self, template)
+        payloads = [template.raws_for(item) for item in items]
+        ids = list(request_ids) if request_ids else [""] * len(items)
+        if len(ids) != len(items):
+            raise_error("request_ids length must match requests")
+        results: List[Optional[InferResult]] = [None] * len(items)
+        done = [0]  # the requests answered, across attempts
+
+        def flight(remaining, _attempt):
+            deadline = (time.monotonic() + remaining
+                        if remaining is not None else None)
+            sink: list = []
+            try:
+                while done[0] < len(items):
+                    i = done[0]
+                    left = None
+                    if deadline is not None:
+                        left = deadline - time.monotonic()
+                        if left <= 0:
+                            raise deadline_exceeded_error()
+                    results[i] = self._infer_prepared(
+                        prep, ids[i], headers, query_params, tenant, left,
+                        raws=payloads[i], sink=sink)
+                    done[0] += 1
+            finally:
+                telemetry().record_request_batch(model_name, "http",
+                                                 "infer", sink)
+            return results
+
+        policy = retry_policy if retry_policy is not None \
+            else self._retry_policy
+        if policy is None and deadline_s is None:
+            return flight(None, 1)
+        return call_with_retry(policy, flight, method="infer",
+                               deadline_s=deadline_s,
+                               retry_meta=(model_name, "http", "infer", ""))
 
     def infer(self, model_name, inputs, model_version="", outputs=None,
               request_id="", sequence_id=0, sequence_start=False,
@@ -724,7 +838,7 @@ class InferenceServerClient(InferenceServerClientBase):
                     timeout, headers, query_params,
                     request_compression_algorithm,
                     response_compression_algorithm, parameters, tenant,
-                    remaining))
+                    remaining, method="async_infer"))
 
         with self._executor_lock:
             if self._executor is None:

@@ -137,21 +137,28 @@ class RequestTemplate:
         return ops
 
     # -- stamp -------------------------------------------------------------
-    def stamp(self, request_id: str = "") -> Tuple[bytes, Optional[int]]:
-        """The body for the bound inputs' current data and ``request_id``:
-        (body, json_size), byte for byte the slow path's."""
-        self._check_static()
-        self._check_shapes()
-        raws = []
-        for i in self._binary_idx:
-            raw = self._inputs[i]._get_binary_data()
-            if raw is None:
-                raise_error(
-                    "template invalidated: input "
-                    f"{self._inputs[i].name()!r} no longer carries binary "
-                    "data (representation changed after prepare -- "
-                    "re-prepare)")
-            raws.append(raw)
+    def stamp(self, request_id: str = "",
+              raws=None) -> Tuple[bytes, Optional[int]]:
+        """The body for ``request_id`` and the bound inputs' current data,
+        or the payloads ``raws`` (another request's, from
+        :meth:`raws_for`): (body, json_size), byte for byte the slow
+        path's."""
+        if raws is None:
+            self._check_static(self._inputs)
+            self._check_shapes()
+            raws = []
+            for i in self._binary_idx:
+                raw = self._inputs[i]._get_binary_data()
+                if raw is None:
+                    raise_error(
+                        "template invalidated: input "
+                        f"{self._inputs[i].name()!r} no longer carries "
+                        "binary data (representation changed after prepare "
+                        "-- re-prepare)")
+                raws.append(raw)
+        elif len(raws) != len(self._binary_idx):
+            raise_error(f"template expects {len(self._binary_idx)} tensor "
+                        f"payloads, got {len(raws)}")
         sizes = [len(r) for r in raws]
         for slot, frozen in enumerate(self._frozen_sizes):
             if frozen is not None and sizes[slot] != frozen:
@@ -192,11 +199,11 @@ class RequestTemplate:
                         f"{self._frozen_shapes[i]} (re-prepare)")
                 self._frozen_epochs[i] = inp._shape_epoch
 
-    def _check_static(self) -> None:
-        """The header-only inputs and the requested outputs are as they
-        were compiled."""
+    def _check_static(self, inputs) -> None:
+        """The header-only inputs of ``inputs`` and the requested outputs
+        are as they were compiled."""
         for i, frozen in self._static_inputs:
-            inp = self._inputs[i]
+            inp = inputs[i]
             if inp._get_binary_data() is not None or inp._data is not None \
                     or inp._parameters != frozen:
                 raise_error(
@@ -209,3 +216,30 @@ class RequestTemplate:
                     f"template invalidated: output {o.name()!r} parameters "
                     "changed after prepare (its header fields are compiled "
                     "in -- re-prepare)")
+
+    def raws_for(self, inputs) -> List[object]:
+        """Another request's tensor payloads in this template's order
+        (``infer_many``), each input checked against the template's: the
+        same name, datatype and shape, and a header-only (shared-memory)
+        input with the same parameters."""
+        if len(inputs) != len(self._inputs):
+            raise_error("infer_many item does not match the template's "
+                        f"input count ({len(inputs)} != "
+                        f"{len(self._inputs)})")
+        for ours, theirs in zip(self._inputs, inputs):
+            if (theirs.name() != ours.name()
+                    or theirs.datatype() != ours.datatype()
+                    or list(theirs.shape()) != list(ours.shape())):
+                raise_error(
+                    f"infer_many item input {theirs.name()!r} does not "
+                    "match the template spec (name/dtype/shape must be "
+                    "identical; re-prepare for a new shape)")
+        self._check_static(inputs)
+        raws = []
+        for i in self._binary_idx:
+            raw = inputs[i]._get_binary_data()
+            if raw is None:
+                raise_error(f"infer_many item input {inputs[i].name()!r} "
+                            "has no binary data attached")
+            raws.append(raw)
+        return raws

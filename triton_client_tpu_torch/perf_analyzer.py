@@ -57,9 +57,14 @@ connection because a kept-alive one failed before any response byte
 (the client does this below its retry policy, so a server process lost
 under load shows here, not in ``retries``).
 
+``--export-metrics PATH`` writes the sweep's results and the client
+registry's snapshot (``_telemetry.telemetry().snapshot()``: each (model,
+protocol, method)'s counts, bytes and latency quantiles) as strict JSON
+(NaN written as null), as the reference does.
+
 Not ported yet (rejected with the ROADMAP item that brings them):
 several ``-u`` endpoints, ``--balancing`` and ``--hedge-ms`` (the cluster
-client) and ``--export-metrics`` (client telemetry), all A6b.
+client), A6b-5.
 """
 
 from __future__ import annotations
@@ -747,7 +752,6 @@ def _json_sanitize(v):
 _NOT_PORTED = (
     ("balancing", "--balancing", "A6b (the cluster client)"),
     ("hedge_ms", "--hedge-ms", "A6b (the cluster client)"),
-    ("export_metrics", "--export-metrics", "A6b (client telemetry)"),
 )
 
 
@@ -829,6 +833,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument("--trace-rate", type=int, default=100,
                         help="server sampling rate while --trace-file is on "
                              "(trace every Nth request; default 100)")
+    parser.add_argument("--export-metrics", default=None, metavar="PATH",
+                        help="write the sweep's results and the client "
+                             "telemetry snapshot (per model, protocol and "
+                             "method: counts, bytes, latency quantiles) to "
+                             "PATH as strict JSON")
     parser.add_argument("-f", "--latency-report-file", default=None)
     parser.add_argument("-v", "--verbose", action="store_true")
     for dest, flag, item in _NOT_PORTED:
@@ -997,6 +1006,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                 print(f"warning: could not disable server tracing: {e}",
                       file=sys.stderr)
 
+    summary = None
     if args.trace_file:
         from ._trace_summary import format_text, load_trace_file, summarize
 
@@ -1022,6 +1032,22 @@ def main(argv: Optional[List[str]] = None) -> int:
                        if shm is not None else []),
             "cuda": (cuda_shm.allocated_shared_memory_regions()
                      if cuda_shm is not None else [])}))
+
+    if args.export_metrics:
+        exported = {
+            "model": args.model_name,
+            "protocol": args.protocol,
+            "urls": [url],
+            "shared_memory": args.shared_memory,
+            "load_mode": "open_loop" if open_loop else "closed_loop",
+            "results": results,
+            "client_telemetry": telemetry().snapshot(),
+        }
+        if summary is not None:
+            exported["server_trace_summary"] = summary
+        with open(args.export_metrics, "w") as f:
+            json.dump(_json_sanitize(exported), f, indent=2,
+                      allow_nan=False)
 
     if args.latency_report_file:
         with open(args.latency_report_file, "w") as f:

@@ -70,6 +70,20 @@ debug snapshots on a second listener (they are on the HTTP port either
 way).  Tracing and logging are set at run time through
 ``/v2/trace/setting`` and ``/v2/logging``.
 
+The host's view and the postmortems (the reference's flags,
+``__main__.py:122-140`` and :474-535): ``--profile-hz`` sets the sampling
+profiler (default ``TRITON_TPU_PROFILE_HZ``, else 19; 0 turns the sampler
+off, the lag probes and the GC accounting stay); ``--incident-dir``
+(default ``TRITON_TPU_INCIDENT_DIR``, else ``<tmp>/tc-tpu-incidents``)
+receives the incident bundles and ``faulthandler-<pid>.log``, where a
+fatal signal dumps every thread's stack; ``--incident-keep N`` keeps the
+newest N bundles.  ``SIGUSR2`` writes a ``sigusr2`` bundle while the
+server goes on serving: the handler only wakes the thread that writes
+it.  ``--otlp-endpoint URL`` exports every trace record to an OTLP/HTTP
+collector under this process's name (``TRITON_TPU_REPLICA``, else
+``host:port``, with ``#w<i>`` for a ``--frontends`` worker), which every
+record carries.
+
 The fleet (the reference's flags, ``__main__.py:41-80``): ``--frontends
 N`` runs a supervisor that starts N worker processes (this module with
 ``--frontend-worker i``), each a whole server sharing the HTTP port through
@@ -88,7 +102,8 @@ each ``--autoscale-interval`` seconds; a model's config can declare the
 same through its ``autoscale.min_instances`` / ``autoscale.max_instances``
 parameters.  Models with ``model_warmup`` samples are warmed before the
 listeners open; one whose warmup fails is unloaded.  A ``worker_kill``
-chaos draw exits the process with code 70.
+chaos draw exits the process with code 70, once its incident bundle is
+written.
 """
 
 from __future__ import annotations
@@ -484,6 +499,61 @@ def _run_supervisor(ap: argparse.ArgumentParser, args, argv) -> int:
     return rc
 
 
+def _configure_host_view(ap: argparse.ArgumentParser, args, core,
+                         worker_index) -> None:
+    """The profiler's rate, the incident directory and its retention, the
+    faulthandler dump, the replica's name and the OTLP export."""
+    import faulthandler
+
+    if args.profile_hz is not None:
+        core.profiler.hz = args.profile_hz
+    core.incidents.keep = args.incident_keep
+    if args.incident_dir:
+        core.incidents.dir = args.incident_dir
+    os.makedirs(core.incidents.dir, exist_ok=True)
+    # faulthandler keeps only the descriptor: the file lives on the core
+    core._faulthandler_file = open(
+        os.path.join(core.incidents.dir, f"faulthandler-{os.getpid()}.log"),
+        "w")
+    faulthandler.enable(file=core._faulthandler_file)
+    print(f"incident capture: dir={core.incidents.dir} "
+          f"keep={core.incidents.keep} profiler_hz={core.profiler.hz:g} "
+          "(SIGUSR2 triggers a manual bundle)")
+    replica = os.environ.get("TRITON_TPU_REPLICA", "")
+    if not replica:
+        replica = f"{args.host}:{args.http_port}"
+        if worker_index is not None:
+            replica += f"#w{worker_index}"
+    core.tracer.replica = replica
+    if args.otlp_endpoint:
+        try:
+            core.enable_otlp(args.otlp_endpoint, replica=replica)
+        except ValueError as e:
+            ap.error(str(e))
+        print(f"OTLP export: {args.otlp_endpoint} (replica={replica})")
+
+
+def _arm_sigusr2(core) -> None:
+    """SIGUSR2 writes a ``sigusr2`` bundle and serving goes on.  The
+    handler runs on the main thread between two bytecodes, wherever that
+    thread was (it starts the request threads, under threading's own
+    locks), so it takes no lock: it sets an event that a thread of its
+    own waits on, and that thread triggers the bundle."""
+    if not hasattr(signal, "SIGUSR2"):
+        return
+    wake = threading.Event()
+
+    def write_bundles() -> None:
+        while True:
+            wake.wait()
+            wake.clear()
+            core.incidents.trigger("sigusr2", reason="operator SIGUSR2")
+
+    threading.Thread(target=write_bundles, daemon=True,
+                     name="tc-torch-sigusr2").start()
+    signal.signal(signal.SIGUSR2, lambda signum, frame: wake.set())
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m triton_client_tpu_torch.server")
     ap.add_argument("--model-repository", default=None,
@@ -520,6 +590,20 @@ def main(argv=None) -> int:
     ap.add_argument("--metrics-port", type=int, default=8002,
                     help="second listener for /metrics and the debug "
                     "snapshots (0: none; /metrics stays on the HTTP port)")
+    ap.add_argument("--profile-hz", type=float, default=None, metavar="HZ",
+                    help="rate of the host's sampling profiler (default "
+                    "TRITON_TPU_PROFILE_HZ, else 19; 0: the sampler is "
+                    "off, the lag probes and GC accounting stay on)")
+    ap.add_argument("--incident-dir", default=None, metavar="DIR",
+                    help="directory of the incident bundles and of the "
+                    "faulthandler dump (default TRITON_TPU_INCIDENT_DIR, "
+                    "else <tmpdir>/tc-tpu-incidents)")
+    ap.add_argument("--incident-keep", type=int, default=8, metavar="N",
+                    help="keep the newest N incident bundles (default 8)")
+    ap.add_argument("--otlp-endpoint", default=None, metavar="URL",
+                    help="OTLP/HTTP collector to export the trace records "
+                    "to (host:port, or a URL; /v1/traces is added where "
+                    "the URL has no path)")
     _add_admission_flags(ap)
     _add_generation_flags(ap)
     _add_fleet_flags(ap)
@@ -538,6 +622,10 @@ def main(argv=None) -> int:
         autoscale_bounds[name] = bounds
     if args.autoscale_interval <= 0:
         ap.error("--autoscale-interval must be positive")
+    if args.profile_hz is not None and args.profile_hz < 0:
+        ap.error("--profile-hz must be >= 0 (0 = sampler off)")
+    if args.incident_keep < 1:
+        ap.error("--incident-keep must be >= 1")
     worker_index = args.frontend_worker
     if args.frontends > 1 and worker_index is None:
         # the supervisor: it loads no model
@@ -565,8 +653,14 @@ def main(argv=None) -> int:
     _configure_generation(ap, args, core)
     if core.chaos is not None and "worker_kill" in core.chaos.kinds:
         # a worker_kill draw looks like a real crash: no drain, no atexit;
-        # the supervisor (or the operator's init system) heals it
-        core.chaos.worker_kill_cb = lambda: os._exit(70)
+        # the supervisor (or the operator's init system) heals it.  The
+        # draw's incident bundle is written first: a bundle cut off by the
+        # exit would be lost
+        def kill() -> None:
+            core.incidents.wait()
+            os._exit(70)
+
+        core.chaos.worker_kill_cb = kill
         print("chaos: worker_kill armed — this process hard-exits when "
               "the fault fires")
     # always attached (rolling updates and the nv_fleet_* counters need
@@ -597,6 +691,7 @@ def main(argv=None) -> int:
         core.slo.set_objective(name, objective)
         print(f"SLO: {name} p99<={objective.p99_ms:g}ms "
               f"availability={objective.availability:g}")
+    _configure_host_view(ap, args, core, worker_index)
     warmed = core.warmup_models()
     if warmed:
         print(f"warmed up: {warmed}", flush=True)
@@ -638,6 +733,7 @@ def main(argv=None) -> int:
 
     signal.signal(signal.SIGTERM, _stop)
     signal.signal(signal.SIGINT, _stop)
+    _arm_sigusr2(core)
     metrics_at = (f", metrics on {args.host}:{metrics_port}"
                   if metrics_port else "")
     worker = (f" [frontend worker {worker_index}/{args.frontends}]"

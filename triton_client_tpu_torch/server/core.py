@@ -109,9 +109,8 @@ not ready on both protocols and refused at admission with a typed 503,
 the probe's pushback and the ``quarantined`` marker the clients' retry
 layer reads.  Probes run on a doubling backoff, driven by the fleet
 controller's loop where one runs (``core.fleet``, ``fleet.py``), else by
-the core's own prober thread while a model is quarantined.  The
-reference's quarantine also triggers an incident bundle; incidents are
-not ported yet (ROADMAP A6b-3) and the port logs the quarantine.
+the core's own prober thread while a model is quarantined.  Each
+quarantine writes a ``device_fault`` incident bundle.
 
 The repository (the reference's ``load_model`` and
 ``retire_name_caches``, core.py:1780-1853): :meth:`InferenceCore.load_model`
@@ -135,6 +134,18 @@ the old version's batcher (:meth:`InferenceCore.drain_batcher`).  The
 chaos ``worker_kill`` kind calls ``chaos.worker_kill_cb`` and fails its
 request as a severed connection.  The response cache is not ported yet
 (ROADMAP A6b-5).
+
+The host's own view (the reference's, core.py:915-929 and :1776-1777):
+``core.profiler`` (``profiler.py``: the sampler, the lag probes, the GC
+pauses) and ``core.incidents`` (``incident.py``), which the flight
+recorder feeds (``slo_burn``, ``watchdog_storm``).  Both start when
+:meth:`InferenceCore.warmup_models` has run and stop at
+:meth:`InferenceCore.shutdown`.  A chaos ``mem_pressure`` draw writes a
+``chaos`` bundle on a thread of its own, and so does a ``worker_kill``
+draw, started before the callback (the CLI worker's callback waits for
+the bundle, then ends the process).
+:meth:`InferenceCore.enable_otlp` exports every trace record to an OTLP
+collector (``otlp.py``).
 """
 
 from __future__ import annotations
@@ -156,9 +167,11 @@ from .chaos import ChaosAbort
 from .costs import CostLedger, classify_roofline
 from .device_stats import DeviceStatsCollector, SloEngine, SloObjective
 from .flight_recorder import FlightRecorder
+from .incident import IncidentRecorder
 from .log import LOG_DEFAULTS, ServerLog
 from .memory import MemoryGovernor
 from .model import EnsembleModel, Model, TorchModel
+from .profiler import HostProfiler
 from .qos import DEFAULT_TENANT, QosManager, TieredQueue
 from .registry import ModelRegistry
 from .shm import CudaShmRegistry, SystemShmRegistry
@@ -728,6 +741,11 @@ class DeviceFaultManager:
         core = self.core
         if core is not None:
             core.log.error(f"model '{model}' quarantined: {reason}")
+            # the postmortem of the moment the device went bad
+            core.incidents.trigger(
+                "device_fault",
+                reason=f"model '{model}' quarantined: {reason}",
+                context={"model": model, "reason": reason})
             self._start_prober()
 
     def unquarantine(self, model: str) -> None:
@@ -924,6 +942,11 @@ class InferenceCore:
         # tracer hands it each armed context at the end
         self.flight_recorder = FlightRecorder()
         self.tracer.flight_recorder = self.flight_recorder
+        # the host's own view and the postmortems; both start with
+        # warmup_models, so a bare core starts no thread
+        self.profiler = HostProfiler()
+        self.incidents = IncidentRecorder(self)
+        self.flight_recorder.incidents = self.incidents
         # compute windows (duty cycle, live MFU), signature events,
         # transfers and batcher ticks: the nv_tpu_* family
         self.device_stats = DeviceStatsCollector()
@@ -1172,9 +1195,14 @@ class InferenceCore:
             time.sleep(fault.latency_s)
             return
         if fault.kind == "mem_pressure":
-            # the drawing request goes on; the live budget shrinks
+            # the drawing request goes on; the live budget shrinks, and
+            # the governor's state is bundled while it does
             self.memory.inject_pressure(fault.pressure_factor,
                                         fault.latency_s)
+            self.incidents.trigger(
+                "chaos", reason=f"mem_pressure on {model.name} "
+                f"(factor={fault.pressure_factor}, "
+                f"window={fault.latency_s}s)")
             return
         if fault.kind == "abort":
             raise ChaosAbort()
@@ -1183,9 +1211,11 @@ class InferenceCore:
             # exits at once; a drill kills its replica through the replica
             # supervisor).  Where it returns, or none is set, the request
             # fails as a severed connection, what a crashing worker shows
-            # on the wire.  The reference bundles an incident first; the
-            # port logs it (ROADMAP A6b-3)
+            # on the wire.  The bundle starts first (a CLI worker's
+            # callback waits for it, then ends the process)
             self.log.error(f"chaos: worker_kill on {model.name}")
+            self.incidents.trigger(
+                "chaos", reason=f"worker_kill on {model.name}")
             cb = self.chaos.worker_kill_cb
             if cb is not None:
                 cb()
@@ -1841,6 +1871,9 @@ class InferenceCore:
                 except InferError:
                     pass
                 self.retire_name_caches(model.name)
+        # the host's view starts with serving, not with the core
+        self.profiler.start()
+        self.incidents.start()
         return ran
 
     # -- the repository API ------------------------------------------------
@@ -1932,6 +1965,25 @@ class InferenceCore:
             m.unload()  # a model's own worker threads stop
         self.tracer.shutdown()
         self.log.shutdown()
+        # the sampler, the probes, the GC callback and any bundle still
+        # being written
+        self.profiler.stop()
+        self.incidents.stop()
+
+    def enable_otlp(self, endpoint: str, replica: str = "") -> None:
+        """Export every trace record the tracer emits (refusals too) to an
+        OTLP/HTTP collector at ``endpoint``, from a thread that never
+        blocks a request; ``replica`` names this process in the records.
+        The exporter stops with the tracer."""
+        from ..otlp import OtlpExporter, encode_server_record
+
+        if replica:
+            self.tracer.replica = replica
+        old, self.tracer.otlp = self.tracer.otlp, OtlpExporter(
+            endpoint, "triton-tpu-server", encode_server_record,
+            resource_attributes={"replica": replica} if replica else None)
+        if old is not None:
+            old.shutdown()
 
     # -- validation / response ---------------------------------------------
     def _resolve_inputs(self, model: Model,

@@ -22,7 +22,9 @@ under one short lock, with no IO, from any thread.
 
 Surfaces: ``GET /v2/debug/flight_recorder``, the ``FlightRecorder`` RPC,
 and ``nv_flight_recorder_captured_total`` /
-``nv_inference_slow_request_total`` in ``/metrics``.
+``nv_inference_slow_request_total`` in ``/metrics``.  Each SLO pin and
+each capture is also handed to the incident recorder (``incidents``),
+whose detectors turn a run of them into a bundle.
 """
 
 from __future__ import annotations
@@ -214,6 +216,9 @@ class FlightRecorder:
         # pinned with full span trees — the p99 watchdog's retroactive
         # capture, triggered by budget math instead of a quantile
         self.slo_engine = None
+        # the core's IncidentRecorder: SLO pins and captures escalate to
+        # slo_burn and watchdog_storm bundles
+        self.incidents = None
 
     def configure(self, capacity: Optional[int] = None,
                   outlier_capacity: Optional[int] = None,
@@ -369,6 +374,13 @@ class FlightRecorder:
                 self.captured_by_model[record.model] = \
                     self.captured_by_model.get(record.model, 0) + 1
                 self._outliers.append(record)
+        # the incident recorder's detectors, outside the lock: they take
+        # the recorder's own lock and may start a bundle's writer
+        if self.incidents is not None:
+            if slo_pin:
+                self.incidents.note_breach(record.model)
+            if record.capture_reason is not None:
+                self.incidents.note_capture()
 
     def _threshold_us(self, hist: LatencyHistogram) -> Optional[float]:
         if self._abs_ms is not None:

@@ -469,8 +469,9 @@ class InferenceServicer:
                 metadata: Optional[Dict[str, str]] = None) -> InferRequest:
         """The core's request; its decode window (for the request's split)
         from ``decode_start_ns`` (the message's parse) where given; its
-        deadline and priority from its parameters, its tenant from the
-        call's ``metadata``."""
+        deadline and priority from its parameters, its tenant and trace
+        context (``triton-request-id``, ``traceparent``) from the call's
+        ``metadata``."""
         start = decode_start_ns or time.monotonic_ns()
         req = decode_request(request)
         req.decode_start_ns, req.decode_end_ns = (start,
@@ -482,6 +483,9 @@ class InferenceServicer:
         metadata = metadata or {}
         req.tenant = tenant_from_headers(metadata.get("triton-tenant"),
                                          metadata.get("authorization"))
+        # the client's trace context, which the request's trace records
+        req.client_request_id = metadata.get("triton-request-id", "")
+        req.traceparent = metadata.get("traceparent", "")
         return req
 
     def ModelInfer(self, request, wire_bytes: int = 0,

@@ -31,7 +31,9 @@ Observability (the reference's routes, http_server.py:135-147):
 ``GET``/``POST /v2/logging``, ``GET /metrics`` (Prometheus text) and the
 debug snapshots ``GET /v2/debug/flight_recorder`` (``?model=``,
 ``?limit=``), ``/v2/debug/device_stats`` and ``/v2/debug/costs``
-(``?model=``).  An infer request's trace gets its DECODE span here, and
+(``?model=``), the host profiler's ``GET /v2/debug/profile`` (collapsed
+stacks, ``?role=``, ``?format=json``) and the incident bundles' ``GET``
+and ``POST /v2/debug/incident`` (the reference's, http_server.py:561-600).  An infer request's trace gets its DECODE span here, and
 this frontend finishes it: SERIALIZE (the response's encoding) and
 NETWORK_WRITE (until the response is handed to the socket write), then the
 record is emitted before the write, as the reference's (aiohttp writes
@@ -39,7 +41,9 @@ after the handler returns) and the gRPC bridge's are: a client that reads
 the flight recorder after its answer finds its request there.  A
 5xx is written to the server log, and each request at
 ``log_verbose_level`` 1.  :class:`MetricsServer` is the second listener of
-``--metrics-port``: ``/metrics`` and the debug snapshots only.
+``--metrics-port``: ``/metrics`` and the debug routes only.  Each
+listener starts a lag probe on the core's profiler (``frontend`` for the
+HTTP port, ``metrics`` for the metrics port).
 
 Admission (the reference's, http_server.py:44-110 and :239-252): the
 tenant comes from the ``triton-tenant`` header or the basic-auth username,
@@ -163,6 +167,11 @@ _DEBUG_ROUTES = [
     (re.compile(r"/v2/debug/flight_recorder"), "_flight_recorder"),
     (re.compile(r"/v2/debug/device_stats"), "_device_stats"),
     (re.compile(r"/v2/debug/costs"), "_costs"),
+    (re.compile(r"/v2/debug/profile"), "_profile"),
+    (re.compile(r"/v2/debug/incident"), "_incident_status"),
+]
+_DEBUG_POST_ROUTES = [
+    (re.compile(r"/v2/debug/incident"), "_incident_trigger"),
 ]
 
 _GET_ROUTES = [
@@ -200,6 +209,7 @@ _POST_ROUTES = [
      "_repo_unload"),
     (re.compile(r"/v1/completions"), "_oai_completions"),
     (re.compile(r"/v1/chat/completions"), "_oai_chat_completions"),
+    *_DEBUG_POST_ROUTES,
 ]
 
 
@@ -716,6 +726,33 @@ class _Handler(BaseHTTPRequestHandler):
         self._send(200, _json_body(self.core.cost_ledger.snapshot(
             model=self._query_one("model") or None)))
 
+    def _profile(self, groups, body):
+        """The host profiler's window as collapsed-stack text (``?role=``
+        one role's), or its snapshot with ``?format=json``."""
+        profiler = self.core.profiler
+        if self._query_one("format") == "json":
+            self._send(200, _json_body(profiler.snapshot()))
+            return
+        text = profiler.collapsed(self._query_one("role") or None)
+        self._send(200, text.encode("utf-8"),
+                   content_type="text/plain; charset=utf-8")
+
+    def _incident_status(self, groups, body):
+        self._send(200, _json_body(self.core.incidents.snapshot()))
+
+    def _incident_trigger(self, groups, body):
+        """A manual bundle (``{"reason": ...}``, optional), written before
+        the answer, which names it; 202 ``rate_limited`` inside the manual
+        class's interval."""
+        reason = str(_json_object(body).get("reason", "manual trigger"))
+        path = self.core.incidents.trigger("manual", reason=reason,
+                                           sync=True)
+        if path is None:
+            self._send(202, _json_body({"status": "rate_limited",
+                                        "bundle": None}))
+            return
+        self._send(200, _json_body({"status": "written", "bundle": path}))
+
     # -- infer -------------------------------------------------------------
     def _infer(self, groups, raw: bytes):
         decode_start = time.monotonic_ns()
@@ -1048,12 +1085,13 @@ class HttpServer(_CountingServer):
         self.servicer = InferenceServicer(core, self.max_request_bytes)
         self.grpc_methods = set(grpc_web.METHODS)
         super().__init__((host, port), _Handler)
+        core.profiler.install_loop_probe("frontend")
 
 
 class _MetricsHandler(_Handler):
     """``/metrics`` and the debug snapshots, nothing else."""
 
-    ROUTES = {"GET": _DEBUG_ROUTES, "POST": []}
+    ROUTES = {"GET": _DEBUG_ROUTES, "POST": _DEBUG_POST_ROUTES}
 
 
 class MetricsServer(_CountingServer):
@@ -1067,3 +1105,4 @@ class MetricsServer(_CountingServer):
         self.max_request_bytes = 0
         self.grpc_methods = set()
         super().__init__((host, port), _MetricsHandler)
+        core.profiler.install_loop_probe("metrics")

@@ -16,9 +16,13 @@ scheduler family (``nv_tpu_*``, ``device_stats.py``), the memory governor
 (``nv_mem_*``), the prefix/KV block stores (``nv_cache_*``,
 ``kvcache.py``), the SLO burn rates (``nv_slo_*``), device-fault
 containment (``nv_device_*``, ``core.DeviceFaultManager``), the cost
-ledger (``nv_cost_*``) and the fleet (``nv_fleet_*``, ``fleet.py``).  The reference's other families are absent, not zero,
-until their sources are ported: :data:`UNPORTED_FAMILIES` lists each with
-its ROADMAP item.
+ledger (``nv_cost_*``), the fleet (``nv_fleet_*``, ``fleet.py``), the
+host (``nv_host_*``: the profiler's samples per role, the lag probes' and
+GC's pauses, ``profiler.py``, and the incident bundles per trigger and
+outcome, ``incident.py``) and, while an OTLP exporter is set, its posts
+and drops (``nv_otlp_*``; absent, not zero, where none is).  The
+reference's other families are absent, not zero, until their sources are
+ported: :data:`UNPORTED_FAMILIES` lists each with its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -36,9 +40,6 @@ Family = Tuple[str, str, str, List[Tuple[Dict[str, str], Any]]]
 #: the reference's families whose source is not ported yet -> the ROADMAP
 #: item that brings it
 UNPORTED_FAMILIES: Dict[str, str] = {
-    **{name: "A6b (the host profiler and incidents)" for name in ('nv_host_loop_lag_us', 'nv_host_gc_pause_us_total', 'nv_host_profile_samples_total', 'nv_host_incident_total')},
-    **{name: "A6b (OTLP export)" for name in (
-        "nv_otlp_export_total", "nv_otlp_dropped_total")},
     **{name: "A6b (the response cache)" for name in (
         "nv_cache_num_hits_per_model", "nv_cache_num_misses_per_model",
         "nv_cache_num_evictions_per_model")},
@@ -270,6 +271,26 @@ _SLO_FAMILIES: List[Tuple[str, str, str, str]] = [
 ]
 
 
+#: ``nv_host_*`` families: the profiler's rows
+#: (``HostProfiler.metric_rows``) and the incident recorder's
+#: (``IncidentRecorder.metric_rows``), keyed by their short names.
+_HOST_FAMILIES: List[Tuple[str, str, str, str]] = [
+    ("loop_lag", "nv_host_loop_lag_us", "gauge",
+     "Worst wake-up delay of a frontend's lag probe thread over its "
+     "rolling window: the wait for the interpreter lock and the "
+     "scheduler, per frontend (microseconds)"),
+    ("gc_pause", "nv_host_gc_pause_us_total", "counter",
+     "Cumulative stop-the-world garbage-collection pause time per GC "
+     "generation (microseconds, from gc.callbacks)"),
+    ("samples", "nv_host_profile_samples_total", "counter",
+     "Stack samples taken by the always-on host sampling profiler, per "
+     "thread role (frontend / decode / readback / batcher / other)"),
+    ("incidents", "nv_host_incident_total", "counter",
+     "Incident bundle triggers per trigger class and outcome (written = "
+     "bundle produced, suppressed = rate-limited away)"),
+]
+
+
 def collect_families(core: InferenceCore) -> List[Family]:
     """Every server metric family of the port, declared once."""
     keys = [key for _, _, key in _COUNTERS] + [key for _, _, key in _GAUGES]
@@ -368,12 +389,30 @@ def collect_families(core: InferenceCore) -> List[Family]:
     fault_rows = core.device_faults.metric_rows()
     for key, name, kind, help_text in _FAULT_FAMILIES:
         families.append((name, help_text, kind, fault_rows.get(key, [])))
+    host_rows = {**core.profiler.metric_rows(),
+                 **core.incidents.metric_rows()}
+    for key, name, kind, help_text in _HOST_FAMILIES:
+        families.append((name, help_text, kind, host_rows.get(key, [])))
     cost_rows = core.cost_ledger.metric_rows()
     for key, name, kind, help_text in _COST_FAMILIES:
         families.append((name, help_text, kind, cost_rows.get(key, [])))
     fleet_rows = collect_fleet_rows(core)
     for key, name, kind, help_text in _FLEET_FAMILIES:
         families.append((name, help_text, kind, fleet_rows.get(key, [])))
+    otlp = core.tracer.otlp
+    if otlp is not None:
+        counters = otlp.counters()
+        families.append((
+            "nv_otlp_export_total",
+            "Number of OTLP export batches by outcome (ok = collector "
+            "accepted, error = POST failed or non-2xx)", "counter",
+            [({"outcome": "ok"}, counters["ok"]),
+             ({"outcome": "error"}, counters["error"])]))
+        families.append((
+            "nv_otlp_dropped_total",
+            "Number of trace records dropped because the OTLP export "
+            "queue was full (the exporter never blocks the serving path)",
+            "counter", [({}, counters["dropped"])]))
     return families
 
 

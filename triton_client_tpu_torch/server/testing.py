@@ -48,10 +48,15 @@ def free_port() -> int:
 
 
 class ServerHarness:
+    """``replica``, where given, names the server in every trace record
+    and incident bundle (the CLI's ``--host:--http-port``)."""
+
     def __init__(self, registry: Optional[ModelRegistry] = None,
-                 http_port: Optional[int] = None, host: str = "127.0.0.1"):
+                 http_port: Optional[int] = None, host: str = "127.0.0.1",
+                 replica: str = ""):
         self.registry = registry or ModelRegistry()
         self.core = InferenceCore(self.registry)
+        self.core.tracer.replica = replica
         self.host = host
         self.http_port = http_port or free_port()
         self._server: Optional[HttpServer] = None
@@ -97,8 +102,8 @@ class ClusterHarness:
     ``registry_factory`` is called once per server: each replica gets its
     own registry and core, as N processes would.  ``kill(i)`` stops
     replica *i* (its port then refuses connections); ``restart(i)`` brings
-    it back on the same port with a fresh registry and core;
-    ``chaos(i, injector)`` degrades one replica.  ``core_setup`` runs on
+    it back on the same port with a fresh registry and core, both named
+    ``replica-<i>``; ``chaos(i, injector)`` degrades one replica.  ``core_setup`` runs on
     every replica that starts, a restarted one included."""
 
     def __init__(self, registry_factory: Callable[[], ModelRegistry],
@@ -110,8 +115,10 @@ class ClusterHarness:
         self._registry_factory = registry_factory
         self.host = host
         self._core_setup = core_setup
+        # replicas keep their names across a kill and a restart
         self.harnesses: List[Optional[ServerHarness]] = [
-            ServerHarness(registry_factory(), host=host) for _ in range(n)]
+            ServerHarness(registry_factory(), host=host,
+                          replica=f"replica-{i}") for i in range(n)]
         # ports pinned at construction, so that restart(i) rebinds them
         self._http_ports = [h.http_port for h in self.harnesses]
 
@@ -145,7 +152,8 @@ class ClusterHarness:
         if self.harnesses[i] is not None:
             raise RuntimeError(f"server {i} is already running")
         h = ServerHarness(self._registry_factory(),
-                          http_port=self._http_ports[i], host=self.host)
+                          http_port=self._http_ports[i], host=self.host,
+                          replica=f"replica-{i}")
         h.start()
         if self._core_setup is not None:
             self._core_setup(h)

@@ -41,6 +41,11 @@ The port serves each request on a thread of its own and executes batches
 on a pool (the reference: tasks on one event loop), so a request's
 context travels with it: in the batcher's queue item to the executing
 thread, and as :func:`current_trace` on each thread that works for it.
+
+Every record carries ``replica`` where the process has a name
+(``RequestTracer.replica``) and, where ``otlp`` holds an exporter
+(``InferenceCore.enable_otlp``), is also submitted to it as it is written
+(the reference's, trace.py:452-459 and :668-672).
 """
 
 from __future__ import annotations
@@ -392,6 +397,11 @@ class RequestTracer:
         self._model_counters: Dict[str, Dict[str, int]] = {}
         # the core's FlightRecorder: emit() hands it every armed context
         self.flight_recorder = None
+        # this process's name in every record (the CLI's --host:--http-port
+        # and worker, or TRITON_TPU_REPLICA), and the OTLP exporter of
+        # InferenceCore.enable_otlp, which every record is submitted to
+        self.replica = ""
+        self.otlp = None
 
     # -- settings ------------------------------------------------------------
     def settings_updated(self) -> None:
@@ -442,6 +452,9 @@ class RequestTracer:
         return self._trace_file() + ".profile"
 
     def shutdown(self) -> None:
+        otlp, self.otlp = self.otlp, None
+        if otlp is not None:
+            otlp.shutdown()
         self._out.close()
         with self._profile_lock:
             window, self._profile = self._profile, None
@@ -558,10 +571,17 @@ class RequestTracer:
         for key, value in (("shed_reason", shed_reason), ("status", status),
                            ("tenant", tenant), ("protocol", protocol),
                            ("triton_request_id", client_request_id),
-                           ("traceparent", traceparent)):
+                           ("traceparent", traceparent),
+                           ("replica", self.replica)):
             if value:
                 record[key] = value
+        self._export(record)
         self._out.append(path, json.dumps(record) + "\n")
+
+    def _export(self, record: Dict[str, object]) -> None:
+        otlp = self.otlp
+        if otlp is not None:
+            otlp.submit(record)  # never blocks: queued or dropped
 
     def _emit(self, ctx: TraceContext) -> None:
         record = {
@@ -594,6 +614,9 @@ class RequestTracer:
             record["triton_request_id"] = ctx.client_request_id
         if ctx.traceparent:
             record["traceparent"] = ctx.traceparent
+        if self.replica:
+            record["replica"] = self.replica
+        self._export(record)
         # an unwritable trace_file never fails the request (AppendFile
         # drops the write)
         self._out.append(self._rotated_path(ctx), json.dumps(record) + "\n")

@@ -41,6 +41,7 @@ import torch
 
 from ... import _cuda_ipc
 from ..._cuda_broker import RegionEntry, broker
+from ..._telemetry import telemetry
 from .. import (deserialize_bytes_tensor, serialize_byte_tensor,
                 triton_to_torch_dtype, typed_view)
 
@@ -222,6 +223,7 @@ def set_shared_memory_region(cuda_shm_handle: CudaSharedMemoryRegion,
     # a blocking copy: cudaMemcpyAsync on the current stream, then its
     # synchronize, as the original client does
     region[offset:offset + total].copy_(torch.from_numpy(host))
+    telemetry().record_shm_transfer("cuda", "write", total)
 
 
 def set_shared_memory_region_from_dlpack(

@@ -190,6 +190,9 @@ def set_shared_memory_region(shm_handle: SharedMemoryRegionHandle,
             shm_handle._bytes(cur, nbytes)[:] = data.reshape(-1).view(
                 np.uint8)
         cur += nbytes
+    from ..._telemetry import telemetry
+
+    telemetry().record_shm_transfer("system", "write", cur - offset)
 
 
 def get_contents_as_numpy(shm_handle: SharedMemoryRegionHandle, datatype,
