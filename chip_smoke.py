@@ -47,7 +47,7 @@ Phases (any failure exits non-zero and prints no result line):
    then under ``all`` (two: FFN-up too), for its forward time beside the
    default's;
 6. serve ``bert_large`` at full width (S = 384) and ``BERT_SERVE_LAYERS``
-   (12) of its 24 layers: 40 requests (16 under ``all``) of
+   (12) of its 24 layers: 24 requests (16 under ``all``) of
    4 sequences from 8 threads, so the batcher forms batches up to 32, in
    bf16, int8 under ``w2`` and int8 under ``all``; each LOGITS held to the
    plain-kernel forward of the same tokens, and the control (that forward
@@ -276,13 +276,36 @@ Phases (any failure exits non-zero and prints no result line):
     the kill's, 2 on both), its answers held, and SIGTERM drains the fleet
     to exit 0.  Every child process is
     stopped on every exit path;
-19. print each kernel's launches on every served path, one JSON line
+19. the cluster client and the response cache: three CLI replicas of
+    ``longctx_tpu`` base bf16 start (the third behind a chaos latency of
+    ``CC_STRAGGLE_MS`` on every request) while, in this process, two
+    replicas of it (a ``ClusterHarness``) take ``perf_analyzer -u A,B -b
+    4`` at c = 4, once ``--balancing round_robin`` and once
+    ``least_outstanding``: both replicas execute, the client's requests by
+    endpoint equal each replica's own count, flash exactly 8 a forward;
+    then ``bert_large`` int8 ``w2`` at full depth (24 layers), B = 32, by
+    wire with its response cache on (TTL ``CC_TTL_S``, a byte budget under
+    two entries): a hit answers the miss's bytes with no launch, each miss
+    launches int8 exactly 24 times, ``nv_cache_num_*_per_model`` count
+    what was sent, the budget and the TTL evict, a hit's p50 beside a
+    miss's; then the first two CLI replicas (each first answer held to the
+    plain forward beside the controls) under ``perf_analyzer -u A,B
+    --retries 3`` at c = 4, one SIGKILLed a quarter into the window among
+    those that executed in it: zero caller errors, the requests sent
+    again, the breakers' transitions; then the survivor beside the
+    straggler, the same c = 4 window without and with ``--hedge-ms``
+    (``CC_HEDGE_MS``): p99 both ways, hedges won, and ``CC_HEDGED`` hedged
+    requests from this process's ``ClusterClient``, each answer within
+    ``SERVED_ATOL`` of the plain forward.  Every child process is stopped
+    on every exit path;
+20. print each kernel's launches on every served path, one JSON line
     describing every kernel, then the result line
     ``{"ok": true, "device": {...}}``.
 
 Every request goes through the port's own HTTP client
-(``triton_client_tpu_torch.http``) on kept-alive connections, or its gRPC
-client (``triton_client_tpu_torch.grpc``), but ``/generate_stream`` and
+(``triton_client_tpu_torch.http``) on kept-alive connections, its gRPC
+client (``triton_client_tpu_torch.grpc``) or its cluster client over
+them (``triton_client_tpu_torch.cluster``), but ``/generate_stream`` and
 the ``/v1`` routes, which neither client speaks (as the reference's do
 not): the standard library's ``http.client`` reads their events.
 
@@ -369,9 +392,10 @@ N_REQUESTS, N_THREADS = 8, 4
 #: at full width, so that the script stays within its time; the perf, gRPC,
 #: observability and overload phases serve all 24
 BERT_SERVE_LAYERS = 12
-# bert_large: 40 requests of 4 sequences from 8 threads, so up to 32
-# sequences wait at once and the batcher can fill its largest batch (32)
-BERT_REQUESTS, BERT_ROWS, BERT_THREADS = 40, 4, 8
+# bert_large: 24 requests (40 before the cut that made room for the
+# cluster and cache phase, PERF.md) of 4 sequences from 8 threads, so up to
+# 32 sequences wait at once and the batcher can fill its largest batch (32)
+BERT_REQUESTS, BERT_ROWS, BERT_THREADS = 24, 4, 8
 
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -3525,7 +3549,9 @@ def host_view_phase(torch, counters) -> None:
 
 #: "<path>" -> the kernel launches of that overload run
 OVERLOAD_PATHS = {}
-OVERLOAD_WINDOW_MS = 6000
+# the two classes' c = 16 windows (6 s before the cut that made room for
+# the cluster and cache phase, PERF.md)
+OVERLOAD_WINDOW_MS = 4000
 OVERLOAD_SHORT_MS = 2000
 # the tiers' run: a model's bound on pending requests, and its classes
 OVERLOAD_QUEUE = 16
@@ -6213,7 +6239,7 @@ class _FleetServer:
     FLEET_DIR; ``close`` sends SIGTERM and waits, and kills what is left
     on every exit path."""
 
-    def __init__(self, frontends: int, *extra: str):
+    def __init__(self, frontends: int, *extra: str, name: str = ""):
         from triton_client_tpu_torch.server.testing import free_port
 
         self.n = frontends
@@ -6222,7 +6248,8 @@ class _FleetServer:
         self.port = free_port()
         self.mport = _adjacent_ports(frontends)
         os.makedirs(FLEET_DIR, exist_ok=True)
-        self.log_path = os.path.join(FLEET_DIR, f"frontends_{frontends}.log")
+        self.log_path = os.path.join(
+            FLEET_DIR, f"{name or f'frontends_{frontends}'}.log")
         self._log = open(self.log_path, "w")
         env = {k: v for k, v in os.environ.items()
                if not k.startswith("TRITON_TPU_")}
@@ -7171,6 +7198,410 @@ def fleet_phase(torch, counters) -> None:
         sampler.close()
 
 
+# ---------------------------------------------------------------------------
+# the cluster client and the response cache
+# ---------------------------------------------------------------------------
+
+CC_PATHS = {}
+#: each balancing and hedging window, and the SIGKILL window
+CC_WINDOW_MS, CC_KILL_WINDOW_MS = 2000, 3000
+#: the straggler's injected latency, and the hedge's fixed delay: a
+#: backup sent after CC_HEDGE_MS has CC_STRAGGLE_MS - CC_HEDGE_MS to win
+#: on the other replica, which then takes every request's load
+CC_STRAGGLE_MS, CC_HEDGE_MS = 1000, 100
+#: hedged requests the script sends itself, each answer held
+CC_HEDGED = 8
+#: bert_large's cached entries: their TTL and the byte budget (one
+#: LOGITS entry of B = 32 is 98,304 bytes: two do not fit)
+CC_TTL_S, CC_BUDGET = 3.0, 150_000
+#: timed hits and misses (each miss a token set of its own)
+CC_TIMED = 8
+#: bert_large's depth in the cache drill: all of it
+CC_BERT_LAYERS = 24
+#: rows of every longctx_tpu request of the phase (-b 4): a server's
+#: success count is in rows
+CC_ROWS = 4
+
+
+def _cc_stats(url: str, model: str = "longctx_tpu"):
+    """A server's (requests answered, executions) of ``model``, from its
+    ``/v2/models/<model>/stats`` (its success count is in rows, CC_ROWS a
+    request); None where it does not answer."""
+    try:
+        with urllib.request.urlopen(
+                f"http://{url}/v2/models/{model}/stats", timeout=10) as r:
+            s = json.loads(r.read())["model_stats"][0]
+    except OSError:
+        return None
+    return (int(s["inference_stats"]["success"]["count"]) // CC_ROWS,
+            int(s["execution_count"]))
+
+
+def _cc_one(srv, x):
+    """One longctx_tpu request of ``x`` to the CLI replica ``srv`` on a
+    connection of its own: its LOGPROBS."""
+    client = _client(srv.port)
+    try:
+        got, _ = _post_infer(client, "longctx_tpu",
+                             [("TOKENS", "INT32", x)], ["LOGPROBS"])
+    finally:
+        client.close()
+    return got["LOGPROBS"]
+
+
+def _cc_perf(label, urls, args, window_ms: int):
+    """``perf_analyzer -v`` over the cluster ``urls`` in a process of its
+    own: its one level's result (zero errors, or the run fails)."""
+    cmd = [sys.executable, "-m", "triton_client_tpu_torch.perf_analyzer",
+           "-m", "longctx_tpu", "-u", ",".join(urls), "-v",
+           "--measurement-interval", str(window_ms), *args]
+    proc = subprocess.run(cmd, cwd=REPO, env=dict(os.environ,
+                                                  PYTHONPATH=REPO),
+                          capture_output=True, text=True, timeout=600)
+    return _fleet_result(label, proc)
+
+
+def _cc_by(res, key: str, urls) -> list:
+    """A cluster result's per-endpoint counts in the order of ``urls``."""
+    return [res[key].get(u, 0) for u in urls]
+
+
+def _cc_line(label, res, urls, split) -> None:
+    print(f"{label}: {res['throughput']:.3f} infer/s, p50 "
+          f"{res['p50_us'] / 1e3:.3f} ms, p99 {res['p99_us'] / 1e3:.3f} ms, "
+          f"errors {res['errors']}; the client's requests by endpoint "
+          f"{_cc_by(res, 'endpoints_run', urls)} (in the window "
+          f"{_cc_by(res, 'endpoints', urls)}); each replica's own "
+          f"(requests, executions) {split}; hedges {res['hedges']} (won "
+          f"{res['hedge_wins']}); {CARD}", flush=True)
+
+
+def _cc_balancing(torch, counters) -> None:
+    """Two in-process replicas of longctx_tpu base bf16 (a ``ClusterHarness``
+    in this process) under ``perf_analyzer -u A,B -b 4`` at c = 4, once per
+    policy: both replicas execute, the client's requests by endpoint equal
+    each replica's count, and flash launches exactly 8 per execution."""
+    from triton_client_tpu_torch.models import language
+    from triton_client_tpu_torch.server.registry import ModelRegistry
+    from triton_client_tpu_torch.server.testing import ClusterHarness
+
+    models = []
+
+    def factory():
+        r = ModelRegistry()
+        models.append(language.make_longctx_tpu("cuda"))
+        r.register_model(models[-1])
+        return r
+
+    with ClusterHarness(factory, n=2) as ch:
+        for h, m in zip(ch.harnesses, models):
+            _warm(h, m, m.max_batch_size)
+            check_precision("cluster balancing", m.transformer, False)
+        flash = models[0].transformer.cfg.n_layers
+        for policy in ("round_robin", "least_outstanding"):
+            label = f"cluster {policy} -u A,B c=4 -b 4"
+            before = [(m.stats.success_count // CC_ROWS,
+                       m.stats.execution_count) for m in models]
+            _reset(counters)
+            res = _cc_perf(label, ch.http_urls,
+                           ["-b", str(CC_ROWS), "--concurrency-range", "4:4",
+                            "--balancing", policy], CC_WINDOW_MS)
+            launches = {n: mod.launches for n, mod in counters.items()}
+            launches["int8_quantize_rows"] = \
+                counters["int8_matmul"].quantize_launches
+            split = [(m.stats.success_count // CC_ROWS - b[0],
+                      m.stats.execution_count - b[1])
+                     for m, b in zip(models, before)]
+            _cc_line(label, res, ch.http_urls, split)
+            if any(n == 0 for n, _ in split):
+                fail(f"{label}: a replica executed nothing: {split}")
+            if _cc_by(res, "endpoints_run", ch.http_urls) \
+                    != [n for n, _ in split]:
+                fail(f"{label}: the client's requests by endpoint "
+                     f"{res['endpoints_run']} are not the replicas' "
+                     f"{split}")
+            check_launches(label, launches, sum(e for _, e in split),
+                           flash, 0)
+            CC_PATHS[label] = launches
+
+
+def _cc_wait_executed(label, urls, at_window, end_s: float) -> list:
+    """The replicas that executed since ``at_window`` (polled until one
+    has, or ``end_s`` on the monotonic clock)."""
+    while True:
+        now = [_cc_stats(u) for u in urls]
+        busy = [i for i, (a, b) in enumerate(zip(now, at_window))
+                if a is not None and b is not None and a[1] > b[1]]
+        if busy:
+            return busy
+        if time.monotonic() > end_s:
+            fail(f"{label}: no replica executed in the window before the "
+                 f"kill ({at_window} -> {now})")
+        time.sleep(0.02)
+
+
+def _cc_failover(pair):
+    """One CLI replica SIGKILLed a quarter into a c = 4 ``--retries 3``
+    window, among those that executed in it: zero caller errors; the
+    requests sent again, the breakers' transitions and the split after the
+    kill printed.  Returns the survivor."""
+    import signal
+
+    label = "cluster failover"
+    urls = [srv.url for srv in pair]
+    cmd = [sys.executable, "-m", "triton_client_tpu_torch.perf_analyzer",
+           "-m", "longctx_tpu", "-u", ",".join(urls), "-v", "-b",
+           str(CC_ROWS), "--concurrency-range", "4:4", "--retries", "3",
+           "--measurement-interval", str(CC_KILL_WINDOW_MS)]
+    start = [_cc_stats(u) for u in urls]
+    proc = subprocess.Popen(cmd, cwd=REPO, env=dict(os.environ,
+                                                    PYTHONPATH=REPO),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        end = time.monotonic() + 120
+        while [_cc_stats(u) for u in urls] == start:
+            if proc.poll() is not None or time.monotonic() > end:
+                fail(f"{label}: perf_analyzer sent nothing")
+            time.sleep(0.02)
+        time.sleep(1.0)  # the tool's warm-up
+        at_window = [_cc_stats(u) for u in urls]
+        time.sleep(CC_KILL_WINDOW_MS / 4e3)
+        idx = _cc_wait_executed(label, urls, at_window,
+                                time.monotonic() + CC_KILL_WINDOW_MS / 2e3)[0]
+        pre = _cc_stats(urls[idx])
+        t_kill = time.perf_counter()
+        os.kill(pair[idx].proc.pid, signal.SIGKILL)
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    res = _fleet_result(label, subprocess.CompletedProcess(
+        cmd, proc.returncode, out, err))
+    if not res["window_start_s"] <= t_kill <= res["window_end_s"]:
+        fail(f"{label}: the kill at {t_kill:.3f} fell outside the window "
+             f"[{res['window_start_s']:.3f}, {res['window_end_s']:.3f}]")
+    survivor = 1 - idx
+    after = _cc_stats(urls[survivor])
+    split = [((pre if i == idx else after)[0] - start[i][0])
+             for i in range(2)]
+    print(f"{label}: replica {idx} ({urls[idx]}, pid {pair[idx].proc.pid}) "
+          f"SIGKILLed inside the window after {pre[0] - at_window[idx][0]} "
+          f"requests in it: {res['throughput']:.3f} infer/s, p99 "
+          f"{res['p99_us'] / 1e3:.3f} ms, errors {res['errors']}; requests "
+          f"sent again: {res['retries_run']} by the retry policy, "
+          f"{res['resends_run']} on a new connection; breakers "
+          f"{res['breakers']}; the client's requests by endpoint "
+          f"{_cc_by(res, 'endpoints_run', urls)}, each replica's own "
+          f"{split} (the victim's to the kill); the survivor's after the "
+          f"kill {after[0] - at_window[survivor][0]} from the window's "
+          f"start; {CARD}", flush=True)
+    if res["retries_run"] + res["resends_run"] < 1:
+        fail(f"{label}: no request was sent again across the kill")
+    if "open" not in res["breakers"][urls[idx]]:
+        fail(f"{label}: the victim's breaker never opened: "
+             f"{res['breakers']}")
+    return pair[survivor]
+
+
+def _cc_hedging(torch, survivor, straggler, check, x) -> None:
+    """The survivor and a replica behind chaos latency (every longctx_tpu
+    request CC_STRAGGLE_MS late): the same c = 4 round-robin window
+    without and with ``--hedge-ms``, p99 both ways; hedge wins; then
+    CC_HEDGED hedged requests from this process, each answer held to the
+    plain forward.  Round robin: under least outstanding the straggler's
+    queue of backups keeps the primaries off it, and a backup sent to the
+    straggler never wins."""
+    from triton_client_tpu_torch import http
+    from triton_client_tpu_torch._telemetry import telemetry
+    from triton_client_tpu_torch.cluster import ClusterClient, HedgePolicy
+
+    label = "cluster hedging"
+    urls = [survivor.url, straggler.url]
+    check("the straggler's warm-up", _cc_one(straggler, x))
+    runs = {}
+    for hedge in (False, True):
+        name = f"{label} c=4 -b 4" + (f" --hedge-ms {CC_HEDGE_MS}" if hedge
+                                      else "")
+        before = [_cc_stats(u) for u in urls]
+        res = _cc_perf(name, urls, ["-b", str(CC_ROWS),
+                                    "--concurrency-range", "4:4",
+                                    "--balancing", "round_robin"]
+                       + (["--hedge-ms", str(CC_HEDGE_MS)] if hedge else []),
+                       CC_WINDOW_MS)
+        split = [(a[0] - b[0], a[1] - b[1]) for a, b in
+                 zip([_cc_stats(u) for u in urls], before)]
+        _cc_line(name, res, urls, split)
+        runs[hedge] = res
+    print(f"{label}: p99 without / with --hedge-ms {CC_HEDGE_MS}: "
+          f"{runs[False]['p99_us'] / 1e3:.3f} / "
+          f"{runs[True]['p99_us'] / 1e3:.3f} ms (the straggler "
+          f"+{CC_STRAGGLE_MS} ms); hedges {runs[True]['hedges']}, won "
+          f"{runs[True]['hedge_wins']}; {CARD}", flush=True)
+    if not runs[True]["hedge_wins"] > 0:
+        fail(f"{label}: no hedge won ({runs[True]['hedges']} issued)")
+    snap = telemetry().snapshot()["hedges"]
+    h0 = sum(h["hedges"] for h in snap), sum(h["wins"] for h in snap)
+    hedge = HedgePolicy(default_delay_s=CC_HEDGE_MS / 1e3,
+                        min_samples=1 << 30)
+    with ClusterClient(urls, protocol="http", policy="round_robin",
+                       hedge=hedge,
+                       client_kwargs={"network_timeout": 300}) as c:
+        for k in range(CC_HEDGED):
+            inp = http.InferInput("TOKENS", list(x.shape), "INT32")
+            inp.set_data_from_numpy(x)
+            r = c.infer("longctx_tpu", [inp], hedge=True,
+                        outputs=[http.InferRequestedOutput("LOGPROBS")])
+            check(f"hedged request {k}", r.as_numpy("LOGPROBS"))
+    snap = telemetry().snapshot()["hedges"]
+    hedges = sum(h["hedges"] for h in snap) - h0[0]
+    wins = sum(h["wins"] for h in snap) - h0[1]
+    print(f"{label}: {CC_HEDGED} hedged requests from this process: "
+          f"{hedges} hedges, {wins} won, every answer within SERVED_ATOL",
+          flush=True)
+    if not wins > 0:
+        fail(f"{label}: none of this process's hedges won")
+
+
+def _cc_cache(torch, counters) -> None:
+    """bert_large int8 ``w2`` at full depth (24 layers), B = 32, by wire,
+    with its response cache on (TTL CC_TTL_S, byte budget CC_BUDGET): a
+    hit answers the miss's bytes with no launch, a miss launches int8
+    exactly 24 times, the server's hit and miss counters equal what was
+    sent, a budget under two entries evicts, and after the TTL a repeat
+    misses again; a hit's p50 against a miss's."""
+    import numpy as np
+
+    from triton_client_tpu_torch.models import language
+
+    label = "response cache bert_large int8 w2"
+    os.environ["TRITON_TPU_QUANT_BERT_LARGE"] = "int8"
+    os.environ["TRITON_TPU_INT8_FUSED"] = "w2"
+    try:
+        with bert_depth(CC_BERT_LAYERS):
+            bert = language.make_bert_large("cuda")
+            layers = language.BERT_LARGE.n_layers
+        bert.config.response_cache = True
+        bert.config.parameters["response_cache.ttl_s"] = str(CC_TTL_S)
+        S, V = language.BERT_SEQ_LEN, language.BERT_LARGE.vocab_size
+        xs = [model_tokens(BERT_SEED + 100 + k, 32, S, V)
+              for k in range(4 + CC_TIMED)]
+        with serving_harness([bert]) as harness:
+            cache = harness.core.response_cache
+            cache.budget_bytes = CC_BUDGET
+            _warm(harness, bert, 32)  # the weights, and a first entry
+            check_precision(label, bert.transformer, True)
+            check = bert_check(label, torch, bert, True, xs[0])
+            client = _client(harness.http_port)
+            tally = {"hits": 0, "misses": 0, "evictions": 0}
+            c0 = (cache.hits_by_model.get("bert_large", 0),
+                  cache.misses_by_model.get("bert_large", 0),
+                  cache.evictions_by_model.get("bert_large", 0))
+            times = {"hit": [], "miss": []}
+
+            def send(x, hit: bool, evicts: int = 0):
+                _reset(counters)
+                got, dt = _post_infer(client, "bert_large",
+                                      [("INPUT_IDS", "INT32", x)],
+                                      ["LOGITS"])
+                launches = {n: mod.launches for n, mod in counters.items()}
+                launches["int8_quantize_rows"] = \
+                    counters["int8_matmul"].quantize_launches
+                check_launches(f"{label} {'hit' if hit else 'miss'}",
+                               launches, 0 if hit else 1, 0, layers)
+                tally["hits" if hit else "misses"] += 1
+                tally["evictions"] += evicts
+                times["hit" if hit else "miss"].append(dt)
+                return got["LOGITS"]
+
+            miss = send(xs[0], False, evicts=1)  # the warm-up's entry goes
+            check("the first miss", miss)
+            hit = send(xs[0], True)
+            if hit.tobytes() != miss.tobytes():
+                fail(f"{label}: the hit's bytes differ from the miss's")
+            for _ in range(CC_TIMED):
+                send(xs[0], True)
+            send(xs[1], False, evicts=1)           # the budget: xs[0] goes
+            again = send(xs[0], False, evicts=1)   # ... so it misses
+            if again.tobytes() != miss.tobytes():
+                fail(f"{label}: a repeat's miss answers other bytes")
+            t_put = time.monotonic()
+            send(xs[0], True)
+            time.sleep(max(0.0, t_put + CC_TTL_S + 0.2 - time.monotonic()))
+            send(xs[0], False, evicts=1)           # expired: a miss again
+            for k in range(CC_TIMED):
+                send(xs[2 + k], False, evicts=1)
+            client.close()
+            fams = _metrics(harness.http_port)
+        got = {k: _metric_sum(fams, name, model="bert_large") - c
+               for (k, name), c in zip((
+                   ("hits", "nv_cache_num_hits_per_model"),
+                   ("misses", "nv_cache_num_misses_per_model"),
+                   ("evictions", "nv_cache_num_evictions_per_model")), c0)}
+        if got != tally:
+            fail(f"{label}: /metrics counted {got}, the script sent "
+                 f"{tally}")
+        p50 = {k: 1e3 * float(np.median(v)) for k, v in times.items()}
+        print(f"{label}: {tally['hits']} hits, {tally['misses']} misses, "
+              f"{tally['evictions']} evictions (budget {CC_BUDGET} bytes, "
+              f"TTL {CC_TTL_S:g} s), as /metrics counts them; int8 "
+              f"launches {layers} a miss, 0 a hit; the hit's bytes the "
+              f"miss's; p50 hit {p50['hit']:.3f} ms against miss "
+              f"{p50['miss']:.3f} ms (by wire, B = 32); {CARD}", flush=True)
+        CC_PATHS[label] = {"flash_attention": 0,
+                           "int8_matmul": layers * tally["misses"]}
+    finally:
+        for var in ("TRITON_TPU_QUANT_BERT_LARGE", "TRITON_TPU_INT8_FUSED"):
+            os.environ.pop(var, None)
+
+
+def cluster_cache_phase(torch, counters) -> None:
+    """The cluster client and the response cache: three CLI replicas of
+    longctx_tpu base bf16 start (one behind chaos latency) while two
+    in-process replicas serve the balancing runs and bert_large serves the
+    cache drill here; then the SIGKILL failover over two CLI replicas,
+    then hedging over the survivor and the straggler.  Every child process
+    is stopped on every exit path."""
+    from triton_client_tpu_torch.models import language
+
+    servers = []
+
+    def step(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"cluster and cache: {name} took "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        return out
+
+    try:
+        servers = [_FleetServer(1, name=f"cluster_{i}") for i in range(2)]
+        servers.append(_FleetServer(
+            1, "--chaos", "1.0", "--chaos-kinds", "latency",
+            "--chaos-latency-ms", str(CC_STRAGGLE_MS), "--chaos-model",
+            "longctx_tpu", name="cluster_straggler"))
+        step("balancing", _cc_balancing, torch, counters)
+        step("response cache", _cc_cache, torch, counters)
+        ref = language.make_longctx_tpu("cuda")
+        run = ref.transformer
+        run._ensure()
+        x = model_tokens(LONGCTX_SEED, ref.max_batch_size,
+                         ref.config.input[0].dims[0], 256)
+        check = _longctx_holder("cluster", torch, run, x)
+        del ref, run
+        for srv in servers:
+            srv.wait_up("cluster")
+        for srv in servers[:2]:
+            check(f"replica {srv.url}'s warm-up", _cc_one(srv, x))
+        survivor = step("failover", _cc_failover, servers[:2])
+        step("hedging", _cc_hedging, torch, survivor, servers[2], check, x)
+    finally:
+        for srv in servers:
+            srv.close()
+
+
 def _signature_of(harness, model, x):
     """The input signature the server records for a batch like ``x``."""
     from triton_client_tpu_torch.server.core import _signature
@@ -7338,14 +7769,17 @@ def main() -> int:
                             (torch, counters)),
                            ("openai, genai_perf and repository",
                             openai_repository_phase, (torch, counters)),
-                           ("fleet", fleet_phase, (torch, counters))):
+                           ("fleet", fleet_phase, (torch, counters)),
+                           ("cluster and cache", cluster_cache_phase,
+                            (torch, counters))):
         t0 = time.perf_counter()
         fn(*args)
         print(f"{name} phase took {time.perf_counter() - t0:.1f} s",
               flush=True)
     # and every transport's window of the shared-memory phases, every
     # perf_analyzer run, every gRPC window, every vision window, every
-    # observability run, every overload run and every generation window
+    # observability run, every overload run, every generation window and
+    # the cluster's balancing runs and the response cache's requests
     paths.update(SHM_PATHS)
     paths.update(PERF_PATHS)
     paths.update(GRPC_PATHS)
@@ -7357,6 +7791,7 @@ def main() -> int:
     paths.update(CF_PATHS)
     paths.update(OAI_PATHS)
     paths.update(FLEET_PATHS)
+    paths.update(CC_PATHS)
     for path, launches in paths.items():
         print(f"launches on {path}: flash_attention "
               f"{launches['flash_attention']}, int8_matmul "

@@ -19,8 +19,9 @@ The counterpart of ``tests/test_fleet.py``, class by class:
   zero caller errors, one counted restart on every worker's metrics port,
   SIGTERM drains to exit 0;
 * a drill on ``ClusterHarness`` and ``ReplicaSupervisor``: a seeded
-  ``worker_kill`` and a rolling update under overload, one retrying client
-  per replica (the reference's cluster client is ROADMAP A6b-5);
+  ``worker_kill`` and a rolling update under overload, flooded through the
+  port's ``ClusterClient`` (least outstanding, ``RetryPolicy(3)``), as the
+  reference's drill floods through its own;
 * the sibling-worker shared-memory manifest;
 * the ``nv_fleet_*`` rows.
 
@@ -51,6 +52,7 @@ from triton_client_tpu.server import types as jtypes
 from triton_client_tpu.server.registry import ModelRegistry as JaxRegistry
 from triton_client_tpu_torch import _resilience as tres
 from triton_client_tpu_torch import http as thttp
+from triton_client_tpu_torch.cluster import ClusterClient
 from triton_client_tpu_torch.models import zoo as tzoo
 from triton_client_tpu_torch.server import chaos as tchaos
 from triton_client_tpu_torch.server import fleet as tfleet
@@ -1117,11 +1119,11 @@ def _drill_model():
 
 
 class TestFleetDrill:
-    """Two replicas at ~2x overload, one retrying client per replica for
-    each of 8 callers: a seeded worker_kill on replica 1 (healed by the
-    ReplicaSupervisor) and a rolling update on replica 0 give zero caller
-    errors; the autoscaler scales replica 0 out and its burn comes back
-    under the threshold; the restart shows on /metrics."""
+    """Two replicas at ~2x overload, 8 callers each on a ClusterClient
+    (least outstanding, RetryPolicy(3)): a seeded worker_kill on replica 1
+    (healed by the ReplicaSupervisor) and a rolling update on replica 0
+    give zero caller errors; the autoscaler scales replica 0 out and its
+    burn comes back under the threshold; the restart shows on /metrics."""
 
     def test_drill(self, monkeypatch):
         controllers = {}
@@ -1155,33 +1157,22 @@ class TestFleetDrill:
             errors, stop = [], threading.Event()
             x = np.ones((1, 4), dtype=np.int32)
 
-            def flood(k):
-                clients = [thttp.InferenceServerClient(u)
-                           for u in ch.http_urls]
-                i0 = thttp.InferInput("IN", [1, 4], "INT32")
-                i0.set_data_from_numpy(x)
+            def flood():
                 try:
-                    n = 0
-                    while not stop.is_set():
-                        first = (k + n) % 2
-                        n += 1
-                        for r in (first, 1 - first):
-                            try:
-                                out = clients[r].infer(
-                                    DRILL, [i0], retry_policy=policy)
-                                break
-                            except Exception:  # noqa: BLE001 - the other
-                                if r != first:  # replica was the last
-                                    raise
-                        np.testing.assert_array_equal(out.as_numpy("OUT"), x)
+                    with ClusterClient(ch.http_urls, protocol="http",
+                                       policy="least_outstanding",
+                                       retry_policy=policy) as c:
+                        i0 = thttp.InferInput("IN", [1, 4], "INT32")
+                        i0.set_data_from_numpy(x)
+                        while not stop.is_set():
+                            out = c.infer(DRILL, [i0], priority=0)
+                            np.testing.assert_array_equal(
+                                out.as_numpy("OUT"), x)
                 except Exception as e:  # noqa: BLE001 - reported below
                     errors.append(repr(e))
-                finally:
-                    for c in clients:
-                        c.close()
 
-            threads = [threading.Thread(target=flood, args=(k,),
-                                        daemon=True) for k in range(8)]
+            threads = [threading.Thread(target=flood, daemon=True)
+                       for _ in range(8)]
             for t in threads:
                 t.start()
             core0 = ch.harnesses[0].core

@@ -154,6 +154,24 @@ def test_every_unported_family_is_the_reference_s():
         assert item.startswith(("A6b", "A7")), (name, item)
 
 
+def test_response_cache_families_are_the_reference_s(scraped):
+    """The response cache's three families, ported with it: declared with
+    the reference's help and type, empty where no model caches, in the
+    text and the snapshot (``tests/test_torch_response_cache.py`` holds
+    their values under traffic)."""
+    assert tmetrics.UNPORTED_FAMILIES == {}
+    port = parse_prometheus(scraped["port"]["text"])
+    ref = parse_prometheus(scraped["jax"]["text"])
+    for name in ("nv_cache_num_hits_per_model",
+                 "nv_cache_num_misses_per_model",
+                 "nv_cache_num_evictions_per_model"):
+        assert port[name] == ref[name], name
+        assert port[name]["samples"] == []
+        snap = scraped["port"]["snapshot"][name]
+        assert (snap["help"], snap["type"], snap["samples"]) == (
+            ref[name]["help"], ref[name]["type"], [])
+
+
 def test_label_keys_and_types_match_reference(scraped):
     port = parse_prometheus(scraped["port"]["text"])
     ref = parse_prometheus(scraped["jax"]["text"])

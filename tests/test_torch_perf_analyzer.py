@@ -12,9 +12,14 @@ CPU; mirrors ``tests/test_perf_analyzer.py``.
   under ``none`` and ``system``; zero errors, and afterwards no region in
   either status list, in this process or under a key of this process in
   /dev/shm.  One open-loop rate, the ``-f`` CSV headers equal to the
-  reference's, the reference's flags the port does not take yet refused
-  with the ROADMAP item that brings them, and ``--streaming`` without
-  ``-i grpc`` refused as the reference refuses it.
+  reference's, and ``--streaming`` without ``-i grpc`` refused as the
+  reference refuses it.
+* Over a two-replica CPU cluster (``ClusterHarness``): several ``-u``,
+  ``--balancing`` and ``--hedge-ms`` each run a sweep on one shared
+  ``ClusterClient``, whose per-endpoint counts equal each replica's
+  statistics, with the reference's result keys; the cluster refusals
+  (``--shared-memory``, ``--streaming``, ``--trace-file``, duplicate
+  endpoints, a hedge over one endpoint) with the reference's texts.
 """
 
 import json
@@ -233,9 +238,17 @@ def test_csv_headers_match_reference(harness, tmp_path):
     # metadata is fixed when it opens
     (["-i", "grpc", "--streaming", "--retries", "3"],
      "--retries is not supported with --streaming"),
-    (["-u", "a:1", "-u", "b:2"], "ROADMAP A6"),
-    (["--balancing", "round_robin"], "ROADMAP A6"),
-    (["--hedge-ms", "5"], "ROADMAP A6"),
+    # the reference's cluster rules
+    (["-u", "a:1", "-u", "a:1"], "duplicate -u endpoints"),
+    (["-u", "a:1,b:2", "--shared-memory", "system"],
+     "--shared-memory requires a single -u endpoint"),
+    (["-u", "a:1", "-u", "b:2", "-i", "grpc", "--streaming"],
+     "not supported with multiple -u endpoints"),
+    (["-u", "a:1", "-u", "b:2", "--trace-file", "/tmp/t.json"],
+     "--trace-file requires a single -u endpoint"),
+    (["--hedge-ms", "5"], "--hedge-ms needs at least two -u endpoints"),
+    (["-u", "a:1,b:2", "--hedge-ms", "-1"], "--hedge-ms must be >= 0"),
+    (["--balancing", "fastest"], "invalid choice"),
     (["-i", "grpc", "--streaming", "--tenant", "t"],
      "--tenant is not supported with --streaming"),
     (["--priority", "high"], "invalid int value"),
@@ -249,6 +262,87 @@ def test_flags_not_ported_are_refused(flag, why, capsys):
         tpa.main(["-m", "simple", *flag])
     assert err.value.code == 2
     assert why in capsys.readouterr().err
+
+
+@pytest.fixture(scope="module")
+def pair():
+    """Two replicas of ``simple``."""
+    from triton_client_tpu_torch.server.testing import ClusterHarness
+
+    def factory():
+        r = ModelRegistry()
+        r.register_model(tzoo.make_simple())
+        return r
+
+    with ClusterHarness(factory, n=2) as ch:
+        yield ch
+
+
+def _served(ch):
+    return [h.core.statistics("simple")[0]["inference_stats"]["success"]
+            ["count"] for h in ch.harnesses]
+
+
+@pytest.mark.parametrize("flags", [
+    ["-u", "{0}", "-u", "{1}"],
+    ["-u", "{0},{1}", "--balancing", "round_robin"],
+    ["-u", "{0}", "-u", "{1}", "--hedge-ms", "50"],
+], ids=["several-u", "balancing", "hedge-ms"])
+def test_cluster_flags_run_a_sweep(pair, flags, capsys):
+    """Each cluster flag sweeps the pair through one shared ClusterClient:
+    no error, both replicas served, the run's per-endpoint counts equal to
+    each replica's own count, the result carrying ``hedges`` /
+    ``hedge_wins`` (with ``--hedge-ms``, replica 1 answers 400 ms late and
+    a hedge past it wins)."""
+    from triton_client_tpu_torch.server.chaos import ChaosInjector
+
+    argv = [f.format(*pair.http_urls) for f in flags]
+    hedged = "--hedge-ms" in flags
+    if hedged:
+        pair.chaos(1, ChaosInjector(rate=1.0, kinds=["latency"],
+                                    latency_ms=400.0, seed=1))
+    before = _served(pair)
+    try:
+        rc = tpa.main(["-m", "simple", *argv, "--concurrency-range", "2",
+                       "--measurement-interval", WINDOW_MS, "-v"])
+    finally:
+        pair.chaos(1, None)
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    (res,) = _results(out)
+    assert res["errors"] == 0 and res["throughput"] > 0, res
+    served = [a - b for a, b in zip(_served(pair), before)]
+    assert all(n > 0 for n in served), served
+    assert [res["endpoints_run"][u] for u in pair.http_urls] == served
+    assert sum(res["endpoints"].values()) <= sum(served)
+    assert "endpoint distribution: " in out
+    policy = "round_robin" if "--balancing" in flags else \
+        "least_outstanding"
+    assert f"[{policy}" in out
+    if hedged:
+        assert res["hedges"] > 0 and 0 < res["hedge_wins"] <= res["hedges"]
+        assert "hedge 50ms" in out
+    else:
+        assert res["hedges"] == res["hedge_wins"] == 0
+
+
+def test_cluster_result_keys_are_the_reference_s(pair, tmp_path, capsys):
+    """The reference's tool over the same pair, and the port's: every key
+    of the reference's level result is in the port's."""
+    urls = ",".join(pair.http_urls)
+    keys = []
+    for mod in (tpa, jpa):
+        path = tmp_path / f"{mod.__name__}.json"
+        assert mod.main(["-m", "simple", "-u", urls,
+                         "--concurrency-range", "1",
+                         "--measurement-interval", WINDOW_MS,
+                         "--export-metrics", str(path)]) == 0
+        exported = json.loads(path.read_text())
+        assert exported["urls"] == pair.http_urls
+        keys.append(set(exported["results"][0]))
+    capsys.readouterr()
+    assert keys[1] <= keys[0], keys[1] - keys[0]
+    assert {"endpoints", "hedges", "hedge_wins"} <= keys[1]
 
 
 def test_xla_mode_is_dropped(capsys):

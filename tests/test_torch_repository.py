@@ -713,17 +713,17 @@ def test_reference_model_py_is_refused(tmp_path):
 
 @pytest.mark.parametrize("extra,item", [
     ("model_warmup [{ name: \"w\" batch_size: 1 }]", None),
-    ("response_cache { enable: true }", "A6b-5"),
+    ("response_cache { enable: true }", None),
     ("instance_group [{ count: 2 kind: KIND_CPU }]", None),
     ("dynamic_batching { preserve_ordering: true }", "A3b"),
 ], ids=["warmup", "response-cache", "instances", "preserve-ordering"])
 def test_unserved_config_fields_are_refused(tmp_path, extra, item):
     """A field the port does not serve is refused, naming its ROADMAP item.
     The fields it serves since the fleet (``model_warmup``, and
-    ``instance_group`` beyond one group of count 1; ``item`` None) load in
-    both packages with the reference's answer: the same refusal (a warmup
-    sample without the model's input fails the load) or the same config
-    and outputs."""
+    ``instance_group`` beyond one group of count 1) and the response cache
+    (``response_cache``; ``item`` None) load in both packages with the
+    reference's answer: the same refusal (a warmup sample without the
+    model's input fails the load) or the same config and outputs."""
     outcomes = {}
     for which, registry, harness in (("port", ModelRegistry, ServerHarness),
                                      ("ref", JaxRegistry, JaxHarness)):
@@ -745,6 +745,7 @@ def test_unserved_config_fields_are_refused(tmp_path, extra, item):
             x.set_data_from_numpy(np.arange(4, dtype=np.int32))
             outcomes[which] = ("loaded", cfg.get("instance_group"),
                                cfg.get("model_warmup"),
+                               cfg.get("response_cache"),
                                c.infer("m", [x]).as_numpy("Y").tolist())
     if item is not None:
         assert outcomes["port"][0] == "refused"

@@ -1,9 +1,7 @@
 """The client's telemetry: the process's registry of requests, and the
 trace context that joins a client's request to the server's record of it.
 
-The port's copy of ``triton_client_tpu/_telemetry.py``, less the cluster
-client's parts (the per-endpoint counters and states and the hedges wait
-for ROADMAP A6b-5):
+The port's copy of ``triton_client_tpu/_telemetry.py``:
 
 * :class:`LatencyHistogram`, log-bucketed (5% per bucket from 1 us to
   ~130 s): quantiles to ~2.5% without keeping samples, one lock and two
@@ -12,7 +10,9 @@ for ROADMAP A6b-5):
 * :class:`ClientTelemetry`, the registry :func:`telemetry` returns: per
   (model, protocol, method) successes, failures, retries, request and
   response bytes and a latency histogram, and the shared-memory register
-  and transfer counters.  Both clients record every request in it
+  and transfer counters, and the cluster client's series: requests per
+  endpoint and outcome, each endpoint's breaker state, hedges issued and
+  won per (model, protocol).  Both clients record every request in it
   (``record_request``; ``infer_many`` one flight at a time,
   ``record_request_batch``).  A request hook sees every record and never
   fails a request.  ``render_prometheus`` gives the ``nv_client_*``
@@ -26,7 +26,9 @@ for ROADMAP A6b-5):
   ``traceparent`` and ``triton-request-id``, which the server records in
   its trace and echoes back.  Inside a journey (:func:`begin_journey`, the
   retry layer's scope around its attempts) every attempt shares the
-  journey's trace id and takes a span id of its own.
+  journey's trace id and takes a span id of its own; the cluster client
+  drops zero-length events on it (``ENDPOINT_SWITCH``, ``BREAKER_OPEN``,
+  :meth:`ClientTelemetry.record_journey_event`).
 
 ``AppendFile`` is the cached append handle of this module's trace file,
 the server's request tracer and its log; ``escape_label`` the Prometheus
@@ -55,6 +57,9 @@ REQUEST_ID_HEADER = "triton-request-id"
 TRACEPARENT_HEADER = "traceparent"
 #: a collector endpoint here arms the client's OTLP export at import
 OTLP_ENDPOINT_ENV = "TRITON_TPU_OTLP_ENDPOINT"
+
+#: ``nv_client_endpoint_state``'s value of each breaker state
+ENDPOINT_STATE_CODES = {"closed": 0, "open": 1, "half_open": 2}
 
 # a header-safe id: visible ASCII; another id stays in the body only
 _HEADER_SAFE = re.compile(r"[\x20-\x7e]+\Z")
@@ -320,6 +325,11 @@ class ClientTelemetry:
         self._shm_register: Dict[Tuple[str, str], List[int]] = {}
         # (kind, direction) -> [transfers, bytes]; direction write | read
         self._shm_transfer: Dict[Tuple[str, str], List[int]] = {}
+        # the cluster client's: (endpoint, success | failure) -> requests,
+        # endpoint -> breaker state, (model, protocol) -> [hedges, wins]
+        self._endpoint_requests: Dict[Tuple[str, str], int] = {}
+        self._endpoint_state: Dict[str, str] = {}
+        self._hedges: Dict[Tuple[str, str], List[int]] = {}
         self._hook: Optional[Callable[[Dict[str, Any]], None]] = None
         # client tracing: a JSON Lines file and/or an OTLP exporter
         self._trace_path: Optional[str] = None
@@ -423,6 +433,35 @@ class ClientTelemetry:
             c[0] += 1
             c[1] += int(nbytes)
 
+    # -- the cluster client ------------------------------------------------
+    def record_endpoint_request(self, endpoint: str, ok: bool) -> None:
+        """One request the cluster client routed to ``endpoint``
+        (``nv_client_endpoint_requests_total``)."""
+        key = (endpoint, "success" if ok else "failure")
+        with self._lock:
+            self._endpoint_requests[key] = \
+                self._endpoint_requests.get(key, 0) + 1
+
+    def set_endpoint_state(self, endpoint: str, state: str) -> None:
+        """An endpoint's breaker state, ``closed``, ``open`` or
+        ``half_open`` (``nv_client_endpoint_state``, 0 / 1 / 2).  An open
+        breaker drops a ``BREAKER_OPEN`` event on the journey in progress:
+        it explains the endpoint switch that follows."""
+        with self._lock:
+            self._endpoint_state[endpoint] = state
+        if state == "open":
+            self.record_journey_event("BREAKER_OPEN", endpoint=endpoint,
+                                      ok=False)
+
+    def record_hedge(self, model: str, protocol: str,
+                     won: bool = False) -> None:
+        """One hedge issued (``won`` False), or one hedge that answered
+        before its primary (``won`` True): ``nv_client_hedges_total`` and
+        ``nv_client_hedge_wins_total``."""
+        with self._lock:
+            c = self._hedges.setdefault((model, protocol), [0, 0])
+            c[1 if won else 0] += 1
+
     # -- client tracing ----------------------------------------------------
     def enable_tracing(self, path: str) -> None:
         """Write each request's client spans to ``path`` (JSON Lines), with
@@ -517,6 +556,23 @@ class ClientTelemetry:
             if self._trace_path == path:
                 self._trace_out.append(path, line)
 
+    def record_journey_event(self, name: str, model: str = "",
+                             protocol: str = "", endpoint: str = "",
+                             request_id: str = "", ok: bool = True) -> None:
+        """A zero-length event (``ENDPOINT_SWITCH``, ``BREAKER_OPEN``) on
+        the journey in progress, attributed to ``endpoint``; nothing where
+        tracing is off or no journey is open."""
+        if not self.tracing_enabled:
+            return
+        journey = _JOURNEY.get()
+        if journey is None:
+            return
+        now = time.monotonic_ns()
+        self.record_client_trace(
+            request_id or journey.request_id, model, protocol, "event",
+            spans=[(name, now, now)], ok=ok,
+            traceparent=journey.traceparent, endpoint=endpoint)
+
     # -- the hook ----------------------------------------------------------
     def set_request_hook(
             self, hook: Optional[Callable[[Dict[str, Any]], None]]) -> None:
@@ -530,6 +586,9 @@ class ClientTelemetry:
             self._requests.clear()
             self._shm_register.clear()
             self._shm_transfer.clear()
+            self._endpoint_requests.clear()
+            self._endpoint_state.clear()
+            self._hedges.clear()
 
     def _copy(self):
         with self._lock:
@@ -539,11 +598,14 @@ class ClientTelemetry:
                     sorted((k, list(v))
                            for k, v in self._shm_register.items()),
                     sorted((k, list(v))
-                           for k, v in self._shm_transfer.items()))
+                           for k, v in self._shm_transfer.items()),
+                    dict(sorted(self._endpoint_requests.items())),
+                    dict(sorted(self._endpoint_state.items())),
+                    sorted((k, list(v)) for k, v in self._hedges.items()))
 
     def snapshot(self) -> Dict[str, Any]:
         """Every series as JSON (``perf_analyzer --export-metrics``)."""
-        series, shm_reg, shm_tx = self._copy()
+        series, shm_reg, shm_tx, ep_req, ep_state, hedges = self._copy()
         requests = []
         for (model, protocol, method), s in series:
             entry = {"model": model, "protocol": protocol, "method": method,
@@ -557,6 +619,13 @@ class ClientTelemetry:
         return {
             "requests": requests,
             "otlp": otlp.counters() if otlp is not None else None,
+            "endpoints": [
+                {"endpoint": e, "success": ep_req.get((e, "success"), 0),
+                 "failure": ep_req.get((e, "failure"), 0),
+                 "state": ep_state.get(e)}
+                for e in sorted({e for e, _ in ep_req} | set(ep_state))],
+            "hedges": [{"model": m, "protocol": p, "hedges": c[0],
+                        "wins": c[1]} for (m, p), c in hedges],
             "shared_memory": {
                 "register": [{"protocol": p, "kind": k,
                               "registrations": c[0], "bytes": c[1]}
@@ -569,7 +638,7 @@ class ClientTelemetry:
 
     def render_prometheus(self) -> str:
         """The client's series in the Prometheus text exposition format."""
-        series, shm_reg, shm_tx = self._copy()
+        series, shm_reg, shm_tx, ep_req, ep_state, hedges = self._copy()
         lines: List[str] = []
 
         def family(name: str, help_text: str, kind: str,
@@ -614,6 +683,29 @@ class ClientTelemetry:
             summary.append(f"{name}_count{{{labels(k)}}} {h.count}")
         family(name, "Client-observed inference request duration in "
                "microseconds", "summary", summary)
+        family("nv_client_endpoint_requests_total",
+               "Number of client requests routed to each cluster endpoint",
+               "counter",
+               [f'nv_client_endpoint_requests_total{{endpoint='
+                f'"{escape_label(e)}",outcome="{escape_label(o)}"}} {n}'
+                for (e, o), n in ep_req.items()])
+        family("nv_client_endpoint_state",
+               "Cluster endpoint breaker state (0=closed, 1=open, "
+               "2=half_open)", "gauge",
+               [f'nv_client_endpoint_state{{endpoint="{escape_label(e)}"}} '
+                f"{ENDPOINT_STATE_CODES.get(st, -1)}"
+                for e, st in ep_state.items()])
+        for name, help_text, i in (
+                ("nv_client_hedges_total",
+                 "Number of hedged requests issued by the cluster client",
+                 0),
+                ("nv_client_hedge_wins_total",
+                 "Number of hedged requests where the hedge beat the "
+                 "primary", 1)):
+            family(name, help_text, "counter",
+                   [f'{name}{{model="{escape_label(m)}",'
+                    f'protocol="{escape_label(p)}"}} {c[i]}'
+                    for (m, p), c in hedges])
         family("nv_client_shared_memory_register_total",
                "Number of shared-memory regions registered by this client "
                "process", "counter",

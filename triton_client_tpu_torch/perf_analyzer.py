@@ -62,9 +62,22 @@ registry's snapshot (``_telemetry.telemetry().snapshot()``: each (model,
 protocol, method)'s counts, bytes and latency quantiles) as strict JSON
 (NaN written as null), as the reference does.
 
-Not ported yet (rejected with the ROADMAP item that brings them):
-several ``-u`` endpoints, ``--balancing`` and ``--hedge-ms`` (the cluster
-client), A6b-5.
+Two or more ``-u`` endpoints (repeated or comma-separated) put every
+worker of a level on one shared ``cluster.ClusterClient``, as the
+reference does (its perf_analyzer.py:84-121): shared, because the
+least-outstanding policy and the breakers route on the pool's state, and
+a pool per worker would see one request in flight and choose at random.
+``--balancing round_robin|least_outstanding`` (default
+``least_outstanding``) picks the policy, ``--hedge-ms MS`` hedges each
+request after a fixed MS (``HedgePolicy`` with ``min_samples`` pinned
+high, so the delay never turns into the observed p95).  Such a level
+reports ``endpoints`` (requests routed to each endpoint from its window's
+start to the level's end, the reference's), ``endpoints_run`` (over the
+whole run, to compare with each server's statistics), ``hedges``,
+``hedge_wins`` and ``breakers`` (each endpoint's breaker transitions).  A
+cluster sweep refuses ``--streaming``, ``--shared-memory`` and
+``--trace-file`` (each belongs to one server), as the reference does;
+metadata comes from the first endpoint that answers.
 """
 
 from __future__ import annotations
@@ -112,6 +125,41 @@ def _resends_recorded() -> int:
     from .http._client import connection_resends
 
     return connection_resends()
+
+
+def _cluster_recorded():
+    """The client registry's requests per endpoint, hedges and hedge wins
+    so far (process-wide)."""
+    snap = telemetry().snapshot()
+    dist = {e["endpoint"]: e["success"] + e["failure"]
+            for e in snap["endpoints"]}
+    return (dist, sum(h["hedges"] for h in snap["hedges"]),
+            sum(h["wins"] for h in snap["hedges"]))
+
+
+def _delta(after: Dict[str, int], before: Dict[str, int]) -> Dict[str, int]:
+    return {e: after.get(e, 0) - before.get(e, 0)
+            for e in sorted(set(before) | set(after))}
+
+
+def _shared_cluster(urls, protocol: str, concurrency: int,
+                    balancing: str, hedge_ms: float):
+    """The level's one ``ClusterClient`` over ``urls``; None for a single
+    endpoint."""
+    if isinstance(urls, str) or len(urls) < 2:
+        return None
+    from .cluster import ClusterClient, HedgePolicy
+
+    # --hedge-ms is a fixed delay: min_samples out of reach, or the policy
+    # would switch to the observed p95 within the warm-up
+    hedge = (HedgePolicy(default_delay_s=hedge_ms / 1e3,
+                         min_samples=1 << 30) if hedge_ms > 0 else None)
+    return ClusterClient(
+        list(urls), protocol=protocol, policy=balancing, hedge=hedge,
+        client_kwargs={} if protocol == "grpc"
+        else {"concurrency": concurrency},
+        # every primary and its backup may be in flight at once
+        hedge_workers=max(32, 2 * concurrency))
 
 
 def _retries_recorded(model_name: str) -> int:
@@ -349,9 +397,12 @@ class _InferSession:
     def __init__(self, url, model_name, model_version, arrays, outputs,
                  shm_mode, output_byte_size, worker_id, cuda_device="cuda",
                  protocol="http", streaming=False, qos_class=None,
-                 retry_policy=None):
+                 retry_policy=None, shared=None):
         mod = _protocol_module(protocol)
-        self._client = _make_client(url, protocol)
+        # a level's shared cluster client is the level's to close
+        self._owns_client = shared is None
+        self._client = _make_client(url, protocol) if shared is None \
+            else shared
         self._shm_setup = None
         self._stream_open = False
         priority, tenant = qos_class if qos_class else (0, None)
@@ -362,6 +413,14 @@ class _InferSession:
                                         outputs, worker_id, output_byte_size,
                                         cuda_device)
             self._shm_setup.attach(infer_inputs, requested)
+            if shared is not None:
+                # the cluster client routes each request: no template
+                client = self._client
+                self.infer = lambda: client.infer(
+                    model_name, infer_inputs, model_version=model_version,
+                    outputs=requested, priority=priority,
+                    retry_policy=retry_policy, tenant=tenant)
+                return
             prep = self._client.prepare(
                 model_name, infer_inputs, model_version=model_version,
                 outputs=requested, priority=priority)
@@ -406,18 +465,19 @@ class _InferSession:
             self._client.stop_stream()
         if self._shm_setup is not None:
             self._shm_setup.cleanup()
-        self._client.close()
+        if self._owns_client:
+            self._client.close()
 
 
 def _worker(url, model_name, model_version, arrays, outputs, shm_mode,
             output_byte_size, worker_id, stop, measuring, stats: _Stats, lock,
             cuda_device="cuda", protocol="http", streaming=False,
-            qos_class=None, retry_policy=None):
+            qos_class=None, retry_policy=None, shared=None):
     try:
         session = _InferSession(url, model_name, model_version,
                                 arrays, outputs, shm_mode, output_byte_size,
                                 worker_id, cuda_device, protocol, streaming,
-                                qos_class, retry_policy)
+                                qos_class, retry_policy, shared)
     except Exception as e:  # noqa: BLE001 - reported, not a dead thread
         with lock:
             stats.errors += 1
@@ -465,12 +525,16 @@ def _worker(url, model_name, model_version, arrays, outputs, shm_mode,
 def run_level(url, model_name, model_version, concurrency, arrays, outputs,
               shm_mode, output_byte_size, measure_s, warmup_s=1.0,
               extra_percentile=None, cuda_device="cuda", protocol="http",
-              streaming=False, qos_classes=None, retry_policy=None):
+              streaming=False, qos_classes=None, retry_policy=None,
+              balancing="least_outstanding", hedge_ms=0.0):
     """One closed-loop level: ``concurrency`` workers, each sending its
     next request as soon as the last one is answered.  With
     ``qos_classes`` (``(priority, tenant)`` pairs) worker ``w`` sends as
     class ``w % len(classes)`` and the result gains a per-class
-    ``classes`` breakdown."""
+    ``classes`` breakdown.  ``url``: one endpoint, or a list of them for a
+    cluster level (``balancing``, ``hedge_ms``)."""
+    shared = _shared_cluster(url, protocol, concurrency, balancing,
+                             hedge_ms)
     classes = list(qos_classes) if qos_classes else [(0, None)]
     class_stats = [_Stats() for _ in classes]
     lock = threading.Lock()
@@ -483,16 +547,18 @@ def run_level(url, model_name, model_version, concurrency, arrays, outputs,
                   shm_mode, output_byte_size, w, stop, measuring,
                   class_stats[w % len(classes)], lock, cuda_device,
                   protocol, streaming, classes[w % len(classes)],
-                  retry_policy),
+                  retry_policy, shared),
             daemon=True)
         for w in range(concurrency)]
     retries_start = _retries_recorded(model_name)
     resends_start = _resends_recorded()
+    cluster_start = _cluster_recorded()
     for t in threads:
         t.start()
     time.sleep(warmup_s)
     # the window's retries, as its counts
     retries_before = _retries_recorded(model_name)
+    cluster_before = _cluster_recorded()
     measuring.set()
     t0 = time.perf_counter()
     time.sleep(measure_s)
@@ -540,8 +606,26 @@ def run_level(url, model_name, model_version, concurrency, arrays, outputs,
                  pushback_run=cs.pushback_run,
                  **_latency_stats(cs.latency, extra_percentile))
             for i, (cls, cs) in enumerate(zip(classes, class_stats))]
+    if shared is not None:
+        _cluster_result(res, shared, cluster_start, cluster_before)
     res.update(_latency_stats(stats.latency, extra_percentile))
     return res
+
+
+def _cluster_result(res: dict, shared, start, before) -> None:
+    """A cluster level's client closed (a hedge's loser still running ends
+    first), then its routing: ``endpoints`` from its window's start,
+    ``endpoints_run`` over the run, ``hedges`` and ``hedge_wins`` from the
+    window's start (all to the level's end), and ``breakers``: each
+    endpoint's breaker transitions in the run."""
+    shared.close()
+    dist, hedges, wins = _cluster_recorded()
+    res["endpoints"] = _delta(dist, before[0])
+    res["endpoints_run"] = _delta(dist, start[0])
+    res["hedges"] = hedges - before[1]
+    res["hedge_wins"] = wins - before[2]
+    res["breakers"] = {e.url: list(e.breaker.history)
+                       for e in shared.pool.endpoints}
 
 
 def _latency_stats(latencies: Union[LatencyHistogram, list],
@@ -585,7 +669,8 @@ def run_rate_level(url, model_name, model_version, rate, arrays, outputs,
                    distribution="constant", max_threads=64,
                    extra_percentile=None, cuda_device="cuda",
                    protocol="http", streaming=False, qos_classes=None,
-                   retry_policy=None):
+                   retry_policy=None, balancing="least_outstanding",
+                   hedge_ms=0.0):
     """One open-loop level at ``rate`` requests/s: the send times are
     scheduled up front (constant or Poisson gaps, from a fixed seed) and
     latency counts from the scheduled time.  A server that cannot keep up
@@ -595,6 +680,8 @@ def run_rate_level(url, model_name, model_version, rate, arrays, outputs,
     classes = list(qos_classes) if qos_classes else [(0, None)]
     if rate <= 0:
         raise ValueError(f"request rate must be positive, got {rate}")
+    shared = _shared_cluster(url, protocol, max_threads, balancing,
+                             hedge_ms)
     # the schedule covers warm-up, window and 1 s more
     horizon = warmup_s + measure_s + 1.0
     n_slots = int(rate * horizon) + 1
@@ -622,7 +709,8 @@ def run_rate_level(url, model_name, model_version, rate, arrays, outputs,
             session = _InferSession(url, model_name, model_version, arrays,
                                     outputs, shm_mode, output_byte_size,
                                     worker_id, cuda_device, protocol,
-                                    streaming, classes[ci], retry_policy)
+                                    streaming, classes[ci], retry_policy,
+                                    shared)
         except Exception as e:  # noqa: BLE001 - reported below
             with lock:
                 ready[0] += 1
@@ -669,6 +757,7 @@ def run_rate_level(url, model_name, model_version, rate, arrays, outputs,
                for w in range(max_threads)]
     retries_start = _retries_recorded(model_name)
     resends_start = _resends_recorded()
+    cluster_start = _cluster_recorded()
     for t in threads:
         t.start()
     deadline = time.monotonic() + 30.0
@@ -679,6 +768,7 @@ def run_rate_level(url, model_name, model_version, rate, arrays, outputs,
     # the window owns every slot scheduled in it, sent or not
     time.sleep(warmup_s)
     retries_before = _retries_recorded(model_name)
+    cluster_before = _cluster_recorded()
     time.sleep(measure_s)
     retries_window = _retries_recorded(model_name) - retries_before
     stop.set()
@@ -732,6 +822,8 @@ def run_rate_level(url, model_name, model_version, rate, arrays, outputs,
                 pushback_run=sum(1 for row in done
                                  if row[4] == i and row[5]),
                 **_latency_stats(c_ok, extra_percentile)))
+    if shared is not None:
+        _cluster_result(res, shared, cluster_start, cluster_before)
     res.update(_latency_stats(ok, extra_percentile))
     return res
 
@@ -747,14 +839,6 @@ def _json_sanitize(v):
     return v
 
 
-# flags of the reference tool whose machinery is not ported yet, and the
-# ROADMAP item that brings each
-_NOT_PORTED = (
-    ("balancing", "--balancing", "A6b (the cluster client)"),
-    ("hedge_ms", "--hedge-ms", "A6b (the cluster client)"),
-)
-
-
 def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(
         prog="perf_analyzer",
@@ -763,8 +847,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument("-m", "--model-name", required=True)
     parser.add_argument("-x", "--model-version", default="")
     parser.add_argument("-u", "--url", action="append", default=None,
-                        help="server endpoint (one; several endpoints need "
-                             "the cluster client, ROADMAP A6b)")
+                        help="server endpoint; repeat (or comma-separate) "
+                             "for a fleet: two or more drive one shared "
+                             "ClusterClient and report each endpoint's "
+                             "requests and the hedges")
     parser.add_argument("-i", "--protocol", default="http", type=str.lower,
                         choices=["http", "grpc"],
                         help="http, or grpc (gRPC-Web on the server's "
@@ -772,6 +858,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument("--streaming", action="store_true",
                         help="send on one gRPC stream per worker (needs "
                              "-i grpc)")
+    parser.add_argument("--balancing", default="least_outstanding",
+                        type=str.lower,
+                        choices=["round_robin", "least_outstanding"],
+                        help="balancing policy over several -u endpoints "
+                             "(default least_outstanding)")
+    parser.add_argument("--hedge-ms", type=float, default=0.0,
+                        help="hedged requests: a backup to a second "
+                             "endpoint after this many ms (0 = off; needs "
+                             "several -u endpoints)")
     parser.add_argument("-b", "--batch-size", type=int, default=1)
     parser.add_argument("--concurrency-range", default=None,
                         help="start:end:step closed-loop concurrency sweep")
@@ -840,14 +935,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                              "PATH as strict JSON")
     parser.add_argument("-f", "--latency-report-file", default=None)
     parser.add_argument("-v", "--verbose", action="store_true")
-    for dest, flag, item in _NOT_PORTED:
-        parser.add_argument(flag, dest=dest, default=None,
-                            help=f"not ported yet (ROADMAP {item})")
     args = parser.parse_args(argv)
-    for dest, flag, item in _NOT_PORTED:
-        if getattr(args, dest) not in (None, False):
-            parser.error(f"{flag} is not ported to triton_client_tpu_torch "
-                         f"yet (ROADMAP {item})")
     if args.streaming and args.protocol != "grpc":
         parser.error("--streaming requires -i grpc")
     if args.streaming and args.retries:
@@ -858,12 +946,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         # a stream's metadata is fixed when it opens
         parser.error("--tenant is not supported with --streaming")
     qos_classes = _parse_classes(args.priority, args.tenant)
-    retry_policy = None
-    if args.retries > 0:
-        from ._resilience import RetryPolicy
-
-        retry_policy = RetryPolicy(max_attempts=args.retries,
-                                   retry_infer=True)
     if args.concurrency_range and args.request_rate_range:
         parser.error("--concurrency-range and --request-rate-range are "
                      "mutually exclusive (closed- vs open-loop)")
@@ -872,11 +954,34 @@ def main(argv: Optional[List[str]] = None) -> int:
     urls: List[str] = []
     for u in (args.url or []):
         urls.extend(p.strip() for p in u.split(",") if p.strip())
-    if len(urls) > 1:
-        parser.error("several -u endpoints need the cluster client, which "
-                     "is not ported to triton_client_tpu_torch yet (ROADMAP "
-                     "A6b)")
-    url = urls[0] if urls else "localhost:8000"
+    urls = urls or ["localhost:8000"]
+    if len(set(urls)) != len(urls):
+        parser.error(f"duplicate -u endpoints: {urls}")
+    cluster = len(urls) > 1
+    if cluster and args.streaming:
+        parser.error("--streaming drives one stream per worker and is not "
+                     "supported with multiple -u endpoints")
+    if cluster and args.shared_memory != "none":
+        # a region registered on one replica is unknown to the others
+        parser.error("--shared-memory requires a single -u endpoint")
+    if args.hedge_ms < 0:
+        parser.error("--hedge-ms must be >= 0")
+    if args.hedge_ms and not cluster:
+        parser.error("--hedge-ms needs at least two -u endpoints to hedge "
+                     "across")
+    if cluster and args.trace_file:
+        # the trace settings reach one server: its breakdown would cover a
+        # share of the sweep
+        parser.error("--trace-file requires a single -u endpoint (server "
+                     "tracing is per-server; trace each replica directly)")
+    retry_policy = None
+    if args.retries > 0 or args.hedge_ms > 0:
+        from ._resilience import RetryPolicy
+
+        # a hedge runs a request twice, as a retry does: a policy that may
+        # retry infer arms it, of one attempt where --retries is not given
+        retry_policy = RetryPolicy(max_attempts=max(1, args.retries),
+                                   retry_infer=True)
 
     if args.shared_memory != "none":
         # the region modules import torch: here, not inside a level's
@@ -885,12 +990,24 @@ def main(argv: Optional[List[str]] = None) -> int:
             f"{__package__}.utils."
             + ("shared_memory" if args.shared_memory == "system"
                else "cuda_shared_memory"))
-    meta_client = _make_client(url, args.protocol)
-    try:
-        inputs, output_specs, max_batch = _resolve_model(
-            meta_client, args.model_name, args.model_version, args.protocol)
-    finally:
-        meta_client.close()
+    # the metadata from the first endpoint that answers: a dead first -u
+    # must not fail a sweep the cluster client would route around
+    for url in urls:
+        meta_client = _make_client(url, args.protocol)
+        try:
+            inputs, output_specs, max_batch = _resolve_model(
+                meta_client, args.model_name, args.model_version,
+                args.protocol)
+            break
+        except Exception as e:  # noqa: BLE001 - the next may answer
+            if url == urls[-1]:
+                raise
+            print(f"warning: {url} unreachable for metadata "
+                  f"({type(e).__name__}); trying the next endpoint",
+                  file=sys.stderr)
+        finally:
+            meta_client.close()
+    target = urls if cluster else url
     outputs = [o["name"] for o in output_specs]
     if args.batch_size > 1 and max_batch == 0:
         print(f"error: model {args.model_name} does not support batching",
@@ -919,7 +1036,11 @@ def main(argv: Optional[List[str]] = None) -> int:
           + (f"open-loop ({args.request_distribution} arrivals)"
              if open_loop else "closed-loop (concurrency)") + "\n"
           f"  Protocol: {args.protocol}"
-          + (" (streaming)" if args.streaming else "") + f" @ {url}\n")
+          + (" (streaming)" if args.streaming else "")
+          + f" @ {', '.join(urls)}"
+          + (f" [{args.balancing}"
+             + (f", hedge {args.hedge_ms:g}ms" if args.hedge_ms else "")
+             + "]" if cluster else "") + "\n")
 
     def report(res, lead):
         results.append(res)
@@ -932,12 +1053,20 @@ def main(argv: Optional[List[str]] = None) -> int:
             tail += f", {res['retries']} retries"
         if res.get("rejected"):
             tail += f", rejected {res['rejected_per_sec']:.1f}/s"
+        if res.get("hedges"):
+            tail += (f", {res['hedges']} hedges"
+                     f" ({res.get('hedge_wins', 0)} won)")
         if res["errors"]:
             tail += f" ({res['errors']} errors)"
         print(f"{lead}{res['throughput']:.2f} infer/sec, "
               f"latency {headline:.0f} usec" + tail)
         if res["errors"] and res.get("first_error"):
             print(f"  first error: {res['first_error']}")
+        if "endpoints" in res:
+            total = sum(res["endpoints"].values()) or 1
+            print("  endpoint distribution: " + ", ".join(
+                f"{e}: {n} ({100.0 * n / total:.0f}%)"
+                for e, n in res["endpoints"].items()))
         if args.verbose:
             line = (f"  p50: {res['p50_us']:.0f} us, "
                     f"p90: {res['p90_us']:.0f} us, "
@@ -977,25 +1106,27 @@ def main(argv: Optional[List[str]] = None) -> int:
                 parser.error(str(e))
             for rate in rates:
                 res = run_rate_level(
-                    url, args.model_name, args.model_version, rate, arrays,
+                    target, args.model_name, args.model_version, rate, arrays,
                     outputs, args.shared_memory, output_size,
                     measure_s, distribution=args.request_distribution,
                     max_threads=args.max_threads,
                     extra_percentile=args.percentile,
                     cuda_device=args.cuda_shared_memory_device,
                     protocol=args.protocol, streaming=args.streaming,
-                    qos_classes=qos_classes, retry_policy=retry_policy)
+                    qos_classes=qos_classes, retry_policy=retry_policy,
+                    balancing=args.balancing, hedge_ms=args.hedge_ms)
                 report(res, f"Request rate: {rate:g}/s, completed "
                             "(latency from scheduled send): ")
         else:
             for level in _parse_concurrency_range(args.concurrency_range):
                 res = run_level(
-                    url, args.model_name, args.model_version, level, arrays,
+                    target, args.model_name, args.model_version, level, arrays,
                     outputs, args.shared_memory, output_size,
                     measure_s, extra_percentile=args.percentile,
                     cuda_device=args.cuda_shared_memory_device,
                     protocol=args.protocol, streaming=args.streaming,
-                    qos_classes=qos_classes, retry_policy=retry_policy)
+                    qos_classes=qos_classes, retry_policy=retry_policy,
+                    balancing=args.balancing, hedge_ms=args.hedge_ms)
                 report(res, f"Concurrency: {level}, throughput: ")
     finally:
         if args.trace_file:
@@ -1037,7 +1168,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         exported = {
             "model": args.model_name,
             "protocol": args.protocol,
-            "urls": [url],
+            "urls": urls,
             "shared_memory": args.shared_memory,
             "load_mode": "open_loop" if open_loop else "closed_loop",
             "results": results,

@@ -104,6 +104,13 @@ parameters.  Models with ``model_warmup`` samples are warmed before the
 listeners open; one whose warmup fails is unloaded.  A ``worker_kill``
 chaos draw exits the process with code 70, once its incident bundle is
 written.
+
+The response cache (the reference's flag, ``__main__.py:218-223``):
+``--cache-budget-bytes N`` caps the bytes of every model's cached
+responses together (a model caches where its config has
+``response_cache { enable: true }``; its entries expire after its
+``response_cache.ttl_s`` parameter).  ``--verbose`` / ``-v`` is accepted
+and changes nothing, as in the reference.
 """
 
 from __future__ import annotations
@@ -604,6 +611,14 @@ def main(argv=None) -> int:
                     help="OTLP/HTTP collector to export the trace records "
                     "to (host:port, or a URL; /v1/traces is added where "
                     "the URL has no path)")
+    ap.add_argument("--cache-budget-bytes", type=int, default=0,
+                    metavar="N",
+                    help="byte budget across all response-cache entries; "
+                    "an insert evicts LRU entries to fit (0: the entry "
+                    "count bound only).  A model's TTL is its config's "
+                    "response_cache.ttl_s parameter")
+    # accepted and unused, as in the reference
+    ap.add_argument("--verbose", "-v", action="store_true")
     _add_admission_flags(ap)
     _add_generation_flags(ap)
     _add_fleet_flags(ap)
@@ -649,6 +664,9 @@ def main(argv=None) -> int:
         print(f"registered model zoo: "
               f"{[e['name'] for e in registry.index()]}")
     core = InferenceCore(registry)
+    if args.cache_budget_bytes < 0:
+        ap.error("--cache-budget-bytes must be >= 0 (0 = no byte budget)")
+    core.response_cache.budget_bytes = args.cache_budget_bytes or None
     _configure_admission(ap, args, core)
     _configure_generation(ap, args, core)
     if core.chaos is not None and "worker_kill" in core.chaos.kinds:
@@ -738,7 +756,8 @@ def main(argv=None) -> int:
                   if metrics_port else "")
     worker = (f" [frontend worker {worker_index}/{args.frontends}]"
               if worker_index is not None else "")
-    print(f"serving v2 HTTP on {args.host}:{args.http_port} "
+    # the bound port: ``--http-port 0`` takes a free one
+    print(f"serving v2 HTTP on {args.host}:{server.server_address[1]} "
           f"(device {args.device}){metrics_at}{worker}", flush=True)
     try:
         server.serve_forever()

@@ -132,8 +132,23 @@ executes up to ``instances`` batches at once, resized live by the fleet
 controller (``_DynamicBatcher.set_instances``), and a rolling update drains
 the old version's batcher (:meth:`InferenceCore.drain_batcher`).  The
 chaos ``worker_kill`` kind calls ``chaos.worker_kill_cb`` and fails its
-request as a severed connection.  The response cache is not ported yet
-(ROADMAP A6b-5).
+request as a severed connection.
+
+The response cache (the reference's ``_ResponseCache``, core.py:88-223,
+and its use at :1336-1357 and :1435-1437): a model whose config enables
+``response_cache`` answers a repeated request from :class:`_ResponseCache`
+without a forward.  The key is (model, the registry's generation, the
+resolved instance's ``served_version``, SHA-256 of the inputs, the
+parameters and the requested outputs); sequence, shared-memory, decoupled
+and ensemble requests bypass it, and so do inputs over ``MAX_KEY_BYTES``.
+A hit counts in the model's statistics (no execution), stamps
+``CACHE_HIT`` and the QUEUE span.  The lookup runs once the inputs are
+resolved, the insert once the outputs are read back: by then every output
+is a host numpy array or, for BF16, a CPU ``torch.bfloat16`` tensor, and
+both are cached (a device tensor is never there: a CUDA-region output is
+shared memory, which bypasses the cache).  Entries are frozen private
+copies, evicted by LRU, the byte budget (``--cache-budget-bytes``) and the
+model's ``response_cache.ttl_s``, counted per model.
 
 The host's own view (the reference's, core.py:915-929 and :1776-1777):
 ``core.profiler`` (``profiler.py``: the sampler, the lag probes, the GC
@@ -154,6 +169,7 @@ import concurrent.futures
 import queue
 import threading
 import time
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import (Any, Collection, Dict, Iterator, List, Optional, Set,
                     Tuple)
@@ -296,6 +312,166 @@ def _host_array(value) -> np.ndarray:
 
 
 _STOP = object()
+
+
+def _cacheable(v) -> Optional[np.ndarray]:
+    """A host value as a numpy array to hash or to cache (a CPU BF16
+    tensor as its int16 bit pattern); None for anything else, such as a
+    tensor on the card."""
+    if isinstance(v, np.ndarray):
+        return v
+    if isinstance(v, torch.Tensor) and v.device.type == "cpu":
+        if v.dtype == torch.bfloat16:
+            return v.contiguous().view(torch.int16).numpy()
+        return v.numpy()
+    return None
+
+
+class _ResponseCache:
+    """The TTL and byte-budget LRU of identical requests' responses
+    (Triton's ``response_cache.enable``).
+
+    At most ``MAX_ENTRIES`` entries of at most ``MAX_ITEM_BYTES`` each;
+    an entry older than its model's TTL answers as a miss and is evicted;
+    ``budget_bytes`` (None or 0: none) caps the entries' bytes together,
+    an insert evicting LRU entries to fit.  Hits and misses count per
+    model at lookup, evictions (LRU, budget, TTL) at eviction:
+    ``nv_cache_num_{hits,misses,evictions}_per_model``."""
+
+    MAX_ENTRIES = 64
+    MAX_ITEM_BYTES = 8 << 20
+    # larger inputs are not hashed on the request's path: they bypass
+    MAX_KEY_BYTES = 1 << 20
+
+    def __init__(self, budget_bytes: Optional[int] = None) -> None:
+        # key -> (frozen outputs, expiry on the monotonic clock or None,
+        # bytes)
+        self._entries: "OrderedDict[tuple, tuple]" = OrderedDict()
+        self._total_bytes = 0
+        self.budget_bytes = budget_bytes
+        self.hits = 0
+        self.misses = 0
+        self.hits_by_model: Dict[str, int] = {}
+        self.misses_by_model: Dict[str, int] = {}
+        self.evictions_by_model: Dict[str, int] = {}
+        # request threads look up and insert at once
+        self._lock = threading.Lock()
+
+    @staticmethod
+    def _nbytes(v: np.ndarray) -> int:
+        if v.dtype != object:
+            return v.nbytes
+        return sum(len(x) if isinstance(x, (bytes, str)) else 64
+                   for x in v.reshape(-1))
+
+    @staticmethod
+    def key(model: Model, generation: int, request: InferRequest,
+            inputs: Dict[str, Any]) -> Optional[tuple]:
+        """The request's key; None where an input is not on the host or
+        the inputs are over ``MAX_KEY_BYTES``."""
+        import hashlib
+
+        arrays = {}
+        for name, v in inputs.items():
+            arr = _cacheable(v)
+            if arr is None:
+                return None
+            arrays[name] = arr
+        if sum(map(_ResponseCache._nbytes, arrays.values())) \
+                > _ResponseCache.MAX_KEY_BYTES:
+            return None
+        h = hashlib.sha256()
+        for name in sorted(arrays):
+            v = arrays[name]
+            # the type names the tensor, so that BF16 bits never equal an
+            # INT16 input's
+            h.update(name.encode())
+            h.update(str(inputs[name].dtype).encode())
+            h.update(str(v.shape).encode())
+            h.update(v.tobytes() if v.dtype != object
+                     else repr(v.tolist()).encode())
+        h.update(repr(sorted(request.parameters.items())).encode())
+        h.update(repr(sorted(
+            (o.name, o.class_count) for o in request.outputs)).encode())
+        # the resolved instance's version: after a rolling update flips an
+        # unversioned request to the new version, the old entry misses
+        return (model.name, generation, model.served_version, h.hexdigest())
+
+    def _count_eviction(self, model: str) -> None:
+        self.evictions_by_model[model] = \
+            self.evictions_by_model.get(model, 0) + 1
+
+    def get(self, key: tuple) -> Optional[Dict[str, Any]]:
+        with self._lock:
+            entry = self._entries.get(key)
+            if entry is not None and entry[1] is not None \
+                    and time.monotonic() >= entry[1]:
+                # past its TTL: evicted at lookup, a miss
+                del self._entries[key]
+                self._total_bytes -= entry[2]
+                self._count_eviction(key[0])
+                entry = None
+            if entry is None:
+                self.misses += 1
+                self.misses_by_model[key[0]] = \
+                    self.misses_by_model.get(key[0], 0) + 1
+                return None
+            self._entries.move_to_end(key)
+            self.hits += 1
+            self.hits_by_model[key[0]] = \
+                self.hits_by_model.get(key[0], 0) + 1
+        return {n: (torch.from_numpy(v.copy()).view(torch.bfloat16)
+                    if bf16 else v) for n, (v, bf16) in entry[0].items()}
+
+    def put(self, key: tuple, outputs: Dict[str, Any],
+            ttl_s: Optional[float] = None) -> None:
+        """Cache ``outputs`` under ``key``: frozen copies (the model may
+        reuse its buffers; writing to a hit raises).  Skipped where an
+        output is not on the host or the entry is over ``MAX_ITEM_BYTES``
+        or the whole budget."""
+        frozen = {}
+        total = 0
+        for name, v in outputs.items():
+            arr = _cacheable(v)
+            if arr is None:
+                return
+            arr = arr.copy()
+            arr.flags.writeable = False
+            frozen[name] = (arr, isinstance(v, torch.Tensor)
+                            and v.dtype == torch.bfloat16)
+            total += self._nbytes(arr)
+        if total > self.MAX_ITEM_BYTES:
+            return
+        if self.budget_bytes and total > self.budget_bytes:
+            return  # larger than the whole budget: it would only churn
+        expires = (time.monotonic() + ttl_s
+                   if ttl_s is not None and ttl_s > 0 else None)
+        with self._lock:
+            old = self._entries.pop(key, None)
+            if old is not None:
+                self._total_bytes -= old[2]  # a replacement, no eviction
+            self._entries[key] = (frozen, expires, total)
+            self._total_bytes += total
+            while len(self._entries) > self.MAX_ENTRIES or (
+                    self.budget_bytes
+                    and self._total_bytes > self.budget_bytes):
+                k, evicted = self._entries.popitem(last=False)
+                self._total_bytes -= evicted[2]
+                self._count_eviction(k[0])
+
+    @property
+    def total_bytes(self) -> int:
+        return self._total_bytes
+
+
+def _model_cache_ttl(model: Model) -> Optional[float]:
+    """A model's response-cache TTL, its config's ``response_cache.ttl_s``
+    parameter (None: entries never expire)."""
+    try:
+        ttl = float(model.config.parameters["response_cache.ttl_s"])
+    except (KeyError, ValueError):
+        return None
+    return ttl if ttl > 0 else None
 
 
 def _batcher_key(model: Model) -> str:
@@ -985,6 +1161,9 @@ class InferenceCore:
         self._counts_lock = threading.Lock()
         self.rejected_by_model: Dict[str, int] = {}
         self.deadline_exceeded_by_model: Dict[str, int] = {}
+        # identical requests answered without a forward (a model's config
+        # enables it; --cache-budget-bytes sets budget_bytes)
+        self.response_cache = _ResponseCache()
         costs.warm_up()
 
     def _slo_from_config(self, name: str) -> Optional[SloObjective]:
@@ -1363,6 +1542,19 @@ class InferenceCore:
         if split is not None:
             split.resolve = (time.monotonic_ns() - t0) / 1e6
         params = dict(request.parameters)
+        cache_key = self._cache_key(model, request, inputs)
+        if cache_key is not None:
+            cached = self.response_cache.get(cache_key)
+            if cached is not None:
+                # a hit counts in the statistics: its queue time, no
+                # compute, no execution
+                now = time.monotonic_ns()
+                model.stats.record(_batch_count(cached) or 1,
+                                   now - request.arrival_ns, 0, ok=True)
+                if trace is not None:
+                    trace.ts("CACHE_HIT", now)
+                    trace.add_span("QUEUE", request.arrival_ns, now)
+                return self._build_response(model, request, cached)
         self._attach_device_loop(model, request, params)
         try:
             if self._use_batcher(model, request):
@@ -1379,6 +1571,9 @@ class InferenceCore:
             raise
         except Exception as e:
             raise InferError(f"inference failed: {e}", http_status=500)
+        if cache_key is not None:
+            self.response_cache.put(cache_key, outputs,
+                                    ttl_s=_model_cache_ttl(model))
         resp = self._build_response(model, request, outputs)
         if split is not None:
             now = time.monotonic_ns()
@@ -1391,6 +1586,20 @@ class InferenceCore:
             split.total = (now - start) / 1e6
             self.splits.append(split)
         return resp
+
+    def _cache_key(self, model: Model, request: InferRequest,
+                   inputs: Dict[str, Any]) -> Optional[tuple]:
+        """The request's response-cache key, or None where it bypasses the
+        cache (not enabled for the model; an ensemble, decoupled, sequence
+        or shared-memory request; inputs not keyed)."""
+        if not model.config.response_cache \
+                or isinstance(model, EnsembleModel) or model.decoupled \
+                or request.sequence_id \
+                or any(i.shm is not None for i in request.inputs) \
+                or any(o.shm is not None for o in request.outputs):
+            return None
+        return _ResponseCache.key(model, self.registry.generation(model.name),
+                                  request, inputs)
 
     def _run_unbatched(self, model: Model, request: InferRequest,
                        inputs: Dict[str, Any], params: Dict[str, Any],

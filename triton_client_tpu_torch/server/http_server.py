@@ -102,6 +102,7 @@ import contextlib
 import json
 import math
 import re
+import socket
 import threading
 import time
 import urllib.parse
@@ -1055,7 +1056,31 @@ class _CountingServer(ThreadingHTTPServer):
 
     def __init__(self, *args, **kwargs):
         self._active_lock = threading.Lock()
+        # the accepted connections still open
+        self._conns: set = set()
         super().__init__(*args, **kwargs)
+
+    def process_request(self, request, client_address):
+        with self._active_lock:
+            self._conns.add(request)
+        super().process_request(request, client_address)
+
+    def shutdown_request(self, request):
+        with self._active_lock:
+            self._conns.discard(request)
+        super().shutdown_request(request)
+
+    def close_connections(self) -> None:
+        """Cut every open connection, as the process's end would: a
+        kept-alive client must not go on reaching a stopped server's
+        handler threads."""
+        with self._active_lock:
+            conns = list(self._conns)
+        for conn in conns:
+            try:
+                conn.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass  # closed meanwhile
 
     @contextlib.contextmanager
     def exchange(self):

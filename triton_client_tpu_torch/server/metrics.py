@@ -9,7 +9,9 @@ device family included (kept for the reference's dashboards; on the port
 it describes the CUDA card).
 
 The families whose sources this port has: the per-model inference
-counters and the pending gauge, the flight recorder's watchdog counters,
+counters and the pending gauge, the response cache's hits, misses and
+evictions per model (``nv_cache_num_*_per_model``), the flight recorder's
+watchdog counters,
 deadline drops and chaos injections, the QoS families (sheds by model,
 tenant and tier, requests by tenant and tier, lane depths), the device and
 scheduler family (``nv_tpu_*``, ``device_stats.py``), the memory governor
@@ -20,9 +22,8 @@ ledger (``nv_cost_*``), the fleet (``nv_fleet_*``, ``fleet.py``), the
 host (``nv_host_*``: the profiler's samples per role, the lag probes' and
 GC's pauses, ``profiler.py``, and the incident bundles per trigger and
 outcome, ``incident.py``) and, while an OTLP exporter is set, its posts
-and drops (``nv_otlp_*``; absent, not zero, where none is).  The
-reference's other families are absent, not zero, until their sources are
-ported: :data:`UNPORTED_FAMILIES` lists each with its ROADMAP item.
+and drops (``nv_otlp_*``; absent, not zero, where none is).  Every
+family of the reference is declared: :data:`UNPORTED_FAMILIES` is empty.
 """
 
 from __future__ import annotations
@@ -38,12 +39,8 @@ from .fleet import collect_fleet_rows
 Family = Tuple[str, str, str, List[Tuple[Dict[str, str], Any]]]
 
 #: the reference's families whose source is not ported yet -> the ROADMAP
-#: item that brings it
-UNPORTED_FAMILIES: Dict[str, str] = {
-    **{name: "A6b (the response cache)" for name in (
-        "nv_cache_num_hits_per_model", "nv_cache_num_misses_per_model",
-        "nv_cache_num_evictions_per_model")},
-}
+#: item that brings it (none since the response cache)
+UNPORTED_FAMILIES: Dict[str, str] = {}
 
 _COUNTERS: List[Tuple[str, str, str]] = [
     # (metric name, help text, ModelStats-derived key)
@@ -327,7 +324,20 @@ def collect_families(core: InferenceCore) -> List[Family]:
         core.flight_recorder.watchdog_counters()
     with core._counts_lock:
         deadline_by_model = dict(core.deadline_exceeded_by_model)
+    cache = core.response_cache
+    with cache._lock:
+        cache_counts = (dict(cache.hits_by_model),
+                        dict(cache.misses_by_model),
+                        dict(cache.evictions_by_model))
     by_model = [
+        # the response cache's lookups and evictions, per model name
+        ("nv_cache_num_hits_per_model",
+         "Number of response cache hits per model", cache_counts[0]),
+        ("nv_cache_num_misses_per_model",
+         "Number of response cache misses per model", cache_counts[1]),
+        ("nv_cache_num_evictions_per_model",
+         "Number of response cache entries evicted per model (LRU, byte "
+         "budget, or TTL expiry)", cache_counts[2]),
         ("nv_inference_slow_request_total",
          "Number of requests that exceeded the flight recorder's "
          "slow-request threshold", slow_by_model),

@@ -96,6 +96,8 @@ class ModelConfig:
     # the ModelWarmup messages (protocol/inference.py), run through the
     # execute path before the model serves (warmup.py)
     model_warmup: List[Any] = field(default_factory=list)
+    # response_cache.enable; None: no response_cache message
+    response_cache: Optional[bool] = None
 
     def to_pb(self):
         """The config as the v2 protocol's ``ModelConfig`` message (what
@@ -147,6 +149,9 @@ class ModelConfig:
                                         output_map=dict(s.output_map))
                 for s in self.ensemble_scheduling])
         out.model_warmup = list(self.model_warmup)
+        if self.response_cache is not None:
+            out.response_cache = pb.ModelResponseCache(
+                enable=self.response_cache)
         return out
 
     def to_json(self) -> dict:
@@ -174,8 +179,6 @@ def config_from_pb(msg, name: str) -> "ModelConfig":
 
     name = msg.name or name
     refusals = [
-        (msg.response_cache is not None, "response_cache",
-         "A6b-5 (the response cache)"),
         (bool(msg.default_model_filename), "default_model_filename",
          "A3b"),
         (any(i.allow_ragged_batch for i in msg.input),
@@ -238,6 +241,8 @@ def config_from_pb(msg, name: str) -> "ModelConfig":
             sb.max_sequence_idle_microseconds if sb is not None else None),
         version_policy=msg.version_policy,
         model_warmup=list(msg.model_warmup),
+        response_cache=(msg.response_cache.enable
+                        if msg.response_cache is not None else None),
     )
 
 
@@ -257,9 +262,12 @@ def make_config(
     sequence_batching: bool = False,
     labels: Optional[Dict[str, List[str]]] = None,
     warmup: Optional[Sequence[dict]] = None,
+    response_cache: bool = False,
 ) -> ModelConfig:
     """Config builder with the reference's signature, for the fields the
-    port uses (no response-cache config yet).  ``warmup``: the reference's
+    port uses.  ``response_cache`` enables the core's response cache for
+    the model (its TTL: the ``response_cache.ttl_s`` parameter).
+    ``warmup``: the reference's
     samples, ``[{"name", "batch_size", "count", "inputs": {tensor: (dtype,
     dims, "zero" | "random")}}]``.
     ``inputs``/``outputs``: (name, Triton dtype, dims), dims excluding the
@@ -291,6 +299,7 @@ def make_config(
         max_sequence_idle_microseconds=60_000_000 if sequence_batching
         else None,
         model_warmup=[_warmup_sample(w) for w in warmup or []],
+        response_cache=True if response_cache else None,
     )
 
 

@@ -20,8 +20,9 @@ the repository states.  Two sources of models:
   ``all`` or ``specific``.
 
 Each load or unload bumps the name's :meth:`ModelRegistry.generation`, as
-in the reference, whose response cache keys on it (ROADMAP A6b-5).  The
-core tells a swapped instance by identity (:meth:`ModelRegistry.version_models`).
+in the reference; the response cache keys on it (``core._ResponseCache``).
+The core tells a swapped instance by identity
+(:meth:`ModelRegistry.version_models`).
 
 The rolling-update staging the fleet controller drives (``fleet.py``):
 :meth:`ModelRegistry.stage_version` parks a new version outside the

@@ -11,11 +11,14 @@ Counterpart of ``triton_client_tpu/server/testing.py``:
   ``kill`` and ``restart`` on the same port.
 * ``ReplicaSupervisor``: the self-healing of a ``ClusterHarness`` on the
   CLI supervisor's ``RestartPolicy`` and ``SupervisorState``.
+* ``cli_http_port``: the port a ``--http-port 0`` CLI server bound, read
+  from its start line, so a test never races another process for a port.
 """
 
 from __future__ import annotations
 
 import os
+import re
 import socket
 import tempfile
 import threading
@@ -45,6 +48,29 @@ def free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+_SERVING_LINE = re.compile(r"serving v2 HTTP on \S+:(\d+) ")
+
+
+def cli_http_port(proc, log_path: str, timeout: float = 120.0) -> int:
+    """The HTTP port of ``proc``, a ``python -m triton_client_tpu_torch.server
+    --http-port 0`` whose output goes to ``log_path``: read from the line it
+    prints just before it serves.  Raises with the log where the process
+    ends, or ``timeout`` seconds pass, first."""
+    end = time.monotonic() + timeout
+    while True:
+        with open(log_path) as f:
+            text = f.read()
+        m = _SERVING_LINE.search(text)
+        if m:
+            return int(m.group(1))
+        if proc.poll() is not None:
+            raise RuntimeError(f"server exited {proc.returncode}:\n{text}")
+        if time.monotonic() >= end:
+            raise TimeoutError(f"server not serving after {timeout:g}s:\n"
+                               f"{text}")
+        time.sleep(0.05)
 
 
 class ServerHarness:
@@ -82,6 +108,8 @@ class ServerHarness:
         if self._server is not None:
             _server_present(-1)
             self._server.shutdown()
+            # as a process that ends: its kept-alive connections go too
+            self._server.close_connections()
             self._server.server_close()
             self._server = None
         if self._thread is not None:

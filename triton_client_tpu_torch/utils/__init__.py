@@ -56,6 +56,13 @@ if _BF16_NP is not None:
 _TRITON_TO_NP = {v: k for k, v in _NP_TO_TRITON.items()}
 _TRITON_TO_NP["BYTES"] = np.dtype(np.object_)
 
+# bytes of one element of each fixed-size Triton dtype
+_TRITON_DTYPE_SIZES = {
+    "BOOL": 1, "INT8": 1, "INT16": 2, "INT32": 4, "INT64": 8,
+    "UINT8": 1, "UINT16": 2, "UINT32": 4, "UINT64": 8,
+    "FP16": 2, "BF16": 2, "FP32": 4, "FP64": 8,
+}
+
 
 class InferenceServerException(Exception):
     """An error reported by the server or raised by the client: a message,
@@ -162,6 +169,12 @@ def np_to_triton_dtype(np_dtype) -> Optional[str]:
 def triton_to_np_dtype(dtype: str):
     """Map a Triton v2 dtype string to a numpy dtype (None if unknown)."""
     return _TRITON_TO_NP.get(dtype, None)
+
+
+def triton_dtype_size(dtype: str) -> Optional[int]:
+    """Byte size of one element of a fixed-size Triton dtype; None for
+    BYTES (and unknown types)."""
+    return _TRITON_DTYPE_SIZES.get(dtype, None)
 
 
 def _encode_bytes_element(obj) -> bytes:
