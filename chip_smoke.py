@@ -47,7 +47,7 @@ Phases (any failure exits non-zero and prints no result line):
    then under ``all`` (two: FFN-up too), for its forward time beside the
    default's;
 6. serve ``bert_large`` at full width (S = 384) and ``BERT_SERVE_LAYERS``
-   (12) of its 24 layers: 24 requests (16 under ``all``) of
+   (12) of its 24 layers: 12 requests (8 under ``all``) of
    4 sequences from 8 threads, so the batcher forms batches up to 32, in
    bf16, int8 under ``w2`` and int8 under ``all``; each LOGITS held to the
    plain-kernel forward of the same tokens, and the control (that forward
@@ -143,13 +143,14 @@ Phases (any failure exits non-zero and prints no result line):
     on a miss, ``HOST_GATE_RUNS``);
 13. the host's view: ``longctx_tpu`` base bf16 and ``bert_large`` int8
     ``w2`` (``BERT_SERVE_LAYERS``) served together; ``perf_analyzer``
-    -b 4 at c = 4 with the sampling profiler off (``set_hz(0)``), then at
-    its default 19 Hz, the card traced in both: infer/s, p50 / p99 and the
-    idle share printed, at most ``HOST_COST_TOL`` slower in mean latency
-    (read once more on a miss, ``HOST_GATE_RUNS``), flash exactly 8 a
-    forward; then ``/v2/debug/profile``: the forward's frames
-    (``transformer.py``) under the batcher or frontend role, every request
-    thread's stack under ``frontend``, each role's samples grown, the
+    -b 4 at c = 4, untraced, while the sampling profiler is turned off
+    (``set_hz(0)``) and on at its default 19 Hz every
+    ``HOST_COST_SLOT_S``: infer/s and each arm's server times printed,
+    the on arm's mean at most ``HOST_COST_TOL`` above the
+    off arm's (the run read once more on a miss, ``HOST_GATE_RUNS``),
+    flash exactly 8 a forward; then ``/v2/debug/profile``: the forward's
+    frames (``transformer.py``) under the batcher or frontend role, every
+    request thread's stack under ``frontend``, each role's samples grown, the
     frontend's lag probe and the GC pauses on ``/metrics``, the top five
     stacks per role printed; a ``POST /v2/debug/incident`` inside a c = 4
     window: every file of the bundle there and none failed, its profile,
@@ -199,7 +200,8 @@ Phases (any failure exits non-zero and prints no result line):
     by CUDA events beside its bytes bound, the prefill and its f32 head;
     then each mode served (independent; batched, T = 4): ``/generate_stream``
     over HTTP (SSE) and ``llama_generate`` on gRPC-Web streams, 1 and 8
-    streams of 64 tokens, every stream's tokens the independent chain's
+    streams of 64 tokens (independent mode's gRPC-Web stream at 1), every
+    stream's tokens the independent chain's
     (or parting at a near tie of its logits), ``llama_decode`` closed loop
     over HTTP for 2 sequences held the same way; tokens/s per stream and
     together, time to the first token, per-token p50 / p99 and the card's
@@ -298,7 +300,22 @@ Phases (any failure exits non-zero and prints no result line):
     requests from this process's ``ClusterClient``, each answer within
     ``SERVED_ATOL`` of the plain forward.  Every child process is stopped
     on every exit path;
-20. print each kernel's launches on every served path, one JSON line
+20. the operators' tools and the wire templates: ``longctx_tpu`` base
+    bf16 and ``bert_large`` int8 ``w2`` at 24 layers served here with
+    server tracing and the port's client telemetry tracing on, each by
+    HTTP and gRPC-Web (answers within ``SERVED_ATOL``, flash 8 and int8 24
+    a forward exactly), one template per (model, output set) in each of
+    the server's caches; then a served response of each stamped byte for
+    byte as the slow path encodes it, both encoders timed over
+    ``TW_ENCODE_CALLS`` calls on it, and ``bert_large``'s response-cache
+    hits timed by wire; then ``python -m
+    triton_client_tpu_torch.tools.trace_summary`` on the traces (every
+    request counted, every journey joined, COMPUTE's median within the
+    executions' CUDA-event range, a Chrome export with a lane per journey)
+    and ``tools.top --once --json`` (each model's successes as its
+    statistics count them).  The fleet phase also reads the SIGKILL's
+    restart through ``tools.top`` over the fleet's frontend;
+21. print each kernel's launches on every served path, one JSON line
     describing every kernel, then the result line
     ``{"ok": true, "device": {...}}``.
 
@@ -392,10 +409,11 @@ N_REQUESTS, N_THREADS = 8, 4
 #: at full width, so that the script stays within its time; the perf, gRPC,
 #: observability and overload phases serve all 24
 BERT_SERVE_LAYERS = 12
-# bert_large: 24 requests (40 before the cut that made room for the
-# cluster and cache phase, PERF.md) of 4 sequences from 8 threads, so up to
-# 32 sequences wait at once and the batcher can fill its largest batch (32)
-BERT_REQUESTS, BERT_ROWS, BERT_THREADS = 24, 4, 8
+# bert_large: 12 requests (40, then 24, before the cuts that made room for
+# the cluster and cache and the tools and wire phases, PERF.md) of 4
+# sequences from 8 threads, so up to 32 sequences wait at once and the
+# batcher can fill its largest batch (32)
+BERT_REQUESTS, BERT_ROWS, BERT_THREADS = 12, 4, 8
 
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -816,7 +834,9 @@ def bert_depth(n_layers: int):
 
 @contextlib.contextmanager
 def serving_harness(models):
-    """Register ``models`` and serve them over HTTP; yields the harness."""
+    """Register ``models`` and serve them over HTTP; yields the harness.
+    On a clean exit, no response fell back to the slow path because a
+    wire template raised (``ResponseTemplateCache.stats["errors"]``)."""
     from triton_client_tpu_torch.server.registry import ModelRegistry
     from triton_client_tpu_torch.server.testing import ServerHarness
 
@@ -825,6 +845,12 @@ def serving_harness(models):
         registry.register_model(m)
     with ServerHarness(registry) as harness:
         yield harness
+        for proto, cache in (("HTTP", harness.core.http_wire_templates),
+                             ("gRPC", harness.core.grpc_wire_templates)):
+            if cache.stats["errors"]:
+                fail(f"serving {[m.name for m in models]}: the {proto} wire "
+                     f"templates raised {cache.stats['errors']} times "
+                     f"({cache.stats})")
 
 
 @contextlib.contextmanager
@@ -3117,6 +3143,11 @@ HOST_DIR = os.path.join(REPO, "build", "chip_smoke_host")
 #: share of mean latency against hz = 0 (observability's cost bound)
 HOST_COST_TOL = 0.10
 HOST_WINDOW_MS = 3000
+#: the cost gate: one c = 4 run this long, the sampler turned off and on
+#: every slot, and the requests each arm must hold at the least
+HOST_COST_WINDOW_MS = 16000
+HOST_COST_SLOT_S = 1.0
+HOST_COST_MIN_REQUESTS = 20
 #: requests sent with the OTLP exporters on (the server's and the client's)
 HOST_OTLP_REQUESTS = 16
 #: every file of a complete incident bundle
@@ -3275,39 +3306,110 @@ def _host_profile_checks(label: str, harness, before: dict) -> None:
                 ("frontend", "batcher", "other"))
 
 
+def _host_arms(splits, flips, stop_ns):
+    """The server's requests split by the sampler's state: ``flips`` is
+    [(perf_counter_ns, on)] in order, each state holding until the next
+    flip (the last until ``stop_ns``).  A request counts in its slot's arm
+    where it began and ended inside that slot; one that spans a flip
+    counts in neither.  Returns {"on": [...], "off": [...]} of the
+    requests' server times in ms, and each arm's seconds."""
+    import bisect
+
+    starts = [t for t, _ in flips]
+    ends = starts[1:] + [stop_ns]
+    arms = {"on": [], "off": []}
+    seconds = {"on": 0.0, "off": 0.0}
+    for (t0, on), t1 in zip(flips, ends):
+        seconds["on" if on else "off"] += (t1 - t0) / 1e9
+    for sp in splits:
+        if not sp.forward_done_ns:
+            continue
+        done = sp.forward_done_ns + sp.output * 1e6
+        began = done - sp.total * 1e6
+        i = bisect.bisect_right(starts, began) - 1
+        if i >= 0 and done < ends[i]:
+            arms["on" if flips[i][1] else "off"].append(sp.total)
+    return arms, seconds
+
+
 def _host_cost(label: str, harness, model, counters, layers: int):
-    """The sampler's cost: perf_analyzer -b 4 c = 4 with the sampler off
-    (hz = 0) and at its default rate, the card traced in both; at most
-    HOST_COST_TOL slower in mean latency (read once more on a miss,
-    HOST_GATE_RUNS).  Returns the on run's result."""
+    """The sampler's cost: one perf_analyzer -b 4 c = 4 run, untraced (a
+    trace's callbacks on every launch are host work no served request
+    does), while this process turns the sampler off and on at its default
+    rate every HOST_COST_SLOT_S seconds (``set_hz``); each request the
+    server began and answered inside one slot counts in that slot's arm,
+    so a host that slows down or stalls for a while weighs on both arms
+    alike.  The on arm's mean server time at most HOST_COST_TOL above the
+    off arm's (the run read once more on a miss, HOST_GATE_RUNS).
+    Returns the run's result."""
+    import numpy as np
+
     profiler = harness.core.profiler
     hz = profiler.hz
     args = ["-b", "4", "--concurrency-range", "4"]
+    before = _metrics(harness.http_port)
     for run in range(1, HOST_GATE_RUNS + 1):
-        profiler.set_hz(0)
-        (off,), _ = _perf_sweep_once(
-            f"{label} profiler off (run {run})", harness, model, args,
-            counters, layers, 0, HOST_WINDOW_MS, True, HOST_PATHS)
-        profiler.set_hz(hz)
-        before = _metrics(harness.http_port)
-        (on,), _ = _perf_sweep_once(
-            f"{label} profiler {hz:g} Hz (run {run})", harness, model, args,
-            counters, layers, 0, HOST_WINDOW_MS, True, HOST_PATHS)
-        slower = on["avg_us"] / off["avg_us"] - 1
-        print(f"{label}: sampler off: {off['throughput']:.3f} infer/s, p50 "
-              f"{off['p50_us'] / 1e3:.3f} ms, p99 {off['p99_us'] / 1e3:.3f} "
-              f"ms; at {hz:g} Hz: {on['throughput']:.3f} infer/s, p50 "
-              f"{on['p50_us'] / 1e3:.3f} ms, p99 {on['p99_us'] / 1e3:.3f} "
-              f"ms; mean {slower:+.1%} (bound +{HOST_COST_TOL:.0%}); the "
-              f"idle shares are the two traced lines above; {CARD}",
+        flips, stop = [], threading.Event()
+
+        def flip():
+            on = False
+            while True:
+                profiler.set_hz(hz if on else 0)
+                flips.append((time.perf_counter_ns(), on))
+                if stop.wait(HOST_COST_SLOT_S):
+                    return
+                on = not on
+
+        flipper = threading.Thread(target=flip, name="host-cost-flips")
+        flipper.start()
+        try:
+            run_label = f"{label} profiler off and {hz:g} Hz (run {run})"
+            (res,), launches, executions, splits = _perf_analyzer(
+                run_label, harness, model, args, counters,
+                HOST_COST_WINDOW_MS, False)
+        finally:
+            stop.set()
+            flipper.join(timeout=60)
+            stop_ns = time.perf_counter_ns()
+            profiler.set_hz(hz)
+        check_launches(run_label, launches, len(executions), layers, 0)
+        HOST_PATHS[run_label] = launches
+        if res["errors"]:
+            fail(f"{run_label}: {res['errors']} errors, first "
+                 f"{res['first_error']}")
+        arms, seconds = _host_arms(splits, flips, stop_ns)
+        if min(len(v) for v in arms.values()) < HOST_COST_MIN_REQUESTS:
+            fail(f"{run_label}: {len(arms['off'])} requests inside off "
+                 f"slots and {len(arms['on'])} inside on slots (at least "
+                 f"{HOST_COST_MIN_REQUESTS} each)")
+
+        def arm(name):
+            v = np.asarray(arms[name])
+            return (f"{len(v)} requests in {seconds[name]:.1f} s, mean "
+                    f"{v.mean():.3f} ms, p50 {np.percentile(v, 50):.3f} ms, "
+                    f"p99 {np.percentile(v, 99):.3f} ms")
+
+        slower = (float(np.mean(arms["on"])) / float(np.mean(arms["off"]))
+                  - 1)
+        print(f"{run_label}: {res['throughput']:.3f} infer/s, client p50 "
+              f"{res['p50_us'] / 1e3:.3f} ms, p99 "
+              f"{res['p99_us'] / 1e3:.3f} ms over the window; "
+              f"{len(flips)} slots of {HOST_COST_SLOT_S:g} s; server time "
+              f"(decode to response built) with the sampler off: "
+              f"{arm('off')}; at {hz:g} Hz: {arm('on')}; "
+              f"{len(splits) - len(arms['on']) - len(arms['off'])} "
+              f"requests spanned a flip; the on arm's mean {slower:+.1%} "
+              f"against the off arm's (bound +{HOST_COST_TOL:.0%}); {CARD}",
               flush=True)
         if slower <= HOST_COST_TOL:
             break
         if run == HOST_GATE_RUNS:
             fail(f"{label}: the sampler at {hz:g} Hz is {slower:.1%} "
                  f"slower in {run} runs")
+        print(f"{label}: the sampler's cost above the bound: once more",
+              flush=True)
     _host_profile_checks(label, harness, before)
-    return on
+    return res
 
 
 def _host_bundle(label: str, harness, model, counters, layers: int,
@@ -4578,7 +4680,8 @@ def generation_phase(torch, counters) -> None:
     the decode step's time at B = 1 and 8 against its bytes bound, then
     each mode (independent; batched with 8 slots at the default
     TRITON_TPU_DECODE_STEPS of 4) served: /generate_stream over HTTP and a
-    gRPC-Web stream at 1 and 8 streams of 64 tokens, llama_decode closed
+    gRPC-Web stream at 1 and 8 streams of 64 tokens (independent mode's
+    gRPC-Web stream at 1), llama_decode closed
     loop for 1 sequence, every stream's tokens held to the independent
     chain, no kernel of the port launched; the card's idle share with 8
     streams traced.  Beside row 5's ensemble_llama figures (PERF.md)."""
@@ -6767,9 +6870,9 @@ def _fleet_incidents(srv2) -> None:
 
 def _fleet_healed(srv2, idx, victim, t_kill, respawn, check, x) -> None:
     """Part 2, second half: the supervisor respawned worker ``idx``,
-    nv_fleet_worker_restart_total reads 1 on both workers' ports, the
-    respawned worker's answers hold, and SIGTERM drains the fleet to exit
-    0."""
+    nv_fleet_worker_restart_total reads 1 on both workers' ports and in
+    ``tools.top --once --json`` over the fleet's frontend, the respawned
+    worker's answers hold, and SIGTERM drains the fleet to exit 0."""
     label = "fleet self-healing"
     respawn["thread"].join(timeout=240)
     end = time.monotonic() + 60
@@ -6800,6 +6903,15 @@ def _fleet_healed(srv2, idx, victim, t_kill, respawn, check, x) -> None:
         if time.perf_counter() - t0 > 60:
             fail(f"{label}: the respawned worker served nothing")
     total = srv2.restarts + 1
+    # the operator's console over the fleet's frontend reads the restart
+    snap = json.loads(_tw_tool(label, "top", "--url", srv2.url, "--once",
+                               "--json"))
+    print(f"{label}: tools.top --once --json over the fleet's frontend "
+          f"{srv2.url}: worker_restarts {snap['worker_restarts']}",
+          flush=True)
+    if snap["worker_restarts"] < 1:
+        fail(f"{label}: tools.top read worker_restarts "
+             f"{snap['worker_restarts']} after the SIGKILL")
     print(f"{label}: respawned as pid {new_pid}; its metrics port answered "
           f"with nv_fleet_worker_restart_total {total:g} {respawn_s:.1f} s "
           f"after the kill ({total:g} on both workers' ports, the "
@@ -7602,6 +7714,340 @@ def cluster_cache_phase(torch, counters) -> None:
             srv.close()
 
 
+# ---------------------------------------------------------------------------
+# the operators' tools and the wire templates
+# ---------------------------------------------------------------------------
+
+TW_PATHS = {}
+#: the phase's trace files and the Chrome export (inside the checkout)
+TW_DIR = os.path.join(REPO, "build", "chip_smoke_tools")
+#: requests of each model by each protocol while traced: one first, then
+#: this many one after another
+TW_SEQUENTIAL = 3
+#: the calls each encoder is timed over, on the same responses
+TW_ENCODE_CALLS = 200
+#: bert_large response-cache hits timed by wire
+TW_HITS = 16
+#: bert_large's depth in this phase: all of it
+TW_BERT_LAYERS = 24
+
+
+def _tw_tool(label: str, module: str, *args: str) -> str:
+    """``python -m triton_client_tpu_torch.tools.<module> ARGS`` in a
+    process of its own: its standard output (a non-zero exit fails)."""
+    proc = subprocess.run(
+        [sys.executable, "-m", f"triton_client_tpu_torch.tools.{module}",
+         *args], cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+        capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        fail(f"{label}: tools.{module} exited {proc.returncode}: "
+             f"{proc.stderr.strip()[-400:]}")
+    return proc.stdout
+
+
+def _tw_set_trace(port: int, level: str, path: str = "") -> None:
+    """The server's tracing on (TIMESTAMPS into ``path``, every request)
+    or off, through the port's client."""
+    client = _client(port)
+    try:
+        settings = {"trace_level": [level]}
+        if path:
+            settings.update(trace_file=[path], trace_rate=["1"],
+                            trace_count=["-1"], log_frequency=["0"])
+        client.update_trace_settings(settings=settings)
+    finally:
+        client.close()
+
+
+def _tw_median_us(fn, calls: int) -> float:
+    """The median of ``calls`` calls of ``fn``, in microseconds."""
+    import statistics
+
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter_ns()
+        fn()
+        times.append(time.perf_counter_ns() - t0)
+    return statistics.median(times) / 1e3
+
+
+def _tw_templates(label, harness, model, counters, x, rows: int):
+    """One served response of ``x`` from the core (its host outputs, as
+    the frontends get them): the HTTP header and segments stamped from a
+    template and the gRPC message stamped from one are byte for byte the
+    slow path's; then each encoder timed over TW_ENCODE_CALLS calls on
+    that response.  Returns {what: median us}."""
+    from triton_client_tpu_torch.server import wire
+    from triton_client_tpu_torch.server.types import (InferRequest,
+                                                      InputTensor,
+                                                      RequestedOutput)
+
+    cfg = model.config
+    name = cfg.output[0].name
+    req = InferRequest(model.name, inputs=[InputTensor(
+        cfg.input[0].name, cfg.input[0].data_type, tuple(x.shape), data=x)],
+        outputs=[RequestedOutput(name)], id="tw-1")
+    resp, _, _ = _counted(f"{label} core", model, counters,
+                          lambda: harness.core.infer(req),
+                          *((model.transformer.cfg.n_layers, 0)
+                            if model.name == "longctx_tpu"
+                            else (0, model.transformer.cfg.n_layers)),
+                          paths=TW_PATHS)
+    requested = {name: req.outputs[0]}
+    http_cache, grpc_cache = (wire.ResponseTemplateCache(),
+                              wire.ResponseTemplateCache())
+
+    def slow_http():
+        return wire.encode_http_response(resp, requested, True)
+
+    def stamp_http():
+        return wire.encode_http_response(resp, requested, True, http_cache,
+                                         1)
+
+    def slow_grpc():
+        return wire.build_pb_response(resp).encode_parts()
+
+    def stamp_grpc():
+        return wire.encode_pb_response(resp, grpc_cache, 1).encode_parts()
+
+    for _ in range(2):  # the compile, then a stamp
+        (sh, ss), (th, ts) = slow_http(), stamp_http()
+        if sh != th or [bytes(s) for s in ss] != [bytes(s) for s in ts]:
+            fail(f"{label}: the stamped HTTP response differs from the "
+                 "slow path's")
+        slow_pb = wire.build_pb_response(resp).SerializeToString()
+        if wire.encode_pb_response(resp, grpc_cache,
+                                   1).SerializeToString() != slow_pb:
+            fail(f"{label}: the stamped gRPC message differs from the "
+                 "slow path's")
+    if (http_cache.stats["hits"], grpc_cache.stats["hits"]) != (1, 1):
+        fail(f"{label}: the templates did not stamp: {http_cache.stats}, "
+             f"{grpc_cache.stats}")
+    times = {}
+    for what, fn in (("http slow", slow_http), ("http stamp", stamp_http),
+                     ("grpc slow", slow_grpc), ("grpc stamp", stamp_grpc)):
+        fn()
+        times[what] = _tw_median_us(fn, TW_ENCODE_CALLS)
+    print(f"{label}: B = {rows}, {name} {list(resp.outputs[0].shape)} "
+          f"({ss[0].nbytes} bytes); stamped HTTP header and segments and "
+          f"gRPC message byte for byte the slow path's; median of "
+          f"{TW_ENCODE_CALLS} calls each: HTTP slow "
+          f"{times['http slow']:.1f} us, stamp {times['http stamp']:.1f} us "
+          f"({times['http slow'] / times['http stamp']:.2f}x); gRPC slow "
+          f"{times['grpc slow']:.1f} us, stamp {times['grpc stamp']:.1f} us "
+          f"({times['grpc slow'] / times['grpc stamp']:.2f}x); {CARD}",
+          flush=True)
+    return times
+
+
+def tools_wire_phase(torch, counters) -> None:
+    """The operators' tools and the wire templates: ``longctx_tpu`` base
+    bf16 (flash 8 a forward) and ``bert_large`` int8 ``w2`` at 24 layers
+    (int8 24 a forward) served here with server tracing (TIMESTAMPS) and
+    the port's client telemetry tracing on; each model by HTTP and by
+    gRPC-Web (1 + TW_SEQUENTIAL requests each), each answer within
+    SERVED_ATOL of the plain-kernel forward, launches exactly per
+    execution.  The servers' template caches hold one template per (model,
+    output set) and protocol.  Then, tracing off, a served response of
+    each model stamped byte for byte as the slow path encodes it, both
+    encoders timed on it; ``bert_large``'s response-cache hits at B = 32
+    timed by wire.  Then ``tools.trace_summary`` on the traces (every
+    request counted, every journey joined, each model's COMPUTE median
+    within its executions' CUDA-event range, a Chrome export with journey
+    lanes) and ``tools.top --once --json`` (each model's successes as its
+    statistics count them), each in a process of its own."""
+    import shutil
+    import statistics
+
+    import numpy as np
+
+    from triton_client_tpu_torch._telemetry import telemetry
+    from triton_client_tpu_torch.models import language
+
+    label = "tools and wire"
+    shutil.rmtree(TW_DIR, ignore_errors=True)
+    os.makedirs(TW_DIR)
+    spath = os.path.join(TW_DIR, "server.json")
+    cpath = os.path.join(TW_DIR, "client.json")
+    os.environ["TRITON_TPU_QUANT_BERT_LARGE"] = "int8"
+    os.environ["TRITON_TPU_INT8_FUSED"] = "w2"
+    try:
+        longctx = language.make_longctx_tpu("cuda")
+        with bert_depth(TW_BERT_LAYERS):
+            bert = language.make_bert_large("cuda")
+        S, V = language.BERT_SEQ_LEN, language.BERT_LARGE.vocab_size
+        rows = {"longctx_tpu": longctx.max_batch_size, "bert_large": 32}
+        xs = {"longctx_tpu": model_tokens(LONGCTX_SEED + 17, rows[
+            "longctx_tpu"], longctx.config.input[0].dims[0], 256),
+              "bert_large": model_tokens(BERT_SEED + 17, 32, S, V)}
+        models = {"longctx_tpu": longctx, "bert_large": bert}
+        with serving_harness([longctx, bert]) as harness:
+            port = harness.http_port
+            for m in models.values():
+                _warm(harness, m, rows[m.name])
+            check_precision(label, longctx.transformer, False)
+            check_precision(label, bert.transformer, True)
+            checks = {
+                "longctx_tpu": longctx_check(label, torch, longctx,
+                                             xs["longctx_tpu"]),
+                "bert_large": bert_check(label, torch, bert, True,
+                                         xs["bert_large"])}
+            per_forward = {
+                "longctx_tpu": (longctx.transformer.cfg.n_layers, 0),
+                "bert_large": (0, bert.transformer.cfg.n_layers)}
+            _tw_set_trace(port, "TIMESTAMPS", spath)
+            telemetry().enable_tracing(cpath)
+            sent = {m: 0 for m in models}
+            try:
+                with _obs_executions(longctx) as l_runs, \
+                        _obs_executions(bert) as b_runs:
+                    for name, m in models.items():
+                        cfg = m.config
+                        inp = (cfg.input[0].name, cfg.input[0].data_type,
+                               list(xs[name].shape))
+                        out = (cfg.output[0].name, cfg.output[0].data_type,
+                               [rows[name]] + list(cfg.output[0].dims))
+                        for protocol in ("http", "grpc"):
+                            (answer, _), n_exec, _ = _counted(
+                                f"{label} {name} {protocol}", m, counters,
+                                lambda: run_sequential(
+                                    WireClient(port, inp, out, protocol),
+                                    name, xs[name], TW_SEQUENTIAL),
+                                *per_forward[name], paths=TW_PATHS)
+                            if n_exec != 1 + TW_SEQUENTIAL:
+                                fail(f"{label} {name} {protocol}: {n_exec} "
+                                     f"executions for {1 + TW_SEQUENTIAL} "
+                                     "requests")
+                            checks[name](f"{protocol} wire", answer)
+                            sent[name] += 1 + TW_SEQUENTIAL
+            finally:
+                telemetry().disable_tracing()
+                _tw_set_trace(port, "OFF")
+            exec_ms = {"longctx_tpu": sorted(
+                s.elapsed_time(e) for _, s, e in l_runs), "bert_large":
+                sorted(s.elapsed_time(e) for _, s, e in b_runs)}
+            core = harness.core
+            for cache, proto in ((core.http_wire_templates, "HTTP"),
+                                 (core.grpc_wire_templates, "gRPC")):
+                held = {m: cache.templates(m) for m in models}
+                if held != {m: 1 for m in models} or cache.stats["errors"]:
+                    fail(f"{label}: the {proto} template cache holds "
+                         f"{held}, stats {cache.stats}")
+                print(f"{label}: the server's {proto} templates: one per "
+                      f"model; {cache.stats}", flush=True)
+            times = {name: _tw_templates(f"{label} {name}", harness, m,
+                                         counters, xs[name], rows[name])
+                     for name, m in models.items()}
+            # bert_large's response cache: one miss, then hits by wire
+            bert.config.response_cache = True
+            client = _client(port)
+            hits = []
+
+            def cached():
+                _post_infer(client, "bert_large",
+                            [("INPUT_IDS", "INT32", xs["bert_large"])],
+                            ["LOGITS"])
+                for _ in range(TW_HITS):
+                    got, dt = _post_infer(
+                        client, "bert_large",
+                        [("INPUT_IDS", "INT32", xs["bert_large"])],
+                        ["LOGITS"])
+                    hits.append(dt)
+                return got["LOGITS"]
+
+            try:
+                hit, n_exec, _ = _counted(
+                    f"{label} bert_large response cache", bert, counters,
+                    cached, *per_forward["bert_large"], paths=TW_PATHS)
+            finally:
+                client.close()
+                bert.config.response_cache = False
+            if n_exec != 1:
+                fail(f"{label}: {n_exec} executions for one miss and "
+                     f"{TW_HITS} hits")
+            checks["bert_large"]("a response-cache hit", hit)
+            hit_ms = 1e3 * statistics.median(hits)
+            print(f"{label}: bert_large int8 w2 response-cache hit p50 "
+                  f"{hit_ms:.3f} ms by wire, B = 32, over {TW_HITS} hits "
+                  f"(the cluster and cache phase's hits: PERF.md); {CARD}",
+                  flush=True)
+
+            # the tools, each in a process of its own
+            summary = json.loads(_tw_tool(
+                label, "trace_summary", spath, "--client", cpath,
+                "--format", "json"))
+            n = sum(sent.values())
+            jo = summary.get("journeys") or {}
+            got = {m: e["count"] for m, e in summary["models"].items()}
+            if summary["requests"] != n or got != sent \
+                    or summary["join"]["joined"] != n \
+                    or (jo.get("count"), jo.get("complete"),
+                        jo.get("orphan_server_traces")) != (n, n, 0):
+                fail(f"{label}: trace_summary read {summary['requests']} "
+                     f"requests {got}, joined {summary['join']['joined']}, "
+                     f"journeys {jo.get('count')} ({jo.get('complete')} "
+                     f"complete, {jo.get('orphan_server_traces')} orphans); "
+                     f"sent {sent}")
+            serialize = {}
+            for name in models:
+                stages = summary["models"][name]["stages"]
+                if "H2D_TRANSFER" in stages:
+                    fail(f"{label}: {name}'s summary has an H2D_TRANSFER "
+                         "row")
+                compute = stages["COMPUTE"]["p50_us"] / 1e3
+                lo, hi = exec_ms[name][0], exec_ms[name][-1]
+                serialize[name] = stages["SERIALIZE"]["p50_us"]
+                print(f"{label}: trace_summary {name}: "
+                      f"{got[name]} requests, COMPUTE p50 {compute:.3f} ms "
+                      f"against its executions' CUDA events {lo:.3f}-"
+                      f"{hi:.3f} ms (bound {OBS_TOL:.0%}); SERIALIZE p50 "
+                      f"{serialize[name]:.1f} us, NETWORK_WRITE p50 "
+                      f"{stages['NETWORK_WRITE']['p50_us']:.1f} us; "
+                      f"{CARD}", flush=True)
+                if not lo * (1 - OBS_TOL) <= compute <= hi * (1 + OBS_TOL):
+                    fail(f"{label}: {name}'s traced COMPUTE p50 "
+                         f"{compute:.3f} ms is outside its executions' "
+                         f"{lo:.3f}-{hi:.3f} ms")
+            chrome_path = os.path.join(TW_DIR, "trace.chrome.json")
+            _tw_tool(label, "trace_summary", spath, "--client", cpath,
+                     "--format", "chrome", "-o", chrome_path, "-q")
+            with open(chrome_path) as f:
+                events = json.load(f)["traceEvents"]
+            lanes = {e["pid"] for e in events if e["pid"] > 100}
+            if len(lanes) != n:
+                fail(f"{label}: the Chrome export has {len(lanes)} journey "
+                     f"lanes for {n} journeys")
+            snap = json.loads(_tw_tool(
+                label, "top", "--url", f"127.0.0.1:{port}", "--once",
+                "--json"))
+            for name, m in models.items():
+                stats = m.stats
+                count = snap["recorder"]["models"][name]["count"]
+                if count * rows[name] != stats.success_count \
+                        or snap["models"][name]["error_pct"] != 0.0:
+                    fail(f"{label}: top read {count} successes of "
+                         f"{rows[name]} rows, the statistics "
+                         f"{stats.success_count} rows; row "
+                         f"{snap['models'][name]}")
+            print(f"{label}: trace_summary counted {n} requests, joined "
+                  f"{n} journeys, {len(lanes)} journey lanes in the Chrome "
+                  "export; top --once --json: "
+                  + ", ".join(f"{name} {snap['recorder']['models'][name]['count']} "
+                              f"successes" for name in models)
+                  + f", as the statistics count them; {CARD}", flush=True)
+        print(f"{label}: the wire: " + "; ".join(
+            f"{name} SERIALIZE p50 {serialize[name]:.1f} us traced, HTTP "
+            f"stamp {times[name]['http stamp']:.1f} us against slow "
+            f"{times[name]['http slow']:.1f} us, gRPC stamp "
+            f"{times[name]['grpc stamp']:.1f} us against slow "
+            f"{times[name]['grpc slow']:.1f} us" for name in models)
+            + f"; response-cache hit p50 {hit_ms:.3f} ms; {CARD}",
+            flush=True)
+    finally:
+        for var in ("TRITON_TPU_QUANT_BERT_LARGE", "TRITON_TPU_INT8_FUSED"):
+            os.environ.pop(var, None)
+
+
 def _signature_of(harness, model, x):
     """The input signature the server records for a batch like ``x``."""
     from triton_client_tpu_torch.server.core import _signature
@@ -7739,10 +8185,11 @@ def main() -> int:
         paths["bert_large int8"] = phase(
             "serve bert_large int8", serve_bert, int8_per_layer=1, int8=True,
             transports=True)
-        # for its forward time and error: 16 requests (40 before the cut
-        # that made room for the fleet phase, PERF.md)
+        # for its forward time and error: 8 requests (40, then 16, before
+        # the cuts that made room for the fleet and the tools and wire
+        # phases, PERF.md)
         phase("serve bert_large int8 fused=all", serve_bert,
-              int8_per_layer=2, int8=True, fused="all", n_requests=16)
+              int8_per_layer=2, int8=True, fused="all", n_requests=8)
     paths["moe_tpu bf16"] = phase(
         "serve moe_tpu bf16", serve_next_token, language.make_moe_tpu,
         "moe_tpu", int8_per_layer=0)
@@ -7771,6 +8218,8 @@ def main() -> int:
                             openai_repository_phase, (torch, counters)),
                            ("fleet", fleet_phase, (torch, counters)),
                            ("cluster and cache", cluster_cache_phase,
+                            (torch, counters)),
+                           ("tools and wire", tools_wire_phase,
                             (torch, counters))):
         t0 = time.perf_counter()
         fn(*args)
@@ -7779,7 +8228,8 @@ def main() -> int:
     # and every transport's window of the shared-memory phases, every
     # perf_analyzer run, every gRPC window, every vision window, every
     # observability run, every overload run, every generation window and
-    # the cluster's balancing runs and the response cache's requests
+    # the cluster's balancing runs and the response cache's requests, and
+    # the tools and wire phase's traced, encoded and cached requests
     paths.update(SHM_PATHS)
     paths.update(PERF_PATHS)
     paths.update(GRPC_PATHS)
@@ -7792,6 +8242,7 @@ def main() -> int:
     paths.update(OAI_PATHS)
     paths.update(FLEET_PATHS)
     paths.update(CC_PATHS)
+    paths.update(TW_PATHS)
     for path, launches in paths.items():
         print(f"launches on {path}: flash_attention "
               f"{launches['flash_attention']}, int8_matmul "

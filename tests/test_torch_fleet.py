@@ -16,8 +16,9 @@ The counterpart of ``tests/test_fleet.py``, class by class:
   ``nv_fleet_*`` rows, and the flip under c = 8 wire traffic;
 * the CLI supervisor (``--frontends 2 --device cpu``): a SIGKILLed worker,
   and a ``worker_kill`` draw, each mid c = 8 run under ``RetryPolicy(3)``:
-  zero caller errors, one counted restart on every worker's metrics port,
-  SIGTERM drains to exit 0;
+  zero caller errors, one counted restart on every worker's metrics port
+  (and, after the SIGKILL, in the port's ``top --once --json`` over the
+  fleet's frontend), SIGTERM drains to exit 0;
 * a drill on ``ClusterHarness`` and ``ReplicaSupervisor``: a seeded
   ``worker_kill`` and a rolling update under overload, flooded through the
   port's ``ClusterClient`` (least outstanding, ``RetryPolicy(3)``), as the
@@ -30,6 +31,7 @@ exit codes, never a time.
 """
 
 import asyncio
+import json
 import os
 import signal
 import socket
@@ -1066,14 +1068,23 @@ class TestSupervisorSelfHealing:
         assert fleet.proc.poll() is None, fleet.tail()
         assert all(c > 0 for c in counts)
 
-    def test_worker_kill_mid_c8_run_zero_caller_errors(self):
+    def test_worker_kill_mid_c8_run_zero_caller_errors(self, capsys):
         """SIGKILL of one worker mid-run: zero caller errors, one counted
-        restart on every worker's metrics port, SIGTERM drains to 0."""
+        restart on every worker's metrics port and in the port's ``top``
+        over the fleet's frontend, SIGTERM drains to 0."""
+        from triton_client_tpu_torch.tools import top
+
         fleet = _Fleet()
         try:
             self._drill(fleet, lambda: os.kill(fleet.pids[0],
                                                signal.SIGKILL))
             assert "(signal:SIGKILL)" in "".join(fleet.lines)
+            capsys.readouterr()
+            assert top.main(["--url", f"127.0.0.1:{fleet.http_port}",
+                             "--once", "--json"]) == 0
+            snap = json.loads(capsys.readouterr().out)
+            # the worker that answered the poll reads the fleet's counter
+            assert snap["worker_restarts"] == 1
         finally:
             rc = fleet.close()
         assert rc == 0, fleet.tail()

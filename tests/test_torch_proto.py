@@ -44,7 +44,8 @@ from triton_client_tpu_torch.grpc._utils import \
 from triton_client_tpu_torch.protocol import _proto3
 from triton_client_tpu_torch.protocol import inference as tp
 from triton_client_tpu_torch.server import types as ttypes
-from triton_client_tpu_torch.server.grpc_server import encode_response
+from triton_client_tpu_torch.server.wire import \
+    build_pb_response as port_pb_response
 
 _TYPE_NAMES = {
     gdesc.FieldDescriptor.TYPE_DOUBLE: "double",
@@ -372,7 +373,7 @@ def _response(types):
 
 
 def test_server_response_matches_reference():
-    _assert_same(encode_response(_response(ttypes)),
+    _assert_same(port_pb_response(_response(ttypes)),
                  build_pb_response(_response(jtypes)))
 
 

@@ -19,7 +19,8 @@ requests (gRPC: gRPC-Web on each server's HTTP port).
 * ``PROFILE`` writes a torch.profiler trace directory.
 * Formats: the reference's own ``tools.trace_summary.summarize`` reads the
   port's file and gives the stage set it gives for its own file, and the
-  port's trimmed copy summarizes both files as the reference does.
+  port's tool (``tools.trace_summary``) summarizes both files as the
+  reference does.
 * Settings: trace and log settings responses equal field for field, over
   HTTP (both packages' clients) and gRPC (the port's client on both
   servers, the reference's on its own HTTP/2 port).
@@ -43,7 +44,7 @@ from triton_client_tpu.models import zoo as jzoo
 from triton_client_tpu.server.registry import ModelRegistry as JaxRegistry
 from triton_client_tpu.server.testing import ServerHarness as JaxHarness
 from triton_client_tpu.tools import trace_summary as jsummary
-from triton_client_tpu_torch import _trace_summary as tsummary
+from triton_client_tpu_torch.tools import trace_summary as tsummary
 from triton_client_tpu_torch import grpc as tgrpc
 from triton_client_tpu_torch import http as thttp
 from triton_client_tpu_torch.models import language as tlang
@@ -387,7 +388,7 @@ def test_trace_summary_reads_the_ports_file(servers, tmp_path):
         summary = jsummary.summarize(records)
         stages[pkg] = {m: sorted(e["stages"]) for m, e in
                        summary["models"].items()}
-        # the port's trimmed copy: the reference's summary, field for field
+        # the port's tool: the reference's summary, field for field
         assert tsummary.summarize(tsummary.load_trace_file(path)) == summary
         assert tsummary.format_text(summary) == jsummary.format_text(summary)
     assert stages["port"] == stages["jax"]

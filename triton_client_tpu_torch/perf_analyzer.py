@@ -36,8 +36,8 @@ the run ends with the shared-memory regions it left (``regions left
 ``--trace-file PATH`` turns the server's tracing on for the sweep
 (``trace_level`` TIMESTAMPS into PATH, every ``--trace-rate``-th request,
 default 100), off again after it whatever happened, and prints the
-per-stage breakdown of the file (``_trace_summary``); PATH is a path the
-server writes.
+per-stage breakdown of the file (``tools.trace_summary``); PATH is a path
+the server writes.
 
 QoS classes and retries (the reference's flags): ``--priority N`` and
 ``--tenant NAME``, each repeatable, are zipped into classes (a shorter list
@@ -73,8 +73,12 @@ request after a fixed MS (``HedgePolicy`` with ``min_samples`` pinned
 high, so the delay never turns into the observed p95).  Such a level
 reports ``endpoints`` (requests routed to each endpoint from its window's
 start to the level's end, the reference's), ``endpoints_run`` (over the
-whole run, to compare with each server's statistics), ``hedges``,
-``hedge_wins`` and ``breakers`` (each endpoint's breaker transitions).  A
+whole run, to compare with each server's statistics), ``hedges`` and
+``hedge_wins`` (from the window's start, the reference's: a hedge sent
+before the window that wins in it counts as a win alone),
+``hedges_run`` and ``hedge_wins_run`` (over the whole run, so every win
+counts beside its hedge) and ``breakers`` (each endpoint's breaker
+transitions).  A
 cluster sweep refuses ``--streaming``, ``--shared-memory`` and
 ``--trace-file`` (each belongs to one server), as the reference does;
 metadata comes from the first endpoint that answers.
@@ -616,14 +620,17 @@ def _cluster_result(res: dict, shared, start, before) -> None:
     """A cluster level's client closed (a hedge's loser still running ends
     first), then its routing: ``endpoints`` from its window's start,
     ``endpoints_run`` over the run, ``hedges`` and ``hedge_wins`` from the
-    window's start (all to the level's end), and ``breakers``: each
-    endpoint's breaker transitions in the run."""
+    window's start, ``hedges_run`` and ``hedge_wins_run`` over the run (all
+    to the level's end), and ``breakers``: each endpoint's breaker
+    transitions in the run."""
     shared.close()
     dist, hedges, wins = _cluster_recorded()
     res["endpoints"] = _delta(dist, before[0])
     res["endpoints_run"] = _delta(dist, start[0])
     res["hedges"] = hedges - before[1]
     res["hedge_wins"] = wins - before[2]
+    res["hedges_run"] = hedges - start[1]
+    res["hedge_wins_run"] = wins - start[2]
     res["breakers"] = {e.url: list(e.breaker.history)
                        for e in shared.pool.endpoints}
 
@@ -1139,7 +1146,8 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     summary = None
     if args.trace_file:
-        from ._trace_summary import format_text, load_trace_file, summarize
+        from .tools.trace_summary import (format_text, load_trace_file,
+                                          summarize)
 
         try:
             summary = summarize(load_trace_file(args.trace_file))

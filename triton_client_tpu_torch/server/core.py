@@ -195,6 +195,7 @@ from .trace import (TRACE_DEFAULTS, RequestTracer, reset_current_trace,
                     set_current_trace)
 from .types import (InferError, InferRequest, InferResponse, InputTensor,
                     OutputTensor)
+from .wire import ResponseTemplateCache
 
 
 def _batch_count(inputs: Dict[str, Any]) -> int:
@@ -1164,6 +1165,14 @@ class InferenceCore:
         # identical requests answered without a forward (a model's config
         # enables it; --cache-budget-bytes sets budget_bytes)
         self.response_cache = _ResponseCache()
+        # the wire templates (wire.py): per-(model, output set) compiled
+        # responses, one cache per frontend protocol, keyed by the
+        # registry's generation; retire_name_caches drops a name's entries;
+        # a template that raises is logged once per (model, exception type)
+        self.http_wire_templates = ResponseTemplateCache(
+            warn=self.log.warning)
+        self.grpc_wire_templates = ResponseTemplateCache(
+            warn=self.log.warning)
         costs.warm_up()
 
     def _slo_from_config(self, name: str) -> Optional[SloObjective]:
@@ -2143,20 +2152,28 @@ class InferenceCore:
         """Drop what the core keeps for ``name``'s retired instances: the
         batchers of a swapped instance or config (stopped before this
         returns, so no batcher thread holds a retired instance once a load
-        or an unload answers), the SLO
-        objective resolved from the old config and the device statistics'
-        signatures and FLOPs (cumulative counters stay).  Once the name is
-        unloaded, its prefix/KV store, its quarantine state (whose probe
-        holds the old instance) and its governor pins go too."""
+        or an unload answers), the SLO objective resolved from the old
+        config, the device statistics' signatures and FLOPs (cumulative
+        counters stay) and the wire templates.  Once the name is unloaded,
+        its prefix/KV store, its quarantine state (whose probe holds the
+        old instance) and its governor pins go too."""
         from . import kvcache
 
         self._retire_batchers(name)
         self.slo.invalidate(name)
         self.device_stats.forget_model(name)
+        self.retire_wire_templates(name)
         if self.registry.get_state(name)[0] != "READY":
             kvcache.drop(name)
             self.device_faults.forget(name)
             self.memory.forget_model(name)
+
+    def retire_wire_templates(self, name: str) -> None:
+        """Drop ``name``'s compiled response templates of both protocols
+        (they froze the old instance's output specs; the generation in
+        their key already bars a stale stamp)."""
+        self.http_wire_templates.retire(name)
+        self.grpc_wire_templates.retire(name)
 
     def shutdown(self) -> None:
         self.accepting = False

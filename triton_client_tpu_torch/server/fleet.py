@@ -603,6 +603,7 @@ class FleetController:
             registry.promote(name, version)
             core.slo.invalidate(name)
             core.device_stats.forget_model(name)
+            core.retire_wire_templates(name)
             core.log.info(f"rolling update: '{name}' now serving version "
                           f"{version} (was {old_version}); baking")
             bake_s = self.bake_s if bake_s is None else float(bake_s)
@@ -618,6 +619,7 @@ class FleetController:
                     # what the new one admitted drains, then it retires
                     registry.demote(name, version, fallback=old_version)
                     core.slo.invalidate(name)
+                    core.retire_wire_templates(name)
                     core.drain_batcher(name, version,
                                        timeout_s=drain_timeout_s)
                     try:

@@ -13,7 +13,10 @@ stream RPC takes an iterator of requests and yields responses.
   checked); typed ``contents`` are the fallback; shared-memory parameters
   become :class:`ShmRef`\\ s.  The response carries each output's bytes in
   ``raw_output_contents`` (views of the output arrays, not copies), an
-  empty entry for an output written to a region.
+  empty entry for an output written to a region; it is stamped from the
+  core's gRPC template cache (``wire.py``,
+  ``InferenceCore.grpc_wire_templates``), byte for byte the slow path's
+  ``build_pb_response``.
 * ``ModelStreamInfer`` answers each request in turn (a decoupled model:
   0..N responses, and the empty final one where the request asks for it),
   errors in-band as ``"[NNN] message"`` (the HTTP status of the core's
@@ -63,8 +66,8 @@ from .qos import tenant_from_headers
 from .trace import TRACE_DEFAULTS, validate_trace_update
 from .types import (InferError, InferRequest, InferResponse, InputTensor,
                     RequestedOutput, ShmRef, apply_request_deadline,
-                    apply_request_priority, bytes_to_array, output_payload,
-                    reshape_input)
+                    apply_request_priority, bytes_to_array, reshape_input)
+from .wire import encode_pb_response
 
 
 class GrpcError(Exception):
@@ -110,16 +113,6 @@ def grpc_code(e: InferError) -> StatusCode:
 def param_to_py(p) -> Any:
     which = p.WhichOneof("parameter_choice")
     return getattr(p, which) if which else None
-
-
-def py_to_param(value) -> "pb.InferParameter":
-    if isinstance(value, bool):
-        return pb.InferParameter(bool_param=value)
-    if isinstance(value, int):
-        return pb.InferParameter(int64_param=value)
-    if isinstance(value, float):
-        return pb.InferParameter(double_param=value)
-    return pb.InferParameter(string_param=str(value))
 
 
 def _shm_ref(params: Dict[str, Any], what: str, name: str) -> ShmRef:
@@ -197,33 +190,6 @@ def decode_request(request: "pb.ModelInferRequest") -> InferRequest:
             out.shm = _shm_ref(params, "output", o.name)
         req.outputs.append(out)
     return req
-
-
-def encode_response(resp: InferResponse) -> "pb.ModelInferResponse":
-    """The core's response as a ``ModelInferResponse``."""
-    out = pb.ModelInferResponse(model_name=resp.model_name,
-                                model_version=resp.model_version or "1",
-                                id=resp.id)
-    for k, v in resp.parameters.items():
-        out.parameters[k] = py_to_param(v)
-    for t in resp.outputs:
-        tensor = pb.ModelInferResponse.InferOutputTensor(
-            name=t.name, datatype=t.datatype,
-            shape=[int(s) for s in t.shape])
-        if t.shm is not None:
-            tensor.parameters["shared_memory_region"] = pb.InferParameter(
-                string_param=t.shm.region_name)
-            tensor.parameters["shared_memory_byte_size"] = \
-                pb.InferParameter(int64_param=t.shm.byte_size)
-            if t.shm.offset:
-                tensor.parameters["shared_memory_offset"] = \
-                    pb.InferParameter(int64_param=t.shm.offset)
-            out.raw_output_contents.append(b"")
-        else:
-            out.raw_output_contents.append(output_payload(t.data,
-                                                          t.datatype))
-        out.outputs.append(tensor)
-    return out
 
 
 def _statistic(count: int, ns: int) -> "pb.StatisticDuration":
@@ -488,6 +454,12 @@ class InferenceServicer:
         req.traceparent = metadata.get("traceparent", "")
         return req
 
+    def _encode(self, resp: InferResponse) -> "pb.ModelInferResponse":
+        """The response message, stamped from the core's gRPC templates."""
+        return encode_pb_response(
+            resp, self._core.grpc_wire_templates,
+            self._core.registry.generation(resp.model_name))
+
     def ModelInfer(self, request, wire_bytes: int = 0,
                    decode_start_ns: int = 0,
                    metadata: Optional[Dict[str, str]] = None):
@@ -501,10 +473,13 @@ class InferenceServicer:
             raise GrpcError.of(e)
         trace = resp.trace
         if trace is None:
-            return encode_response(resp)
+            return self._encode(resp)
         try:
+            # a stamp encodes the message's parts here, so SERIALIZE covers
+            # the encoding too (a message built without a template is
+            # encoded by the bridge, after the span)
             t_ser0 = time.monotonic_ns()
-            out = encode_response(resp)
+            out = self._encode(resp)
             t_ser1 = time.monotonic_ns()
             trace.add_span("SERIALIZE", t_ser0, t_ser1)
             # the bridge writes the message after this returns: the span
@@ -543,7 +518,7 @@ class InferenceServicer:
                         continue
                     t0 = time.monotonic_ns()
                     yield pb.ModelStreamInferResponse(
-                        infer_response=encode_response(resp))
+                        infer_response=self._encode(resp))
                     if resp.trace is not None:
                         resp.trace.record_write(t0, time.monotonic_ns())
             except InferError as e:

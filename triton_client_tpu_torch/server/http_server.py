@@ -91,7 +91,11 @@ streamed one is SSE with the ``generate_stream`` lifecycle (the first
 frame before the 200, a failure after it in band, a client that goes away
 closes every choice's stream).
 
-Not ported yet: the wire templates.
+Responses (``wire.py``): an infer response's header is stamped from the
+core's HTTP template cache (``InferenceCore.http_wire_templates``), one
+compiled template per (model, output set), byte for byte the slow path's
+``build_http_response_header`` dumped through ``json.dumps``; a response
+with an output in JSON ``data`` takes the slow path.
 """
 
 from __future__ import annotations
@@ -108,7 +112,7 @@ import time
 import urllib.parse
 import zlib
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -126,8 +130,8 @@ from .qos import tenant_from_headers
 from .trace import TRACE_DEFAULTS, validate_trace_update
 from .types import (InferError, InferRequest, InputTensor, RequestedOutput,
                     ShmRef, apply_request_deadline, apply_request_priority,
-                    bytes_to_array, numeric_dtype, output_payload,
-                    reshape_input)
+                    bytes_to_array, numeric_dtype, reshape_input)
+from .wire import encode_http_response
 
 _HEADER_LEN = "Inference-Header-Content-Length"
 _REQUEST_ID_HDR = "triton-request-id"
@@ -784,8 +788,10 @@ class _Handler(BaseHTTPRequestHandler):
             t_ser0 = time.monotonic_ns()
             default_binary = bool(req.parameters.get(
                 "binary_data_output", header_len is not None))
-            header, segments = encode_response(
-                resp, {o.name: o for o in req.outputs}, default_binary)
+            header, segments = encode_http_response(
+                resp, {o.name: o for o in req.outputs}, default_binary,
+                self.core.http_wire_templates,
+                self.core.registry.generation(resp.model_name))
             headers = {_HEADER_LEN: str(len(header))}
             if req.client_request_id:
                 headers[_REQUEST_ID_HDR] = req.client_request_id
@@ -998,52 +1004,6 @@ def _json_to_array(data, datatype: str, shape, name: str):
     except (ValueError, TypeError) as e:
         raise InferError(f"invalid data for input '{name}': {e}")
     return reshape_input(arr, shape, name)
-
-
-def encode_response(resp, requested: Dict[str, RequestedOutput],
-                    default_binary: bool) -> Tuple[bytes, List[memoryview]]:
-    """The v2 response: its JSON header, and the raw bytes of each binary
-    output in output order (views of numeric output arrays, not copies; a
-    BYTES output's one serialization buffer).  A BYTES output in JSON is a
-    list of UTF-8 strings, and one that is not UTF-8 fails, as in the
-    reference.  An output written to a shared-memory region carries only
-    the region's parameters."""
-    outputs: List[Dict[str, Any]] = []
-    segments: List[memoryview] = []
-    for out in resp.outputs:
-        entry: Dict[str, Any] = {"name": out.name, "datatype": out.datatype,
-                                 "shape": list(out.shape)}
-        if out.shm is not None:
-            entry["parameters"] = {
-                "shared_memory_region": out.shm.region_name,
-                "shared_memory_byte_size": out.shm.byte_size}
-            if out.shm.offset:
-                entry["parameters"]["shared_memory_offset"] = out.shm.offset
-            outputs.append(entry)
-            continue
-        spec = requested.get(out.name)
-        binary = spec.binary_data if spec is not None else default_binary
-        if binary:
-            seg = output_payload(out.data, out.datatype)
-            segments.append(seg)
-            entry["parameters"] = {"binary_data_size": seg.nbytes}
-        elif out.datatype == "BYTES":
-            entry["data"] = [
-                x.decode("utf-8") if isinstance(x, (bytes, bytearray))
-                else str(x) for x in np.asarray(out.data).flatten(order="C")]
-        elif out.datatype == "BF16":
-            entry["data"] = out.data.float().reshape(-1).tolist()
-        else:
-            entry["data"] = np.asarray(out.data).reshape(-1).tolist()
-        outputs.append(entry)
-    header: Dict[str, Any] = {"model_name": resp.model_name,
-                              "model_version": resp.model_version or "1",
-                              "outputs": outputs}
-    if resp.id:
-        header["id"] = resp.id
-    if resp.parameters:
-        header["parameters"] = resp.parameters
-    return _json_body(header), segments
 
 
 class _CountingServer(ThreadingHTTPServer):

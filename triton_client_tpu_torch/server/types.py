@@ -18,8 +18,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from ..utils import (bf16_from_bytes, bf16_to_bytes, deserialize_bytes_tensor,
-                     serialize_byte_tensor_raw, triton_to_np_dtype)
+from ..utils import (bf16_from_bytes, deserialize_bytes_tensor,
+                     triton_to_np_dtype)
 
 
 @dataclass
@@ -259,14 +259,3 @@ def bytes_to_array(chunk, datatype: str, shape, name: str):
             f"unexpected total byte size {len(chunk)} for input '{name}', "
             f"expecting {expected}")
     return reshape_input(np.frombuffer(chunk, dtype=dt), shape, name)
-
-
-def output_payload(data, datatype: str) -> memoryview:
-    """An output's wire bytes (HTTP binary data, gRPC
-    ``raw_output_contents``): a view of the array where it is numeric and
-    contiguous, BYTES serialized once, BF16 the tensor's own bits."""
-    if datatype == "BYTES":
-        return memoryview(serialize_byte_tensor_raw(np.asarray(data)))
-    if datatype == "BF16":
-        return memoryview(bf16_to_bytes(data))
-    return memoryview(np.ascontiguousarray(data).reshape(-1)).cast("B")
