@@ -135,7 +135,8 @@ Phases (any failure exits non-zero and prints no result line):
     for bit for ``bert_large``);
     the signature's counted FLOPs equal to the plain path's within
     ``OBS_FLOPS_TOL``; live MFU in (0, 1.05] and within ``OBS_TOL`` of
-    counted FLOPs / forward / the bf16 peak; ``nv_tpu_memory_used_bytes``
+    counted FLOPs / the CUDA-event time of the served executions in its
+    window / the bf16 peak (against the idle forward's, printed); ``nv_tpu_memory_used_bytes``
     at least the served parameters' bytes; ``/metrics`` parsed; a
     ``PROFILE`` window whose Chrome trace names the flash and int8
     kernels; no region left; ``bert_large`` runs off, then on, and on may
@@ -315,14 +316,36 @@ Phases (any failure exits non-zero and prints no result line):
     and ``tools.top --once --json`` (each model's successes as its
     statistics count them).  The fleet phase also reads the SIGKILL's
     restart through ``tools.top`` over the fleet's frontend;
-21. print each kernel's launches on every served path, one JSON line
+21. aio, TLS and compression: a CLI fleet (``--frontends 2``) of
+    ``longctx_tpu`` base bf16 starts with ``--ssl-certfile`` /
+    ``--ssl-keyfile`` (the committed test pair, ``tests/data/torch_tls``)
+    while, in this process, a TLS ``ServerHarness`` serves ``longctx_tpu``
+    base bf16 and ``bert_large`` int8 ``w2`` at 24 layers: each model gets
+    8 requests through ``http.aio`` and 8 through ``grpc.aio`` at c = 4
+    (``asyncio.gather``) and one ``stream_infer`` of 4, every answer
+    within ``SERVED_ATOL`` of the plain-kernel forward, flash exactly 8
+    and int8 exactly 24 a forward; then compression: a gzip request and a
+    gzip response by HTTP (``Content-Encoding: gzip`` seen, the inflated
+    body byte-equal to the plain one), gRPC request frames under gzip and
+    deflate (answers equal); then a plain client and a client that does
+    not trust the CA, both refused; then the aio ``ClusterClient`` round
+    robin over the CLI fleet and the in-process replica at c = 4 (both
+    execute), one CLI worker SIGKILLed a third in and the in-process
+    replica stopped with its connections cut two thirds in (it cannot take
+    a SIGKILL inside this process): zero caller errors, each answer held
+    to the plain forward.  Printed, not gated: p50 / p99 of aio against
+    sync at c = 4, the TLS handshake's ms and gzip's ms on a
+    ``bert_large`` B = 32 response;
+22. print each kernel's launches on every served path, one JSON line
     describing every kernel, then the result line
     ``{"ok": true, "device": {...}}``.
 
 Every request goes through the port's own HTTP client
-(``triton_client_tpu_torch.http``) on kept-alive connections, its gRPC
-client (``triton_client_tpu_torch.grpc``) or its cluster client over
-them (``triton_client_tpu_torch.cluster``), but ``/generate_stream`` and
+(``triton_client_tpu_torch.http``, or its asyncio sibling ``http.aio``)
+on kept-alive connections, its gRPC client (``triton_client_tpu_torch.grpc``
+or ``grpc.aio``) or its cluster client over them
+(``triton_client_tpu_torch.cluster``, ``cluster.aio``), but
+``/generate_stream`` and
 the ``/v1`` routes, which neither client speaks (as the reference's do
 not): the standard library's ``http.client`` reads their events.
 
@@ -2579,7 +2602,8 @@ OBS_PATHS = {}
 OBS_DIR = os.path.join(REPO, "build", "chip_smoke_obs")
 # each traced COMPUTE span within this share of its own execution's
 # CUDA-event time, and their median within it of the CUDA-event forward on
-# an idle card; live MFU within it of counted FLOPs / forward time / peak;
+# an idle card; live MFU within it of counted FLOPs / the CUDA-event time
+# of the served executions in its window / peak;
 # the served requests with observability on at most this much slower than
 # off
 OBS_TOL = 0.10
@@ -2793,14 +2817,17 @@ def _obs_check_traces(label: str, path: str, fwd_ms: float, runs,
 
 
 def _obs_traced_sweep(label: str, harness, model, counters, rows: int,
-                      flash: int, int8: int, fwd_ms: float):
+                      flash: int, int8: int, fwd_ms: float, served=None):
     """One traced :func:`_obs_sweep`, its executions timed from outside
     the core, whose spans :func:`_obs_check_traces` holds, run once more
-    on a miss (HOST_GATE_RUNS): the sweep's result."""
+    on a miss (HOST_GATE_RUNS): the sweep's result.  Every run's timed
+    executions are added to ``served`` where it is given."""
     for run in range(1, HOST_GATE_RUNS + 1):
         with _obs_executions(model) as runs:
             res, path = _obs_sweep(label, harness, model, counters, rows,
                                    flash, int8, True, PERF_WINDOW_MS)
+        if served is not None:
+            served.extend(runs)
         if _obs_check_traces(label, path, fwd_ms, runs,
                              batched=True) is not None:
             return res
@@ -2810,16 +2837,31 @@ def _obs_traced_sweep(label: str, harness, model, counters, rows: int,
 
 
 def _obs_device_numbers(label: str, harness, model, counted,
-                        plain, fwd_ms: float) -> None:
+                        plain, fwd_ms: float, served) -> None:
     """The server's own numbers for ``model``: live MFU (in (0, 1.05] and
-    within OBS_TOL of counted FLOPs / forward / peak), duty cycle, device
-    memory in use (at least the served parameters' bytes), the roofline
-    verdict of each signature, /metrics parsed; the kernel path's counted
-    FLOPs equal to the plain path's within OBS_FLOPS_TOL."""
+    within OBS_TOL of counted FLOPs / the mean CUDA-event time of the
+    executions in its window / peak; ``served`` holds every execution
+    made with device statistics on, timed from outside the core, see
+    :func:`_obs_executions`), duty cycle, device memory in use (at least
+    the served parameters' bytes), the roofline verdict of each
+    signature, /metrics parsed; the kernel path's counted FLOPs equal to
+    the plain path's within OBS_FLOPS_TOL.  The MFU of the forward on an
+    idle card (``fwd_ms``) is printed beside it: the served executions
+    may run longer than that forward, and the gauge then rightly reads
+    lower."""
     import urllib.request
 
     from triton_client_tpu_torch.server.costs import classify_roofline
 
+    # the gauge's window: the executions recorded in the last window_s
+    # (each is recorded after its start, so none of these has left it)
+    horizon_ns = time.monotonic_ns() - int(
+        harness.core.device_stats.window_s * 1e9)
+    in_window = [start.elapsed_time(end) for t0, start, end in served
+                 if t0 >= horizon_ns]
+    if not in_window:
+        fail(f"{label}: no served execution was timed in the live MFU's "
+             "window")
     client = _client(harness.http_port)
     try:
         snap = client.get_device_stats(model.name)
@@ -2845,9 +2887,14 @@ def _obs_device_numbers(label: str, harness, model, counted,
     if not rel <= OBS_FLOPS_TOL:
         fail(f"{label}: the kernel path counts other FLOPs than the plain "
              "path")
-    want_mfu = counted.flops / (fwd_ms / 1e3) / PEAK_BF16_FLOPS
-    print(f"{label}: live MFU {mfu} (counted FLOPs / CUDA-event forward / "
-          f"bf16 peak: {want_mfu:.4f}), duty cycle {entry['duty_cycle']}, "
+    served_ms = sum(in_window) / len(in_window)
+    want_mfu = counted.flops / (served_ms / 1e3) / PEAK_BF16_FLOPS
+    idle_mfu = counted.flops / (fwd_ms / 1e3) / PEAK_BF16_FLOPS
+    print(f"{label}: live MFU {mfu} (counted FLOPs / the mean CUDA-event "
+          f"time of the {len(in_window)} served executions in its window, "
+          f"{served_ms:.3f} ms / bf16 peak: {want_mfu:.4f}; of the forward "
+          f"on an idle card, {fwd_ms:.3f} ms: {idle_mfu:.4f}), duty cycle "
+          f"{entry['duty_cycle']}, "
           f"device memory in use {used} bytes (served parameters "
           f"{params_bytes} bytes), limit "
           f"{snap['hbm'].get('cuda:0', {}).get('bytes_limit')}; {CARD}",
@@ -2907,16 +2954,22 @@ def _obs_profile(label: str, harness, torch, model, rows: int) -> None:
              f"{found}")
 
 
-def _obs_served_equal(label: str, harness, model, rows: int, atol):
+def _obs_served_equal(label: str, harness, model, rows: int, atol,
+                      served=None):
     """The same tokens served with observability off, then on: equal (bit
-    for bit where ``atol`` is 0).  Leaves observability on."""
+    for bit where ``atol`` is 0).  Leaves observability on; the execution
+    made with it on is timed and added to ``served`` where it is
+    given."""
     import numpy as np
 
     core = harness.core
     _obs_set(core, False)
     x, off = _obs_request(harness.http_port, model, rows, 31)
     _obs_set(core, True)
-    _, on = _obs_request(harness.http_port, model, rows, 31)
+    with _obs_executions(model) as runs:
+        _, on = _obs_request(harness.http_port, model, rows, 31)
+    if served is not None:
+        served.extend(runs)
     err = float(np.abs(on.astype(np.float64) - off).max())
     print(f"{label}: served answer with observability on against off: "
           f"max_abs_err {err:.3e} (bound {atol})", flush=True)
@@ -2975,15 +3028,18 @@ def observability_phase(torch, counters) -> None:
         with serving_harness([model]) as harness:
             _warm(harness, model, 4)  # the signature's counted execution
             check_precision(label, model.transformer, True)
+            served = []
             x = _obs_served_equal(label, harness, model, 4,
-                                  SERVED_ATOL[("longctx_tpu", True)])
+                                  SERVED_ATOL[("longctx_tpu", True)],
+                                  served)
             fwd_ms = _obs_forward_ms(torch, model, x)
             _obs_traced_sweep(label, harness, model, counters, 4, layers,
-                              2 * layers, fwd_ms)
+                              2 * layers, fwd_ms, served)
             counted = harness.core.device_stats.signature_cost(
                 model.name, _signature_of(harness, model, x))
             _obs_device_numbers(label, harness, model, counted,
-                                _obs_plain_flops(torch, model, x), fwd_ms)
+                                _obs_plain_flops(torch, model, x), fwd_ms,
+                                served)
             _obs_profile(label, harness, torch, model, 4)
             _no_regions_left(label, harness)
         del model
@@ -2997,13 +3053,14 @@ def observability_phase(torch, counters) -> None:
         with serving_harness([model]) as harness:
             _warm(harness, model, 32)
             check_precision(label, model.transformer, True)
-            x = _obs_served_equal(label, harness, model, 32, 0.0)
+            served = []
+            x = _obs_served_equal(label, harness, model, 32, 0.0, served)
             fwd_ms = _obs_forward_ms(torch, model, x)
             for run in range(1, HOST_GATE_RUNS + 1):
                 off, _ = _obs_sweep(label, harness, model, counters, 32, 0,
                                     layers, False, PERF_WINDOW_MS)
                 on = _obs_traced_sweep(label, harness, model, counters, 32,
-                                       0, layers, fwd_ms)
+                                       0, layers, fwd_ms, served)
                 slower = on["avg_us"] / off["avg_us"] - 1
                 print(f"{label}: observability off: "
                       f"{off['throughput']:.3f} infer/s, mean "
@@ -3021,7 +3078,8 @@ def observability_phase(torch, counters) -> None:
             _obs_device_numbers(
                 label, harness, model, counted,
                 _obs_plain_flops(torch, model, x,
-                                 head_cols=language.BERT_HEAD_COLS), fwd_ms)
+                                 head_cols=language.BERT_HEAD_COLS), fwd_ms,
+                served)
             _no_regions_left(label, harness)
         del model
         gc.collect()
@@ -6343,9 +6401,14 @@ class _FleetServer:
     on every exit path."""
 
     def __init__(self, frontends: int, *extra: str, name: str = ""):
+        import ssl
+
         from triton_client_tpu_torch.server.testing import free_port
 
         self.n = frontends
+        # under --ssl-certfile the metrics ports serve HTTPS too
+        self._ctx = (ssl.create_default_context(cafile=TLS_CERT)
+                     if "--ssl-certfile" in extra else None)
         #: nv_fleet_worker_restart_total before the SIGKILL drill
         self.restarts = 0.0
         self.port = free_port()
@@ -6372,10 +6435,11 @@ class _FleetServer:
 
     def metrics(self, i: int):
         """Worker i's /metrics families, None while its port is down."""
+        scheme = "https" if self._ctx is not None else "http"
         try:
             with urllib.request.urlopen(
-                    f"http://127.0.0.1:{self.mport + i}/metrics",
-                    timeout=10) as r:
+                    f"{scheme}://127.0.0.1:{self.mport + i}/metrics",
+                    timeout=10, context=self._ctx) as r:
                 return parse_prometheus(r.read().decode())
         except OSError:
             return None
@@ -8056,6 +8120,464 @@ def _signature_of(harness, model, x):
 
 
 
+# ---------------------------------------------------------------------------
+# aio, TLS and compression
+# ---------------------------------------------------------------------------
+
+AT_PATHS = {}
+#: the committed throwaway pair every TLS server of the phase serves
+TLS_CERT = os.path.join(REPO, "tests", "data", "torch_tls", "server.crt")
+TLS_KEY = os.path.join(REPO, "tests", "data", "torch_tls", "server.key")
+#: requests of each model by each aio client, and their concurrency
+AT_REQUESTS, AT_C = 8, 4
+#: requests on the one gRPC stream of each model
+AT_STREAM = 4
+#: requests of the aio-against-sync timing, each way
+AT_TIMED = 16
+#: requests of the cluster drill; the kill and the stop a third and two
+#: thirds in
+AT_CLUSTER = 24
+#: fresh TLS handshakes timed, and gzip calls timed
+AT_HANDSHAKES, AT_GZIP_CALLS = 20, 20
+
+
+def _at_ctx():
+    import ssl
+
+    return ssl.create_default_context(cafile=TLS_CERT)
+
+
+def _at_input(mod, name: str, x):
+    i = mod.InferInput(name, list(x.shape), "INT32")
+    i.set_data_from_numpy(x)
+    return [i]
+
+
+def _pct(values, q: float) -> float:
+    import numpy as np
+
+    return 1e3 * float(np.percentile(values, q))
+
+
+async def _at_gather(n: int, c: int, one):
+    """``one(i)`` for i in range(n), at most ``c`` at once: (answers in
+    order, each one's seconds)."""
+    import asyncio
+
+    sem = asyncio.Semaphore(c)
+    times = [0.0] * n
+
+    async def run(i):
+        async with sem:
+            t0 = time.perf_counter()
+            out = await one(i)
+            times[i] = time.perf_counter() - t0
+            return out
+
+    return list(await asyncio.gather(*(run(i) for i in range(n)))), times
+
+
+async def _at_model(url: str, name: str, inp: str, out: str, x):
+    """One model by ``http.aio`` (AT_REQUESTS at c = AT_C), ``grpc.aio``
+    (the same) and one ``stream_infer`` of AT_STREAM: {path: answers},
+    and the HTTP latencies."""
+    from triton_client_tpu_torch import grpc, http
+    from triton_client_tpu_torch.grpc import aio as grpc_aio
+    from triton_client_tpu_torch.http import aio as http_aio
+
+    got = {}
+    async with http_aio.InferenceServerClient(
+            url, ssl=True, ssl_context=_at_ctx(), conn_limit=AT_C,
+            conn_timeout=300) as c:
+        outs = [http.InferRequestedOutput(out)]
+
+        async def one(i):
+            r = await c.infer(name, _at_input(http, inp, x), outputs=outs)
+            return r.as_numpy(out)
+
+        got["http.aio"], times = await _at_gather(AT_REQUESTS, AT_C, one)
+    async with grpc_aio.InferenceServerClient(
+            url, ssl=True, root_certificates=TLS_CERT) as c:
+        gouts = [grpc.InferRequestedOutput(out)]
+
+        async def gone(i):
+            r = await c.infer(name, _at_input(grpc, inp, x), outputs=gouts,
+                              client_timeout=300)
+            return r.as_numpy(out)
+
+        got["grpc.aio"], _ = await _at_gather(AT_REQUESTS, AT_C, gone)
+
+        async def requests():
+            for _ in range(AT_STREAM):
+                yield {"model_name": name, "inputs": _at_input(grpc, inp, x),
+                       "outputs": gouts}
+
+        stream = []
+        async for result, error in c.stream_infer(requests(),
+                                                  stream_timeout=300):
+            if error is not None:
+                fail(f"aio and TLS {name}: stream error {error}")
+            stream.append(result.as_numpy(out))
+        if len(stream) != AT_STREAM:
+            fail(f"aio and TLS {name}: the stream answered {len(stream)} of "
+                 f"{AT_STREAM}")
+        got["grpc.aio stream"] = stream
+    return got, times
+
+
+async def _at_compression(url: str, x):
+    """bert_large by HTTP with a gzip request and a gzip response, raw (the
+    header seen, the inflated body equal to the plain one's bytes) and
+    through ``http.aio``; then by ``grpc.aio`` plain, gzip and deflate.
+    Returns ({path: LOGITS}, the plain response's (header, body))."""
+    import gzip
+
+    from triton_client_tpu_torch import grpc, http
+    from triton_client_tpu_torch._aio_http import AioConnectionPool
+    from triton_client_tpu_torch.grpc import aio as grpc_aio
+    from triton_client_tpu_torch.http import aio as http_aio
+
+    label = "aio and TLS compression"
+    outs = [http.InferRequestedOutput("LOGITS")]
+    body, json_size = http_aio.InferenceServerClient.generate_request_body(
+        _at_input(http, "INPUT_IDS", x), outputs=outs, request_id="gz")
+    pool = AioConnectionPool(url, 1, _at_ctx())
+    hdrs = {"Inference-Header-Content-Length": str(json_size)}
+    path = "/v2/models/bert_large/infer"
+    try:
+        plain = await pool.request("POST", path, hdrs, body, timeout=300)
+        packed = await pool.request(
+            "POST", path, {**hdrs, "Content-Encoding": "gzip",
+                           "Accept-Encoding": "gzip"},
+            gzip.compress(body), timeout=300)
+    finally:
+        await pool.close()
+    if plain.status != 200 or packed.status != 200:
+        fail(f"{label}: HTTP {plain.status} / {packed.status}")
+    if packed.headers.get("Content-Encoding") != "gzip" \
+            or plain.headers.get("Content-Encoding") is not None:
+        fail(f"{label}: Content-Encoding {packed.headers.get('Content-Encoding')}"
+             f" asked, {plain.headers.get('Content-Encoding')} plain")
+    if gzip.decompress(packed.data) != plain.data:
+        fail(f"{label}: the gzipped response inflates to other bytes")
+    print(f"{label}: a gzip request and response by HTTP: Content-Encoding "
+          f"gzip, {len(packed.data)} bytes for {len(plain.data)}, inflated "
+          "byte-equal to the plain response", flush=True)
+    got = {}
+    async with http_aio.InferenceServerClient(
+            url, ssl=True, ssl_context=_at_ctx(), conn_timeout=300) as c:
+        r = await c.infer("bert_large", _at_input(http, "INPUT_IDS", x),
+                          outputs=outs, request_compression_algorithm="gzip",
+                          response_compression_algorithm="gzip")
+        got["http.aio gzip"] = r.as_numpy("LOGITS")
+    async with grpc_aio.InferenceServerClient(
+            url, ssl=True, root_certificates=TLS_CERT) as c:
+        for alg in (None, "gzip", "deflate"):
+            r = await c.infer("bert_large", _at_input(grpc, "INPUT_IDS", x),
+                              outputs=[grpc.InferRequestedOutput("LOGITS")],
+                              compression_algorithm=alg, client_timeout=300)
+            got[f"grpc.aio {alg or 'plain'}"] = r.as_numpy("LOGITS")
+    for k in ("grpc.aio gzip", "grpc.aio deflate", "http.aio gzip"):
+        if not (got[k] == got["grpc.aio plain"]).all():
+            fail(f"{label}: {k}'s answer differs from the plain one")
+    hlen = int(plain.headers["Inference-Header-Content-Length"])
+    return got, (plain.data[:hlen], plain.data[hlen:])
+
+
+async def _at_refusals(url: str, x) -> None:
+    """A plain client and a client that does not trust the CA, against the
+    TLS port: both refused."""
+    import ssl
+
+    from triton_client_tpu_torch import http
+    from triton_client_tpu_torch.http import aio as http_aio
+
+    label = "aio and TLS refusals"
+    seen = []
+    for kw in ({}, {"ssl": True}):
+        async with http_aio.InferenceServerClient(url, conn_timeout=30,
+                                                  **kw) as c:
+            try:
+                await c.infer("longctx_tpu", _at_input(http, "TOKENS", x))
+            except Exception as e:  # noqa: BLE001 - the refusal wanted
+                seen.append(e)
+            else:
+                fail(f"{label}: a client {kw or 'without TLS'} was served")
+    if not isinstance(seen[1], ssl.SSLCertVerificationError):
+        fail(f"{label}: an untrusted CA read {seen[1]!r}")
+    print(f"{label}: a plain client: {type(seen[0]).__name__}; a client "
+          f"without the CA: {type(seen[1]).__name__} ({seen[1]})", flush=True)
+
+
+def _at_handshake_ms(port: int) -> list:
+    """AT_HANDSHAKES fresh TLS handshakes' ms (the TCP connect excluded)."""
+    import socket
+
+    ctx = _at_ctx()
+    out = []
+    for _ in range(AT_HANDSHAKES):
+        with socket.create_connection(("127.0.0.1", port)) as raw:
+            t0 = time.perf_counter()
+            s = ctx.wrap_socket(raw, server_hostname="127.0.0.1")
+            out.append(1e3 * (time.perf_counter() - t0))
+            s.close()
+    return out
+
+
+def _at_sync_vs_aio(url: str, name: str, inp: str, x):
+    """AT_TIMED requests at c = 4 through the sync HTTP client (4 threads
+    on one client) and through ``http.aio`` (``asyncio.gather``), over
+    TLS: each one's seconds."""
+    import asyncio
+
+    from triton_client_tpu_torch import http
+    from triton_client_tpu_torch.http import aio as http_aio
+
+    sync_times = [0.0] * AT_TIMED
+    errors = []
+    client = http.InferenceServerClient(
+        url, concurrency=AT_C, network_timeout=300, ssl=True,
+        ssl_options={"ca_certs": TLS_CERT})
+
+    def worker(tid):
+        try:
+            for i in range(tid, AT_TIMED, AT_C):
+                t0 = time.perf_counter()
+                client.infer(name, _at_input(http, inp, x))
+                sync_times[i] = time.perf_counter() - t0
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+
+    try:
+        threads = [threading.Thread(target=worker, args=(t,))
+                   for t in range(AT_C)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+    finally:
+        client.close()
+    if errors:
+        fail(f"aio and TLS sync timing: {errors}")
+
+    async def aio():
+        async with http_aio.InferenceServerClient(
+                url, ssl=True, ssl_context=_at_ctx(), conn_limit=AT_C,
+                conn_timeout=300) as c:
+            async def one(i):
+                return await c.infer(name, _at_input(http, inp, x))
+
+            return (await _at_gather(AT_TIMED, AT_C, one))[1]
+
+    return sync_times, asyncio.run(aio())
+
+
+async def _at_cluster(urls, check, x, kill_cli, stop_replica):
+    """The aio ClusterClient round robin over ``urls`` at c = AT_C, a
+    retry policy that may resend an infer: AT_CLUSTER requests, the CLI
+    worker killed a third in and the replica stopped two thirds in (each
+    off the event loop).  Returns (answers, routes, caller errors)."""
+    import asyncio
+
+    from triton_client_tpu_torch import http
+    from triton_client_tpu_torch._resilience import RetryPolicy
+    from triton_client_tpu_torch.cluster.aio import ClusterClient
+
+    routes = []
+    errors = []
+    loop = asyncio.get_running_loop()
+    started = [0]
+    acts = {AT_CLUSTER // 3: kill_cli, 2 * AT_CLUSTER // 3: stop_replica}
+    async with ClusterClient(
+            urls, protocol="http", policy="round_robin",
+            retry_policy=RetryPolicy(max_attempts=4, retry_infer=True,
+                                     initial_backoff_s=0.05, seed=1),
+            reset_timeout_s=60.0,
+            client_kwargs={"ssl": True, "ssl_context": _at_ctx(),
+                           "conn_limit": AT_C, "conn_timeout": 300},
+            on_route=lambda u, m, s: routes.append(u)) as c:
+        async def one(i):
+            started[0] += 1
+            act = acts.pop(started[0], None)
+            if act is not None:
+                await loop.run_in_executor(None, act)
+            try:
+                r = await c.infer("longctx_tpu",
+                                  _at_input(http, "TOKENS", x))
+            except Exception as e:  # noqa: BLE001 - the count gated on
+                errors.append(repr(e))
+                return None
+            got = r.as_numpy("LOGPROBS")
+            check(f"cluster request {i}", got)
+            return got
+
+        answers, _ = await _at_gather(AT_CLUSTER, AT_C, one)
+        breakers = c.pool.states()
+    return answers, routes, errors, breakers
+
+
+def aio_tls_phase(torch, counters) -> None:
+    """aio, TLS and compression (phase 21 of the module docstring)."""
+    import asyncio
+    import signal
+    import statistics
+
+    from triton_client_tpu_torch.models import language
+    from triton_client_tpu_torch.server import http_server
+    from triton_client_tpu_torch.server.registry import ModelRegistry
+    from triton_client_tpu_torch.server.testing import ServerHarness
+    from triton_client_tpu_torch.server.tls import TLSConfig
+
+    label = "aio and TLS"
+    tls = TLSConfig(TLS_CERT, TLS_KEY)
+    fleet = _FleetServer(2, "--ssl-certfile", TLS_CERT, "--ssl-keyfile",
+                         TLS_KEY, name="aio_tls_fleet")
+    harness = None
+    os.environ["TRITON_TPU_QUANT_BERT_LARGE"] = "int8"
+    os.environ["TRITON_TPU_INT8_FUSED"] = "w2"
+    try:
+        longctx = language.make_longctx_tpu("cuda")
+        with bert_depth(24):
+            bert = language.make_bert_large("cuda")
+        S, V = language.BERT_SEQ_LEN, language.BERT_LARGE.vocab_size
+        xl = model_tokens(LONGCTX_SEED + 21, longctx.max_batch_size,
+                          longctx.config.input[0].dims[0], 256)
+        xb = model_tokens(BERT_SEED + 21, 32, S, V)
+        registry = ModelRegistry()
+        registry.register_model(longctx)
+        registry.register_model(bert)
+        harness = ServerHarness(registry, tls=tls).start()
+        url = harness.http_url
+        # (a) each model by http.aio, grpc.aio and a stream; the first
+        # request builds the weights
+        models = {"longctx_tpu": (longctx, "TOKENS", "LOGPROBS", xl,
+                                  (longctx.transformer.cfg.n_layers, 0)),
+                  "bert_large": (bert, "INPUT_IDS", "LOGITS", xb,
+                                 (0, bert.transformer.cfg.n_layers))}
+        checks = {}
+        aio_times = {}
+        for name, (m, inp, out, x, per_forward) in models.items():
+            asyncio.run(_at_warm(url, name, inp, out, x))
+            check_precision(label, m.transformer, name == "bert_large")
+            checks[name] = (longctx_check(label, torch, m, x)
+                            if name == "longctx_tpu"
+                            else bert_check(label, torch, m, True, x))
+            (got, times), n_exec, _ = _counted(
+                f"{label} {name}", m, counters,
+                lambda: asyncio.run(_at_model(url, name, inp, out, x)),
+                *per_forward, paths=AT_PATHS)
+            want = 2 * AT_REQUESTS + AT_STREAM
+            if n_exec != want:
+                fail(f"{label} {name}: {n_exec} executions for {want} "
+                     "requests")
+            for path, answers in got.items():
+                for i, a in enumerate(answers):
+                    checks[name](f"{path} {i}", a)
+            aio_times[name] = times
+        # (b) compression
+        got, (header, payload) = _counted(
+            f"{label} bert_large compression", bert, counters,
+            lambda: asyncio.run(_at_compression(url, xb)),
+            0, bert.transformer.cfg.n_layers, paths=AT_PATHS)[0]
+        for path, a in got.items():
+            checks["bert_large"](path, a)
+        # (d) refusals
+        asyncio.run(_at_refusals(url, xl))
+        # (e) printed: aio against sync, the handshake, gzip
+        (sync_t, aio_t), _, _ = _counted(
+            f"{label} longctx_tpu aio against sync", longctx, counters,
+            lambda: _at_sync_vs_aio(url, "longctx_tpu", "TOKENS", xl),
+            longctx.transformer.cfg.n_layers, 0, paths=AT_PATHS)
+        hs = _at_handshake_ms(harness.http_port)
+        segments = [memoryview(payload)]
+        gz = []
+        for _ in range(AT_GZIP_CALLS):
+            t0 = time.perf_counter()
+            http_server._gzip_response(header, segments)
+            gz.append(1e3 * (time.perf_counter() - t0))
+        print(f"{label}: longctx_tpu B = 4 over TLS at c = {AT_C}, "
+              f"{AT_TIMED} requests each: sync p50 {_pct(sync_t, 50):.3f} ms "
+              f"p99 {_pct(sync_t, 99):.3f} ms, http.aio p50 "
+              f"{_pct(aio_t, 50):.3f} ms p99 {_pct(aio_t, 99):.3f} ms; "
+              f"TLS handshake p50 {statistics.median(hs):.3f} ms (min "
+              f"{min(hs):.3f}, max {max(hs):.3f}, {AT_HANDSHAKES} "
+              f"connections); gzip of a bert_large B = 32 response "
+              f"({len(header) + len(payload)} bytes) p50 "
+              f"{statistics.median(gz):.3f} ms over {AT_GZIP_CALLS} calls; "
+              f"bert_large http.aio p50 "
+              f"{_pct(aio_times['bert_large'], 50):.3f} ms; {CARD}",
+              flush=True)
+        for proto, cache in (("HTTP", harness.core.http_wire_templates),
+                             ("gRPC", harness.core.grpc_wire_templates)):
+            if cache.stats["errors"]:
+                fail(f"{label}: the {proto} wire templates raised "
+                     f"{cache.stats['errors']} times")
+        # (c) the aio cluster over the CLI fleet and the replica
+        fleet.wait_up(label)
+        before_cli = sum(e or 0 for e in fleet.execs())
+        before_rep = longctx.stats.execution_count
+        killed = []
+
+        def kill_cli():
+            execs = fleet.execs()
+            busy = [i for i, e in enumerate(execs) if e]
+            victim = busy[0] if busy else 0
+            pid = fleet.pids()[victim]
+            os.kill(pid, signal.SIGKILL)
+            killed.append((victim, pid, execs))
+
+        def stop_replica():
+            harness.stop()
+
+        check = _longctx_holder(f"{label} cluster", torch,
+                                longctx.transformer, xl)
+        _reset(counters)
+        t0 = time.perf_counter()
+        answers, routes, errors, breakers = asyncio.run(_at_cluster(
+            [fleet.url, url], check, xl, kill_cli, stop_replica))
+        wall = time.perf_counter() - t0
+        launches = {n: mod.launches for n, mod in counters.items()}
+        launches["int8_quantize_rows"] = \
+            counters["int8_matmul"].quantize_launches
+        # after the run: a batch in flight at the stop may finish
+        rep_execs = longctx.stats.execution_count - before_rep
+        cli_before_kill = int(sum(e or 0 for e in killed[0][2]) - before_cli)
+        harness = None
+        print(f"{label} cluster: {AT_CLUSTER} requests at c = {AT_C} in "
+              f"{wall:.2f} s, round robin over the CLI fleet "
+              f"({fleet.url}) and the replica ({url}); routes "
+              f"{[routes.count(u) for u in (fleet.url, url)]}; the CLI "
+              f"executed {cli_before_kill} before worker {killed[0][0]} "
+              f"(pid {killed[0][1]}) was SIGKILLed, the replica "
+              f"{rep_execs} in all; breakers {breakers}; "
+              f"caller errors {len(errors)}; {CARD}", flush=True)
+        if errors:
+            fail(f"{label} cluster: caller errors {errors}")
+        if cli_before_kill < 1 or rep_execs < 1:
+            fail(f"{label} cluster: the CLI ({cli_before_kill}) or the "
+                 f"replica ({rep_execs}) executed nothing")
+        check_launches(f"{label} cluster", launches, rep_execs,
+                       longctx.transformer.cfg.n_layers, 0)
+        AT_PATHS[f"{label} cluster (the replica)"] = launches
+    finally:
+        for var in ("TRITON_TPU_QUANT_BERT_LARGE", "TRITON_TPU_INT8_FUSED"):
+            os.environ.pop(var, None)
+        if harness is not None:
+            harness.stop()
+        fleet.close()
+
+
+async def _at_warm(url: str, name: str, inp: str, out: str, x) -> None:
+    """One request of ``x`` through ``http.aio`` (it builds the weights)."""
+    from triton_client_tpu_torch import http
+    from triton_client_tpu_torch.http import aio as http_aio
+
+    async with http_aio.InferenceServerClient(
+            url, ssl=True, ssl_context=_at_ctx(), conn_timeout=600) as c:
+        await c.infer(name, _at_input(http, inp, x),
+                      outputs=[http.InferRequestedOutput(out)])
+
+
 #: the bytecode of every module that this script and its child processes
 #: import: the card's machine keeps none for most of the installed
 #: packages, so each process (a server worker, perf_analyzer) would compile
@@ -8220,6 +8742,8 @@ def main() -> int:
                            ("cluster and cache", cluster_cache_phase,
                             (torch, counters)),
                            ("tools and wire", tools_wire_phase,
+                            (torch, counters)),
+                           ("aio, TLS and compression", aio_tls_phase,
                             (torch, counters))):
         t0 = time.perf_counter()
         fn(*args)
@@ -8228,8 +8752,9 @@ def main() -> int:
     # and every transport's window of the shared-memory phases, every
     # perf_analyzer run, every gRPC window, every vision window, every
     # observability run, every overload run, every generation window and
-    # the cluster's balancing runs and the response cache's requests, and
-    # the tools and wire phase's traced, encoded and cached requests
+    # the cluster's balancing runs and the response cache's requests, the
+    # tools and wire phase's traced, encoded and cached requests, and the
+    # aio, TLS and compression phase's requests
     paths.update(SHM_PATHS)
     paths.update(PERF_PATHS)
     paths.update(GRPC_PATHS)
@@ -8243,6 +8768,7 @@ def main() -> int:
     paths.update(FLEET_PATHS)
     paths.update(CC_PATHS)
     paths.update(TW_PATHS)
+    paths.update(AT_PATHS)
     for path, launches in paths.items():
         print(f"launches on {path}: flash_attention "
               f"{launches['flash_attention']}, int8_matmul "

@@ -458,8 +458,9 @@ def test_unary_infer_on_a_decoupled_model_is_refused_as_in_reference(
 def test_unported_rpcs_answer_unimplemented_naming_the_roadmap(servers):
     """No RPC of the service is unported now: the repository RPCs answer
     as the reference's (an unknown model's load is INTERNAL with the same
-    text); TLS, the one client option not ported, still raises, naming
-    its ROADMAP item, and ``infer_many`` (once refused) now answers."""
+    text); TLS (once refused naming its ROADMAP item) is a round trip on
+    the committed test pair, with the same answer as the plain port, and
+    ``infer_many`` (once refused) now answers."""
     jh, th = servers
     answers = []
     for url in (th.http_url, jh.http_url):
@@ -485,8 +486,24 @@ def test_unported_rpcs_answer_unimplemented_naming_the_roadmap(servers):
     assert answers[0][1] == "StatusCode.INTERNAL"
     with tgrpc.InferenceServerClient(th.http_url) as c:
         assert c.infer_many("simple", []) == []
-        with pytest.raises(NotImplementedError, match="ROADMAP A3b"):
-            tgrpc.InferenceServerClient(th.http_url, ssl=True)
+        plain = c.infer("simple", _inputs(tgrpc, _simple(*_ab(5))))
+    from triton_client_tpu_torch.server.tls import TLSConfig
+
+    registry = ModelRegistry()
+    registry.register_model(tzoo.make_simple())
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                        "torch_tls")
+    tls = TLSConfig(os.path.join(data, "server.crt"),
+                    os.path.join(data, "server.key"))
+    with ServerHarness(registry, host="localhost", tls=tls) as h, \
+            tgrpc.InferenceServerClient(
+                h.http_url, ssl=True,
+                root_certificates=tls.certfile) as c:
+        assert c.is_server_live()
+        secure = c.infer("simple", _inputs(tgrpc, _simple(*_ab(5))))
+    for name in ("OUTPUT0", "OUTPUT1"):
+        np.testing.assert_array_equal(secure.as_numpy(name),
+                                      plain.as_numpy(name))
     # keepalive options and channel args are taken, and mean nothing
     tgrpc.InferenceServerClient(
         th.http_url, keepalive_options=tgrpc.KeepAliveOptions(),

@@ -25,6 +25,7 @@ JAX package's (``triton_client_tpu.http``), on the CPU.
 
 import gzip
 import json
+import os
 import socket
 import statistics
 import time
@@ -472,14 +473,31 @@ def test_no_server_raises():
 
 
 def test_parameters_without_their_machinery_raise():
-    """TLS still raises with its ROADMAP item; the retry layer's and QoS's
-    parameters are taken (the retry layer is ported) and the call goes on
-    to the network, here to a port nothing listens on."""
+    """TLS, once refused naming its ROADMAP item, is a round trip now: a
+    port server on the committed test pair, the client's ``ssl_options``
+    pinning its CA, the same answers as the reference's server in plain
+    HTTP.  The retry layer's and QoS's parameters are taken (the retry
+    layer is ported) and the call goes on to the network, here to a port
+    nothing listens on."""
     from triton_client_tpu_torch._resilience import RetryPolicy
+    from triton_client_tpu_torch.server.tls import TLSConfig
 
-    ins = _simple_inputs(thttp, *_ab(11))
-    with pytest.raises(NotImplementedError, match="ROADMAP A3b"):
-        thttp.InferenceServerClient("localhost:1", ssl=True)
+    a, b = _ab(11)
+    ins = _simple_inputs(thttp, a, b)
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                        "torch_tls")
+    tls = TLSConfig(os.path.join(data, "server.crt"),
+                    os.path.join(data, "server.key"))
+    treg = ModelRegistry()
+    treg.register_model(tzoo.make_simple())
+    with ServerHarness(treg, host="localhost", tls=tls) as h, \
+            thttp.InferenceServerClient(
+                h.http_url, ssl=True,
+                ssl_options={"ca_certs": tls.certfile}) as tc:
+        got = tc.infer("simple", ins)
+        assert tc.is_server_live()
+    np.testing.assert_array_equal(got.as_numpy("OUTPUT0"), a + b)
+    np.testing.assert_array_equal(got.as_numpy("OUTPUT1"), a - b)
     client = thttp.InferenceServerClient(
         f"127.0.0.1:{free_port()}", retry_policy=RetryPolicy(max_attempts=1))
     for kw in ({"retry_policy": RetryPolicy(max_attempts=1)},

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX package,
-nor ``google.protobuf`` or ``grpc`` (the card's machine has neither: the
-port has its own proto3 codec and gRPC-Web transport), and its CUDA entry
-points refuse to run without CUDA instead of quietly running on the CPU."""
+nor ``google.protobuf``, ``grpc`` or ``aiohttp`` (the card's machine has
+none of them: the port has its own proto3 codec, gRPC-Web transport and
+asyncio HTTP/1.1), and its CUDA entry points refuse to run without CUDA
+instead of quietly running on the CPU."""
 
 import os
 import subprocess
@@ -27,7 +28,8 @@ _IMPORT_ALL = textwrap.dedent("""
                  or n.startswith("triton_client_tpu.")
                  or n == "google.protobuf"
                  or n.startswith("google.protobuf.")
-                 or n == "grpc" or n.startswith("grpc."))
+                 or n == "grpc" or n.startswith("grpc.")
+                 or n == "aiohttp" or n.startswith("aiohttp."))
     print(len(names))
     print(",".join(bad))
 """)
@@ -59,6 +61,39 @@ def test_generation_modules_stand_alone(module):
         print(",".join(sorted(
             n for n in sys.modules
             if n.split(".")[0] in ("jax", "jaxlib", "triton_client_tpu"))))
+    """)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = _REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "", f"{module} pulled in: {out.stdout}"
+
+
+@pytest.mark.parametrize("module", [
+    "triton_client_tpu_torch._aio_http",
+    "triton_client_tpu_torch._uvloop",
+    "triton_client_tpu_torch.http.aio",
+    "triton_client_tpu_torch.http.aio.auth",
+    "triton_client_tpu_torch.http.auth",
+    "triton_client_tpu_torch.grpc.aio",
+    "triton_client_tpu_torch.grpc.aio.auth",
+    "triton_client_tpu_torch.grpc.auth",
+    "triton_client_tpu_torch.cluster.aio",
+    "triton_client_tpu_torch.server.tls",
+])
+def test_aio_and_tls_modules_stand_alone(module):
+    """The asyncio clients and TLS, each imported alone in a fresh
+    interpreter, pull in none of JAX, the JAX package, aiohttp, grpc or
+    protobuf."""
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        importlib.import_module({module!r})
+        print(",".join(sorted(
+            n for n in sys.modules
+            if n.split(".")[0] in ("jax", "jaxlib", "triton_client_tpu",
+                                   "aiohttp", "grpc")
+            or n.startswith("google.protobuf"))))
     """)
     env = dict(os.environ)
     env["PYTHONPATH"] = _REPO

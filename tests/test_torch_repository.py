@@ -711,31 +711,78 @@ def test_reference_model_py_is_refused(tmp_path):
              "reason": "load failed"}]
 
 
+_X_INPUT = '{ name: "X" data_type: TYPE_INT32 dims: [ 4 ] }'
+_ENSEMBLE = textwrap.dedent(
+    """
+    platform: "ensemble"
+    ensemble_scheduling { step [{ model_name: "inner" model_version: 1
+      input_map { key: "X" value: "X" }
+      output_map { key: "Y" value: "Y" } }] }
+    """)
+_ENSEMBLE_PY = textwrap.dedent(
+    """
+    from {pkg}.server.model import EnsembleModel
+
+
+    def get_model(config):
+        return EnsembleModel(config)
+    """)
+#: the config keys each package echoes for a loaded field
+_ECHOED = ("default_model_filename", "input", "dynamic_batching",
+           "sequence_batching", "ensemble_scheduling", "instance_group",
+           "model_warmup", "response_cache")
+
+
 @pytest.mark.parametrize("extra,item", [
     ("model_warmup [{ name: \"w\" batch_size: 1 }]", None),
     ("response_cache { enable: true }", None),
     ("instance_group [{ count: 2 kind: KIND_CPU }]", None),
-    ("dynamic_batching { preserve_ordering: true }", "A3b"),
-], ids=["warmup", "response-cache", "instances", "preserve-ordering"])
+    ("dynamic_batching { preserve_ordering: true }", None),
+    ('default_model_filename: "model.py"', None),
+    ((_X_INPUT, _X_INPUT[:-1] + "allow_ragged_batch: true }"), None),
+    ("sequence_batching { control_input [{ name: \"START\" control "
+     "[{ kind: CONTROL_SEQUENCE_START int32_false_true: [ 0, 1 ] }] }] }",
+     None),
+    (_ENSEMBLE, None),
+    ("instance_group [{ count: 1 kind: KIND_GPU gpus: [ 0 ] }]", "A8"),
+], ids=["warmup", "response-cache", "instances", "preserve-ordering",
+        "default-model-filename", "ragged-batch", "control-input",
+        "ensemble-step-version", "gpus"])
 def test_unserved_config_fields_are_refused(tmp_path, extra, item):
-    """A field the port does not serve is refused, naming its ROADMAP item.
-    The fields it serves since the fleet (``model_warmup``, and
-    ``instance_group`` beyond one group of count 1) and the response cache
-    (``response_cache``; ``item`` None) load in both packages with the
-    reference's answer: the same refusal (a warmup sample without the
-    model's input fails the load) or the same config and outputs."""
+    """A field the port does not serve is refused, naming its ROADMAP item
+    (``instance_group.gpus``, A8).  The fields it serves since the fleet
+    (``model_warmup``, and ``instance_group`` beyond one group of count
+    1), the response cache (``response_cache``) and the five that the
+    reference takes and does nothing with (``item`` None) load in both
+    packages with the reference's answer: the same refusal (a warmup
+    sample without the model's input fails the load) or the same config
+    echo and outputs."""
     outcomes = {}
     for which, registry, harness in (("port", ModelRegistry, ServerHarness),
                                      ("ref", JaxRegistry, JaxHarness)):
         if which == "ref" and item is not None:
             continue
         root = tmp_path / which
-        _write(str(root / "m" / "config.pbtxt"),
-               CONFIG_PBTXT.replace('"tripler"', '"m"') + extra + "\n")
-        _write(str(root / "m" / "1" / "model.py"), _model_py(which, 3))
+        config = CONFIG_PBTXT.replace('"tripler"', '"m"')
+        if isinstance(extra, tuple):
+            config = config.replace(*extra)
+        else:
+            config += extra + "\n"
+        ensemble = "ensemble_scheduling" in config
+        _write(str(root / "m" / "config.pbtxt"), config)
+        _write(str(root / "m" / "1" / "model.py"),
+               _ENSEMBLE_PY.format(pkg=_PKG[which]) if ensemble
+               else _model_py(which, 3))
+        if ensemble:
+            _write(str(root / "inner" / "config.pbtxt"),
+                   CONFIG_PBTXT.replace('"tripler"', '"inner"'))
+            _write(str(root / "inner" / "1" / "model.py"),
+                   _model_py(which, 3))
         with harness(registry(repository_path=str(root))) as h, \
                 thttp.InferenceServerClient(h.http_url) as c:
             try:
+                if ensemble:
+                    c.load_model("inner")
                 c.load_model("m")
             except InferenceServerException as e:
                 outcomes[which] = ("refused", e.message())
@@ -743,14 +790,14 @@ def test_unserved_config_fields_are_refused(tmp_path, extra, item):
             cfg = c.get_model_config("m")
             x = thttp.InferInput("X", [4], "INT32")
             x.set_data_from_numpy(np.arange(4, dtype=np.int32))
-            outcomes[which] = ("loaded", cfg.get("instance_group"),
-                               cfg.get("model_warmup"),
-                               cfg.get("response_cache"),
+            outcomes[which] = ("loaded", {k: cfg.get(k) for k in _ECHOED},
                                c.infer("m", [x]).as_numpy("Y").tolist())
     if item is not None:
         assert outcomes["port"][0] == "refused"
         assert f"ROADMAP {item}" in outcomes["port"][1]
     else:
+        if "model_warmup" not in config:
+            assert outcomes["port"][0] == "loaded", outcomes["port"]
         assert outcomes["port"] == outcomes["ref"]
 
 

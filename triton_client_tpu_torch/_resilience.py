@@ -288,6 +288,64 @@ def call_with_retry(
             end_journey(scope)
 
 
+async def call_with_retry_async(
+    policy: Optional[RetryPolicy],
+    attempt_fn,
+    method: str = "infer",
+    deadline_s: Optional[float] = None,
+    retry_meta=None,
+    on_failure: Optional[Callable[[BaseException, int], None]] = None,
+    journey: bool = False,
+) -> Any:
+    """:func:`call_with_retry` of the aio clients: ``attempt_fn`` is a
+    coroutine function and the backoff is awaited.  ``on_failure`` is a
+    plain callback; the journey is held in a context variable, so the
+    tasks' journeys stay apart."""
+    import asyncio
+
+    if deadline_s is None and policy is not None:
+        deadline_s = policy.deadline_s
+    deadline = (time.monotonic() + deadline_s
+                if deadline_s is not None else None)
+    scope = begin_journey(retry_meta[3] if retry_meta else "") \
+        if journey else None
+    attempt = 0
+    try:
+        while True:
+            attempt += 1
+            if scope is not None:
+                scope[0].attempt = attempt
+            remaining = None
+            if deadline is not None:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    raise deadline_exceeded_error()
+            t0_ns = time.monotonic_ns()
+            try:
+                return await attempt_fn(remaining, attempt)
+            except Exception as e:
+                if on_failure is not None:
+                    on_failure(e, attempt)
+                if deadline is not None and is_timeout_error(e) \
+                        and time.monotonic() >= deadline - 1e-3:
+                    raise deadline_exceeded_error() from e
+                if policy is None \
+                        or not policy.should_retry(e, method, attempt):
+                    raise
+                delay = policy.backoff_s(
+                    attempt,
+                    retry_after_s=getattr(e, "retry_after_s", None))
+                if deadline is not None \
+                        and time.monotonic() + delay >= deadline:
+                    raise
+                if retry_meta is not None:
+                    _record_retry(*retry_meta, t0_ns)
+                await asyncio.sleep(delay)
+    finally:
+        if scope is not None:
+            end_journey(scope)
+
+
 def min_timeout(client_timeout: Optional[float],
                 remaining_s: Optional[float]) -> Optional[float]:
     """One attempt's transport timeout: the caller's timeout capped by

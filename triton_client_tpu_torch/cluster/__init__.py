@@ -1,6 +1,6 @@
 """The cluster client: one client surface over a fleet of servers (the
-reference's ``triton_client_tpu/cluster/``, less ``aio.py``, which waits
-for the port's asyncio clients).
+reference's ``triton_client_tpu/cluster/``; ``cluster.aio`` is its asyncio
+sibling over the port's aio clients).
 
 * :class:`EndpointPool`: N endpoints, each with a circuit breaker
   (consecutive failures trip it, a half-open trial closes it), balanced by

@@ -1,8 +1,8 @@
 """gRPC client of the v2 inference protocol (counterpart of
 ``triton_client_tpu.grpc``), over gRPC-Web on HTTP/1.1: the port's own
 proto3 messages (``service_pb2`` and ``model_config_pb2`` name them, as
-the reference's aliases do) and no ``grpcio``.  Its ``aio`` client is not
-ported."""
+the reference's aliases do) and no ``grpcio``.  Its asyncio client is
+``grpc.aio``, gRPC-Web on the same transport as ``http.aio``."""
 
 from .._auth import BasicAuth  # noqa: F401 (exported as the reference does)
 from ..protocol import inference as model_config_pb2

@@ -45,13 +45,23 @@ sent on it is counted without a latency.  ``infer_many`` is the HTTP
 client's, over ModelInfer.  ``start_stream(stream_timeout=S)`` is the
 stream's deadline: each read of its socket waits at most until S seconds
 after the start, and then the callback gets DEADLINE_EXCEEDED and the
-stream ends.  Not ported, and raising with their ROADMAP item: TLS and
-compression (A3b).
+stream ends.
+
+TLS, as in the reference: ``ssl=True`` with ``root_certificates`` (the CA
+file that verifies the server; the system's CAs without it),
+``private_key`` and ``certificate_chain`` (the client's own pair), paths
+as the reference takes them.  ``creds`` cannot be a
+``grpc.ChannelCredentials`` (the card's machine has no grpcio): it is an
+``ssl.SSLContext``, used as is.  Both apply to the unary pool and to a
+stream's socket.  ``compression_algorithm`` ``gzip`` or ``deflate``
+compresses the request frames (flag bit 0x01, ``grpc-encoding``) of a
+unary call or of a stream; answers come back uncompressed.
 """
 
 from __future__ import annotations
 
 import json
+import ssl as _ssl
 import threading
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
@@ -63,11 +73,11 @@ from .._request import Request
 from .._resilience import (call_with_retry, deadline_exceeded_error,
                            min_timeout, remaining_us)
 from .._telemetry import merge_trace_headers, telemetry, traceparent_on_wire
-from ..http._client import _ConnectionPool, _not_ported
+from ..http._client import _ConnectionPool
 from ..protocol import debug as pb_debug
 from ..protocol import inference as pb
 from ..protocol._proto3 import to_dict
-from ..protocol.grpc_web import encode_frame
+from ..protocol.grpc_web import ENCODINGS, compress_frame, encode_frame
 from ..utils import InferenceServerException, raise_error
 from ._infer_result import InferResult
 from ._infer_stream import _InferStream
@@ -83,9 +93,46 @@ def _maybe_json(message, as_json: bool):
     return to_dict(message) if as_json else message
 
 
-def _check_unported(compression_algorithm=None) -> None:
-    if compression_algorithm not in (None, "none"):
-        _not_ported("gRPC compression", "A3b")
+def grpc_encoding(compression_algorithm) -> Optional[str]:
+    """The request frames' ``grpc-encoding`` of the reference's
+    ``compression_algorithm`` (None: uncompressed)."""
+    if compression_algorithm is None or compression_algorithm == "none":
+        return None
+    if compression_algorithm in ENCODINGS:
+        return compression_algorithm
+    raise_error(f"unsupported compression algorithm "
+                f"{compression_algorithm!r}")
+
+
+def compressed(frame: bytes, headers: dict,
+               encoding: Optional[str]) -> bytes:
+    """``frame`` in ``encoding``, its ``grpc-encoding`` header set in
+    ``headers``; as it is without an encoding."""
+    if encoding is None:
+        return frame
+    headers["grpc-encoding"] = encoding
+    return compress_frame(frame, encoding)
+
+
+def channel_ssl_context(ssl: bool, root_certificates=None,
+                        private_key=None, certificate_chain=None,
+                        creds=None) -> Optional[_ssl.SSLContext]:
+    """The client's TLS context: ``creds`` (an ``ssl.SSLContext``) as is;
+    under ``ssl`` the server verified against ``root_certificates`` (else
+    the system's CAs) and the client's pair loaded where given; None for
+    plain HTTP."""
+    if creds is not None:
+        if not isinstance(creds, _ssl.SSLContext):
+            raise_error("creds must be an ssl.SSLContext (there are no "
+                        f"grpc.ChannelCredentials here), got "
+                        f"{type(creds).__name__}")
+        return creds
+    if not ssl:
+        return None
+    ctx = _ssl.create_default_context(cafile=root_certificates)
+    if certificate_chain:
+        ctx.load_cert_chain(certificate_chain, private_key)
+    return ctx
 
 
 #: the RPCs a client-level policy retries, by their retry class
@@ -188,14 +235,15 @@ class InferenceServerClient(InferenceServerClientBase):
                  channel_args: Optional[List[tuple]] = None,
                  retry_policy=None):
         super().__init__()
-        if ssl or creds is not None:
-            _not_ported("TLS (ssl=True, creds)", "A3b")
         if "://" in url:
             raise_error("url should not include the scheme")
         self._url = url
         self._verbose = verbose
+        self._ssl_context = channel_ssl_context(
+            ssl, root_certificates, private_key, certificate_chain, creds)
         # the stream's socket is opened per stream
-        self._pool = _ConnectionPool(url, _POOL_SIZE, 60.0, None)
+        self._pool = _ConnectionPool(url, _POOL_SIZE, 60.0, None,
+                                     self._ssl_context)
         self._stream: Optional[_InferStream] = None
         self._executor: Optional[ThreadPoolExecutor] = None
         self._lock = threading.Lock()
@@ -480,20 +528,23 @@ class InferenceServerClient(InferenceServerClientBase):
     def _send_infer(self, frame: bytes, headers, client_timeout,
                     tenant: Optional[str], model_name: str, method: str,
                     request_id: str, t_ser0: int,
-                    sink: Optional[list] = None) -> InferResult:
+                    sink: Optional[list] = None,
+                    encoding: Optional[str] = None) -> InferResult:
         """One ModelInfer call of an encoded request frame: ``tenant`` in
-        the ``triton-tenant`` metadata, the trace headers; counted in the
-        client registry (or, with ``sink``, its outcome appended there for
-        the caller's one count of a flight) and, where tracing is on, its
-        spans recorded (``t_ser0``: when the request's build began)."""
+        the ``triton-tenant`` metadata, the trace headers, the frame
+        compressed in ``encoding`` where given; counted in the client
+        registry (or, with ``sink``, its outcome appended there for the
+        caller's one count of a flight) and, where tracing is on, its spans
+        recorded (``t_ser0``: when the request's build began)."""
         user = dict(headers or {})
         trace_headers, rid = merge_trace_headers(user, request_id)
         sent: Dict[str, str] = {**user, **trace_headers}
         if tenant:
             sent["triton-tenant"] = str(tenant)
         tel = telemetry()
-        t_ser1 = time.monotonic_ns()
         req_bytes = len(frame) - 5  # less the gRPC-Web frame header
+        frame = compressed(frame, sent, encoding)
+        t_ser1 = time.monotonic_ns()
         sizes: list = []
         t0 = time.perf_counter()
         try:
@@ -533,7 +584,7 @@ class InferenceServerClient(InferenceServerClientBase):
     def _infer_attempt(self, model_name, inputs, model_version, outputs,
                        request_id, sequence_id, sequence_start, sequence_end,
                        priority, timeout, client_timeout, headers,
-                       parameters, tenant, remaining):
+                       parameters, tenant, remaining, encoding=None):
         """One attempt: what is left of the deadline as the ``timeout``
         parameter (where the call set none) and the transport timeout."""
         t_ser0 = time.monotonic_ns()
@@ -548,7 +599,7 @@ class InferenceServerClient(InferenceServerClientBase):
         return self._send_infer(encode_frame(request), headers,
                                 min_timeout(client_timeout, remaining),
                                 tenant, model_name, "infer", request_id,
-                                t_ser0)
+                                t_ser0, encoding=encoding)
 
     def _infer_prepared(self, prep: PreparedRequest, request_id, headers,
                         tenant, client_timeout, remaining, raws=None,
@@ -634,14 +685,14 @@ class InferenceServerClient(InferenceServerClientBase):
         ``retry_infer``; ``deadline_s`` caps the time across attempts and
         travels to the server as the ``timeout`` parameter; ``priority``
         and ``tenant`` are the QoS identity, sent on every attempt."""
-        _check_unported(compression_algorithm)
+        encoding = grpc_encoding(compression_algorithm)
         return self._with_policy(
             retry_policy, deadline_s, model_name, request_id, "infer",
             lambda remaining: self._infer_attempt(
                 model_name, inputs, model_version, outputs, request_id,
                 sequence_id, sequence_start, sequence_end, priority,
                 timeout, client_timeout, headers, parameters, tenant,
-                remaining))
+                remaining, encoding))
 
     def prepare(self, model_name, inputs, model_version="", outputs=None,
                 priority=0, timeout=None, parameters=None) -> PreparedRequest:
@@ -665,7 +716,7 @@ class InferenceServerClient(InferenceServerClientBase):
         returns, so the inputs may change afterwards; retries and the
         deadline, as ``infer``'s, run on the pool's thread (each attempt
         encoded anew with the remaining deadline)."""
-        _check_unported(compression_algorithm)
+        encoding = grpc_encoding(compression_algorithm)
         request = get_inference_request(
             model_name, inputs, model_version, request_id, outputs,
             sequence_id, sequence_start, sequence_end, priority, timeout,
@@ -679,13 +730,14 @@ class InferenceServerClient(InferenceServerClientBase):
             if remaining is None or timeout is not None:
                 return self._send_infer(frame, headers, client_timeout,
                                         tenant, model_name, "async_infer",
-                                        request_id, t_ser0)
+                                        request_id, t_ser0,
+                                        encoding=encoding)
             request.parameters["timeout"] = pb.InferParameter(
                 int64_param=remaining_us(remaining))
             return self._send_infer(encode_frame(request), headers,
                                     min_timeout(client_timeout, remaining),
                                     tenant, model_name, "async_infer",
-                                    request_id, t_ser0)
+                                    request_id, t_ser0, encoding=encoding)
 
         if policy is not None or deadline_s is not None:
             # later attempts encode the request anew: it must not see the
@@ -731,7 +783,7 @@ class InferenceServerClient(InferenceServerClientBase):
                      compression_algorithm=None) -> None:
         """Open the stream; ``callback(result, error)`` runs on its reader
         thread for every answer, in order."""
-        _check_unported(compression_algorithm)
+        encoding = grpc_encoding(compression_algorithm)
         if self._stream is not None:
             raise_error(
                 "cannot start another stream with one already running. "
@@ -742,7 +794,8 @@ class InferenceServerClient(InferenceServerClientBase):
         sent.update(merge_trace_headers(sent)[0])
         try:
             self._stream = _InferStream(self._url, callback, sent,
-                                        self._verbose, stream_timeout)
+                                        self._verbose, stream_timeout,
+                                        encoding, self._ssl_context)
         except RpcError as e:
             raise_error_grpc(e)
 

@@ -5,14 +5,16 @@ the user's callback on the reader thread, in order, as ``callback(result,
 error)``.  An in-band error (``error_message``) is an error for its
 request only; a non-OK status of the call ends the stream, and later
 sends raise.  A stream opened with a deadline (``stream_timeout``) ends
-with DEADLINE_EXCEEDED when it passes."""
+with DEADLINE_EXCEEDED when it passes.  Under an ``encoding`` every
+request frame goes compressed; with ``ssl_context`` the stream is TLS."""
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 from ..protocol import inference as pb
 from ..utils import InferenceServerException, raise_error
+from ..protocol.grpc_web import compress_frame
 from ._infer_result import InferResult
 from ._transport import StreamCall
 from ._utils import stream_error_to_exception
@@ -21,13 +23,18 @@ from ..protocol.service import StatusCode
 
 class _InferStream:
     def __init__(self, host: str, callback: Callable, headers: dict,
-                 verbose: bool = False, deadline_s=None):
+                 verbose: bool = False, deadline_s=None,
+                 encoding: Optional[str] = None, ssl_context=None):
         self._callback = callback
         self._verbose = verbose
         self._active = True
+        self._encoding = encoding
+        if encoding is not None:
+            headers = {**headers, "grpc-encoding": encoding}
         self._call = StreamCall(host, "ModelStreamInfer", headers,
                                 self._on_message, self._on_end,
-                                deadline_s=deadline_s)
+                                deadline_s=deadline_s,
+                                ssl_context=ssl_context)
 
     def _on_message(self, payload: bytes) -> None:
         response = pb.ModelStreamInferResponse.FromString(payload)
@@ -55,6 +62,8 @@ class _InferStream:
                         "detail is reported through provided callback. A "
                         "new stream should be started after stopping the "
                         "current stream.")
+        if self._encoding is not None:
+            frame = compress_frame(frame, self._encoding)
         self._call.send(frame)
 
     def close(self, cancel_requests: bool = False) -> None:

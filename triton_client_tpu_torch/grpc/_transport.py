@@ -19,6 +19,7 @@ a trailers frame (flags 0x80) holding ``grpc-status`` and a percent-encoded
   response into frames as they arrive.  ``close_send`` sends the last
   chunk, after which the server ends the response with its trailers, as the
   reference's native client does (``native/client/grpc_client.cc``).
+  With an ``ssl_context`` its socket is TLS, as the pool's connections are.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ from ..protocol.grpc_web import (CONTENT_TYPE, TRAILER_FLAG, iter_frames,
                                  read_chunked)
 from ..protocol.service import StatusCode, path
 
-__all__ = ["RpcError", "StreamCall", "unary"]
+__all__ = ["RpcError", "StreamCall", "unary", "unary_answer"]
 
 
 class RpcError(Exception):
@@ -93,10 +94,18 @@ def unary(pool, method: str, frame: bytes, response_type, headers: dict,
     except (OSError, http.client.HTTPException) as e:
         # refused, reset, or cut short inside the answer
         raise RpcError(StatusCode.UNAVAILABLE, f"failed to connect: {e}")
-    if resp.status != 200:
-        raise http_error(resp.status, resp.data)
+    return unary_answer(resp.status, resp.headers, resp.data, response_type,
+                        sizes)
+
+
+def unary_answer(http_status: int, headers, data: bytes, response_type,
+                 sizes: Optional[list] = None):
+    """The decoded message of a unary call's HTTP answer, or
+    :class:`RpcError` with its status (the aio client's too)."""
+    if http_status != 200:
+        raise http_error(http_status, data)
     try:
-        frames = list(iter_frames([resp.data]))
+        frames = list(iter_frames([data]))
     except ValueError as e:
         raise RpcError(StatusCode.INTERNAL, str(e))
     trailer = [p for flags, p in frames if flags & TRAILER_FLAG]
@@ -105,10 +114,10 @@ def unary(pool, method: str, frame: bytes, response_type, headers: dict,
     if trailer:
         status, message, trailing = parse_trailer_fields(trailer[-1])
     else:  # trailers-only: the status is a header
-        raw = resp.headers.get("grpc-status")
+        raw = headers.get("grpc-status")
         status = StatusCode.of(int(raw)) if raw is not None \
             else StatusCode.UNKNOWN
-        message = urllib.parse.unquote(resp.headers.get("grpc-message", ""))
+        message = urllib.parse.unquote(headers.get("grpc-message", ""))
     if status != StatusCode.OK:
         raise RpcError(status, message, trailing)
     if not frames:
@@ -131,7 +140,7 @@ class StreamCall:
                  on_message: Callable[[bytes], None],
                  on_end: Callable[[StatusCode, str], None],
                  connect_timeout: float = 60.0,
-                 deadline_s: Optional[float] = None):
+                 deadline_s: Optional[float] = None, ssl_context=None):
         hostname, _, port = host.rpartition(":")
         if not hostname:
             hostname, port = host, "80"
@@ -143,6 +152,9 @@ class StreamCall:
         try:
             self._sock = socket.create_connection((hostname, int(port)),
                                                   timeout=connect_timeout)
+            if ssl_context is not None:
+                self._sock = ssl_context.wrap_socket(
+                    self._sock, server_hostname=hostname)
         except OSError as e:
             raise RpcError(StatusCode.UNAVAILABLE, f"failed to connect: {e}")
         self._sock.settimeout(None)

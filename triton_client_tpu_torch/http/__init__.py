@@ -1,6 +1,7 @@
 """HTTP/REST client of the v2 inference protocol (counterpart of
-``triton_client_tpu.http``; its ``aio`` client is not ported: the card's
-machine has no ``aiohttp``)."""
+``triton_client_tpu.http``); its asyncio client is ``http.aio``, on the
+port's own HTTP/1.1 over ``asyncio`` streams (the card's machine has no
+``aiohttp``)."""
 
 from .._auth import BasicAuth  # noqa: F401 (exported as the reference does)
 from ._client import (InferAsyncRequest, InferenceServerClient,

@@ -46,8 +46,14 @@ requests of one shape through one compiled template under one retry and
 deadline envelope (a retry resumes at the request that failed) and counts
 them under one lock; its results equal N ``infer`` calls.
 
-Not ported: TLS (ROADMAP A3b) and the ``xla`` aliases of the CUDA
-shared-memory calls.
+TLS, as in the reference: ``ssl=True`` talks HTTPS, its
+``ssl_options`` (``ca_certs``, ``cert_file``, ``key_file``, ``cert_reqs``,
+``ssl_version``: urllib3's keys, which the reference passes on) made into
+one ``ssl.SSLContext`` on ``http.client.HTTPSConnection``; ``insecure``
+verifies nothing.  Without ``ca_certs`` the system's CAs verify the
+server.
+
+Not ported: the ``xla`` aliases of the CUDA shared-memory calls.
 """
 
 from __future__ import annotations
@@ -57,6 +63,7 @@ import gzip
 import http.client
 import json
 import socket
+import ssl as _ssl
 import threading
 import time
 import zlib
@@ -75,12 +82,6 @@ from ..utils import InferenceServerException, raise_error
 from ._infer_result import InferResult
 from ._template import RequestTemplate
 from ._utils import get_inference_request_body, raise_if_error
-
-
-def _not_ported(name: str, item: str):
-    raise NotImplementedError(
-        f"{name} is not ported to triton_client_tpu_torch yet (ROADMAP "
-        f"{item})")
 
 
 class _Response:
@@ -112,20 +113,53 @@ def _count_resend() -> None:
         _resends += 1
 
 
+def client_ssl_context(ssl_options: Optional[dict] = None,
+                       insecure: bool = False) -> _ssl.SSLContext:
+    """The client context of the reference's ``ssl_options`` (urllib3's
+    ``ca_certs``, ``cert_file``, ``key_file``, ``cert_reqs`` and
+    ``ssl_version``): the server verified against ``ca_certs``, else the
+    system's CAs, its name checked, unless ``cert_reqs`` is CERT_NONE or
+    ``insecure``."""
+    opts = ssl_options or {}
+    version = opts.get("ssl_version")
+    ctx = _ssl.SSLContext(_ssl.PROTOCOL_TLS_CLIENT if version is None
+                          else version)
+    reqs = _ssl.CERT_NONE if insecure else opts.get("cert_reqs",
+                                                    _ssl.CERT_REQUIRED)
+    if isinstance(reqs, str):  # urllib3 takes "CERT_NONE" too
+        reqs = getattr(_ssl, reqs if reqs.startswith("CERT_")
+                       else "CERT_" + reqs)
+    if reqs == _ssl.CERT_NONE:
+        ctx.check_hostname = False
+        ctx.verify_mode = reqs
+    else:
+        ctx.verify_mode = reqs
+        ctx.check_hostname = True
+    if opts.get("ca_certs"):
+        ctx.load_verify_locations(opts["ca_certs"])
+    elif reqs != _ssl.CERT_NONE:
+        ctx.load_default_certs()
+    if opts.get("cert_file"):
+        ctx.load_cert_chain(opts["cert_file"], opts.get("key_file"))
+    return ctx
+
+
 class _ConnectionPool:
     """Kept-alive connections to one server, shared by threads.
 
     ``acquire`` hands out an idle connection (most recently used first) or
     a new one, and never blocks; ``release`` keeps a connection that is
     still open while fewer than ``maxsize`` are idle, and closes it
-    otherwise."""
+    otherwise.  With ``ssl_context`` the connections are HTTPS."""
 
     def __init__(self, host: str, maxsize: int, connection_timeout: float,
-                 network_timeout: float):
+                 network_timeout: float,
+                 ssl_context: Optional[_ssl.SSLContext] = None):
         self._host = host  # "host[:port]"; http.client parses the port
         self._maxsize = max(1, maxsize)
         self._connection_timeout = connection_timeout
         self._network_timeout = network_timeout
+        self._ssl_context = ssl_context
         self._idle: Deque[http.client.HTTPConnection] = deque()
         self._lock = threading.Lock()
 
@@ -134,8 +168,13 @@ class _ConnectionPool:
         with self._lock:
             if self._idle:
                 return self._idle.pop(), True
-        conn = http.client.HTTPConnection(
-            self._host, timeout=self._connection_timeout)
+        if self._ssl_context is not None:
+            conn = http.client.HTTPSConnection(
+                self._host, timeout=self._connection_timeout,
+                context=self._ssl_context)
+        else:
+            conn = http.client.HTTPConnection(
+                self._host, timeout=self._connection_timeout)
         try:
             conn.connect()
             conn.sock.settimeout(self._network_timeout)
@@ -173,8 +212,11 @@ class _ConnectionPool:
                     conn.sock.settimeout(timeout)
                 try:
                     conn.request(method, uri, body=body, headers=headers)
-                    # wait for the response's first byte without taking it
-                    arrived = conn.sock.recv(1, socket.MSG_PEEK)
+                    # wait for the response's first byte without taking
+                    # it; under TLS beneath the TLS layer (an SSLSocket's
+                    # recv takes no flags): a record's first byte
+                    arrived = socket.socket.recv(conn.sock, 1,
+                                                 socket.MSG_PEEK)
                 except ConnectionError:
                     if not reused:
                         raise
@@ -272,8 +314,6 @@ class InferenceServerClient(InferenceServerClientBase):
                  ssl_context_factory=None,  # API compatibility
                  insecure: bool = False, retry_policy=None):
         super().__init__()
-        if ssl:
-            _not_ported("TLS (ssl=True)", "A3b")
         if url.startswith("http://") or url.startswith("https://"):
             raise_error("url should not include the scheme")
         self._url = url
@@ -282,8 +322,9 @@ class InferenceServerClient(InferenceServerClientBase):
         # "host[:port][/base path]"
         host, _, base = url.partition("/")
         self._base_path = "/" + base.rstrip("/") if base.strip("/") else ""
-        self._pool = _ConnectionPool(host, self._concurrency,
-                                     connection_timeout, network_timeout)
+        self._pool = _ConnectionPool(
+            host, self._concurrency, connection_timeout, network_timeout,
+            client_ssl_context(ssl_options, insecure) if ssl else None)
         self._executor: Optional[ThreadPoolExecutor] = None
         self._executor_lock = threading.Lock()
         # the client's default policy: health and metadata calls retry

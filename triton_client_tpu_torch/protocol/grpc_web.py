@@ -7,13 +7,20 @@ answer ends with a trailers frame (flags 0x80) whose payload is HTTP
 header lines, ``grpc-status`` and a percent-encoded ``grpc-message``.  A
 stream's bodies travel in chunked transfer coding, read here chunk by
 chunk as they arrive.
+
+A request frame may be compressed: flag bit 0x01 set, its payload in the
+call's ``grpc-encoding`` (``gzip``, or ``deflate`` in zlib's wrapping, as
+gRPC's deflate is).  Answers go back uncompressed.
 """
 
 from __future__ import annotations
 
+import gzip
 import struct
 import urllib.parse
-from typing import Dict, Iterable, Iterator, Optional, Tuple
+import zlib
+from typing import (AsyncIterator, Dict, Iterable, Iterator, Optional,
+                    Tuple)
 
 from .service import StatusCode
 
@@ -21,6 +28,9 @@ CONTENT_TYPE = "application/grpc-web+proto"
 #: the request content types a server takes (others are a 415)
 CONTENT_TYPES = (CONTENT_TYPE, "application/grpc-web", "application/grpc")
 TRAILER_FLAG = 0x80
+COMPRESSED_FLAG = 0x01
+#: the request encodings a call may name in ``grpc-encoding``
+ENCODINGS = ("gzip", "deflate")
 
 
 def frame_header(length: int, flags: int = 0) -> bytes:
@@ -33,6 +43,32 @@ def encode_frame(message) -> bytes:
     parts, n = message.encode_parts()
     # tpu-lint: disable=WIRE-COPY the one gather of the frame
     return b"".join([frame_header(n), *parts])
+
+
+def compress_frame(frame: bytes, encoding: str) -> bytes:
+    """A data frame (``encode_frame``'s) with its payload compressed in
+    ``encoding`` and flag bit 0x01 set."""
+    payload = memoryview(frame)[5:]
+    data = (gzip.compress(payload) if encoding == "gzip"
+            else zlib.compress(payload))
+    return frame_header(len(data), COMPRESSED_FLAG) + data
+
+
+def inflate(payload, encoding: str, cap: int = 0) -> bytes:
+    """A compressed frame's message.  Where ``cap`` is set, inflation
+    stops past it: the result is then ``cap + 1`` bytes long, and the
+    caller refuses it as a message over the cap.  ValueError where the
+    payload is corrupt or cut short."""
+    wbits = 16 + zlib.MAX_WBITS if encoding == "gzip" else zlib.MAX_WBITS
+    d = zlib.decompressobj(wbits)
+    try:
+        out = d.decompress(payload, cap + 1) if cap else \
+            d.decompress(payload)
+    except zlib.error as e:
+        raise ValueError(f"corrupt {encoding} message: {e}")
+    if not (cap and len(out) > cap) and not d.eof:
+        raise ValueError(f"truncated {encoding} message")
+    return out
 
 
 def percent_encode(msg: str) -> str:
@@ -129,5 +165,23 @@ def iter_frames(chunks: Iterable[bytes]) -> Iterator[Tuple[int, memoryview]]:
             payload = bytes(buf[5:5 + n])
             del buf[:5 + n]
             yield flags, memoryview(payload)
+    if buf:
+        raise ValueError("truncated grpc-web frame")
+
+
+async def aiter_frames(chunks: AsyncIterator[bytes]
+                       ) -> AsyncIterator[Tuple[int, bytes]]:
+    """:func:`iter_frames` over a body that arrives as an async iterator of
+    chunks (the aio client's stream)."""
+    buf = bytearray()
+    async for chunk in chunks:
+        buf += chunk
+        while len(buf) >= 5:
+            flags, n = struct.unpack_from(">BI", buf, 0)
+            if len(buf) < 5 + n:
+                break
+            payload = bytes(buf[5:5 + n])
+            del buf[:5 + n]
+            yield flags, payload
     if buf:
         raise ValueError("truncated grpc-web frame")

@@ -3,6 +3,12 @@ over the v2 HTTP protocol, and v2 gRPC as gRPC-Web on the same port.
 
     python -m triton_client_tpu_torch.server --http-port 8000 [--device cuda|cpu]
         [--model-repository DIR] [--zoo]
+        [--ssl-certfile CERT.pem --ssl-keyfile KEY.pem]
+
+With ``--ssl-certfile`` and ``--ssl-keyfile`` (the reference's flags and
+errors: both or neither, each an existing file) the HTTP port serves HTTPS
+and gRPC-Web over it, and the metrics port HTTPS, in every
+``--frontends`` worker; a pair that does not load fails the start.
 
 With ``--model-repository DIR`` every model of the repository (Triton's
 layout: ``DIR/<model>/config.pbtxt`` and ``DIR/<model>/<N>/model.py``
@@ -132,6 +138,7 @@ from .device_stats import parse_slo_spec
 from .kvcache import cache_env_key
 from .memory import DEFAULT_MAX_REQUEST_BYTES
 from .qos import QosManager, parse_tenant_limit
+from .tls import maybe_tls
 from .types import InferError
 
 if TYPE_CHECKING:
@@ -619,6 +626,11 @@ def main(argv=None) -> int:
                     "response_cache.ttl_s parameter")
     # accepted and unused, as in the reference
     ap.add_argument("--verbose", "-v", action="store_true")
+    ap.add_argument("--ssl-certfile", default=None,
+                    help="serve HTTPS (and gRPC-Web over it) with this PEM "
+                    "cert chain; the metrics port too")
+    ap.add_argument("--ssl-keyfile", default=None,
+                    help="PEM private key matching --ssl-certfile")
     _add_admission_flags(ap)
     _add_generation_flags(ap)
     _add_fleet_flags(ap)
@@ -641,6 +653,10 @@ def main(argv=None) -> int:
         ap.error("--profile-hz must be >= 0 (0 = sampler off)")
     if args.incident_keep < 1:
         ap.error("--incident-keep must be >= 1")
+    try:
+        tls = maybe_tls(args.ssl_certfile, args.ssl_keyfile)
+    except ValueError as e:
+        ap.error(str(e))
     worker_index = args.frontend_worker
     if args.frontends > 1 and worker_index is None:
         # the supervisor: it loads no model
@@ -716,13 +732,13 @@ def main(argv=None) -> int:
     core.fleet.start()
     server = HttpServer(core, args.host, args.http_port,
                         max_request_bytes=args.max_request_bytes,
-                        reuse_port=worker_index is not None)
+                        reuse_port=worker_index is not None, tls=tls)
     servers = [server]
     # worker i serves its own metrics port: the HTTP port is shared
     metrics_port = (args.metrics_port + (worker_index or 0)
                     if args.metrics_port else 0)
     if metrics_port:
-        metrics = MetricsServer(core, args.host, metrics_port)
+        metrics = MetricsServer(core, args.host, metrics_port, tls=tls)
         servers.append(metrics)
         threading.Thread(target=metrics.serve_forever, daemon=True,
                          name="tc-torch-metrics").start()
@@ -757,7 +773,8 @@ def main(argv=None) -> int:
     worker = (f" [frontend worker {worker_index}/{args.frontends}]"
               if worker_index is not None else "")
     # the bound port: ``--http-port 0`` takes a free one
-    print(f"serving v2 HTTP on {args.host}:{server.server_address[1]} "
+    scheme = "HTTPS" if tls is not None else "HTTP"
+    print(f"serving v2 {scheme} on {args.host}:{server.server_address[1]} "
           f"(device {args.device}){metrics_at}{worker}", flush=True)
     try:
         server.serve_forever()

@@ -26,6 +26,12 @@ The HTTP headers are the call's metadata (``triton-tenant``,
 in its trailing metadata.  A request message larger than the servicer's
 ``max_request_bytes`` is not decoded: RESOURCE_EXHAUSTED on a unary call,
 an in-band ``[413]`` error on a stream.
+
+A compressed request frame (flag bit 0x01) is inflated in the call's
+``grpc-encoding`` (``gzip`` or ``deflate``) under the same cap, counted on
+the inflated bytes as a compressed HTTP body is; a call that names any
+other encoding is answered UNIMPLEMENTED, as grpcio's server answers it.
+Answers go back uncompressed.
 """
 
 from __future__ import annotations
@@ -33,17 +39,28 @@ from __future__ import annotations
 import time
 from typing import Callable, Dict, Iterable, List, Optional
 
-from ..protocol.grpc_web import (CONTENT_TYPE, CONTENT_TYPES, TRAILER_FLAG,
-                                 frame_header, iter_frames, trailers)
+from ..protocol.grpc_web import (COMPRESSED_FLAG, CONTENT_TYPE,
+                                 CONTENT_TYPES, ENCODINGS, TRAILER_FLAG,
+                                 frame_header, inflate, iter_frames,
+                                 trailers)
 from ..protocol.service import METHODS, StatusCode
 from .grpc_server import GrpcError, InferenceServicer, oversize_error
 
 
-def _messages(chunks: Iterable[bytes]):
-    """The data frames' payloads of a request body (client trailers
-    skipped)."""
-    return (payload for flags, payload in iter_frames(chunks)
-            if not flags & TRAILER_FLAG)
+def _messages(chunks: Iterable[bytes], encoding: str, cap: int):
+    """(message, size) of each data frame of a request body (client
+    trailers skipped): a compressed frame inflated in ``encoding``; the
+    message None where its size passes ``cap`` (it is not decoded)."""
+    for flags, payload in iter_frames(chunks):
+        if flags & TRAILER_FLAG:
+            continue
+        if flags & COMPRESSED_FLAG:
+            if encoding not in ENCODINGS:
+                raise GrpcError(StatusCode.INTERNAL,
+                                "compressed message without a grpc-encoding")
+            payload = inflate(payload, encoding, cap)
+        size = len(payload)
+        yield (None if cap and size > cap else payload), size
 
 
 def _status_of(e: Exception):
@@ -71,26 +88,38 @@ def serve(servicer: InferenceServicer, method: str, content_type: str,
              {}, "text/plain; charset=utf-8")
         return
     arity, req_type, _ = METHODS[method]
+    encoding = metadata.get("grpc-encoding", "identity").strip().lower()
+    if encoding not in ("identity", *ENCODINGS):
+        for _ in chunks:
+            pass
+        send(200, trailers(StatusCode.UNIMPLEMENTED,
+                           f"Compression algorithm '{encoding}' is not "
+                           "supported"),
+             {"grpc-status": str(int(StatusCode.UNIMPLEMENTED))},
+             CONTENT_TYPE)
+        return
     if arity == "uu":
-        _unary(servicer, method, req_type, chunks, send, metadata)
+        _unary(servicer, method, req_type, chunks, send, metadata, encoding)
     else:
         _stream(servicer, method, req_type, chunks, start_stream(),
-                metadata)
+                metadata, encoding)
 
 
-def _unary(servicer, method, req_type, chunks, send, metadata) -> None:
+def _unary(servicer, method, req_type, chunks, send, metadata,
+           encoding) -> None:
     out: List = []
     status, message, trailing = StatusCode.OK, "", {}
+    cap = servicer.max_request_bytes
     try:
-        frames = _messages(chunks)
-        payload: Optional[memoryview] = next(frames, None)
+        frames = _messages(chunks, encoding, cap)
+        first = next(frames, None)
         for _ in frames:  # read the body to its end
             pass
-        if payload is None:
+        if first is None:
             raise ValueError("missing request message")
-        cap = servicer.max_request_bytes
-        if cap and len(payload) > cap:
-            raise oversize_error(len(payload), cap)
+        payload, size = first
+        if payload is None:
+            raise oversize_error(size, cap)
         t0 = time.monotonic_ns()
         request = req_type.FromString(payload)
         if method == "ModelInfer":
@@ -108,13 +137,14 @@ def _unary(servicer, method, req_type, chunks, send, metadata) -> None:
          CONTENT_TYPE)
 
 
-def _stream(servicer, method, req_type, chunks, write, metadata) -> None:
+def _stream(servicer, method, req_type, chunks, write, metadata,
+            encoding) -> None:
     status, message, trailing = StatusCode.OK, "", {}
     cap = servicer.max_request_bytes
     try:
         # (request, wire bytes); a message over the cap is not decoded
-        requests = ((None if cap and len(p) > cap else req_type.FromString(p),
-                     len(p)) for p in _messages(chunks))
+        requests = ((None if p is None else req_type.FromString(p), n)
+                    for p, n in _messages(chunks, encoding, cap))
         for resp in getattr(servicer, method)(requests, metadata):
             parts, n = resp.encode_parts()
             # tpu-lint: disable=WIRE-COPY one chunk per response frame

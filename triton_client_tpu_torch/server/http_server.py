@@ -70,11 +70,17 @@ it is an in-band ``data: {"error": ...}`` frame.  A consumer that goes away
 closes the core's stream (its generation is cancelled).
 
 Request bodies in ``Content-Encoding`` gzip or deflate are inflated with
-``zlib``; the ingress cap counts the inflated bytes.  HEAD is served on the
+``zlib``; the ingress cap counts the inflated bytes.  An infer response
+over 1,024 bytes goes back gzipped where the request's
+``Accept-Encoding`` names gzip (deflate is never used for a response, as
+in the reference); only that path joins the header and the segments.  HEAD is served on the
 GET routes; a path that only another method's route serves gets 405 with
 ``Allow``; an HTTP/2 request line (the preface of a client trying h2c
 first) gets an HTTP/1.1 400 and the connection closes, so such a client
-falls back to gRPC-Web.
+falls back to gRPC-Web.  Both listeners serve TLS with ``tls=``
+(``tls.TLSConfig``, the CLI's ``--ssl-certfile`` / ``--ssl-keyfile``): the
+handshake runs in the connection's thread, and the checks above read the
+decrypted stream.
 
 The repository API (the reference's, http_server.py:124-126 and
 :319-345): ``POST /v2/repository/index`` (``{"ready": true}`` lists the
@@ -127,6 +133,7 @@ from .generate import build_generate_request, response_to_json, sse_frame
 from .grpc_server import InferenceServicer
 from .memory import DEFAULT_MAX_REQUEST_BYTES, oversize_message
 from .qos import tenant_from_headers
+from .tls import HANDSHAKE_TIMEOUT_S
 from .trace import TRACE_DEFAULTS, validate_trace_update
 from .types import (InferError, InferRequest, InputTensor, RequestedOutput,
                     ShmRef, apply_request_deadline, apply_request_priority,
@@ -796,6 +803,14 @@ class _Handler(BaseHTTPRequestHandler):
             if req.client_request_id:
                 headers[_REQUEST_ID_HDR] = req.client_request_id
             t_ser1 = time.monotonic_ns()
+            # the reference's rule: gzip where the client accepts it and
+            # the body is over 1 KiB (deflate is never used); counted in
+            # NETWORK_WRITE, as the reference counts it
+            if "gzip" in self.headers.get("Accept-Encoding", "") and \
+                    len(header) + sum(s.nbytes for s in segments) > 1024:
+                header = _gzip_response(header, segments)
+                segments = ()
+                headers["Content-Encoding"] = "gzip"
             if trace is not None:
                 trace.add_span("SERIALIZE", t_ser0, t_ser1)
                 trace.add_span("NETWORK_WRITE", t_ser1, time.monotonic_ns())
@@ -885,6 +900,15 @@ class _Handler(BaseHTTPRequestHandler):
         self._write_chunk(sse_frame(response_to_json(name, version, resp)))
         if resp.trace is not None:
             resp.trace.record_write(t0, time.monotonic_ns())
+
+
+def _gzip_response(header: bytes, segments: Sequence[memoryview]) -> bytes:
+    """A binary infer response's header and segments, gzipped as one body
+    (the one path that joins them)."""
+    z = zlib.compressobj(6, zlib.DEFLATED, 16 + zlib.MAX_WBITS)
+    out = [z.compress(header), *(z.compress(seg) for seg in segments),
+           z.flush()]
+    return b"".join(out)
 
 
 def _json_object(body: bytes) -> dict:
@@ -1009,16 +1033,42 @@ def _json_to_array(data, datatype: str, shape, name: str):
 class _CountingServer(ThreadingHTTPServer):
     """A threading HTTP server that counts the exchanges in progress (a
     request read until its response is written), so that a drain can wait
-    for the answers, not only for the core's requests."""
+    for the answers, not only for the core's requests.
+
+    With ``tls`` (a ``tls.TLSConfig``) every accepted socket is wrapped
+    without its handshake, which then runs in the connection's own thread
+    under ``HANDSHAKE_TIMEOUT_S``: a slow or silent client holds only its
+    own thread, never the accept loop.  A connection whose handshake
+    fails (a plain-HTTP client, an untrusted certificate) is closed."""
 
     daemon_threads = True
     active = 0
 
-    def __init__(self, *args, **kwargs):
+    def __init__(self, *args, tls=None, **kwargs):
         self._active_lock = threading.Lock()
         # the accepted connections still open
         self._conns: set = set()
+        # built before the bind: a pair that does not load fails at start
+        self.ssl_context = tls.ssl_context() if tls is not None else None
         super().__init__(*args, **kwargs)
+
+    def get_request(self):
+        sock, addr = super().get_request()
+        if self.ssl_context is not None:
+            sock = self.ssl_context.wrap_socket(
+                sock, server_side=True, do_handshake_on_connect=False)
+        return sock, addr
+
+    def process_request_thread(self, request, client_address):
+        if self.ssl_context is not None:
+            try:
+                request.settimeout(HANDSHAKE_TIMEOUT_S)
+                request.do_handshake()
+                request.settimeout(None)
+            except OSError:  # ssl.SSLError and timeouts included
+                self.shutdown_request(request)
+                return
+        super().process_request_thread(request, client_address)
 
     def process_request(self, request, client_address):
         with self._active_lock:
@@ -1062,14 +1112,14 @@ class HttpServer(_CountingServer):
     def __init__(self, core: InferenceCore, host: str = "127.0.0.1",
                  port: int = 8000,
                  max_request_bytes: int = DEFAULT_MAX_REQUEST_BYTES,
-                 reuse_port: bool = False):
+                 reuse_port: bool = False, tls=None):
         self.core = core
         self.allow_reuse_port = reuse_port
         #: the ingress cap in bytes (0: none)
         self.max_request_bytes = max(0, int(max_request_bytes or 0))
         self.servicer = InferenceServicer(core, self.max_request_bytes)
         self.grpc_methods = set(grpc_web.METHODS)
-        super().__init__((host, port), _Handler)
+        super().__init__((host, port), _Handler, tls=tls)
         core.profiler.install_loop_probe("frontend")
 
 
@@ -1085,9 +1135,9 @@ class MetricsServer(_CountingServer):
     :class:`InferenceCore`."""
 
     def __init__(self, core: InferenceCore, host: str = "127.0.0.1",
-                 port: int = 8002):
+                 port: int = 8002, tls=None):
         self.core = core
         self.max_request_bytes = 0
         self.grpc_methods = set()
-        super().__init__((host, port), _MetricsHandler)
+        super().__init__((host, port), _MetricsHandler, tls=tls)
         core.profiler.install_loop_probe("metrics")

@@ -21,7 +21,12 @@ message's proto3 JSON (the HTTP ``/config`` body), as the reference's does.
 :func:`config_from_pb` reads a ``ModelConfig`` message (a repository's
 ``config.pbtxt`` or a load's JSON override, ``protocol/text_format.py``)
 into the dataclass; a field the port does not serve is a load error naming
-the ROADMAP item that brings it, never dropped.  ``instance_group`` is read
+the ROADMAP item that brings it, never dropped.  Five fields that the
+reference's server takes and does nothing with are loaded and echoed by
+``get_model_config`` alike: ``default_model_filename``,
+``input.allow_ragged_batch``, ``dynamic_batching.preserve_ordering``,
+``sequence_batching.control_input`` and an ensemble step's
+``model_version``.  ``instance_group`` is read
 as the reference reads it: any number of groups of any count, the first
 group's kind placing the model.
 """
@@ -49,6 +54,8 @@ class TensorConfig:
     dims: List[int]
     optional: bool = False
     label_filename: str = ""  # outputs with classification labels
+    # input.allow_ragged_batch: loaded and echoed, nothing done with it
+    allow_ragged_batch: bool = False
 
 
 @dataclass
@@ -60,6 +67,9 @@ class EnsembleStep:
     model_name: str
     input_map: Dict[str, str]
     output_map: Dict[str, str]
+    # the step's model_version: loaded and echoed; the core runs the
+    # member's default version, as the reference's does
+    model_version: int = 0
 
 
 @dataclass
@@ -98,6 +108,12 @@ class ModelConfig:
     model_warmup: List[Any] = field(default_factory=list)
     # response_cache.enable; None: no response_cache message
     response_cache: Optional[bool] = None
+    # loaded and echoed, and nothing done with them, as in the reference:
+    # default_model_filename, dynamic_batching.preserve_ordering and
+    # sequence_batching.control_input (its messages as read)
+    default_model_filename: str = ""
+    preserve_ordering: bool = False
+    sequence_control_inputs: List[Any] = field(default_factory=list)
 
     def to_pb(self):
         """The config as the v2 protocol's ``ModelConfig`` message (what
@@ -112,12 +128,14 @@ class ModelConfig:
             name=self.name, platform=self.platform, backend=self.backend,
             max_batch_size=self.max_batch_size,
             input=[pb.ModelInput(name=t.name, data_type=dtype(t),
-                                 dims=list(t.dims), optional=t.optional)
+                                 dims=list(t.dims), optional=t.optional,
+                                 allow_ragged_batch=t.allow_ragged_batch)
                    for t in self.input],
             output=[pb.ModelOutput(name=t.name, data_type=dtype(t),
                                    dims=list(t.dims),
                                    label_filename=t.label_filename)
-                    for t in self.output])
+                    for t in self.output],
+            default_model_filename=self.default_model_filename)
         if self.decoupled:
             out.model_transaction_policy = pb.ModelTransactionPolicy(
                 decoupled=True)
@@ -125,11 +143,13 @@ class ModelConfig:
             out.dynamic_batching = pb.ModelDynamicBatching(
                 preferred_batch_size=list(self.preferred_batch_size),
                 max_queue_delay_microseconds=self
-                .max_queue_delay_microseconds)
+                .max_queue_delay_microseconds,
+                preserve_ordering=self.preserve_ordering)
         if self.max_sequence_idle_microseconds is not None:
             out.sequence_batching = pb.ModelSequenceBatching(
                 max_sequence_idle_microseconds=self
-                .max_sequence_idle_microseconds)
+                .max_sequence_idle_microseconds,
+                control_input=list(self.sequence_control_inputs))
         if self.version_policy is not None:
             out.version_policy = self.version_policy
         if self.instance_groups:
@@ -145,6 +165,7 @@ class ModelConfig:
         if self.ensemble_scheduling:
             out.ensemble_scheduling = pb.ModelEnsembling(step=[
                 pb.ModelEnsembling.Step(model_name=s.model_name,
+                                        model_version=s.model_version,
                                         input_map=dict(s.input_map),
                                         output_map=dict(s.output_map))
                 for s in self.ensemble_scheduling])
@@ -178,27 +199,8 @@ def config_from_pb(msg, name: str) -> "ModelConfig":
     from ..protocol import inference as pb
 
     name = msg.name or name
-    refusals = [
-        (bool(msg.default_model_filename), "default_model_filename",
-         "A3b"),
-        (any(i.allow_ragged_batch for i in msg.input),
-         "input.allow_ragged_batch", "A3b"),
-        (msg.dynamic_batching is not None
-         and msg.dynamic_batching.preserve_ordering,
-         "dynamic_batching.preserve_ordering", "A3b"),
-        (msg.sequence_batching is not None
-         and bool(msg.sequence_batching.control_input),
-         "sequence_batching.control_input", "A3b"),
-        (any(g.gpus for g in msg.instance_group), "instance_group.gpus",
-         "A8"),
-        (msg.ensemble_scheduling is not None and any(
-            s.model_version not in (0, -1)
-            for s in msg.ensemble_scheduling.step),
-         "ensemble_scheduling.step.model_version", "A3b"),
-    ]
-    for refused, field_name, item in refusals:
-        if refused:
-            raise _refused(name, field_name, item)
+    if any(g.gpus for g in msg.instance_group):
+        raise _refused(name, "instance_group.gpus", "A8")
     kinds = {v: k for k, v in pb.ENUMS["ModelInstanceGroup.Kind"].items()}
     dtypes = {v: k for k, v in pb.ENUMS["DataType"].items()}
 
@@ -219,7 +221,9 @@ def config_from_pb(msg, name: str) -> "ModelConfig":
         name=name, platform=msg.platform, backend=msg.backend,
         max_batch_size=msg.max_batch_size,
         input=[TensorConfig(t.name, dtype(t.data_type), list(t.dims),
-                            optional=t.optional) for t in msg.input],
+                            optional=t.optional,
+                            allow_ragged_batch=t.allow_ragged_batch)
+               for t in msg.input],
         output=[TensorConfig(t.name, dtype(t.data_type), list(t.dims),
                              label_filename=t.label_filename)
                 for t in msg.output],
@@ -233,7 +237,8 @@ def config_from_pb(msg, name: str) -> "ModelConfig":
         instance_groups=list(msg.instance_group),
         parameters={k: v.string_value for k, v in msg.parameters.items()},
         ensemble_scheduling=[
-            EnsembleStep(s.model_name, dict(s.input_map), dict(s.output_map))
+            EnsembleStep(s.model_name, dict(s.input_map), dict(s.output_map),
+                         model_version=s.model_version)
             for s in (ens.step if ens is not None else [])],
         decoupled=bool(msg.model_transaction_policy is not None
                        and msg.model_transaction_policy.decoupled),
@@ -243,6 +248,10 @@ def config_from_pb(msg, name: str) -> "ModelConfig":
         model_warmup=list(msg.model_warmup),
         response_cache=(msg.response_cache.enable
                         if msg.response_cache is not None else None),
+        default_model_filename=msg.default_model_filename,
+        preserve_ordering=bool(db is not None and db.preserve_ordering),
+        sequence_control_inputs=list(sb.control_input) if sb is not None
+        else [],
     )
 
 

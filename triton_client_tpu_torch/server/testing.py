@@ -8,7 +8,7 @@ Counterpart of ``triton_client_tpu/server/testing.py``:
   ``server_present`` is set: a region made in this process is read in
   place, by uuid.
 * ``ClusterHarness``: N of them, each with its own registry and core, with
-  ``kill`` and ``restart`` on the same port.
+  ``kill`` and ``restart`` on the same port.  Both take ``tls``.
 * ``ReplicaSupervisor``: the self-healing of a ``ClusterHarness`` on the
   CLI supervisor's ``RestartPolicy`` and ``SupervisorState``.
 * ``cli_http_port``: the port a ``--http-port 0`` CLI server bound, read
@@ -50,7 +50,7 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-_SERVING_LINE = re.compile(r"serving v2 HTTP on \S+:(\d+) ")
+_SERVING_LINE = re.compile(r"serving v2 HTTPS? on \S+:(\d+) ")
 
 
 def cli_http_port(proc, log_path: str, timeout: float = 120.0) -> int:
@@ -75,15 +75,17 @@ def cli_http_port(proc, log_path: str, timeout: float = 120.0) -> int:
 
 class ServerHarness:
     """``replica``, where given, names the server in every trace record
-    and incident bundle (the CLI's ``--host:--http-port``)."""
+    and incident bundle (the CLI's ``--host:--http-port``); ``tls`` (a
+    ``tls.TLSConfig``) serves HTTPS."""
 
     def __init__(self, registry: Optional[ModelRegistry] = None,
                  http_port: Optional[int] = None, host: str = "127.0.0.1",
-                 replica: str = ""):
+                 replica: str = "", tls=None):
         self.registry = registry or ModelRegistry()
         self.core = InferenceCore(self.registry)
         self.core.tracer.replica = replica
         self.host = host
+        self.tls = tls
         self.http_port = http_port or free_port()
         self._server: Optional[HttpServer] = None
         self._thread: Optional[threading.Thread] = None
@@ -92,11 +94,17 @@ class ServerHarness:
     def http_url(self) -> str:
         return f"{self.host}:{self.http_port}"
 
+    @property
+    def grpc_url(self) -> str:
+        """gRPC is served as gRPC-Web on the HTTP port."""
+        return self.http_url
+
     def start(self) -> "ServerHarness":
         # warm before serving: a first request must not pay for what the
         # models' warmup samples build
         self.core.warmup_models()
-        self._server = HttpServer(self.core, self.host, self.http_port)
+        self._server = HttpServer(self.core, self.host, self.http_port,
+                                  tls=self.tls)
         self._thread = threading.Thread(
             target=self._server.serve_forever, daemon=True,
             name="tc-torch-http")
@@ -137,22 +145,29 @@ class ClusterHarness:
     def __init__(self, registry_factory: Callable[[], ModelRegistry],
                  n: int = 3, host: str = "127.0.0.1",
                  core_setup: Optional[Callable[[ServerHarness], None]]
-                 = None):
+                 = None, tls=None):
         if n < 1:
             raise ValueError("ClusterHarness needs at least one server")
         self._registry_factory = registry_factory
         self.host = host
+        self.tls = tls
         self._core_setup = core_setup
         # replicas keep their names across a kill and a restart
         self.harnesses: List[Optional[ServerHarness]] = [
             ServerHarness(registry_factory(), host=host,
-                          replica=f"replica-{i}") for i in range(n)]
+                          replica=f"replica-{i}", tls=tls)
+            for i in range(n)]
         # ports pinned at construction, so that restart(i) rebinds them
         self._http_ports = [h.http_port for h in self.harnesses]
 
     @property
     def http_urls(self) -> List[str]:
         return [f"{self.host}:{p}" for p in self._http_ports]
+
+    @property
+    def grpc_urls(self) -> List[str]:
+        """gRPC-Web on each HTTP port."""
+        return self.http_urls
 
     def start(self) -> "ClusterHarness":
         for h in self.harnesses:
@@ -181,7 +196,7 @@ class ClusterHarness:
             raise RuntimeError(f"server {i} is already running")
         h = ServerHarness(self._registry_factory(),
                           http_port=self._http_ports[i], host=self.host,
-                          replica=f"replica-{i}")
+                          replica=f"replica-{i}", tls=self.tls)
         h.start()
         if self._core_setup is not None:
             self._core_setup(h)
