@@ -336,7 +336,21 @@ Phases (any failure exits non-zero and prints no result line):
     to the plain forward.  Printed, not gated: p50 / p99 of aio against
     sync at c = 4, the TLS handshake's ms and gzip's ms on a
     ``bert_large`` B = 32 response;
-22. print each kernel's launches on every served path, one JSON line
+22. gRPC over HTTP/2 (``--grpc-port``): an in-process ``ServerHarness``
+    serves ``longctx_tpu`` base bf16 and ``bert_large`` int8 ``w2`` at 24
+    layers on its gRPC port (HTTP/2) and its HTTP port (gRPC-Web); the
+    port's client pinned to ``h2``, and one pinned to ``web``, each send
+    every model 4 unary calls, a stream of 4 and 8 ``async_infer`` calls
+    at c = 4 (multiplexed on the one HTTP/2 connection): every answer
+    byte-equal to the gRPC-Web one and within ``SERVED_ATOL`` of the
+    plain-kernel forward, flash exactly 8 and int8 exactly 24 a forward;
+    a ``bert_large`` B = 32 request on a client whose stream window is 16
+    KiB (its answer crosses it several times); then a CLI fleet
+    (``--frontends 2``, TLS, the two workers sharing ``--grpc-port``)
+    answers one request on each model over ``grpcs``.  Printed: p50 / p99
+    over HTTP/2 beside gRPC-Web at c = 4 (``longctx_tpu`` B = 4), the B =
+    32 request's p50 on each, and the caller errors (0, or the run fails);
+23. print each kernel's launches on every served path, one JSON line
     describing every kernel, then the result line
     ``{"ok": true, "device": {...}}``.
 
@@ -4189,7 +4203,7 @@ def _overload_drain() -> None:
     log = open(log_path, "w")
     proc = subprocess.Popen(
         [sys.executable, "-m", "triton_client_tpu_torch.server",
-         "--http-port", str(port), "--metrics-port", "0",
+         "--http-port", str(port), "--grpc-port", "0", "--metrics-port", "0",
          "--drain-timeout", str(DRAIN_TIMEOUT_S), "--chaos", "1.0",
          "--chaos-kinds", "latency", "--chaos-latency-ms",
          str(DRAIN_LATENCY_MS), "--chaos-model", "longctx_tpu"],
@@ -6412,6 +6426,8 @@ class _FleetServer:
         #: nv_fleet_worker_restart_total before the SIGKILL drill
         self.restarts = 0.0
         self.port = free_port()
+        #: the gRPC port (HTTP/2), shared by the workers as the HTTP one is
+        self.grpc_port = free_port()
         self.mport = _adjacent_ports(frontends)
         os.makedirs(FLEET_DIR, exist_ok=True)
         self.log_path = os.path.join(
@@ -6422,7 +6438,8 @@ class _FleetServer:
         env["PYTHONPATH"] = REPO
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "triton_client_tpu_torch.server",
-             "--http-port", str(self.port), "--metrics-port",
+             "--http-port", str(self.port), "--grpc-port",
+             str(self.grpc_port), "--metrics-port",
              str(self.mport), "--frontends", str(frontends),
              "--drain-timeout", "20", "--worker-restart-window", "60",
              *extra],
@@ -8578,6 +8595,243 @@ async def _at_warm(url: str, name: str, inp: str, out: str, x) -> None:
                       outputs=[http.InferRequestedOutput(out)])
 
 
+# ---------------------------------------------------------------------------
+# gRPC over HTTP/2
+# ---------------------------------------------------------------------------
+
+H2_PATHS = {}
+#: unary calls, requests on the one stream, async_infer calls (at H2_C) of
+#: each model on each transport
+H2_UNARY, H2_STREAM, H2_ASYNC, H2_C = 4, 4, 8, 4
+#: requests of each timing, each transport
+H2_TIMED = 16
+H2_BIG = 8
+#: the B = 32 client's receive window: its bert_large answer crosses it
+#: several times (grpcio's ``grpc.http2.lookahead_bytes``)
+H2_SMALL_WINDOW = 16384
+#: the models the CLI fleet answers over grpcs
+H2_CLI_MODELS = ("longctx_tpu", "bert_large")
+
+
+def _h2_client(url: str, wire: str, **kw):
+    """The port's gRPC client on ``wire`` (``h2`` or ``web``), pinned with
+    TC_TPU_GRPC_TRANSPORT for its first call, which chooses it."""
+    from triton_client_tpu_torch import grpc
+
+    old = os.environ.get("TC_TPU_GRPC_TRANSPORT")
+    os.environ["TC_TPU_GRPC_TRANSPORT"] = wire
+    try:
+        c = grpc.InferenceServerClient(url, **kw)
+        if not c.is_server_live() or c._wire.name != wire:
+            fail(f"h2: the client at {url} is not on {wire}")
+    finally:
+        if old is None:
+            os.environ.pop("TC_TPU_GRPC_TRANSPORT", None)
+        else:
+            os.environ["TC_TPU_GRPC_TRANSPORT"] = old
+    return c
+
+
+def _h2_calls(c, name: str, inp: str, out: str, x) -> dict:
+    """Every way of the phase on one client: H2_UNARY unary calls, one
+    stream of H2_STREAM requests, H2_ASYNC ``async_infer`` calls H2_C at
+    a time.  {way: [each answer's bytes]}; any error fails the run."""
+    import queue
+
+    from triton_client_tpu_torch import grpc
+
+    outs = [grpc.InferRequestedOutput(out)]
+    got = {"unary": [c.infer(name, _at_input(grpc, inp, x), outputs=outs,
+                             client_timeout=300).as_numpy(out)
+                     for _ in range(H2_UNARY)]}
+    answers = queue.Queue()
+    c.start_stream(lambda result, error: answers.put((result, error)))
+    for _ in range(H2_STREAM):
+        c.async_stream_infer(name, _at_input(grpc, inp, x), outputs=outs)
+    c.stop_stream()
+    stream = []
+    while not answers.empty():
+        result, error = answers.get()
+        if error is not None:
+            fail(f"h2 {name}: stream error {error}")
+        stream.append(result.as_numpy(out))
+    if len(stream) != H2_STREAM:
+        fail(f"h2 {name}: the stream answered {len(stream)} of {H2_STREAM}")
+    got["stream"] = stream
+    futures = []
+    done = []
+    for i in range(H2_ASYNC):
+        if len(futures) - len(done) >= H2_C:
+            done.append(futures[len(done)].get_result(timeout=300))
+        futures.append(c.async_infer(name, _at_input(grpc, inp, x),
+                                     outputs=outs, client_timeout=300))
+    done += [f.get_result(timeout=300) for f in futures[len(done):]]
+    got["async_infer"] = [r.as_numpy(out) for r in done]
+    return got
+
+
+def _h2_timed(c, name: str, inp: str, x, n: int, conc: int) -> list:
+    """``n`` requests, ``conc`` threads on the one client: each one's
+    seconds."""
+    from triton_client_tpu_torch import grpc
+
+    times = [0.0] * n
+    errors = []
+
+    def worker(tid):
+        try:
+            for i in range(tid, n, conc):
+                t0 = time.perf_counter()
+                c.infer(name, _at_input(grpc, inp, x), client_timeout=300)
+                times[i] = time.perf_counter() - t0
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=worker, args=(t,))
+               for t in range(conc)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if errors:
+        fail(f"h2 timing {name}: caller errors {errors}")
+    return times
+
+
+def h2_phase(torch, counters) -> None:
+    """gRPC over HTTP/2 (phase 22 of the module docstring)."""
+    import numpy as np
+
+    from triton_client_tpu_torch import grpc
+    from triton_client_tpu_torch.models import language
+    from triton_client_tpu_torch.server.registry import ModelRegistry
+    from triton_client_tpu_torch.server.testing import ServerHarness
+
+    label = "h2"
+    fleet = _FleetServer(2, "--ssl-certfile", TLS_CERT, "--ssl-keyfile",
+                         TLS_KEY, name="h2_fleet")
+    harness = None
+    clients = []
+    os.environ["TRITON_TPU_QUANT_BERT_LARGE"] = "int8"
+    os.environ["TRITON_TPU_INT8_FUSED"] = "w2"
+    try:
+        longctx = language.make_longctx_tpu("cuda")
+        with bert_depth(24):
+            bert = language.make_bert_large("cuda")
+        S, V = language.BERT_SEQ_LEN, language.BERT_LARGE.vocab_size
+        xl = model_tokens(LONGCTX_SEED + 22, longctx.max_batch_size,
+                          longctx.config.input[0].dims[0], 256)
+        xb = model_tokens(BERT_SEED + 22, 32, S, V)
+        registry = ModelRegistry()
+        registry.register_model(longctx)
+        registry.register_model(bert)
+        harness = ServerHarness(registry).start()
+        h2c = _h2_client(harness.grpc_url, "h2")
+        web = _h2_client(harness.http_url, "web")
+        big = _h2_client(harness.grpc_url, "h2", channel_args=[
+            ("grpc.http2.lookahead_bytes", H2_SMALL_WINDOW)])
+        clients += [h2c, web, big]
+        models = {"longctx_tpu": (longctx, "TOKENS", "LOGPROBS", xl,
+                                  (longctx.transformer.cfg.n_layers, 0)),
+                  "bert_large": (bert, "INPUT_IDS", "LOGITS", xb,
+                                 (0, bert.transformer.cfg.n_layers))}
+        checks = {}
+        for name, (m, inp, out, x, per_forward) in models.items():
+            # the first request builds the weights
+            web.infer(name, _at_input(grpc, inp, x), client_timeout=600)
+            check_precision(label, m.transformer, name == "bert_large")
+            checks[name] = (longctx_check(label, torch, m, x)
+                            if name == "longctx_tpu"
+                            else bert_check(label, torch, m, True, x))
+            answers = {}
+            for wire, c in (("h2", h2c), ("web", web)):
+                got, n_exec, _ = _counted(
+                    f"{label} {name} {wire}", m, counters,
+                    lambda: _h2_calls(c, name, inp, out, x), *per_forward,
+                    paths=H2_PATHS)
+                want = H2_UNARY + H2_STREAM + H2_ASYNC
+                if n_exec != want:
+                    fail(f"{label} {name} {wire}: {n_exec} executions for "
+                         f"{want} requests")
+                answers[wire] = got
+            first = answers["web"]["unary"][0].tobytes()
+            for wire, got in answers.items():
+                for way, each in got.items():
+                    for i, a in enumerate(each):
+                        checks[name](f"{wire} {way} {i}", a)
+                        if a.tobytes() != first:
+                            fail(f"{label} {name}: the {wire} {way} answer "
+                                 f"{i} differs from gRPC-Web's in bytes")
+            print(f"{label} {name}: {2 * want} answers over HTTP/2 and "
+                  "gRPC-Web, each byte-equal to the gRPC-Web unary answer "
+                  f"and within SERVED_ATOL of the plain forward; {CARD}",
+                  flush=True)
+        # the B = 32 request through a 16 KiB stream window, each way
+        t_big, n_exec, _ = _counted(
+            f"{label} bert_large B = 32 windows", bert, counters,
+            lambda: {w: _h2_timed(c, "bert_large", "INPUT_IDS", xb, H2_BIG,
+                                  1) for w, c in (("h2", big),
+                                                  ("web", web))},
+            0, bert.transformer.cfg.n_layers, paths=H2_PATHS)
+        if n_exec != 2 * H2_BIG:
+            fail(f"{label} bert_large B = 32: {n_exec} executions for "
+                 f"{2 * H2_BIG} requests")
+        r = big.infer("bert_large", _at_input(grpc, "INPUT_IDS", xb),
+                      client_timeout=300)
+        checks["bert_large"]("h2 16 KiB window", r.as_numpy("LOGITS"))
+        nbytes = r.as_numpy("LOGITS").nbytes
+        # p50 / p99 at c = 4 on each transport
+        t_c4, _, _ = _counted(
+            f"{label} longctx_tpu c = {H2_C}", longctx, counters,
+            lambda: {w: _h2_timed(c, "longctx_tpu", "TOKENS", xl, H2_TIMED,
+                                  H2_C) for w, c in (("h2", h2c),
+                                                     ("web", web))},
+            longctx.transformer.cfg.n_layers, 0, paths=H2_PATHS)
+        for proto, cache in (("HTTP", harness.core.http_wire_templates),
+                             ("gRPC", harness.core.grpc_wire_templates)):
+            if cache.stats["errors"]:
+                fail(f"{label}: the {proto} wire templates raised "
+                     f"{cache.stats['errors']} times")
+        # the CLI fleet over grpcs: one request on each model
+        fleet.wait_up(label)
+        grpcs = _h2_client(f"127.0.0.1:{fleet.grpc_port}", "h2", ssl=True,
+                           root_certificates=TLS_CERT)
+        clients.append(grpcs)
+        cli = {}
+        for name in H2_CLI_MODELS:
+            m, inp, out, x, _ = models[name]
+            t0 = time.perf_counter()
+            a = grpcs.infer(name, _at_input(grpc, inp, x),
+                            client_timeout=600).as_numpy(out)
+            cli[name] = time.perf_counter() - t0
+            if name == "longctx_tpu":
+                checks[name]("grpcs CLI fleet", a)
+            elif a.shape != (x.shape[0], S, 2) or not np.isfinite(a).all():
+                fail(f"{label}: the CLI fleet's bert_large answer "
+                     f"{a.shape} is bad")
+        print(f"{label}: HTTP/2 at c = {H2_C}, {H2_TIMED} longctx_tpu B = 4 "
+              f"requests each: h2 p50 {_pct(t_c4['h2'], 50):.3f} ms p99 "
+              f"{_pct(t_c4['h2'], 99):.3f} ms, gRPC-Web p50 "
+              f"{_pct(t_c4['web'], 50):.3f} ms p99 "
+              f"{_pct(t_c4['web'], 99):.3f} ms; bert_large B = 32 "
+              f"({nbytes} bytes of LOGITS, {-(-nbytes // H2_SMALL_WINDOW)} "
+              f"windows of {H2_SMALL_WINDOW} on h2) p50 h2 "
+              f"{_pct(t_big['h2'], 50):.3f} ms, gRPC-Web "
+              f"{_pct(t_big['web'], 50):.3f} ms; the CLI fleet over grpcs "
+              f"(--frontends 2, grpcs=127.0.0.1:{fleet.grpc_port}): "
+              + ", ".join(f"{n} {1e3 * t:.1f} ms" for n, t in cli.items())
+              + f" (first requests, weights built); caller errors 0; {CARD}",
+              flush=True)
+    finally:
+        for c in clients:
+            c.close()
+        for var in ("TRITON_TPU_QUANT_BERT_LARGE", "TRITON_TPU_INT8_FUSED"):
+            os.environ.pop(var, None)
+        if harness is not None:
+            harness.stop()
+        fleet.close()
+
+
 #: the bytecode of every module that this script and its child processes
 #: import: the card's machine keeps none for most of the installed
 #: packages, so each process (a server worker, perf_analyzer) would compile
@@ -8744,7 +8998,8 @@ def main() -> int:
                            ("tools and wire", tools_wire_phase,
                             (torch, counters)),
                            ("aio, TLS and compression", aio_tls_phase,
-                            (torch, counters))):
+                            (torch, counters)),
+                           ("gRPC over HTTP/2", h2_phase, (torch, counters))):
         t0 = time.perf_counter()
         fn(*args)
         print(f"{name} phase took {time.perf_counter() - t0:.1f} s",
@@ -8769,6 +9024,7 @@ def main() -> int:
     paths.update(CC_PATHS)
     paths.update(TW_PATHS)
     paths.update(AT_PATHS)
+    paths.update(H2_PATHS)
     for path, launches in paths.items():
         print(f"launches on {path}: flash_attention "
               f"{launches['flash_attention']}, int8_matmul "

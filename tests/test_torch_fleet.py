@@ -967,6 +967,7 @@ class _Fleet:
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "triton_client_tpu_torch.server",
              "--device", "cpu", "--http-port", str(self.http_port),
+             "--grpc-port", str(free_port()),
              "--metrics-port", str(self.metrics_port),
              "--frontends", str(self.N), "--worker-restart-window", "8",
              "--drain-timeout", "3", *extra],

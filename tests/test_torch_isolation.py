@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX package,
-nor ``google.protobuf``, ``grpc`` or ``aiohttp`` (the card's machine has
-none of them: the port has its own proto3 codec, gRPC-Web transport and
-asyncio HTTP/1.1), and its CUDA entry points refuse to run without CUDA
+nor ``google.protobuf``, ``grpc``, ``h2``, ``hpack`` or ``aiohttp`` (the
+card's machine has none of them: the port has its own proto3 codec,
+HTTP/2 with HPACK, gRPC-Web transport and asyncio HTTP/1.1), and its CUDA
+entry points refuse to run without CUDA
 instead of quietly running on the CPU."""
 
 import os
@@ -29,7 +30,8 @@ _IMPORT_ALL = textwrap.dedent("""
                  or n == "google.protobuf"
                  or n.startswith("google.protobuf.")
                  or n == "grpc" or n.startswith("grpc.")
-                 or n == "aiohttp" or n.startswith("aiohttp."))
+                 or n == "aiohttp" or n.startswith("aiohttp.")
+                 or n.split(".")[0] in ("h2", "hpack", "hyperframe"))
     print(len(names))
     print(",".join(bad))
 """)
@@ -93,6 +95,35 @@ def test_aio_and_tls_modules_stand_alone(module):
             n for n in sys.modules
             if n.split(".")[0] in ("jax", "jaxlib", "triton_client_tpu",
                                    "aiohttp", "grpc")
+            or n.startswith("google.protobuf"))))
+    """)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = _REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "", f"{module} pulled in: {out.stdout}"
+
+
+@pytest.mark.parametrize("module", [
+    "triton_client_tpu_torch.protocol.hpack",
+    "triton_client_tpu_torch.protocol.h2",
+    "triton_client_tpu_torch.server.grpc_h2",
+    "triton_client_tpu_torch.grpc._h2_transport",
+    "triton_client_tpu_torch.grpc.aio._h2",
+])
+def test_http2_modules_stand_alone(module):
+    """The HTTP/2 codec, listener and transports, each imported alone in a
+    fresh interpreter, pull in none of JAX, the JAX package, grpc, h2,
+    hpack, aiohttp or protobuf: the port speaks HTTP/2 itself."""
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        importlib.import_module({module!r})
+        print(",".join(sorted(
+            n for n in sys.modules
+            if n.split(".")[0] in ("jax", "jaxlib", "triton_client_tpu",
+                                   "aiohttp", "grpc", "h2", "hpack",
+                                   "hyperframe")
             or n.startswith("google.protobuf"))))
     """)
     env = dict(os.environ)

@@ -522,10 +522,14 @@ def _free_port():
 
 
 @pytest.mark.parametrize("protocol", ["http", "grpc"])
-def test_kept_alive_connection_serves_on_after_the_cap(protocol):
+def test_kept_alive_connection_serves_on_after_the_cap(protocol,
+                                                       monkeypatch):
     """An oversize request is refused (413 / RESOURCE_EXHAUSTED with the
     cap's text, never retried), and the next request on the same pooled
-    client -- the same kept-alive connection -- is served."""
+    client -- the same kept-alive connection -- is served.  The gRPC
+    client is pinned to gRPC-Web, the HTTP port's (its HTTP/2 probe would
+    be a connection of its own)."""
+    monkeypatch.setenv("TC_TPU_GRPC_TRANSPORT", "web")
     treg = ModelRegistry()
     treg.register_model(tzoo.make_custom_identity_int32())
     from triton_client_tpu_torch.server.http_server import HttpServer

@@ -81,7 +81,7 @@ def test_port_server_takes_verbose(tmp_path):
     with open(log_path, "w") as log:
         proc = subprocess.Popen(
             [sys.executable, "-m", "triton_client_tpu_torch.server", "-v",
-             "--device", "cpu", "--http-port", "0",
+             "--device", "cpu", "--http-port", "0", "--grpc-port", "0",
              "--metrics-port", "0"],
             cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
             env=dict(os.environ, PYTHONPATH=REPO))

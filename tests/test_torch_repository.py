@@ -964,8 +964,8 @@ def test_cli_loads_the_repository_at_start(tmp_path, zoo):
            _model_py("ref", 3))
     port = free_port()
     cmd = [sys.executable, "-m", "triton_client_tpu_torch.server",
-           "--device", "cpu", "--http-port", str(port), "--metrics-port",
-           "0", "--model-repository", root] + (["--zoo"] if zoo else [])
+           "--device", "cpu", "--http-port", str(port), "--grpc-port", "0",
+           "--metrics-port", "0", "--model-repository", root] + (["--zoo"] if zoo else [])
     log = open(tmp_path / "server.log", "w")
     proc = subprocess.Popen(cmd, cwd=REPO, stdout=log,
                             stderr=subprocess.STDOUT,

@@ -719,8 +719,8 @@ def test_cli_server_drains_on_sigterm(tmp_path):
     log = open(tmp_path / "server.log", "w")
     proc = subprocess.Popen(
         [sys.executable, "-m", "triton_client_tpu_torch.server",
-         "--device", "cpu", "--http-port", str(port), "--metrics-port",
-         "0", "--drain-timeout", "20", "--chaos", "1.0", "--chaos-kinds",
+         "--device", "cpu", "--http-port", str(port), "--grpc-port", "0",
+         "--metrics-port", "0", "--drain-timeout", "20", "--chaos", "1.0", "--chaos-kinds",
          "latency", "--chaos-latency-ms", "1000", "--chaos-model", MODEL],
         cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), stdout=log,
         stderr=subprocess.STDOUT)

@@ -494,7 +494,8 @@ def test_cli_verbose_budget_and_repository_ttl(tmp_path):
     log = open(tmp_path / "server.log", "w")
     proc = subprocess.Popen(
         [sys.executable, "-m", "triton_client_tpu_torch.server", "-v",
-         "--device", "cpu", "--http-port", "0", "--metrics-port", "0",
+         "--device", "cpu", "--http-port", "0", "--grpc-port", "0",
+         "--metrics-port", "0",
          "--model-repository", str(root), "--cache-budget-bytes", "24"],
         cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
         env=dict(os.environ, PYTHONPATH=REPO))

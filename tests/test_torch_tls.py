@@ -361,6 +361,7 @@ def test_cli_fleet_serves_tls_on_every_worker(tmp_path):
         proc = subprocess.Popen(
             [sys.executable, "-m", "triton_client_tpu_torch.server",
              "--device", "cpu", "--http-port", str(port), "--frontends", "2",
+             "--grpc-port", str(free_port()),
              "--metrics-port", str(mport), "--ssl-certfile",
              COMMITTED.certfile, "--ssl-keyfile", COMMITTED.keyfile],
             cwd=REPO, env=env, stdout=f, stderr=subprocess.STDOUT)

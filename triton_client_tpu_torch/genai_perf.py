@@ -13,18 +13,20 @@ generation model at a fixed concurrency and report the LLM-serving metrics:
 Two endpoints:
 
 - ``--endpoint stream`` (the default): ``llama_decode``'s decode contract
-  driven closed loop on a gRPC stream (the port's gRPC-Web client): the
+  driven closed loop on a gRPC stream (the port's gRPC client: HTTP/2 on
+  the gRPC port, gRPC-Web on an HTTP port): the
   prompt window with ``sequence_start``, then one fed-back token per step,
   and the ``sequence_end`` step's token;
 - ``--endpoint generate``: Server-Sent Events from
   ``POST /v2/models/{m}/generate_stream``, whose decode loop runs on the
   server.
 
-gRPC-Web is served on the server's HTTP port, so ``-u`` defaults to
-``localhost:8000`` for both.  Usage:
+``-u`` defaults to the gRPC port, ``localhost:8001``, for ``--endpoint
+stream`` (as the reference's) and to ``localhost:8000`` for ``--endpoint
+generate``.  Usage:
 
     python -m triton_client_tpu_torch.genai_perf -m llama_decode \
-        -u localhost:8000 --concurrency 4 --output-tokens 32 \
+        -u localhost:8001 --concurrency 4 --output-tokens 32 \
         --num-requests 16 --profile-export-file profile.json
 """
 
@@ -407,9 +409,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         prog="python -m triton_client_tpu_torch.genai_perf",
         description="LLM generation profiler (genai-perf CLI contract)")
     parser.add_argument("-m", "--model", required=True)
-    parser.add_argument("-u", "--url", default="localhost:8000",
-                        help="the server's HTTP host:port (gRPC-Web is "
-                        "served on it for --endpoint stream)")
+    parser.add_argument("-u", "--url", default=None,
+                        help="gRPC url for --endpoint stream (default "
+                        "localhost:8001); HTTP url for --endpoint generate "
+                        "(default localhost:8000)")
     parser.add_argument("--endpoint", choices=("stream", "generate"),
                         default="stream",
                         help="'stream': client closed loop over the gRPC "
@@ -429,6 +432,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument("--profile-export-file", default=None,
                         help="write the full metrics dict as JSON")
     args = parser.parse_args(argv)
+    if args.url is None:
+        args.url = ("localhost:8000" if args.endpoint == "generate"
+                    else "localhost:8001")
 
     try:
         if args.endpoint == "generate":

@@ -1,11 +1,16 @@
 """Synchronous gRPC ``InferenceServerClient`` of the port.
 
 Counterpart of ``triton_client_tpu/grpc/_client.py``, with the same method
-names and signatures, over gRPC-Web on HTTP/1.1 (``_transport.py``): the
-machine the port serves on has no ``grpcio``, and the port's server serves
-gRPC on its HTTP port.  So the URL is the server's HTTP ``host:port``.
-Unary calls share a pool of kept-alive ``http.client`` connections (the
-HTTP client's pool); a stream has a socket of its own.
+names and signatures, without ``grpcio`` (the machine the port serves on
+has none).  The URL is the server's gRPC ``host:port`` (a Triton server's
+8001, the port's ``--grpc-port``): the calls go over HTTP/2
+(``_h2_transport.py``), every call of the client a stream of one
+connection.  Where the peer answers the HTTP/2 preface in HTTP/1.1 (the
+port's HTTP port, the reference's bridge), they go as gRPC-Web
+(``_transport.py``): unary calls on a pool of kept-alive ``http.client``
+connections (the HTTP client's pool), a stream on a socket of its own.
+``TC_TPU_GRPC_TRANSPORT=h2|web`` pins the wire (a pinned ``h2`` that the
+peer does not speak is an error); the choice is made at the first call.
 
 Beside the HTTP client's surface: ``get_inference_statistics``,
 ``async_infer`` (a future with ``get_result`` and ``cancel``, or a
@@ -30,9 +35,11 @@ transport timeout with it; a refusal's ``retry-after-ms`` trailer sets the
 wait before the next attempt.  Under a client-level policy the health and
 metadata calls retry too.
 
-``keepalive_options`` and ``channel_args`` are taken and mean nothing:
-they set HTTP/2 channel options, and these calls run on HTTP/1.1.  The
-repository calls (``get_model_repository_index``, ``load_model`` with
+``keepalive_options`` drive the HTTP/2 connection's PINGs, as the
+reference's channel options do; of ``channel_args`` only
+``grpc.http2.lookahead_bytes`` (each stream's receive window) means
+something here: there is no grpcio channel.  The client's deadline travels as
+``grpc-timeout`` over HTTP/2.  The repository calls (``get_model_repository_index``, ``load_model`` with
 ``config`` and ``files``, ``unload_model`` with ``unload_dependents``) are
 the reference's.
 
@@ -52,8 +59,8 @@ file that verifies the server; the system's CAs without it),
 ``private_key`` and ``certificate_chain`` (the client's own pair), paths
 as the reference takes them.  ``creds`` cannot be a
 ``grpc.ChannelCredentials`` (the card's machine has no grpcio): it is an
-``ssl.SSLContext``, used as is.  Both apply to the unary pool and to a
-stream's socket.  ``compression_algorithm`` ``gzip`` or ``deflate``
+``ssl.SSLContext``, used as is (ALPN ``h2`` and ``http/1.1`` offered on
+it).  Both apply to either wire.  ``compression_algorithm`` ``gzip`` or ``deflate``
 compresses the request frames (flag bit 0x01, ``grpc-encoding``) of a
 unary call or of a stream; answers come back uncompressed.
 """
@@ -81,8 +88,9 @@ from ..protocol.grpc_web import ENCODINGS, compress_frame, encode_frame
 from ..utils import InferenceServerException, raise_error
 from ._infer_result import InferResult
 from ._infer_stream import _InferStream
+from ._h2_transport import select_transport
 from ._template import RequestTemplate
-from ._transport import RpcError, unary
+from ._transport import RpcError
 from ._utils import get_inference_request, raise_error_grpc
 
 #: kept-alive connections held for unary calls, and threads of async_infer
@@ -142,9 +150,8 @@ _IDEMPOTENT = {"ServerLive": "health", "ServerReady": "health",
 
 
 class KeepAliveOptions:
-    """The reference's gRPC keepalive options.  Taken, and they mean
-    nothing here: they tune HTTP/2 pings, and these calls run on
-    HTTP/1.1 connections."""
+    """The reference's gRPC keepalive options: the HTTP/2 connection's
+    PINGs (``_h2_transport.py``); nothing on gRPC-Web."""
 
     def __init__(self, keepalive_time_ms: int = 2 ** 31 - 1,
                  keepalive_timeout_ms: int = 20000,
@@ -224,8 +231,8 @@ class PreparedRequest:
 
 
 class InferenceServerClient(InferenceServerClientBase):
-    """Client of the v2 protocol over gRPC(-Web).  Thread-safe, except the
-    stream: one at a time per client."""
+    """Client of the v2 protocol over gRPC (HTTP/2, or gRPC-Web).
+    Thread-safe, except the stream: one at a time per client."""
 
     def __init__(self, url: str, verbose: bool = False, ssl: bool = False,
                  root_certificates: Optional[str] = None,
@@ -241,9 +248,11 @@ class InferenceServerClient(InferenceServerClientBase):
         self._verbose = verbose
         self._ssl_context = channel_ssl_context(
             ssl, root_certificates, private_key, certificate_chain, creds)
-        # the stream's socket is opened per stream
-        self._pool = _ConnectionPool(url, _POOL_SIZE, 60.0, None,
-                                     self._ssl_context)
+        self._keepalive = keepalive_options
+        self._channel_args = channel_args
+        # HTTP/2 or gRPC-Web, chosen at the first call
+        self._wire = None
+        self._wire_lock = threading.Lock()
         self._stream: Optional[_InferStream] = None
         self._executor: Optional[ThreadPoolExecutor] = None
         self._lock = threading.Lock()
@@ -264,7 +273,10 @@ class InferenceServerClient(InferenceServerClientBase):
             executor, self._executor = self._executor, None
         if executor is not None:
             executor.shutdown(wait=True)
-        self._pool.clear()
+        with self._wire_lock:
+            wire, self._wire = self._wire, None
+        if wire is not None:
+            wire.close()
 
     def __enter__(self):
         return self
@@ -279,6 +291,19 @@ class InferenceServerClient(InferenceServerClientBase):
             pass
 
     # -- transport ---------------------------------------------------------
+    def _transport(self):
+        """The client's wire (RpcError where the server cannot be reached:
+        the next call tries again)."""
+        with self._wire_lock:
+            if self._wire is None:
+                self._wire = select_transport(
+                    self._url, lambda: _ConnectionPool(
+                        self._url, _POOL_SIZE, 60.0, None,
+                        self._ssl_context),
+                    self._ssl_context, self._keepalive,
+                    channel_args=self._channel_args)
+            return self._wire
+
     def _headers(self, headers: Optional[dict]) -> dict:
         request = Request(dict(headers) if headers else {})
         self._call_plugin(request)
@@ -319,8 +344,9 @@ class InferenceServerClient(InferenceServerClientBase):
         """One unary call of an encoded request frame: its response, or
         InferenceServerException with the call's status."""
         try:
-            response = unary(self._pool, method, frame, response_type,
-                             self._headers(headers), client_timeout, sizes)
+            response = self._transport().unary(
+                method, frame, response_type, self._headers(headers),
+                client_timeout, sizes)
         except RpcError as e:
             raise_error_grpc(e)
         if self._verbose:
@@ -793,9 +819,9 @@ class InferenceServerClient(InferenceServerClientBase):
         sent = self._headers(headers)
         sent.update(merge_trace_headers(sent)[0])
         try:
-            self._stream = _InferStream(self._url, callback, sent,
+            self._stream = _InferStream(self._transport(), callback, sent,
                                         self._verbose, stream_timeout,
-                                        encoding, self._ssl_context)
+                                        encoding)
         except RpcError as e:
             raise_error_grpc(e)
 

@@ -1,12 +1,14 @@
 """The client's stream (counterpart of
 ``triton_client_tpu/grpc/_infer_stream.py``): one duplex
-``ModelStreamInfer`` call (``_transport.StreamCall``) whose responses reach
+``ModelStreamInfer`` call on the client's transport (a stream of its
+HTTP/2 connection, ``_h2_transport.H2StreamCall``, or a gRPC-Web socket,
+``_transport.StreamCall``) whose responses reach
 the user's callback on the reader thread, in order, as ``callback(result,
 error)``.  An in-band error (``error_message``) is an error for its
 request only; a non-OK status of the call ends the stream, and later
 sends raise.  A stream opened with a deadline (``stream_timeout``) ends
 with DEADLINE_EXCEEDED when it passes.  Under an ``encoding`` every
-request frame goes compressed; with ``ssl_context`` the stream is TLS."""
+request frame goes compressed."""
 
 from __future__ import annotations
 
@@ -16,25 +18,23 @@ from ..protocol import inference as pb
 from ..utils import InferenceServerException, raise_error
 from ..protocol.grpc_web import compress_frame
 from ._infer_result import InferResult
-from ._transport import StreamCall
 from ._utils import stream_error_to_exception
 from ..protocol.service import StatusCode
 
 
 class _InferStream:
-    def __init__(self, host: str, callback: Callable, headers: dict,
+    def __init__(self, transport, callback: Callable, headers: dict,
                  verbose: bool = False, deadline_s=None,
-                 encoding: Optional[str] = None, ssl_context=None):
+                 encoding: Optional[str] = None):
         self._callback = callback
         self._verbose = verbose
         self._active = True
         self._encoding = encoding
         if encoding is not None:
             headers = {**headers, "grpc-encoding": encoding}
-        self._call = StreamCall(host, "ModelStreamInfer", headers,
-                                self._on_message, self._on_end,
-                                deadline_s=deadline_s,
-                                ssl_context=ssl_context)
+        self._call = transport.open_stream("ModelStreamInfer", headers,
+                                           self._on_message, self._on_end,
+                                           deadline_s=deadline_s)
 
     def _on_message(self, payload: bytes) -> None:
         response = pb.ModelStreamInferResponse.FromString(payload)

@@ -1,4 +1,5 @@
-"""gRPC-Web on the client: the port's gRPC calls over HTTP/1.1.
+"""gRPC-Web on the client: the port's gRPC calls over HTTP/1.1, where the
+peer does not speak HTTP/2 (``_h2_transport.select_transport``).
 
 The port's server speaks gRPC as gRPC-Web on its HTTP port
 (``server/grpc_web.py``), and so does the reference's bridge.  Frames are
@@ -36,7 +37,8 @@ from ..protocol.grpc_web import (CONTENT_TYPE, TRAILER_FLAG, iter_frames,
                                  read_chunked)
 from ..protocol.service import StatusCode, path
 
-__all__ = ["RpcError", "StreamCall", "unary", "unary_answer"]
+__all__ = ["RpcError", "StreamCall", "WebTransport", "unary",
+           "unary_answer"]
 
 
 class RpcError(Exception):
@@ -125,6 +127,33 @@ def unary_answer(http_status: int, headers, data: bytes, response_type,
     if sizes is not None:
         sizes.append(len(frames[0]))
     return response_type.FromString(frames[0])
+
+
+class WebTransport:
+    """The client's calls as gRPC-Web: unary on ``pool`` (an
+    ``http._client._ConnectionPool``), each stream on a socket of its
+    own.  ``_h2_transport.H2Transport`` has the same interface."""
+
+    name = "web"
+
+    def __init__(self, url: str, pool, ssl_context=None):
+        self._url = url
+        self.pool = pool
+        self._ssl = ssl_context
+
+    def unary(self, method: str, frame: bytes, response_type,
+              headers: dict, timeout: Optional[float] = None,
+              sizes: Optional[list] = None):
+        return unary(self.pool, method, frame, response_type, headers,
+                     timeout, sizes)
+
+    def open_stream(self, method: str, headers: dict, on_message, on_end,
+                    deadline_s: Optional[float] = None) -> "StreamCall":
+        return StreamCall(self._url, method, headers, on_message, on_end,
+                          deadline_s=deadline_s, ssl_context=self._ssl)
+
+    def close(self) -> None:
+        self.pool.clear()
 
 
 class StreamCall:

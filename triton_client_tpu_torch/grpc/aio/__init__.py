@@ -6,21 +6,26 @@ and ``stream_infer(inputs_iterator)``, which takes an async iterator of
 request-kwarg dicts and returns a cancellable async iterator of
 ``(InferResult, error)`` (reference :749-827).
 
-The reference runs on grpc.aio; here the calls are gRPC-Web on the port's
-own HTTP/1.1 over ``asyncio`` streams (``_aio_http.py``), the transport
-that ``http.aio`` uses, framed with ``protocol/grpc_web.py``: unary calls
-on a pool of kept-alive connections, a stream on a connection of its own.
-``stream_infer`` writes one chunk per request frame as each request comes
-from the iterator, while a task reads the chunked answer; its
-``stream_timeout`` bounds the whole stream, and ``cancel()`` closes its
-connection.  As in the reference, an in-band error is yielded as ``(None,
-error)`` and a failure of the call itself ends the iteration.
+The reference runs on grpc.aio; here the calls go over HTTP/2 on
+``asyncio`` streams (``_h2.py``, the sync client's wire: one connection,
+every call a stream of it), chosen at the first call as the sync client
+chooses: where the peer answers the HTTP/2 preface in HTTP/1.1 (the
+port's HTTP port), they go as gRPC-Web on the port's own HTTP/1.1
+(``_aio_http.py``, the transport that ``http.aio`` uses, framed with
+``protocol/grpc_web.py``): unary calls on a pool of kept-alive
+connections, a stream on a connection of its own.
+``TC_TPU_GRPC_TRANSPORT=h2|web`` pins the wire.  ``stream_infer`` sends
+each request as it comes from the iterator, while a task reads the
+answers; its ``stream_timeout`` bounds the whole stream, and ``cancel()``
+ends it (RST_STREAM over HTTP/2, its connection closed over gRPC-Web).
+As in the reference, an in-band error is yielded as ``(None, error)``
+and a failure of the call itself ends the iteration.
 
 TLS and compression take the sync client's arguments (``ssl``,
 ``root_certificates``, ``private_key``, ``certificate_chain``, ``creds``
 as an ``ssl.SSLContext``; ``compression_algorithm`` gzip or deflate
 compresses the request frames).  ``keepalive_options`` and
-``channel_args`` are taken and mean nothing, as in the sync client.
+``channel_args`` are taken and mean nothing here.
 Telemetry counts every call under the ``grpc_aio`` protocol label, with
 ``traceparent`` on the wire.
 """
@@ -55,6 +60,7 @@ from .._template import RequestTemplate
 from .._transport import RpcError, http_error, unary_answer
 from .._utils import (get_inference_request, raise_error_grpc,
                       stream_error_to_exception)
+from ._h2 import select_transport
 
 __all__ = ["InferenceServerClient", "KeepAliveOptions", "PreparedRequest"]
 
@@ -118,9 +124,15 @@ class InferenceServerClient(InferenceServerClientBase):
         self._retry_policy = retry_policy
         self._url = url
         self._verbose = verbose
-        self._pool = AioConnectionPool(url, _POOL_SIZE, channel_ssl_context(
-            ssl, root_certificates, private_key, certificate_chain, creds))
+        self._ssl_context = channel_ssl_context(
+            ssl, root_certificates, private_key, certificate_chain, creds)
+        self._pool = AioConnectionPool(url, _POOL_SIZE, self._ssl_context)
         self._streams: set = set()
+        # the HTTP/2 transport, or None for gRPC-Web; chosen at the first
+        # call (_wire_chosen)
+        self._h2 = None
+        self._wire_chosen = False
+        self._wire_lock = asyncio.Lock()
 
     @property
     def url(self) -> str:
@@ -129,10 +141,22 @@ class InferenceServerClient(InferenceServerClientBase):
 
     # -- lifecycle ---------------------------------------------------------
     async def close(self) -> None:
-        """Cancel the open streams and close every pooled connection."""
+        """Cancel the open streams and close every connection."""
         for it in list(self._streams):
             it.cancel()
         await self._pool.close()
+        if self._h2 is not None:
+            await self._h2.close()
+
+    async def _wire(self):
+        """The HTTP/2 transport, or None for gRPC-Web (RpcError where the
+        server cannot be reached: the next call tries again)."""
+        async with self._wire_lock:
+            if not self._wire_chosen:
+                self._h2 = await select_transport(self._url,
+                                                  self._ssl_context)
+                self._wire_chosen = True
+            return self._h2
 
     async def __aenter__(self):
         return self
@@ -149,6 +173,10 @@ class InferenceServerClient(InferenceServerClientBase):
                      headers: dict, client_timeout, sizes=None):
         """One unary call of an encoded request frame: its response, or
         :class:`RpcError`."""
+        wire = await self._wire()
+        if wire is not None:
+            return await wire.unary(method, frame, response_type, headers,
+                                    client_timeout, sizes)
         hdrs = dict(headers)
         hdrs["Content-Type"] = CONTENT_TYPE
         try:
@@ -602,7 +630,6 @@ class InferenceServerClient(InferenceServerClientBase):
         sent = self._get_metadata(headers)
         # one trace context per stream: its requests share it
         sent.update(merge_trace_headers(sent)[0])
-        sent["Content-Type"] = CONTENT_TYPE
         if encoding is not None:
             sent["grpc-encoding"] = encoding
         return _ResponseIterator(self, inputs_iterator, sent, encoding,
@@ -610,6 +637,24 @@ class InferenceServerClient(InferenceServerClientBase):
 
 
 _END = object()
+
+
+class _H2StreamWriter:
+    """A stream's request side over HTTP/2, as ``_send`` writes it (the
+    gRPC-Web stream's ``write``, ``end`` and ``close``)."""
+
+    def __init__(self, conn, call):
+        self._conn, self._call = conn, call
+
+    async def write(self, frame) -> None:
+        await self._conn.send(self._call, frame)
+
+    async def end(self) -> None:
+        await self._conn.send(self._call, b"", end_stream=True)
+
+    def close(self) -> None:
+        self._conn.reset(self._call, StatusCode.CANCELLED,
+                         "Locally cancelled by application!")
 
 
 class _ResponseIterator:
@@ -698,13 +743,64 @@ class _ResponseIterator:
             await stream.write(frame)
         await stream.end()
 
+    def _answer(self, payload) -> None:
+        response = pb.ModelStreamInferResponse.FromString(payload)
+        if response.error_message:
+            self._queue.put_nowait((None, stream_error_to_exception(
+                response.error_message)))
+        else:
+            self._queue.put_nowait(
+                (InferResult(response.infer_response), None))
+
     async def _run(self) -> None:
+        try:
+            wire = await self._client._wire()
+        except RpcError as e:
+            if self._client._verbose:
+                print(f"stream ended: {e!r}")
+            self._client._streams.discard(self)
+            self._queue.put_nowait(_END)
+            return
+        if wire is not None:
+            await self._run_h2(wire)
+        else:
+            await self._run_web()
+
+    async def _run_h2(self, wire) -> None:
+        conn = call = sender = None
+        try:
+            async with asyncio.timeout(self._timeout):
+                conn = await wire.connection()
+                call = conn.start("ModelStreamInfer", self._headers,
+                                  self._timeout, stream=True)
+                sender = asyncio.ensure_future(
+                    self._send(_H2StreamWriter(conn, call)))
+                async for payload in conn.messages(call):
+                    self._answer(payload)
+                if call.code != StatusCode.OK:
+                    raise InferenceServerException(msg=call.message,
+                                                   status=str(call.code))
+        except (InferenceServerException, RpcError, TimeoutError,
+                OSError) as e:
+            if self._client._verbose:
+                print(f"stream ended: {e!r}")
+        finally:
+            if sender is not None and not sender.done():
+                sender.cancel()
+            if call is not None and not call.complete:
+                conn.reset(call, StatusCode.CANCELLED,
+                           "Locally cancelled by application!")
+            self._client._streams.discard(self)
+            self._queue.put_nowait(_END)
+
+    async def _run_web(self) -> None:
         stream = None
         sender = None
+        headers = dict(self._headers, **{"Content-Type": CONTENT_TYPE})
         try:
             async with asyncio.timeout(self._timeout):
                 stream = await self._client._pool.open_stream(
-                    "POST", path("ModelStreamInfer"), self._headers)
+                    "POST", path("ModelStreamInfer"), headers)
                 sender = asyncio.ensure_future(self._send(stream))
                 status, headers = await stream.read_head()
                 if status != 200:
@@ -719,14 +815,7 @@ class _ResponseIterator:
                             raise InferenceServerException(
                                 msg=message, status=str(code))
                         continue
-                    response = pb.ModelStreamInferResponse.FromString(
-                        payload)
-                    if response.error_message:
-                        self._queue.put_nowait((None, stream_error_to_exception(
-                            response.error_message)))
-                    else:
-                        self._queue.put_nowait(
-                            (InferResult(response.infer_response), None))
+                    self._answer(payload)
         except (InferenceServerException, TimeoutError, OSError, ValueError,
                 http.client.HTTPException) as e:
             # a failure of the call ends the iteration, as a grpc.aio

@@ -3,9 +3,10 @@
 
 Closed-loop concurrency sweeps and open-loop request-rate sweeps
 (``--request-rate-range``, constant or Poisson arrivals), reporting infer/s
-and latency percentiles over the v2 HTTP protocol or gRPC (``-i grpc``,
-gRPC-Web on the server's HTTP port: the port has no HTTP/2 listener, so
-the default URL is ``localhost:8000`` for both), with the tensors in the
+and latency percentiles over the v2 HTTP protocol or gRPC (``-i grpc``:
+HTTP/2 on the server's gRPC port, or gRPC-Web where the URL is an HTTP
+port; the default URL is ``localhost:8001`` for gRPC and
+``localhost:8000`` for HTTP, as the reference's), with the tensors in the
 body or in shared memory (``--shared-memory none|system|cuda``).  Every
 worker sends through a compiled request template (``client.prepare``) on
 its own kept-alive connection; with ``--streaming`` (gRPC only, as in the
@@ -961,7 +962,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     urls: List[str] = []
     for u in (args.url or []):
         urls.extend(p.strip() for p in u.split(",") if p.strip())
-    urls = urls or ["localhost:8000"]
+    urls = urls or ["localhost:8001" if args.protocol == "grpc"
+                    else "localhost:8000"]
     if len(set(urls)) != len(urls):
         parser.error(f"duplicate -u endpoints: {urls}")
     cluster = len(urls) > 1

@@ -141,31 +141,66 @@ def read_chunked(rfile) -> Iterator[bytes]:
 
 def iter_frames(chunks: Iterable[bytes]) -> Iterator[Tuple[int, memoryview]]:
     """(flags, payload) of each frame of a body that arrives in
-    ``chunks``, as soon as its last byte is in.  A chunk of whole frames
-    is sliced, not copied.  A body that ends inside a frame raises
-    ValueError."""
-    buf = bytearray()
+    ``chunks``, as soon as its last byte is in (:func:`iter_messages`
+    without a cap).  A chunk of whole frames is sliced, not copied.  A
+    body that ends inside a frame raises ValueError."""
+    for flags, payload, _ in iter_messages(chunks):
+        yield flags, payload
+
+
+def _inflation_bound(cap: int) -> int:
+    """The largest compressed payload that may still inflate to at most
+    ``cap`` bytes (deflate's stored blocks grow the data by less than
+    this)."""
+    return cap + (cap >> 10) + 1024
+
+
+def iter_messages(chunks: Iterable[bytes], cap: int = 0
+                  ) -> Iterator[Tuple[int, Optional[memoryview], int]]:
+    """(flags, payload, size) of each frame of a body that arrives in
+    ``chunks``, as :func:`iter_frames` gives them, except that a frame
+    whose 5-byte prefix already shows it over ``cap`` (a compressed one:
+    too large to inflate within it) is not buffered: its payload is None
+    as soon as the prefix is in, and its bytes are dropped as they
+    arrive.  Its size is the prefix's, or ``cap + 1`` for a compressed
+    frame (what inflating it under the cap reads)."""
+    skip = 0
+    # bytes of a frame not yet whole, and how many it needs to be
+    pending = bytearray()
+    need = 5
     for chunk in chunks:
-        if not buf:
-            mv = memoryview(chunk)
-            pos = 0
-            while len(mv) - pos >= 5:
-                flags, n = struct.unpack_from(">BI", mv, pos)
-                if len(mv) - pos - 5 < n:
-                    break
-                yield flags, mv[pos + 5:pos + 5 + n]
-                pos += 5 + n
-            buf += mv[pos:]
+        mv = memoryview(chunk)
+        if skip:
+            n = min(skip, len(mv))
+            skip -= n
+            mv = mv[n:]
+        if not mv:
             continue
-        buf += chunk
-        while len(buf) >= 5:
-            flags, n = struct.unpack_from(">BI", buf, 0)
-            if len(buf) < 5 + n:
+        if pending:
+            pending += mv
+            if len(pending) < need:
+                continue
+            # parsed in place: the yielded payloads are views of it, and
+            # it is never written again
+            mv, pending = memoryview(pending), bytearray()
+        pos = 0
+        need = 5
+        while len(mv) - pos >= 5:
+            flags, n = struct.unpack_from(">BI", mv, pos)
+            compressed = flags & COMPRESSED_FLAG
+            if cap and n > (_inflation_bound(cap) if compressed else cap):
+                yield flags, None, (cap + 1 if compressed else n)
+                have = min(n, len(mv) - pos - 5)
+                skip = n - have
+                pos += 5 + have
+                continue
+            if len(mv) - pos - 5 < n:
+                need = 5 + n
                 break
-            payload = bytes(buf[5:5 + n])
-            del buf[:5 + n]
-            yield flags, memoryview(payload)
-    if buf:
+            yield flags, mv[pos + 5:pos + 5 + n], n
+            pos += 5 + n
+        pending += mv[pos:]
+    if pending or skip:
         raise ValueError("truncated grpc-web frame")
 
 

@@ -1,13 +1,21 @@
 """``python -m triton_client_tpu_torch.server``: serve the port's model zoo
-over the v2 HTTP protocol, and v2 gRPC as gRPC-Web on the same port.
+over the v2 HTTP protocol, v2 gRPC over HTTP/2 on ``--grpc-port`` (default
+8001, as the reference's), and v2 gRPC as gRPC-Web on the HTTP port too.
 
-    python -m triton_client_tpu_torch.server --http-port 8000 [--device cuda|cpu]
-        [--model-repository DIR] [--zoo]
+    python -m triton_client_tpu_torch.server --http-port 8000 --grpc-port 8001
+        [--device cuda|cpu] [--model-repository DIR] [--zoo]
         [--ssl-certfile CERT.pem --ssl-keyfile KEY.pem]
+
+The start line names both ports, as the reference's does (``serving v2
+HTTP on HOST:8000 grpc=HOST:8001 ...``); ``--http-port 0`` and
+``--grpc-port 0`` bind free ports, which ``testing.cli_http_port`` and
+``cli_grpc_port`` read back from it.  A gRPC port that cannot be bound
+fails the start.
 
 With ``--ssl-certfile`` and ``--ssl-keyfile`` (the reference's flags and
 errors: both or neither, each an existing file) the HTTP port serves HTTPS
-and gRPC-Web over it, and the metrics port HTTPS, in every
+and gRPC-Web over it, the gRPC port gRPC over TLS (ALPN ``h2``; the start
+line says ``grpcs=``), and the metrics port HTTPS, in every
 ``--frontends`` worker; a pair that does not load fails the start.
 
 With ``--model-repository DIR`` every model of the repository (Triton's
@@ -92,8 +100,8 @@ record carries.
 
 The fleet (the reference's flags, ``__main__.py:41-80``): ``--frontends
 N`` runs a supervisor that starts N worker processes (this module with
-``--frontend-worker i``), each a whole server sharing the HTTP port through
-``SO_REUSEPORT`` (the kernel spreads the connections) and serving
+``--frontend-worker i``), each a whole server sharing the HTTP and gRPC
+ports through ``SO_REUSEPORT`` (the kernel spreads the connections) and serving
 ``/metrics`` on ``--metrics-port`` + i; client shared-memory registrations
 reach every worker through a manifest directory.  A worker that dies is
 started again after a capped, doubling backoff and counted in
@@ -432,7 +440,8 @@ def _run_supervisor(ap: argparse.ArgumentParser, args, argv) -> int:
         restart_at: list = [None] * len(procs)
         crash_reason: list = [None] * len(procs)
         print(f"frontend supervisor: {args.frontends} workers sharing "
-              f"http={args.host}:{args.http_port} (SO_REUSEPORT, "
+              f"http={args.host}:{args.http_port} "
+              f"grpc={args.host}:{args.grpc_port} (SO_REUSEPORT, "
               "self-healing: restart with backoff, fail-fast after "
               f"{args.worker_restart_limit} crashes/"
               f"{args.worker_restart_window:g}s)", flush=True)
@@ -577,6 +586,9 @@ def main(argv=None) -> int:
                     help="register the built-in model zoo (the default "
                     "without --model-repository)")
     ap.add_argument("--http-port", type=int, default=8000)
+    ap.add_argument("--grpc-port", type=int, default=8001,
+                    help="the v2 gRPC service over HTTP/2 (0: a free port; "
+                    "gRPC-Web stays on the HTTP port too)")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--capture-slower-than", default="p99", metavar="P|MS",
@@ -664,6 +676,7 @@ def main(argv=None) -> int:
 
     from ..models import zoo
     from .core import InferenceCore
+    from .grpc_h2 import GrpcH2Server
     from .http_server import HttpServer, MetricsServer
     from .registry import ModelRegistry
 
@@ -733,7 +746,16 @@ def main(argv=None) -> int:
     server = HttpServer(core, args.host, args.http_port,
                         max_request_bytes=args.max_request_bytes,
                         reuse_port=worker_index is not None, tls=tls)
-    servers = [server]
+    try:
+        grpc = GrpcH2Server(core, args.host, args.grpc_port,
+                            max_request_bytes=args.max_request_bytes,
+                            reuse_port=worker_index is not None, tls=tls)
+    except BaseException:
+        server.server_close()
+        raise
+    servers = [server, grpc]
+    threading.Thread(target=grpc.serve_forever, daemon=True,
+                     name="tc-torch-grpc").start()
     # worker i serves its own metrics port: the HTTP port is shared
     metrics_port = (args.metrics_port + (worker_index or 0)
                     if args.metrics_port else 0)
@@ -750,7 +772,9 @@ def main(argv=None) -> int:
               f"(up to {args.drain_timeout:g}s)", flush=True)
         end = time.monotonic() + max(0.0, args.drain_timeout)
         core.drain(max(0.0, args.drain_timeout))
-        while server.active > 0 and time.monotonic() < end:
+        # HTTP/2 clients are told to open no new stream here
+        grpc.goaway()
+        while server.active + grpc.active > 0 and time.monotonic() < end:
             time.sleep(0.01)
         for srv in servers:
             srv.shutdown()
@@ -772,9 +796,11 @@ def main(argv=None) -> int:
                   if metrics_port else "")
     worker = (f" [frontend worker {worker_index}/{args.frontends}]"
               if worker_index is not None else "")
-    # the bound port: ``--http-port 0`` takes a free one
+    # the bound ports: ``--http-port 0`` / ``--grpc-port 0`` take free ones
     scheme = "HTTPS" if tls is not None else "HTTP"
+    grpc_scheme = "grpcs" if tls is not None else "grpc"
     print(f"serving v2 {scheme} on {args.host}:{server.server_address[1]} "
+          f"{grpc_scheme}={args.host}:{grpc.server_address[1]} "
           f"(device {args.device}){metrics_at}{worker}", flush=True)
     try:
         server.serve_forever()

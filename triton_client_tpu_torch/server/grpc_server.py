@@ -2,10 +2,20 @@
 
 Counterpart of ``triton_client_tpu/server/grpc_server.py:61-644``, on the
 port's own messages (``protocol/inference.py``) and without ``grpc``: the
-port serves it as gRPC-Web on its HTTP/1.1 port (``grpc_web.py``).  An RPC
-is a method that takes the decoded request message and returns the
-response message, or raises :class:`GrpcError` with a status code; the
-stream RPC takes an iterator of requests and yields responses.
+port serves it over HTTP/2 on its gRPC port (``grpc_h2.py``) and as
+gRPC-Web on its HTTP/1.1 port (``grpc_web.py``).  An RPC is a method that
+takes the decoded request message and returns the response message, or
+raises :class:`GrpcError` with a status code; the stream RPC takes an
+iterator of requests and yields responses.
+
+The call itself, whichever transport carries it, is here too
+(:func:`check_encoding`, :func:`request_messages`,
+:func:`unary_response`, :func:`stream_responses`, :func:`status_of`): a
+message over the ingress cap is not decoded, a compressed one is
+inflated in the call's ``grpc-encoding`` (gzip or deflate; any other is
+UNIMPLEMENTED) under the same cap, a unary call answers its one message
+and a stream each request in turn, and a failure becomes the call's
+status, message and trailing metadata.
 
 * ``ModelInfer`` decodes a ``ModelInferRequest`` into the core's
   :class:`InferRequest`: ``raw_input_contents`` holds one entry per input
@@ -51,13 +61,15 @@ from __future__ import annotations
 import base64
 import json
 import time
-from typing import Any, Dict, Iterable, Iterator, Optional
+from typing import Any, Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 
 from ..protocol import debug as pb_debug
 from ..protocol import inference as pb
-from ..protocol.service import StatusCode
+from ..protocol.grpc_web import (COMPRESSED_FLAG, ENCODINGS, TRAILER_FLAG,
+                                 inflate, iter_messages)
+from ..protocol.service import METHODS, StatusCode
 from ..utils import triton_to_np_dtype
 from .core import InferenceCore
 from .flight_recorder import parse_snapshot_limit
@@ -526,3 +538,71 @@ class InferenceServicer:
                     error_message=f"[{e.http_status}] {e}")
             except Exception as e:  # noqa: BLE001 - in-band, as reference
                 yield pb.ModelStreamInferResponse(error_message=str(e))
+
+
+# -- the call, on either transport --------------------------------------------
+def check_encoding(metadata: Dict[str, str]) -> str:
+    """The call's ``grpc-encoding``; UNIMPLEMENTED for one that is not
+    identity, gzip or deflate (as grpcio's server answers it)."""
+    encoding = metadata.get("grpc-encoding", "identity").strip().lower()
+    if encoding not in ("identity", *ENCODINGS):
+        raise GrpcError(StatusCode.UNIMPLEMENTED,
+                        f"Compression algorithm '{encoding}' is not "
+                        "supported")
+    return encoding
+
+
+def request_messages(chunks: Iterable[bytes], encoding: str, cap: int):
+    """(message, size) of each data frame of a request body that arrives
+    in ``chunks`` (a gRPC-Web client's trailers skipped): a compressed
+    frame inflated in ``encoding``; the message None where its size
+    passes ``cap`` (it is not decoded, and an uncompressed one is not
+    even buffered)."""
+    for flags, payload, size in iter_messages(chunks, cap):
+        if flags & TRAILER_FLAG:
+            continue
+        if flags & COMPRESSED_FLAG:
+            if encoding not in ENCODINGS:
+                raise GrpcError(StatusCode.INTERNAL,
+                                "compressed message without a grpc-encoding")
+            if payload is not None:
+                payload = inflate(payload, encoding, cap)
+                size = len(payload)
+        yield (None if payload is None or (cap and size > cap)
+               else payload), size
+
+
+def unary_response(servicer: InferenceServicer, method: str, message,
+                   metadata: Dict[str, str]) -> Tuple[List, int]:
+    """The encoded parts of a unary call's answer to ``message`` (a
+    ``request_messages`` item, None where the body held none)."""
+    if message is None:
+        raise ValueError("missing request message")
+    payload, size = message
+    if payload is None:
+        raise oversize_error(size, servicer.max_request_bytes)
+    t0 = time.monotonic_ns()
+    request = METHODS[method][1].FromString(payload)
+    if method == "ModelInfer":
+        resp = servicer.ModelInfer(request, len(payload), t0, metadata)
+    else:
+        resp = getattr(servicer, method)(request)
+    return resp.encode_parts()
+
+
+def stream_responses(servicer: InferenceServicer, method: str, messages,
+                     metadata: Dict[str, str]) -> Iterator[Tuple[List, int]]:
+    """The encoded parts of each answer of a stream call, as the requests
+    of ``messages`` (``request_messages`` items) are answered in turn."""
+    req_type = METHODS[method][1]
+    requests = ((None if p is None else req_type.FromString(p), n)
+                for p, n in messages)
+    for resp in getattr(servicer, method)(requests, metadata):
+        yield resp.encode_parts()
+
+
+def status_of(e: Exception) -> Tuple[StatusCode, str, Dict[str, str]]:
+    """A failed call's status, message and trailing metadata."""
+    if isinstance(e, GrpcError):
+        return e.code, e.message, e.trailing
+    return StatusCode.INTERNAL, str(e), {}

@@ -32,41 +32,23 @@ A compressed request frame (flag bit 0x01) is inflated in the call's
 the inflated bytes as a compressed HTTP body is; a call that names any
 other encoding is answered UNIMPLEMENTED, as grpcio's server answers it.
 Answers go back uncompressed.
+
+The call itself (the cap, the encodings, unary against stream, the
+status) is ``grpc_server.py``'s, which the HTTP/2 listener
+(``grpc_h2.py``) shares; this module is the gRPC-Web transport around it:
+the frames in an HTTP/1.1 body, and the trailers as a 0x80 frame.
 """
 
 from __future__ import annotations
 
-import time
-from typing import Callable, Dict, Iterable, List, Optional
+from typing import Callable, Dict, Iterable, Optional
 
-from ..protocol.grpc_web import (COMPRESSED_FLAG, CONTENT_TYPE,
-                                 CONTENT_TYPES, ENCODINGS, TRAILER_FLAG,
-                                 frame_header, inflate, iter_frames,
+from ..protocol.grpc_web import (CONTENT_TYPE, CONTENT_TYPES, frame_header,
                                  trailers)
 from ..protocol.service import METHODS, StatusCode
-from .grpc_server import GrpcError, InferenceServicer, oversize_error
-
-
-def _messages(chunks: Iterable[bytes], encoding: str, cap: int):
-    """(message, size) of each data frame of a request body (client
-    trailers skipped): a compressed frame inflated in ``encoding``; the
-    message None where its size passes ``cap`` (it is not decoded)."""
-    for flags, payload in iter_frames(chunks):
-        if flags & TRAILER_FLAG:
-            continue
-        if flags & COMPRESSED_FLAG:
-            if encoding not in ENCODINGS:
-                raise GrpcError(StatusCode.INTERNAL,
-                                "compressed message without a grpc-encoding")
-            payload = inflate(payload, encoding, cap)
-        size = len(payload)
-        yield (None if cap and size > cap else payload), size
-
-
-def _status_of(e: Exception):
-    if isinstance(e, GrpcError):
-        return e.code, e.message, e.trailing
-    return StatusCode.INTERNAL, str(e), {}
+from .grpc_server import (GrpcError, InferenceServicer, check_encoding,
+                          request_messages, status_of, stream_responses,
+                          unary_response)
 
 
 def serve(servicer: InferenceServicer, method: str, content_type: str,
@@ -87,71 +69,53 @@ def serve(servicer: InferenceServicer, method: str, content_type: str,
         send(415, f"unsupported content type {content_type}".encode(),
              {}, "text/plain; charset=utf-8")
         return
-    arity, req_type, _ = METHODS[method]
-    encoding = metadata.get("grpc-encoding", "identity").strip().lower()
-    if encoding not in ("identity", *ENCODINGS):
+    try:
+        encoding = check_encoding(metadata)
+    except GrpcError as e:
         for _ in chunks:
             pass
-        send(200, trailers(StatusCode.UNIMPLEMENTED,
-                           f"Compression algorithm '{encoding}' is not "
-                           "supported"),
-             {"grpc-status": str(int(StatusCode.UNIMPLEMENTED))},
-             CONTENT_TYPE)
+        send(200, trailers(e.code, e.message),
+             {"grpc-status": str(int(e.code))}, CONTENT_TYPE)
         return
-    if arity == "uu":
-        _unary(servicer, method, req_type, chunks, send, metadata, encoding)
+    if METHODS[method][0] == "uu":
+        _unary(servicer, method, chunks, send, metadata, encoding)
     else:
-        _stream(servicer, method, req_type, chunks, start_stream(),
-                metadata, encoding)
+        _stream(servicer, method, chunks, start_stream(), metadata,
+                encoding)
 
 
-def _unary(servicer, method, req_type, chunks, send, metadata,
-           encoding) -> None:
-    out: List = []
+def _unary(servicer, method, chunks, send, metadata, encoding) -> None:
+    out: list = []
     status, message, trailing = StatusCode.OK, "", {}
-    cap = servicer.max_request_bytes
     try:
-        frames = _messages(chunks, encoding, cap)
-        first = next(frames, None)
-        for _ in frames:  # read the body to its end
+        messages = request_messages(chunks, encoding,
+                                    servicer.max_request_bytes)
+        first = next(messages, None)
+        for _ in messages:  # read the body to its end
             pass
-        if first is None:
-            raise ValueError("missing request message")
-        payload, size = first
-        if payload is None:
-            raise oversize_error(size, cap)
-        t0 = time.monotonic_ns()
-        request = req_type.FromString(payload)
-        if method == "ModelInfer":
-            resp = servicer.ModelInfer(request, len(payload), t0, metadata)
-        else:
-            resp = getattr(servicer, method)(request)
-        parts, n = resp.encode_parts()
+        parts, n = unary_response(servicer, method, first, metadata)
         out = [frame_header(n), *parts]
     except Exception as e:  # noqa: BLE001 - the call's status
         out = []
-        status, message, trailing = _status_of(e)
+        status, message, trailing = status_of(e)
     out.append(trailers(status, message, trailing))
     # tpu-lint: disable=WIRE-COPY the one gather of the response frames
     send(200, b"".join(out), {"grpc-status": str(int(status))},
          CONTENT_TYPE)
 
 
-def _stream(servicer, method, req_type, chunks, write, metadata,
-            encoding) -> None:
+def _stream(servicer, method, chunks, write, metadata, encoding) -> None:
     status, message, trailing = StatusCode.OK, "", {}
-    cap = servicer.max_request_bytes
     try:
-        # (request, wire bytes); a message over the cap is not decoded
-        requests = ((None if p is None else req_type.FromString(p), n)
-                    for p, n in _messages(chunks, encoding, cap))
-        for resp in getattr(servicer, method)(requests, metadata):
-            parts, n = resp.encode_parts()
+        messages = request_messages(chunks, encoding,
+                                    servicer.max_request_bytes)
+        for parts, n in stream_responses(servicer, method, messages,
+                                         metadata):
             # tpu-lint: disable=WIRE-COPY one chunk per response frame
             write(b"".join([frame_header(n), *parts]))
     except (BrokenPipeError, ConnectionResetError):
         raise  # the client went away: nothing left to answer
     except Exception as e:  # noqa: BLE001 - the stream's status
-        status, message, trailing = _status_of(e)
+        status, message, trailing = status_of(e)
     write(trailers(status, message, trailing))
     write(b"")

@@ -22,9 +22,10 @@ counters gRPC ``ModelStatistics`` reads too).
 
 gRPC: ``POST /inference.GRPCInferenceService/<Method>`` is the v2 gRPC
 service as gRPC-Web (``grpc_web.py``, ``grpc_server.py``), where the
-reference mounts its bridge; the port has no HTTP/2 listener.  A request
-body may come with ``Content-Length`` or in chunked transfer coding; a
-stream's chunks reach the bridge as they arrive.
+reference mounts its bridge; the HTTP/2 listener of the gRPC port is
+``grpc_h2.py``.  A request body may come with ``Content-Length`` or in
+chunked transfer coding; a stream's chunks reach the bridge as they
+arrive.
 
 Observability (the reference's routes, http_server.py:135-147):
 ``GET``/``POST /v2/trace/setting`` and ``/v2/models/{m}/trace/setting``,
@@ -77,10 +78,10 @@ in the reference); only that path joins the header and the segments.  HEAD is se
 GET routes; a path that only another method's route serves gets 405 with
 ``Allow``; an HTTP/2 request line (the preface of a client trying h2c
 first) gets an HTTP/1.1 400 and the connection closes, so such a client
-falls back to gRPC-Web.  Both listeners serve TLS with ``tls=``
-(``tls.TLSConfig``, the CLI's ``--ssl-certfile`` / ``--ssl-keyfile``): the
-handshake runs in the connection's thread, and the checks above read the
-decrypted stream.
+falls back to gRPC-Web (HTTP/2 is served on the gRPC port).  Both
+listeners serve TLS with ``tls=`` (``tls.TLSConfig``, the CLI's
+``--ssl-certfile`` / ``--ssl-keyfile``): the handshake runs in the
+connection's thread, and the checks above read the decrypted stream.
 
 The repository API (the reference's, http_server.py:124-126 and
 :319-345): ``POST /v2/repository/index`` (``{"ready": true}`` lists the
@@ -148,6 +149,8 @@ _TRACEPARENT_HDR = "traceparent"
 _TIMEOUT_HDR = "triton-timeout-us"
 # the QoS tenant (else the basic-auth username, else "anonymous")
 _TENANT_HDR = "triton-tenant"
+#: every listener's backlog of connections not yet accepted
+LISTEN_BACKLOG = 128
 #: an oversize body up to this many bytes is read away after the 413, so
 #: the kept-alive connection stays usable; a larger one closes it
 _DRAIN_LIMIT = 256 << 20
@@ -258,7 +261,8 @@ class _Handler(BaseHTTPRequestHandler):
             self.request_version = "HTTP/1.1"
             self.close_connection = True
             self.send_error(400, None, "this port speaks HTTP/1.1 only; "
-                            "gRPC is served as gRPC-Web")
+                            "gRPC is served as gRPC-Web here and over "
+                            "HTTP/2 on the gRPC port")
             return False
         return super().parse_request()
 
@@ -1039,17 +1043,23 @@ class _CountingServer(ThreadingHTTPServer):
     without its handshake, which then runs in the connection's own thread
     under ``HANDSHAKE_TIMEOUT_S``: a slow or silent client holds only its
     own thread, never the accept loop.  A connection whose handshake
-    fails (a plain-HTTP client, an untrusted certificate) is closed."""
+    fails (a plain-HTTP client, an untrusted certificate) is closed.
+    ``grpc`` takes the gRPC port's context (ALPN ``h2``).  Every listener
+    keeps a backlog of :data:`LISTEN_BACKLOG` connections."""
 
     daemon_threads = True
     active = 0
+    #: the listen backlog, as the reference's listeners have it (aiohttp's
+    #: ``TCPSite``): the stdlib's 5 overflows under a burst of connects
+    request_queue_size = LISTEN_BACKLOG
 
-    def __init__(self, *args, tls=None, **kwargs):
+    def __init__(self, *args, tls=None, grpc=False, **kwargs):
         self._active_lock = threading.Lock()
         # the accepted connections still open
         self._conns: set = set()
         # built before the bind: a pair that does not load fails at start
-        self.ssl_context = tls.ssl_context() if tls is not None else None
+        self.ssl_context = None if tls is None else (
+            tls.grpc_ssl_context() if grpc else tls.ssl_context())
         super().__init__(*args, **kwargs)
 
     def get_request(self):

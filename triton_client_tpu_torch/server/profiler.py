@@ -94,7 +94,9 @@ def classify_thread(name: str) -> str:
         return "batcher"
     # then the port's own threads
     if (name.endswith("(process_request_thread)")
-            or name == "tc-torch-http" or name.startswith("oai-choice-")):
+            or name in ("tc-torch-http", "tc-torch-grpc",
+                        "tc-torch-h2-call")
+            or name.startswith("oai-choice-")):
         return "frontend"
     if name.startswith(("batcher-", "batch-")):
         return "batcher"

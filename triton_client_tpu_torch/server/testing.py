@@ -2,17 +2,20 @@
 
 Counterpart of ``triton_client_tpu/server/testing.py``:
 
-* ``ServerHarness``: the port's HTTP frontend on a free local port, served
-  from a background thread of the current process, after the models'
-  warmup samples ran.  While it serves, the CUDA shared-memory broker's
+* ``ServerHarness``: the port's HTTP frontend and its HTTP/2 gRPC port,
+  each on a free local port, served from background threads of the
+  current process, after the models' warmup samples ran.  ``grpc_url``
+  names the gRPC port, as the reference's does; ``grpc_web_url`` the
+  gRPC-Web bridge on the HTTP port.  While it serves, the CUDA shared-memory broker's
   ``server_present`` is set: a region made in this process is read in
   place, by uuid.
 * ``ClusterHarness``: N of them, each with its own registry and core, with
   ``kill`` and ``restart`` on the same port.  Both take ``tls``.
 * ``ReplicaSupervisor``: the self-healing of a ``ClusterHarness`` on the
   CLI supervisor's ``RestartPolicy`` and ``SupervisorState``.
-* ``cli_http_port``: the port a ``--http-port 0`` CLI server bound, read
-  from its start line, so a test never races another process for a port.
+* ``cli_http_port`` and ``cli_grpc_port``: the ports a ``--http-port 0
+  --grpc-port 0`` CLI server bound, read from its start line, so a test
+  never races another process for a port.
 """
 
 from __future__ import annotations
@@ -27,7 +30,9 @@ from typing import Callable, List, Optional
 
 from .._cuda_broker import broker
 from .core import InferenceCore
+from .grpc_h2 import GrpcH2Server
 from .http_server import HttpServer
+from .memory import DEFAULT_MAX_REQUEST_BYTES
 from .registry import ModelRegistry
 
 
@@ -51,9 +56,11 @@ def free_port() -> int:
 
 
 _SERVING_LINE = re.compile(r"serving v2 HTTPS? on \S+:(\d+) ")
+_GRPC_LINE = re.compile(r"serving v2 HTTPS? on \S+ grpcs?=\S+:(\d+)")
 
 
-def cli_http_port(proc, log_path: str, timeout: float = 120.0) -> int:
+def cli_http_port(proc, log_path: str, timeout: float = 120.0,
+                  _line=_SERVING_LINE) -> int:
     """The HTTP port of ``proc``, a ``python -m triton_client_tpu_torch.server
     --http-port 0`` whose output goes to ``log_path``: read from the line it
     prints just before it serves.  Raises with the log where the process
@@ -62,7 +69,7 @@ def cli_http_port(proc, log_path: str, timeout: float = 120.0) -> int:
     while True:
         with open(log_path) as f:
             text = f.read()
-        m = _SERVING_LINE.search(text)
+        m = _line.search(text)
         if m:
             return int(m.group(1))
         if proc.poll() is not None:
@@ -73,22 +80,35 @@ def cli_http_port(proc, log_path: str, timeout: float = 120.0) -> int:
         time.sleep(0.05)
 
 
+def cli_grpc_port(proc, log_path: str, timeout: float = 120.0) -> int:
+    """The gRPC port of a ``--grpc-port 0`` CLI server (``cli_http_port``'s
+    contract)."""
+    return cli_http_port(proc, log_path, timeout, _GRPC_LINE)
+
+
 class ServerHarness:
     """``replica``, where given, names the server in every trace record
     and incident bundle (the CLI's ``--host:--http-port``); ``tls`` (a
-    ``tls.TLSConfig``) serves HTTPS."""
+    ``tls.TLSConfig``) serves HTTPS on the HTTP port and gRPC over TLS
+    (ALPN ``h2``) on the gRPC port; ``max_request_bytes`` is both
+    listeners' ingress cap."""
 
     def __init__(self, registry: Optional[ModelRegistry] = None,
                  http_port: Optional[int] = None, host: str = "127.0.0.1",
-                 replica: str = "", tls=None):
+                 replica: str = "", tls=None,
+                 grpc_port: Optional[int] = None,
+                 max_request_bytes: int = DEFAULT_MAX_REQUEST_BYTES):
         self.registry = registry or ModelRegistry()
         self.core = InferenceCore(self.registry)
         self.core.tracer.replica = replica
         self.host = host
         self.tls = tls
+        self.max_request_bytes = max_request_bytes
         self.http_port = http_port or free_port()
+        self.grpc_port = grpc_port or free_port()
         self._server: Optional[HttpServer] = None
-        self._thread: Optional[threading.Thread] = None
+        self._grpc: Optional[GrpcH2Server] = None
+        self._threads: List[threading.Thread] = []
 
     @property
     def http_url(self) -> str:
@@ -96,7 +116,12 @@ class ServerHarness:
 
     @property
     def grpc_url(self) -> str:
-        """gRPC is served as gRPC-Web on the HTTP port."""
+        """The gRPC port (HTTP/2), as the reference's harness names it."""
+        return f"{self.host}:{self.grpc_port}"
+
+    @property
+    def grpc_web_url(self) -> str:
+        """gRPC-Web: the bridge on the HTTP port."""
         return self.http_url
 
     def start(self) -> "ServerHarness":
@@ -104,25 +129,37 @@ class ServerHarness:
         # models' warmup samples build
         self.core.warmup_models()
         self._server = HttpServer(self.core, self.host, self.http_port,
+                                  max_request_bytes=self.max_request_bytes,
                                   tls=self.tls)
-        self._thread = threading.Thread(
-            target=self._server.serve_forever, daemon=True,
-            name="tc-torch-http")
-        self._thread.start()
+        try:
+            self._grpc = GrpcH2Server(
+                self.core, self.host, self.grpc_port,
+                max_request_bytes=self.max_request_bytes, tls=self.tls)
+        except BaseException:
+            self._server.server_close()
+            self._server = None
+            raise
+        for srv, name in ((self._server, "tc-torch-http"),
+                          (self._grpc, "tc-torch-grpc")):
+            t = threading.Thread(target=srv.serve_forever, daemon=True,
+                                 name=name)
+            t.start()
+            self._threads.append(t)
         _server_present(+1)
         return self
 
     def stop(self) -> None:
         if self._server is not None:
             _server_present(-1)
-            self._server.shutdown()
-            # as a process that ends: its kept-alive connections go too
-            self._server.close_connections()
-            self._server.server_close()
-            self._server = None
-        if self._thread is not None:
-            self._thread.join(timeout=10)
-            self._thread = None
+            for srv in (self._server, self._grpc):
+                srv.shutdown()
+                # as a process that ends: its open connections go too
+                srv.close_connections()
+                srv.server_close()
+            self._server = self._grpc = None
+        for t in self._threads:
+            t.join(timeout=10)
+        self._threads = []
         self.core.shutdown()
 
     def __enter__(self):
@@ -159,6 +196,7 @@ class ClusterHarness:
             for i in range(n)]
         # ports pinned at construction, so that restart(i) rebinds them
         self._http_ports = [h.http_port for h in self.harnesses]
+        self._grpc_ports = [h.grpc_port for h in self.harnesses]
 
     @property
     def http_urls(self) -> List[str]:
@@ -166,6 +204,11 @@ class ClusterHarness:
 
     @property
     def grpc_urls(self) -> List[str]:
+        """Each replica's gRPC port (HTTP/2)."""
+        return [f"{self.host}:{p}" for p in self._grpc_ports]
+
+    @property
+    def grpc_web_urls(self) -> List[str]:
         """gRPC-Web on each HTTP port."""
         return self.http_urls
 
@@ -196,7 +239,8 @@ class ClusterHarness:
             raise RuntimeError(f"server {i} is already running")
         h = ServerHarness(self._registry_factory(),
                           http_port=self._http_ports[i], host=self.host,
-                          replica=f"replica-{i}", tls=self.tls)
+                          replica=f"replica-{i}", tls=self.tls,
+                          grpc_port=self._grpc_ports[i])
         h.start()
         if self._core_setup is not None:
             self._core_setup(h)

@@ -2,16 +2,15 @@
 ``triton_client_tpu/server/tls.py``).
 
 :class:`TLSConfig` holds the PEM paths and builds the server's
-``ssl.SSLContext`` (HTTP/1.1 only: no ALPN ``h2`` is offered, so a client
-that tries HTTP/2 first stays on HTTP/1.1).  :func:`maybe_tls` reads the
+``ssl.SSLContext``s: the HTTP port's (ALPN ``http/1.1`` only, so a client
+that tries HTTP/2 first stays on HTTP/1.1 and gRPC-Web) and the gRPC
+port's (ALPN ``h2`` only, the same pair: the counterpart of the
+reference's ``grpc_credentials``, whose peers refuse a TLS server that
+does not negotiate ``h2``).  :func:`maybe_tls` reads the
 CLI's ``--ssl-certfile`` / ``--ssl-keyfile`` with the reference's errors.
 :func:`generate_self_signed` writes a throwaway certificate and key for
 ``localhost`` and ``127.0.0.1``: through ``cryptography`` where it is
 installed, else through the ``openssl`` command.
-
-The reference also builds gRPC server credentials for its HTTP/2 port;
-the port serves gRPC as gRPC-Web on the HTTP port, which this context
-covers.
 """
 
 from __future__ import annotations
@@ -39,10 +38,17 @@ class TLSConfig:
     keyfile: str
 
     def ssl_context(self) -> ssl.SSLContext:
-        """The server's context; raises where the pair does not load."""
+        """The HTTP port's context; raises where the pair does not load."""
+        return self._context("http/1.1")
+
+    def grpc_ssl_context(self) -> ssl.SSLContext:
+        """The gRPC port's context: the same pair, ALPN ``h2``."""
+        return self._context("h2")
+
+    def _context(self, alpn: str) -> ssl.SSLContext:
         ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
         ctx.load_cert_chain(self.certfile, self.keyfile)
-        ctx.set_alpn_protocols(["http/1.1"])
+        ctx.set_alpn_protocols([alpn])
         return ctx
 
 
