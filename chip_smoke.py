@@ -4,10 +4,12 @@
     python3 chip_smoke.py
 
 (``chip_smoke.py --shm-client SPEC`` is the cross-process shared-memory
-client that the run starts itself.  ``chip_smoke.py --obs-spread N`` runs
-the observability phase's traced ``longctx_tpu`` sweep N times alone and
-prints, for each execution far from the forward on an idle card, the
-host's and the card's times at each layer's end.)
+client that the run starts itself, and ``chip_smoke.py --train-rank DIR R
+N PORT DEVICE`` one rank of the training phase's mesh.
+``chip_smoke.py --obs-spread N`` runs the observability phase's traced
+``longctx_tpu`` sweep N times alone and prints, for each execution far
+from the forward on an idle card, the host's and the card's times at each
+layer's end.)
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -72,8 +74,8 @@ Phases (any failure exits non-zero and prints no result line):
    f32 head;
    then ``llama_tpu`` served directly in int8 under ``w2`` (16 int8 launches
    per forward), one B = 8 forward timed and traced;
-9. perf_analyzer: check that the flash kernel refuses inputs that require
-   grad (it has no backward yet) and runs under no_grad; then serve
+9. perf_analyzer: check the gradients through the flash kernel against
+   the plain version's (one launch for the forward and backward); then serve
    ``bert_large`` int8 (``TRITON_TPU_QUANT_BERT_LARGE=int8``,
    ``TRITON_TPU_INT8_FUSED=w2``) and run ``python -m
    triton_client_tpu_torch.perf_analyzer`` in a process of its own against
@@ -350,7 +352,27 @@ Phases (any failure exits non-zero and prints no result line):
     answers one request on each model over ``grpcs``.  Printed: p50 / p99
     over HTTP/2 beside gRPC-Web at c = 4 (``longctx_tpu`` B = 4), the B =
     32 request's p50 on each, and the caller errors (0, or the run fails);
-23. print each kernel's launches on every served path, one JSON line
+23. training (``models/transformer.py``'s ``make_grad_fn`` and
+    ``make_train_step`` on a one-process mesh; ``train_phase``):
+    ``longctx_tpu`` base from its seed at its served width, B = 4, S =
+    4096, two microbatches, bf16 compute on f32 weights.  (a) One gradient
+    step through the flash kernel (exactly 16 launches) against the same
+    step with the plain versions (loss within ``TRAIN_LOSS_RTOL``, each
+    leaf's gradient within ``TRAIN_GRAD_REL`` of its norm), beside
+    controls (layer 0's ``wo`` off by each of ``CONTROL_SCALES``; every
+    one from ``TRAIN_CAUGHT_FROM`` up must break the bound); (b) five AdamW steps at lr 1e-4 on one
+    batch (``TRAIN_LR``): the loss falls; the step's median (CUDA events), tokens/s and
+    ``max_memory_allocated``; one step traced (the flash forward, the
+    backward's attention recompute, the GEMMs, the idle share); (c) a
+    checkpoint after step 2 (``utils/checkpoint.py``), a fresh state
+    restored and steps 3-4 within rtol 1e-6 (losses) and rtol 1e-5 /
+    atol 1e-6 (weights) of the uninterrupted run; (d) four processes of
+    this script (``--train-rank``), each shown only that card, over gloo,
+    host-staged,
+    on ``make_mesh(4, cfg)`` (tp = 2 x sp = 2: ring attention and the tp
+    psums) at 2 of the 8 layers: their loss and gathered gradients against
+    the one-process step at the same depth, within the same bounds;
+24. print each kernel's launches on every served path, one JSON line
     describing every kernel, then the result line
     ``{"ok": true, "device": {...}}``.
 
@@ -1788,32 +1810,46 @@ PERF_PATHS = {}
 PERF_LEVELS = {}
 
 
-def check_flash_refuses_grad(fa, torch) -> None:
-    """The flash kernel has no backward yet (ROADMAP A1): with grad mode on
-    it refuses inputs that require grad and launches nothing; under
-    torch.no_grad() it runs and agrees with its plain version."""
+def check_flash_grad(fa, torch) -> None:
+    """The differentiable flash_attention on the card at [1, 2, 128, 64]
+    bf16: its forward (the kernel) against the plain forward, and its
+    gradients against autograd straight through the plain version, both
+    within ``FLASH_TOL["bf16"]``; the forward launches the kernel once and
+    the backward none.  The backward recomputes from the saved q, k, v
+    through the plain math (ROADMAP A1), so the gradient comparison checks
+    the Function's wiring, not the kernel; the kernel's effect on gradients
+    is checked by the training phase's (a)."""
     gen = torch.Generator(device="cuda").manual_seed(5)
-    q, k, v = (torch.randn((1, 2, 128, 64), generator=gen, device="cuda")
-               .to(torch.bfloat16) for _ in range(3))
-    q.requires_grad_()
+    q, k, v, w = (torch.randn((1, 2, 128, 64), generator=gen, device="cuda")
+                  .to(torch.bfloat16) for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     before = fa.launches
-    try:
-        fa.flash_attention(q, k, v)
-    except RuntimeError as e:
-        refused = "ROADMAP A1" in str(e)
-    else:
-        refused = False
-    if not refused or fa.launches != before:
-        fail("flash_attention took a q that requires grad on the card")
-    with torch.no_grad():
-        got = fa.flash_attention(q, k, v)
-        want = fa.flash_attention_reference(q, k, v)
-    err = (got.float() - want.float()).abs().max().item()
-    print(f"flash_attention refuses a q that requires grad (no launch); "
-          f"under no_grad it runs, max_abs_err {err:.3e}", flush=True)
-    if fa.launches != before + 1 or got.grad_fn is not None or \
-            not err <= FLASH_TOL["bf16"][0]:
-        fail("flash_attention under no_grad did not run as it should")
+    out = fa.flash_attention(*leaves)
+    got = torch.autograd.grad(out, leaves, w)
+    launched = fa.launches - before
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    plain_out = fa.flash_attention_reference(*plain)
+    want = torch.autograd.grad(plain_out, plain, w)
+    torch.cuda.synchronize()
+    atol, rtol = FLASH_TOL["bf16"]
+    errs = []
+    for name, g, r in zip(("out", "dq", "dk", "dv"),
+                          (out.detach(), *got),
+                          (plain_out.detach(), *want)):
+        g, r = g.float(), r.float()
+        errs.append((g - r).abs().max().item())
+        if not bool(((g - r).abs() <= atol + rtol * r.abs()).all()):
+            fail(f"flash_attention's {name} through the kernel disagrees "
+                 f"with the plain version's: max_abs_err {errs[-1]:.3e}")
+    print("differentiable flash_attention through the kernel vs the plain "
+          f"version at [1, 2, 128, 64] bf16: max_abs_err out {errs[0]:.3e}, "
+          f"dq {errs[1]:.3e}, dk {errs[2]:.3e}, dv {errs[3]:.3e} (atol "
+          f"{atol} + rtol {rtol}; the gradients check the wiring, the "
+          f"backward being the plain recompute); {launched} launch for the "
+          "forward and backward", flush=True)
+    if launched != 1:
+        fail(f"flash_attention launched {launched} times for one forward "
+             "and its backward, expected 1")
 
 
 def _device_busy(prof):
@@ -2013,7 +2049,7 @@ def perf_phase(torch, counters, fa) -> None:
     c = 1 and 4."""
     from triton_client_tpu_torch.models import language
 
-    check_flash_refuses_grad(fa, torch)
+    check_flash_grad(fa, torch)
     layers = language.BERT_LARGE.n_layers
     os.environ["TRITON_TPU_QUANT_BERT_LARGE"] = "int8"
     os.environ["TRITON_TPU_INT8_FUSED"] = "w2"
@@ -8832,6 +8868,467 @@ def h2_phase(torch, counters) -> None:
         fleet.close()
 
 
+#: the training phase (phase 23): ``longctx_tpu`` base trained at its
+#: served width, B = 4 sequences of S = 4096 in two microbatches, bf16
+#: compute on f32 master weights; 5 AdamW steps at lr 1e-4.  The
+#: reference's ``test_loss_decreases`` takes 3e-3 at d_model 32; at d_model
+#: 1024 and 8 layers the port's step rose over five steps at that rate
+#: (PERF.md §6): Adam's first steps move each weight by ~lr
+TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS, TRAIN_LR = 4, 2, 5, 1e-4
+# the kernel step against the plain step (the kernels' plain versions,
+# differentiated straight through) on the same weights and tokens.  Both
+# backwards recompute attention through the same f32 math; they differ
+# by the forward's bf16 probabilities in P v (the kernel's; ~0.2-0.4% of
+# an output row) and what that moves downstream in bf16.  On the H100 the
+# loss (~5.7, near ln 256 at random weights) read 1.4e-6 of itself apart
+# and the largest leaf gap 9.3e-3 (PERF.md §6); the bounds sit about 7x
+# and 2x above.  A kernel fault (a key tile skipped or stale moves a late
+# causal row by ~18% of its RMS, see FLASH_ROW_TOL) moves the gradients by
+# more than the bound.  Controls: the plain step with the first layer's
+# attention output projection (wo) off by each of CONTROL_SCALES; every
+# scale from TRAIN_CAUGHT_FROM up must break the bound (x1.01 read
+# 1.2e-2, inside the sound reading's spread).
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_REL = 2e-2
+TRAIN_CAUGHT_FROM = 1.1
+# four ranks on the one card (gloo, host-staged): tp = 2 x sp = 2
+# (make_mesh(4, cfg)) at 2 of the 8 layers, the same widths and batch;
+# held to the one-process kernel step at the same depth by the same
+# bounds (their attention differs as above: the ring in f32 at sp = 2
+# against the kernel, and the tp psums add bf16 roundings of partial sums)
+TRAIN_RANKS, TRAIN_RANK_LAYERS = 4, 2
+TRAIN_RANK_TIMEOUT_S = 300
+#: "<path>" -> that training window's launch counts
+TRAIN_PATHS = {}
+TRAIN_DIR = os.path.join(REPO, "build", "chip_smoke_train")
+#: where the phase runs: the card (a CPU rehearsal sets "cpu", with the
+#: tiny longctx_tpu preset and torch.cuda's events and memory stubbed)
+TRAIN_DEVICE = "cuda"
+
+
+def _train_cfg(language, n_layers=None):
+    import dataclasses
+
+    cfg = language.longctx_cfg(TRAIN_DEVICE)
+    return cfg if n_layers is None else dataclasses.replace(
+        cfg, n_layers=n_layers)
+
+
+def _train_state(torch, tr, cfg):
+    """``longctx_tpu``'s weights from its served seed (11) on the card,
+    and zero Adam moments."""
+    params = tr.init_params(torch.Generator(TRAIN_DEVICE).manual_seed(11),
+                            cfg)
+    return params, tr.adam_init(params)
+
+
+def _train_batch(torch, vocab: int):
+    gen = torch.Generator(TRAIN_DEVICE).manual_seed(LONGCTX_SEED + 23)
+    seq = language_seq_len()
+    tokens = torch.randint(0, vocab, (TRAIN_BATCH, seq), generator=gen,
+                           device=TRAIN_DEVICE)
+    labels = torch.randint(0, vocab, (TRAIN_BATCH, seq), generator=gen,
+                           device=TRAIN_DEVICE)
+    return tokens, labels
+
+
+def language_seq_len() -> int:
+    from triton_client_tpu_torch.models import language
+
+    return language.longctx_seq_len(TRAIN_DEVICE)
+
+
+def _grad_gap(torch, got, want):
+    """(largest leaf's ||got - want|| / ||want||, that leaf)."""
+    worst, name = 0.0, None
+    for k in want:
+        rel = ((got[k].float() - want[k].float()).norm()
+               / want[k].float().norm().clamp_min(1e-30)).item()
+        if rel > worst or name is None:
+            worst, name = rel, k
+    return worst, name
+
+
+def _train_counted(label: str, counters, run, want_flash: int):
+    """``run()`` with the launch counts zeroed just before and read just
+    after; flash exactly ``want_flash``, int8 none; kept in TRAIN_PATHS."""
+    _reset(counters)
+    out = run()
+    launches = {name: mod.launches for name, mod in counters.items()}
+    if launches["flash_attention"] != want_flash or \
+            launches["int8_matmul"] or \
+            counters["int8_matmul"].quantize_launches:
+        fail(f"{label}: launches {launches}, expected flash_attention "
+             f"{want_flash} and no int8")
+    TRAIN_PATHS[label] = launches
+    return out
+
+
+def _train_profile(label: str, torch, fa, step, state, batch, step_ms):
+    """One step traced: the flash forward's device time, the backward's
+    attention recompute (CUDA events round each ``_Flash.backward``), the
+    GEMMs (kernels named *gemm*, *nvjet*, *xmma*, *cutlass*) and the idle
+    share against the step's CUDA-event median."""
+    from torch.profiler import ProfilerActivity, profile
+
+    real = fa._Flash.backward
+    spans = []
+
+    def timed_backward(ctx, g):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = real(ctx, g)
+        ev[1].record()
+        spans.append(ev)
+        return out
+
+    fa._Flash.backward = staticmethod(timed_backward)
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = step(*state, *batch)
+            torch.cuda.synchronize()
+    finally:
+        fa._Flash.backward = staticmethod(real)
+    recompute = sum(a.elapsed_time(b) for a, b in spans)
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA")
+              and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    flash_ms = sum(e.self_device_time_total for e in events
+                   if "flash_fwd" in e.key) / 1e3
+    gemms = [e for e in events if "flash" not in e.key and any(
+        g in e.key.lower() for g in ("gemm", "nvjet", "xmma", "cutlass"))]
+    gemm_ms = sum(e.self_device_time_total for e in gemms) / 1e3
+    # f32 products: the recompute's and the f32 head's (the layers' are
+    # bf16)
+    f32_ms = sum(e.self_device_time_total for e in gemms
+                 if "f32f32" in e.key or "sgemm" in e.key) / 1e3
+    top = sorted(events, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:6]
+    print(f"{label}: one step traced: flash forward {flash_ms:.3f} ms "
+          f"device time in {sum(e.count for e in events if 'flash_fwd' in e.key)} "
+          f"launches; the backward's attention recompute {recompute:.3f} ms "
+          f"(CUDA events round {len(spans)} recomputes, "
+          f"{recompute / step_ms:.1%} of the {step_ms:.3f} ms step); GEMMs "
+          f"{gemm_ms:.3f} ms, of which f32 {f32_ms:.3f} ms (the recompute's "
+          f"and the f32 head's); traced device time {busy:.3f} ms, idle "
+          f"{max(0.0, 1 - busy / step_ms):.1%} of the step; top: " + "; ".join(
+              f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms"
+              for e in top) + f"; {CARD}", flush=True)
+    return out
+
+
+def _train_ranks_start(workdir: str):
+    """TRAIN_RANKS processes of this script on the one card, one rank
+    each (``--train-rank``).  Each sees only this process's card, so the
+    backend rule picks gloo on any host."""
+    import socket
+
+    import torch
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    os.makedirs(workdir, exist_ok=True)
+    env = dict(os.environ)
+    if TRAIN_DEVICE == "cuda":
+        index = torch.cuda.current_device()
+        visible = env.get("CUDA_VISIBLE_DEVICES")
+        env["CUDA_VISIBLE_DEVICES"] = (visible.split(",")[index] if visible
+                                       else str(index))
+    logs = [open(os.path.join(workdir, f"rank{r}.log"), "w")
+            for r in range(TRAIN_RANKS)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--train-rank", workdir,
+         str(r), str(TRAIN_RANKS), str(port), TRAIN_DEVICE], stdout=logs[r],
+        stderr=subprocess.STDOUT, cwd=REPO, env=env)
+        for r in range(TRAIN_RANKS)]
+    return procs, logs
+
+
+def _train_ranks_wait(label: str, procs, logs, workdir: str):
+    """Wait for every rank (TRAIN_RANK_TIMEOUT_S in all), reap them all;
+    a rank that failed or hung fails the phase."""
+    deadline = time.monotonic() + TRAIN_RANK_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        with open(os.path.join(workdir, f"rank{bad[0]}.log")) as f:
+            tail = f.read()[-3000:]
+        fail(f"{label}: ranks {bad} failed (return codes "
+             f"{[p.returncode for p in procs]}); rank {bad[0]}:\n{tail}")
+
+
+def train_rank_main(workdir: str, rank: int, world: int, port: int,
+                    device: str) -> int:
+    """One rank of the training phase's four: the kernel-free step of
+    make_mesh(4, cfg) at TRAIN_RANK_LAYERS layers, on the rank's card
+    (``device`` "cuda"; "cpu" in a rehearsal); rank 0 writes the loss and
+    the gathered gradients."""
+    import torch
+    import torch.distributed as dist
+
+    global TRAIN_DEVICE
+    TRAIN_DEVICE = device
+    sys.path.insert(0, REPO)
+    from triton_client_tpu_torch.models import language
+    from triton_client_tpu_torch.models import transformer as tr
+    from triton_client_tpu_torch.parallel import initialize_multihost
+
+    cuda = device == "cuda"
+    if cuda and not torch.cuda.is_available():
+        fail("CUDA is not available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_multihost(f"127.0.0.1:{port}", world, rank)
+    cfg = _train_cfg(language, TRAIN_RANK_LAYERS)
+    mesh = tr.make_mesh(world, cfg, device=None if cuda else device)
+    params, _ = _train_state(torch, tr, cfg)
+    tokens, labels = _train_batch(torch, cfg.vocab_size)
+    local = tr.shard_params(params, mesh, cfg)
+    del params
+    t0 = time.perf_counter()
+    grads, loss = tr.make_grad_fn(mesh, cfg, TRAIN_MICRO)(local, tokens,
+                                                          labels)
+    if cuda:
+        torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    full = tr.gather_params(grads, mesh, cfg)
+    if rank == 0:
+        torch.save({"loss": loss.cpu(), "grads": {k: v.cpu()
+                                                  for k, v in full.items()}},
+                   os.path.join(workdir, "grads.pt"))
+        with open(os.path.join(workdir, "rank0.json"), "w") as f:
+            json.dump({"backend": mesh.backend, "transport": mesh.transport,
+                       "mesh": mesh.shape, "device": str(mesh.device),
+                       "step_s": step_s}, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def train_phase(torch, counters) -> None:
+    """Training (phase 23 of the module docstring)."""
+    import shutil
+
+    from triton_client_tpu_torch.models import language
+    from triton_client_tpu_torch.models import transformer as tr
+    from triton_client_tpu_torch.utils import checkpoint as ckpt
+
+    fa = counters["flash_attention"]
+    label = "train"
+    cfg = _train_cfg(language)
+    seq = language_seq_len()
+    mesh = tr.make_mesh(1, cfg, device=None if TRAIN_DEVICE == "cuda"
+                        else TRAIN_DEVICE)
+    if mesh.device.type != TRAIN_DEVICE or mesh.backend is not None:
+        fail(f"{label}: the one-process mesh is on {mesh.device} "
+             f"({mesh.backend})")
+    flash_per_step = cfg.n_layers * TRAIN_MICRO
+    tokens, labels = _train_batch(torch, cfg.vocab_size)
+    batch = (tokens, labels)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    os.makedirs(TRAIN_DIR)
+    procs, logs = [], []
+    try:
+        # (a) the kernel step against the plain step
+        params, opt = _train_state(torch, tr, cfg)
+        grads_k, loss_k = _train_counted(
+            f"{label} grad step", counters,
+            lambda: tr.make_grad_fn(mesh, cfg, TRAIN_MICRO)(params, *batch),
+            flash_per_step)
+        plain = tr.make_grad_fn(mesh, cfg, TRAIN_MICRO, plain=True)
+        grads_p, loss_p = plain(params, *batch)
+        loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+        gap, leaf = _grad_gap(torch, grads_k, grads_p)
+        del grads_p
+        controls = []
+        for scale in CONTROL_SCALES:
+            wo = params["wo"]
+            bad = {**params, "wo": torch.cat([wo[:1] * scale, wo[1:]])}
+            g_c, _ = plain(bad, *batch)
+            controls.append(_grad_gap(torch, grads_k, g_c)[0])
+            del g_c, bad
+        del grads_k
+        caught = [s for s, c in zip(CONTROL_SCALES, controls)
+                  if c > TRAIN_GRAD_REL]
+        print(f"{label}: longctx_tpu (d_model {cfg.d_model}, "
+              f"{cfg.n_layers} layers, {cfg.n_heads} x {cfg.head_dim}, d_ff "
+              f"{cfg.d_ff}), B = {TRAIN_BATCH}, S = {seq}, {TRAIN_MICRO} "
+              f"microbatches, bf16 compute on f32 weights: the kernel step's "
+              f"loss {float(loss_k):.6f} vs the plain step's "
+              f"{float(loss_p):.6f} (rel {loss_rel:.3e}, bound "
+              f"{TRAIN_LOSS_RTOL}); largest leaf gradient gap "
+              f"||g_kernel - g_plain|| / ||g_plain|| {gap:.3e} ({leaf}; "
+              f"bound {TRAIN_GRAD_REL}); controls (first layer's wo x"
+              + ", x".join(f"{s}: {c:.3e}" for s, c in
+                           zip(CONTROL_SCALES, controls))
+              + f"), caught from x{caught[0] if caught else None}; flash "
+              f"{flash_per_step} launches a step; {CARD}", flush=True)
+        if not loss_rel <= TRAIN_LOSS_RTOL or not gap <= TRAIN_GRAD_REL:
+            fail(f"{label}: the kernel step disagrees with the plain step")
+        missed = [s for s, c in zip(CONTROL_SCALES, controls)
+                  if s >= TRAIN_CAUGHT_FROM and not c > TRAIN_GRAD_REL]
+        if missed:
+            fail(f"{label}: the controls x{missed} read within the bound "
+                 f"{TRAIN_GRAD_REL}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) five steps on one batch, timed; a checkpoint after step 2
+        step = tr.make_train_step(mesh, cfg, TRAIN_MICRO, lr=TRAIN_LR)
+        mgr = ckpt.make_manager(os.path.join(TRAIN_DIR, "ckpt"))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times, save_s = [], [], 0.0
+
+        def five_steps():
+            nonlocal params, opt, save_s
+            kept = None
+            for i in range(TRAIN_STEPS):
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                params, opt, loss = step(params, opt, *batch)
+                ev[1].record()
+                ev[1].synchronize()
+                times.append(ev[0].elapsed_time(ev[1]))
+                losses.append(float(loss))
+                if i == 1:
+                    t0 = time.perf_counter()
+                    ckpt.save(mgr, 2, params, opt)
+                    save_s = time.perf_counter() - t0
+                if i == 3:
+                    kept = {k: v.clone() for k, v in params.items()}
+            return kept
+
+        after4 = _train_counted(f"{label} {TRAIN_STEPS} steps", counters,
+                                five_steps, TRAIN_STEPS * flash_per_step)
+        peak = torch.cuda.max_memory_allocated()
+        step_ms = sorted(times)[len(times) // 2]
+        state_bytes = sum(v.numel() * v.element_size()
+                          for v in params.values()) * 3
+        print(f"{label}: {TRAIN_STEPS} AdamW steps at lr {TRAIN_LR} on one "
+              "batch: losses " + ", ".join(f"{x:.6f}" for x in losses)
+              + f"; step {step_ms:.3f} ms median (CUDA events; "
+              + ", ".join(f"{t:.3f}" for t in times) + " ms), "
+              f"{TRAIN_BATCH * seq / step_ms * 1e3:.0f} tokens/s; "
+              f"max_memory_allocated {peak / 2**30:.2f} GiB (weights and "
+              f"Adam state {state_bytes / 2**30:.2f} GiB); the checkpoint "
+              f"of step 2 written in {save_s:.2f} s; {CARD}", flush=True)
+        if not losses[-1] < losses[0]:
+            fail(f"{label}: the loss did not fall over {TRAIN_STEPS} "
+                 f"steps: {losses}")
+
+        # one more step traced
+        _train_counted(
+            f"{label} traced step", counters,
+            lambda: _train_profile(label, torch, fa, step, (params, opt),
+                                   batch, step_ms), flash_per_step)
+
+        # (c) resume: a fresh state restored from step 2, steps 3 and 4
+        del params, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        fresh_p, fresh_o = _train_state(torch, tr, cfg)
+        t0 = time.perf_counter()
+        rp, ro, at = ckpt.restore(mgr, fresh_p, fresh_o)
+        restore_s = time.perf_counter() - t0
+        del fresh_p, fresh_o
+        if at != 2 or int(ro["count"]) != 2:
+            fail(f"{label}: restored step {at}, count {int(ro['count'])}")
+
+        def resumed_steps():
+            nonlocal rp, ro
+            out = []
+            for _ in range(2):
+                rp, ro, loss = step(rp, ro, *batch)
+                out.append(float(loss))
+            return out
+
+        resumed = _train_counted(f"{label} resumed steps", counters,
+                                 resumed_steps, 2 * flash_per_step)
+        loss_gap = max(abs(a - b) / abs(b)
+                       for a, b in zip(resumed, losses[2:4]))
+        param_bad = [k for k in after4 if not torch.allclose(
+            rp[k], after4[k], rtol=1e-5, atol=1e-6)]
+        param_gap = max((rp[k] - after4[k]).abs().max().item()
+                        for k in after4)
+        print(f"{label}: resumed from the step-2 checkpoint (restored in "
+              f"{restore_s:.2f} s): steps 3-4 losses "
+              + ", ".join(f"{x:.6f}" for x in resumed)
+              + f" vs uninterrupted " + ", ".join(
+                  f"{x:.6f}" for x in losses[2:4])
+              + f" (rel {loss_gap:.3e}, bound 1e-6); parameters max_abs_err "
+              f"{param_gap:.3e} (rtol 1e-5, atol 1e-6)", flush=True)
+        if not loss_gap <= 1e-6 or param_bad:
+            fail(f"{label}: the resumed run left the uninterrupted one "
+                 f"(losses rel {loss_gap:.3e}, parameters {param_bad})")
+        del rp, ro, after4
+        shutil.rmtree(os.path.join(TRAIN_DIR, "ckpt"))
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) four ranks on the card against one process, same depth: the
+        # one-process step runs while the ranks start
+        ranks_dir = os.path.join(TRAIN_DIR, "ranks")
+        t0 = time.perf_counter()
+        procs, logs = _train_ranks_start(ranks_dir)
+        cfg2 = _train_cfg(language, TRAIN_RANK_LAYERS)
+        p2, _ = _train_state(torch, tr, cfg2)
+        one_g, one_loss = tr.make_grad_fn(mesh, cfg2, TRAIN_MICRO)(p2,
+                                                                    *batch)
+        del p2
+        _train_ranks_wait(label, procs, logs, ranks_dir)
+        ranks_s = time.perf_counter() - t0
+        got = torch.load(os.path.join(ranks_dir, "grads.pt"),
+                         weights_only=True)
+        with open(os.path.join(ranks_dir, "rank0.json")) as f:
+            info = json.load(f)
+        four_g = {k: v.to(TRAIN_DEVICE) for k, v in got["grads"].items()}
+        mesh_rel = abs(float(got["loss"]) - float(one_loss)) / abs(
+            float(one_loss))
+        mgap, mleaf = _grad_gap(torch, four_g, one_g)
+        print(f"{label}: {TRAIN_RANKS} ranks on the one card "
+              f"({info['backend']}; ppermute and psum {info['transport']}; "
+              f"mesh {info['mesh']}, {info['device']}), {TRAIN_RANK_LAYERS} "
+              f"layers at full width, S = {seq}, B = {TRAIN_BATCH}: loss "
+              f"{float(got['loss']):.6f} vs one process "
+              f"{float(one_loss):.6f} (rel {mesh_rel:.3e}, bound "
+              f"{TRAIN_LOSS_RTOL}); largest leaf gradient gap {mgap:.3e} "
+              f"({mleaf}; bound {TRAIN_GRAD_REL}); rank 0's grad step "
+              f"{info['step_s']:.2f} s, the {TRAIN_RANKS} processes "
+              f"{ranks_s:.1f} s from start to exit (host clock); {CARD}",
+              flush=True)
+        staged = info["transport"].startswith("gloo, staged")
+        if info["backend"] != "gloo" or staged != (TRAIN_DEVICE == "cuda"):
+            fail(f"{label}: four ranks on one card ran {info}")
+        if not mesh_rel <= TRAIN_LOSS_RTOL or not mgap <= TRAIN_GRAD_REL:
+            fail(f"{label}: the {TRAIN_RANKS}-rank step disagrees with the "
+                 "one-process step")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+
+
 #: the bytecode of every module that this script and its child processes
 #: import: the card's machine keeps none for most of the installed
 #: packages, so each process (a server worker, perf_analyzer) would compile
@@ -8999,7 +9496,8 @@ def main() -> int:
                             (torch, counters)),
                            ("aio, TLS and compression", aio_tls_phase,
                             (torch, counters)),
-                           ("gRPC over HTTP/2", h2_phase, (torch, counters))):
+                           ("gRPC over HTTP/2", h2_phase, (torch, counters)),
+                           ("training", train_phase, (torch, counters))):
         t0 = time.perf_counter()
         fn(*args)
         print(f"{name} phase took {time.perf_counter() - t0:.1f} s",
@@ -9025,6 +9523,7 @@ def main() -> int:
     paths.update(TW_PATHS)
     paths.update(AT_PATHS)
     paths.update(H2_PATHS)
+    paths.update(TRAIN_PATHS)
     for path, launches in paths.items():
         print(f"launches on {path}: flash_attention "
               f"{launches['flash_attention']}, int8_matmul "
@@ -9061,4 +9560,8 @@ if __name__ == "__main__":
         sys.exit(genai_own_main(sys.argv[2]))
     if sys.argv[1:2] == ["--obs-spread"]:
         sys.exit(obs_spread_main(int(sys.argv[2])))
+    if sys.argv[1:2] == ["--train-rank"]:
+        sys.exit(train_rank_main(sys.argv[2], int(sys.argv[3]),
+                                 int(sys.argv[4]), int(sys.argv[5]),
+                                 sys.argv[6]))
     sys.exit(main())

@@ -174,28 +174,34 @@ def test_kernel_is_a_fresh_threads_first_cuda_work(cuda, kernel):
         assert torch.equal(got["out"], want)
 
 
-def test_flash_kernel_refuses_inputs_that_require_grad(cuda):
-    # the kernel has no backward yet (ROADMAP A1): with grad mode on it
-    # refuses inputs that require grad, launching nothing; under no_grad
-    # or inference_mode it runs
+def test_flash_kernel_gradients_match_plain(cuda):
+    # the forward is the kernel's, held to the plain forward; the backward
+    # recomputes from the saved q, k, v through the plain math (ROADMAP
+    # A1), so the gradient check holds the Function's wiring, not the
+    # kernel (the training phase of chip_smoke.py checks the kernel's
+    # effect on gradients).  The forward launches the kernel once and the
+    # backward none; under no_grad the output has no graph.  bf16 q, k, v:
+    # the forward's bound
     q, k, v = (_rand((1, 2, 128, 64), s).to(cuda, torch.bfloat16)
                for s in (1, 2, 3))
-    for which in range(3):
-        args = [q, k, v]
-        args[which] = args[which].clone().requires_grad_()
-        before = fa.launches
-        with pytest.raises(RuntimeError, match="ROADMAP A1"):
-            ops.flash_attention(*args)
-        assert fa.launches == before
-    q.requires_grad_()
-    with torch.no_grad():
-        got = ops.flash_attention(q, k, v)
-    with torch.inference_mode():
-        again = ops.flash_attention(q, k, v)
+    w = _rand((1, 2, 128, 64), 4).to(cuda, torch.bfloat16)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = fa.launches
+    out = ops.flash_attention(*leaves)
+    assert fa.launches == before + 1 and out.grad_fn is not None
+    got = torch.autograd.grad(out, leaves, w)
+    assert fa.launches == before + 1
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    plain_out = ops.flash_attention_reference(*plain)
+    want = torch.autograd.grad(plain_out, plain, w)
     torch.cuda.synchronize()
-    assert got.grad_fn is None and torch.equal(got, again)
-    _assert_flash_close(got, ops.flash_attention_reference(
-        q.detach(), k, v), 2e-2, 1e-2)
+    _assert_flash_close(out.detach(), plain_out.detach(), 2e-2, 1e-2)
+    for g, r in zip(got, want):
+        _assert_flash_close(g, r, 2e-2, 1e-2)
+    with torch.no_grad():
+        again = ops.flash_attention(*leaves)
+    assert again.grad_fn is None
+    _assert_flash_close(again, out.detach(), 0.0, 0.0)
 
 
 def test_flash_rejects_what_the_kernel_does_not_take(cuda):

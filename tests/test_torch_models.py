@@ -177,11 +177,11 @@ def routing_margins(monkeypatch):
     seen = []
     inner = ttr._moe_ffn
 
-    def recording(blk, h, cfg):
+    def recording(blk, h, cfg, mesh=None):
         gate = torch.einsum("bsd,de->bse", h.float(), blk["router"].float())
         top = torch.topk(gate, cfg.moe_top_k + 1, dim=-1).values
         seen.append((top[..., -2] - top[..., -1]).numpy())
-        return inner(blk, h, cfg)
+        return inner(blk, h, cfg, mesh)
 
     monkeypatch.setattr(ttr, "_moe_ffn", recording)
     return seen

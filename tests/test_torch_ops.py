@@ -106,9 +106,10 @@ class TestFlashAttention:
         assert t_flash.launches == before  # no kernel launch counted
 
     def test_cpu_path_gradients_match_jax(self):
-        # the CPU path is the plain version, differentiable as the
-        # reference's op is (its custom_vjp recomputes through the jnp
-        # reference); only the CUDA kernel refuses grad (ROADMAP A1)
+        # the CPU path is the autograd Function with the plain forward;
+        # its backward recomputes through the plain math, as the
+        # reference's custom_vjp recomputes through its jnp reference (the
+        # CUDA kernel takes the same backward since A1)
         shape = (1, 2, 40, 16)
         (jq, tq), (jk, tk), (jv, tv) = (
             _both(_rand(shape, s), jnp.float32, torch.float32)

@@ -468,10 +468,26 @@ def test_async_infer_carries_tenant(servers):
 
 # -- preemption in the batcher -------------------------------------------------
 
-def test_tier0_preempts_queued_best_effort():
+def test_tier0_preempts_queued_best_effort(monkeypatch):
     """A tier-0 arrival at a full queue evicts the newest queued
     best-effort request from the batcher's lane (429 to its caller, once)
-    and takes its slot."""
+    and takes its slot.
+
+    A request counts pending from its admission and reaches the lane a
+    moment later, on its own thread.  So "6 pending and one queued" can
+    hold while the 6th is still on its way and the 5th, still queued, is
+    about to ride the batcher's hand: the lane is then empty for a moment
+    and a tier-0 arrival finds no victim.  The test waits for all 6 puts
+    into the lane: at most 5 leave it (4 permits and the hand), so from
+    then on one stays queued."""
+    puts = []
+    real_put = tqos.TieredQueue.put_nowait
+
+    def counting_put(self, item, tier=0):
+        real_put(self, item, tier)
+        puts.append(tier)
+
+    monkeypatch.setattr(tqos.TieredQueue, "put_nowait", counting_put)
     release = threading.Event()
     cfg = make_config("blocky", inputs=[("IN", "INT32", [-1])],
                       outputs=[("OUT", "INT32", [-1])], max_batch_size=1,
@@ -507,7 +523,7 @@ def test_tier0_preempts_queued_best_effort():
         for t in threads:
             t.start()
         end = time.monotonic() + 10
-        while stats.pending_count < 6 or \
+        while stats.pending_count < 6 or puts.count(3) < 6 or \
                 core.qos_queue_depths().get(("blocky", 3), 0) < 1:
             assert time.monotonic() < end, "backlog never formed"
             time.sleep(0.005)

@@ -60,7 +60,8 @@ The rest of the reference's serving machinery:
   reads host timestamps of the readbacks in flight and quarantines the
   model when one is stuck.
 
-Serve meshes (A8): the port is one device.
+Serve meshes (A8b): the port serves on one device; its mesh and
+collectives (``parallel/``) run the training step so far.
 """
 
 from __future__ import annotations

@@ -3,15 +3,17 @@
 Counterpart of ``triton_client_tpu/ops/flash_attention.py``.  The kernel is
 ``csrc/flash_attention.cu`` (bf16: persistent blocks of a TMA producer and
 two or three wgmma consumer warpgroups walking query tiles, online softmax
-in f32, causal early exit; see the source's header).  The backward is not
-ported yet (ROADMAP A1): the kernel's output has no ``grad_fn``, so the
-CUDA path refuses inputs that require grad while grad mode is on, rather
-than return an answer through which no gradient flows.  The CPU path is the
-plain version and differentiable.
+in f32, causal early exit; see the source's header).
 
-:func:`flash_attention` launches the kernel for CUDA tensors and raises on
-anything the kernel does not take.  It uses :func:`flash_attention_reference`
-only for tensors that lie on the CPU, where no kernel exists.
+:func:`flash_attention` is a ``torch.autograd.Function``.  Its forward
+launches the kernel for CUDA tensors and raises on anything the kernel does
+not take; it uses :func:`flash_attention_reference` only for tensors that
+lie on the CPU, where no kernel exists.  Its backward, on both devices, is
+the reference's ``_flash_bwd``: recompute attention through the plain math
+and take its vector-Jacobian product (the reference runs its jnp
+``flash_attention_reference`` there, not a Pallas kernel).  The recompute
+goes through ``_reference``, so it reports no work to a cost count: a
+served forward counts the same, and the backward's FLOPs are not counted.
 
 While a cost analysis counts on this thread (``_count``), the kernel and
 the plain version each report :func:`flash_work` -- the FLOPs of the lower
@@ -91,27 +93,46 @@ def _lib():
 
 
 def flash_attention(q, k, v, *, causal: bool = True, sm_scale=None):
-    """Forward flash attention over ``[B, H, S, D]`` tensors.
+    """Flash attention over ``[B, H, S, D]`` tensors; differentiable.
 
-    CUDA tensors run the Hopper kernel: bf16 with D in {16, 32, 64, 128} or
-    f32 with D in {16, 32, 64}, all three contiguous and of one type.  Any
-    other CUDA input raises ``ValueError``, and a CUDA input that requires
-    grad while grad mode is on raises ``RuntimeError`` (no backward yet,
-    ROADMAP A1).  CPU tensors run the plain version."""
-    if q.device.type == "cpu" and k.device.type == "cpu" \
-            and v.device.type == "cpu":
-        return flash_attention_reference(q, k, v, causal=causal,
-                                         sm_scale=sm_scale)
+    CUDA tensors run the Hopper kernel forward: bf16 with D in {16, 32, 64,
+    128} or f32 with D in {16, 32, 64}, all three contiguous and of one
+    type.  Any other CUDA input raises ``ValueError``.  CPU tensors run the
+    plain version.  The backward recomputes through the plain math (the
+    reference's ``_flash_bwd``)."""
+    if not (q.device.type == "cpu" and k.device.type == "cpu"
+            and v.device.type == "cpu"):
+        _check_kernel_inputs(q, k, v)
+    return _Flash.apply(q, k, v, causal, sm_scale)
+
+
+class _Flash(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        if q.device.type == "cpu":
+            return flash_attention_reference(q, k, v, causal=causal,
+                                             sm_scale=sm_scale)
+        with _count.kernel(*flash_work(q, k, causal)):
+            return _launch(q, k, v, causal, sm_scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            o = _reference(*inputs, ctx.causal, ctx.sm_scale)
+        grads = torch.autograd.grad(o, inputs, g)
+        return (*(gr if need else None for gr, need in
+                  zip(grads, ctx.needs_input_grad)), None, None)
+
+
+def _check_kernel_inputs(q, k, v) -> None:
+    """Raise on CUDA inputs the kernel does not take."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError(
             "flash_attention: q, k, v must all be CUDA tensors or all CPU "
             f"tensors, got {q.device}, {k.device}, {v.device}")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise RuntimeError(
-            "flash_attention: the CUDA kernel has no backward yet (ROADMAP "
-            "A1), so it refuses q, k or v that require grad while grad mode "
-            "is on; run it under torch.no_grad() or torch.inference_mode()")
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(
             "flash_attention: q, k, v must share one [B, H, S, D] shape, got "
@@ -141,8 +162,6 @@ def flash_attention(q, k, v, *, causal: bool = True, sm_scale=None):
     if q.dtype == torch.bfloat16 and B * H * -(-S // 64) >= 2**30:
         raise ValueError(
             f"flash_attention: B*H = {B * H} at S = {S} is too large")
-    with _count.kernel(*flash_work(q, k, causal)):
-        return _launch(q, k, v, causal, sm_scale)
 
 
 def _launch(q, k, v, causal, sm_scale):

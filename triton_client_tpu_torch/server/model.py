@@ -200,7 +200,7 @@ def config_from_pb(msg, name: str) -> "ModelConfig":
 
     name = msg.name or name
     if any(g.gpus for g in msg.instance_group):
-        raise _refused(name, "instance_group.gpus", "A8")
+        raise _refused(name, "instance_group.gpus", "A8b")
     kinds = {v: k for k, v in pb.ENUMS["ModelInstanceGroup.Kind"].items()}
     dtypes = {v: k for k, v in pb.ENUMS["DataType"].items()}
 
